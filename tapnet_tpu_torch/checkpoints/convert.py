@@ -1,0 +1,76 @@
+"""Weight bridge: Flax parameter tree (numpy leaves) -> the port's state_dict.
+
+The port's modules carry the Flax module names as attribute names, so a Flax
+path `backbone/group_0_block_0/conv_0/kernel` becomes the state_dict key
+`backbone.group_0_block_0.conv_0.weight`. Leaf conversions:
+
+  * `kernel` of rank 4 (HWIO conv) -> `weight` in OIHW;
+  * `kernel` of rank 2 (Dense [in, out]) -> `weight` in Linear's [out, in];
+  * `kernel` of rank 3 (depthwise temporal conv [k, 1, C*mult]) -> `weight`
+    unchanged, keeping the c-major flat index c*mult + m that the mixer math
+    and kernel read;
+  * `bias`, `scale`, `offset` -> unchanged.
+
+Any leaf the bridge does not know, any key the model does not have, any
+parameter of the model left unfilled and any shape mismatch raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_PLAIN_LEAVES = ("bias", "scale", "offset")
+
+
+def _walk(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[tuple, Any]]:
+  for key, value in tree.items():
+    if isinstance(value, Mapping):
+      yield from _walk(value, prefix + (key,))
+    else:
+      yield prefix + (key,), value
+
+
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """Converts a Flax TAPIR param tree (numpy leaves) to state_dict tensors."""
+  out: Dict[str, torch.Tensor] = {}
+  for path, value in _walk(params):
+    arr = np.asarray(value)
+    if arr.dtype == np.float16:
+      arr = arr.astype(np.float32)
+    leaf = path[-1]
+    if leaf == "kernel":
+      if arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+      elif arr.ndim == 2:
+        arr = arr.T
+      elif arr.ndim != 3:
+        raise ValueError(f"Unmapped kernel rank {arr.ndim} at {'/'.join(path)}")
+      leaf = "weight"
+    elif leaf not in _PLAIN_LEAVES:
+      raise ValueError(f"Unmapped parameter leaf: {'/'.join(path)}")
+    key = ".".join(path[:-1] + (leaf,))
+    out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+  return out
+
+
+def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+  """Fills every parameter of `model` from a Flax tree, or raises."""
+  converted = flax_to_state_dict(params)
+  expected = model.state_dict()
+  unknown = sorted(set(converted) - set(expected))
+  if unknown:
+    raise ValueError(f"Checkpoint leaves with no model parameter: {unknown}")
+  missing = sorted(set(expected) - set(converted))
+  if missing:
+    raise ValueError(f"Model parameters left unfilled: {missing}")
+  for key, tensor in converted.items():
+    if tuple(tensor.shape) != tuple(expected[key].shape):
+      raise ValueError(
+          f"Shape mismatch at {key}: checkpoint {tuple(tensor.shape)} vs "
+          f"model {tuple(expected[key].shape)}"
+      )
+  model.load_state_dict(converted, strict=True)

@@ -1,0 +1,162 @@
+"""PyTorch port, layers: ResNet, ExtraConvs, PipsMixer and CostVolumeHead
+against the Flax modules at narrow widths, in fp32. Params come from the Flax
+`init`, are perturbed with numpy noise (so zero-initialised convs and unit
+norms do real work), and reach the port through the weight bridge.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tapnet_tpu.models import layers as jax_layers
+from tapnet_tpu.models import resnet as jax_resnet
+from tapnet_tpu.models import tapir as jax_tapir
+from tapnet_tpu_torch.checkpoints.convert import load_flax_params
+from tapnet_tpu_torch.models import layers, resnet, tapir
+
+# fp32 on both sides; the differences are summation order in convolutions
+# and matmuls (~1e-6 relative), amplified a little through the norms.
+TOL = 1e-4
+
+
+def _perturbed(params, seed=0, scale=0.05):
+  rng = np.random.RandomState(seed)
+  return jax.tree_util.tree_map(
+      lambda x: np.asarray(x) + scale * rng.randn(*x.shape).astype(np.float32),
+      params,
+  )
+
+
+def _init(module, *args):
+  params = jax.jit(module.init)(jax.random.PRNGKey(0), *args)["params"]
+  return _perturbed(jax.device_get(params))
+
+
+def _apply(module, params, *args):
+  return jax.jit(module.apply)({"params": params}, *args)
+
+
+def _nhwc(x):
+  return x.permute(0, 2, 3, 1).detach().numpy()
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (27, 29)], ids=["even", "odd"])
+def test_resnet_matches_flax(hw):
+  """Even and odd inputs exercise Flax's asymmetric SAME padding of the
+  stride-2 convs (7x7 stem and the 3x3 group convs)."""
+  cfg_kwargs = dict(
+      blocks_per_group=(1, 1, 1, 1), channels_per_group=(8, 16, 16, 32),
+      stem_channels=8,
+  )
+  flax_model = jax_resnet.ResNet(config=jax_resnet.ResNetConfig(**cfg_kwargs))
+  x = np.random.RandomState(1).randn(2, *hw, 3).astype(np.float32)
+  params = _init(flax_model, jnp.asarray(x))
+  ref = _apply(flax_model, params, jnp.asarray(x))
+
+  model = resnet.ResNet(resnet.ResNetConfig(**cfg_kwargs))
+  load_flax_params(model, params)
+  with torch.no_grad():
+    out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+  for g in range(4):
+    key = f"group_{g}"
+    np.testing.assert_allclose(
+        _nhwc(out[key]), np.asarray(ref[key]), rtol=TOL, atol=TOL
+    )
+
+
+def test_extra_convs_matches_flax():
+  flax_model = jax_layers.ExtraConvs(num_layers=2)
+  x = np.random.RandomState(2).randn(3, 6, 5, 8).astype(np.float32)
+  params = _init(flax_model, jnp.asarray(x))
+  ref = _apply(flax_model, params, jnp.asarray(x))
+
+  model = layers.ExtraConvs(channels=8, num_layers=2)
+  load_flax_params(model, params)
+  with torch.no_grad():
+    out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+  np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_pips_mixer_matches_flax(causal):
+  flax_model = jax_layers.PipsMixer(
+      output_channels=12, hidden_dim=16, num_blocks=2, causal=causal
+  )
+  # T = 10 is not a multiple of 8.
+  x = np.random.RandomState(3).randn(4, 10, 20).astype(np.float32)
+  params = _init(flax_model, jnp.asarray(x))
+  ref, _ = _apply(flax_model, params, jnp.asarray(x))
+
+  model = layers.PipsMixer(
+      input_channels=20, output_channels=12, hidden_dim=16, num_blocks=2,
+      causal=causal,
+  )
+  load_flax_params(model, params)
+  with torch.no_grad():
+    out = model(torch.from_numpy(x))
+  np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 9)], ids=["even", "odd"])
+def test_cost_volume_head_matches_flax(hw):
+  b, n, t, c = 1, 3, 4, 8
+  h, w = hw
+  rng = np.random.RandomState(4)
+  qf = rng.randn(b, n, c).astype(np.float32)
+  grid = rng.randn(b, t, h, w, c).astype(np.float32)
+  im_shape = (b, t, h * 8, w * 8, 3)
+  qp = np.stack(
+      [rng.randint(0, t, n), rng.rand(n) * h * 8, rng.rand(n) * w * 8], -1
+  )[None].astype(np.float32)
+  flax_model = jax_tapir.CostVolumeHead(softmax_temperature=10.0)
+  jargs = (jnp.asarray(qf), jnp.asarray(grid), jnp.asarray(qp))
+  params = jax.jit(lambda k, *a: flax_model.init(k, *a, im_shape))(
+      jax.random.PRNGKey(0), *jargs)["params"]
+  params = _perturbed(jax.device_get(params))
+  ref = jax.jit(lambda p, *a: flax_model.apply({"params": p}, *a, im_shape))(
+      params, *jargs)
+
+  model = tapir.CostVolumeHead(softmax_temperature=10.0)
+  load_flax_params(model, params)
+  with torch.no_grad():
+    out = model(torch.from_numpy(qf), torch.from_numpy(grid),
+                torch.from_numpy(qp), im_shape)
+  for o, r in zip(out, ref):
+    np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=TOL, atol=TOL)
+
+
+def _mixer_params():
+  flax_model = jax_layers.PipsMixer(output_channels=6, hidden_dim=8,
+                                    num_blocks=1)
+  return _init(flax_model, jnp.zeros((1, 5, 7)))
+
+
+def _torch_mixer():
+  return layers.PipsMixer(input_channels=7, output_channels=6, hidden_dim=8,
+                          num_blocks=1)
+
+
+def test_bridge_layouts():
+  params = _mixer_params()
+  model = _torch_mixer()
+  load_flax_params(model, params)
+  up = params["block_0"]["fc_up"]["kernel"]
+  dw = params["block_0"]["temporal"]["dw_up"]["kernel"]
+  np.testing.assert_array_equal(model.block_0.fc_up.weight.detach().numpy(), up.T)
+  np.testing.assert_array_equal(model.block_0.temporal.dw_up.weight.detach().numpy(), dw)
+
+
+@pytest.mark.parametrize("fault", ["unknown_leaf", "missing", "shape"])
+def test_bridge_raises(fault):
+  params = _mixer_params()
+  if fault == "unknown_leaf":
+    params["ln_out"]["mystery"] = np.zeros(8, np.float32)
+  elif fault == "missing":
+    del params["block_0"]["fc_down"]
+  else:
+    params["in_proj"]["bias"] = np.zeros(9, np.float32)
+  with pytest.raises(ValueError):
+    load_flax_params(_torch_mixer(), params)
