@@ -36,9 +36,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-// Queries per block: one per warp, so the main path's 64 frames x 128
-// queries fill the card with 1024 blocks; a tile's output rows are 32-byte
-// sectors.
+// Queries per block: one per warp, so the main path's 250 frames x 128
+// queries give 4000 blocks; a tile's output rows are 32-byte sectors.
 constexpr int kTileN = kWarps;
 
 __device__ __forceinline__ float to_f(float v) { return v; }

@@ -80,18 +80,7 @@ class LayerNormScale(nn.Module):
     self.scale = _param(channels, fill=1.0)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return layer_norm(x, self.scale)
-
-
-def layer_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-  """Flax nn.LayerNorm(use_bias=False) over the last axis: float32
-  single-pass statistics (variance clamped at 0), eps 1e-5, output in the
-  promoted dtype."""
-  xf = x.float()
-  mean = xf.mean(-1, keepdim=True)
-  var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
-  y = (xf - mean) * (torch.rsqrt(var + _EPS) * scale.float())
-  return y.to(torch.promote_types(x.dtype, scale.dtype))
+    return mixer_math.layer_norm(x, self.scale)
 
 
 class _Depthwise(nn.Module):

@@ -7,10 +7,11 @@ into `_build/<name>-<hash>.so` with
          -Xcompiler -fPIC
 
 keyed by a hash of the source and the flags, and is loaded with `ctypes`.
-The build happens at the first CUDA launch of a kernel (or in `build_all`,
-which starts one `nvcc` per source in parallel), never at import, so the
-package imports on machines without a CUDA toolchain. A failed build raises;
-nothing falls back to the plain versions.
+The build happens at the first CUDA launch of a kernel, never at import, so
+the package imports on machines without a CUDA toolchain. `load` builds one
+source; `build_all`, which `load` calls, starts one `nvcc` per source all
+together, so a caller that needs every kernel waits for the slowest build
+only. A failed build raises; nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -32,13 +33,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (including -Xptxas -v register/spill reports) per source.
-BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -78,7 +76,6 @@ def _start_build(name: str):
 
 def _finish_build(name: str, proc, tmp: str, out: Path) -> None:
   log, _ = proc.communicate()
-  BUILD_LOGS[name] = log
   if proc.returncode != 0:
     os.unlink(tmp)
     raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")

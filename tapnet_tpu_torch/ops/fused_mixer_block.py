@@ -29,7 +29,6 @@ from tapnet_tpu_torch.ops import _build, mixer_math
 # Number of CUDA launches of the block kernel made through `mixer_block`.
 LAUNCHES = 0
 
-_EPS = 1e-5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "mixer_block_forward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
@@ -37,17 +36,19 @@ _SIGNATURES = {
 }
 
 
-def _fast_ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-  """Scale-only LayerNorm, float32 single-pass statistics, IO in x.dtype.
-
-  Also the counterpart of the JAX layers._scale_only_layer_norm (same math),
-  which the JAX MixerBlock applies on its unfused path.
-  """
-  xf = x.float()
-  mu = xf.mean(-1, keepdim=True)
-  var = (xf * xf).mean(-1, keepdim=True) - mu * mu
-  xn = (xf - mu) * torch.rsqrt(var + _EPS)
-  return (xn * scale.float()).to(x.dtype)
+def _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal,
+                     valid_len):
+  """The plain block's temporal output h, x1 = x + h and out = x1 + MLP(x1),
+  each [B, valid_len, C] in x.dtype."""
+  if valid_len is not None and valid_len != x.shape[1]:
+    x = x[:, :valid_len]
+  h = mixer_math.temporal_depthwise_math(
+      mixer_math.layer_norm(x, g1), wu, bu, wm, bm, causal
+  )
+  x1 = x + h
+  b, t, c = x1.shape
+  out = mixer_math.mlp_math(x1.reshape(b * t, c), g2, w1, b1, w2, b2)
+  return h, x1, out.reshape(b, t, c)
 
 
 def mixer_block_reference(
@@ -59,18 +60,34 @@ def mixer_block_reference(
   With `valid_len`, rows >= valid_len are padding: ignored on input and
   exactly zero on output.
   """
-  t_full = x.shape[1]
-  if valid_len is not None and valid_len != t_full:
-    x = x[:, :valid_len]
-  h = _fast_ln(x, g1)
-  h = mixer_math.temporal_depthwise_math(h, wu, bu, wm, bm, causal)
-  x = x + h
-  b, t, c = x.shape
-  y = mixer_math.mlp_math(x.reshape(b * t, c), g2, w1, b1, w2, b2)
-  y = y.reshape(b, t, c)
-  if t != t_full:
-    y = F.pad(y, (0, 0, 0, t_full - t))
-  return y
+  _, _, y = _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2,
+                             causal, valid_len)
+  return F.pad(y, (0, 0, 0, x.shape[1] - y.shape[1]))
+
+
+def bf16_error_limit(
+    x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal: bool = False,
+    valid_len: Optional[int] = None,
+):
+  """Per-element limit [B, T, C] float32 on |kernel - plain| in bf16.
+
+  The kernel keeps LN1's output in float32, as the TPU kernel does; the
+  plain version rounds it to bf16, as the JAX reference does. Both round the
+  temporal output h, x1 = x + h, the MLP's operand and hidden, and
+  out = x1 + y to bf16, so the small differences before each rounding can
+  leave the two results a bf16 step apart there (a step at v is at most
+  2^-7 |v|): at |h|, |x1| and |out|, and, through the MLP's rounded operand
+  and hidden, at the row's rms of y. The limit is two steps of each (a
+  headroom of 2 over one step). Rows >= valid_len get limit 0: both sides
+  write exact zeros there.
+  """
+  h, x1, out = (
+      v.float() for v in _reference_parts(
+          x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len)
+  )
+  y_rms = (out - x1).square().mean(-1, keepdim=True).sqrt()
+  limit = 2 * 2.0**-7 * (h.abs() + x1.abs() + out.abs() + y_rms)
+  return F.pad(limit, (0, 0, 0, x.shape[1] - limit.shape[1]))
 
 
 def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):

@@ -21,6 +21,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
   return F.gelu(x, approximate="tanh")
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+  """Scale-only LayerNorm over the last axis, as Flax
+  nn.LayerNorm(use_bias=False) and the JAX mixer kernels' `_fast_ln`: float32
+  single-pass statistics (variance clamped at 0), eps 1e-5, output in the
+  promoted dtype of x and scale."""
+  xf = x.float()
+  mean = xf.mean(-1, keepdim=True)
+  var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+  y = (xf - mean) * (torch.rsqrt(var + _LN_EPS) * scale.float())
+  return y.to(torch.promote_types(x.dtype, scale.dtype))
+
+
 def temporal_depthwise_math(
     x: torch.Tensor,
     w_up: torch.Tensor,

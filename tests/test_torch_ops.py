@@ -165,6 +165,21 @@ def test_mixer_block_matches_pallas_interpret(causal, interpret_kernels):
   np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_mixer_bf16_limit_covers_tpu_kernel_rounding(causal, interpret_kernels):
+  """The TPU kernel rounds where the CUDA kernel does (LN1 kept in fp32,
+  h, x1, the MLP operand and hidden, and the output in bf16). Its bf16
+  output stays within `bf16_error_limit` of the plain version, which the
+  card holds the CUDA kernel to; padded rows have limit 0."""
+  jargs, targs = _both(mixer_inputs(seed=7, t=13, c=64, hid=256), "bfloat16")
+  tpu = jax_fmb._pallas_forward(*jargs, causal, 11)
+  plain = fused_mixer_block.mixer_block(*targs, causal, 11)
+  limit = fused_mixer_block.bf16_error_limit(*targs, causal, 11)
+  assert limit.shape == targs[0].shape and not limit[:, 11:].any()
+  err = np.abs(_np(tpu) - _np(plain))
+  assert (err <= limit.numpy()).all(), float((err / limit.numpy().clip(1e-30)).max())
+
+
 def test_mixer_block_takes_linear_layout_weights():
   """The model hands the kernel Linear weights transposed (`w.t()`)."""
   args = [torch.from_numpy(a) for a in mixer_inputs(seed=3)]
