@@ -6,14 +6,22 @@ Phases (any failure raises and exits non-zero):
   1. Card and build: prints the card's name and power limit (nvidia-smi) and
      builds every kernel of tapnet_tpu_torch/csrc, one nvcc per source.
   2. Kernels: each CUDA kernel against its plain PyTorch version on the card,
-     at the shapes the 480x480 main path gives it, in fp32 and bf16, timed
-     with CUDA events beside the plain version and a bound from bytes and
-     operations.
-  3. Main path: the committed trained BootsTAPIR through
-     TapirPredictor: the golden clip in fp32 (TF32 off) and bf16 against the
-     JAX golden outputs, then track_many over several 480x480 videos in bf16
-     (250 frames, 256 queries, chunk 128: the shapes phase 2 checks) with
-     the kernels' launch counters reset before and read after.
+     at the shapes the 480x480 main path gives it, in fp32 and bf16 model
+     dtype, timed with CUDA events beside the plain version and a bound from
+     bytes and operations: the full-precision corr-tents (K1) and mixer
+     block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents,
+     and the w8a8 mixer block (K4).
+  3. Main path: the committed trained BootsTAPIR through TapirPredictor.
+     The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
+     outputs, in full precision and in the two int8 configurations
+     (A: w8a8 mixer with per-frame int8 correlation; B: per-position int8
+     correlation). Then track_many over several 480x480 videos in bf16
+     (250 frames, 256 queries, chunk 128: the shapes phase 2 checks), three
+     times: the full-precision configuration, the int8 configuration A
+     with num_pips_iter=2, and bf16 with num_pips_iter=2 beside it; and two
+     videos in the int8 configuration B, the one that runs K2b. The
+     kernels' launch counters are set to 0 before each run and read after:
+     a run must launch its own kernels and no other.
   4. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line. Exits non-zero, and prints
@@ -38,17 +46,20 @@ sys.path.insert(0, REPO)
 from tapnet_tpu_torch.checkpoints.tapir_checkpoint import load_tapir_checkpoint  # noqa: E402
 from tapnet_tpu_torch.inference import TapirPredictor  # noqa: E402
 from tapnet_tpu_torch.models.tapir import bootstapir_config  # noqa: E402
-from tapnet_tpu_torch.ops import _build, corr_tents, fused_mixer_block  # noqa: E402
+from tapnet_tpu_torch.ops import _build, corr_tents, fused_mixer_block, mixer_math  # noqa: E402
 from tapnet_tpu_torch.utils.sampling import preprocess_frames  # noqa: E402
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
+GOLDEN_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_int8.npz")
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and flop/s by
-# operand type (bf16 on the tensor cores, fp32 outside them).
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
+# by operand type (bf16 and int8 on the tensor cores, fp32 outside them).
+# The int8 kernels' bounds use the int8 tensor-core peak whatever the model's
+# dtype: their products are int8 in both.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 # Main-path shapes of the served videos at 480x480 (refinement at 480 only,
 # chunk 128, 250 frames): corr-tents grids per pyramid level (H, W, C), with
@@ -73,6 +84,65 @@ MIXER_FP32_TOL = (1e-4, 1e-4)
 # 95th percentile of the track error and on the visibility flags.
 GOLDEN_FP32_TOL = dict(tracks=0.05, logits=5e-3)
 GOLDEN_BF16_TOL = dict(median_px=0.5, p95_px=2.0, visible_agree=0.95)
+
+# int8 corr-tents (K2, K2b), kernel vs plain, as (rtol, atol in units of
+# max|plain|): the two make the same roundings at the same points (an exact
+# integer correlation, one rounding to bf16, bf16 tent weights, float32 sums
+# of two exact products per stage, the y-stage rounded to bf16, one float32
+# multiply by the scale) and quantize with the same PyTorch code. What is
+# left is float32 rounding.
+CORR_Q8_TOL = (1e-6, 1e-6)
+# w8a8 mixer block (K4), kernel vs plain, per element:
+# fused_mixer_block.q8_error_limit. It is the full-precision block's
+# allowance (bf16: two bf16 steps of each value the two sides round apart;
+# fp32: 1e-4 absolute and relative) plus four deviations of a quarter of a
+# row's int8 hidden values one step apart, each step worth
+# hs[row] * |w2q[k, col]| * s2[col] in the output (about 0.03 * 0.022 here).
+# The int8 tensors themselves: at most these shares of the operand (xq) and
+# of the hidden (hq) apart at all, and at most `far` of either more than one
+# step apart. (In bf16 a row whose largest hidden value lands a bf16 step of
+# x1 apart gets another scale, which moves its large values by a few steps;
+# a CPU simulation of the kernel's roundings gave 2% and 6% apart, 1e-4 more
+# than one step. In fp32 only float32 noise separates the two: 1e-5, 1e-4, 0.)
+MIXER_Q8_FLIP_SHARE = {
+    torch.bfloat16: dict(xq=0.06, hq=0.15, far=1e-3),
+    torch.float32: dict(xq=1e-3, hq=5e-3, far=1e-5),
+}
+# Controls for these limits: the kernel's own float32 hidden quantized the
+# wrong way, held against the plain version's int8 hidden like the kernel's.
+# `from_bf16_hidden` rounds the hidden to bfloat16 first (the fault of a
+# kernel that keeps its hidden in bfloat16); `truncated` rounds toward zero
+# where the kernel rounds to nearest. The float32 check must refuse both;
+# the record shows each control's shares beside the limit in either dtype.
+MIXER_Q8_CONTROLS = {
+    "from_bf16_hidden": lambda hidden: mixer_math.quantize_rows(
+        hidden.bfloat16().float())[0],
+    "truncated": lambda hidden: torch.trunc(
+        hidden * (127.0 / hidden.abs().amax(-1, keepdim=True).clamp_min(1e-8))
+    ).to(torch.int8),
+}
+# The int8 configurations, as tools/make_torch_golden.py ran them in JAX.
+INT8_CONFIGS = {
+    "a": dict(quantized_mixer=True, quantized_corr="per_frame"),
+    "b": dict(quantized_corr=True),
+}
+# Port on the card vs the JAX int8 golden outputs (CPU, fp32 model dtype).
+# fp32: the same integer products on bit-equal int8 values; float32 noise
+# moves the rare activation across an int8 or bf16 rounding boundary, and
+# that carries through 12 blocks and 4 refinement steps. Held on the points
+# the golden run calls visible (the image pins them), on all points, on the
+# median and on the logits. A flipped step sends the later roundings another
+# way, so the deviation is a part of the quantization's own effect, not of
+# float32 noise: configuration a moves the full-precision golden tracks by
+# 0.089 px in the median and 2.7 px at most, b by 0.0089 and 3.1 px. The
+# limits stay under that. The port on the CPU, whose float32 noise is
+# another, is 0.17 / 1.5 / 0.011 px and 0.064 (a) and 0.0094 / 0.15 / 3e-5 px
+# and 0.0078 (b) from the same golden outputs (tests/test_torch_golden.py).
+# bf16: as the full-precision bf16 check.
+GOLDEN_INT8_FP32_TOL = {
+    "a": dict(visible_px=1.5, any_px=4.0, median_px=0.05, logits=0.3),
+    "b": dict(visible_px=0.15, any_px=1.0, median_px=5e-3, logits=0.05),
+}
 
 
 def require(cond, msg):
@@ -136,9 +206,10 @@ def corr_tol(grid, query):
 
 
 def corr_bound(grid, query, cy, cx, p=7):
-  """Least bytes and flops of this run's corr-tents call: the grid
-  positions the (p+1)^2 windows touch (each read once), the queries,
-  centres and outputs; 2*C flops per window position per query."""
+  """Least bytes and operations of this run's corr-tents call: the grid
+  positions the (p+1)^2 windows touch (each read once, at the size of the
+  grid it is given: 1 byte for a pre-quantized grid), the queries, centres
+  and outputs; 2*C operations per window position per query."""
   bt, h, w, c = grid.shape
   win = torch.arange(p + 1, device=cy.device)
   ys = torch.floor(cy).long()[..., None] - (p - 1) // 2 + win  # [BT, N, p+1]
@@ -151,7 +222,8 @@ def corr_bound(grid, query, cy, cx, p=7):
   touched[bb[ok], yy[ok], xx[ok]] = True
   elt = grid.element_size()
   n = query.shape[1]
-  nbytes = (int(touched.sum()) * c * elt + query.numel() * elt
+  nbytes = (int(touched.sum()) * c * elt
+            + query.numel() * query.element_size()
             + (cy.numel() + cx.numel()) * 4 + bt * p * p * n * 4)
   flops = 2.0 * int(ok.sum()) * c
   return nbytes, flops
@@ -186,52 +258,207 @@ def bound_ms(nbytes, flops, dtype):
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+COUNTERS = {
+    "corr_tents": (corr_tents, "LAUNCHES"),
+    "corr_tents_q8_frame": (corr_tents, "LAUNCHES_Q8_FRAME"),
+    "corr_tents_q8_position": (corr_tents, "LAUNCHES_Q8_POSITION"),
+    "mixer_block": (fused_mixer_block, "LAUNCHES"),
+    "mixer_block_q8": (fused_mixer_block, "LAUNCHES_Q8"),
+}
+
+
+def reset_counts():
+  for module, attr in COUNTERS.values():
+    setattr(module, attr, 0)
+
+
+def read_counts():
+  return {name: getattr(m, attr) for name, (m, attr) in COUNTERS.items()}
+
+
+def int_mm_ms(a, b):
+  """Time of torch._int_mm(a [M, K], b [K, N]): a library's int8 product, a
+  part of what the int8 kernels compute and used nowhere in the port. None
+  if this PyTorch cannot run it."""
+  try:
+    torch._int_mm(a, b)  # pylint: disable=protected-access
+    return time_ms(lambda: torch._int_mm(a, b))  # pylint: disable=protected-access
+  except (RuntimeError, AttributeError) as err:
+    print(f"torch._int_mm not timed: {err}", flush=True)
+    return None
+
+
+def corr_variants(dtype, gen):
+  """Per corr-tents kernel: (name, per level a tuple of (shape, kernel call,
+  plain call, tolerance, bound inputs, operand type of the bound))."""
+  for name in ("corr_tents", "corr_tents_q8_frame", "corr_tents_q8_position"):
+    levels = []
+    for h, w, c in CORR_LEVELS:
+      grid, query, cy, cx = corr_inputs(h, w, c, dtype, gen)
+      if name == "corr_tents":
+        run = lambda a=(grid, query, cy, cx): corr_tents.corr_tent_patches(*a, 7)
+        plain = lambda a=(grid, query, cy, cx): (
+            corr_tents.corr_tent_patches_reference(*a, 7))
+        tol, bound_of, op_type = corr_tol(grid, query), grid, dtype
+      elif name == "corr_tents_q8_frame":
+        # The grid is quantized once per video, outside the timed call.
+        gq, gs = corr_tents.quantize_per_frame(grid)
+        run = lambda a=(gq, gs, query, cy, cx): (
+            corr_tents.corr_tent_patches_prequantized(*a, 7))
+        plain = lambda a=(gq, gs, query, cy, cx): (
+            corr_tents.corr_tent_patches_prequantized_reference(*a, 7))
+        tol, bound_of, op_type = None, gq, torch.int8
+      else:
+        run = lambda a=(grid, query, cy, cx): (
+            corr_tents.corr_tent_patches(*a, 7, True))
+        plain = lambda a=(grid, query, cy, cx): (
+            corr_tents.corr_tent_patches_quantized_reference(*a, 7))
+        tol, bound_of, op_type = None, grid, torch.int8
+      levels.append(((h, w, c), run, plain, tol,
+                     (bound_of, query, cy, cx), op_type))
+    yield name, levels
+
+
+def check_corr(dtype, gen, checks):
+  name_dt = str(dtype).replace("torch.", "")
+  for name, levels in corr_variants(dtype, gen):
+    totals = dict(ms=0.0, plain_ms=0.0, err=0.0, nbytes=0, flops=0.0)
+    for (h, w, c), run, plain, tol, bound_args, op_type in levels:
+      out = run()
+      torch.cuda.synchronize()
+      ref = plain()
+      torch.cuda.synchronize()
+      if tol is None:
+        tol = (CORR_Q8_TOL[0], CORR_Q8_TOL[1] * float(ref.abs().max()))
+      diff = (out - ref).abs()
+      err = float(diff.max())
+      over = float((diff / (tol[1] + tol[0] * ref.abs())).max())
+      require(bool(torch.isfinite(out).all()) and over <= 1.0,
+              f"{name} {name_dt} {h}x{w}x{c}: max_abs_err {err}, tol {tol}, "
+              f"{over} of the limit")
+      nbytes, flops = corr_bound(*bound_args)
+      b_ms, b_by = bound_ms(nbytes, flops, op_type)
+      ms = time_ms(run)
+      plain_ms = time_ms(plain, reps=3)
+      checks.append(dict(kernel=name, dtype=name_dt,
+                         shape=[FRAMES, h, w, c, CHUNK], max_abs_err=err,
+                         max_err_over_limit=over,
+                         ref_max_abs=float(ref.abs().max()), tol=tol, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+      totals["ms"] += ms
+      totals["plain_ms"] += plain_ms
+      totals["err"] = max(totals["err"], err)
+      totals["nbytes"] += nbytes
+      totals["flops"] += flops
+      del out, ref, diff
+    count = len(levels)
+    b_ms, b_by = bound_ms(totals["nbytes"], totals["flops"], levels[0][5])
+    checks.append(dict(
+        kernel=name, dtype=name_dt, path=True,
+        shape=f"mean of one launch at each of the {count} pyramid levels",
+        max_abs_err=totals["err"],
+        max_err_over_limit=max(c["max_err_over_limit"] for c in checks[-count:]),
+        tol=max((c["tol"] for c in checks[-count:]), key=lambda t: t[1]),
+        ms=totals["ms"] / count, plain_ms=totals["plain_ms"] / count,
+        bound_ms=b_ms / count, bound_by=b_by,
+    ))
+    del levels
+    torch.cuda.empty_cache()
+
+
+def check_mixer_q8(dtype, gen, checks):
+  """K4 at MIXER_SHAPE against its plain version: the output within
+  q8_error_limit, and the kernels' own int8 operand and hidden against the
+  plain version's."""
+  name_dt = str(dtype).replace("torch.", "")
+  args = mixer_inputs(dtype, gen)
+  x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2 = args
+  # As the model does: int8 weights made once, in Linear's storage layout.
+  qweights = []
+  for w in (w1, w2):
+    q, scale = mixer_math.quantize_weight_cols(w)
+    qweights += [q.t().contiguous().t(), scale]
+  qweights = tuple(qweights)
+  run = lambda: fused_mixer_block.mixer_block(
+      *args, False, None, quantized=True, qweights=qweights)
+  plain = lambda: fused_mixer_block.mixer_block_reference(
+      *args, False, None, quantized=True, qweights=qweights)
+  out = run()
+  torch.cuda.synchronize()
+  ref = plain()
+  limit, xq_ref, hq_ref = fused_mixer_block.q8_error_limit(
+      *args, False, None, qweights=qweights)
+  torch.cuda.synchronize()
+  diff = (out.float() - ref.float()).abs()
+  err = float(diff.max())
+  over = float((diff / limit.clamp_min(1e-30)).max())
+  require(bool(torch.isfinite(out.float()).all()) and over <= 1.0,
+          f"mixer_block_q8 {name_dt}: max_abs_err {err}, {over} of its limit")
+  scratch = {}
+  fused_mixer_block._launch_q8(  # pylint: disable=protected-access
+      x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, False, None, scratch)
+  torch.cuda.synchronize()
+  allowed = MIXER_Q8_FLIP_SHARE[dtype]
+
+  def apart(q, ref_q):
+    step = (q.int() - ref_q.int()).abs()
+    return dict(share=float((step > 0).float().mean()),
+                share_far=float((step > 1).float().mean()),
+                max_steps=int(step.max()),
+                max_row_share=float((step > 0).float().mean(-1).max()))
+
+  def within(record, key):
+    return (record["share"] <= allowed[key]
+            and record["share_far"] <= allowed["far"])
+
+  flips = {}
+  for key, ref_q in (("xq", xq_ref), ("hq", hq_ref)):
+    flips[key] = apart(scratch[key], ref_q)
+    require(within(flips[key], key),
+            f"mixer_block_q8 {name_dt}: int8 {key} {flips[key]} vs plain, "
+            f"allowed {allowed}")
+  controls = {}
+  for key, fault in MIXER_Q8_CONTROLS.items():
+    controls[key] = apart(fault(scratch["hidden"]), hq_ref)
+    controls[key]["refused"] = not within(controls[key], "hq")
+    require(controls[key]["refused"] or dtype != torch.float32,
+            f"mixer_block_q8 {name_dt}: the hq limits {allowed} pass the "
+            f"control {key}: {controls[key]}")
+  # The two bare int8 products through a library, as a yardstick of a part
+  # of the function (no LayerNorm, temporal half, quantization or epilogue).
+  w1q, _, w2q, _ = qweights
+  up_ms = int_mm_ms(scratch["xq"], w1q)
+  down_ms = int_mm_ms(scratch["hq"], w2q)
+  del scratch, limit, xq_ref, hq_ref
+  nbytes, flops = mixer_bound(args)
+  b_ms, b_by = bound_ms(nbytes, flops, torch.int8)
+  checks.append(dict(
+      kernel="mixer_block_q8", dtype=name_dt, path=True,
+      shape=list(MIXER_SHAPE), max_abs_err=err, max_err_over_limit=over,
+      tol="fused_mixer_block.q8_error_limit, per element",
+      int8_flips_vs_plain=flips, int8_flip_limits=allowed,
+      int8_flip_controls=controls,
+      ms=time_ms(run), plain_ms=time_ms(plain, reps=3),
+      bound_ms=b_ms, bound_by=b_by,
+      int_mm_products_ms=(None if up_ms is None or down_ms is None
+                          else up_ms + down_ms),
+      int_mm_note="torch._int_mm on the two bare products only: a part of "
+                  "the function, not a library call for the whole of it",
+  ))
+  del args, out, ref, diff
+  torch.cuda.empty_cache()
+
+
 def check_kernels():
   """Each kernel against its plain version on the same inputs, timed. Returns
   one record per check, and per kernel and dtype a `path` record: what one
-  launch on the served path costs (K1: the mean over the three pyramid
-  levels, which each refinement step calls once each)."""
+  launch on the served path costs (corr-tents: the mean over the three
+  pyramid levels, which each refinement step calls once each)."""
   gen = torch.Generator(device="cuda").manual_seed(SEED)
   checks = []
   for dtype in (torch.bfloat16, torch.float32):
     name_dt = str(dtype).replace("torch.", "")
-    totals = dict(ms=0.0, plain_ms=0.0, err=0.0, nbytes=0, flops=0.0)
-    for h, w, c in CORR_LEVELS:
-      args = corr_inputs(h, w, c, dtype, gen)
-      out = corr_tents.corr_tent_patches(*args, 7)
-      torch.cuda.synchronize()
-      ref = corr_tents.corr_tent_patches_reference(*args, 7)
-      torch.cuda.synchronize()
-      err = float((out - ref).abs().max())
-      tol = corr_tol(args[0], args[1])
-      require(torch.isfinite(out).all() and torch.allclose(out, ref, *tol),
-              f"corr_tents {name_dt} {h}x{w}x{c}: max_abs_err {err}, tol {tol}")
-      nbytes, flops = corr_bound(*args)
-      ms = time_ms(lambda: corr_tents.corr_tent_patches(*args, 7))
-      plain = time_ms(lambda: corr_tents.corr_tent_patches_reference(*args, 7), reps=3)
-      b_ms, b_by = bound_ms(nbytes, flops, dtype)
-      checks.append(dict(kernel="corr_tents", dtype=name_dt,
-                         shape=[FRAMES, h, w, c, CHUNK], max_abs_err=err,
-                         max_err_over_limit=err / tol[1],
-                         ref_max_abs=float(ref.abs().max()), tol=tol, ms=ms,
-                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
-      totals["ms"] += ms
-      totals["plain_ms"] += plain
-      totals["err"] = max(totals["err"], err)
-      totals["nbytes"] += nbytes
-      totals["flops"] += flops
-      del args, out, ref
-    levels = len(CORR_LEVELS)
-    b_ms, b_by = bound_ms(totals["nbytes"], totals["flops"], dtype)
-    checks.append(dict(
-        kernel="corr_tents", dtype=name_dt, path=True,
-        shape=f"mean of one launch at each of the {levels} pyramid levels",
-        max_abs_err=totals["err"],
-        max_err_over_limit=max(c["max_err_over_limit"] for c in checks[-levels:]),
-        tol=max((c["tol"] for c in checks[-levels:]), key=lambda t: t[1]),
-        ms=totals["ms"] / levels, plain_ms=totals["plain_ms"] / levels,
-        bound_ms=b_ms / levels, bound_by=b_by,
-    ))
+    check_corr(dtype, gen, checks)
 
     args = mixer_inputs(dtype, gen)
     out = fused_mixer_block.mixer_block(*args, False)
@@ -266,6 +493,7 @@ def check_kernels():
     ))
     del args, out, ref, diff
     torch.cuda.empty_cache()
+    check_mixer_q8(dtype, gen, checks)
   return checks
 
 
@@ -274,11 +502,34 @@ KERNEL_META = {
         source="tapnet_tpu_torch/csrc/corr_tents.cu",
         replaces="tapnet_tpu/ops/corr_tents.py:182",
         tpu_kernel="K1 corr_tents._kernel (via _pallas_forward :243)",
+        layer="K1/K2 corr_tents", run="serve",
+    ),
+    "corr_tents_q8_frame": dict(
+        source="tapnet_tpu_torch/csrc/corr_tents.cu",
+        replaces="tapnet_tpu/ops/corr_tents.py:266",
+        tpu_kernel="K2 corr_tents._kernel :182 with frame_scale "
+                   "(_pallas_forward :266, corr_tent_patches_prequantized :390)",
+        layer="K1/K2 corr_tents", run="serve_int8",
+    ),
+    "corr_tents_q8_position": dict(
+        source="tapnet_tpu_torch/csrc/corr_tents.cu",
+        replaces="tapnet_tpu/ops/corr_tents.py:239",
+        tpu_kernel="K2b corr_tents._kernel_quantized (quantized=True, "
+                   "_pallas_forward :292)",
+        layer="K1/K2 corr_tents", run="serve_int8_b",
     ),
     "mixer_block": dict(
         source="tapnet_tpu_torch/csrc/fused_mixer_block.cu",
         replaces="tapnet_tpu/ops/fused_mixer_block.py:256",
         tpu_kernel="K3 fused_mixer_block._kernel (via _pallas_forward :318)",
+        layer="K3/K4 mixer_block", run="serve",
+    ),
+    "mixer_block_q8": dict(
+        source="tapnet_tpu_torch/csrc/fused_mixer_block.cu",
+        replaces="tapnet_tpu/ops/fused_mixer_block.py:187",
+        tpu_kernel="K4 fused_mixer_block._kernel :256 with quantized=True "
+                   "(_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225)",
+        layer="K3/K4 mixer_block", run="serve_int8",
     ),
 }
 
@@ -327,6 +578,60 @@ def golden_check(params):
   return result
 
 
+def golden_check_int8(params):
+  """The two int8 configurations on the golden clip, in fp32 and bf16 model
+  dtype, against the JAX int8 golden outputs. Returns the records and the
+  kernels' launch counts of each run."""
+  golden = np.load(GOLDEN)
+  golden_int8 = np.load(GOLDEN_INT8)
+  frames = preprocess_frames(torch.from_numpy(golden["video"]))
+  result, launches, failed = {}, {}, []
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  for name, overrides in INT8_CONFIGS.items():
+    ref = {k[2:]: v for k, v in golden_int8.items() if k.startswith(name + "_")}
+    for bf16 in (False, True):
+      predictor = TapirPredictor(
+          params, bootstapir_config(**overrides), bfloat16=bf16)
+      reset_counts()
+      out = predictor(frames, golden["query_points"])
+      counts = read_counts()
+      key = f"{name}_{'bf16' if bf16 else 'fp32'}"
+      launches[key] = counts
+      expected = {"corr_tents_q8_frame", "mixer_block_q8"} if name == "a" else {
+          "corr_tents_q8_position", "mixer_block"}
+      require({k for k, v in counts.items() if v} == expected,
+              f"int8 golden {key}: launches {counts}, expected {expected}")
+      err = np.linalg.norm(out["tracks"] - ref["tracks"], axis=-1)
+      visible = predictor.visibles(ref)
+      r = result[key] = dict(
+          track_visible_max_px=float(err[visible].max()),
+          track_max_px=float(err.max()),
+          track_median_px=float(np.median(err)),
+          track_p95_px=float(np.percentile(err, 95)),
+          logit_max_abs=max(float(np.abs(out[k] - ref[k]).max())
+                            for k in ("occlusion", "expected_dist")),
+          visible_agree=float(np.mean(predictor.visibles(out) == visible)),
+      )
+      if bf16:
+        tol = GOLDEN_BF16_TOL
+        ok = (r["track_median_px"] <= tol["median_px"]
+              and r["track_p95_px"] <= tol["p95_px"]
+              and r["visible_agree"] >= tol["visible_agree"])
+      else:
+        tol = GOLDEN_INT8_FP32_TOL[name]
+        ok = (r["track_visible_max_px"] <= tol["visible_px"]
+              and r["track_max_px"] <= tol["any_px"]
+              and r["track_median_px"] <= tol["median_px"]
+              and r["logit_max_abs"] <= tol["logits"])
+      if not ok:
+        failed.append(f"{key}: {r} vs {tol}")
+      del predictor
+  torch.backends.cudnn.allow_tf32 = True
+  require(not failed, "int8 golden check failed: " + "; ".join(failed))
+  return result, launches
+
+
 def make_videos(count):
   """Textured 480x480 clips on the device: the golden clip's frames,
   upsampled and scrolled a few pixels per frame, one direction per video."""
@@ -353,8 +658,9 @@ def make_videos(count):
 
 # Kernel-name fragments per layer, for the profile's breakdown.
 LAYERS = (
-    ("K1 corr_tents", ("corr_tents_kernel",)),
-    ("K3 mixer_block", ("mixer_temporal", "mixer_gemm")),
+    ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel")),
+    ("K3/K4 mixer_block",
+     ("mixer_temporal", "mixer_gemm", "mixer_quantize_rows")),
     ("convolutions (cuDNN, with its layout transforms)",
      ("conv", "fprop", "nchwtonhwc", "nhwctonchw")),
     ("matmuls (cuBLAS)", ("gemm", "cutlass", "cublas")),
@@ -391,27 +697,33 @@ def profile_video(predictor, video, qp, unprofiled_wall_s, top=10):
       device_ms=device_ms,
       device_busy_share=device_ms / (unprofiled_wall_s * 1e3),
       by_layer_ms=by_layer,
+      own_kernels=[dict(name=name.replace("(anonymous namespace)::", "")[:60],
+                        ms=ms, calls=calls)
+                   for ms, calls, name in kernels
+                   if "mixer_" in name or "corr_tents" in name],
       top=[dict(name=name[:100], ms=ms, calls=calls)
            for ms, calls, name in kernels[:top]],
   )
 
 
-def serve(params, count=3):
+def serve(params, videos, overrides, launched):
+  """Serves videos[1:] after a warm-up request on videos[0], in bf16 with
+  `overrides` of bootstapir_config(). `launched` names the kernels this
+  configuration must launch, equally often per video; every other kernel's
+  count must stay 0."""
+  count = len(videos) - 1
   predictor = TapirPredictor(
-      params, bootstapir_config(), bfloat16=True, query_chunk_size=CHUNK,
-      refinement_resolutions=[(RES, RES)],
+      params, bootstapir_config(**overrides), bfloat16=True,
+      query_chunk_size=CHUNK, refinement_resolutions=[(RES, RES)],
   )
-  videos = make_videos(count + 1)
   # Warm-up request: cuDNN algorithm choice and allocator growth.
   predictor(*videos[0])
   torch.cuda.synchronize()
-  corr_tents.LAUNCHES = 0
-  fused_mixer_block.LAUNCHES = 0
+  reset_counts()
   start = time.perf_counter()
   outs = list(predictor.track_many(videos[1:]))
   wall = time.perf_counter() - start
-  launches = dict(corr_tents=corr_tents.LAUNCHES,
-                  mixer_block=fused_mixer_block.LAUNCHES)
+  launches = read_counts()
   require(len(outs) == count, f"track_many yielded {len(outs)} of {count}")
   require(all(v % count == 0 for v in launches.values()),
           f"launches differ between equal requests: {launches}")
@@ -421,13 +733,22 @@ def serve(params, count=3):
     for key in ("tracks", "occlusion", "expected_dist"):
       require(np.isfinite(out[key]).all(), f"non-finite {key}")
     require(np.abs(out["tracks"]).max() < 4 * RES, "tracks far off the frame")
-  require(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-  return dict(videos=count, frames=FRAMES, queries=QUERIES, chunk=CHUNK,
-              resolution=RES, wall_s_total=wall, wall_s_per_video=wall / count,
+  require({k for k, v in launches.items() if v > 0} == set(launched),
+          f"launched {launches}, expected exactly {sorted(launched)}")
+  return dict(config=overrides, videos=count, frames=FRAMES, queries=QUERIES,
+              chunk=CHUNK, resolution=RES, wall_s_total=wall,
+              wall_s_per_video=wall / count,
               launches_per_video={k: v // count for k, v in launches.items()},
               visible_frac=[float(predictor.visibles(o).mean()) for o in outs],
+              tracks=[o["tracks"] for o in outs],
               profile=profile_video(predictor, *videos[1], wall / count))
+
+
+def tracks_apart(a, b):
+  """Median and 95th percentile distance in px between two runs' tracks."""
+  d = np.concatenate([np.linalg.norm(x - y, axis=-1).ravel()
+                      for x, y in zip(a, b)])
+  return dict(median_px=float(np.median(d)), p95_px=float(np.percentile(d, 95)))
 
 
 def main():
@@ -447,26 +768,55 @@ def main():
   params = load_tapir_checkpoint(CHECKPOINT)
   golden = golden_check(params)
   print(json.dumps({"golden": golden}), flush=True)
-  served = serve(params)
-  print(json.dumps({"serve": served, "card": card}), flush=True)
+  golden_int8, golden_int8_launches = golden_check_int8(params)
+  print(json.dumps({"golden_int8": golden_int8,
+                    "launches": golden_int8_launches}), flush=True)
 
-  # One row per kernel: bf16 (the served precision), per launch at the
-  # served shapes, with the served path's launches per video. launches * ms
-  # should come near the profile's time for the kernel in one request.
-  layer_of = {"corr_tents": "K1 corr_tents", "mixer_block": "K3 mixer_block"}
+  videos = make_videos(4)
+  fast = dict(num_pips_iter=2)
+  runs = {
+      # serve-480: the full-precision configuration.
+      "serve": serve(params, videos, {}, ("corr_tents", "mixer_block")),
+      # serve-480-int8: w8a8 mixer, per-frame int8 correlation, 2 steps.
+      "serve_int8": serve(
+          params, videos, dict(INT8_CONFIGS["a"], **fast),
+          ("corr_tents_q8_frame", "mixer_block_q8")),
+      # The same step count in bf16, to tell int8's share from the steps'.
+      "serve_bf16_2iter": serve(
+          params, videos, fast, ("corr_tents", "mixer_block")),
+      # serve-480-int8-b: per-position int8 correlation (K2b) at the shapes
+      # phase 2 checks it at, two videos after the warm-up.
+      "serve_int8_b": serve(
+          params, videos[:3], INT8_CONFIGS["b"],
+          ("corr_tents_q8_position", "mixer_block")),
+  }
+  tracks = {name: run.pop("tracks") for name, run in runs.items()}
+  runs["serve_int8"]["tracks_vs_bf16_same_steps"] = tracks_apart(
+      tracks["serve_int8"], tracks["serve_bf16_2iter"])
+  for name, run in runs.items():
+    print(json.dumps({name: run, "card": card}), flush=True)
+
+  # One row per kernel: bf16 model dtype (the served precision), per launch
+  # at the served shapes, with the launches per video of the run that drives
+  # it. launches * ms should come near the profile's time for the kernel
+  # (K2 and K2b: less the quantization their entries do in PyTorch).
   kernels = []
-  for name in ("corr_tents", "mixer_block"):
+  for name, meta in KERNEL_META.items():
     row = next(c for c in checks if c["kernel"] == name
                and c["dtype"] == "bfloat16" and c.get("path"))
+    launches = runs[meta["run"]]["launches_per_video"][name]
+    profile_ms = runs[meta["run"]]["profile"]["by_layer_ms"][meta["layer"]]
+    require(launches > 0, f"{name} never launched on its path")
     kernels.append(dict(
-        name=name, route="cuda", **KERNEL_META[name],
-        launches=served["launches_per_video"][name],
+        name=name, route="cuda", source=meta["source"],
+        replaces=meta["replaces"], tpu_kernel=meta["tpu_kernel"],
+        launches=launches, launches_from=meta["run"],
         max_abs_err=row["max_abs_err"],
         max_err_over_limit=row["max_err_over_limit"], tol=row["tol"],
         ms=row["ms"], kernel_ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
         shape=row["shape"], dtype="bfloat16",
-        profile_ms_per_video=served["profile"]["by_layer_ms"][layer_of[name]],
+        profile_ms_per_video=profile_ms,
     ))
   print(card)
   print(json.dumps({"kernels": kernels}))

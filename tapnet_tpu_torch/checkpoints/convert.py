@@ -11,6 +11,11 @@ path `backbone/group_0_block_0/conv_0/kernel` becomes the state_dict key
     and kernel read;
   * `bias`, `scale`, `offset` -> unchanged.
 
+The int8 modes need no weights of their own: the int8 mixer weights and
+their column scales are derived in the port from the converted float weights
+(`models.layers.MixerBlock.quantized_weights`), as the JAX package derives
+them from the same parameters.
+
 Any leaf the bridge does not know, any key the model does not have, any
 parameter of the model left unfilled and any shape mismatch raises.
 """

@@ -21,6 +21,34 @@
 // queries touch, never the whole frame. Outputs of an 8-query tile are staged
 // in shared memory and written as [p*p, 8] rows of 32-byte sectors.
 //
+// The int8 kernel (corr_tents_q8_kernel) replaces the same TPU kernel on its
+// int8 paths: `frame_scale` given (grid quantized once per video, one scale
+// per frame) and `quantized=True` (_kernel_quantized: one grid scale per
+// position). Same design; the dot over C is __dp4a with an int accumulator,
+// which is exact. It has two inner loops, chosen by the width C:
+//   * row-wise, for the model's full widths (C = 16 * 2^k with 64 <= C <= 512,
+//     16-byte aligned: 128 and 256 in BootsTAPIR). A window row is (p+1)*C
+//     contiguous bytes; the warp reads it 512 bytes at a time (16 bytes a
+//     lane, C/16 lanes a position) and reduces within those lanes. From C = 64
+//     on a row is a whole number of 512-byte passes, so all 32 lanes take part
+//     in every shuffle. 2.7x faster on the H100 than the word-wise loop.
+//   * word-wise, for every other C % 4 == 0: the narrow widths of the small
+//     test configurations (16 and 32, where a row-wise pass would leave lanes
+//     outside a full-mask shuffle) and widths that are no power of two. C is
+//     split over the 32 lanes word by word and every position is reduced over
+//     the whole warp.
+// Both give the same bits. The roundings after the dot are those of the
+// einsum mirror of the TPU kernel: the int32 correlation goes to float32 (exact,
+// below 2^24), is multiplied by the position's grid scale where there is one,
+// and is rounded to bfloat16; tent weights are bfloat16 whatever the model's
+// dtype; the y-stage is summed in float32 and rounded to bfloat16; the
+// x-stage is summed in float32; the per-(frame, query) scale multiplies the
+// float32 output. Products of two bfloat16 values are exact in float32 and
+// each stage adds two of them, so every step is reproducible bit for bit.
+// Bound: the grid's bytes at 1 byte per value (a quarter of the float32
+// kernel's, half of the bfloat16 one's) against 2*64*C integer operations per
+// query: memory, as above.
+//
 // Bound on the H100: memory. Per query it moves 64*C grid values (through
 // L2, since a frame's window rows are shared between queries) against
 // 2*64*C flops, far below the ~295 flop/byte the tensor cores need; the
@@ -154,6 +182,153 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// grid [bt, h, w, c] and query [bt, n, c] int8; pos_scale [bt, h, w] or null;
+// out_scale [bt, n]. ROWS: c is 16 * 2^k with 64 <= c <= 512 and both are
+// 16-byte aligned (row-wise 16-byte loads; (p+1) * c/16 is then a multiple
+// of 32, so no lane is absent from a shuffle); otherwise c % 4 == 0 (word
+// loads).
+template <int P, bool ROWS>
+__global__ void __launch_bounds__(kThreads)
+    corr_tents_q8_kernel(const int8_t* __restrict__ grid,
+                         const int8_t* __restrict__ query,
+                         const float* __restrict__ pos_scale,
+                         const float* __restrict__ out_scale,
+                         const float* __restrict__ cy,
+                         const float* __restrict__ cx, float* __restrict__ out,
+                         int h, int w, int c, int n) {
+  constexpr int kWin = P + 1;
+  constexpr int kHalf = (P - 1) / 2;
+  extern __shared__ __align__(16) float smem_q8[];
+  float* smem = smem_q8;
+  const int c4 = c / 4;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int* q_s = reinterpret_cast<int*>(smem) + warp * c4;            // [c4]
+  float* corr_s = smem + kWarps * c4 + warp * kWin * kWin;        // [win, win]
+  float* out_s = smem + kWarps * c4 + kWarps * kWin * kWin;       // [P*P, tile]
+
+  const int bt = blockIdx.x;
+  const int n0 = blockIdx.y * kTileN;
+  const int* g =
+      reinterpret_cast<const int*>(grid + static_cast<size_t>(bt) * h * w * c);
+  const float* gs =
+      pos_scale ? pos_scale + static_cast<size_t>(bt) * h * w : nullptr;
+
+  for (int qi = warp; qi < kTileN; qi += kWarps) {
+    const int nq = n0 + qi;
+    if (nq >= n) break;  // warp-uniform
+    const size_t qoff = static_cast<size_t>(bt) * n + nq;
+    const int* qv = reinterpret_cast<const int*>(query + qoff * c);
+    for (int k = lane; k < c4; k += 32) q_s[k] = qv[k];
+    __syncwarp();
+    const float y = cy[qoff];
+    const float x = cx[qoff];
+    const int y0 = static_cast<int>(floorf(y)) - kHalf;
+    const int x0 = static_cast<int>(floorf(x)) - kHalf;
+
+    // Integer correlation on the window, then the one rounding to bfloat16.
+    for (int r = 0; r < kWin; ++r) {
+      const int iy = y0 + r;
+      const bool row_ok = iy >= 0 && iy < h;  // warp-uniform
+      if (ROWS) {
+        // idx runs over the row's (p+1) * C/16 16-byte chunks: position
+        // idx / L, channel chunk idx % L; L >= 4 lanes share a position and
+        // kWin * L is a multiple of 32: every lane runs every pass.
+        const int L = c / 16;
+        const int4* q4 = reinterpret_cast<const int4*>(q_s);
+        const int4* row4 = reinterpret_cast<const int4*>(
+            reinterpret_cast<const int8_t*>(g) +
+            (static_cast<ptrdiff_t>(iy) * w + x0) * c);
+        for (int idx = lane; idx < kWin * L; idx += 32) {
+          const int s = idx / L, kk = idx % L;
+          const int ix = x0 + s;
+          const bool ok = row_ok && ix >= 0 && ix < w;
+          int acc = 0;
+          if (ok) {
+            const int4 gv = row4[idx], qk = q4[kk];
+            acc = __dp4a(gv.x, qk.x, acc);
+            acc = __dp4a(gv.y, qk.y, acc);
+            acc = __dp4a(gv.z, qk.z, acc);
+            acc = __dp4a(gv.w, qk.w, acc);
+          }
+          for (int o = L >> 1; o > 0; o >>= 1) {
+            acc += __shfl_xor_sync(0xffffffffu, acc, o);
+          }
+          if (kk == 0) {
+            float f = static_cast<float>(acc);
+            if (gs != nullptr && ok) f = __fmul_rn(f, gs[iy * w + ix]);
+            corr_s[r * kWin + s] = round_bf16(f);
+          }
+        }
+        continue;
+      }
+      int acc[kWin];
+#pragma unroll
+      for (int s = 0; s < kWin; ++s) acc[s] = 0;
+      if (row_ok) {
+        const int* row = g + (static_cast<ptrdiff_t>(iy) * w + x0) * c4;
+        for (int k = lane; k < c4; k += 32) {
+          const int qk = q_s[k];
+#pragma unroll
+          for (int s = 0; s < kWin; ++s) {
+            const int ix = x0 + s;
+            if (ix >= 0 && ix < w) acc[s] = __dp4a(row[s * c4 + k], qk, acc[s]);
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kWin; ++s) {
+        const int v = warp_sum_int(acc[s]);
+        if (lane == 0) {
+          float f = static_cast<float>(v);
+          const int ix = x0 + s;
+          if (gs != nullptr && row_ok && ix >= 0 && ix < w) {
+            f = __fmul_rn(f, gs[iy * w + ix]);
+          }
+          corr_s[r * kWin + s] = round_bf16(f);
+        }
+      }
+    }
+    __syncwarp();
+
+    const float scale = out_scale[qoff];
+    for (int tap = lane; tap < P * P; tap += 32) {
+      const int i = tap / P;
+      const int j = tap % P;
+      const float cyi = y + static_cast<float>(i - kHalf);
+      const float cxj = x + static_cast<float>(j - kHalf);
+      const float wy0 = round_bf16(tent(cyi, y0 + i));
+      const float wy1 = round_bf16(tent(cyi, y0 + i + 1));
+      const float wx0 = round_bf16(tent(cxj, x0 + j));
+      const float wx1 = round_bf16(tent(cxj, x0 + j + 1));
+      const float* c0 = corr_s + i * kWin + j;
+      const float ya = round_bf16(wy0 * c0[0] + wy1 * c0[kWin]);
+      const float yb = round_bf16(wy0 * c0[1] + wy1 * c0[kWin + 1]);
+      out_s[tap * kTileN + qi] = __fmul_rn(wx0 * ya + wx1 * yb, scale);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < P * P * kTileN; e += kThreads) {
+    const int tap = e / kTileN;
+    const int q = e % kTileN;
+    if (n0 + q < n) {
+      out[(static_cast<size_t>(bt) * P * P + tap) * n + n0 + q] = out_s[e];
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* grid, const void* query, const void* cy,
            const void* cx, void* out, int bt, int h, int w, int c, int n,
@@ -194,6 +369,44 @@ int corr_tents_forward(const void* grid, const void* query, const void* cy,
     return launch<__nv_bfloat16>(grid, query, cy, cx, out, bt, h, w, c, n, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// grid [bt, h, w, c] and query [bt, n, c] int8 with c % 4 == 0 and 4-byte
+// aligned bases; pos_scale [bt, h, w] float32 or null (per-frame mode);
+// out_scale [bt, n] float32; cy, cx [bt, n] float32; out [bt, p, p, n] float32.
+// Only p == 7 is instantiated. Returns the launch's cudaError_t.
+int corr_tents_q8_forward(const void* grid, const void* query,
+                          const void* pos_scale, const void* out_scale,
+                          const void* cy, const void* cx, void* out, int bt,
+                          int h, int w, int c, int n, int p, void* stream) {
+  if (p != 7 || bt <= 0 || n <= 0 || c <= 0 || c % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (n > 65535 * kTileN) return cudaErrorInvalidValue;
+  constexpr int P = 7;
+  const size_t smem = sizeof(float) * (kWarps * (c / 4) +
+                                       kWarps * (P + 1) * (P + 1) +
+                                       P * P * kTileN);
+  const int lanes = c / 16;  // lanes per position of the row-wise form
+  const bool rows =
+      c % 16 == 0 && lanes >= 4 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
+      reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(query) % 16 == 0;
+  auto kernel = rows ? corr_tents_q8_kernel<P, true>
+                     : corr_tents_q8_kernel<P, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  dim3 blocks(bt, (n + kTileN - 1) / kTileN);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(grid), static_cast<const int8_t*>(query),
+      static_cast<const float*>(pos_scale),
+      static_cast<const float*>(out_scale), static_cast<const float*>(cy),
+      static_cast<const float*>(cx), static_cast<float*>(out), h, w, c, n);
+  return cudaGetLastError();
 }
 
 const char* tapnet_cuda_error_string(int err) {

@@ -23,6 +23,30 @@
 // underneath), 128x128x32 tiles double-buffered through cp.async, float32
 // accumulation; fp32 on SIMT 64x64 tiles with 4x4 register blocks.
 //
+// The w8a8 block (mixer_block_q8_forward) replaces the same TPU kernel with
+// quantized=True (_mlp_operand, _mlp_hidden, _mlp_epilogue). Five launches:
+//   (a') mixer_temporal<Q>: as (a), but LN2's float32 output is quantized per
+//        row (amax floored at 1e-8, x * (127 / amax), round half to even, clip
+//        to +-127) into int8 [rows*T, C] with its scale amax / 127.
+//   (b') mixer_gemm_q8<gelu>: int8 x int8 -> int32 on the tensor cores (WMMA
+//        s8 m16n16k16, 128x128x64 tiles through cp.async); the epilogue does
+//        acc * (xs * s1) + b1 and GELU in float32, writes the float32 hidden
+//        and raises the row's amax with atomicMax on the bits of |h| (ordered
+//        as integers for non-negative floats), because a row's amax spans
+//        every column tile.
+//   (c') mixer_quantize_rows: the hidden, from its float32 value, to int8 and
+//        its row scale.
+//   (d') mixer_gemm_q8<residual>: the second int8 product; the epilogue does
+//        acc * (hs * s2) + b2, rounds to the compute dtype, adds x1 and zeroes
+//        rows >= t_real.
+// bf16 enters only at x, x1 and the output. Bound on the H100: 134 G integer
+// operations at 1979 TOP/s dense int8 (0.07 ms) against the activations'
+// bytes. What this first design gives away: the float32 hidden [rows*T, 4C]
+// (262 MB at [128, 250, 512]) is written and read once and its int8 form
+// again, about 0.25 ms of memory traffic at 3.35 TB/s, and WMMA reaches a
+// fraction of the int8 peak. A later design keeps a row block's whole hidden
+// on chip.
+//
 // Numerics as in the JAX kernel: LN eps 1e-5 with float32 statistics (LN1
 // single-pass, LN2 two-pass as in mixer_math.mlp_math), GELU tanh, float32
 // accumulation, depthwise fold bias = sum over the mult lanes of b_mix.
@@ -80,13 +104,32 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------- (a)
 
-template <typename T, int K>
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Symmetric int8 quantization, as mixer_math.quantize_rows: the caller gives
+// inv = 127 / max(amax, 1e-8); the row's scale is max(amax, 1e-8) * (1 / 127).
+constexpr float kAmaxFloor = 1e-8f;
+constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
+
+__device__ __forceinline__ int8_t quantize(float v, float inv) {
+  return static_cast<int8_t>(
+      fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
+}
+
+// Q: write the MLP operand as int8 rows (q_out, with q_scale [rows*T]) in
+// place of mlp_in.
+template <typename T, int K, bool Q>
 __global__ void __launch_bounds__(kThreads)
     mixer_temporal(const T* __restrict__ x, const T* __restrict__ g1,
                    const T* __restrict__ wu, const T* __restrict__ bu,
                    const T* __restrict__ wm, const T* __restrict__ bm,
                    const T* __restrict__ g2, T* __restrict__ x1_out,
-                   T* __restrict__ mlp_in, int t_full, int t_real, int c,
+                   T* __restrict__ mlp_in, int8_t* __restrict__ q_out,
+                   float* __restrict__ q_scale, int t_full, int t_real, int c,
                    int mult, int off) {
   extern __shared__ float xs[];  // [kTileT + 2*(K-1), c]
   constexpr int kRows = kTileT + 2 * (K - 1);
@@ -178,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = warp; r < kTileT; r += nwarps) {
     const int tg = t0 + r;
     if (tg >= t_full) break;
-    const float* src = xs + r * c;
+    float* src = xs + r * c;
     float s = 0.f;
     for (int k = lane; k < c; k += 32) s += src[k];
     const float mu = warp_sum(s) * inv_c;
@@ -188,9 +231,26 @@ __global__ void __launch_bounds__(kThreads)
       s2 += d * d;
     }
     const float rs = rsqrtf(warp_sum(s2) * inv_c + kEps);
-    T* dst = mlp_in + (static_cast<size_t>(row) * t_full + tg) * c;
-    for (int k = lane; k < c; k += 32) {
-      dst[k] = from_f<T>((src[k] - mu) * rs * to_f(g2[k]));
+    const size_t orow = static_cast<size_t>(row) * t_full + tg;
+    if (Q) {
+      // The normalized row stays float32 (kept in xs: a lane reads back only
+      // what it wrote) and is quantized from that.
+      float amax = 0.f;
+      for (int k = lane; k < c; k += 32) {
+        const float v = (src[k] - mu) * rs * to_f(g2[k]);
+        src[k] = v;
+        amax = fmaxf(amax, fabsf(v));
+      }
+      amax = fmaxf(warp_max(amax), kAmaxFloor);
+      const float inv = 127.f / amax;
+      int8_t* qdst = q_out + orow * c;
+      for (int k = lane; k < c; k += 32) qdst[k] = quantize(src[k], inv);
+      if (lane == 0) q_scale[orow] = amax * kInv127;
+    } else {
+      T* dst = mlp_in + orow * c;
+      for (int k = lane; k < c; k += 32) {
+        dst[k] = from_f<T>((src[k] - mu) * rs * to_f(g2[k]));
+      }
     }
   }
 }
@@ -380,6 +440,244 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ------------------------- int8 GEMM: C = A . W^T (WMMA s8, cp.async), w8a8
+
+template <typename T>
+struct EpilogueQ8 {
+  const float* row_scale;  // [m] activation scales
+  const float* col_scale;  // [n] weight scales
+  const T* bias;           // [n]
+  const T* resid;          // [m, n] (residual epilogue only)
+  float* hidden;           // [m, n] float32 (gelu epilogue only)
+  int* row_amax_bits;      // [m] bits of max |hidden| (gelu epilogue only)
+  T* out;                  // [m, n] (residual epilogue only)
+  int n;
+  int t_full;
+  int t_real;
+};
+
+constexpr int kQBK = 64, kQLds = kQBK + 16;   // bytes per tile row
+constexpr int kQTileBytes = kBM * kQLds;      // per operand and stage
+constexpr int kQGemmSmem = 2 * 2 * kQTileBytes;  // 40960 B
+
+// Copies a 128 x 64 tile of a row-major [rows, k] int8 matrix (k % 16 == 0)
+// into shared memory with row stride kQLds; rows/columns past the end are 0.
+__device__ __forceinline__ void load_tile_q8(int8_t* dst, const int8_t* src,
+                                             int rows, int k, int r0, int k0) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int chunk = threadIdx.x + i * 256;  // 512 chunks of 16 bytes
+    const int r = chunk / 4, cc = (chunk % 4) * 16;
+    const bool pred = (r0 + r < rows) && (k0 + cc < k);
+    const int8_t* g = pred ? src + static_cast<size_t>(r0 + r) * k + k0 + cc : src;
+    cp_async16(dst + r * kQLds + cc, g, pred);
+  }
+}
+
+template <typename T, int EPI>
+__global__ void __launch_bounds__(256)
+    mixer_gemm_q8(const int8_t* __restrict__ a, const int8_t* __restrict__ wt,
+                  int m, int n, int k, EpilogueQ8<T> ep) {
+  using namespace nvcuda;
+  __shared__ __align__(128) unsigned char smem_raw[kQGemmSmem];
+  int8_t* as = reinterpret_cast<int8_t*>(smem_raw);  // [2][kQTileBytes]
+  int8_t* ws = as + 2 * kQTileBytes;                 // [2][kQTileBytes]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm_ = warp / 4, wn_ = warp % 4;  // 2 x 4 warps, 64 x 32 each
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+
+  const int nk = (k + kQBK - 1) / kQBK;
+  load_tile_q8(as, a, m, k, m0, 0);
+  load_tile_q8(ws, wt, n, k, n0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {
+      load_tile_q8(as + (cur ^ 1) * kQTileBytes, a, m, k, m0, (kt + 1) * kQBK);
+      load_tile_q8(ws + (cur ^ 1) * kQTileBytes, wt, n, k, n0, (kt + 1) * kQBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const signed char* at =
+        reinterpret_cast<const signed char*>(as + cur * kQTileBytes);
+    const signed char* bt =
+        reinterpret_cast<const signed char*>(ws + cur * kQTileBytes);
+#pragma unroll
+    for (int ks = 0; ks < kQBK; ks += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(fa[i], at + (wm_ * 64 + i * 16) * kQLds + ks, kQLds);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], bt + (wn_ * 32 + j * 16) * kQLds + ks, kQLds);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // Epilogue through a per-warp 16x16 int staging tile (reusing the operand
+  // buffers). Lanes 0-15 and 16-31 each hold one row of the tile per step.
+  int* stage = reinterpret_cast<int*>(smem_raw) + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = m0 + wm_ * 64 + i * 16 + e / 16;
+        const int col = n0 + wn_ * 32 + j * 16 + e % 16;
+        const bool ok = row < m && col < n;
+        float habs = 0.f;
+        if (ok) {
+          const size_t idx = static_cast<size_t>(row) * ep.n + col;
+          const float scale = __fmul_rn(ep.row_scale[row], ep.col_scale[col]);
+          const float v = __fadd_rn(
+              __fmul_rn(static_cast<float>(stage[e]), scale), to_f(ep.bias[col]));
+          if (EPI == kEpiGelu) {
+            const float hval = gelu_tanh(v);
+            ep.hidden[idx] = hval;
+            habs = fabsf(hval);
+          } else {
+            const bool valid = (row % ep.t_full) < ep.t_real;
+            const float y = round_to<T>(v);
+            ep.out[idx] = from_f<T>(valid ? to_f(ep.resid[idx]) + y : 0.f);
+          }
+        }
+        if (EPI == kEpiGelu) {
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1) {
+            habs = fmaxf(habs, __shfl_xor_sync(0xffffffffu, habs, o));
+          }
+          if ((lane & 15) == 0 && row < m) {
+            atomicMax(ep.row_amax_bits + row, __float_as_int(habs));
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// One warp per row: h [m, n] float32 -> int8 with the row's scale, from the
+// amax that the first product's epilogue gathered.
+__global__ void __launch_bounds__(kThreads)
+    mixer_quantize_rows(const float* __restrict__ h,
+                        const int* __restrict__ row_amax_bits,
+                        int8_t* __restrict__ q, float* __restrict__ q_scale,
+                        int m, int n) {
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const float amax = fmaxf(__int_as_float(row_amax_bits[row]), kAmaxFloor);
+  const float inv = 127.f / amax;
+  const float* src = h + static_cast<size_t>(row) * n;
+  int8_t* dst = q + static_cast<size_t>(row) * n;
+  if (n % 4 == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    char4* dst4 = reinterpret_cast<char4*>(dst);
+    for (int k = lane; k < n / 4; k += 32) {
+      const float4 v = src4[k];
+      char4 o;
+      o.x = quantize(v.x, inv);
+      o.y = quantize(v.y, inv);
+      o.z = quantize(v.z, inv);
+      o.w = quantize(v.w, inv);
+      dst4[k] = o;
+    }
+  } else {
+    for (int k = lane; k < n; k += 32) dst[k] = quantize(src[k], inv);
+  }
+  if (lane == 0) q_scale[row] = amax * kInv127;
+}
+
+template <typename T, int EPI>
+cudaError_t run_gemm_q8(const int8_t* a, const int8_t* wt, int m, int n, int k,
+                        EpilogueQ8<T> ep, cudaStream_t s) {
+  if (k % 16 != 0) return cudaErrorInvalidValue;
+  dim3 blocks((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  mixer_gemm_q8<T, EPI><<<blocks, 256, 0, s>>>(a, wt, m, n, k, ep);
+  return cudaGetLastError();
+}
+
+template <typename T, int K, bool Q>
+cudaError_t run_temporal(const void* x, const void* g1, const void* wu,
+                         const void* bu, const void* wm, const void* bm,
+                         const void* g2, void* x1, void* mlp_in, void* q_out,
+                         void* q_scale, int rows, int t_full, int t_real, int c,
+                         int mult, int causal, cudaStream_t s) {
+  const int off = causal ? K - 1 : (K - 1) / 2;
+  const size_t smem = sizeof(float) * (kTileT + 2 * (K - 1)) * c;
+  auto temporal = mixer_temporal<T, K, Q>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        temporal, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int ntiles = (t_full + kTileT - 1) / kTileT;
+  temporal<<<rows * ntiles, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g1),
+      static_cast<const T*>(wu), static_cast<const T*>(bu),
+      static_cast<const T*>(wm), static_cast<const T*>(bm),
+      static_cast<const T*>(g2), static_cast<T*>(x1), static_cast<T*>(mlp_in),
+      static_cast<int8_t*>(q_out), static_cast<float*>(q_scale), t_full,
+      t_real, c, mult, off);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_q8(const void* x, const void* g1, const void* wu, const void* bu,
+              const void* wm, const void* bm, const void* g2, const void* w1q,
+              const void* s1, const void* b1, const void* w2q, const void* s2,
+              const void* b2, void* x1, void* xq, void* xs, void* hidden,
+              void* hmax, void* hq, void* hs, void* out, int rows, int t_full,
+              int t_real, int c, int hid, int mult, int causal,
+              cudaStream_t s) {
+  cudaError_t err = run_temporal<T, 3, true>(
+      x, g1, wu, bu, wm, bm, g2, x1, nullptr, xq, xs, rows, t_full, t_real, c,
+      mult, causal, s);
+  if (err != cudaSuccess) return err;
+  const int mrows = rows * t_full;
+  err = cudaMemsetAsync(hmax, 0, sizeof(int) * mrows, s);
+  if (err != cudaSuccess) return err;
+  EpilogueQ8<T> up{static_cast<const float*>(xs), static_cast<const float*>(s1),
+                   static_cast<const T*>(b1), nullptr,
+                   static_cast<float*>(hidden), static_cast<int*>(hmax),
+                   nullptr, hid, t_full, t_real};
+  err = run_gemm_q8<T, kEpiGelu>(static_cast<const int8_t*>(xq),
+                                 static_cast<const int8_t*>(w1q), mrows, hid, c,
+                                 up, s);
+  if (err != cudaSuccess) return err;
+  const int qblocks = (mrows + kThreads / 32 - 1) / (kThreads / 32);
+  mixer_quantize_rows<<<qblocks, kThreads, 0, s>>>(
+      static_cast<const float*>(hidden), static_cast<const int*>(hmax),
+      static_cast<int8_t*>(hq), static_cast<float*>(hs), mrows, hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  EpilogueQ8<T> down{static_cast<const float*>(hs),
+                     static_cast<const float*>(s2), static_cast<const T*>(b2),
+                     static_cast<const T*>(x1), nullptr, nullptr,
+                     static_cast<T*>(out), c, t_full, t_real};
+  return run_gemm_q8<T, kEpiResidual>(static_cast<const int8_t*>(hq),
+                                      static_cast<const int8_t*>(w2q), mrows, c,
+                                      hid, down, s);
+}
+
 template <typename T>
 struct Gemm;
 
@@ -413,24 +711,9 @@ int launch(const void* x, const void* g1, const void* wu, const void* bu,
            void* mlp_in, void* hidden, void* out, int rows, int t_full,
            int t_real, int c, int hid, int mult, int causal,
            cudaStream_t s) {
-  constexpr int K = 3;
-  const int off = causal ? K - 1 : (K - 1) / 2;
-  const size_t smem = sizeof(float) * (kTileT + 2 * (K - 1)) * c;
-  auto temporal = mixer_temporal<T, K>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        temporal, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int ntiles = (t_full + kTileT - 1) / kTileT;
-  temporal<<<rows * ntiles, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g1),
-      static_cast<const T*>(wu), static_cast<const T*>(bu),
-      static_cast<const T*>(wm), static_cast<const T*>(bm),
-      static_cast<const T*>(g2), static_cast<T*>(x1), static_cast<T*>(mlp_in),
-      t_full, t_real, c, mult, off);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = run_temporal<T, 3, false>(
+      x, g1, wu, bu, wm, bm, g2, x1, mlp_in, nullptr, nullptr, rows, t_full,
+      t_real, c, mult, causal, s);
   if (err != cudaSuccess) return err;
 
   const int mrows = rows * t_full;
@@ -477,6 +760,40 @@ int mixer_block_forward(const void* x, const void* g1, const void* wu,
     return launch<bf16>(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, x1, mlp_in,
                         hidden, out, rows, t_full, t_real, c, hid, mult,
                         causal, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The block with the w8a8 channel MLP. x, g1, wu, bu, wm, bm, g2, b1, b2 as
+// above in the compute dtype; w1q [hid, c] and w2q [c, hid] int8 (Linear
+// layout, 16-byte aligned, c and hid multiples of 16) with their float32
+// column scales s1 [hid], s2 [c]; scratch x1 [rows, t_full, c] (compute
+// dtype), xq int8 [rows*t_full, c] with xs float32 [rows*t_full], hidden
+// float32 [rows*t_full, hid], hmax int32 [rows*t_full], hq int8
+// [rows*t_full, hid] with hs float32 [rows*t_full]; out [rows, t_full, c].
+int mixer_block_q8_forward(const void* x, const void* g1, const void* wu,
+                           const void* bu, const void* wm, const void* bm,
+                           const void* g2, const void* w1q, const void* s1,
+                           const void* b1, const void* w2q, const void* s2,
+                           const void* b2, void* x1, void* xq, void* xs,
+                           void* hidden, void* hmax, void* hq, void* hs,
+                           void* out, int rows, int t_full, int t_real, int c,
+                           int hid, int mult, int k, int causal, int dtype,
+                           void* stream) {
+  if (k != 3 || rows <= 0 || t_full <= 0 || t_real < 0 || t_real > t_full ||
+      c <= 0 || hid <= 0 || mult <= 0 || c % 16 != 0 || hid % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_q8<float>(x, g1, wu, bu, wm, bm, g2, w1q, s1, b1, w2q, s2,
+                            b2, x1, xq, xs, hidden, hmax, hq, hs, out, rows,
+                            t_full, t_real, c, hid, mult, causal, s);
+  }
+  if (dtype == 1) {
+    return launch_q8<bf16>(x, g1, wu, bu, wm, bm, g2, w1q, s1, b1, w2q, s2, b2,
+                           x1, xq, xs, hidden, hmax, hq, hs, out, rows, t_full,
+                           t_real, c, hid, mult, causal, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -108,17 +108,45 @@ class TemporalDepthwiseBlock(nn.Module):
 
 class MixerBlock(nn.Module):
   """One PIPs-mixer block: temporal depthwise mixing + channel MLP, both with
-  pre-LayerNorm residuals, as one `ops.fused_mixer_block.mixer_block` call."""
+  pre-LayerNorm residuals, as one `ops.fused_mixer_block.mixer_block` call.
+
+  `quantized` runs the channel MLP in w8a8 int8 (the temporal conv and the
+  LayerNorms stay in full precision). The int8 weights are derived from
+  `fc_up` / `fc_down` once and kept beside them, not in the state dict; the
+  key holds each weight's storage, version, device and dtype, so
+  `load_state_dict`, `.to()` and in-place updates make them anew.
+  """
 
   def __init__(self, features: int, kernel_size: int = 3,
-               causal: bool = False, expansion: int = 4):
+               causal: bool = False, expansion: int = 4,
+               quantized: bool = False):
     super().__init__()
     self.causal = causal
+    self.quantized = quantized
+    self._qweights = None
+    self._qweights_key = None
     self.ln_temporal = LayerNormScale(features)
     self.temporal = TemporalDepthwiseBlock(features, kernel_size)
     self.ln_channel = LayerNormScale(features)
     self.fc_up = nn.Linear(features, features * expansion)
     self.fc_down = nn.Linear(features * expansion, features)
+
+  def quantized_weights(self):
+    """(w1q [C, H], s1 [H], w2q [H, C], s2 [C]) of `fc_up` and `fc_down`,
+    quantized per output column. The int8 tensors are transposed views of
+    contiguous [out, in] storage, the layout the CUDA kernel reads."""
+    weights = (self.fc_up.weight, self.fc_down.weight)
+    key = tuple(
+        (w.data_ptr(), w._version, w.device, w.dtype)  # pylint: disable=protected-access
+        for w in weights
+    )
+    if key != self._qweights_key:
+      packed = []
+      for w in weights:
+        q, scale = mixer_math.quantize_weight_cols(w.detach().t())
+        packed += [q.t().contiguous().t(), scale]
+      self._qweights, self._qweights_key = tuple(packed), key
+    return self._qweights
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     t = self.temporal
@@ -127,6 +155,8 @@ class MixerBlock(nn.Module):
         t.dw_mix.weight, t.dw_mix.bias, self.ln_channel.scale,
         self.fc_up.weight.t(), self.fc_up.bias,
         self.fc_down.weight.t(), self.fc_down.bias, self.causal,
+        quantized=self.quantized,
+        qweights=self.quantized_weights() if self.quantized else None,
     )
 
 
@@ -136,13 +166,15 @@ class PipsMixer(nn.Module):
 
   def __init__(self, input_channels: int, output_channels: int,
                hidden_dim: int = 512, num_blocks: int = 12,
-               kernel_size: int = 3, causal: bool = False):
+               kernel_size: int = 3, causal: bool = False,
+               quantized: bool = False):
     super().__init__()
     self.num_blocks = num_blocks
     self.in_proj = nn.Linear(input_channels, hidden_dim)
     for i in range(num_blocks):
       self.add_module(
-          f"block_{i}", MixerBlock(hidden_dim, kernel_size, causal)
+          f"block_{i}",
+          MixerBlock(hidden_dim, kernel_size, causal, quantized=quantized),
       )
     self.ln_out = LayerNormScale(hidden_dim)
     self.out_proj = nn.Linear(hidden_dim, output_channels)

@@ -26,7 +26,7 @@ from tapnet_tpu_torch.utils import sampling, transforms
 @dataclasses.dataclass(frozen=True)
 class TapirConfig:
   """Static TAPIR hyperparameters (the JAX TapirConfig's fields that the
-  offline full-precision path reads)."""
+  offline inference path reads)."""
 
   num_pips_iter: int = 4
   pyramid_level: int = 1
@@ -45,6 +45,31 @@ class TapirConfig:
   # accumulations and fp32 normalization statistics; heads and soft-argmax
   # stay fp32.
   compute_dtype: str = "float32"
+  # Inference speed mode: the mixer's channel MLPs in w8a8 int8 (per-row
+  # dynamic activation scales, per-column weight scales, int32 accumulation).
+  # Temporal convs, LayerNorms, heads and correlation stay in compute_dtype.
+  quantized_mixer: bool = False
+  # Inference speed mode: the local correlation in int8 with int32
+  # accumulation and bfloat16 tents. "per_frame": one grid scale per frame,
+  # the pyramid grids quantized once per video, and per-descriptor query
+  # scales, all applied to the output. True: per-position grid scales,
+  # quantized in every call.
+  quantized_corr: "bool | str" = False
+  # The int8 ExtraConvs modes (True: per-frame activation scales;
+  # "per_pixel") are not ported yet; a truthy value raises.
+  quantized_extra_convs: "bool | str" = False
+
+  def __post_init__(self):
+    if self.quantized_extra_convs:
+      raise NotImplementedError(
+          f"quantized_extra_convs={self.quantized_extra_convs!r}: the int8 "
+          "ExtraConvs modes are not ported yet. They are the next slice of "
+          "the port in ROADMAP.md: the per-frame int8 3x3 convolution and "
+          "the per-pixel kernel K6 (ops/fused_extra_convs). Nothing runs the "
+          "full-precision convolutions in their place."
+      )
+    if self.quantized_corr not in (False, True, "per_frame"):
+      raise ValueError(f"quantized_corr={self.quantized_corr!r}")
 
   @property
   def dtype(self) -> torch.dtype:
@@ -190,6 +215,7 @@ class TAPIR(nn.Module):
         num_blocks=cfg.num_mixer_blocks,
         kernel_size=cfg.mixer_kernel_size,
         causal=cfg.use_causal_conv,
+        quantized=cfg.quantized_mixer,
     )
 
   # ---------------------------------------------------------------- features
@@ -285,7 +311,7 @@ class TAPIR(nn.Module):
 
   def _corr_patches(
       self,
-      grid: torch.Tensor,  # [B, T, H, W, C]
+      grid,  # [B, T, H, W, C], or (int8 grid, [B, T] scale) pre-quantized
       query: torch.Tensor,  # [B, N, C] (first iteration) or [B, N, T, C]
       pos_guess: torch.Tensor,  # [B, N, T, 2] xy at initial resolution
       orig_hw: Tuple[int, int],
@@ -294,7 +320,11 @@ class TAPIR(nn.Module):
     cfg = self.config
     p = cfg.patch_size
     orig_h, orig_w = orig_hw
-    b, t, h, w, c = grid.shape
+    # Per-frame int8 grids arrive quantized, as (int8, [B, T] scale) tuples
+    # (see estimate_trajectories).
+    prequant = isinstance(grid, tuple)
+    grid_arr = grid[0] if prequant else grid
+    b, t, h, w, c = grid_arr.shape
     n = query.shape[1]
     coords = transforms.convert_grid_coordinates(
         pos_guess, (orig_w, orig_h), (w, h)
@@ -307,8 +337,16 @@ class TAPIR(nn.Module):
     cyx = coords - 0.5  # index space
     cy = cyx[..., 0].permute(0, 2, 1).reshape(b * t, n).contiguous()
     cx = cyx[..., 1].permute(0, 2, 1).reshape(b * t, n).contiguous()
-    grid_bt = grid.reshape(b * t, h, w, c).to(cfg.dtype).contiguous()
-    pat = corr_tents.corr_tent_patches(grid_bt, q_bt, cy, cx, p)
+    if prequant:
+      pat = corr_tents.corr_tent_patches_prequantized(
+          grid_arr.reshape(b * t, h, w, c), grid[1].reshape(b * t), q_bt,
+          cy, cx, p,
+      )
+    else:
+      grid_bt = grid.reshape(b * t, h, w, c).to(cfg.dtype).contiguous()
+      pat = corr_tents.corr_tent_patches(
+          grid_bt, q_bt, cy, cx, p, cfg.quantized_corr
+      )
     # [B*T, p, p, N] -> [B, N, T, p*p]
     pat = pat.reshape(b, t, p, p, n).permute(0, 4, 1, 2, 3)
     return pat.reshape(b, n, t, p * p)
@@ -448,6 +486,18 @@ class TAPIR(nn.Module):
       for _ in range(cfg.pyramid_level):
         pyramid.append(_avg_pool_2x(pyramid[-1]))
       pyramids.append(pyramid)
+    if cfg.quantized_corr == "per_frame":
+      # Quantize every pyramid grid once per video: the chunks and the
+      # refinement iterations all read the same int8 grids. A grid may be a
+      # channels-last view of the backbone's output; the kernel reads dense
+      # [B, T, H, W, C], and the int8 copy is made dense here, once.
+      pyramids = [
+          [
+              corr_tents.quantize_per_frame(g.to(cfg.dtype).contiguous())
+              for g in pyr
+          ]
+          for pyr in pyramids
+      ]
 
     im_shape = (
         tuple(feature_grids.lowres[0].shape[0:2])

@@ -10,6 +10,17 @@ index space (raster - 0.5), output [BT, p, p, N] float32.
   * CUDA tensors launch the hand-written kernel `csrc/corr_tents.cu`, which
     computes only the (p+1) x (p+1) correlation window each patch needs.
   * Anything else raises. There is no size gate and no fallback.
+
+The int8 modes (`quantized=True | "per_frame"`, and
+`corr_tent_patches_prequantized` for grids quantized once per video with
+`quantize_per_frame`) multiply an int8 grid by int8 queries with int32
+accumulation, round the correlation to bfloat16 (after the per-position grid
+scale, where there is one), run the y-tents in bfloat16 whatever the model's
+dtype, and apply the per-query and per-frame scales to the float32 output.
+The quantizers are plain PyTorch on every device (one reduction and one
+elementwise pass each); the integer product and the tents are the kernels
+`corr_tents_q8_forward` of the same source on CUDA tensors, and the plain
+versions `corr_tent_patches_*quantized_reference` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,12 +31,19 @@ import torch
 
 from tapnet_tpu_torch.ops import _build
 
-# Number of CUDA kernel launches made through `corr_tent_patches`.
+# Number of CUDA kernel launches made through `corr_tent_patches`: the float
+# kernel, the int8 kernel with a scale per frame (also reached through
+# `corr_tent_patches_prequantized`), and the int8 kernel with a scale per
+# grid position.
 LAUNCHES = 0
+LAUNCHES_Q8_FRAME = 0
+LAUNCHES_Q8_POSITION = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "corr_tents_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "corr_tents_q8_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -63,15 +81,96 @@ def corr_tent_patches_reference(
   return pat.permute(0, 2, 3, 1)
 
 
-def _launch(grid, query, cy, cx, p):
-  global LAUNCHES
+def _quantize_lastdim(v: torch.Tensor, eps: float = 1e-8):
+  """Symmetric per-row int8 quantization over the last axis.
+
+  Returns (int8 values, float32 scale without the last axis). Divides by the
+  scale and rounds half to even.
+  """
+  vf = v.float()
+  scale = torch.clamp(vf.abs().amax(-1), min=eps) * (1.0 / 127.0)
+  q = torch.clamp(torch.round(vf / scale[..., None]), -127.0, 127.0)
+  return q.to(torch.int8), scale
+
+
+def quantize_per_frame(grid: torch.Tensor):
+  """Pre-quantizes feature grids for the per-frame int8 correlation mode.
+
+  [..., H, W, C] -> (int8 grid, float32 scalar scale per leading index).
+  Call it once per video, outside the chunk and iteration loops: the result
+  is what `corr_tent_patches_prequantized` takes.
+  """
+  gf = grid.float()
+  amax = torch.clamp(gf.abs().amax((-3, -2, -1), keepdim=True), min=1e-8)
+  q = torch.clamp(torch.round(gf * (127.0 / amax)), -127.0, 127.0)
+  return q.to(torch.int8), (amax * (1.0 / 127.0)).reshape(grid.shape[:-3])
+
+
+def _int8_corr(grid_q8: torch.Tensor, query_q8: torch.Tensor) -> torch.Tensor:
+  """int8 [BT, H, W, C] x int8 [BT, N, C] -> int32 [BT, N, H, W], exact: an
+  int32 einsum on the CPU; on the card, where PyTorch has no integer matmul,
+  a float64 one, which holds every partial sum (at most C * 127^2)."""
+  wide = torch.int32 if grid_q8.device.type == "cpu" else torch.float64
+  corr = torch.einsum("bhwc,bnc->bnhw", grid_q8.to(wide), query_q8.to(wide))
+  return corr.to(torch.int32)
+
+
+def _bf16_tents(corrs, scale, cy, cx, p):
+  """bfloat16 correlation [BT, N, H, W] -> [BT, p, p, N] float32 patches:
+  bfloat16 tent weights, the y-stage summed in float32 and rounded to
+  bfloat16, the x-stage summed in float32, then the per-(frame, query)
+  `scale` [BT, N] on the output."""
+  h, w = corrs.shape[2:]
+  wy = _tent_weights(cy.float(), h, p).to(torch.bfloat16)
+  wx = _tent_weights(cx.float(), w, p).to(torch.bfloat16)
+  pat = torch.einsum("bnph,bnhw->bnpw", wy.float(), corrs.float())
+  pat = pat.to(torch.bfloat16)
+  pat = torch.einsum("bnqw,bnpw->bnpq", wx.float(), pat.float())
+  pat = pat * scale[:, :, None, None]
+  return pat.permute(0, 2, 3, 1)
+
+
+def corr_tent_patches_prequantized_reference(
+    grid_q8: torch.Tensor,
+    frame_scale: torch.Tensor,
+    query: torch.Tensor,
+    cy: torch.Tensor,
+    cx: torch.Tensor,
+    p: int = 7,
+) -> torch.Tensor:
+  """Plain version of the pre-quantized per-frame path: int32 correlation
+  rounded straight to bfloat16, bfloat16 tents, every scale on the output."""
+  qq, qs = _quantize_lastdim(query)
+  corrs = _int8_corr(grid_q8, qq).to(torch.bfloat16)
+  return _bf16_tents(corrs, qs * frame_scale[:, None], cy, cx, p)
+
+
+def corr_tent_patches_quantized_reference(
+    grid: torch.Tensor,
+    query: torch.Tensor,
+    cy: torch.Tensor,
+    cx: torch.Tensor,
+    p: int = 7,
+    per_frame: bool = False,
+) -> torch.Tensor:
+  """Plain version of the inline int8 modes: the grid quantized per position
+  (or per frame, with one scale), the query per descriptor, the grid scales
+  applied to the int32 correlation in float32 before it is rounded to
+  bfloat16, the query scales on the output."""
+  if per_frame:
+    gq, frame_scale = quantize_per_frame(grid)
+    gs = frame_scale[:, None, None].expand(grid.shape[:3])
+  else:
+    gq, gs = _quantize_lastdim(grid)  # [BT, H, W]
+  qq, qs = _quantize_lastdim(query)  # [BT, N]
+  corrs = (_int8_corr(gq, qq).float() * gs[:, None]).to(torch.bfloat16)
+  return _bf16_tents(corrs, qs, cy, cx, p)
+
+
+def _check_launch(grid, query, cy, cx, p, extra=()):
+  """Raises on what the CUDA kernels do not take; returns (bt, h, w, c, n)."""
   if p != 7:
     raise ValueError(f"The CUDA corr-tents kernel is built for p=7, got {p}.")
-  if grid.dtype not in _DTYPES or query.dtype != grid.dtype:
-    raise TypeError(
-        f"grid/query must share float32 or bfloat16, got {grid.dtype}, "
-        f"{query.dtype}"
-    )
   if cy.dtype != torch.float32 or cx.dtype != torch.float32:
     raise TypeError("cy/cx must be float32")
   bt, h, w, c = grid.shape
@@ -81,11 +180,22 @@ def _launch(grid, query, cy, cx, p):
         f"shapes grid {tuple(grid.shape)}, query {tuple(query.shape)}, "
         f"cy {tuple(cy.shape)}, cx {tuple(cx.shape)}"
     )
-  tensors = (grid, query, cy, cx)
+  tensors = (grid, query, cy, cx) + tuple(extra)
   if any(t.device != grid.device for t in tensors):
     raise ValueError("corr_tent_patches inputs must share one CUDA device")
   if not all(t.is_contiguous() for t in tensors):
     raise ValueError("corr_tent_patches inputs must be contiguous")
+  return bt, h, w, c, n
+
+
+def _launch(grid, query, cy, cx, p):
+  global LAUNCHES
+  if grid.dtype not in _DTYPES or query.dtype != grid.dtype:
+    raise TypeError(
+        f"grid/query must share float32 or bfloat16, got {grid.dtype}, "
+        f"{query.dtype}"
+    )
+  bt, h, w, c, n = _check_launch(grid, query, cy, cx, p)
   lib = _build.load("corr_tents", _SIGNATURES)
   out = torch.empty((bt, p, p, n), dtype=torch.float32, device=grid.device)
   stream = torch.cuda.current_stream(grid.device).cuda_stream
@@ -99,12 +209,54 @@ def _launch(grid, query, cy, cx, p):
   return out
 
 
+def _launch_q8(grid_q8, query_q8, out_scale, pos_scale, cy, cx, p):
+  """Launches the int8 kernel. out_scale [BT, N] multiplies the output;
+  pos_scale [BT, H, W] (or None) multiplies the int32 correlation in float32
+  before it is rounded to bfloat16."""
+  global LAUNCHES_Q8_FRAME, LAUNCHES_Q8_POSITION
+  if grid_q8.dtype != torch.int8 or query_q8.dtype != torch.int8:
+    raise TypeError(
+        f"int8 corr-tents needs int8 grid/query, got {grid_q8.dtype}, "
+        f"{query_q8.dtype}"
+    )
+  extra = (out_scale,) if pos_scale is None else (out_scale, pos_scale)
+  if any(t.dtype != torch.float32 for t in extra):
+    raise TypeError("int8 corr-tents scales must be float32")
+  bt, h, w, c, n = _check_launch(grid_q8, query_q8, cy, cx, p, extra)
+  if out_scale.shape != (bt, n) or (
+      pos_scale is not None and pos_scale.shape != (bt, h, w)
+  ):
+    raise ValueError("int8 corr-tents: scale shapes do not match grid/query")
+  if c % 4 or grid_q8.data_ptr() % 4 or query_q8.data_ptr() % 4:
+    raise ValueError(
+        "int8 corr-tents kernel needs C a multiple of 4 and 4-byte aligned "
+        f"grid/query, got C={c}"
+    )
+  lib = _build.load("corr_tents", _SIGNATURES)
+  out = torch.empty((bt, p, p, n), dtype=torch.float32, device=grid_q8.device)
+  stream = torch.cuda.current_stream(grid_q8.device).cuda_stream
+  with torch.cuda.device(grid_q8.device):
+    err = lib.corr_tents_q8_forward(
+        grid_q8.data_ptr(), query_q8.data_ptr(),
+        0 if pos_scale is None else pos_scale.data_ptr(),
+        out_scale.data_ptr(), cy.data_ptr(), cx.data_ptr(), out.data_ptr(),
+        bt, h, w, c, n, p, stream,
+    )
+  _build.check(lib, err, "corr_tents_q8_forward")
+  if pos_scale is None:
+    LAUNCHES_Q8_FRAME += 1
+  else:
+    LAUNCHES_Q8_POSITION += 1
+  return out
+
+
 def corr_tent_patches(
     grid: torch.Tensor,
     query: torch.Tensor,
     cy: torch.Tensor,
     cx: torch.Tensor,
     p: int = 7,
+    quantized: "bool | str" = False,
 ) -> torch.Tensor:
   """Correlation patches around track positions.
 
@@ -112,13 +264,63 @@ def corr_tent_patches(
     grid: [BT, H, W, C] feature grids (one per (batch, frame)).
     query: [BT, N, C] per-frame query descriptors, grid's dtype.
     cy / cx: [BT, N] float32 patch centres in grid index space.
-    p: patch size (odd; the CUDA kernel is built for 7).
+    p: patch size (odd; the CUDA kernels are built for 7).
+    quantized: int8 correlation with int32 accumulation. "per_frame": one
+      grid scale per frame and one per query descriptor, all applied to the
+      output (quantizes the grid in this call; a caller that reuses grids
+      quantizes them once with `quantize_per_frame` and calls
+      `corr_tent_patches_prequantized`). True: one grid scale per position,
+      applied to the correlation before the tents mix positions. The tents
+      run in bfloat16 in both.
 
   Returns:
     [BT, p, p, N] float32 tent-interpolated correlation patches.
   """
-  if grid.device.type == "cpu":
-    return corr_tent_patches_reference(grid, query, cy, cx, p)
-  if grid.device.type == "cuda":
+  if quantized not in (False, True, "per_frame"):
+    raise ValueError(f"corr_tent_patches: quantized={quantized!r}")
+  device = grid.device.type
+  if device not in ("cpu", "cuda"):
+    raise ValueError(f"corr_tent_patches: unsupported device {grid.device}")
+  if not quantized:
+    if device == "cpu":
+      return corr_tent_patches_reference(grid, query, cy, cx, p)
     return _launch(grid, query, cy, cx, p)
-  raise ValueError(f"corr_tent_patches: unsupported device {grid.device}")
+  if quantized == "per_frame":
+    return corr_tent_patches_prequantized(
+        *quantize_per_frame(grid), query, cy, cx, p
+    )
+  if device == "cpu":
+    return corr_tent_patches_quantized_reference(grid, query, cy, cx, p)
+  gq, gs = _quantize_lastdim(grid)
+  qq, qs = _quantize_lastdim(query)
+  return _launch_q8(gq, qq, qs, gs, cy, cx, p)
+
+
+def corr_tent_patches_prequantized(
+    grid_q8: torch.Tensor,
+    frame_scale: torch.Tensor,
+    query: torch.Tensor,
+    cy: torch.Tensor,
+    cx: torch.Tensor,
+    p: int = 7,
+) -> torch.Tensor:
+  """Per-frame int8 correlation patches from a pre-quantized grid.
+
+  Args:
+    grid_q8: [BT, H, W, C] int8 (from `quantize_per_frame`).
+    frame_scale: [BT] float32 per-frame scales.
+    query / cy / cx / p: as `corr_tent_patches`; the query is quantized per
+      descriptor in this call.
+  """
+  device = grid_q8.device.type
+  if device == "cpu":
+    return corr_tent_patches_prequantized_reference(
+        grid_q8, frame_scale, query, cy, cx, p
+    )
+  if device == "cuda":
+    qq, qs = _quantize_lastdim(query)
+    out_scale = (qs * frame_scale[:, None]).contiguous()
+    return _launch_q8(grid_q8, qq, out_scale, None, cy, cx, p)
+  raise ValueError(
+      f"corr_tent_patches_prequantized: unsupported device {grid_q8.device}"
+  )

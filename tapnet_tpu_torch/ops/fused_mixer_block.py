@@ -14,6 +14,16 @@ w1 [C, H], b1 [H], w2 [H, C], b2 [C].
     layout: for the transposed view of a Linear weight that `w1.t()` gives,
     that is the weight's own storage, so no copy is made.
   * Anything else raises. There is no size gate and no fallback.
+
+`quantized=True` runs the channel MLP in w8a8 int8 (`mixer_math.mlp_math_q8`):
+the temporal half stays in full precision, LN2's float32 output is quantized
+per row, both products are int8 x int8 -> int32, the hidden is quantized per
+row from its float32 value, and dequantization, bias, GELU and the residual
+are float32. The caller passes the weights already quantized
+(`mixer_math.quantize_weight_cols`) as `qweights=(w1q, s1, w2q, s2)`, so a
+module quantizes them once and not per call; without `qweights` they are
+quantized here. On CUDA tensors this is the kernel `mixer_block_q8_forward`
+of the same source.
 """
 
 from __future__ import annotations
@@ -26,18 +36,31 @@ import torch.nn.functional as F
 
 from tapnet_tpu_torch.ops import _build, mixer_math
 
-# Number of CUDA launches of the block kernel made through `mixer_block`.
+# Number of CUDA launches of the block kernel made through `mixer_block`:
+# the full-precision block, and the block with the w8a8 channel MLP.
 LAUNCHES = 0
+LAUNCHES_Q8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "mixer_block_forward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
+    "mixer_block_q8_forward": [ctypes.c_void_p] * 21 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
 }
 
 
+def _quantized_weights(w1, w2, qweights):
+  """(w1q [C, H], s1 [H], w2q [H, C], s2 [C]): `qweights`, or w1 and w2
+  quantized per output column."""
+  if qweights is not None:
+    return qweights
+  return (*mixer_math.quantize_weight_cols(w1),
+          *mixer_math.quantize_weight_cols(w2))
+
+
 def _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal,
-                     valid_len):
+                     valid_len, quantized=False, qweights=None):
   """The plain block's temporal output h, x1 = x + h and out = x1 + MLP(x1),
   each [B, valid_len, C] in x.dtype."""
   if valid_len is not None and valid_len != x.shape[1]:
@@ -47,21 +70,71 @@ def _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal,
   )
   x1 = x + h
   b, t, c = x1.shape
-  out = mixer_math.mlp_math(x1.reshape(b * t, c), g2, w1, b1, w2, b2)
+  rows = x1.reshape(b * t, c)
+  if quantized:
+    w1q, s1, w2q, s2 = _quantized_weights(w1, w2, qweights)
+    out = mixer_math.mlp_math_q8(rows, g2, w1q, s1, b1, w2q, s2, b2)
+  else:
+    out = mixer_math.mlp_math(rows, g2, w1, b1, w2, b2)
   return h, x1, out.reshape(b, t, c)
+
+
+# Share of a row's int8 hidden values that `q8_error_limit` lets the kernel
+# and the plain version hold one step apart.
+Q8_FLIP_SHARE = 0.25
+
+
+def q8_error_limit(
+    x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal: bool = False,
+    valid_len: Optional[int] = None, qweights=None,
+):
+  """Per-element limit [B, T, C] float32 on |kernel - plain| for the block
+  with the w8a8 channel MLP, and the plain version's int8 operand and
+  hidden [B * valid_len, C] / [B * valid_len, H] to count flips against.
+
+  Integer arithmetic is exact on both sides, so the two differ only where a
+  value was quantized from inputs that differ: the float32 LayerNorms sum in
+  another order (1e-7 relative), and in bfloat16 the kernel keeps LN1's
+  output in float32 where the plain version rounds it, so h and x1 can land
+  a bfloat16 step apart. A value next to a rounding boundary then takes the
+  neighbouring int8 step. One step of one hidden value moves y[row, col] by
+  hs[row] * |w2q[k, col]| * s2[col]; if a share Q8_FLIP_SHARE of a row's
+  hidden values flip with independent signs, y moves by about
+  sqrt(share) * hs[row] * ||w2q[:, col]|| * s2[col]. The limit is four such
+  deviations, on top of the full-precision block's allowance: in bfloat16
+  two steps of each value the two sides round separately (as
+  `bf16_error_limit`), in float32 1e-4 absolute and relative. Rows >=
+  valid_len get limit 0.
+  """
+  w1q, s1, w2q, s2 = qweights = _quantized_weights(w1, w2, qweights)
+  h, x1, _ = _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2,
+                              causal, valid_len, True, qweights)
+  b, t, c = x1.shape
+  out, xq, hq, hs = mixer_math.mlp_math_q8_parts(
+      x1.reshape(b * t, c), g2, w1q, s1, b1, w2q, s2, b2)
+  h, x1, out = h.float(), x1.float(), out.float().reshape(b, t, c)
+  if x.dtype == torch.bfloat16:
+    y_rms = (out - x1).square().mean(-1, keepdim=True).sqrt()
+    limit = 2 * 2.0**-7 * (h.abs() + x1.abs() + out.abs() + y_rms)
+  else:
+    limit = 1e-4 * (1 + out.abs())
+  col = torch.linalg.vector_norm(w2q.float(), dim=0) * s2  # [C]
+  limit = limit + 4 * Q8_FLIP_SHARE**0.5 * (hs * col).reshape(b, t, c)
+  return F.pad(limit, (0, 0, 0, x.shape[1] - t)), xq, hq
 
 
 def mixer_block_reference(
     x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal: bool = False,
-    valid_len: Optional[int] = None,
+    valid_len: Optional[int] = None, quantized: bool = False, qweights=None,
 ):
   """Plain version of the whole block. x: [B, T, C].
 
   With `valid_len`, rows >= valid_len are padding: ignored on input and
-  exactly zero on output.
+  exactly zero on output. With `quantized`, the channel MLP is
+  `mixer_math.mlp_math_q8` on x1.
   """
   _, _, y = _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2,
-                             causal, valid_len)
+                             causal, valid_len, quantized, qweights)
   return F.pad(y, (0, 0, 0, x.shape[1] - y.shape[1]))
 
 
@@ -90,23 +163,22 @@ def bf16_error_limit(
   return F.pad(limit, (0, 0, 0, x.shape[1] - limit.shape[1]))
 
 
-def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
-  global LAUNCHES
+def _check_launch(x, g1, wu, bu, wm, bm, g2, b1, b2, hid, valid_len):
+  """Raises on what the CUDA kernels do not take; returns (b, t, t_real, c,
+  mult, k)."""
   if x.dtype not in _DTYPES:
     raise TypeError(f"mixer_block: x must be float32 or bfloat16, got {x.dtype}")
   b, t, c = x.shape
   k = wu.shape[0]
   mult = wu.shape[-1] // c
-  hid = w1.shape[1]
   if k != 3:
     raise ValueError(f"The CUDA mixer-block kernel is built for k=3, got {k}.")
   expected = {
       "g1": (c,), "wu": (k, 1, mult * c), "bu": (mult * c,),
       "wm": (k, 1, mult * c), "bm": (mult * c,), "g2": (c,),
-      "w1": (c, hid), "b1": (hid,), "w2": (hid, c), "b2": (c,),
+      "b1": (hid,), "b2": (c,),
   }
-  params = dict(g1=g1, wu=wu, bu=bu, wm=wm, bm=bm, g2=g2, w1=w1, b1=b1,
-                w2=w2, b2=b2)
+  params = dict(g1=g1, wu=wu, bu=bu, wm=wm, bm=bm, g2=g2, b1=b1, b2=b2)
   for name, shape in expected.items():
     p = params[name]
     if tuple(p.shape) != shape or p.dtype != x.dtype or p.device != x.device:
@@ -114,17 +186,30 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
           f"mixer_block: {name} is {tuple(p.shape)} {p.dtype} on {p.device}, "
           f"expected {shape} {x.dtype} on {x.device}"
       )
-  if x.dtype == torch.bfloat16 and (c % 8 or hid % 8):
-    raise ValueError("mixer_block: bf16 kernel needs C and H multiples of 8")
+  if not all(o.is_contiguous() for o in (x, *params.values())):
+    raise ValueError("mixer_block: x and the block parameters must be contiguous")
   t_real = t if valid_len is None else int(valid_len)
   if not 0 <= t_real <= t:
     raise ValueError(f"mixer_block: valid_len {valid_len} outside [0, {t}]")
+  return b, t, t_real, c, mult, k
+
+
+def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
+  global LAUNCHES
+  hid = w1.shape[1]
+  b, t, t_real, c, mult, k = _check_launch(
+      x, g1, wu, bu, wm, bm, g2, b1, b2, hid, valid_len)
+  for name, w, shape in (("w1", w1, (c, hid)), ("w2", w2, (hid, c))):
+    if tuple(w.shape) != shape or w.dtype != x.dtype or w.device != x.device:
+      raise ValueError(
+          f"mixer_block: {name} is {tuple(w.shape)} {w.dtype} on {w.device}, "
+          f"expected {shape} {x.dtype} on {x.device}"
+      )
+  if x.dtype == torch.bfloat16 and (c % 8 or hid % 8):
+    raise ValueError("mixer_block: bf16 kernel needs C and H multiples of 8")
   # Linear layout [out, in]: a view back onto the Linear weight's storage.
   w1_t = w1.t().contiguous()
   w2_t = w2.t().contiguous()
-  operands = [x, g1, wu, bu, wm, bm, g2, w1_t, b1, w2_t, b2]
-  if not all(o.is_contiguous() for o in operands):
-    raise ValueError("mixer_block: x and the block parameters must be contiguous")
   if x.dtype == torch.bfloat16 and any(o.data_ptr() % 16 for o in (w1_t, w2_t)):
     raise ValueError("mixer_block: bf16 weights must be 16-byte aligned")
 
@@ -136,7 +221,7 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
   stream = torch.cuda.current_stream(x.device).cuda_stream
   with torch.cuda.device(x.device):
     err = lib.mixer_block_forward(
-        *[o.data_ptr() for o in operands],
+        *[o.data_ptr() for o in (x, g1, wu, bu, wm, bm, g2, w1_t, b1, w2_t, b2)],
         x1.data_ptr(), mlp_in.data_ptr(), hidden.data_ptr(), out.data_ptr(),
         b, t, t_real, c, hid, mult, k, int(bool(causal)), _DTYPES[x.dtype],
         stream,
@@ -146,9 +231,67 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
   return out
 
 
+def _launch_q8(x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, causal, valid_len,
+               scratch=None):
+  """The block with the w8a8 channel MLP on the card. If `scratch` is a dict,
+  the kernels' intermediate tensors are left in it (x1, the int8 operand and
+  hidden with their row scales), for checks."""
+  global LAUNCHES_Q8
+  w1q, s1, w2q, s2 = qweights
+  hid = w1q.shape[1]
+  b, t, t_real, c, mult, k = _check_launch(
+      x, g1, wu, bu, wm, bm, g2, b1, b2, hid, valid_len)
+  expected = {
+      "w1q": (w1q, (c, hid), torch.int8), "s1": (s1, (hid,), torch.float32),
+      "w2q": (w2q, (hid, c), torch.int8), "s2": (s2, (c,), torch.float32),
+  }
+  for name, (p, shape, dtype) in expected.items():
+    if tuple(p.shape) != shape or p.dtype != dtype or p.device != x.device:
+      raise ValueError(
+          f"mixer_block: {name} is {tuple(p.shape)} {p.dtype} on {p.device}, "
+          f"expected {shape} {dtype} on {x.device}"
+      )
+  if c % 16 or hid % 16:
+    raise ValueError("mixer_block: int8 kernel needs C and H multiples of 16")
+  # Linear layout [out, in]; no copy when the caller kept that storage.
+  w1q_t = w1q.t().contiguous()
+  w2q_t = w2q.t().contiguous()
+  s1, s2 = s1.contiguous(), s2.contiguous()
+  if any(o.data_ptr() % 16 for o in (w1q_t, w2q_t)):
+    raise ValueError("mixer_block: int8 weights must be 16-byte aligned")
+
+  lib = _build.load("fused_mixer_block", _SIGNATURES)
+  dev = x.device
+  rows = b * t
+  # Scratch comes from PyTorch's caching allocator: a stack of blocks takes
+  # back, at each call, what the previous block's call released.
+  x1 = torch.empty_like(x)
+  xq = torch.empty((rows, c), dtype=torch.int8, device=dev)
+  xs = torch.empty((rows,), dtype=torch.float32, device=dev)
+  hidden = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+  hmax = torch.empty((rows,), dtype=torch.int32, device=dev)
+  hq = torch.empty((rows, hid), dtype=torch.int8, device=dev)
+  hs = torch.empty((rows,), dtype=torch.float32, device=dev)
+  out = torch.empty_like(x)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  operands = (x, g1, wu, bu, wm, bm, g2, w1q_t, s1, b1, w2q_t, s2, b2,
+              x1, xq, xs, hidden, hmax, hq, hs, out)
+  with torch.cuda.device(dev):
+    err = lib.mixer_block_q8_forward(
+        *[o.data_ptr() for o in operands],
+        b, t, t_real, c, hid, mult, k, int(bool(causal)), _DTYPES[x.dtype],
+        stream,
+    )
+  _build.check(lib, err, "mixer_block_q8_forward")
+  LAUNCHES_Q8 += 1
+  if scratch is not None:
+    scratch.update(x1=x1, xq=xq, xs=xs, hidden=hidden, hq=hq, hs=hs)
+  return out
+
+
 def mixer_block(
     x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal: bool = False,
-    valid_len: Optional[int] = None,
+    valid_len: Optional[int] = None, quantized: bool = False, qweights=None,
 ):
   """Mixer block: x += dwconv(LN(x)); x += MLP(LN(x)).
 
@@ -161,15 +304,26 @@ def mixer_block(
     causal: causal (left-only) vs SAME temporal padding.
     valid_len: if set, rows >= valid_len are padding: ignored on input,
       exactly zero on output.
+    quantized: run the channel MLP in w8a8 int8 (the temporal half and the
+      LayerNorms stay in full precision).
+    qweights: with `quantized`, the weights already quantized per output
+      column, (w1q int8 [C, H], s1 float32 [H], w2q int8 [H, C], s2 float32
+      [C]) from `mixer_math.quantize_weight_cols`; w1 and w2 are then not
+      read and may be None. Without it they are quantized in this call.
 
   Returns:
     [B, T, C], same dtype as x.
   """
   if x.device.type == "cpu":
     return mixer_block_reference(
-        x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len
+        x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len,
+        quantized, qweights,
     )
   if x.device.type == "cuda":
+    if quantized:
+      return _launch_q8(x, g1, wu, bu, wm, bm, g2, b1, b2,
+                        _quantized_weights(w1, w2, qweights), causal,
+                        valid_len)
     return _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal,
                    valid_len)
   raise ValueError(f"mixer_block: unsupported device {x.device}")

@@ -1,9 +1,9 @@
 """Plain PyTorch math of the PIPs-mixer sub-blocks.
 
-Port of tapnet_tpu/ops/mixer_math.py (float path): the depthwise temporal
-conv pair and the residual channel MLP. These are the plain versions that
-`ops.fused_mixer_block.mixer_block` runs on CPU tensors and that its CUDA
-kernel is held against. Layouts are the JAX ones: depthwise kernels
+Port of tapnet_tpu/ops/mixer_math.py: the depthwise temporal conv pair, the
+residual channel MLP, and its w8a8 int8 form with its quantizers. These are
+the plain versions that `ops.fused_mixer_block.mixer_block` runs on CPU
+tensors and that its CUDA kernels are held against. Layouts are the JAX ones: depthwise kernels
 [k, 1, mult*C] with c-major flat index c*mult + m, dense weights [in, out].
 GELU is the tanh approximation; accumulations are float32.
 """
@@ -100,3 +100,84 @@ def mlp_math(
   h = gelu(h).to(x.dtype)
   y = torch.matmul(h.float(), w2.float()) + b2.float()
   return x + y.to(x.dtype)
+
+
+def quantize_rows(x: torch.Tensor):
+  """Symmetric per-row int8 quantization of float32 activations.
+
+  Returns (q int8 [..., C], scale float32 [..., 1]) with q * scale ~= x.
+  Rounds half to even; a zero row gets amax 1e-8.
+  """
+  amax = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-8)
+  q = torch.clamp(torch.round(x * (127.0 / amax)), -127.0, 127.0)
+  return q.to(torch.int8), amax * (1.0 / 127.0)
+
+
+def quantize_weight_cols(w: torch.Tensor):
+  """Symmetric per-output-column int8 quantization of an [in, out] weight.
+
+  Returns (q int8 [in, out], scale float32 [out]).
+  """
+  wf = w.float()
+  scale = torch.clamp(wf.abs().amax(0), min=1e-8) * (1.0 / 127.0)
+  q = torch.clamp(torch.round(wf / scale), -127.0, 127.0).to(torch.int8)
+  return q, scale
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """int8 [M, K] x int8 [K, N] -> int32 [M, N], exact.
+
+  On the CPU this is an int32 matmul. The plain versions also run on the
+  card, as the yardstick the kernels are checked against; integer matmuls
+  have no CUDA implementation in PyTorch, so there the product runs in
+  float64, which holds every partial sum (at most K * 127^2) exactly.
+  """
+  if a.device.type == "cpu":
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+  return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def mlp_math_q8_parts(x, ln_scale, w1q, s1, b1, w2q, s2, b2):
+  """`mlp_math_q8` with its integer intermediates: (output, int8 operand
+  [..., C], int8 hidden [..., H], hidden row scale [..., 1])."""
+  xf = x.float()
+  mu = xf.mean(-1, keepdim=True)
+  var = (xf - mu).square().mean(-1, keepdim=True)
+  xn = (xf - mu) * torch.rsqrt(var + _LN_EPS)
+  xn = xn * ln_scale.float()
+  xq, xs = quantize_rows(xn)
+  acc = int8_matmul(xq, w1q)
+  h = acc.float() * (xs * s1) + b1.float()
+  h = gelu(h)
+  hq, hs = quantize_rows(h)
+  acc2 = int8_matmul(hq, w2q)
+  y = acc2.float() * (hs * s2) + b2.float()
+  return x + y.to(x.dtype), xq, hq, hs
+
+
+def mlp_math_q8(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    w1q: torch.Tensor,
+    s1: torch.Tensor,
+    b1: torch.Tensor,
+    w2q: torch.Tensor,
+    s2: torch.Tensor,
+    b2: torch.Tensor,
+) -> torch.Tensor:
+  """Quantized (w8a8) residual channel MLP: LN in float32, symmetric per-row
+  dynamic activation scales, per-output-column weight scales, int32
+  accumulation, dequantization + bias + GELU in float32. The hidden is
+  quantized from its float32 value.
+
+  Args:
+    x: [..., C] tokens, any float dtype.
+    ln_scale: [C] scale-only LayerNorm scale.
+    w1q / w2q: int8 [C, H] / [H, C] pre-quantized weights.
+    s1 / s2: float32 [H] / [C] per-column weight scales.
+    b1 / b2: [H] / [C] biases (float).
+
+  Returns:
+    [..., C], same dtype as x.
+  """
+  return mlp_math_q8_parts(x, ln_scale, w1q, s1, b1, w2q, s2, b2)[0]

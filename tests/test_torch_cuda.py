@@ -1,5 +1,6 @@
 """PyTorch port, CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes (the main-path shapes are held in chip_smoke.py).
+at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
+the full-precision corr-tents and mixer-block kernels and their int8 forms.
 
 Marked `gpu`: skips without a CUDA card. This file imports no JAX, so it also
 runs where only the port is installed:
@@ -12,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block
+from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block, mixer_math
 
 pytestmark = pytest.mark.gpu
 
@@ -96,3 +97,143 @@ def test_mixer_block_kernel_matches_plain(cuda, dtype, causal, b, t, valid_len,
     assert (err <= limit).all(), float((err / limit.clamp_min(1e-30)).max())
   if valid_len is not None:
     assert not out[:, valid_len:].any()
+
+
+# ------------------------------------------------------------- int8 kernels
+
+# The int8 corr-tents kernel and its plain version make the same roundings at
+# the same points: an exact integer correlation, one rounding to bf16 (after
+# the float32 grid scale, where there is one), bf16 tent weights, float32
+# sums of two exact products per stage, the y-stage rounded to bf16, one
+# float32 multiply by the output scale. Both quantize with the same PyTorch
+# code. So the two agree to float32 rounding: 1e-6 relative, with an absolute
+# floor of 1e-6 of the largest value.
+CORR_Q8_RTOL = 1e-6
+
+
+def _corr_args(cuda, dtype, bt, h, w, c, n):
+  rng = np.random.RandomState(0)
+  grid = rng.randn(bt, h, w, c).astype(np.float32)
+  grid /= np.linalg.norm(grid, axis=-1, keepdims=True)
+  # Frames and positions of very different size, so the scales matter.
+  grid *= (rng.rand(bt, h, w, 1) * 3 + 0.1).astype(np.float32)
+  query = rng.randn(bt, n, c).astype(np.float32)
+  query *= (rng.rand(bt, n, 1) * 2 + 0.1).astype(np.float32) / np.sqrt(c)
+  cy = (rng.rand(bt, n) * (h + 8) - 4).astype(np.float32)
+  cx = (rng.rand(bt, n) * (w + 8) - 4).astype(np.float32)
+  tdt = DTYPES[dtype]
+  return [torch.from_numpy(grid).to(cuda, tdt),
+          torch.from_numpy(query).to(cuda, tdt),
+          torch.from_numpy(cy).to(cuda), torch.from_numpy(cx).to(cuda)]
+
+
+# C = 40: word-wise loop at a width that is no power of two; 16 and 32: the
+# small configurations' widths, word-wise; 64: the narrowest row-wise width
+# (one 512-byte pass per window row); 128 and 256: the full widths.
+CORR_Q8_SHAPES = [
+    (3, 12, 10, 40, 5), (2, 39, 17, 128, 70), (2, 9, 30, 256, 13),
+    (2, 11, 9, 16, 9), (2, 8, 13, 32, 11), (2, 10, 12, 64, 10),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position"])
+@pytest.mark.parametrize(
+    "bt,h,w,c,n", CORR_Q8_SHAPES,
+    ids=["tiny", "ragged", "wide", "c16", "c32", "c64"],
+)
+def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
+  grid, query, cy, cx = _corr_args(cuda, dtype, bt, h, w, c, n)
+  frame = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
+  if mode == "prequantized":
+    gq, gs = corr_tents.quantize_per_frame(grid)
+    out = corr_tents.corr_tent_patches_prequantized(gq, gs, query, cy, cx, 7)
+    ref = corr_tents.corr_tent_patches_prequantized_reference(
+        gq, gs, query, cy, cx, 7)
+  elif mode == "per_frame":
+    out = corr_tents.corr_tent_patches(grid, query, cy, cx, 7, "per_frame")
+    ref = corr_tents.corr_tent_patches_prequantized_reference(
+        *corr_tents.quantize_per_frame(grid), query, cy, cx, 7)
+  else:
+    out = corr_tents.corr_tent_patches(grid, query, cy, cx, 7, True)
+    ref = corr_tents.corr_tent_patches_quantized_reference(
+        grid, query, cy, cx, 7)
+  torch.cuda.synchronize()
+  after = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
+  expected = (0, 1) if mode == "per_position" else (1, 0)
+  assert (after[0] - frame[0], after[1] - frame[1]) == expected
+  assert out.shape == (bt, 7, 7, n) and out.dtype == torch.float32
+  assert float(ref.abs().max()) > 0.05
+  torch.testing.assert_close(
+      out, ref, rtol=CORR_Q8_RTOL, atol=CORR_Q8_RTOL * float(ref.abs().max()))
+  # The float kernel on the same inputs: the int8 result is that, quantized.
+  full = corr_tents.corr_tent_patches(grid, query, cy, cx, 7)
+  assert float((out - full).abs().max()) < 0.05 * float(full.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "b,t,valid_len,c,hid", [(3, 13, None, 64, 256), (5, 37, 30, 128, 512),
+                            (2, 150, 141, 48, 208)],
+    ids=["one_tile", "tiles_valid_len", "ragged_widths"],
+)
+def test_mixer_block_q8_kernel_matches_plain(cuda, dtype, causal, b, t,
+                                             valid_len, c, hid):
+  """The w8a8 block against its plain version. Limit per element:
+  `fused_mixer_block.q8_error_limit` (the full-precision allowance plus four
+  deviations of a quarter of a row's hidden values one int8 step apart). The
+  int8 operand and hidden themselves: at most a quarter of them apart at
+  all, and at most 1% more than one step apart (a row whose scale differs
+  moves its large values by a few steps)."""
+  rng = np.random.RandomState(1)
+  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+  args = [
+      f(b, t, c) * 0.5, f(c) * 0.2 + 1, f(3, 1, 4 * c) * 0.3, f(4 * c) * 0.1,
+      f(3, 1, 4 * c) * 0.3, f(4 * c) * 0.1, f(c) * 0.2 + 1,
+      f(c, hid) * 0.1, f(hid) * 0.1, f(hid, c) * 0.1, f(c) * 0.1,
+  ]
+  args = [a.to(cuda, DTYPES[dtype]) for a in args]
+  before = (fused_mixer_block.LAUNCHES, fused_mixer_block.LAUNCHES_Q8)
+  out = fused_mixer_block.mixer_block(*args, causal, valid_len, quantized=True)
+  torch.cuda.synchronize()
+  assert (fused_mixer_block.LAUNCHES, fused_mixer_block.LAUNCHES_Q8) == (
+      before[0], before[1] + 1)
+  ref = fused_mixer_block.mixer_block_reference(
+      *args, causal, valid_len, quantized=True)
+  limit, xq_ref, hq_ref = fused_mixer_block.q8_error_limit(
+      *args, causal, valid_len)
+  err = (out.float() - ref.float()).abs()
+  assert torch.isfinite(out.float()).all()
+  assert (err <= limit).all(), float((err / limit.clamp_min(1e-30)).max())
+  if valid_len is not None:
+    assert not out[:, valid_len:].any()
+
+  # The kernels' own int8 tensors, rows < valid_len.
+  x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2 = args
+  qweights = (*mixer_math.quantize_weight_cols(w1),
+              *mixer_math.quantize_weight_cols(w2))
+  scratch = {}
+  fused_mixer_block._launch_q8(  # pylint: disable=protected-access
+      x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, causal, valid_len, scratch)
+  torch.cuda.synchronize()
+  tv = t if valid_len is None else valid_len
+  for name, ref_q in (("xq", xq_ref), ("hq", hq_ref)):
+    got = scratch[name].reshape(b, t, -1)[:, :tv].reshape(ref_q.shape)
+    step = (got.int() - ref_q.int()).abs()
+    assert float((step > 0).float().mean()) <= 0.25, name
+    assert float((step > 1).float().mean()) <= 0.01, name
+
+
+def test_q8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+  grid = torch.zeros(1, 4, 4, 6, device=cuda)  # C not a multiple of 4
+  query = torch.zeros(1, 2, 6, device=cuda)
+  centre = torch.zeros(1, 2, device=cuda)
+  with pytest.raises(ValueError, match="multiple of 4"):
+    corr_tents.corr_tent_patches(grid, query, centre, centre, 7, True)
+  x = torch.zeros(1, 4, 8, device=cuda)  # C not a multiple of 16
+  p = lambda *s: torch.zeros(*s, device=cuda)
+  with pytest.raises(ValueError, match="multiples of 16"):
+    fused_mixer_block.mixer_block(
+        x, p(8), p(3, 1, 32), p(32), p(3, 1, 32), p(32), p(8), p(8, 32),
+        p(32), p(32, 8), p(8), quantized=True)

@@ -1,5 +1,5 @@
-"""PyTorch port, layers: ResNet, ExtraConvs, PipsMixer and CostVolumeHead
-against the Flax modules at narrow widths, in fp32. Params come from the Flax
+"""PyTorch port, layers: ResNet, ExtraConvs, PipsMixer (full precision and
+w8a8) and CostVolumeHead against the Flax modules at narrow widths, in fp32. Params come from the Flax
 `init`, are perturbed with numpy noise (so zero-initialised convs and unit
 norms do real work), and reach the port through the weight bridge.
 """
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from tapnet_tpu.models import layers as jax_layers
 from tapnet_tpu.models import resnet as jax_resnet
 from tapnet_tpu.models import tapir as jax_tapir
+from tapnet_tpu.ops import mixer_math as jax_mixer_math
 from tapnet_tpu_torch.checkpoints.convert import load_flax_params
 from tapnet_tpu_torch.models import layers, resnet, tapir
 
@@ -98,6 +99,79 @@ def test_pips_mixer_matches_flax(causal):
   with torch.no_grad():
     out = model(torch.from_numpy(x))
   np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+
+
+# The w8a8 mixer: integer arithmetic is exact on both sides and the int8
+# weights are bit equal, so most outputs agree to float32 noise; where that
+# noise moves an activation across a rounding boundary, one int8 step of one
+# value (about 1/127 of a row's largest hidden value times a weight) passes
+# through the remaining blocks. Outputs are O(1).
+Q8_TOL = 2e-2
+
+
+def _quantized_mixer_pair(causal):
+  flax_model = jax_layers.PipsMixer(
+      output_channels=12, hidden_dim=16, num_blocks=2, causal=causal,
+      quantized=True,
+  )
+  x = np.random.RandomState(3).randn(4, 10, 20).astype(np.float32)
+  params = _init(flax_model, jnp.asarray(x))
+  model = layers.PipsMixer(
+      input_channels=20, output_channels=12, hidden_dim=16, num_blocks=2,
+      causal=causal, quantized=True,
+  )
+  load_flax_params(model, params)
+  return flax_model, params, model, x
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_quantized_pips_mixer_matches_flax(causal):
+  flax_model, params, model, x = _quantized_mixer_pair(causal)
+  ref, _ = _apply(flax_model, params, jnp.asarray(x))
+  with torch.no_grad():
+    out = model(torch.from_numpy(x))
+  np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=Q8_TOL, atol=Q8_TOL)
+  assert np.mean(np.abs(out.numpy() - np.asarray(ref)) > 1e-4) < 0.2
+  # It is the full-precision mixer up to quantization noise, and not equal.
+  full = layers.PipsMixer(
+      input_channels=20, output_channels=12, hidden_dim=16, num_blocks=2,
+      causal=causal,
+  )
+  load_flax_params(full, params)
+  with torch.no_grad():
+    diff = (full(torch.from_numpy(x)) - out).abs().max()
+  assert 0 < float(diff) < 0.3
+
+
+def test_quantized_weights_are_cached_and_follow_the_weights():
+  """The int8 weights are made once per module, equal JAX's bit for bit,
+  and are made anew after load_state_dict, an in-place update or .to()."""
+  _, params, model, x = _quantized_mixer_pair(False)
+  block = model.block_0
+  w1q, s1, w2q, s2 = block.quantized_weights()
+  assert block.quantized_weights()[0] is w1q
+  up = params["block_0"]["fc_up"]["kernel"]
+  jq, js = jax_mixer_math.quantize_weight_cols(jnp.asarray(up))
+  np.testing.assert_array_equal(w1q.numpy(), np.asarray(jq))
+  np.testing.assert_array_equal(s1.numpy(), np.asarray(js))
+  assert w1q.shape == (16, 64) and w1q.t().is_contiguous()
+  assert w2q.shape == (64, 16) and w2q.t().is_contiguous()
+  assert "_qweights" not in "".join(model.state_dict())
+
+  with torch.no_grad():
+    before = model(torch.from_numpy(x))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    state["block_0.fc_up.weight"] *= 0.5
+    model.load_state_dict(state)
+    assert block.quantized_weights()[0] is not w1q
+    torch.testing.assert_close(block.quantized_weights()[1], s1 * 0.5)
+    assert not torch.equal(model(torch.from_numpy(x)), before)
+    block.fc_down.weight.mul_(2.0)
+    torch.testing.assert_close(block.quantized_weights()[3], s2 * 2.0)
+    cached = block.quantized_weights()[0]
+    model.to(torch.bfloat16)
+    assert block.quantized_weights()[0] is not cached
+    assert block.quantized_weights()[1].dtype == torch.float32
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (7, 9)], ids=["even", "odd"])

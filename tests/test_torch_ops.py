@@ -1,6 +1,8 @@
 """PyTorch port, kernel modules: the plain versions of corr_tent_patches and
 mixer_block (what the wrappers run on CPU tensors) against the JAX package's
-references and its Pallas kernels in interpret mode, fp32 and bf16.
+references and its Pallas kernels in interpret mode, fp32 and bf16; the int8
+quantizers bit for bit, and the plain int8 versions (per-frame and
+per-position int8 correlation, w8a8 mixer block) against the same.
 
 Inputs are made with numpy from a seed and handed to both frameworks; bf16
 inputs are rounded once (round-to-nearest-even in both) from the same fp32
@@ -15,7 +17,8 @@ torch = pytest.importorskip("torch")
 
 from tapnet_tpu.ops import corr_tents as jax_corr
 from tapnet_tpu.ops import fused_mixer_block as jax_fmb
-from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block
+from tapnet_tpu.ops import mixer_math as jax_mm
+from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block, mixer_math
 
 
 @pytest.fixture
@@ -196,3 +199,252 @@ def test_mixer_block_rejects_other_devices():
   args = [torch.from_numpy(a).to("meta") for a in mixer_inputs()]
   with pytest.raises(ValueError, match="unsupported device"):
     fused_mixer_block.mixer_block(*args)
+
+
+# ------------------------------------------------------------ int8 quantizers
+
+
+def _quantizer_input(seed, shape, kind):
+  """Rows of mixed magnitude; "halves" puts many values exactly on .5 steps
+  (so rounding half to even shows) and one row of zeros (the amax floor)."""
+  rng = np.random.RandomState(seed)
+  x = rng.randn(*shape).astype(np.float32)
+  x *= np.exp(rng.randn(*shape[:-1], 1) * 2).astype(np.float32)
+  if kind == "halves":
+    x = (rng.randint(-254, 255, shape) / 2.0).astype(np.float32)
+    x[..., 0] = 127.0  # amax 127: the scale is 1 and .5 values stay .5
+    x[0] = 0.0
+  return x
+
+
+QUANTIZERS = {
+    "quantize_rows": (
+        jax_mm.quantize_rows, mixer_math.quantize_rows, (6, 5, 32)),
+    "quantize_weight_cols": (
+        jax_mm.quantize_weight_cols, mixer_math.quantize_weight_cols, (48, 20)),
+    "quantize_lastdim": (
+        jax_corr._quantize_lastdim, corr_tents._quantize_lastdim, (3, 7, 6, 16)),
+    "quantize_per_frame": (
+        jax_corr.quantize_per_frame, corr_tents.quantize_per_frame,
+        (2, 3, 7, 6, 16)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "halves"])
+@pytest.mark.parametrize("name", sorted(QUANTIZERS))
+def test_quantizer_is_bit_equal_to_jax(name, kind, dtype):
+  """Same formulas in the same order and float32 throughout: the int8 values
+  and the float32 scales are equal bit for bit (tolerance 0)."""
+  jax_fn, torch_fn, shape = QUANTIZERS[name]
+  if name == "quantize_rows":
+    dtype = "float32"  # takes the float32 LayerNorm output only
+  (jx,), (tx,) = _both([_quantizer_input(3, shape, kind)], dtype)
+  jq, jscale = jax_fn(jx)
+  tq, tscale = torch_fn(tx)
+  assert tq.dtype == torch.int8 and tscale.dtype == torch.float32
+  assert tuple(tscale.shape) == tuple(jscale.shape)
+  np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+  np.testing.assert_array_equal(tscale.numpy(), np.asarray(jscale))
+  assert int(tq.abs().max()) == 127
+
+
+# ------------------------------------------------------- int8 corr-tents
+
+
+# Both sides compute the same exact int32 correlation from bit-equal int8
+# values and round it to bf16 at the same point, so they differ by float32
+# summation order in the tent stages, which can move a y-stage value across
+# a bf16 rounding boundary: one bf16 step of it, 2^-8 relative to the
+# largest patch value (|corr| <= 1 here), is the tolerance.
+CORR_Q8_TOL = 2.0**-8
+
+
+def _corr_q8_jax(mode, g, q, cy, cx):
+  """The JAX package's function for `mode`, as its dispatch picks it."""
+  if mode == "prequantized":
+    gq, gs = jax_corr.quantize_per_frame(g)
+    return jax_corr.corr_tent_patches_prequantized(gq, gs, q, cy, cx, 7)
+  return jax_corr.corr_tent_patches(
+      g, q, cy, cx, 7, "per_frame" if mode == "per_frame" else True)
+
+
+def _corr_q8_torch(mode, g, q, cy, cx, entry):
+  if mode == "prequantized":
+    gq, gs = corr_tents.quantize_per_frame(g)
+    fn = (corr_tents.corr_tent_patches_prequantized if entry
+          else corr_tents.corr_tent_patches_prequantized_reference)
+    return fn(gq, gs, q, cy, cx, 7)
+  if entry:
+    return corr_tents.corr_tent_patches(
+        g, q, cy, cx, 7, "per_frame" if mode == "per_frame" else True)
+  return corr_tents.corr_tent_patches_quantized_reference(
+      g, q, cy, cx, 7, per_frame=mode == "per_frame")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position"])
+@pytest.mark.parametrize("shape", CORR_SHAPES, ids=["small", "tall_ragged"])
+def test_corr_tents_q8_reference_matches_jax_reference(dtype, mode, shape):
+  """The plain int8 versions against `_math_reference_prequantized` and
+  `_math_reference_quantized` (what the JAX entries run off the TPU)."""
+  (g, q, cy, cx), (tg, tq, tcy, tcx) = _both(corr_inputs(**shape), dtype)
+  cy, cx = cy.astype(jnp.float32), cx.astype(jnp.float32)
+  ref = _corr_q8_jax(mode, g, q, cy, cx)
+  out = _corr_q8_torch(mode, tg, tq, tcy.float(), tcx.float(), entry=False)
+  assert out.dtype == torch.float32 and out.shape == ref.shape
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=0, atol=CORR_Q8_TOL)
+  # The int8 result is the full-precision one, quantized: |corr| <= 1 and
+  # one int8 step of a unit-norm row is about 1/127 per factor.
+  full = corr_tents.corr_tent_patches(tg, tq, tcy.float(), tcx.float(), 7)
+  assert float((out - full).abs().max()) < 0.05
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position"])
+def test_corr_tents_q8_entry_matches_pallas_interpret(dtype, mode,
+                                                      interpret_kernels):
+  """The entries on CPU tensors against the Pallas kernel in interpret mode
+  (`frame_scale` given, `quantized="per_frame"`, `quantized=True`). The
+  kernel rounds each bf16 tent product and keeps the y-stage and x-tents in
+  float32 where the einsum mirror rounds them to bf16: a few bf16 steps."""
+  (g, q, cy, cx), (tg, tq, tcy, tcx) = _both(corr_inputs(**CORR_SHAPES[1]), dtype)
+  cy, cx = cy.astype(jnp.float32), cx.astype(jnp.float32)
+  if mode == "prequantized":
+    gq, gs = jax_corr.quantize_per_frame(g)
+    ref = jax_corr._pallas_forward(gq, q, cy, cx, 7, frame_scale=gs)
+  else:
+    ref = jax_corr._pallas_forward(
+        g, q, cy, cx, 7, "per_frame" if mode == "per_frame" else True)
+  out = _corr_q8_torch(mode, tg, tq, tcy.float(), tcx.float(), entry=True)
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=0,
+                             atol=CORR_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_tents_prequantized_equals_inline_per_frame(dtype):
+  """Quantizing the grid once and reusing it gives what the inline
+  per-frame mode gives, bit for bit. The einsum mirror of the inline mode
+  applies the grid scale before the bf16 rounding of the correlation, so it
+  rounds another number there and again at the y-stage: up to one bf16 step
+  (2^-7 of |corr| <= 1) at each, 2^-6 together."""
+  _, (tg, tq, tcy, tcx) = _both(corr_inputs(**CORR_SHAPES[0]), dtype)
+  gq, gs = corr_tents.quantize_per_frame(tg)
+  assert gq.dtype == torch.int8 and gs.shape == (tg.shape[0],)
+  pre = corr_tents.corr_tent_patches_prequantized(gq, gs, tq, tcy, tcx, 7)
+  inline = corr_tents.corr_tent_patches(tg, tq, tcy, tcx, 7, "per_frame")
+  torch.testing.assert_close(pre, inline, rtol=0, atol=0)
+  mirror = corr_tents.corr_tent_patches_quantized_reference(
+      tg, tq, tcy, tcx, 7, per_frame=True)
+  torch.testing.assert_close(pre, mirror, rtol=0, atol=2.0**-6)
+
+
+def test_corr_tents_rejects_unknown_quantized_mode():
+  tensors = [torch.from_numpy(a) for a in corr_inputs()]
+  with pytest.raises(ValueError, match="quantized"):
+    corr_tents.corr_tent_patches(*tensors, 7, "per_pixel")
+  before = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
+  corr_tents.corr_tent_patches(*tensors, 7, True)
+  corr_tents.corr_tent_patches(*tensors, 7, "per_frame")
+  assert before == (corr_tents.LAUNCHES_Q8_FRAME,
+                    corr_tents.LAUNCHES_Q8_POSITION)
+
+
+# ------------------------------------------------------ w8a8 mixer block
+
+
+def _int8_weights(w1, w2, framework):
+  q = jax_mm.quantize_weight_cols if framework == "jax" else (
+      mixer_math.quantize_weight_cols)
+  return (*q(w1), *q(w2))
+
+
+# Integer arithmetic is exact on both sides and the int8 weights are bit
+# equal, so the outputs differ by float32 noise (LayerNorm sums, tanh), and
+# where that noise moves an activation across a rounding boundary, by one
+# int8 step of one value: hs * |w2| ~ 0.03 * 0.1 on these inputs, under
+# 5e-3. bf16 adds the roundings of x1 and the output (values of O(1)).
+MIXER_Q8_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_math_q8_matches_jax(dtype):
+  rng = np.random.RandomState(11)
+  f = lambda *s: rng.randn(*s).astype(np.float32)
+  c, hid = 32, 128
+  arrays = [f(40, c), f(c) * 0.2 + 1, f(c, hid) * 0.2, f(hid) * 0.1,
+            f(hid, c) * 0.1, f(c) * 0.1]
+  (jx, jg, jw1, jb1, jw2, jb2), (tx, tg, tw1, tb1, tw2, tb2) = _both(arrays, dtype)
+  jw1q, js1, jw2q, js2 = _int8_weights(jw1, jw2, "jax")
+  tw1q, ts1, tw2q, ts2 = _int8_weights(tw1, tw2, "torch")
+  np.testing.assert_array_equal(tw1q.numpy(), np.asarray(jw1q))
+  ref = jax_mm.mlp_math_q8(jx, jg, jw1q, js1, jb1, jw2q, js2, jb2)
+  out = mixer_math.mlp_math_q8(tx, tg, tw1q, ts1, tb1, tw2q, ts2, tb2)
+  assert out.dtype == tx.dtype
+  tol = MIXER_Q8_TOL[dtype]
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
+  # Most elements agree to float32 noise: flips are rare.
+  if dtype == "float32":
+    assert np.mean(np.abs(_np(out) - _np(ref)) > 1e-5) < 0.05
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "t,valid_len", [(10, None), (13, 9)], ids=["t10", "t13_valid9"],
+)
+def test_mixer_block_q8_matches_jax_reference(dtype, causal, t, valid_len):
+  jargs, targs = _both(mixer_inputs(seed=t, t=t), dtype)
+  ref = jax_fmb._math_reference(*jargs, causal, valid_len, quantized=True)
+  out = fused_mixer_block.mixer_block(*targs, causal, valid_len, quantized=True)
+  assert out.dtype == targs[0].dtype and out.shape == targs[0].shape
+  tol = MIXER_Q8_TOL[dtype]
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
+  if valid_len is not None:
+    assert not out[:, valid_len:].any()
+  # Pre-quantized weights give the same block, bit for bit.
+  qweights = _int8_weights(targs[7], targs[9], "torch")
+  again = fused_mixer_block.mixer_block(
+      *targs[:7], None, targs[8], None, targs[10], causal, valid_len,
+      quantized=True, qweights=qweights)
+  torch.testing.assert_close(again, out, rtol=0, atol=0)
+  # And it is the full-precision block up to quantization noise.
+  full = fused_mixer_block.mixer_block(*targs, causal, valid_len)
+  assert 0 < float((out.float() - full.float()).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mixer_block_q8_matches_pallas_interpret(causal, interpret_kernels):
+  jargs, targs = _both(mixer_inputs(seed=5, t=13), "float32")
+  ref = jax_fmb._pallas_forward(*jargs, causal, 11, quantized=True)
+  out = fused_mixer_block.mixer_block(*targs, causal, 11, quantized=True)
+  tol = MIXER_Q8_TOL["float32"]
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
+  assert not out[:, 11:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixer_q8_limit_covers_tpu_kernel_rounding(dtype, interpret_kernels):
+  """The TPU kernel rounds where the CUDA kernel does (LN1 kept in float32,
+  the operand and the hidden quantized from float32). Its output stays
+  within `q8_error_limit` of the plain version, which the card holds the
+  CUDA kernel to; padded rows have limit 0."""
+  jargs, targs = _both(mixer_inputs(seed=7, t=13, c=64, hid=256), dtype)
+  tpu = jax_fmb._pallas_forward(*jargs, False, 11, quantized=True)
+  plain = fused_mixer_block.mixer_block(*targs, False, 11, quantized=True)
+  limit, xq, hq = fused_mixer_block.q8_error_limit(*targs, False, 11)
+  assert limit.shape == targs[0].shape and not limit[:, 11:].any()
+  assert xq.shape == (3 * 11, 64) and hq.shape == (3 * 11, 256)
+  err = np.abs(_np(tpu) - _np(plain))
+  assert (err <= limit.numpy()).all(), float((err / limit.numpy().clip(1e-30)).max())
+
+
+def test_int8_matmul_is_exact():
+  rng = np.random.RandomState(2)
+  a = rng.randint(-127, 128, (9, 2048)).astype(np.int8)
+  b = rng.randint(-127, 128, (2048, 7)).astype(np.int8)
+  a[0], b[:, 0] = 127, 127  # 2048 * 127^2 is beyond float32's 2^24
+  out = mixer_math.int8_matmul(torch.from_numpy(a), torch.from_numpy(b))
+  assert out.dtype == torch.int32
+  np.testing.assert_array_equal(
+      out.numpy(), a.astype(np.int64) @ b.astype(np.int64))

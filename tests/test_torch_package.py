@@ -65,6 +65,69 @@ def test_sources_name_no_jax():
   assert not offenders, "\n".join(offenders)
 
 
+def test_int8_paths_run_without_jax():
+  """The int8 entries (quantizers, both int8 correlations, the w8a8 block, a
+  small int8 TAPIR) run in a fresh process that never imports JAX."""
+  code = (
+      "import sys, torch\n"
+      "from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block\n"
+      "from tapnet_tpu_torch.models import tapir\n"
+      "g = torch.randn(2, 9, 8, 16); q = torch.randn(2, 5, 16)\n"
+      "cy = torch.rand(2, 5) * 9; cx = torch.rand(2, 5) * 8\n"
+      "gq, gs = corr_tents.quantize_per_frame(g)\n"
+      "a = corr_tents.corr_tent_patches_prequantized(gq, gs, q, cy, cx)\n"
+      "b = corr_tents.corr_tent_patches(g, q, cy, cx, 7, True)\n"
+      "assert a.shape == b.shape == (2, 7, 7, 5)\n"
+      "c = 16; f = torch.randn\n"
+      "y = fused_mixer_block.mixer_block(f(2, 6, c), f(c), f(3, 1, 4 * c), "
+      "f(4 * c), f(3, 1, 4 * c), f(4 * c), f(c), f(c, 64), f(64), f(64, c), "
+      "f(c), quantized=True)\n"
+      "assert y.shape == (2, 6, c)\n"
+      "cfg = tapir.bootstapir_config(blocks_per_group=(1, 1, 1, 1), "
+      "highres_dim=16, lowres_dim=32, mixer_hidden_dim=32, "
+      "num_mixer_blocks=1, initial_resolution=(32, 32), num_pips_iter=1, "
+      "quantized_mixer=True, quantized_corr='per_frame')\n"
+      "model = tapir.TAPIR(cfg)\n"
+      "for p in model.parameters(): torch.nn.init.normal_(p, std=0.05)\n"
+      "with torch.no_grad():\n"
+      "  out = model(torch.rand(1, 3, 32, 32, 3), "
+      "torch.tensor([[[0., 8., 8.], [1., 20., 12.]]]))\n"
+      "assert out['tracks'].shape == (1, 2, 3, 2)\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
+      "assert not bad, bad\n"
+  )
+  env = dict(os.environ, PYTHONPATH=REPO)
+  res = subprocess.run(
+      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=300,
+  )
+  assert res.returncode == 0, res.stderr
+
+
+def test_int8_products_stay_in_the_ports_own_kernels():
+  """No library stands in for an int8 product: the package names neither
+  `_int_mm`, cuBLAS nor `torch.compile`, and each int8 entry point of the
+  CUDA sources is one the wrappers bind."""
+  pattern = re.compile(r"_int_mm|cublas|torch\.compile|_scaled_mm", re.I)
+  offenders, sources = [], {}
+  for root, dirs, files in os.walk(PKG):
+    dirs[:] = [d for d in dirs if not d.startswith(("_build", "__pycache__"))]
+    for f in files:
+      if f.endswith((".py", ".cu", ".cuh")):
+        path = os.path.join(root, f)
+        with open(path) as fh:
+          sources[f] = text = fh.read()
+        offenders += [f"{f}: {m.group(0)}" for m in pattern.finditer(text)]
+  assert not offenders, offenders
+  for entry, cu, py in (
+      ("corr_tents_q8_forward", "corr_tents.cu", "corr_tents.py"),
+      ("mixer_block_q8_forward", "fused_mixer_block.cu", "fused_mixer_block.py"),
+  ):
+    assert f"int {entry}(" in sources[cu] and f'"{entry}"' in sources[py]
+  assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+
+
 def test_predictor_refuses_cpu_fallback():
   if torch.cuda.is_available():
     pytest.skip("a CUDA card is present: the default device is usable")

@@ -1,6 +1,8 @@
 """PyTorch port, the whole TAPIR at a small BootsTAPIR-shaped config against
 the JAX TAPIR in fp32: the module, `TapirPredictor(device="cpu")` with query
-padding and chunking, and the video resize that feeds the backbone.
+padding and chunking, the video resize that feeds the backbone, and the int8
+configurations (w8a8 mixer with per-frame int8 correlation; per-position int8
+correlation) against the JAX TAPIR with the same weights.
 """
 
 import jax
@@ -117,3 +119,126 @@ def test_resize_matches_jax_image_resize(src, dst):
   ref = jax.image.resize(jnp.asarray(video), (1, 2) + dst + (3,), "bilinear")
   out = tapir.resize_video(torch.from_numpy(video), dst)
   np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------ int8 configs
+
+INT8_CONFIGS = {
+    "a_mixer_per_frame": dict(quantized_mixer=True, quantized_corr="per_frame"),
+    "b_per_position": dict(quantized_corr=True),
+}
+# Both sides run the same exact integer products on bit-equal int8 values;
+# they differ by float32 noise and, where that noise moves a value across a
+# rounding boundary, by one int8 or bf16 step of one correlation or hidden
+# value, carried through the remaining refinement steps. Per configuration:
+# the limits on tracks (px) and logits against JAX, about 4x (a) and 10x (b)
+# what was measured (tracks 7.6e-3 and 1e-4 px, logits 4.7e-3 and 1.1e-4), and
+# the least shift from the port's own full-precision output that shows the
+# int8 mode ran, half of what was measured (tracks 0.064 and 0.021 px at
+# most). Each limit is under its configuration's shift, so the full-precision
+# computation in place of the int8 one fails both checks.
+INT8_TOL = {
+    "a_mixer_per_frame": dict(tracks=0.03, logits=2e-2, min_shift=0.03),
+    "b_per_position": dict(tracks=1e-3, logits=1e-3, min_shift=0.01),
+}
+
+
+@pytest.fixture(scope="module")
+def torch_full_tracks(small_model):
+  """The port's own full-precision tracks on the small clip."""
+  params, video, qp, _ = small_model
+  model = tapir.TAPIR(tapir.bootstapir_config(**SMALL))
+  load_flax_params(model, params)
+  with torch.no_grad():
+    return model(torch.from_numpy(video), torch.from_numpy(qp))["tracks"].numpy()
+
+
+@pytest.fixture(scope="module", params=sorted(INT8_CONFIGS))
+def int8_model(request, small_model):
+  params, video, qp, _ = small_model
+  overrides = INT8_CONFIGS[request.param]
+  model = jax_tapir.TAPIR(config=jax_tapir.bootstapir_config(**SMALL, **overrides))
+  out = jax.jit(lambda p, v, q: model.apply({"params": p}, v, q))(
+      params, jnp.asarray(video), jnp.asarray(qp)
+  )
+  return overrides, params, video, qp, jax.device_get(out), INT8_TOL[request.param]
+
+
+def _check_int8(out, ref, tol):
+  np.testing.assert_allclose(
+      np.asarray(out["tracks"]), ref["tracks"], rtol=0, atol=tol["tracks"]
+  )
+  for key in ("occlusion", "expected_dist"):
+    np.testing.assert_allclose(
+        np.asarray(out[key]), ref[key], rtol=0, atol=tol["logits"]
+    )
+
+
+def test_int8_tapir_matches_jax(int8_model, torch_full_tracks):
+  overrides, params, video, qp, ref, tol = int8_model
+  model = tapir.TAPIR(tapir.bootstapir_config(**SMALL, **overrides))
+  load_flax_params(model, params)
+  with torch.no_grad():
+    out = model(torch.from_numpy(video), torch.from_numpy(qp))
+  _check_int8({k: v.numpy() for k, v in out.items() if not k.startswith("un")},
+              ref, tol)
+  for ours, theirs in zip(out["unrefined_tracks"], ref["unrefined_tracks"]):
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=tol["tracks"])
+  # The int8 mode really ran: the result is as far from the port's own
+  # full-precision one as this configuration's quantization moves it.
+  shift = np.abs(out["tracks"].numpy() - torch_full_tracks).max()
+  assert tol["min_shift"] < shift < 1.0
+
+
+@pytest.mark.parametrize("chunk,bucket", [(4, 8), (6, 1)],
+                         ids=["chunk_lt_n", "chunk_eq_n"])
+def test_int8_predictor_matches_jax(int8_model, chunk, bucket):
+  """Buckets, chunks and track_many with the int8 configurations: the grids
+  are quantized once per video, whatever the chunking."""
+  overrides, params, video, qp, ref, tol = int8_model
+  predictor = TapirPredictor(
+      params, tapir.bootstapir_config(**SMALL, **overrides),
+      query_bucket=bucket, query_chunk_size=chunk, device="cpu",
+  )
+  out = predictor(video, qp)
+  assert out["tracks"].shape == (B, N, T, 2)
+  _check_int8(out, ref, tol)
+  many = list(predictor.track_many([(video, qp), (video, qp[:, :3])]))
+  np.testing.assert_array_equal(many[0]["tracks"], out["tracks"])
+  assert many[1]["tracks"].shape == (B, 3, T, 2)
+
+
+def test_per_frame_grids_are_quantized_once_per_video(int8_model, monkeypatch):
+  overrides, params, video, qp, _, _ = int8_model
+  from tapnet_tpu_torch.ops import corr_tents
+
+  calls = []
+  real = corr_tents.quantize_per_frame
+  monkeypatch.setattr(
+      corr_tents, "quantize_per_frame",
+      lambda g: calls.append(tuple(g.shape)) or real(g),
+  )
+  predictor = TapirPredictor(
+      params, tapir.bootstapir_config(**SMALL, **overrides),
+      query_bucket=1, query_chunk_size=2, device="cpu",
+  )
+  predictor(video, qp)
+  if overrides["quantized_corr"] == "per_frame":
+    # 2 refinement resolutions x 3 pyramid grids, not x 3 chunks x 2 steps.
+    assert len(calls) == 6, calls
+  else:
+    assert not calls
+
+
+@pytest.mark.parametrize("mode", [True, "per_pixel"])
+def test_quantized_extra_convs_raises(mode):
+  """The int8 ExtraConvs modes are not ported: the config refuses them and
+  names the open slice; nothing runs the float convolutions in their place."""
+  with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+    tapir.bootstapir_config(quantized_extra_convs=mode)
+  assert "next slice" in str(err.value) and "K6" in str(err.value)
+  with pytest.raises(NotImplementedError):
+    tapir.TapirConfig(quantized_extra_convs=mode)
+  with pytest.raises(ValueError, match="quantized_corr"):
+    tapir.TapirConfig(quantized_corr="per_pixel")
+  assert tapir.TapirConfig(quantized_extra_convs=False).quantized_mixer is False

@@ -9,7 +9,16 @@ points and JAX's tracks, occlusion and expected_dist logits to
 tests/data/bootstapir_golden.npz, which tests/test_torch_golden.py and
 chip_smoke.py read.
 
-  JAX_PLATFORMS=cpu python tools/make_torch_golden.py
+The int8 inference modes have a file of their own,
+tests/data/bootstapir_golden_int8.npz: the same clip and queries through the
+same predictor with the two int8 configurations of `INT8_CONFIGS` (off the
+TPU the JAX package runs the einsum mirrors of its int8 kernels). It holds
+`<name>_tracks`, `<name>_occlusion` and `<name>_expected_dist` per
+configuration; the clip and the queries are read from the first file.
+
+  JAX_PLATFORMS=cpu python tools/make_torch_golden.py          # both files
+  JAX_PLATFORMS=cpu python tools/make_torch_golden.py int8     # one of them
+  JAX_PLATFORMS=cpu python tools/make_torch_golden.py float
 """
 
 from __future__ import annotations
@@ -22,6 +31,14 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 OUT = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
+OUT_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_int8.npz")
+# The int8 configurations, as overrides of `bootstapir_config()`: "a" is the
+# w8a8 mixer with the per-frame int8 correlation (grids quantized once per
+# video), "b" the per-position int8 correlation.
+INT8_CONFIGS = {
+    "a": dict(quantized_mixer=True, quantized_corr="per_frame"),
+    "b": dict(quantized_corr=True),
+}
 SEED = 20261016
 T, H, W, N = 8, 256, 256, 32
 
@@ -77,7 +94,7 @@ def make_clip(seed: int = SEED):
   return frames[None], np.asarray(queries, np.float32)[None]
 
 
-def main():
+def main(which=("float", "int8")):
   sys.path.insert(0, REPO)
   import jax
 
@@ -91,20 +108,29 @@ def main():
 
   video, query_points = make_clip()
   params = tapir_checkpoint.load_tapir_checkpoint(CHECKPOINT)
-  predictor = inference.TapirPredictor(params, tapir.bootstapir_config())
   frames = np.asarray(sampling.preprocess_frames(jnp.asarray(video)))
-  out = predictor(frames, query_points)
+
+  def run(**overrides):
+    predictor = inference.TapirPredictor(
+        params, tapir.bootstapir_config(**overrides)
+    )
+    out = predictor(frames, query_points)
+    return {k: out[k] for k in ("tracks", "occlusion", "expected_dist")}
+
   os.makedirs(os.path.dirname(OUT), exist_ok=True)
-  np.savez_compressed(
-      OUT,
-      video=video,
-      query_points=query_points,
-      tracks=out["tracks"],
-      occlusion=out["occlusion"],
-      expected_dist=out["expected_dist"],
-  )
-  print(f"wrote {OUT} ({os.path.getsize(OUT) / 2**20:.2f} MiB)")
+  if "float" in which:
+    np.savez_compressed(
+        OUT, video=video, query_points=query_points, **run()
+    )
+    print(f"wrote {OUT} ({os.path.getsize(OUT) / 2**20:.2f} MiB)")
+  if "int8" in which:
+    arrays = {}
+    for name, overrides in INT8_CONFIGS.items():
+      for key, value in run(**overrides).items():
+        arrays[f"{name}_{key}"] = value
+    np.savez_compressed(OUT_INT8, **arrays)
+    print(f"wrote {OUT_INT8} ({os.path.getsize(OUT_INT8) / 2**20:.2f} MiB)")
 
 
 if __name__ == "__main__":
-  main()
+  main(tuple(sys.argv[1:]) or ("float", "int8"))
