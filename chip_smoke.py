@@ -10,18 +10,23 @@ Phases (any failure raises and exits non-zero):
      dtype, timed with CUDA events beside the plain version and a bound from
      bytes and operations: the full-precision corr-tents (K1) and mixer
      block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents,
-     and the w8a8 mixer block (K4).
+     the w8a8 mixer block (K4), the per-frame int8 3x3 convolution of the
+     ExtraConvs (X) and the per-pixel ExtraConvs layer (K6). The int8
+     kernels' own int8 tensors are held against the plain version's too,
+     beside wrong quantizations as controls.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
-     outputs, in full precision and in the two int8 configurations
-     (A: w8a8 mixer with per-frame int8 correlation; B: per-position int8
-     correlation). Then track_many over several 480x480 videos in bf16
-     (250 frames, 256 queries, chunk 128: the shapes phase 2 checks), three
-     times: the full-precision configuration, the int8 configuration A
-     with num_pips_iter=2, and bf16 with num_pips_iter=2 beside it; and two
-     videos in the int8 configuration B, the one that runs K2b. The
-     kernels' launch counters are set to 0 before each run and read after:
-     a run must launch its own kernels and no other.
+     outputs, in full precision and in the four int8 configurations
+     (a: w8a8 mixer with per-frame int8 correlation; b: per-position int8
+     correlation; c: the JAX package's headline, a with the per-frame int8
+     ExtraConvs and 2 refinement steps; d: the per-pixel int8 ExtraConvs,
+     on a 24-frame clip). Then track_many over 480x480 videos in bf16 (250
+     frames, chunk 128: the shapes phase 2 checks): the full-precision
+     configuration, int8 configuration a with num_pips_iter=2, bf16 with
+     num_pips_iter=2 beside it, configuration b (K2b), the headline
+     configuration with 1024 queries, and a with the per-pixel int8
+     ExtraConvs (K6). The kernels' launch counters are set to 0 before each
+     run and read after: a run must launch its own kernels and no other.
   4. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line. Exits non-zero, and prints
@@ -46,8 +51,11 @@ sys.path.insert(0, REPO)
 from tapnet_tpu_torch.checkpoints.tapir_checkpoint import load_tapir_checkpoint  # noqa: E402
 from tapnet_tpu_torch.inference import TapirPredictor  # noqa: E402
 from tapnet_tpu_torch.models.tapir import bootstapir_config  # noqa: E402
-from tapnet_tpu_torch.ops import _build, corr_tents, fused_mixer_block, mixer_math  # noqa: E402
+from tapnet_tpu_torch.ops import (  # noqa: E402
+    _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+)
 from tapnet_tpu_torch.utils.sampling import preprocess_frames  # noqa: E402
+from tools.golden_clip import CLIP_FRAMES, INT8_CONFIGS, make_clip  # noqa: E402
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
@@ -67,6 +75,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 FRAMES, QUERIES, CHUNK, RES = 250, 256, 128, 480
 CORR_LEVELS = [(120, 120, 128), (60, 60, 256), (30, 30, 256)]
 MIXER_SHAPE = (CHUNK, FRAMES, 512)
+# The ExtraConvs' low-resolution grids [FRAMES, H, W, 256] at the backbone's
+# two resolutions (480x480 and the initial 256x256); the hidden is 4x wider.
+EXTRA_GRIDS = [(60, 60), (32, 32)]
+EXTRA_C = 256
+# The headline workload of the JAX package (bench.py): 1024 queries.
+HEADLINE_QUERIES = 1024
 
 # Kernel vs plain on the card. fp32, as (rtol, atol): summation order only.
 # bf16 corr-tents, atol in units of max|grid row| * max|query row|, which
@@ -105,8 +119,10 @@ CORR_Q8_TOL = (1e-6, 1e-6)
 # a CPU simulation of the kernel's roundings gave 2% and 6% apart, 1e-4 more
 # than one step. In fp32 only float32 noise separates the two: 1e-5, 1e-4, 0.)
 MIXER_Q8_FLIP_SHARE = {
-    torch.bfloat16: dict(xq=0.06, hq=0.15, far=1e-3),
-    torch.float32: dict(xq=1e-3, hq=5e-3, far=1e-5),
+    torch.bfloat16: dict(xq=dict(share=0.06, far=1e-3),
+                         hq=dict(share=0.15, far=1e-3)),
+    torch.float32: dict(xq=dict(share=1e-3, far=1e-5),
+                        hq=dict(share=5e-3, far=1e-5)),
 }
 # Controls for these limits: the kernel's own float32 hidden quantized the
 # wrong way, held against the plain version's int8 hidden like the kernel's.
@@ -121,11 +137,55 @@ MIXER_Q8_CONTROLS = {
         hidden * (127.0 / hidden.abs().amax(-1, keepdim=True).clamp_min(1e-8))
     ).to(torch.int8),
 }
-# The int8 configurations, as tools/make_torch_golden.py ran them in JAX.
-INT8_CONFIGS = {
-    "a": dict(quantized_mixer=True, quantized_corr="per_frame"),
-    "b": dict(quantized_corr=True),
-}
+# Per-frame int8 conv (X), kernel vs plain: both quantize the same floats
+# with the same IEEE division and round the same exact integers through the
+# same float32 products in the same order, so the outputs should be equal
+# bit for bit. The limit is one rounding of the output: 1e-6 of |y| in fp32,
+# a bf16 step (2^-7 of |y|) in bf16. Its int8 operand against the plain
+# version's: at most 1e-5 of the values one step apart and none further
+# (expected: none at all). Checked at conv_up and conv_out of both grids of
+# EXTRA_GRIDS, as a served video runs it.
+CONV_Q8_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
+CONV_Q8_FLIPS = dict(share=1e-5, far=0.0)
+# K6, kernel vs plain, per element: fused_extra_convs.q8_error_limit, four
+# deviations of a sixteenth of each pixel's int8 hidden values one step
+# apart (a step of hidden value k at pixel q moves out[p, col] at the 9
+# pixels p that read q by hs[q] * |woq[col, tap, k]| * so[col]), plus the
+# output's rounding (fp32 1e-5 absolute and relative; bf16 two bf16 steps of
+# |y|). Its int8 hidden against the plain version's, in either model dtype:
+# at most 0.5% of all values one step apart, 0.01% more than one step, and
+# Q8_PIXEL_FLIP_SHARE (1/16) of any one pixel's: the layer is float32 from
+# the LayerNorm on, and only float32 noise (LN sums, rsqrt, tanh) moves a
+# patch or hidden value across a rounding boundary. Such flips cluster (see
+# Q8_PIXEL_FLIP_SHARE): about 2e-5 of all values, a few per cent of some
+# pixels'. (On the CPU against the JAX reference and the Pallas kernel at
+# small widths: no step apart at all, 1e-6 in the output.)
+EXTRA_Q8_FLIPS = dict(share=5e-3, far=1e-4,
+                      row=fused_extra_convs.Q8_PIXEL_FLIP_SHARE)
+# Controls for the int8 limits of X and K6, each held against the plain
+# version's int8 tensor like the kernel's own: `truncated` rounds toward zero
+# where the kernel rounds to nearest; `from_bf16` quantizes the bf16 rounding
+# of the float32 value (a kernel that reads its operand in bf16);
+# `multiplying` is the mixer's quantizer, x * (127 / amax), where the
+# ExtraConvs divide by amax / 127. The fp32 check must refuse `truncated` and `from_bf16`;
+# `multiplying` differs only where the last bit of the quotient crosses a
+# half step, and its shares are recorded, not judged.
+def _truncated(v, scale):
+  return torch.trunc(v / scale).to(torch.int8)
+
+
+def _multiplying(v, amax):
+  return torch.clamp(torch.round(v * (127.0 / amax.clamp_min(1e-8))),
+                     -127, 127).to(torch.int8)
+
+
+# Controls of K6's output limit: fused_extra_convs.q8_output_controls, the
+# plain layer with a fault (t32 rounded to bf16 before the residual; conv_out
+# taps dequantized with the output pixel's scale), on the first
+# K6_CONTROL_FRAMES frames, held against the plain output like the kernel's.
+# The fp32 check must refuse both.
+K6_CONTROL_FRAMES = 16
+
 # Port on the card vs the JAX int8 golden outputs (CPU, fp32 model dtype).
 # fp32: the same integer products on bit-equal int8 values; float32 noise
 # moves the rare activation across an int8 or bf16 rounding boundary, and
@@ -139,9 +199,25 @@ INT8_CONFIGS = {
 # another, is 0.17 / 1.5 / 0.011 px and 0.064 (a) and 0.0094 / 0.15 / 3e-5 px
 # and 0.0078 (b) from the same golden outputs (tests/test_torch_golden.py).
 # bf16: as the full-precision bf16 check.
+# c and d add the int8 ExtraConvs, which requantize every layer's input: a
+# flip in one layer moves the next layer's inputs at 9 pixels in every
+# channel. The port on the CPU is 0.86 / 1.8 / 0.042 px and 0.11 (c) and
+# 0.10 / 0.84 / 0.0017 px and 0.082 (d) from the golden outputs; c's own
+# quantization moves the float golden tracks by 0.20 px in the median and
+# 61 px at most (a near-tied stage-1 peak flips). The limits are about 3x
+# the CPU's.
 GOLDEN_INT8_FP32_TOL = {
     "a": dict(visible_px=1.5, any_px=4.0, median_px=0.05, logits=0.3),
     "b": dict(visible_px=0.15, any_px=1.0, median_px=5e-3, logits=0.05),
+    "c": dict(visible_px=3.0, any_px=6.0, median_px=0.15, logits=0.4),
+    "d": dict(visible_px=0.5, any_px=3.0, median_px=0.01, logits=0.3),
+}
+# The kernels each int8 configuration must launch, and no other.
+INT8_LAUNCHES = {
+    "a": {"corr_tents_q8_frame", "mixer_block_q8"},
+    "b": {"corr_tents_q8_position", "mixer_block"},
+    "c": {"corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"},
+    "d": {"corr_tents", "mixer_block", "extra_convs_q8_pixel"},
 }
 
 
@@ -264,6 +340,8 @@ COUNTERS = {
     "corr_tents_q8_position": (corr_tents, "LAUNCHES_Q8_POSITION"),
     "mixer_block": (fused_mixer_block, "LAUNCHES"),
     "mixer_block_q8": (fused_mixer_block, "LAUNCHES_Q8"),
+    "extra_convs_q8_frame": (qconv, "LAUNCHES_Q8"),
+    "extra_convs_q8_pixel": (fused_extra_convs, "LAUNCHES"),
 }
 
 
@@ -319,10 +397,27 @@ def corr_variants(dtype, gen):
     yield name, levels
 
 
+def path_record(records, shape, op_type, tol=None, mean_keys=()):
+  """What one launch on the served path costs: the mean over `records`, one
+  launch each at the shapes a served video gives the kernel in equal
+  numbers, with the bound of their summed bytes and operations."""
+  count = len(records)
+  b_ms, b_by = bound_ms(sum(r["nbytes"] for r in records),
+                        sum(r["flops"] for r in records), op_type)
+  mean = lambda key: sum(r[key] for r in records) / count
+  return dict(
+      kernel=records[0]["kernel"], dtype=records[0]["dtype"], path=True,
+      shape=shape, max_abs_err=max(r["max_abs_err"] for r in records),
+      max_err_over_limit=max(r["max_err_over_limit"] for r in records),
+      tol=records[0]["tol"] if tol is None else tol,
+      ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=b_ms / count,
+      bound_by=b_by, **{key: mean(key) for key in mean_keys})
+
+
 def check_corr(dtype, gen, checks):
   name_dt = str(dtype).replace("torch.", "")
   for name, levels in corr_variants(dtype, gen):
-    totals = dict(ms=0.0, plain_ms=0.0, err=0.0, nbytes=0, flops=0.0)
+    records = []
     for (h, w, c), run, plain, tol, bound_args, op_type in levels:
       out = run()
       torch.cuda.synchronize()
@@ -338,39 +433,58 @@ def check_corr(dtype, gen, checks):
               f"{over} of the limit")
       nbytes, flops = corr_bound(*bound_args)
       b_ms, b_by = bound_ms(nbytes, flops, op_type)
-      ms = time_ms(run)
-      plain_ms = time_ms(plain, reps=3)
-      checks.append(dict(kernel=name, dtype=name_dt,
-                         shape=[FRAMES, h, w, c, CHUNK], max_abs_err=err,
-                         max_err_over_limit=over,
-                         ref_max_abs=float(ref.abs().max()), tol=tol, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-      totals["ms"] += ms
-      totals["plain_ms"] += plain_ms
-      totals["err"] = max(totals["err"], err)
-      totals["nbytes"] += nbytes
-      totals["flops"] += flops
+      records.append(dict(
+          kernel=name, dtype=name_dt, shape=[FRAMES, h, w, c, CHUNK],
+          max_abs_err=err, max_err_over_limit=over,
+          ref_max_abs=float(ref.abs().max()), tol=tol, ms=time_ms(run),
+          plain_ms=time_ms(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+          nbytes=nbytes, flops=flops))
       del out, ref, diff
-    count = len(levels)
-    b_ms, b_by = bound_ms(totals["nbytes"], totals["flops"], levels[0][5])
-    checks.append(dict(
-        kernel=name, dtype=name_dt, path=True,
-        shape=f"mean of one launch at each of the {count} pyramid levels",
-        max_abs_err=totals["err"],
-        max_err_over_limit=max(c["max_err_over_limit"] for c in checks[-count:]),
-        tol=max((c["tol"] for c in checks[-count:]), key=lambda t: t[1]),
-        ms=totals["ms"] / count, plain_ms=totals["plain_ms"] / count,
-        bound_ms=b_ms / count, bound_by=b_by,
-    ))
+    checks.extend(records)
+    checks.append(path_record(
+        records,
+        f"mean of one launch at each of the {len(levels)} pyramid levels",
+        levels[0][5], tol=max((r["tol"] for r in records), key=lambda t: t[1])))
     del levels
     torch.cuda.empty_cache()
+
+
+def int8_apart(q, ref_q):
+  """How far an int8 tensor is from the plain version's: shares of values
+  one step or more, and more than one step, apart, over all values and the
+  largest over a row (the last axis)."""
+  step = (q.to(torch.int16) - ref_q.to(torch.int16)).abs()
+  total = step.numel()
+  return dict(share=int(torch.count_nonzero(step)) / total,
+              share_far=int(torch.count_nonzero(step > 1)) / total,
+              max_steps=int(step.max()),
+              max_row_share=int(torch.count_nonzero(step, dim=-1).max())
+              / step.shape[-1])
+
+
+def flips_within(record, allowed):
+  """`allowed`: share (all values), far (more than one step) and, if given,
+  row (the largest share of a row)."""
+  return (record["share"] <= allowed["share"]
+          and record["share_far"] <= allowed["far"]
+          and record["max_row_share"] <= allowed.get("row", 1.0))
+
+
+def judge_controls(name, dtype, controls, allowed):
+  """Records whether the limits refuse each control; in fp32 they must
+  refuse every control but `multiplying` (see the controls' comment)."""
+  for key, record in controls.items():
+    record["refused"] = not flips_within(record, allowed)
+    require(record["refused"] or key == "multiplying" or dtype != torch.float32,
+            f"{name}: the int8 limits {allowed} pass the control {key}: {record}")
+  return controls
 
 
 def check_mixer_q8(dtype, gen, checks):
   """K4 at MIXER_SHAPE against its plain version: the output within
   q8_error_limit, and the kernels' own int8 operand and hidden against the
   plain version's."""
-  name_dt = str(dtype).replace("torch.", "")
+  name = f"mixer_block_q8 {str(dtype).replace('torch.', '')}"
   args = mixer_inputs(dtype, gen)
   x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2 = args
   # As the model does: int8 weights made once, in Linear's storage layout.
@@ -393,37 +507,20 @@ def check_mixer_q8(dtype, gen, checks):
   err = float(diff.max())
   over = float((diff / limit.clamp_min(1e-30)).max())
   require(bool(torch.isfinite(out.float()).all()) and over <= 1.0,
-          f"mixer_block_q8 {name_dt}: max_abs_err {err}, {over} of its limit")
+          f"{name}: max_abs_err {err}, {over} of its limit")
   scratch = {}
   fused_mixer_block._launch_q8(  # pylint: disable=protected-access
       x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, False, None, scratch)
   torch.cuda.synchronize()
   allowed = MIXER_Q8_FLIP_SHARE[dtype]
-
-  def apart(q, ref_q):
-    step = (q.int() - ref_q.int()).abs()
-    return dict(share=float((step > 0).float().mean()),
-                share_far=float((step > 1).float().mean()),
-                max_steps=int(step.max()),
-                max_row_share=float((step > 0).float().mean(-1).max()))
-
-  def within(record, key):
-    return (record["share"] <= allowed[key]
-            and record["share_far"] <= allowed["far"])
-
   flips = {}
   for key, ref_q in (("xq", xq_ref), ("hq", hq_ref)):
-    flips[key] = apart(scratch[key], ref_q)
-    require(within(flips[key], key),
-            f"mixer_block_q8 {name_dt}: int8 {key} {flips[key]} vs plain, "
-            f"allowed {allowed}")
-  controls = {}
-  for key, fault in MIXER_Q8_CONTROLS.items():
-    controls[key] = apart(fault(scratch["hidden"]), hq_ref)
-    controls[key]["refused"] = not within(controls[key], "hq")
-    require(controls[key]["refused"] or dtype != torch.float32,
-            f"mixer_block_q8 {name_dt}: the hq limits {allowed} pass the "
-            f"control {key}: {controls[key]}")
+    flips[key] = int8_apart(scratch[key], ref_q)
+    require(flips_within(flips[key], allowed[key]),
+            f"{name}: int8 {key} {flips[key]} vs plain, allowed {allowed[key]}")
+  controls = judge_controls(name, dtype, {
+      key: int8_apart(fault(scratch["hidden"]), hq_ref)
+      for key, fault in MIXER_Q8_CONTROLS.items()}, allowed["hq"])
   # The two bare int8 products through a library, as a yardstick of a part
   # of the function (no LayerNorm, temporal half, quantization or epilogue).
   w1q, _, w2q, _ = qweights
@@ -433,8 +530,9 @@ def check_mixer_q8(dtype, gen, checks):
   nbytes, flops = mixer_bound(args)
   b_ms, b_by = bound_ms(nbytes, flops, torch.int8)
   checks.append(dict(
-      kernel="mixer_block_q8", dtype=name_dt, path=True,
-      shape=list(MIXER_SHAPE), max_abs_err=err, max_err_over_limit=over,
+      kernel="mixer_block_q8", dtype=str(dtype).replace("torch.", ""),
+      path=True, shape=list(MIXER_SHAPE), max_abs_err=err,
+      max_err_over_limit=over,
       tol="fused_mixer_block.q8_error_limit, per element",
       int8_flips_vs_plain=flips, int8_flip_limits=allowed,
       int8_flip_controls=controls,
@@ -447,6 +545,172 @@ def check_mixer_q8(dtype, gen, checks):
   ))
   del args, out, ref, diff
   torch.cuda.empty_cache()
+
+
+def conv_q8_bound(x, cout):
+  """Bytes and operations of one per-frame int8 conv: x read and y written
+  once in the model dtype, the int8 weights and their scales; 2 * 9 * C_in
+  operations per output value."""
+  n, cin, h, w = x.shape
+  elt = x.element_size()
+  nbytes = x.numel() * elt + n * h * w * cout * elt + 9 * cin * cout + 8 * cout
+  return nbytes, 2.0 * n * h * w * 9 * cin * cout
+
+
+def check_conv_q8(dtype, gen, checks):
+  """The per-frame int8 conv (X) at conv_up and conv_out of both grids of a
+  served video, against its plain version: the output, and the kernel's int8
+  operand against the plain version's, with controls."""
+  name_dt = str(dtype).replace("torch.", "")
+  records = []
+  for (h, w), (cin, cout) in [(grid, io) for grid in EXTRA_GRIDS for io in (
+      (EXTRA_C, 4 * EXTRA_C), (4 * EXTRA_C, EXTRA_C))]:
+    name = f"extra_convs_q8_frame {name_dt} {h}x{w} {cin}->{cout}"
+    x = torch.randn(FRAMES, h, w, cin, device="cuda", generator=gen)
+    if cin > EXTRA_C:
+      x = mixer_math.gelu(x)  # conv_out reads GELU outputs
+    x = x.to(dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+    k = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (3 * cin**0.5)
+    b = torch.randn(cout, device="cuda", generator=gen) * 0.1
+    qweights = qconv.quantize_conv_weight(k)
+    run = lambda: qconv.conv2d_q8(x, None, b, qweights)
+    plain = lambda: qconv.conv2d_q8_math(x, None, b, qweights)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    over = float((diff / (CONV_Q8_TOL[dtype] * ref.float().abs()).clamp_min(1e-30)).max())
+    exact = bool(torch.equal(out, ref))
+    require(bool(torch.isfinite(out.float()).all()) and over <= 1.0,
+            f"{name}: max_abs_err {err}, {over} of its limit")
+    del out, ref, diff
+    scratch = {}
+    qconv._launch_q8(x, qweights, b, scratch)  # pylint: disable=protected-access
+    torch.cuda.synchronize()
+    xf = x.permute(0, 2, 3, 1).float()
+    xq_ref, xs_ref = qconv.quantize_per_frame(xf)
+    flips = int8_apart(scratch["xq"], xq_ref)
+    require(flips_within(flips, CONV_Q8_FLIPS),
+            f"{name}: int8 operand {flips} vs plain, allowed {CONV_Q8_FLIPS}")
+    scale = xs_ref[:, None, None, None]
+    controls = judge_controls(name, dtype, {
+        "truncated": int8_apart(_truncated(xf, scale), xq_ref),
+        "from_bf16": int8_apart(qconv.quantize_per_frame(xf.bfloat16().float())[0],
+                                xq_ref),
+        "multiplying": int8_apart(_multiplying(xf, scale * 127.0), xq_ref),
+    }, CONV_Q8_FLIPS)
+    del scratch, xf, xq_ref, xs_ref, scale
+    torch.cuda.empty_cache()
+    nbytes, flops = conv_q8_bound(x, cout)
+    b_ms, b_by = bound_ms(nbytes, flops, torch.int8)
+    # For context, not a library call for this function: cuDNN's convolution
+    # of the same shape in the model dtype (no quantization).
+    k_dt, b_dt = k.to(dtype), b.to(dtype)
+    cudnn_ms = time_ms(lambda: F.conv2d(x, k_dt, b_dt, padding=1))
+    records.append(dict(
+        kernel="extra_convs_q8_frame", dtype=name_dt,
+        shape=[FRAMES, h, w, cin, cout], max_abs_err=err,
+        max_err_over_limit=over, bit_equal=exact,
+        tol=f"{CONV_Q8_TOL[dtype]} of |y|, per element",
+        int8_flips_vs_plain=flips, int8_flip_limits=CONV_Q8_FLIPS,
+        int8_flip_controls=controls, ms=time_ms(run),
+        plain_ms=time_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
+        bound_by=b_by, nbytes=nbytes, flops=flops,
+        cudnn_same_shape_ms=cudnn_ms))
+    del x, k, b, qweights, k_dt, b_dt
+    torch.cuda.empty_cache()
+  checks.extend(records)
+  checks.append(path_record(
+      records, "mean of one launch at conv_up and conv_out of the 60x60 and "
+      "32x32 grids", torch.int8, mean_keys=("cudnn_same_shape_ms",)))
+
+
+def extra_convs_inputs(h, w, dtype, gen):
+  """One ExtraConvs layer at the served width: x [FRAMES, h, w, 256] and the
+  layer's parameters, scaled so that conv_up's output and the residual are
+  O(1), as the trained layers give."""
+  c, m = EXTRA_C, 4 * EXTRA_C
+  f = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+  return [f(FRAMES, h, w, c).to(dtype), f(c) * 0.2 + 1, f(c) * 0.1,
+          f(3, 3, c, m) / (3 * c**0.5), f(m) * 0.1,
+          f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1]
+
+
+def check_extra_convs_q8(dtype, gen, checks):
+  """K6 at the two grids of a served video, against its plain version: the
+  output within fused_extra_convs.q8_error_limit, beside faulty plain layers
+  as controls, and the kernel's int8 hidden against the plain version's,
+  with controls."""
+  name_dt = str(dtype).replace("torch.", "")
+  records = []
+  for h, w in EXTRA_GRIDS:
+    name = f"extra_convs_q8_pixel {name_dt} {h}x{w}"
+    x, g, bln, wu, bu, wo, bo = extra_convs_inputs(h, w, dtype, gen)
+    qweights = fused_extra_convs.quantized_weights(wu, wo)
+    run = lambda: fused_extra_convs.extra_convs_layer(
+        x, g, bln, None, bu, None, bo, True, qweights=qweights)
+    plain = lambda: fused_extra_convs.extra_convs_layer_reference(
+        x, g, bln, None, bu, None, bo, True, qweights)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    limit, hq_ref = fused_extra_convs.q8_error_limit(x, g, bln, bu, bo, qweights)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    over = float((diff / limit.clamp_min(1e-30)).max())
+    require(bool(torch.isfinite(out.float()).all()) and over <= 1.0,
+            f"{name}: max_abs_err {err}, {over} of its limit")
+    k = K6_CONTROL_FRAMES
+    out_controls = {}
+    for key, faulty in fused_extra_convs.q8_output_controls(
+        x[:k], g, bln, bu, bo, qweights).items():
+      apart = (faulty.float() - ref[:k].float()).abs()
+      out_controls[key] = dict(
+          max_abs_err=float(apart.max()),
+          max_err_over_limit=float((apart / limit[:k].clamp_min(1e-30)).max()))
+      out_controls[key]["refused"] = out_controls[key]["max_err_over_limit"] > 1.0
+      require(out_controls[key]["refused"] or dtype != torch.float32,
+              f"{name}: the output limit passes the control {key}: "
+              f"{out_controls[key]}")
+    del out, ref, diff, limit, apart, faulty
+    scratch = {}
+    fused_extra_convs._launch(x, g, bln, bu, bo, qweights, scratch)  # pylint: disable=protected-access
+    torch.cuda.synchronize()
+    flips = int8_apart(scratch["hq"], hq_ref)
+    require(flips_within(flips, EXTRA_Q8_FLIPS),
+            f"{name}: int8 hidden {flips} vs plain, allowed {EXTRA_Q8_FLIPS}")
+    hidden, hs = scratch["hidden"], scratch["hs"][:, None]
+    controls = judge_controls(name, dtype, {
+        "truncated": int8_apart(_truncated(hidden, hs), hq_ref),
+        "from_bf16": int8_apart(fused_extra_convs._q_rows(  # pylint: disable=protected-access
+            hidden.bfloat16().float())[0], hq_ref),
+        "multiplying": int8_apart(_multiplying(hidden, hs * 127.0), hq_ref),
+    }, EXTRA_Q8_FLIPS)
+    del scratch, hidden, hs, hq_ref
+    torch.cuda.empty_cache()
+    elt = x.element_size()
+    m = 4 * EXTRA_C
+    nbytes = 2 * x.numel() * elt + 2 * 9 * EXTRA_C * m + 4 * (3 * EXTRA_C + 2 * m)
+    flops = 2 * 2.0 * FRAMES * h * w * 9 * EXTRA_C * m
+    b_ms, b_by = bound_ms(nbytes, flops, torch.int8)
+    records.append(dict(
+        kernel="extra_convs_q8_pixel", dtype=name_dt,
+        shape=[FRAMES, h, w, EXTRA_C], max_abs_err=err,
+        max_err_over_limit=over,
+        tol="fused_extra_convs.q8_error_limit, per element",
+        output_controls=out_controls,
+        int8_flips_vs_plain=flips, int8_flip_limits=EXTRA_Q8_FLIPS,
+        int8_flip_controls=controls, ms=time_ms(run),
+        plain_ms=time_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
+        bound_by=b_by, nbytes=nbytes, flops=flops))
+    del x, g, bln, wu, bu, wo, bo, qweights
+    torch.cuda.empty_cache()
+  checks.extend(records)
+  checks.append(path_record(
+      records, "mean of one launch at the 60x60 and 32x32 grids", torch.int8))
 
 
 def check_kernels():
@@ -494,6 +758,8 @@ def check_kernels():
     del args, out, ref, diff
     torch.cuda.empty_cache()
     check_mixer_q8(dtype, gen, checks)
+    check_conv_q8(dtype, gen, checks)
+    check_extra_convs_q8(dtype, gen, checks)
   return checks
 
 
@@ -530,6 +796,20 @@ KERNEL_META = {
         tpu_kernel="K4 fused_mixer_block._kernel :256 with quantized=True "
                    "(_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225)",
         layer="K3/K4 mixer_block", run="serve_int8",
+    ),
+    "extra_convs_q8_frame": dict(
+        source="tapnet_tpu_torch/csrc/extra_convs.cu",
+        replaces="tapnet_tpu/ops/qconv.py:46",
+        tpu_kernel="(X) qconv.conv2d_q8_math, XLA's int8 convolution (no "
+                   "Pallas kernel), per-frame scales",
+        layer="int8 ExtraConvs (X, K6)", run="serve_headline",
+    ),
+    "extra_convs_q8_pixel": dict(
+        source="tapnet_tpu_torch/csrc/extra_convs.cu",
+        replaces="tapnet_tpu/ops/fused_extra_convs.py:187",
+        tpu_kernel="K6 fused_extra_convs._kernel with quantized=True (via "
+                   "_pallas_forward :261)",
+        layer="int8 ExtraConvs (X, K6)", run="serve_int8_pp",
     ),
 }
 
@@ -579,27 +859,31 @@ def golden_check(params):
 
 
 def golden_check_int8(params):
-  """The two int8 configurations on the golden clip, in fp32 and bf16 model
+  """The int8 configurations on their golden clips (the 8-frame clip, or
+  the longer clip rebuilt from the tool's seed), in fp32 and bf16 model
   dtype, against the JAX int8 golden outputs. Returns the records and the
   kernels' launch counts of each run."""
   golden = np.load(GOLDEN)
   golden_int8 = np.load(GOLDEN_INT8)
-  frames = preprocess_frames(torch.from_numpy(golden["video"]))
   result, launches, failed = {}, {}, []
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
   for name, overrides in INT8_CONFIGS.items():
     ref = {k[2:]: v for k, v in golden_int8.items() if k.startswith(name + "_")}
+    if CLIP_FRAMES[name] == golden["video"].shape[1]:
+      video, query_points = golden["video"], golden["query_points"]
+    else:
+      video, query_points = make_clip(num_frames=CLIP_FRAMES[name])
+    frames = preprocess_frames(torch.from_numpy(video))
     for bf16 in (False, True):
       predictor = TapirPredictor(
           params, bootstapir_config(**overrides), bfloat16=bf16)
       reset_counts()
-      out = predictor(frames, golden["query_points"])
+      out = predictor(frames, query_points)
       counts = read_counts()
       key = f"{name}_{'bf16' if bf16 else 'fp32'}"
       launches[key] = counts
-      expected = {"corr_tents_q8_frame", "mixer_block_q8"} if name == "a" else {
-          "corr_tents_q8_position", "mixer_block"}
+      expected = INT8_LAUNCHES[name]
       require({k for k, v in counts.items() if v} == expected,
               f"int8 golden {key}: launches {counts}, expected {expected}")
       err = np.linalg.norm(out["tracks"] - ref["tracks"], axis=-1)
@@ -632,9 +916,10 @@ def golden_check_int8(params):
   return result, launches
 
 
-def make_videos(count):
+def make_videos(count, queries=QUERIES):
   """Textured 480x480 clips on the device: the golden clip's frames,
-  upsampled and scrolled a few pixels per frame, one direction per video."""
+  upsampled and scrolled a few pixels per frame, one direction per video,
+  with `queries` query points each."""
   golden = np.load(GOLDEN)
   base = torch.from_numpy(golden["video"][0]).cuda().permute(0, 3, 1, 2).float()
   base = torch.nn.functional.interpolate(base, size=(RES, RES), mode="bilinear")
@@ -648,19 +933,23 @@ def make_videos(count):
     ])
     video = frames.permute(0, 2, 3, 1)[None] / 255.0 * 2.0 - 1.0
     qp = torch.stack([
-        torch.randint(0, FRAMES, (QUERIES,), generator=gen).float(),
-        torch.rand(QUERIES, generator=gen) * (RES - 16) + 8,
-        torch.rand(QUERIES, generator=gen) * (RES - 16) + 8,
+        torch.randint(0, FRAMES, (queries,), generator=gen).float(),
+        torch.rand(queries, generator=gen) * (RES - 16) + 8,
+        torch.rand(queries, generator=gen) * (RES - 16) + 8,
     ], -1)[None]
     videos.append((video, qp.numpy()))
   return videos
 
 
-# Kernel-name fragments per layer, for the profile's breakdown.
+# Kernel-name fragments per layer, for the profile's breakdown; a kernel
+# counts in the first layer it matches.
+EXTRA_KERNELS = ("conv3x3_q8", "frame_amax", "quantize_frames", "ln_bias_rows",
+                 "patch_scale", "::quantize_rows")
 LAYERS = (
     ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel")),
     ("K3/K4 mixer_block",
      ("mixer_temporal", "mixer_gemm", "mixer_quantize_rows")),
+    ("int8 ExtraConvs (X, K6)", EXTRA_KERNELS),
     ("convolutions (cuDNN, with its layout transforms)",
      ("conv", "fprop", "nchwtonhwc", "nhwctonchw")),
     ("matmuls (cuBLAS)", ("gemm", "cutlass", "cublas")),
@@ -700,13 +989,14 @@ def profile_video(predictor, video, qp, unprofiled_wall_s, top=10):
       own_kernels=[dict(name=name.replace("(anonymous namespace)::", "")[:60],
                         ms=ms, calls=calls)
                    for ms, calls, name in kernels
-                   if "mixer_" in name or "corr_tents" in name],
+                   if "mixer_" in name or "corr_tents" in name
+                   or any(k in name for k in EXTRA_KERNELS)],
       top=[dict(name=name[:100], ms=ms, calls=calls)
            for ms, calls, name in kernels[:top]],
   )
 
 
-def serve(params, videos, overrides, launched):
+def serve(params, videos, overrides, launched, queries=QUERIES):
   """Serves videos[1:] after a warm-up request on videos[0], in bf16 with
   `overrides` of bootstapir_config(). `launched` names the kernels this
   configuration must launch, equally often per video; every other kernel's
@@ -728,14 +1018,14 @@ def serve(params, videos, overrides, launched):
   require(all(v % count == 0 for v in launches.values()),
           f"launches differ between equal requests: {launches}")
   for out in outs:
-    require(out["tracks"].shape == (1, QUERIES, FRAMES, 2),
+    require(out["tracks"].shape == (1, queries, FRAMES, 2),
             f"tracks shape {out['tracks'].shape}")
     for key in ("tracks", "occlusion", "expected_dist"):
       require(np.isfinite(out[key]).all(), f"non-finite {key}")
     require(np.abs(out["tracks"]).max() < 4 * RES, "tracks far off the frame")
   require({k for k, v in launches.items() if v > 0} == set(launched),
           f"launched {launches}, expected exactly {sorted(launched)}")
-  return dict(config=overrides, videos=count, frames=FRAMES, queries=QUERIES,
+  return dict(config=overrides, videos=count, frames=FRAMES, queries=queries,
               chunk=CHUNK, resolution=RES, wall_s_total=wall,
               wall_s_per_video=wall / count,
               launches_per_video={k: v // count for k, v in launches.items()},
@@ -789,6 +1079,18 @@ def main():
       "serve_int8_b": serve(
           params, videos[:3], INT8_CONFIGS["b"],
           ("corr_tents_q8_position", "mixer_block")),
+      # serve-480-headline: the JAX package's headline (bench.py) at its full
+      # size, 1024 queries; per-frame int8 ExtraConvs (X), K2 and K4.
+      "serve_headline": serve(
+          params, make_videos(3, HEADLINE_QUERIES), INT8_CONFIGS["c"],
+          ("corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"),
+          queries=HEADLINE_QUERIES),
+      # serve-480-int8-pp: serve-480-int8 with the per-pixel int8
+      # ExtraConvs: K6 at both grids, no per-frame conv.
+      "serve_int8_pp": serve(
+          params, videos[:3],
+          dict(INT8_CONFIGS["a"], quantized_extra_convs="per_pixel", **fast),
+          ("corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_pixel")),
   }
   tracks = {name: run.pop("tracks") for name, run in runs.items()}
   runs["serve_int8"]["tracks_vs_bf16_same_steps"] = tracks_apart(
@@ -817,6 +1119,9 @@ def main():
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
         shape=row["shape"], dtype="bfloat16",
         profile_ms_per_video=profile_ms,
+        # X: cuDNN's bf16 convolution of the same shapes, for context only.
+        **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}
+           if "cudnn_same_shape_ms" in row else {}),
     ))
   print(card)
   print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tapnet_tpu_torch.ops import fused_mixer_block, mixer_math
+from tapnet_tpu_torch.ops import fused_extra_convs, fused_mixer_block, mixer_math, qconv
 from tapnet_tpu_torch.ops.qconv import conv2d_fp_math
 
 _EPS = 1e-5
@@ -36,6 +36,20 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
   """Flax nn.Dense semantics: compute in the promoted input/param dtype."""
   dtype = torch.promote_types(x.dtype, layer.weight.dtype)
   return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _derived(cache: dict, slot, weights, make):
+  """make(*weights), kept in `cache[slot]` until one of the weights changes:
+  the key holds each weight's storage, version, device and dtype, so
+  `load_state_dict`, `.to()` and in-place updates make it anew."""
+  key = tuple(
+      (w.data_ptr(), w._version, w.device, w.dtype)  # pylint: disable=protected-access
+      for w in weights
+  )
+  hit = cache.get(slot)
+  if hit is None or hit[0] != key:
+    hit = cache[slot] = (key, make(*(w.detach() for w in weights)))
+  return hit[1]
 
 
 class Conv(nn.Module):
@@ -112,9 +126,8 @@ class MixerBlock(nn.Module):
 
   `quantized` runs the channel MLP in w8a8 int8 (the temporal conv and the
   LayerNorms stay in full precision). The int8 weights are derived from
-  `fc_up` / `fc_down` once and kept beside them, not in the state dict; the
-  key holds each weight's storage, version, device and dtype, so
-  `load_state_dict`, `.to()` and in-place updates make them anew.
+  `fc_up` / `fc_down` once and kept beside them, not in the state dict, and
+  made anew when the weights change (`_derived`).
   """
 
   def __init__(self, features: int, kernel_size: int = 3,
@@ -123,8 +136,7 @@ class MixerBlock(nn.Module):
     super().__init__()
     self.causal = causal
     self.quantized = quantized
-    self._qweights = None
-    self._qweights_key = None
+    self._qcache = {}
     self.ln_temporal = LayerNormScale(features)
     self.temporal = TemporalDepthwiseBlock(features, kernel_size)
     self.ln_channel = LayerNormScale(features)
@@ -135,18 +147,15 @@ class MixerBlock(nn.Module):
     """(w1q [C, H], s1 [H], w2q [H, C], s2 [C]) of `fc_up` and `fc_down`,
     quantized per output column. The int8 tensors are transposed views of
     contiguous [out, in] storage, the layout the CUDA kernel reads."""
-    weights = (self.fc_up.weight, self.fc_down.weight)
-    key = tuple(
-        (w.data_ptr(), w._version, w.device, w.dtype)  # pylint: disable=protected-access
-        for w in weights
-    )
-    if key != self._qweights_key:
+    def make(*weights):
       packed = []
       for w in weights:
-        q, scale = mixer_math.quantize_weight_cols(w.detach().t())
+        q, scale = mixer_math.quantize_weight_cols(w.t())
         packed += [q.t().contiguous().t(), scale]
-      self._qweights, self._qweights_key = tuple(packed), key
-    return self._qweights
+      return tuple(packed)
+
+    return _derived(self._qcache, 0, (self.fc_up.weight, self.fc_down.weight),
+                    make)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     t = self.temporal
@@ -209,25 +218,63 @@ def _ln_with_bias_nchw(x: torch.Tensor, scale: torch.Tensor,
 
 
 class ExtraConvs(nn.Module):
-  """BootsTAPIR's residual conv stack after the backbone, full precision:
-  per layer x = LN(x); x = x + conv_out(gelu(conv_up(x))), 4x expansion.
-  The LayerNorm (with offset) sits in the main path."""
+  """BootsTAPIR's residual conv stack after the backbone: per layer
+  x = LN(x); x = x + conv_out(gelu(conv_up(x))), 4x expansion. The LayerNorm
+  (with offset) sits in the main path.
+
+  `quantized` selects the int8 inference mode (JAX: layers.ExtraConvs):
+    False        full-precision convolutions.
+    True         per-frame activation scales: `ops.qconv.conv2d_q8` for both
+                 convolutions, GELU between them in x.dtype.
+    "per_pixel"  per-pixel activation scales: the whole layer as
+                 `ops.fused_extra_convs.extra_convs_layer` (K6) where the JAX
+                 gate `wants_fused` holds; elsewhere the per-frame scheme, as
+                 in the JAX package.
+  The int8 weights are derived from the float ones once per layer and kept
+  beside them, not in the state dict (`quantized_weights`).
+  """
 
   def __init__(self, channels: int = 256, num_layers: int = 5,
-               channel_multiplier: int = 4):
+               channel_multiplier: int = 4, quantized: "bool | str" = False):
     super().__init__()
     self.num_layers = num_layers
+    self.quantized = quantized
+    self._qcache = {}
     hidden = channels * channel_multiplier
     for i in range(num_layers):
       self.add_module(f"ln_{i}", _LnBias(channels))
       self.add_module(f"conv_up_{i}", Conv(channels, hidden, 3))
       self.add_module(f"conv_out_{i}", Conv(hidden, channels, 3))
 
+  def quantized_weights(self, i: int):
+    """(wuq [M, 3, 3, C] int8, su [M], woq [C, 3, 3, M] int8, so [C]) of
+    layer i, quantized per output channel (`qconv.quantize_conv_weight`)."""
+    weights = (getattr(self, f"conv_up_{i}").weight,
+               getattr(self, f"conv_out_{i}").weight)
+    return _derived(
+        self._qcache, i, weights,
+        lambda wu, wo: (*qconv.quantize_conv_weight(wu),
+                        *qconv.quantize_conv_weight(wo)))
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     """x: [N, C, H, W] -> [N, C, H, W]."""
+    per_pixel = self.quantized == "per_pixel"
     for i in range(self.num_layers):
       ln = getattr(self, f"ln_{i}")
+      up, down = getattr(self, f"conv_up_{i}"), getattr(self, f"conv_out_{i}")
+      nhwc = x.permute(0, 2, 3, 1)
+      if fused_extra_convs.wants_fused(nhwc, per_pixel):
+        y = fused_extra_convs.extra_convs_layer(
+            nhwc, ln.scale, ln.bias, None, up.bias, None, down.bias, True,
+            qweights=self.quantized_weights(i))
+        x = y.permute(0, 3, 1, 2)
+        continue
       x = _ln_with_bias_nchw(x, ln.scale, ln.bias)
-      resid = mixer_math.gelu(getattr(self, f"conv_up_{i}")(x))
-      x = x + getattr(self, f"conv_out_{i}")(resid)
+      if self.quantized:
+        wuq, su, woq, so = self.quantized_weights(i)
+        resid = mixer_math.gelu(qconv.conv2d_q8(x, None, up.bias, (wuq, su)))
+        x = x + qconv.conv2d_q8(resid, None, down.bias, (woq, so))
+      else:
+        resid = mixer_math.gelu(up(x))
+        x = x + down(resid)
     return x

@@ -55,19 +55,16 @@ class TapirConfig:
   # scales, all applied to the output. True: per-position grid scales,
   # quantized in every call.
   quantized_corr: "bool | str" = False
-  # The int8 ExtraConvs modes (True: per-frame activation scales;
-  # "per_pixel") are not ported yet; a truthy value raises.
+  # Inference speed mode: the ExtraConvs' 3x3 convolutions in w8a8 int8.
+  # True: one activation scale per frame (`ops.qconv.conv2d_q8`);
+  # "per_pixel": per-pixel scales with exact per-tap dequantization
+  # (`ops.fused_extra_convs`, K6) where the JAX gate picks it, per-frame
+  # elsewhere. LayerNorms, GELUs and the residual stream stay full precision.
   quantized_extra_convs: "bool | str" = False
 
   def __post_init__(self):
-    if self.quantized_extra_convs:
-      raise NotImplementedError(
-          f"quantized_extra_convs={self.quantized_extra_convs!r}: the int8 "
-          "ExtraConvs modes are not ported yet. They are the next slice of "
-          "the port in ROADMAP.md: the per-frame int8 3x3 convolution and "
-          "the per-pixel kernel K6 (ops/fused_extra_convs). Nothing runs the "
-          "full-precision convolutions in their place."
-      )
+    if self.quantized_extra_convs not in (False, True, "per_pixel"):
+      raise ValueError(f"quantized_extra_convs={self.quantized_extra_convs!r}")
     if self.quantized_corr not in (False, True, "per_frame"):
       raise ValueError(f"quantized_corr={self.quantized_corr!r}")
 
@@ -204,7 +201,10 @@ class TAPIR(nn.Module):
             channels_per_group=(64, cfg.highres_dim, 256, cfg.lowres_dim),
         )
     )
-    self.extra = ExtraConvs(cfg.lowres_dim) if cfg.extra_convs else None
+    self.extra = (
+        ExtraConvs(cfg.lowres_dim, quantized=cfg.quantized_extra_convs)
+        if cfg.extra_convs else None
+    )
     self.cost_volume_head = CostVolumeHead(cfg.softmax_temperature)
     p2 = cfg.patch_size**2
     feats = cfg.highres_dim + cfg.lowres_dim

@@ -1,21 +1,68 @@
-"""Full-precision convolution with Flax "SAME" padding.
+"""Convolutions of the backbone: full precision, and the w8a8 int8 3x3 one.
 
-Port of tapnet_tpu/ops/qconv.py::conv2d_fp_math. The JAX version is XLA's
-convolution, not a Pallas kernel, so this stays `F.conv2d`. Layouts are
-PyTorch's (NCHW activations, OIHW weights).
+Port of tapnet_tpu/ops/qconv.py. Layouts are PyTorch's (NCHW activations,
+OIHW weights); the port's activations are channels-last tensors, so an NCHW
+activation is NHWC in memory, which is what the int8 kernel reads.
 
-Flax "SAME" pads asymmetrically when the stride does not divide the input:
-for a 3x3 stride-2 conv on an even input it pads 0 before and 1 after; for
-the 7x7 stride-2 stem, 2 and 3. `F.conv2d(padding=...)` is symmetric, so
-such cases take an explicit `F.pad`.
+`conv2d_fp_math` is XLA's convolution in the JAX package, not a Pallas
+kernel, so it stays `F.conv2d`. Flax "SAME" pads asymmetrically when the
+stride does not divide the input: for a 3x3 stride-2 conv on an even input it
+pads 0 before and 1 after; for the 7x7 stride-2 stem, 2 and 3.
+`F.conv2d(padding=...)` is symmetric, so such cases take an explicit `F.pad`.
+
+`conv2d_q8` is the per-frame int8 convolution of the ExtraConvs
+(`quantized_extra_convs=True`; JAX: `conv2d_q8_math`, XLA's int8
+convolution): symmetric per-output-channel weight scales, one activation
+scale per frame (the amax over H, W and C of each image), int32
+accumulation, dequantization `acc * (xs * ws) + b` in float32, output in
+x.dtype. Only the SAME 3x3 stride-1 form that the ExtraConvs use is ported.
+
+  * CPU tensors run `conv2d_q8_math`, the plain version: the int8 products
+    as float64 matrix products of the int8 values, which hold every partial
+    sum (at most 9 * C_in * 127^2) exactly, in any order.
+  * CUDA tensors launch `conv3x3_q8_frame_forward` of
+    `csrc/extra_convs.cu` (frame amax, quantization, and an int8
+    implicit-GEMM convolution on the tensor cores). PyTorch has no int8
+    convolution on CUDA.
+  * Anything else raises. There is no size gate and no fallback.
+
+The ExtraConvs quantizers divide: q = clip(round(v / s), -127, 127) with
+s = max(amax, 1e-8) * (1 / 127), rounding half to even. The mixer's
+quantizer (`mixer_math.quantize_rows`) multiplies by 127 / amax instead; the
+two differ in the last bit at half steps, so they are not interchangeable.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from tapnet_tpu_torch.ops import _build
+
+# Number of CUDA launches of the per-frame int8 convolution made through
+# `conv2d_q8` (one per call: its three kernels count once).
+LAUNCHES_Q8 = 0
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Entry points of csrc/extra_convs.cu, for `_build.load`.
+SIGNATURES = {
+    "conv3x3_q8_frame_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 17
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
+
+# The taps of a 3x3 SAME convolution, in the order of the weights' (kh, kw)
+# axes: tap j = (dy + 1) * 3 + (dx + 1) reads the input at (y + dy, x + dx).
+TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+# The plain int8 versions work on frame chunks of at most this many float64
+# elements per intermediate: frames are independent, and at the served shapes
+# on the card a whole batch's float64 patches would take tens of gigabytes.
+_CHUNK_ELEMENTS = 1 << 27
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -48,3 +95,175 @@ def conv2d_fp_math(
     return F.conv2d(x, weight, bias, stride=stride, padding=(top, left))
   x = F.pad(x, (left, right, top, bottom))
   return F.conv2d(x, weight, bias, stride=stride)
+
+
+# ----------------------------------------------------------- int8 quantizers
+
+
+def quantize_symmetric(v: torch.Tensor, amax: torch.Tensor):
+  """(clip(round(v / s), -127, 127) int8, s float32) with
+  s = max(amax, 1e-8) * (1 / 127); `amax` broadcasts against v."""
+  scale = torch.clamp(amax, min=1e-8) * (1.0 / 127.0)
+  q = torch.clamp(torch.round(v / scale), -127.0, 127.0)
+  return q.to(torch.int8), scale
+
+
+def quantize_conv_weight(weight: torch.Tensor):
+  """Per-output-channel int8 quantization of an OIHW conv weight.
+
+  Returns (q int8 [C_out, kh, kw, C_in] contiguous, the layout the kernels
+  read: each output channel's taps and input channels in one row; scale
+  float32 [C_out]).
+  """
+  wf = weight.float()
+  q, scale = quantize_symmetric(wf, wf.abs().amax((1, 2, 3), keepdim=True))
+  return q.permute(0, 2, 3, 1).contiguous(), scale.reshape(-1)
+
+
+def quantize_per_frame(x: torch.Tensor):
+  """One scale per leading index: [N, ...] -> (int8 [N, ...], float32 [N])."""
+  xf = x.float()
+  dims = tuple(range(1, x.ndim))
+  q, scale = quantize_symmetric(xf, xf.abs().amax(dims, keepdim=True))
+  return q, scale.reshape(-1)
+
+
+# ------------------------------------------------------ plain int8 pieces
+
+
+def shifted(v: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+  """Zero-boundary shift of [N, H, W, C]: out[:, y, x] = v[:, y + dy, x + dx]."""
+  h, w = v.shape[1:3]
+  padded = F.pad(v, (0, 0, 1, 1, 1, 1))
+  return padded[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+
+def int8_tap_products(q: torch.Tensor, wq: torch.Tensor):
+  """Per tap of a SAME 3x3 convolution, the exact integer product.
+
+  q: int8 [N, H, W, C_in]; wq: int8 [C_out, 3, 3, C_in]. Yields float64
+  [N, H, W, C_out] holding shifted(q, tap) . wq[:, tap]^T exactly, in the
+  order of TAPS.
+  """
+  qd = q.double()
+  for dy, dx in TAPS:
+    w_tap = wq[:, dy + 1, dx + 1].double()
+    yield torch.matmul(shifted(qd, dy, dx), w_tap.t())
+
+
+def over_frames(fn: Callable, x: torch.Tensor, per_pixel_elements: int):
+  """fn over frame chunks of x [N, H, W, ...], concatenated along the first
+  axis (each of fn's outputs, if it returns a tuple): chunks of at most
+  _CHUNK_ELEMENTS, for an fn whose intermediates take `per_pixel_elements`
+  float64 elements per pixel."""
+  per_frame = x.shape[1] * x.shape[2] * per_pixel_elements
+  step = max(1, _CHUNK_ELEMENTS // per_frame)
+  if step >= x.shape[0]:
+    return fn(x)
+  parts = [fn(x[i : i + step]) for i in range(0, x.shape[0], step)]
+  if isinstance(parts[0], tuple):
+    return tuple(torch.cat(group) for group in zip(*parts))
+  return torch.cat(parts)
+
+
+def _conv2d_q8_nhwc(x, wq, ws, bias):
+  xq, xs = quantize_per_frame(x)
+  acc = sum(int8_tap_products(xq, wq))  # exact in float64
+  y = acc.float() * (xs[:, None, None, None] * ws) + bias.float()
+  return y.to(x.dtype)
+
+
+def conv2d_q8_math(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    bias: torch.Tensor,
+    qweights=None,
+) -> torch.Tensor:
+  """Plain version of the per-frame w8a8 SAME 3x3 stride-1 convolution.
+
+  Args:
+    x: [N, C_in, H, W] activations, float32 or bfloat16.
+    weight: [C_out, C_in, 3, 3] full-precision weights (not read when
+      `qweights` is given).
+    bias: [C_out].
+    qweights: optional (int8 [C_out, 3, 3, C_in], float32 [C_out]) from
+      `quantize_conv_weight`, so a module quantizes once.
+
+  Returns:
+    [N, C_out, H, W] in x.dtype (a channels-last tensor).
+  """
+  wq, ws = qweights if qweights is not None else quantize_conv_weight(weight)
+  nhwc = x.permute(0, 2, 3, 1)
+  y = over_frames(lambda v: _conv2d_q8_nhwc(v, wq, ws, bias), nhwc,
+                  nhwc.shape[-1] + 2 * wq.shape[0])
+  return y.permute(0, 3, 1, 2)
+
+
+# ------------------------------------------------------------- CUDA kernel
+
+
+def _check_int8_conv_weights(name, wq, ws, cin, dev):
+  cout = wq.shape[0]
+  if (wq.dtype != torch.int8 or tuple(wq.shape) != (cout, 3, 3, cin)
+      or not wq.is_contiguous() or wq.device != dev):
+    raise ValueError(
+        f"{name}: int8 weight is {tuple(wq.shape)} {wq.dtype} on {wq.device}, "
+        f"expected a contiguous ({cout}, 3, 3, {cin}) int8 tensor on {dev}")
+  if ws.dtype != torch.float32 or tuple(ws.shape) != (cout,) or ws.device != dev:
+    raise ValueError(f"{name}: weight scale must be float32 [{cout}] on {dev}")
+
+
+def _launch_q8(x, qweights, bias, scratch=None):
+  """The per-frame int8 conv on the card. If `scratch` is a dict, the kernels'
+  int8 operand [N, H, W, C_in] and frame scales are left in it, for checks."""
+  global LAUNCHES_Q8
+  if x.dtype not in DTYPES:
+    raise TypeError(f"conv2d_q8: x must be float32 or bfloat16, got {x.dtype}")
+  wq, ws = qweights
+  nhwc = x.permute(0, 2, 3, 1).contiguous()
+  n, h, w, cin = nhwc.shape
+  cout = wq.shape[0]
+  dev = x.device
+  _check_int8_conv_weights("conv2d_q8", wq, ws, cin, dev)
+  if cin % 16 or cout % 16:
+    raise ValueError(
+        f"conv2d_q8: the int8 kernel needs C_in and C_out multiples of 16, "
+        f"got {cin} and {cout}")
+  if tuple(bias.shape) != (cout,) or bias.device != dev:
+    raise ValueError(f"conv2d_q8: bias must be [{cout}] on {dev}")
+  lib = _build.load("extra_convs", SIGNATURES)
+  amax = torch.empty((n,), dtype=torch.int32, device=dev)
+  xq = torch.empty((n, h, w, cin), dtype=torch.int8, device=dev)
+  xs = torch.empty((n,), dtype=torch.float32, device=dev)
+  out = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
+  bias32 = bias.float().contiguous()
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  with torch.cuda.device(dev):
+    err = lib.conv3x3_q8_frame_forward(
+        *[o.data_ptr() for o in (nhwc, wq, ws, bias32, amax, xq, xs, out)],
+        n, h, w, cin, cout, DTYPES[x.dtype], stream,
+    )
+  _build.check(lib, err, "conv3x3_q8_frame_forward")
+  LAUNCHES_Q8 += 1
+  if scratch is not None:
+    scratch.update(xq=xq, xs=xs)
+  return out.permute(0, 3, 1, 2)
+
+
+def conv2d_q8(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    bias: torch.Tensor,
+    qweights=None,
+) -> torch.Tensor:
+  """Per-frame w8a8 SAME 3x3 stride-1 convolution (see module docstring).
+
+  Arguments as `conv2d_q8_math`. Returns [N, C_out, H, W] in x.dtype.
+  """
+  if x.device.type == "cpu":
+    return conv2d_q8_math(x, weight, bias, qweights)
+  if x.device.type == "cuda":
+    if qweights is None:
+      qweights = quantize_conv_weight(weight)
+    return _launch_q8(x, qweights, bias)
+  raise ValueError(f"conv2d_q8: unsupported device {x.device}")

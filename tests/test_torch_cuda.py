@@ -1,6 +1,7 @@
 """PyTorch port, CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
-the full-precision corr-tents and mixer-block kernels and their int8 forms.
+the full-precision corr-tents and mixer-block kernels and their int8 forms,
+the per-frame int8 convolution and the per-pixel ExtraConvs layer (K6).
 
 Marked `gpu`: skips without a CUDA card. This file imports no JAX, so it also
 runs where only the port is installed:
@@ -13,7 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block, mixer_math
+from tapnet_tpu_torch.models import layers
+from tapnet_tpu_torch.ops import (
+    _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -237,3 +241,142 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     fused_mixer_block.mixer_block(
         x, p(8), p(3, 1, 32), p(32), p(3, 1, 32), p(32), p(8), p(8, 32),
         p(32), p(32, 8), p(8), quantized=True)
+
+
+# ------------------------------------------------------- int8 ExtraConvs
+
+# (n, h, w, C_in, C_out): conv_up and conv_out of C = 128 and 256, odd and
+# unequal H and W, a pixel count that is not a multiple of the 128-row tile.
+CONV_Q8_SHAPES = [(3, 9, 7, 128, 512), (2, 7, 9, 512, 128),
+                  (2, 11, 13, 256, 1024), (1, 5, 6, 1024, 256)]
+
+
+def _conv_q8_args(cuda, dtype, n, h, w, cin, cout, seed=0):
+  rng = np.random.RandomState(seed)
+  x = rng.randn(n, h, w, cin).astype(np.float32)
+  x *= np.exp(rng.randn(n, 1, 1, 1)).astype(np.float32)
+  k = (rng.randn(cout, cin, 3, 3) / (3 * cin**0.5)).astype(np.float32)
+  b = (rng.randn(cout) * 0.1).astype(np.float32)
+  x = torch.from_numpy(x).to(cuda, DTYPES[dtype]).permute(0, 3, 1, 2)
+  return x, torch.from_numpy(k).to(cuda), torch.from_numpy(b).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_Q8_SHAPES,
+                         ids=["up128", "out128", "up256", "out256"])
+def test_conv2d_q8_kernel_matches_plain(cuda, dtype, n, h, w, cin, cout):
+  """Both sides quantize the same floats with the same division and round
+  the same exact integers through the same float32 products in the same
+  order: bit-equal outputs are expected. The limit is one rounding of the
+  output (1e-6 relative in float32, a bf16 step of 2^-7 relative)."""
+  x, k, b = _conv_q8_args(cuda, dtype, n, h, w, cin, cout)
+  before = (qconv.LAUNCHES_Q8, fused_extra_convs.LAUNCHES)
+  out = qconv.conv2d_q8(x, k, b)
+  torch.cuda.synchronize()
+  assert (qconv.LAUNCHES_Q8, fused_extra_convs.LAUNCHES) == (before[0] + 1,
+                                                             before[1])
+  ref = qconv.conv2d_q8_math(x, k, b)
+  assert out.shape == ref.shape == (n, cout, h, w) and out.dtype == x.dtype
+  rel = 1e-6 if dtype == "float32" else 2.0**-7
+  err = (out.float() - ref.float()).abs()
+  assert (err <= rel * ref.float().abs() + 1e-30).all(), float(err.max())
+
+
+# (n, h, w, C): K6 at C = 128 and 256 (M = 4C), odd H and W.
+EXTRA_Q8_SHAPES = [(2, 9, 7, 128), (1, 11, 13, 256), (3, 5, 5, 128)]
+# The int8 hidden of K6 against the plain version's: at most this share one
+# step apart at all, this share more than one step apart, and
+# `fused_extra_convs.Q8_PIXEL_FLIP_SHARE` of any one pixel's values (the
+# share `q8_error_limit` assumes). Only float32 noise separates the two in
+# either model dtype (the layer is float32 from the LayerNorm to the output).
+EXTRA_Q8_FLIPS = dict(share=5e-3, far=1e-4)
+
+
+def _extra_convs_args(cuda, dtype, n, h, w, c, seed=1):
+  rng = np.random.RandomState(seed)
+  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(cuda)
+  m = 4 * c
+  x = (f(n, h, w, c) * 0.5).to(DTYPES[dtype])
+  return [x, f(c) * 0.2 + 1, f(c) * 0.1, f(3, 3, c, m) / (3 * c**0.5),
+          f(m) * 0.1, f(3, 3, m, c) / (3 * m**0.5), f(c) * 0.1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c", EXTRA_Q8_SHAPES, ids=["c128", "c256", "c128_5x5"])
+def test_extra_convs_q8_kernel_matches_plain(cuda, dtype, n, h, w, c):
+  """K6 against its plain version: the output within
+  `fused_extra_convs.q8_error_limit`, the kernel's own int8 hidden within
+  EXTRA_Q8_FLIPS of the plain version's."""
+  x, g, bln, wu, bu, wo, bo = args = _extra_convs_args(cuda, dtype, n, h, w, c)
+  qweights = fused_extra_convs.quantized_weights(wu, wo)
+  before = (qconv.LAUNCHES_Q8, fused_extra_convs.LAUNCHES)
+  out = fused_extra_convs.extra_convs_layer(*args, True)
+  torch.cuda.synchronize()
+  assert (qconv.LAUNCHES_Q8, fused_extra_convs.LAUNCHES) == (before[0],
+                                                             before[1] + 1)
+  ref = fused_extra_convs.extra_convs_layer_reference(*args, True)
+  limit, hq_ref = fused_extra_convs.q8_error_limit(x, g, bln, bu, bo, qweights)
+  err = (out.float() - ref.float()).abs()
+  assert torch.isfinite(out.float()).all()
+  assert (err <= limit).all(), float((err / limit).max())
+  scratch = {}
+  fused_extra_convs._launch(x, g, bln, bu, bo, qweights, scratch)  # pylint: disable=protected-access
+  torch.cuda.synchronize()
+  step = (scratch["hq"].int() - hq_ref.int()).abs()
+  assert float((step > 0).float().mean()) <= EXTRA_Q8_FLIPS["share"]
+  assert float((step > 1).float().mean()) <= EXTRA_Q8_FLIPS["far"]
+  assert (float((step > 0).float().mean(-1).max())
+          <= fused_extra_convs.Q8_PIXEL_FLIP_SHARE)
+
+
+@pytest.mark.parametrize("quantized", [True, "per_pixel"])
+def test_extra_convs_module_launches_its_kernels(cuda, quantized, monkeypatch):
+  """On the card the module takes a kernel for every layer: K6 where the
+  per-pixel gate holds (lowered here to this small input), the per-frame
+  convolution (two per layer) elsewhere."""
+  monkeypatch.setattr(fused_extra_convs, "_MIN_FUSED_ELEMENTS", 1)
+  model = layers.ExtraConvs(channels=128, num_layers=2, quantized=quantized)
+  torch.manual_seed(0)
+  for p in model.parameters():
+    torch.nn.init.normal_(p, std=0.02)
+  model = model.to(cuda)
+  x = torch.randn(2, 128, 6, 5, device=cuda)
+  before = (qconv.LAUNCHES_Q8, fused_extra_convs.LAUNCHES)
+  with torch.no_grad():
+    out = model(x)
+    ref = model.cpu()(x.cpu())
+  torch.cuda.synchronize()
+  got = (qconv.LAUNCHES_Q8 - before[0], fused_extra_convs.LAUNCHES - before[1])
+  assert got == ((0, 2) if quantized == "per_pixel" else (4, 0))
+  assert float((out.cpu() - ref).abs().max()) < 0.05
+
+
+def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
+  """With the kernels' library unloadable, the int8 ExtraConvs entries raise
+  on CUDA tensors; the plain versions are never called."""
+  def unloadable(*args, **kwargs):
+    raise RuntimeError("library unloadable")
+
+  def plain(*args, **kwargs):
+    raise AssertionError("a CUDA tensor reached a plain version")
+
+  monkeypatch.setattr(_build, "load", unloadable)
+  monkeypatch.setattr(qconv, "conv2d_q8_math", plain)
+  monkeypatch.setattr(fused_extra_convs, "extra_convs_layer_reference", plain)
+  x, k, b = _conv_q8_args(cuda, "float32", 1, 4, 4, 16, 32)
+  with pytest.raises(RuntimeError, match="unloadable"):
+    qconv.conv2d_q8(x, k, b)
+  args = _extra_convs_args(cuda, "float32", 1, 4, 4, 16)
+  with pytest.raises(RuntimeError, match="unloadable"):
+    fused_extra_convs.extra_convs_layer(*args, True)
+  with pytest.raises(ValueError, match="no CUDA kernel"):
+    fused_extra_convs.extra_convs_layer(*args, False)
+
+
+def test_extra_convs_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+  x, k, b = _conv_q8_args(cuda, "float32", 1, 4, 4, 24, 32)  # C_in % 16 != 0
+  with pytest.raises(ValueError, match="multiples of 16"):
+    qconv.conv2d_q8(x, k, b)
+  args = _extra_convs_args(cuda, "float32", 1, 4, 4, 24)
+  with pytest.raises(ValueError, match="multiple of 16"):
+    fused_extra_convs.extra_convs_layer(*args, True)

@@ -1,5 +1,6 @@
-"""PyTorch port, layers: ResNet, ExtraConvs, PipsMixer (full precision and
-w8a8) and CostVolumeHead against the Flax modules at narrow widths, in fp32. Params come from the Flax
+"""PyTorch port, layers: ResNet, ExtraConvs (full precision and both int8
+modes), PipsMixer (full precision and w8a8) and CostVolumeHead against the
+Flax modules at narrow widths, in fp32. Params come from the Flax
 `init`, are perturbed with numpy noise (so zero-initialised convs and unit
 norms do real work), and reach the port through the weight bridge.
 """
@@ -14,9 +15,12 @@ torch = pytest.importorskip("torch")
 from tapnet_tpu.models import layers as jax_layers
 from tapnet_tpu.models import resnet as jax_resnet
 from tapnet_tpu.models import tapir as jax_tapir
+from tapnet_tpu.ops import fused_extra_convs as jax_fec
 from tapnet_tpu.ops import mixer_math as jax_mixer_math
+from tapnet_tpu.ops import qconv as jax_qconv
 from tapnet_tpu_torch.checkpoints.convert import load_flax_params
 from tapnet_tpu_torch.models import layers, resnet, tapir
+from tapnet_tpu_torch.ops import fused_extra_convs
 
 # fp32 on both sides; the differences are summation order in convolutions
 # and matmuls (~1e-6 relative), amplified a little through the norms.
@@ -79,6 +83,76 @@ def test_extra_convs_matches_flax():
   with torch.no_grad():
     out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
   np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=TOL, atol=TOL)
+
+
+# The int8 ExtraConvs: bit-equal quantizers and exact integer products on
+# both sides, so the layers differ by float32 noise and, where it moves a
+# value across an int8 rounding boundary, a step of it carried through the
+# second layer. Outputs are O(1) to O(10).
+EXTRA_Q8_TOL = 5e-3
+
+
+@pytest.mark.parametrize(
+    "quantized,c,gate_open",
+    [(True, 8, False), ("per_pixel", 8, False), (True, 128, True),
+     ("per_pixel", 128, True), ("per_pixel", 128, False)],
+    ids=["frame_c8", "pixel_c8_per_frame_math", "frame_c128_gate_open",
+         "pixel_c128_fused", "pixel_c128_gate_closed"],
+)
+def test_quantized_extra_convs_match_flax(quantized, c, gate_open, monkeypatch):
+  """Both int8 modes against the Flax ExtraConvs. The JAX gate
+  `wants_fused` picks the per-pixel math only for 4-D inputs of at least
+  4 * 1024 * 1024 elements with C % 128 == 0; `gate_open` lowers that size
+  on both sides to 1, so the 2 x 6 x 5 x 128 input takes it. Elsewhere
+  "per_pixel" is the per-frame scheme, in both packages."""
+  if gate_open:
+    monkeypatch.setattr(jax_fec, "_MIN_FUSED_ELEMENTS", 1)
+    monkeypatch.setattr(fused_extra_convs, "_MIN_FUSED_ELEMENTS", 1)
+  flax_model = jax_layers.ExtraConvs(num_layers=2, quantized=quantized)
+  x = np.random.RandomState(4).randn(2, 6, 5, c).astype(np.float32)
+  params = _init(flax_model, jnp.asarray(x))
+  ref = _apply(flax_model, params, jnp.asarray(x))
+  model = layers.ExtraConvs(channels=c, num_layers=2, quantized=quantized)
+  load_flax_params(model, params)
+  calls = []
+  real = fused_extra_convs.extra_convs_layer
+  monkeypatch.setattr(fused_extra_convs, "extra_convs_layer",
+                      lambda *a, **k: calls.append(1) or real(*a, **k))
+  with torch.no_grad():
+    out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+  assert len(calls) == (2 if quantized == "per_pixel" and gate_open else 0)
+  np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=EXTRA_Q8_TOL,
+                             atol=EXTRA_Q8_TOL)
+  # The int8 modes are not the float stack, and each is its own scheme.
+  full = layers.ExtraConvs(channels=c, num_layers=2)
+  load_flax_params(full, params)
+  with torch.no_grad():
+    ref_full = full(torch.from_numpy(x).permute(0, 3, 1, 2))
+  diff = float((ref_full - out).abs().max())
+  assert 0 < diff < 0.1 * float(ref_full.abs().max())
+
+
+def test_quantized_extra_convs_weights_are_cached():
+  """One set of int8 weights per layer, equal to JAX's bit for bit, made
+  anew when the float weight changes; none in the state dict."""
+  model = layers.ExtraConvs(channels=8, num_layers=2, quantized=True)
+  torch.manual_seed(0)
+  for p in model.parameters():
+    torch.nn.init.normal_(p, std=0.1)
+  wuq, su, woq, so = model.quantized_weights(1)
+  assert model.quantized_weights(1)[0] is wuq
+  assert model.quantized_weights(0)[0] is not wuq
+  hwio = model.conv_up_1.weight.detach().permute(2, 3, 1, 0).numpy()
+  ws = jax_fec._w_scales(jnp.asarray(hwio))
+  np.testing.assert_array_equal(su.numpy(), np.asarray(ws))
+  wq = np.clip(np.round(hwio / np.asarray(ws)), -127, 127).astype(np.int8)
+  np.testing.assert_array_equal(wuq.numpy(), wq.transpose(3, 0, 1, 2))
+  assert woq.shape == (8, 3, 3, 32) and so.shape == (8,)
+  assert not any("q" in k.split(".")[-1] for k in model.state_dict())
+  with torch.no_grad():
+    model.conv_out_1.weight.mul_(2.0)
+  torch.testing.assert_close(model.quantized_weights(1)[3], so * 2.0)
+  assert model.quantized_weights(1)[0] is not wuq
 
 
 @pytest.mark.parametrize("causal", [False, True])

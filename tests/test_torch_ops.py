@@ -1,8 +1,9 @@
-"""PyTorch port, kernel modules: the plain versions of corr_tent_patches and
-mixer_block (what the wrappers run on CPU tensors) against the JAX package's
-references and its Pallas kernels in interpret mode, fp32 and bf16; the int8
-quantizers bit for bit, and the plain int8 versions (per-frame and
-per-position int8 correlation, w8a8 mixer block) against the same.
+"""PyTorch port, kernel modules: the plain versions of corr_tent_patches,
+mixer_block, conv2d_q8 and extra_convs_layer (what the wrappers run on CPU
+tensors) against the JAX package's references and its Pallas kernels in
+interpret mode, fp32 and bf16; the int8 quantizers bit for bit, and the plain
+int8 versions (per-frame and per-position int8 correlation, w8a8 mixer block,
+per-frame int8 convolution, per-pixel ExtraConvs layer) against the same.
 
 Inputs are made with numpy from a seed and handed to both frameworks; bf16
 inputs are rounded once (round-to-nearest-even in both) from the same fp32
@@ -16,18 +17,22 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tapnet_tpu.ops import corr_tents as jax_corr
+from tapnet_tpu.ops import fused_extra_convs as jax_fec
 from tapnet_tpu.ops import fused_mixer_block as jax_fmb
 from tapnet_tpu.ops import mixer_math as jax_mm
-from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block, mixer_math
+from tapnet_tpu.ops import qconv as jax_qconv
+from tapnet_tpu_torch.ops import (
+    corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+)
 
 
 @pytest.fixture
 def interpret_kernels():
-  jax_corr.FORCE_INTERPRET = True
-  jax_fmb.FORCE_INTERPRET = True
+  for module in (jax_corr, jax_fmb, jax_fec):
+    module.FORCE_INTERPRET = True
   yield
-  jax_corr.FORCE_INTERPRET = False
-  jax_fmb.FORCE_INTERPRET = False
+  for module in (jax_corr, jax_fmb, jax_fec):
+    module.FORCE_INTERPRET = False
 
 
 def _both(arrays, dtype):
@@ -227,6 +232,7 @@ QUANTIZERS = {
     "quantize_per_frame": (
         jax_corr.quantize_per_frame, corr_tents.quantize_per_frame,
         (2, 3, 7, 6, 16)),
+    "extra_convs_q_rows": (jax_fec._q_rows, fused_extra_convs._q_rows, (6, 5, 72)),
 }
 
 
@@ -237,8 +243,8 @@ def test_quantizer_is_bit_equal_to_jax(name, kind, dtype):
   """Same formulas in the same order and float32 throughout: the int8 values
   and the float32 scales are equal bit for bit (tolerance 0)."""
   jax_fn, torch_fn, shape = QUANTIZERS[name]
-  if name == "quantize_rows":
-    dtype = "float32"  # takes the float32 LayerNorm output only
+  if name in ("quantize_rows", "extra_convs_q_rows"):
+    dtype = "float32"  # takes float32 LayerNorm or hidden values only
   (jx,), (tx,) = _both([_quantizer_input(3, shape, kind)], dtype)
   jq, jscale = jax_fn(jx)
   tq, tscale = torch_fn(tx)
@@ -448,3 +454,228 @@ def test_int8_matmul_is_exact():
   assert out.dtype == torch.int32
   np.testing.assert_array_equal(
       out.numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+# -------------------------------------------------- int8 ExtraConvs pieces
+
+
+def _jax_conv_weight_q8(w_hwio):
+  """The JAX package's int8 conv weights: `_w_scales` and the rounding of
+  `_pallas_forward` / `qconv.conv2d_q8_math`."""
+  ws = jax_fec._w_scales(w_hwio)
+  wq = jnp.clip(jnp.round(w_hwio.astype(jnp.float32) / ws), -127.0, 127.0)
+  return wq.astype(jnp.int8), ws
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "halves"])
+def test_conv_weight_quantizer_is_bit_equal_to_jax(kind, dtype):
+  """Per-output-channel scales and int8 values of a conv weight: tolerance
+  0. The port's layout is [C_out, kh, kw, C_in]; one output channel is all
+  zeros (the 1e-8 floor, as a zero-initialised conv_out)."""
+  w = _quantizer_input(5, (3, 3, 16, 24), kind)
+  w[..., 3] = 0.0
+  (jw,), (tw,) = _both([w], dtype)
+  jq, js = _jax_conv_weight_q8(jw)
+  tq, ts = qconv.quantize_conv_weight(tw.permute(3, 2, 0, 1))
+  assert tq.dtype == torch.int8 and tq.shape == (24, 3, 3, 16) and tq.is_contiguous()
+  np.testing.assert_array_equal(tq.numpy(), np.asarray(jq).transpose(3, 0, 1, 2))
+  np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+  assert not tq[3].any()
+  # The layer's HWIO entry quantizes the same way.
+  wuq, su, _, _ = fused_extra_convs.quantized_weights(tw, tw.permute(0, 1, 3, 2))
+  torch.testing.assert_close(wuq, tq, rtol=0, atol=0)
+  torch.testing.assert_close(su, ts, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "halves"])
+def test_per_frame_conv_quantizer_is_bit_equal_to_jax(kind, dtype):
+  """The activation quantizer of `qconv.conv2d_q8_math` (its lines 54-57,
+  one scale per frame over H, W and C): tolerance 0, in any layout."""
+  x = _quantizer_input(6, (3, 5, 4, 16), kind)
+  (jx,), (tx,) = _both([x], dtype)
+  xf = jx.astype(jnp.float32)
+  xs = jnp.maximum(jnp.max(jnp.abs(xf), axis=(1, 2, 3), keepdims=True), 1e-8)
+  xs = xs * (1.0 / 127.0)
+  jq = jnp.clip(jnp.round(xf / xs), -127.0, 127.0).astype(jnp.int8)
+  tq, ts = qconv.quantize_per_frame(tx.permute(0, 3, 1, 2))
+  np.testing.assert_array_equal(tq.permute(0, 2, 3, 1).numpy(), np.asarray(jq))
+  np.testing.assert_array_equal(ts.numpy(), np.asarray(xs).reshape(-1))
+
+
+def conv_q8_inputs(seed=0, n=3, h=7, w=6, cin=16, cout=24):
+  rng = np.random.RandomState(seed)
+  x = rng.randn(n, h, w, cin).astype(np.float32)
+  x *= np.exp(rng.randn(n, 1, 1, 1)).astype(np.float32)  # frames of other ranges
+  k = (rng.randn(3, 3, cin, cout) * 0.2).astype(np.float32)
+  b = (rng.randn(cout) * 0.1).astype(np.float32)
+  return x, k, b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv2d_q8_matches_jax(dtype):
+  """Bit-equal int8 operands and exact integer products on both sides: the
+  float32 dequantization `acc * (xs * ws) + b` differs by a contraction into
+  a fused multiply-add at most (1e-6 relative); in bf16 that can move the
+  output across a rounding boundary, one bf16 step (2^-8 relative)."""
+  (jx, jk, jb), (tx, tk, tb) = _both(conv_q8_inputs(), dtype)
+  ref = jax_qconv.conv2d_q8_math(jx, jk, jb)
+  out = qconv.conv2d_q8(tx.permute(0, 3, 1, 2), tk.permute(3, 2, 0, 1), tb)
+  assert out.dtype == tx.dtype and out.shape == (3, 24, 7, 6)
+  tol = 1e-6 if dtype == "float32" else 2.0**-8
+  np.testing.assert_allclose(_np(out.permute(0, 2, 3, 1)), _np(ref), rtol=tol,
+                             atol=tol)
+  # Pre-quantized weights give the same output, bit for bit, and the
+  # weight is then not read.
+  qweights = qconv.quantize_conv_weight(tk.permute(3, 2, 0, 1))
+  again = qconv.conv2d_q8(tx.permute(0, 3, 1, 2), None, tb, qweights)
+  torch.testing.assert_close(again, out, rtol=0, atol=0)
+  # And the full-precision conv, up to quantization noise.
+  full = qconv.conv2d_fp_math(tx.permute(0, 3, 1, 2).float(),
+                              tk.permute(3, 2, 0, 1), tb)
+  err = float((out.float() - full).abs().max())
+  assert 0 < err < 0.03 * float(full.abs().max())
+
+
+def test_conv2d_q8_over_frame_chunks(monkeypatch):
+  """The plain version cut into frame chunks (as at the served shapes on the
+  card) gives the same output bit for bit: frames are independent."""
+  _, (tx, tk, tb) = _both(conv_q8_inputs(seed=1, n=5), "float32")
+  args = (tx.permute(0, 3, 1, 2), tk.permute(3, 2, 0, 1), tb)
+  whole = qconv.conv2d_q8_math(*args)
+  monkeypatch.setattr(qconv, "_CHUNK_ELEMENTS", 1)
+  torch.testing.assert_close(qconv.conv2d_q8_math(*args), whole, rtol=0, atol=0)
+
+
+def test_conv2d_q8_rejects_other_devices():
+  _, (tx, tk, tb) = _both(conv_q8_inputs(), "float32")
+  with pytest.raises(ValueError, match="unsupported device"):
+    qconv.conv2d_q8(tx.permute(0, 3, 1, 2).to("meta"), tk.permute(3, 2, 0, 1), tb)
+
+
+def extra_convs_inputs(seed=0, n=2, h=6, w=5, c=8, mult=4):
+  """The inputs of tests/test_fused_extra_convs.py::make_inputs."""
+  rng = np.random.RandomState(seed)
+  f = lambda *s: rng.randn(*s).astype(np.float32)
+  return [
+      f(n, h, w, c) * 0.5, f(c) * 0.2 + 1.0, f(c) * 0.1,
+      f(3, 3, c, mult * c) * 0.2, f(mult * c) * 0.1,
+      f(3, 3, mult * c, c) * 0.1, f(c) * 0.1,
+  ]
+
+
+# The per-pixel layer in fp32 against the JAX reference and the Pallas
+# kernel. Integer products are exact and the quantizers bit-equal, so the
+# two differ by float32 noise (LayerNorm sums, tanh), and where that noise
+# moves a patch or hidden value across an int8 rounding boundary, by one step
+# of it: a conv_up step moves a hidden value by cs * su * |wuq| ~ 0.02 *
+# 0.005 * 127, through conv_out under 1e-3 of the output; a conv_out step
+# moves the output by vs * so * |woq| ~ 1e-3. Outputs are O(1).
+EXTRA_CONVS_Q8_TOL = 3e-3
+# The float layer (quantized=False): summation order, 1e-5.
+EXTRA_CONVS_FP_TOL = 1e-5
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("hw", [(6, 5), (5, 5)], ids=["6x5", "5x5"])
+def test_extra_convs_layer_matches_jax_reference(quantized, hw):
+  h, w = hw
+  jargs, targs = _both(extra_convs_inputs(seed=h, h=h, w=w), "float32")
+  ref = jax_fec._math_reference(*jargs, quantized)
+  out = fused_extra_convs.extra_convs_layer(*targs, quantized)
+  assert out.dtype == torch.float32 and out.shape == targs[0].shape
+  tol = EXTRA_CONVS_Q8_TOL if quantized else EXTRA_CONVS_FP_TOL
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
+  if quantized:
+    # Most elements agree to float32 noise: steps apart are rare.
+    assert np.mean(np.abs(_np(out) - _np(ref)) > 1e-5) < 0.05
+    full = fused_extra_convs.extra_convs_layer(*targs, False)
+    assert 0 < float((out - full).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("hw", [(6, 5), (5, 5)], ids=["6x5", "5x5"])
+def test_extra_convs_layer_matches_pallas_interpret(hw, interpret_kernels):
+  """The per-pixel layer against the TPU kernel K6 in interpret mode, which
+  starts its tap sums from the bias where the reference adds it last; at
+  (5, 5) the padded frame's 49 rows are not a multiple of 8."""
+  h, w = hw
+  jargs, targs = _both(extra_convs_inputs(seed=10 + h, h=h, w=w), "float32")
+  ref = jax_fec._pallas_forward(*jargs, True)
+  out = fused_extra_convs.extra_convs_layer(*targs, True)
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=EXTRA_CONVS_Q8_TOL,
+                             atol=EXTRA_CONVS_Q8_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extra_convs_layer_pieces(dtype, monkeypatch):
+  """Pre-quantized weights and frame chunks give the same layer bit for
+  bit; bf16 input stays float32 inside and is cast once at the end."""
+  _, targs = _both(extra_convs_inputs(seed=3, n=3), dtype)
+  out = fused_extra_convs.extra_convs_layer(*targs, True)
+  assert out.dtype == targs[0].dtype
+  qweights = fused_extra_convs.quantized_weights(targs[3], targs[5])
+  again = fused_extra_convs.extra_convs_layer(
+      targs[0], targs[1], targs[2], None, targs[4], None, targs[6], True,
+      qweights=qweights)
+  torch.testing.assert_close(again, out, rtol=0, atol=0)
+  monkeypatch.setattr(qconv, "_CHUNK_ELEMENTS", 1)
+  chunked = fused_extra_convs.extra_convs_layer(*targs, True)
+  torch.testing.assert_close(chunked, out, rtol=0, atol=0)
+
+
+def test_wants_fused_is_the_jax_gate():
+  for shape in [(16, 32, 32, 256), (15, 32, 32, 256), (24, 32, 32, 256),
+                (250, 60, 60, 256), (64, 32, 32, 96), (4, 1024, 1024)]:
+    x = np.zeros(shape, np.float32)
+    for per_pixel in (False, True):
+      assert fused_extra_convs.wants_fused(torch.from_numpy(x), per_pixel) == (
+          jax_fec.wants_fused(jnp.asarray(x), per_pixel)), (shape, per_pixel)
+
+
+def test_extra_convs_layer_cpu_does_not_launch_and_rejects_other_devices():
+  _, targs = _both(extra_convs_inputs(), "float32")
+  before = (fused_extra_convs.LAUNCHES, qconv.LAUNCHES_Q8)
+  fused_extra_convs.extra_convs_layer(*targs, True)
+  assert (fused_extra_convs.LAUNCHES, qconv.LAUNCHES_Q8) == before
+  with pytest.raises(ValueError, match="unsupported device"):
+    fused_extra_convs.extra_convs_layer(targs[0].to("meta"), *targs[1:], True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_extra_convs_q8_limit_covers_tpu_kernel(dtype, interpret_kernels):
+  """K6 on the TPU (interpret mode) rounds where the CUDA kernel does (t32
+  and the hidden in float32, the tap sums from the bias): its output stays
+  within `q8_error_limit` of the plain version, which the card holds the CUDA
+  kernel to."""
+  jargs, targs = _both(extra_convs_inputs(seed=8, n=3, h=7, w=6, c=16), dtype)
+  tpu = jax_fec._pallas_forward(*jargs, True)
+  x, g, bln, wu, bu, wo, bo = targs
+  qweights = fused_extra_convs.quantized_weights(wu, wo)
+  limit, hq = fused_extra_convs.q8_error_limit(x, g, bln, bu, bo, qweights)
+  assert limit.shape == x.shape and hq.shape == (3 * 7 * 6, 64)
+  plain = fused_extra_convs.extra_convs_layer(x, g, bln, wu, bu, wo, bo, True)
+  err = np.abs(_np(tpu) - _np(plain))
+  assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
+
+
+@pytest.mark.parametrize("control", ["bf16_t32_residual", "output_pixel_scale"])
+def test_extra_convs_q8_limit_refuses_controls(control):
+  """In float32, `q8_error_limit` refuses the plain layer with a fault the
+  card's check must catch: t32 rounded to bf16 before the residual (up to
+  2^-8 |t32|), or each conv_out tap dequantized with the output pixel's
+  scale. The weights are scaled as chip_smoke.py scales the served layer
+  (conv_up's output and the residual O(1)), where the int8 noise that the
+  limit allows is below t32's bf16 step; measured 1.7 and 76 times the
+  limit here."""
+  rng = np.random.RandomState(0)
+  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+  n, h, w, c, m = 4, 16, 16, 32, 128
+  x, g, bln = f(n, h, w, c), f(c) * 0.2 + 1, f(c) * 0.1
+  wu, bu = f(3, 3, c, m) / (3 * c**0.5), f(m) * 0.1
+  wo, bo = f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1
+  qweights = fused_extra_convs.quantized_weights(wu, wo)
+  limit, _ = fused_extra_convs.q8_error_limit(x, g, bln, bu, bo, qweights)
+  plain = fused_extra_convs.extra_convs_layer(x, g, bln, wu, bu, wo, bo, True)
+  faulty = fused_extra_convs.q8_output_controls(x, g, bln, bu, bo, qweights)
+  assert float(((faulty[control] - plain).abs() / limit).max()) > 1.0

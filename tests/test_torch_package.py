@@ -50,6 +50,26 @@ def test_import_pulls_in_no_jax():
   assert res.returncode == 0, res.stderr
 
 
+
+def test_chip_smoke_imports_no_jax():
+  """chip_smoke.py runs where JAX is absent: it and the golden clips it
+  rebuilds (tools/golden_clip.py) import no JAX, Flax or tapnet_tpu module."""
+  code = (
+      "import sys\n"
+      "import chip_smoke\n"
+      "video, queries = chip_smoke.make_clip(num_frames=chip_smoke.CLIP_FRAMES['d'])\n"
+      "assert video.shape == (1, 24, 256, 256, 3), video.shape\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
+      "assert not bad, bad\n"
+  )
+  env = dict(os.environ, PYTHONPATH=REPO)
+  res = subprocess.run(
+      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=120,
+  )
+  assert res.returncode == 0, res.stderr
+
 def test_sources_name_no_jax():
   pattern = re.compile(r"\bjax\b|\bflax\b|\btapnet_tpu\.")
   offenders = []
@@ -66,8 +86,9 @@ def test_sources_name_no_jax():
 
 
 def test_int8_paths_run_without_jax():
-  """The int8 entries (quantizers, both int8 correlations, the w8a8 block, a
-  small int8 TAPIR) run in a fresh process that never imports JAX."""
+  """The int8 entries (quantizers, both int8 correlations, the w8a8 block, the
+  per-frame int8 conv, the per-pixel ExtraConvs layer, a small int8 TAPIR)
+  run in a fresh process that never imports JAX."""
   code = (
       "import sys, torch\n"
       "from tapnet_tpu_torch.ops import corr_tents, fused_mixer_block\n"
@@ -83,10 +104,17 @@ def test_int8_paths_run_without_jax():
       "f(4 * c), f(3, 1, 4 * c), f(4 * c), f(c), f(c, 64), f(64), f(64, c), "
       "f(c), quantized=True)\n"
       "assert y.shape == (2, 6, c)\n"
+      "from tapnet_tpu_torch.ops import fused_extra_convs, qconv\n"
+      "z = qconv.conv2d_q8(f(2, 16, 5, 4), f(32, 16, 3, 3), f(32))\n"
+      "assert z.shape == (2, 32, 5, 4)\n"
+      "z = fused_extra_convs.extra_convs_layer(f(2, 5, 4, 16), f(16), f(16), "
+      "f(3, 3, 16, 64), f(64), f(3, 3, 64, 16), f(16), True)\n"
+      "assert z.shape == (2, 5, 4, 16)\n"
       "cfg = tapir.bootstapir_config(blocks_per_group=(1, 1, 1, 1), "
       "highres_dim=16, lowres_dim=32, mixer_hidden_dim=32, "
       "num_mixer_blocks=1, initial_resolution=(32, 32), num_pips_iter=1, "
-      "quantized_mixer=True, quantized_corr='per_frame')\n"
+      "quantized_mixer=True, quantized_corr='per_frame', "
+      "quantized_extra_convs=True)\n"
       "model = tapir.TAPIR(cfg)\n"
       "for p in model.parameters(): torch.nn.init.normal_(p, std=0.05)\n"
       "with torch.no_grad():\n"
@@ -123,6 +151,8 @@ def test_int8_products_stay_in_the_ports_own_kernels():
   for entry, cu, py in (
       ("corr_tents_q8_forward", "corr_tents.cu", "corr_tents.py"),
       ("mixer_block_q8_forward", "fused_mixer_block.cu", "fused_mixer_block.py"),
+      ("conv3x3_q8_frame_forward", "extra_convs.cu", "qconv.py"),
+      ("extra_convs_q8_pixel_forward", "extra_convs.cu", "qconv.py"),
   ):
     assert f"int {entry}(" in sources[cu] and f'"{entry}"' in sources[py]
   assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
@@ -150,7 +180,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_build_key_follows_sources():
   names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
-  assert names == ["corr_tents", "fused_mixer_block"]
+  assert names == ["corr_tents", "extra_convs", "fused_mixer_block"]
   paths = {_build._library_path(n) for n in names}  # pylint: disable=protected-access
-  assert len(paths) == 2
+  assert len(paths) == 3
   assert all(p.parent == _build.BUILD_DIR for p in paths)

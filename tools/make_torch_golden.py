@@ -2,23 +2,26 @@
 
 Runs `tapnet_tpu.inference.TapirPredictor` on the CPU in float32, with the
 committed trained checkpoint (runs/bootstapir_synth/trained_params_f16.npy)
-and `bootstapir_config()`, on a small deterministic clip: textured sprites
-moving in straight lines over a smooth textured background, uint8
-1 x 8 x 256 x 256 x 3, made with numpy from a seed. Writes the clip, 32 query
-points and JAX's tracks, occlusion and expected_dist logits to
+and `bootstapir_config()`, on the 8-frame clip of tools/golden_clip.py
+(uint8 1 x 8 x 256 x 256 x 3, made with numpy from a seed). Writes the clip,
+32 query points and JAX's tracks, occlusion and expected_dist logits to
 tests/data/bootstapir_golden.npz, which tests/test_torch_golden.py and
 chip_smoke.py read.
 
 The int8 inference modes have a file of their own,
-tests/data/bootstapir_golden_int8.npz: the same clip and queries through the
-same predictor with the two int8 configurations of `INT8_CONFIGS` (off the
-TPU the JAX package runs the einsum mirrors of its int8 kernels). It holds
+tests/data/bootstapir_golden_int8.npz: the configurations of `INT8_CONFIGS`
+through the same predictor (off the TPU the JAX package runs the einsum
+mirrors of its int8 kernels and XLA's int8 convolution). It holds
 `<name>_tracks`, `<name>_occlusion` and `<name>_expected_dist` per
-configuration; the clip and the queries are read from the first file.
+configuration. Each configuration names its clip in `CLIP_FRAMES`: the
+8-frame clip of the first file (whose video and queries are read from
+there), or a longer clip from the same generator and seed, which is not
+stored: `golden_clip.make_clip(num_frames=...)` rebuilds it.
 
-  JAX_PLATFORMS=cpu python tools/make_torch_golden.py          # both files
-  JAX_PLATFORMS=cpu python tools/make_torch_golden.py int8     # one of them
+  JAX_PLATFORMS=cpu python tools/make_torch_golden.py            # both files
   JAX_PLATFORMS=cpu python tools/make_torch_golden.py float
+  JAX_PLATFORMS=cpu python tools/make_torch_golden.py int8       # all of INT8_CONFIGS
+  JAX_PLATFORMS=cpu python tools/make_torch_golden.py int8 c d   # these, kept beside the rest
 """
 
 from __future__ import annotations
@@ -32,70 +35,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 OUT = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
 OUT_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_int8.npz")
-# The int8 configurations, as overrides of `bootstapir_config()`: "a" is the
-# w8a8 mixer with the per-frame int8 correlation (grids quantized once per
-# video), "b" the per-position int8 correlation.
-INT8_CONFIGS = {
-    "a": dict(quantized_mixer=True, quantized_corr="per_frame"),
-    "b": dict(quantized_corr=True),
-}
-SEED = 20261016
-T, H, W, N = 8, 256, 256, 32
+
+sys.path.insert(0, REPO)
+from tools.golden_clip import CLIP_FRAMES, INT8_CONFIGS, T, make_clip  # noqa: E402
 
 
-def _smooth_texture(rng, h, w, cells):
-  """[h, w, 3] uint8 texture: bilinear upsampling of a coarse random grid."""
-  coarse = rng.rand(cells + 1, cells + 1, 3)
-  ys = np.linspace(0, cells, h)
-  xs = np.linspace(0, cells, w)
-  y0 = np.minimum(ys.astype(int), cells - 1)
-  x0 = np.minimum(xs.astype(int), cells - 1)
-  fy = (ys - y0)[:, None, None]
-  fx = (xs - x0)[None, :, None]
-  top = coarse[y0][:, x0] * (1 - fx) + coarse[y0][:, x0 + 1] * fx
-  bot = coarse[y0 + 1][:, x0] * (1 - fx) + coarse[y0 + 1][:, x0 + 1] * fx
-  return ((top * (1 - fy) + bot * fy) * 255).astype(np.uint8)
-
-
-def make_clip(seed: int = SEED):
-  """Returns (video uint8 [1, T, H, W, 3], query_points float32 [1, N, 3])."""
-  rng = np.random.RandomState(seed)
-  background = _smooth_texture(rng, H, W, 12)
-  sprites = []
-  for _ in range(5):
-    size = rng.randint(40, 72)
-    sprites.append(dict(
-        tex=_smooth_texture(rng, size, size, 4),
-        pos=rng.rand(2) * (np.array([H, W]) - size),
-        vel=(rng.rand(2) - 0.5) * 12.0,
-    ))
-  frames = np.empty((T, H, W, 3), np.uint8)
-  owner = np.full((T, H, W), -1, np.int32)  # top sprite per pixel
-  for t in range(T):
-    frame = background.copy()
-    for k, s in enumerate(sprites):
-      size = s["tex"].shape[0]
-      y, x = np.round(s["pos"] + s["vel"] * t).astype(int)
-      y0, x0 = max(y, 0), max(x, 0)
-      y1, x1 = min(y + size, H), min(x + size, W)
-      if y1 > y0 and x1 > x0:
-        frame[y0:y1, x0:x1] = s["tex"][y0 - y : y1 - y, x0 - x : x1 - x]
-        owner[t, y0:y1, x0:x1] = k
-    frames[t] = frame
-
-  # Half the queries on sprites (at a random frame), half on the background.
-  queries = []
-  while len(queries) < N:
-    t = rng.randint(T)
-    y, x = rng.rand(2) * (np.array([H, W]) - 16) + 8
-    on_sprite = owner[t, int(y), int(x)] >= 0
-    if on_sprite == (len(queries) % 2 == 0):
-      queries.append((t, y, x))
-  return frames[None], np.asarray(queries, np.float32)[None]
-
-
-def main(which=("float", "int8")):
-  sys.path.insert(0, REPO)
+def main(which=("float", "int8"), names=None):
   import jax
 
   jax.config.update("jax_platforms", "cpu")
@@ -110,12 +55,19 @@ def main(which=("float", "int8")):
   params = tapir_checkpoint.load_tapir_checkpoint(CHECKPOINT)
   frames = np.asarray(sampling.preprocess_frames(jnp.asarray(video)))
 
-  def run(**overrides):
+  def run(clip=(frames, query_points), **overrides):
     predictor = inference.TapirPredictor(
         params, tapir.bootstapir_config(**overrides)
     )
-    out = predictor(frames, query_points)
+    out = predictor(*clip)
     return {k: out[k] for k in ("tracks", "occlusion", "expected_dist")}
+
+  def clip_of(name):
+    if CLIP_FRAMES[name] == T:
+      return frames, query_points
+    long_video, long_queries = make_clip(num_frames=CLIP_FRAMES[name])
+    return (np.asarray(sampling.preprocess_frames(jnp.asarray(long_video))),
+            long_queries)
 
   os.makedirs(os.path.dirname(OUT), exist_ok=True)
   if "float" in which:
@@ -124,13 +76,20 @@ def main(which=("float", "int8")):
     )
     print(f"wrote {OUT} ({os.path.getsize(OUT) / 2**20:.2f} MiB)")
   if "int8" in which:
+    names = names or sorted(INT8_CONFIGS)
     arrays = {}
-    for name, overrides in INT8_CONFIGS.items():
-      for key, value in run(**overrides).items():
+    if os.path.exists(OUT_INT8):
+      arrays = {k: v for k, v in np.load(OUT_INT8).items()
+                if k.split("_")[0] in INT8_CONFIGS
+                and k.split("_")[0] not in names}
+    for name in names:
+      for key, value in run(clip_of(name), **INT8_CONFIGS[name]).items():
         arrays[f"{name}_{key}"] = value
+      print(f"ran configuration {name}", flush=True)
     np.savez_compressed(OUT_INT8, **arrays)
     print(f"wrote {OUT_INT8} ({os.path.getsize(OUT_INT8) / 2**20:.2f} MiB)")
 
 
 if __name__ == "__main__":
-  main(tuple(sys.argv[1:]) or ("float", "int8"))
+  args = sys.argv[1:]
+  main(tuple(args[:1]) or ("float", "int8"), args[1:] or None)
