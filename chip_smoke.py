@@ -27,7 +27,15 @@ Phases (any failure raises and exits non-zero):
      configuration with 1024 queries, and a with the per-pixel int8
      ExtraConvs (K6). The kernels' launch counters are set to 0 before each
      run and read after: a run must launch its own kernels and no other.
-  4. The last line: {"ok": true, "device": {...}}.
+  4. TAPNext (ViT-B, seed-made weights from tools/tapnext_weights.py): the
+     linear scan (K5) against its plain version bit for bit at the served
+     shape beside faulty plain versions that the check must refuse, the
+     golden clip against the JAX golden outputs (fp32 with TF32 off, and
+     bf16), the time-chunked predictor against one pass, serve-tapnext-256
+     (TapnextPredictor, 250-frame 256x256 videos, 256 queries, chunks of 50:
+     60 K5 launches per video) and online-tapnext-256 (64 queries, one
+     frame per step: no K5 launch).
+  5. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line. Exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
@@ -49,17 +57,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from tapnet_tpu_torch.checkpoints.tapir_checkpoint import load_tapir_checkpoint  # noqa: E402
-from tapnet_tpu_torch.inference import TapirPredictor  # noqa: E402
+from tapnet_tpu_torch.inference import (  # noqa: E402
+    OnlineTapnextPredictor, TapirPredictor, TapnextPredictor,
+)
+from tapnet_tpu_torch.models.ssm_vit import SsmVitConfig  # noqa: E402
 from tapnet_tpu_torch.models.tapir import bootstapir_config  # noqa: E402
 from tapnet_tpu_torch.ops import (  # noqa: E402
     _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+    scan,
 )
 from tapnet_tpu_torch.utils.sampling import preprocess_frames  # noqa: E402
 from tools.golden_clip import CLIP_FRAMES, INT8_CONFIGS, make_clip  # noqa: E402
+from tools.make_tapnext_golden import (  # noqa: E402
+    CHUNK as TAPNEXT_GOLDEN_CHUNK, WEIGHT_SEED as TAPNEXT_SEED, golden_clip,
+)
+from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
 GOLDEN_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_int8.npz")
+TAPNEXT_GOLDEN = os.path.join(REPO, "tests/data/tapnext_golden.npz")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
@@ -220,6 +237,33 @@ INT8_LAUNCHES = {
     "d": {"corr_tents", "mixer_block", "extra_convs_q8_pixel"},
 }
 
+# TAPNext (ViT-B, SsmVitConfig()). serve-tapnext-256: 250-frame 256x256
+# videos, 256 queries, chunks of 50 frames, bf16 compute dtype: the linear
+# scan runs at [b * (1024 + queries), chunk, 768] float32 (the residual
+# stream, and so the RG-LRU's input, stays float32 in bf16 mode).
+# online-tapnext-256: the JAX package's bench.py workload
+# (tapnext_online_ms_per_frame), 64 queries, one frame per step.
+TN_RES, TN_FRAMES, TN_QUERIES, TN_CHUNK, TN_WIDTH = 256, 250, 256, 50, 768
+TN_TOKENS = (TN_RES // 8) ** 2
+SCAN_SHAPE = (TN_TOKENS + TN_QUERIES, TN_CHUNK, TN_WIDTH)
+SCAN_ODD_SHAPE = (3, 12, 130)
+TN_ONLINE_QUERIES, TN_ONLINE_STEPS = 64, 50
+# K5 against its plain version: both make the same two roundings per step
+# (multiply, then add, in float32) and the same cast of y, so they must be
+# equal bit for bit (limit 0). The faulty plain versions (ops/scan.py
+# scan_controls: an FMA-contracted step, a bfloat16 carry) must be refused.
+# TAPNext on the card against the JAX golden outputs (CPU, seed-0 ViT-B
+# weights, 4 frames, 16 queries). fp32 with TF32 off: float32 sums in other
+# orders through 12 layers (the port on the CPU: 4e-6 on the logits, 3e-5
+# px); logits within 2e-3, tracks within 0.05 px for >= 99% of point-frames
+# (a near-tied coordinate bin of the random-weight head may flip: counted).
+# bf16: as BootsTAPIR's bf16 golden check.
+TN_GOLDEN_FP32_TOL = dict(logits=2e-3, track_px=0.05, share=0.99)
+# The time-chunked predictor against one pass (both in the port, fp32): the
+# recurrence is exact and attention per frame, so only the GEMMs' blocking
+# differs: tracks within 0.01 px, occlusion logits within 1e-4 of their range.
+TN_CHUNKED_TOL = dict(track_px=0.01, logit_of_range=1e-4)
+
 
 def require(cond, msg):
   if not cond:
@@ -342,6 +386,7 @@ COUNTERS = {
     "mixer_block_q8": (fused_mixer_block, "LAUNCHES_Q8"),
     "extra_convs_q8_frame": (qconv, "LAUNCHES_Q8"),
     "extra_convs_q8_pixel": (fused_extra_convs, "LAUNCHES"),
+    "linear_scan": (scan, "LAUNCHES"),
 }
 
 
@@ -713,6 +758,69 @@ def check_extra_convs_q8(dtype, gen, checks):
       records, "mean of one launch at the 60x60 and 32x32 grids", torch.int8))
 
 
+def scan_inputs(shape, dtype, carried, gen):
+  """x, a [B, T, C] in `dtype` with a in (0.69, 0.99), as the RG-LRU's
+  decays; h0 zero (a fresh sequence, the first chunk) or carried."""
+  b, t, c = shape
+  x = torch.randn(b, t, c, device="cuda", generator=gen).to(dtype)
+  a = (torch.rand(b, t, c, device="cuda", generator=gen) * 0.3 + 0.69).to(dtype)
+  h0 = (torch.randn(b, c, device="cuda", generator=gen) if carried
+        else torch.zeros(b, c, device="cuda"))
+  return x, a, h0
+
+
+def scan_bound(x):
+  """Bytes and operations of one scan: x and a read, y written in their
+  dtype, h0 read and h_last written in float32; a multiply and an add per
+  element (float32)."""
+  b, _, c = x.shape
+  return 3 * x.numel() * x.element_size() + 2 * b * c * 4, 2.0 * x.numel()
+
+
+def check_scan(gen, checks):
+  """K5 against its plain version, bit for bit, at the served shape (fp32
+  with h0 zero and carried, bf16 I/O) and an odd shape, beside the faulty
+  plain versions that the check must refuse. The served path's row is fp32
+  with a carried state (four of a video's five chunks)."""
+  cases = [(SCAN_SHAPE, torch.float32, False), (SCAN_SHAPE, torch.float32, True),
+           (SCAN_SHAPE, torch.bfloat16, True), (SCAN_ODD_SHAPE, torch.float32, True),
+           (SCAN_ODD_SHAPE, torch.bfloat16, True)]
+  for shape, dtype, carried in cases:
+    name_dt = str(dtype).replace("torch.", "")
+    name = f"linear_scan {name_dt} {'x'.join(map(str, shape))} h0 {'carried' if carried else 'zero'}"
+    x, a, h0 = scan_inputs(shape, dtype, carried, gen)
+    run = lambda: scan.linear_scan(x, a, h0)
+    plain = lambda: scan.linear_scan_reference(x, a, h0)
+    y, h_last = run()
+    torch.cuda.synchronize()
+    ref_y, ref_h = plain()
+    torch.cuda.synchronize()
+    err = max(float((y.float() - ref_y.float()).abs().max()),
+              float((h_last - ref_h).abs().max()))
+    exact = bool(torch.equal(y, ref_y) and torch.equal(h_last, ref_h))
+    require(exact, f"{name}: not bit-equal to its plain version, max_abs_err {err}")
+    controls = {}
+    for key, (fy, fh) in scan.scan_controls(x, a, h0).items():
+      apart = max(float((fy.float() - ref_y.float()).abs().max()),
+                  float((fh - ref_h).abs().max()))
+      controls[key] = dict(max_abs_err=apart, refused=apart > 0.0)
+      require(controls[key]["refused"],
+              f"{name}: the bit-equality check passes the control {key}")
+    del y, h_last, ref_y, ref_h
+    nbytes, flops = scan_bound(x)
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    checks.append(dict(
+        kernel="linear_scan", dtype=name_dt,
+        path=shape == SCAN_SHAPE and dtype == torch.float32 and carried,
+        shape=list(shape), h0="carried" if carried else "zero",
+        max_abs_err=err, max_err_over_limit=0.0 if exact else float("inf"),
+        tol="bit-equal (limit 0)", bit_equal=exact, controls=controls,
+        ms=time_ms(run, reps=20), plain_ms=time_ms(plain, reps=3),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops))
+    del x, a, h0
+    torch.cuda.empty_cache()
+
+
 def check_kernels():
   """Each kernel against its plain version on the same inputs, timed. Returns
   one record per check, and per kernel and dtype a `path` record: what one
@@ -760,6 +868,7 @@ def check_kernels():
     check_mixer_q8(dtype, gen, checks)
     check_conv_q8(dtype, gen, checks)
     check_extra_convs_q8(dtype, gen, checks)
+  check_scan(gen, checks)
   return checks
 
 
@@ -810,6 +919,14 @@ KERNEL_META = {
         tpu_kernel="K6 fused_extra_convs._kernel with quantized=True (via "
                    "_pallas_forward :261)",
         layer="int8 ExtraConvs (X, K6)", run="serve_int8_pp",
+    ),
+    # TAPNext: the scan's inputs stay float32 in the served bf16 model.
+    "linear_scan": dict(
+        source="tapnet_tpu_torch/csrc/scan.cu",
+        replaces="tapnet_tpu/ops/scan.py:32",
+        tpu_kernel="K5 scan._scan_kernel (via _scan_pallas :83, entry "
+                   "linear_scan :159)",
+        layer="K5 linear_scan", run="serve_tapnext", dtype="float32",
     ),
 }
 
@@ -956,15 +1073,20 @@ LAYERS = (
 )
 
 
-def profile_video(predictor, video, qp, unprofiled_wall_s, top=10):
-  """Kernel time of one request by layer and by name (torch.profiler's
-  device timestamps), and the device's busy share of the unprofiled wall
-  time of a request (the profiler slows the host, not the kernels)."""
+OWN_KERNELS = ("mixer_", "corr_tents") + EXTRA_KERNELS
+
+
+def profile_request(request, unprofiled_wall_s, layers=LAYERS, own=OWN_KERNELS,
+                    top=10):
+  """Kernel time of one request (a call of `request`) by layer and by name
+  (torch.profiler's device timestamps), and the device's busy share of the
+  unprofiled wall time of a request (the profiler slows the host, not the
+  kernels). A kernel counts in the first of `layers` its name matches."""
   from torch.profiler import ProfilerActivity, profile
 
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    predictor(video, qp)
+    request()
   kernels = []
   for e in prof.key_averages():
     if not str(e.device_type).endswith("CUDA"):
@@ -975,12 +1097,12 @@ def profile_video(predictor, video, qp, unprofiled_wall_s, top=10):
     kernels.append((dev_us / 1e3, e.count, e.key))
   kernels.sort(reverse=True)
   device_ms = sum(k[0] for k in kernels)
-  by_layer = {name: 0.0 for name, _ in LAYERS}
-  by_layer["other (elementwise, reductions, copies)"] = 0.0
+  other = "other (elementwise, reductions, copies)"
+  by_layer = {name: 0.0 for name, _ in layers}
+  by_layer[other] = 0.0
   for ms, _, name in kernels:
-    layer = next((lay for lay, keys in LAYERS
-                  if any(k in name.lower() for k in keys)),
-                 "other (elementwise, reductions, copies)")
+    layer = next((lay for lay, keys in layers
+                  if any(k in name.lower() for k in keys)), other)
     by_layer[layer] += ms
   return dict(
       device_ms=device_ms,
@@ -989,8 +1111,7 @@ def profile_video(predictor, video, qp, unprofiled_wall_s, top=10):
       own_kernels=[dict(name=name.replace("(anonymous namespace)::", "")[:60],
                         ms=ms, calls=calls)
                    for ms, calls, name in kernels
-                   if "mixer_" in name or "corr_tents" in name
-                   or any(k in name for k in EXTRA_KERNELS)],
+                   if any(k in name for k in own)],
       top=[dict(name=name[:100], ms=ms, calls=calls)
            for ms, calls, name in kernels[:top]],
   )
@@ -1031,7 +1152,8 @@ def serve(params, videos, overrides, launched, queries=QUERIES):
               launches_per_video={k: v // count for k, v in launches.items()},
               visible_frac=[float(predictor.visibles(o).mean()) for o in outs],
               tracks=[o["tracks"] for o in outs],
-              profile=profile_video(predictor, *videos[1], wall / count))
+              profile=profile_request(lambda: predictor(*videos[1]),
+                                      wall / count))
 
 
 def tracks_apart(a, b):
@@ -1039,6 +1161,239 @@ def tracks_apart(a, b):
   d = np.concatenate([np.linalg.norm(x - y, axis=-1).ravel()
                       for x, y in zip(a, b)])
   return dict(median_px=float(np.median(d)), p95_px=float(np.percentile(d, 95)))
+
+
+# ------------------------------------------------------------------ TAPNext
+
+# Kernel-name fragments per layer of the TAPNext profile, matched in order.
+# The SSM block's products are float32 (TF32 off): cuBLAS's SIMT kernels,
+# named "f32f32" or "sgemm" (and "gemvx" for the heads of a one-frame step).
+# The ViT blocks' bf16 products run on the tensor cores (cuBLASLt's "nvjet"
+# kernels, or "gemm" ones of other names).
+TAPNEXT_LAYERS = (
+    ("K5 linear_scan", ("linear_scan_kernel",)),
+    ("attention (scaled_dot_product_attention)",
+     ("flash", "fmha", "sdpa", "attention")),
+    ("matmuls, fp32 (SSM block, heads)", ("f32f32", "sgemm", "gemvx")),
+    ("matmuls, bf16 (ViT blocks)", ("nvjet", "gemm", "cutlass", "xmma")),
+)
+
+
+def tapnext_flops(cfg, frames, queries):
+  """Multiply-add operations (x2) of one TAPNext pass by operand type: the
+  SSM block's float32 products (linear_x, linear_y, linear_out, ffw_up,
+  ffw_down, the block-diagonal gates), the ViT blocks' products in the
+  compute dtype (q/k/v/out, MLP) and attention's two products."""
+  d, m, heads = cfg.width, cfg.mlp_dim, cfg.num_heads
+  tokens = (cfg.image_size[0] // cfg.patch_size[1]) * (
+      cfg.image_size[1] // cfg.patch_size[2]) + queries
+  per_token_ssm = 3 * d * d + 2 * d * m + d * m + 2 * d * (d // heads)
+  per_token_vit = 4 * d * d + 2 * d * m
+  per_token_attn = 2 * tokens * d
+  scale = 2.0 * frames * tokens * cfg.depth
+  return dict(fp32_ssm=scale * per_token_ssm, compute_dtype_vit=scale * per_token_vit,
+              attention=scale * per_token_attn)
+
+
+def tapnext_golden_check(params):
+  """ViT-B on the golden clip against the JAX golden outputs: the model's
+  pass (tracks, coordinate and visibility logits) and TapnextPredictor with
+  the golden's chunk size, in fp32 (TF32 off) and bf16; then the fp32
+  predictor in one pass against its time-chunked run."""
+  golden = np.load(TAPNEXT_GOLDEN)
+  video, qp = golden_clip()
+  torch.backends.cuda.matmul.allow_tf32 = False
+  result, failed = {}, []
+  for name in ("float32", "bfloat16"):
+    predictor = TapnextPredictor(params, SsmVitConfig(compute_dtype=name),
+                                 chunk_size=TAPNEXT_GOLDEN_CHUNK)
+    reset_counts()
+    with torch.inference_mode():
+      out = predictor.model(torch.from_numpy(video).cuda(),
+                            torch.from_numpy(qp).cuda(), intermediates=False)
+    call_launches = read_counts()["linear_scan"]
+    reset_counts()
+    pred = predictor(video, qp)
+    pred_launches = read_counts()["linear_scan"]
+    tracks = out.tracks.cpu().numpy()
+    ref = {k: golden[f"{name}_call_{k}"]
+           for k in ("tracks", "track_logits", "visible_logits")}
+    r = result[name] = dict(
+        k5_launches=dict(call=call_launches, predictor=pred_launches),
+        call_logit_max_abs=max(
+            float(np.abs(getattr(out, k).cpu().numpy() - ref[k]).max())
+            for k in ("track_logits", "visible_logits")),
+        pred_occlusion_max_abs=float(np.abs(
+            pred["occlusion"] - golden[f"{name}_pred_occlusion"]).max()))
+    require(call_launches == SsmVitConfig().depth
+            and pred_launches == 2 * SsmVitConfig().depth,
+            f"TAPNext golden {name}: K5 launches {r['k5_launches']}")
+    for key, got, want, vis_got, vis_want in (
+        ("call", tracks, ref["tracks"], out.visible_logits.cpu().numpy()[..., 0] > 0,
+         ref["visible_logits"][..., 0] > 0),
+        ("pred", pred["tracks"], golden[f"{name}_pred_tracks"],
+         pred["occlusion"] < 0, golden[f"{name}_pred_occlusion"] < 0)):
+      axis_err = np.abs(got - want).max(-1)
+      dist = np.linalg.norm(got - want, axis=-1)
+      r[key] = dict(
+          track_max_px=float(axis_err.max()),
+          track_median_px=float(np.median(dist)),
+          track_p95_px=float(np.percentile(dist, 95)),
+          share_within_px=float(np.mean(axis_err <= TN_GOLDEN_FP32_TOL["track_px"])),
+          flips_over_px=int(np.sum(axis_err > TN_GOLDEN_FP32_TOL["track_px"])),
+          visible_agree=float(np.mean(vis_got == vis_want)))
+      if name == "float32":
+        tol = TN_GOLDEN_FP32_TOL
+        ok = r[key]["share_within_px"] >= tol["share"]
+      else:
+        tol = GOLDEN_BF16_TOL
+        ok = (r[key]["track_median_px"] <= tol["median_px"]
+              and r[key]["track_p95_px"] <= tol["p95_px"]
+              and r[key]["visible_agree"] >= tol["visible_agree"])
+      if not ok:
+        failed.append(f"{name} {key}: {r[key]} vs {tol}")
+    if name == "float32":
+      logits_ok = (r["call_logit_max_abs"] <= TN_GOLDEN_FP32_TOL["logits"]
+                   and r["pred_occlusion_max_abs"] <= TN_GOLDEN_FP32_TOL["logits"])
+      if not logits_ok:
+        failed.append(f"{name} logits: {r}")
+      # One pass against the time-chunked run, in the port.
+      predictor.chunk_size = None
+      whole = predictor(video, qp)
+      occ_range = float(np.ptp(whole["occlusion"]))
+      r["chunked_vs_one_pass"] = dict(
+          track_max_px=float(np.abs(pred["tracks"] - whole["tracks"]).max()),
+          occlusion_max_abs=float(np.abs(pred["occlusion"] - whole["occlusion"]).max()),
+          occlusion_range=occ_range, tol=TN_CHUNKED_TOL)
+      c = r["chunked_vs_one_pass"]
+      if not (c["track_max_px"] <= TN_CHUNKED_TOL["track_px"]
+              and c["occlusion_max_abs"] <= TN_CHUNKED_TOL["logit_of_range"] * occ_range):
+        failed.append(f"chunked vs one pass: {c}")
+    del predictor, out
+    torch.cuda.empty_cache()
+  require(not failed, "TAPNext golden check failed: " + "; ".join(failed))
+  return result
+
+
+def tapnext_videos(count, frames=None, queries=None, query_t=None):
+  """256x256 clips on the device (TN_FRAMES frames unless `frames`): the
+  golden clip's frames scrolled a few pixels per frame, one direction per
+  video, in [-1, 1], with `queries` (TN_QUERIES) query points each, at frame
+  `query_t` or spread over the clip."""
+  frames = frames or TN_FRAMES
+  queries = queries or TN_QUERIES
+  golden = np.load(GOLDEN)
+  base = torch.from_numpy(golden["video"][0]).cuda().float()  # [8, 256, 256, 3]
+  gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+  videos = []
+  for _ in range(count):
+    vy, vx = (torch.randint(-3, 4, (2,), generator=gen)).tolist()
+    clip = torch.stack([
+        torch.roll(base[t % base.shape[0]], (vy * t, vx * t), dims=(0, 1))
+        for t in range(frames)
+    ])
+    video = (clip / 255.0 * 2.0 - 1.0)[None]
+    t = (torch.zeros(queries) if query_t is not None else
+         torch.randint(0, frames, (queries,), generator=gen).float())
+    qp = torch.stack([
+        t, torch.rand(queries, generator=gen) * (TN_RES - 16) + 8,
+        torch.rand(queries, generator=gen) * (TN_RES - 16) + 8,
+    ], -1)[None]
+    videos.append((video, qp.numpy()))
+  return videos
+
+
+def serve_tapnext(params):
+  """serve-tapnext-256: ViT-B in bf16 compute dtype through TapnextPredictor
+  with chunks of TN_CHUNK frames, one warm-up video and two timed ones. Each
+  video must launch K5 depth x chunks times and no other kernel."""
+  cfg = SsmVitConfig(compute_dtype="bfloat16")
+  predictor = TapnextPredictor(params, cfg, chunk_size=TN_CHUNK)
+  videos = tapnext_videos(3)
+  predictor(*videos[0])
+  torch.cuda.synchronize()
+  count = len(videos) - 1
+  reset_counts()
+  event_ms, outs = [], []
+  start = time.perf_counter()
+  for video, qp in videos[1:]:
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    begin.record()
+    outs.append(predictor(video, qp))
+    end.record()
+    torch.cuda.synchronize()
+    event_ms.append(begin.elapsed_time(end))
+  wall = time.perf_counter() - start
+  launches = read_counts()
+  expected = cfg.depth * (-(-TN_FRAMES // TN_CHUNK))
+  require(launches["linear_scan"] == expected * count
+          and sum(launches.values()) == launches["linear_scan"],
+          f"serve-tapnext: launches {launches}, expected {expected} K5 per "
+          "video and no other kernel")
+  for out in outs:
+    require(out["tracks"].shape == (1, TN_QUERIES, TN_FRAMES, 2),
+            f"tracks shape {out['tracks'].shape}")
+    for key in ("tracks", "occlusion"):
+      require(np.isfinite(out[key]).all(), f"serve-tapnext: non-finite {key}")
+    require(np.abs(out["tracks"]).max() < 4 * TN_RES, "tracks far off the frame")
+  flops = tapnext_flops(cfg, TN_FRAMES, TN_QUERIES)
+  return dict(
+      config=dict(variant="ViT-B", compute_dtype="bfloat16",
+                  weights=f"tools/tapnext_weights.py seed {TAPNEXT_SEED}"),
+      videos=count, frames=TN_FRAMES, queries=TN_QUERIES, chunk=TN_CHUNK,
+      resolution=TN_RES, wall_s_total=wall, wall_s_per_video=wall / count,
+      event_ms_per_video=event_ms,
+      launches_per_video={k: v // count for k, v in launches.items()},
+      visible_frac=[float(np.mean(o["occlusion"] < 0)) for o in outs],
+      fp32_matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
+      float32_matmul_precision=torch.get_float32_matmul_precision(),
+      flops_per_video=flops,
+      profile=profile_request(lambda: predictor(*videos[1]), wall / count,
+                              layers=TAPNEXT_LAYERS, own=("linear_scan",),
+                              top=25))
+
+
+def online_tapnext(params):
+  """online-tapnext-256: ViT-B bf16, 64 queries on the first frame, init on
+  one frame, then TN_ONLINE_STEPS one-frame predict steps (each returns its
+  tracks to the host). T = 1 everywhere, so K5 never launches."""
+  cfg = SsmVitConfig(compute_dtype="bfloat16")
+  online = OnlineTapnextPredictor(params, cfg)
+  (video, qp), = tapnext_videos(1, frames=TN_ONLINE_STEPS + 1,
+                                queries=TN_ONLINE_QUERIES, query_t=0)
+  online.init(video[:, :1], qp)  # warm-up
+  for t in range(1, 6):
+    online.predict(video[:, t])
+  torch.cuda.synchronize()
+  reset_counts()
+  online.init(video[:, :1], qp)
+  step_ms, tracks = [], []
+  for t in range(1, TN_ONLINE_STEPS + 1):
+    begin = time.perf_counter()
+    tr, _ = online.predict(video[:, t])
+    step_ms.append((time.perf_counter() - begin) * 1e3)
+    tracks.append(tr)
+  launches = read_counts()
+  require(sum(launches.values()) == 0,
+          f"online-tapnext launched kernels of the port: {launches}")
+  tracks = np.stack(tracks)
+  require(tracks.shape == (TN_ONLINE_STEPS, 1, TN_ONLINE_QUERIES, 2)
+          and np.isfinite(tracks).all(), "online-tapnext: bad tracks")
+  mean_ms = float(np.mean(step_ms))
+  profile = profile_request(lambda: [online.predict(video[:, t])
+                                     for t in range(1, 11)],
+                            mean_ms * 10 / 1e3, layers=TAPNEXT_LAYERS,
+                            own=("linear_scan",), top=25)
+  return dict(
+      config=dict(variant="ViT-B", compute_dtype="bfloat16",
+                  weights=f"tools/tapnext_weights.py seed {TAPNEXT_SEED}"),
+      queries=TN_ONLINE_QUERIES, resolution=TN_RES, steps=TN_ONLINE_STEPS,
+      ms_per_frame_mean=mean_ms, ms_per_frame_median=float(np.median(step_ms)),
+      ms_per_frame_min=float(np.min(step_ms)),
+      launches=launches,
+      note="one frame per step (T = 1): the RG-LRU takes the one-step "
+           "formula and launches no K5",
+      profile_10_steps=profile)
 
 
 def main():
@@ -1052,8 +1407,11 @@ def main():
   build_s = time.perf_counter() - t0
   print(f"built {built} in {build_s:.1f} s", flush=True)
 
+  stamp = lambda what: print(
+      f"[{time.perf_counter() - t0:.1f} s] {what} done", flush=True)
   checks = check_kernels()
   print(json.dumps({"kernel_checks": checks}), flush=True)
+  stamp("kernel checks")
 
   params = load_tapir_checkpoint(CHECKPOINT)
   golden = golden_check(params)
@@ -1061,6 +1419,7 @@ def main():
   golden_int8, golden_int8_launches = golden_check_int8(params)
   print(json.dumps({"golden_int8": golden_int8,
                     "launches": golden_int8_launches}), flush=True)
+  stamp("BootsTAPIR golden checks")
 
   videos = make_videos(4)
   fast = dict(num_pips_iter=2)
@@ -1097,15 +1456,29 @@ def main():
       tracks["serve_int8"], tracks["serve_bf16_2iter"])
   for name, run in runs.items():
     print(json.dumps({name: run, "card": card}), flush=True)
+  stamp("BootsTAPIR serving")
 
-  # One row per kernel: bf16 model dtype (the served precision), per launch
-  # at the served shapes, with the launches per video of the run that drives
-  # it. launches * ms should come near the profile's time for the kernel
-  # (K2 and K2b: less the quantization their entries do in PyTorch).
+  del params
+  tn_params = seeded_tapnext_params(SsmVitConfig(), TAPNEXT_SEED)
+  print(json.dumps({"tapnext_golden": tapnext_golden_check(tn_params)}),
+        flush=True)
+  stamp("TAPNext golden checks")
+  for name, phase in (("serve_tapnext", serve_tapnext),
+                      ("online_tapnext", online_tapnext)):
+    runs[name] = phase(tn_params)
+    print(json.dumps({name: runs[name], "card": card}), flush=True)
+    stamp(name)
+
+  # One row per kernel: bf16 model dtype (the served precision; K5's inputs
+  # stay float32 in it), per launch at the served shapes, with the launches
+  # per video of the run that drives it. launches * ms should come near the
+  # profile's time for the kernel (K2 and K2b: less the quantization their
+  # entries do in PyTorch).
   kernels = []
   for name, meta in KERNEL_META.items():
+    dtype = meta.get("dtype", "bfloat16")
     row = next(c for c in checks if c["kernel"] == name
-               and c["dtype"] == "bfloat16" and c.get("path"))
+               and c["dtype"] == dtype and c.get("path"))
     launches = runs[meta["run"]]["launches_per_video"][name]
     profile_ms = runs[meta["run"]]["profile"]["by_layer_ms"][meta["layer"]]
     require(launches > 0, f"{name} never launched on its path")
@@ -1117,7 +1490,7 @@ def main():
         max_err_over_limit=row["max_err_over_limit"], tol=row["tol"],
         ms=row["ms"], kernel_ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
-        shape=row["shape"], dtype="bfloat16",
+        shape=row["shape"], dtype=dtype,
         profile_ms_per_video=profile_ms,
         # X: cuDNN's bf16 convolution of the same shapes, for context only.
         **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}

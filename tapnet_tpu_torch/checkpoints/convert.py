@@ -16,6 +16,19 @@ their column scales are derived in the port from the converted float weights
 (`models.layers.MixerBlock.quantized_weights`), as the JAX package derives
 them from the same parameters.
 
+TAPNext (`tapnext_to_state_dict`, `load_tapnext_params`) takes the released
+flat-key tree (`checkpoints/tapnext_checkpoint.load_tapnext_checkpoint`):
+
+  * Dense `kernel` [in, out] -> `weight` [out, in];
+  * attention `query`/`key`/`value` kernels [D, heads, head_dim] -> `weight`
+    [heads*head_dim, D] with biases [heads, head_dim] flattened, and the
+    `out` kernel [heads, head_dim, D] -> `weight` [D, heads*head_dim];
+  * the patch embedding's kernel [1, ph, pw, 3, D] -> `weight` [D, ph*pw*3]
+    (the order of the port's patch reshape);
+  * the block-diagonal gates (`w`, `b`), the temporal conv (`w` [k, C], `b`),
+    the paired up-projection (`w` [2, d, D], `b` [2, 1, 1, D]), `a_param`,
+    norms, tokens and position embeddings -> unchanged.
+
 Any leaf the bridge does not know, any key the model does not have, any
 parameter of the model left unfilled and any shape mismatch raises.
 """
@@ -62,9 +75,57 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   return out
 
 
+_TAPNEXT_PLAIN_LEAVES = (
+    "bias", "scale", "w", "b", "a_param", "mask_token", "unknown_token",
+    "point_query_token", "pos_embedding", "pos_embedding_full",
+)
+_ATTENTION_INPUTS = ("query", "key", "value")
+
+
+def tapnext_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """Converts a Flax TAPNext param tree (numpy leaves) to state_dict
+  tensors."""
+  out: Dict[str, torch.Tensor] = {}
+  for path, value in _walk(params):
+    arr = np.asarray(value)
+    if arr.dtype == np.float16:
+      arr = arr.astype(np.float32)
+    leaf, module = path[-1], path[-2] if len(path) > 1 else ""
+    where = "/".join(path)
+    if leaf == "kernel":
+      if module in _ATTENTION_INPUTS and arr.ndim == 3:
+        arr = arr.reshape(arr.shape[0], -1).T
+      elif module == "out" and arr.ndim == 3:
+        arr = arr.reshape(-1, arr.shape[-1]).T
+      elif module == "embedding" and arr.ndim == 5:
+        arr = arr.reshape(-1, arr.shape[-1]).T
+      elif arr.ndim == 2:
+        arr = arr.T
+      else:
+        raise ValueError(f"Unmapped kernel of rank {arr.ndim} at {where}")
+      leaf = "weight"
+    elif leaf == "bias" and module in _ATTENTION_INPUTS and arr.ndim == 2:
+      arr = arr.reshape(-1)
+    elif leaf not in _TAPNEXT_PLAIN_LEAVES:
+      raise ValueError(f"Unmapped parameter leaf: {where}")
+    key = ".".join(path[:-1] + (leaf,))
+    out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+  return out
+
+
+def load_tapnext_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+  """Fills every parameter of a `models.tapnext.TAPNextTracker` (or of one of
+  its modules, from the matching subtree) from a Flax TAPNext tree, or
+  raises."""
+  _load_converted(model, tapnext_to_state_dict(params))
+
+
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
-  """Fills every parameter of `model` from a Flax tree, or raises."""
-  converted = flax_to_state_dict(params)
+  """Fills every parameter of `model` from a Flax TAPIR tree, or raises."""
+  _load_converted(model, flax_to_state_dict(params))
+
+
+def _load_converted(model: nn.Module, converted: Dict[str, torch.Tensor]):
   expected = model.state_dict()
   unknown = sorted(set(converted) - set(expected))
   if unknown:

@@ -32,9 +32,11 @@ def _param(*shape, fill: Optional[float] = None) -> nn.Parameter:
   return nn.Parameter(torch.full(shape, fill))
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-  """Flax nn.Dense semantics: compute in the promoted input/param dtype."""
-  dtype = torch.promote_types(x.dtype, layer.weight.dtype)
+def linear(x: torch.Tensor, layer: nn.Module, dtype=None) -> torch.Tensor:
+  """Flax nn.Dense semantics: input and parameters (`layer.weight` [out, in],
+  `layer.bias`) cast to `dtype`, by default their promoted dtype."""
+  if dtype is None:
+    dtype = torch.promote_types(x.dtype, layer.weight.dtype)
   return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 

@@ -10,6 +10,8 @@ GELU is the tanh approximation; accumulations are float32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -21,16 +23,20 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
   return F.gelu(x, approximate="tanh")
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-  """Scale-only LayerNorm over the last axis, as Flax
-  nn.LayerNorm(use_bias=False) and the JAX mixer kernels' `_fast_ln`: float32
-  single-pass statistics (variance clamped at 0), eps 1e-5, output in the
-  promoted dtype of x and scale."""
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, eps: float = _LN_EPS,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+  """LayerNorm over the last axis, as Flax nn.LayerNorm and the JAX mixer
+  kernels' `_fast_ln`: float32 single-pass statistics (variance clamped at
+  0), (x - mean) * (rsqrt(var + eps) * scale) + bias (scale-only without
+  `bias`), output in `dtype` (default: the promoted dtype of x and scale)."""
   xf = x.float()
   mean = xf.mean(-1, keepdim=True)
   var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
-  y = (xf - mean) * (torch.rsqrt(var + _LN_EPS) * scale.float())
-  return y.to(torch.promote_types(x.dtype, scale.dtype))
+  y = (xf - mean) * (torch.rsqrt(var + eps) * scale.float())
+  if bias is not None:
+    y = y + bias.float()
+  return y.to(dtype or torch.promote_types(x.dtype, scale.dtype))
 
 
 def temporal_depthwise_math(

@@ -1,7 +1,8 @@
 """PyTorch port, CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
 the full-precision corr-tents and mixer-block kernels and their int8 forms,
-the per-frame int8 convolution and the per-pixel ExtraConvs layer (K6).
+the per-frame int8 convolution, the per-pixel ExtraConvs layer (K6) and the
+RG-LRU linear scan (K5).
 
 Marked `gpu`: skips without a CUDA card. This file imports no JAX, so it also
 runs where only the port is installed:
@@ -14,9 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tapnet_tpu_torch.models import layers
+from tapnet_tpu_torch.models import layers, rglru
 from tapnet_tpu_torch.ops import (
     _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+    scan,
 )
 
 pytestmark = pytest.mark.gpu
@@ -380,3 +382,79 @@ def test_extra_convs_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   args = _extra_convs_args(cuda, "float32", 1, 4, 4, 24)
   with pytest.raises(ValueError, match="multiple of 16"):
     fused_extra_convs.extra_convs_layer(*args, True)
+
+
+# K5, the linear scan: the kernel makes the plain version's two roundings per
+# step (__fmul_rn, __fadd_rn) and the same cast of y, so the two are equal
+# bit for bit at any shape: the served one ([b*(1024+256), 50, 768]), widths
+# that are no multiple of 4 (scalar loads) and a single row.
+SCAN_SHAPES = [(1280, 50, 768), (3, 12, 130), (5, 7, 3), (1, 33, 6)]
+
+
+def _scan_args(cuda, dtype, shape, carried, seed=0):
+  b, t, c = shape
+  gen = torch.Generator(device=cuda).manual_seed(seed)
+  tdt = DTYPES[dtype]
+  x = torch.randn(b, t, c, device=cuda, generator=gen).to(tdt)
+  a = (torch.rand(b, t, c, device=cuda, generator=gen) * 0.3 + 0.69).to(tdt)
+  h0 = torch.randn(b, c, device=cuda, generator=gen) if carried else (
+      torch.zeros(b, c, device=cuda))
+  return x, a, h0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("carried", [False, True], ids=["h0_zero", "h0_carried"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_linear_scan_kernel_bit_equal(cuda, dtype, carried, shape):
+  x, a, h0 = _scan_args(cuda, dtype, shape, carried)
+  before = scan.LAUNCHES
+  y, h_last = scan.linear_scan(x, a, h0)
+  torch.cuda.synchronize()
+  assert scan.LAUNCHES == before + 1
+  ref_y, ref_h = scan.linear_scan_reference(x, a, h0)
+  assert y.dtype == x.dtype and h_last.dtype == torch.float32
+  assert torch.equal(y, ref_y)
+  assert torch.equal(h_last, ref_h)
+  for name, (fy, fh) in scan.scan_controls(x, a, h0).items():
+    if shape[1] > 1:
+      assert not (torch.equal(fy, y) and torch.equal(fh, h_last)), name
+
+
+def test_linear_scan_refuses_what_the_kernel_does_not_take(cuda):
+  x, a, h0 = _scan_args(cuda, "float32", (2, 5, 8), True)
+  with pytest.raises(RuntimeError, match="no backward"):
+    scan.linear_scan(x.requires_grad_(), a, h0)
+  x = x.detach()
+  with torch.no_grad():
+    scan.linear_scan(x.requires_grad_(), a, h0)  # no graph: allowed
+  x = x.detach()
+  with pytest.raises(TypeError):
+    scan.linear_scan(x, a.bfloat16(), h0)
+  with pytest.raises(TypeError):
+    scan.linear_scan(x, a, h0.bfloat16())
+  with pytest.raises(ValueError, match="contiguous"):
+    scan.linear_scan(x.transpose(0, 1).contiguous().transpose(0, 1), a, h0)
+  with pytest.raises(TypeError):
+    scan.linear_scan(x.half(), a.half(), h0)
+
+
+def test_rglru_launches_the_scan(cuda):
+  """The RG-LRU on the card runs K5 for a sequence and the one-step formula
+  (no launch) for a single frame, and matches its CPU run."""
+  torch.manual_seed(0)
+  mod = rglru.RGLRU(32, 2)
+  for p in mod.parameters():
+    torch.nn.init.normal_(p, std=0.3)
+  x = torch.randn(3, 9, 32)
+  h0 = torch.randn(3, 32)
+  with torch.no_grad():
+    ref_y, ref_h = mod(x, h0)
+    mod = mod.to(cuda)
+    before = scan.LAUNCHES
+    y, h = mod(x.to(cuda), h0.to(cuda))
+    torch.cuda.synchronize()
+    assert scan.LAUNCHES == before + 1
+    mod(x[:, :1].to(cuda), h0.to(cuda))
+    assert scan.LAUNCHES == before + 1
+  torch.testing.assert_close(y.cpu(), ref_y, rtol=1e-5, atol=1e-5)
+  torch.testing.assert_close(h.cpu(), ref_h, rtol=1e-5, atol=1e-5)

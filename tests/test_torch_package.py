@@ -13,7 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import tapnet_tpu_torch
-from tapnet_tpu_torch.inference import TapirPredictor, resolve_device
+from tapnet_tpu_torch.inference import (
+    OnlineTapnextPredictor, TapirPredictor, TapnextPredictor, resolve_device,
+)
 from tapnet_tpu_torch.models.tapir import bootstapir_config
 from tapnet_tpu_torch.ops import _build
 
@@ -133,6 +135,43 @@ def test_int8_paths_run_without_jax():
   assert res.returncode == 0, res.stderr
 
 
+def test_tapnext_paths_run_without_jax():
+  """TAPNext (the linear scan, both predictors on seed-made weights from
+  tools/tapnext_weights.py) runs in a fresh process that never imports
+  JAX."""
+  code = (
+      "import sys, numpy as np, torch\n"
+      "from tapnet_tpu_torch.inference import OnlineTapnextPredictor, "
+      "TapnextPredictor\n"
+      "from tapnet_tpu_torch.models import ssm_vit\n"
+      "from tapnet_tpu_torch.ops import scan\n"
+      "from tools.tapnext_weights import seeded_tapnext_params\n"
+      "y, h = scan.linear_scan(torch.randn(2, 5, 6), torch.rand(2, 5, 6), "
+      "torch.zeros(2, 6))\n"
+      "assert y.shape == (2, 5, 6) and h.shape == (2, 6)\n"
+      "cfg = ssm_vit.SsmVitConfig(width=32, depth=1, mlp_dim=64, num_heads=2, "
+      "image_size=(32, 32))\n"
+      "params = seeded_tapnext_params(cfg, 0)\n"
+      "video = np.random.RandomState(0).uniform(-1, 1, (1, 5, 32, 32, 3))\n"
+      "qp = np.array([[[0., 10., 12.], [3., 20., 5.]]], np.float32)\n"
+      "out = TapnextPredictor(params, cfg, chunk_size=2, device='cpu')(video, qp)\n"
+      "assert out['tracks'].shape == (1, 2, 5, 2), out['tracks'].shape\n"
+      "online = OnlineTapnextPredictor(params, cfg, device='cpu')\n"
+      "online.init(video[:, :1], qp)\n"
+      "tracks, vis = online.predict(video[:, 1])\n"
+      "assert tracks.shape == (1, 2, 2) and vis.shape == (1, 2)\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
+      "assert not bad, bad\n"
+  )
+  env = dict(os.environ, PYTHONPATH=REPO)
+  res = subprocess.run(
+      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=300,
+  )
+  assert res.returncode == 0, res.stderr
+
+
 def test_int8_products_stay_in_the_ports_own_kernels():
   """No library stands in for an int8 product: the package names neither
   `_int_mm`, cuBLAS nor `torch.compile`, and each int8 entry point of the
@@ -163,6 +202,9 @@ def test_predictor_refuses_cpu_fallback():
     pytest.skip("a CUDA card is present: the default device is usable")
   with pytest.raises(RuntimeError, match="device='cpu'"):
     TapirPredictor({}, bootstapir_config())
+  for predictor in (TapnextPredictor, OnlineTapnextPredictor):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      predictor({})
   with pytest.raises(RuntimeError):
     resolve_device("cuda")
   assert resolve_device("cpu").type == "cpu"
@@ -180,7 +222,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_build_key_follows_sources():
   names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
-  assert names == ["corr_tents", "extra_convs", "fused_mixer_block"]
+  assert names == ["corr_tents", "extra_convs", "fused_mixer_block", "scan"]
   paths = {_build._library_path(n) for n in names}  # pylint: disable=protected-access
-  assert len(paths) == 3
+  assert len(paths) == 4
   assert all(p.parent == _build.BUILD_DIR for p in paths)
