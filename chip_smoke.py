@@ -11,9 +11,11 @@ Phases (any failure raises and exits non-zero):
      bytes and operations: the full-precision corr-tents (K1) and mixer
      block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents,
      the w8a8 mixer block (K4), the per-frame int8 3x3 convolution of the
-     ExtraConvs (X) and the per-pixel ExtraConvs layer (K6). The int8
-     kernels' own int8 tensors are held against the plain version's too,
-     beside wrong quantizations as controls.
+     ExtraConvs (X), the per-pixel ExtraConvs layer (K6) and the
+     full-precision ExtraConvs layer (K6f, beside three faulty plain layers
+     that its fp32 check must refuse). The int8 kernels' own int8 tensors
+     are held against the plain version's too, beside wrong quantizations
+     as controls.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, in full precision and in the four int8 configurations
@@ -27,6 +29,18 @@ Phases (any failure raises and exits non-zero):
      configuration with 1024 queries, and a with the per-pixel int8
      ExtraConvs (K6). The kernels' launch counters are set to 0 before each
      run and read after: a run must launch its own kernels and no other.
+     extra-convs-fp-480: the trained model's five ExtraConvs layers through
+     K6f on the backbone activations of served 480x480 videos (10 launches
+     per video), each layer held against the model's own unfused float
+     layer.
+  3b. Online TAPIR: OnlineTapirPredictor with the trained weights on the
+     golden clip (init, a step per frame, add_points at frame 4) against the
+     JAX stream (tests/data/bootstapir_golden_online.npz) in fp32 and bf16,
+     and the stream against the port's offline causal model (K3 with
+     causal=True); then online-tapir-256 (causal TAPIR, bf16, 64 queries,
+     the JAX package's bench.py workload) and online-bootstapir-256 (the
+     live demo's causal BootsTAPIR), 50 timed one-frame steps each: 12 K1
+     launches per step.
   4. TAPNext (ViT-B, seed-made weights from tools/tapnext_weights.py): the
      linear scan (K5) against its plain version bit for bit at the served
      shape beside faulty plain versions that the check must refuse, the
@@ -58,16 +72,24 @@ sys.path.insert(0, REPO)
 
 from tapnet_tpu_torch.checkpoints.tapir_checkpoint import load_tapir_checkpoint  # noqa: E402
 from tapnet_tpu_torch.inference import (  # noqa: E402
-    OnlineTapnextPredictor, TapirPredictor, TapnextPredictor,
+    OnlineTapirPredictor, OnlineTapnextPredictor, TapirPredictor,
+    TapnextPredictor,
 )
+from tapnet_tpu_torch.models import layers  # noqa: E402
 from tapnet_tpu_torch.models.ssm_vit import SsmVitConfig  # noqa: E402
-from tapnet_tpu_torch.models.tapir import bootstapir_config  # noqa: E402
+from tapnet_tpu_torch.models.tapir import (  # noqa: E402
+    bootstapir_config, causal_bootstapir_config, causal_tapir_config,
+    resize_video,
+)
 from tapnet_tpu_torch.ops import (  # noqa: E402
     _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
     scan,
 )
-from tapnet_tpu_torch.utils.sampling import preprocess_frames  # noqa: E402
+from tapnet_tpu_torch.utils.sampling import (  # noqa: E402
+    postprocess_occlusions, preprocess_frames,
+)
 from tools.golden_clip import CLIP_FRAMES, INT8_CONFIGS, make_clip  # noqa: E402
+from tools.make_online_golden import run_stream  # noqa: E402
 from tools.make_tapnext_golden import (  # noqa: E402
     CHUNK as TAPNEXT_GOLDEN_CHUNK, WEIGHT_SEED as TAPNEXT_SEED, golden_clip,
 )
@@ -77,6 +99,7 @@ CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
 GOLDEN_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_int8.npz")
 TAPNEXT_GOLDEN = os.path.join(REPO, "tests/data/tapnext_golden.npz")
+GOLDEN_ONLINE = os.path.join(REPO, "tests/data/bootstapir_golden_online.npz")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
@@ -98,6 +121,12 @@ EXTRA_GRIDS = [(60, 60), (32, 32)]
 EXTRA_C = 256
 # The headline workload of the JAX package (bench.py): 1024 queries.
 HEADLINE_QUERIES = 1024
+# The online paths' shapes. Each online step (256x256, ONLINE_QUERIES = 64)
+# calls K1 on one frame, BT = 1, at the three pyramid grids of a 256x256
+# frame. online-golden's offline causal run (the golden clip: 32 queries, 8
+# frames) calls K3 with causal=True on x [32, 8, 512].
+ONLINE_CORR_LEVELS = [(64, 64, 128), (32, 32, 256), (16, 16, 256)]
+OFFLINE_CAUSAL_MIXER_SHAPE = (32, 8, 512)
 
 # Kernel vs plain on the card. fp32, as (rtol, atol): summation order only.
 # bf16 corr-tents, atol in units of max|grid row| * max|query row|, which
@@ -203,6 +232,22 @@ def _multiplying(v, amax):
 # The fp32 check must refuse both.
 K6_CONTROL_FRAMES = 16
 
+# K6f, kernel vs plain, per element: fused_extra_convs.fp_error_limit. fp32:
+# the port's 1e-4, absolute and relative (the plain version's float32
+# convolutions with TF32 off). bf16: four deviations of a 64th of the hidden
+# values a bf16 step apart, and of the hidden shifts that the t values lying
+# within float32 noise of a bf16 rounding midpoint may cause, through
+# conv_out, plus two bf16 steps of |y| (the two round the output
+# separately); fp_limit_assumptions reads both premises off the kernel's own
+# t32 and hidden. Its controls (fused_extra_convs.fp_output_controls, on the
+# first K6_CONTROL_FRAMES frames): the pad ring's hidden unmasked, the
+# residual on bf16 t, the hidden in the other dtype; the fp32 check must
+# refuse all three, and the bf16 ones are recorded. In extra-convs-fp-480
+# each K6f layer is held against the model's unfused float layer on the same
+# input, within fp_error_limit(unfused=True): every hidden value a step
+# apart, plus the unfused layer's own roundings of t and of conv_out's
+# output (half a step of each); that limit must refuse the unmasked pad.
+
 # Port on the card vs the JAX int8 golden outputs (CPU, fp32 model dtype).
 # fp32: the same integer products on bit-equal int8 values; float32 noise
 # moves the rare activation across an int8 or bf16 rounding boundary, and
@@ -229,6 +274,19 @@ GOLDEN_INT8_FP32_TOL = {
     "c": dict(visible_px=3.0, any_px=6.0, median_px=0.15, logits=0.4),
     "d": dict(visible_px=0.5, any_px=3.0, median_px=0.01, logits=0.3),
 }
+# Online TAPIR. online-golden: the trained causal BootsTAPIR on the golden
+# clip against the JAX stream, under the BootsTAPIR golden limits
+# (GOLDEN_FP32_TOL with TF32 off, GOLDEN_BF16_TOL); the stream against the
+# port's offline causal model on the same clip (no add_points) under the same
+# limits: the two compute the same function, the offline run through K3 with
+# causal=True, the stream through the plain unfused blocks. online-tapir-256
+# (bench.py:167, causal_tapir_config(compute_dtype="bfloat16")) and
+# online-bootstapir-256 (the live demo's causal_bootstapir_config()): 64
+# queries on frame 0 at 256x256, init, ONLINE_WARMUP steps, ONLINE_STEPS
+# timed steps; K1 launches num_pips_iter x 3 pyramid grids = 12 per step.
+ONLINE_QUERIES, ONLINE_WARMUP, ONLINE_STEPS = 64, 5, 50
+ONLINE_K1_PER_STEP = 12
+
 # The kernels each int8 configuration must launch, and no other.
 INT8_LAUNCHES = {
     "a": {"corr_tents_q8_frame", "mixer_block_q8"},
@@ -295,14 +353,13 @@ def time_ms(fn, reps=10, warmup=2) -> float:
 # ------------------------------------------------------------------ kernels
 
 
-def corr_inputs(h, w, c, dtype, gen):
+def corr_inputs(h, w, c, dtype, gen, bt=FRAMES, n=CHUNK):
   """Unit-norm, spatially smooth feature grids (neighbouring positions
   correlate, as the backbone's do), track centres spread over the frame and
   a few off its edges, and per query the feature of a grid position within
   1.5 cells of its centre plus noise: a correlation peak of about 0.95 in
-  the window, as a tracked point gives."""
+  the window, as a tracked point gives. bt grids of n queries each."""
   dev = "cuda"
-  bt, n = FRAMES, CHUNK
   grid = torch.randn(bt, c, h, w, device=dev, generator=gen)
   grid = F.avg_pool2d(grid, 3, stride=1, padding=1, count_include_pad=False)
   grid = F.normalize(grid, dim=1).permute(0, 2, 3, 1).contiguous()
@@ -349,8 +406,8 @@ def corr_bound(grid, query, cy, cx, p=7):
   return nbytes, flops
 
 
-def mixer_inputs(dtype, gen):
-  b, t, c = MIXER_SHAPE
+def mixer_inputs(dtype, gen, shape=MIXER_SHAPE):
+  b, t, c = shape
   hid = 4 * c
   f = lambda *s: torch.randn(*s, device="cuda", generator=gen)
   args = [
@@ -386,6 +443,7 @@ COUNTERS = {
     "mixer_block_q8": (fused_mixer_block, "LAUNCHES_Q8"),
     "extra_convs_q8_frame": (qconv, "LAUNCHES_Q8"),
     "extra_convs_q8_pixel": (fused_extra_convs, "LAUNCHES"),
+    "extra_convs_fp": (fused_extra_convs, "LAUNCHES_FP"),
     "linear_scan": (scan, "LAUNCHES"),
 }
 
@@ -492,6 +550,39 @@ def check_corr(dtype, gen, checks):
         levels[0][5], tol=max((r["tol"] for r in records), key=lambda t: t[1])))
     del levels
     torch.cuda.empty_cache()
+  check_corr_online(dtype, gen, checks)
+
+
+def check_corr_online(dtype, gen, checks):
+  """K1 at an online step's shapes (one frame, ONLINE_QUERIES queries, the
+  three grids of a 256x256 frame) against its plain version, under the
+  limits of the served shapes."""
+  name_dt = str(dtype).replace("torch.", "")
+  for h, w, c in ONLINE_CORR_LEVELS:
+    grid, query, cy, cx = corr_inputs(h, w, c, dtype, gen, bt=1,
+                                      n=ONLINE_QUERIES)
+    run = lambda a=(grid, query, cy, cx): corr_tents.corr_tent_patches(*a, 7)
+    plain = lambda a=(grid, query, cy, cx): (
+        corr_tents.corr_tent_patches_reference(*a, 7))
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = corr_tol(grid, query)
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    over = float((diff / (tol[1] + tol[0] * ref.abs())).max())
+    require(bool(torch.isfinite(out).all()) and over <= 1.0,
+            f"corr_tents {name_dt} online step {h}x{w}x{c}: max_abs_err {err}, "
+            f"tol {tol}, {over} of the limit")
+    nbytes, flops = corr_bound(grid, query, cy, cx)
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    checks.append(dict(
+        kernel="corr_tents", dtype=name_dt, path=False, run="online step",
+        shape=[1, h, w, c, ONLINE_QUERIES], max_abs_err=err,
+        max_err_over_limit=over, tol=tol, ms=time_ms(run, reps=20),
+        plain_ms=time_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
+        nbytes=nbytes, flops=flops))
 
 
 def int8_apart(q, ref_q):
@@ -758,6 +849,124 @@ def check_extra_convs_q8(dtype, gen, checks):
       records, "mean of one launch at the 60x60 and 32x32 grids", torch.int8))
 
 
+def extra_convs_fp_bound(x, m):
+  """Bytes and operations of one K6f call: x read and y written once in the
+  model dtype, the two weights in it, float32 LN parameters and biases; two
+  3x3 products of 2 * 9 * C * M operations per pixel each."""
+  n, h, w, c = x.shape
+  elt = x.element_size()
+  nbytes = 2 * x.numel() * elt + 2 * 9 * c * m * elt + 4 * (3 * c + m)
+  return nbytes, 2 * 2.0 * n * h * w * 9 * c * m
+
+
+def production_extra_convs(g, bln, wu, bu, wo, bo, dtype):
+  """One layer of the model's own float ExtraConvs (`layers.ExtraConvs`,
+  quantized=False: cuDNN convolutions and PyTorch elementwise passes) with
+  these HWIO weights, in `dtype`; it takes NCHW."""
+  c, m = wu.shape[2], wu.shape[3]
+  module = layers.ExtraConvs(channels=c, num_layers=1, channel_multiplier=m // c)
+  module.load_state_dict({
+      "ln_0.scale": g, "ln_0.bias": bln,
+      "conv_up_0.weight": wu.permute(3, 2, 0, 1), "conv_up_0.bias": bu,
+      "conv_out_0.weight": wo.permute(3, 2, 0, 1), "conv_out_0.bias": bo})
+  return module.to(device="cuda", dtype=dtype).eval()
+
+
+def fp_limit_assumptions(x, params):
+  """What fused_extra_convs.fp_error_limit assumes in bf16, read from the
+  kernel's own t32 and hidden on x: its t32 within `ln_noise` of the plain
+  version's, so that every t value which rounds to bf16 the other way is one
+  the limit counts; and the share of hidden values a bf16 step apart from
+  the plain hidden computed on the kernel's own t (the flips that the sums'
+  order makes on its own) within FP_HIDDEN_FLIP_SHARE."""
+  g, bln, wu, bu = params[:4]
+  scratch = {}
+  fused_extra_convs._launch_fp(x, *params, scratch=scratch)  # pylint: disable=protected-access
+  torch.cuda.synchronize()
+  t32, noise = fused_extra_convs.ln_noise(x, g, bln)
+  t32_k = scratch["t32"].view(t32.shape)
+  hidden = mixer_math.gelu(fused_extra_convs._conv_fp(  # pylint: disable=protected-access
+      t32_k.to(x.dtype), wu, bu)).to(x.dtype)
+  found = dict(
+      t32_apart_over_noise=float(((t32_k - t32).abs()
+                                  / noise.clamp_min(1e-30)).max()),
+      t_flip_share=float((t32_k.to(x.dtype) != t32.to(x.dtype)).float().mean()),
+      near_midpoint_share=float(
+          (fused_extra_convs._bf16_midpoint_distance(t32) <= noise)  # pylint: disable=protected-access
+          .float().mean()),
+      hidden_flip_share=float(
+          (scratch["hidden"].view(hidden.shape) != hidden).float().mean()),
+      hidden_flip_share_allowed=fused_extra_convs.FP_HIDDEN_FLIP_SHARE)
+  require(found["t32_apart_over_noise"] <= 1.0
+          and found["hidden_flip_share"] <= found["hidden_flip_share_allowed"],
+          f"K6f bf16: the limit's assumptions do not hold: {found}")
+  return found
+
+
+def check_extra_convs_fp(dtype, gen, checks):
+  """K6f at the two grids of a served video against its plain version
+  within fused_extra_convs.fp_error_limit, beside the faulty plain layers
+  that the fp32 check must refuse; timed beside the plain version and the
+  model's own unfused float layer (context: no single PyTorch call computes
+  the layer)."""
+  name_dt = str(dtype).replace("torch.", "")
+  records = []
+  torch.backends.cudnn.allow_tf32 = False
+  for h, w in EXTRA_GRIDS:
+    name = f"extra_convs_fp {name_dt} {h}x{w}"
+    args = extra_convs_inputs(h, w, dtype, gen)
+    x = args[0]
+    run = lambda: fused_extra_convs.extra_convs_layer(*args, False)
+    plain = lambda: fused_extra_convs.extra_convs_layer_reference(*args, False)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    limit = fused_extra_convs.fp_error_limit(*args)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    over = float((diff / limit.clamp_min(1e-30)).max())
+    require(bool(torch.isfinite(out.float()).all()) and over <= 1.0,
+            f"{name}: max_abs_err {err}, {over} of its limit")
+    k = K6_CONTROL_FRAMES
+    controls = {}
+    for key, faulty in fused_extra_convs.fp_output_controls(
+        x[:k], *args[1:]).items():
+      apart = (faulty.float() - ref[:k].float()).abs()
+      ratio = float((apart / limit[:k].clamp_min(1e-30)).max())
+      controls[key] = dict(max_abs_err=float(apart.max()),
+                           max_err_over_limit=ratio, refused=ratio > 1.0)
+      require(ratio > 1.0 or dtype != torch.float32,
+              f"{name}: the limit passes the control {key}: {controls[key]}")
+    del out, ref, diff, limit, apart, faulty
+    assumptions = (fp_limit_assumptions(x[:k], args[1:])
+                   if dtype == torch.bfloat16 else None)
+    torch.cuda.empty_cache()
+    production = production_extra_convs(*args[1:], dtype)
+    x_nchw = x.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+      production_ms = time_ms(lambda: production(x_nchw), reps=5)
+    nbytes, flops = extra_convs_fp_bound(x, args[3].shape[-1])
+    b_ms, b_by = bound_ms(nbytes, flops, dtype)
+    records.append(dict(
+        kernel="extra_convs_fp", dtype=name_dt, shape=[FRAMES, h, w, EXTRA_C],
+        max_abs_err=err, max_err_over_limit=over,
+        tol=("fused_extra_convs.fp_error_limit, per element"
+             + (" (1e-4 absolute and relative)" if dtype == torch.float32 else "")),
+        output_controls=controls, limit_assumptions=assumptions,
+        ms=time_ms(run, reps=5),
+        plain_ms=time_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
+        bound_by=b_by, nbytes=nbytes, flops=flops,
+        production_layer_ms=production_ms))
+    del args, x, production, x_nchw
+    torch.cuda.empty_cache()
+  torch.backends.cudnn.allow_tf32 = True
+  checks.extend(records)
+  checks.append(path_record(
+      records, "mean of one launch at the 60x60 and 32x32 grids", dtype,
+      mean_keys=("production_layer_ms",)))
+
+
 def scan_inputs(shape, dtype, carried, gen):
   """x, a [B, T, C] in `dtype` with a in (0.69, 0.99), as the RG-LRU's
   decays; h0 zero (a fresh sequence, the first chunk) or carried."""
@@ -821,53 +1030,65 @@ def check_scan(gen, checks):
     torch.cuda.empty_cache()
 
 
+def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
+  """K3 at `shape` against its plain version: fp32 within MIXER_FP32_TOL,
+  bf16 within fused_mixer_block.bf16_error_limit. The served path's row is
+  MIXER_SHAPE with SAME padding."""
+  name_dt = str(dtype).replace("torch.", "")
+  name = f"mixer_block {name_dt} {'x'.join(map(str, shape))} causal={causal}"
+  args = mixer_inputs(dtype, gen, shape)
+  run = lambda: fused_mixer_block.mixer_block(*args, causal)
+  plain = lambda: fused_mixer_block.mixer_block_reference(*args, causal)
+  out = run()
+  torch.cuda.synchronize()
+  ref = plain()
+  torch.cuda.synchronize()
+  diff = (out.float() - ref.float()).abs()
+  err = float(diff.max())
+  require(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
+  if dtype == torch.float32:
+    tol = MIXER_FP32_TOL
+    over = float((diff / (tol[1] + tol[0] * ref.abs())).max())
+    require(torch.allclose(out, ref, *tol),
+            f"{name}: max_abs_err {err}, tol {tol}")
+  else:
+    tol = "2 bf16 steps of |h|, |x1|, |out| and rms(y), per element"
+    limit = fused_mixer_block.bf16_error_limit(*args, causal)
+    over = float((diff / limit.clamp_min(1e-30)).max())
+    require(bool((diff <= limit).all()),
+            f"{name}: max_abs_err {err}, {over} of its limit")
+    del limit
+  nbytes, flops = mixer_bound(args)
+  b_ms, b_by = bound_ms(nbytes, flops, dtype)
+  checks.append(dict(
+      kernel="mixer_block", dtype=name_dt,
+      path=shape == MIXER_SHAPE and not causal, causal=causal,
+      shape=list(shape), max_abs_err=err, max_err_over_limit=over, tol=tol,
+      ms=time_ms(run), plain_ms=time_ms(plain, reps=3),
+      bound_ms=b_ms, bound_by=b_by,
+  ))
+  del args, out, ref, diff
+  torch.cuda.empty_cache()
+
+
 def check_kernels():
   """Each kernel against its plain version on the same inputs, timed. Returns
   one record per check, and per kernel and dtype a `path` record: what one
   launch on the served path costs (corr-tents: the mean over the three
-  pyramid levels, which each refinement step calls once each)."""
+  pyramid levels, which each refinement step calls once each). K1 and K3
+  are held at the online paths' shapes as well."""
   gen = torch.Generator(device="cuda").manual_seed(SEED)
   checks = []
   for dtype in (torch.bfloat16, torch.float32):
-    name_dt = str(dtype).replace("torch.", "")
     check_corr(dtype, gen, checks)
-
-    args = mixer_inputs(dtype, gen)
-    out = fused_mixer_block.mixer_block(*args, False)
-    torch.cuda.synchronize()
-    ref = fused_mixer_block.mixer_block_reference(*args, False)
-    torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    require(bool(torch.isfinite(out.float()).all()), f"mixer_block {name_dt}: non-finite")
-    if dtype == torch.float32:
-      tol = MIXER_FP32_TOL
-      over = float((diff / (tol[1] + tol[0] * ref.abs())).max())
-      require(torch.allclose(out, ref, *tol),
-              f"mixer_block float32: max_abs_err {err}, tol {tol}")
-    else:
-      tol = "2 bf16 steps of |h|, |x1|, |out| and rms(y), per element"
-      limit = fused_mixer_block.bf16_error_limit(*args, False)
-      require(bool((diff <= limit).all()),
-              f"mixer_block bfloat16: max_abs_err {err} over its limit")
-      over = float((diff / limit.clamp_min(1e-30)).max())
-      del limit
-    nbytes, flops = mixer_bound(args)
-    b_ms, b_by = bound_ms(nbytes, flops, dtype)
-    checks.append(dict(
-        kernel="mixer_block", dtype=name_dt, path=True, shape=list(MIXER_SHAPE),
-        max_abs_err=err, max_err_over_limit=over, tol=tol,
-        ms=time_ms(lambda: fused_mixer_block.mixer_block(*args, False)),
-        plain_ms=time_ms(
-            lambda: fused_mixer_block.mixer_block_reference(*args, False),
-            reps=3),
-        bound_ms=b_ms, bound_by=b_by,
-    ))
-    del args, out, ref, diff
-    torch.cuda.empty_cache()
+    check_mixer(dtype, gen, checks)
+    # K3 with causal=True: the offline causal run's shape and the served one.
+    check_mixer(dtype, gen, checks, OFFLINE_CAUSAL_MIXER_SHAPE, causal=True)
+    check_mixer(dtype, gen, checks, causal=True)
     check_mixer_q8(dtype, gen, checks)
     check_conv_q8(dtype, gen, checks)
     check_extra_convs_q8(dtype, gen, checks)
+    check_extra_convs_fp(dtype, gen, checks)
   check_scan(gen, checks)
   return checks
 
@@ -919,6 +1140,16 @@ KERNEL_META = {
         tpu_kernel="K6 fused_extra_convs._kernel with quantized=True (via "
                    "_pallas_forward :261)",
         layer="int8 ExtraConvs (X, K6)", run="serve_int8_pp",
+    ),
+    # No model path reaches K6f (JAX's gate demands the per-pixel mode): its
+    # run is the trained ExtraConvs stack at the served grids.
+    "extra_convs_fp": dict(
+        source="tapnet_tpu_torch/csrc/extra_convs.cu",
+        replaces="tapnet_tpu/ops/fused_extra_convs.py:187",
+        tpu_kernel="K6f fused_extra_convs._kernel with quantized=False "
+                   "(:233-237, operands :294-297; via _pallas_forward :261, "
+                   "entry extra_convs_layer :336)",
+        layer="K6f float ExtraConvs", run="extra_convs_fp_480",
     ),
     # TAPNext: the scan's inputs stay float32 in the served bf16 model.
     "linear_scan": dict(
@@ -1073,7 +1304,7 @@ LAYERS = (
 )
 
 
-OWN_KERNELS = ("mixer_", "corr_tents") + EXTRA_KERNELS
+OWN_KERNELS = ("mixer_", "corr_tents", "conv3x3_bf16", "conv3x3_f32") + EXTRA_KERNELS
 
 
 def profile_request(request, unprofiled_wall_s, layers=LAYERS, own=OWN_KERNELS,
@@ -1161,6 +1392,249 @@ def tracks_apart(a, b):
   d = np.concatenate([np.linalg.norm(x - y, axis=-1).ravel()
                       for x, y in zip(a, b)])
   return dict(median_px=float(np.median(d)), p95_px=float(np.percentile(d, 95)))
+
+
+def extra_convs_fp_480(params, videos):
+  """extra-convs-fp-480: the trained model's five ExtraConvs layers, as K6f
+  (`extra_convs_layer(quantized=False)`), on the backbone activations of
+  served 480x480 videos at both grids (the backbone at 256x256 and
+  480x480, bf16), after a warm-up on videos[0]: 10 launches per video. Each
+  K6f layer is held against the model's unfused float layer on the same
+  input within fp_error_limit(unfused=True); the two stacks are timed, and
+  the K6f stack profiled."""
+  predictor = TapirPredictor(params, bootstapir_config(), bfloat16=True)
+  model = predictor.model
+  extra = model.extra
+  weights = []
+  for i in range(extra.num_layers):
+    ln = getattr(extra, f"ln_{i}")
+    up, down = getattr(extra, f"conv_up_{i}"), getattr(extra, f"conv_out_{i}")
+    weights.append((ln.scale, ln.bias, up.weight.permute(2, 3, 1, 0), up.bias,
+                    down.weight.permute(2, 3, 1, 0), down.bias))
+
+  def activations(video):
+    """The ExtraConvs' inputs [T, 256, h, w] (NCHW views) at both grids."""
+    frames = video.to(torch.bfloat16)
+    out = []
+    for res in ((256, 256), (RES, RES)):
+      resized = resize_video(frames, res)[0].permute(0, 3, 1, 2)
+      out.append(model.backbone(resized)["group_3"])
+    return out
+
+  def k6f_stack(x):
+    y = x.permute(0, 2, 3, 1).contiguous()
+    for w in weights:
+      y = fused_extra_convs.extra_convs_layer(y, w[0], w[1], w[2], w[3], w[4],
+                                              w[5], False)
+    return y
+
+  def layer_by_layer(x):
+    """Each K6f layer against the unfused layer on the stack's own input;
+    and the faulty plain layer that lets the pad ring's hidden through
+    (fp_output_controls' unmasked_pad), on the first K6_CONTROL_FRAMES
+    frames, which the same limit must refuse."""
+    worst, control = 0.0, float("inf")
+    y = x.permute(0, 2, 3, 1).contiguous()
+    k = K6_CONTROL_FRAMES
+    for i, w in enumerate(weights):
+      nxt = fused_extra_convs.extra_convs_layer(y, *w, False)
+      one = production_extra_convs(*(v.float() for v in w), torch.bfloat16)
+      prod = one(y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+      limit = fused_extra_convs.fp_error_limit(y, *w, unfused=True)
+      over = float(((nxt.float() - prod.float()).abs()
+                    / limit.clamp_min(1e-30)).max())
+      require(over <= 1.0, f"extra-convs-fp-480 layer {i}: {over} of its limit")
+      faulty = fused_extra_convs.fp_output_controls(y[:k], *w)["unmasked_pad"]
+      refused = float(((faulty.float() - prod[:k].float()).abs()
+                       / limit[:k].clamp_min(1e-30)).max())
+      require(refused > 1.0, f"extra-convs-fp-480 layer {i}: the unfused "
+              f"limit passes the unmasked pad ({refused} of it)")
+      worst, control = max(worst, over), min(control, refused)
+      y = nxt
+    return y, worst, control
+
+  with torch.inference_mode():
+    grids = activations(videos[0][0])
+    for x in grids:  # warm-up
+      k6f_stack(x)
+      extra(x)
+    torch.cuda.synchronize()
+    reset_counts()
+    per_video, outs = [], []
+    for video, _ in videos[1:]:
+      grids = activations(video)
+      torch.cuda.synchronize()
+      begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+      begin.record()
+      outs.append([k6f_stack(x) for x in grids])
+      end.record()
+      torch.cuda.synchronize()
+      per_video.append(begin.elapsed_time(end))
+    launches = read_counts()
+    count = len(videos) - 1
+    require(launches["extra_convs_fp"] == 2 * extra.num_layers * count
+            and sum(launches.values()) == launches["extra_convs_fp"],
+            f"extra-convs-fp-480: launches {launches}")
+    production_ms = [time_ms(lambda x=x: extra(x), reps=3) for x in grids]
+    k6f_ms = [time_ms(lambda x=x: k6f_stack(x), reps=3) for x in grids]
+    held, refused, apart = {}, {}, {}
+    for x, y, res in zip(grids, outs[-1], ("256", str(RES))):
+      _, held[res], refused[res] = layer_by_layer(x)
+      prod = extra(x).permute(0, 2, 3, 1).float()
+      d = (y.float() - prod).abs()
+      apart[res] = dict(max_abs=float(d.max()), median_abs=float(d.median()),
+                        out_max_abs=float(prod.abs().max()))
+    for y in outs[-1]:
+      require(bool(torch.isfinite(y.float()).all()), "extra-convs-fp-480: non-finite")
+    profile = profile_request(
+        lambda: [k6f_stack(x) for x in grids], float(np.mean(per_video)) / 1e3,
+        layers=(("K6f float ExtraConvs", ("conv3x3_bf16", "conv3x3_f32",
+                                          "ln_bias_rows")),) + LAYERS)
+  return dict(
+      config="bootstapir_config(), bf16 model, trained weights", videos=count,
+      frames=FRAMES, grids=[[256 // 8] * 2, [RES // 8] * 2],
+      k6f_stack_event_ms_per_video=per_video,
+      k6f_stack_ms_per_grid=dict(zip(("256", str(RES)), k6f_ms)),
+      production_stack_ms_per_grid=dict(zip(("256", str(RES)), production_ms)),
+      per_layer_max_err_over_limit=held,
+      unmasked_pad_min_err_over_limit=refused,
+      limit="fused_extra_convs.fp_error_limit(unfused=True), per element, "
+            "each layer on the K6f stack's own input",
+      stack_output_vs_production=apart,
+      launches_per_video={k: v // count for k, v in launches.items()},
+      profile=profile)
+
+
+def online_golden_check(params):
+  """online-golden: the trained causal BootsTAPIR through
+  OnlineTapirPredictor on the golden clip (the protocol of
+  tools/make_online_golden.run_stream: init on frame 0, a step per frame,
+  add_points at frame 4) against the JAX stream, fp32 (TF32 off) and bf16;
+  then the stream without add_points against the port's offline causal
+  model on the whole clip."""
+  golden = np.load(GOLDEN_ONLINE)
+  frames = preprocess_frames(torch.from_numpy(np.load(GOLDEN)["video"])).numpy()
+  qp, new_qp = golden["query_points"], golden["new_query_points"]
+  steps = frames.shape[1]
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  result, failed = {}, []
+
+  def judge(key, r, bf16):
+    tol = GOLDEN_BF16_TOL if bf16 else GOLDEN_FP32_TOL
+    ok = (r["track_median_px"] <= tol["median_px"]
+          and r["track_p95_px"] <= tol["p95_px"]
+          and r["visible_agree"] >= tol["visible_agree"]) if bf16 else (
+              r["track_max_px"] <= tol["tracks"]
+              and r["logit_max_abs"] <= tol["logits"])
+    if not ok:
+      failed.append(f"{key}: {r} vs {tol}")
+
+  def apart(tracks, ref_tracks, logits, ref_logits, visibles, ref_visibles):
+    err = np.linalg.norm(tracks - ref_tracks, axis=-1)
+    return dict(
+        track_max_px=float(np.abs(tracks - ref_tracks).max()),
+        track_median_px=float(np.median(err)),
+        track_p95_px=float(np.percentile(err, 95)),
+        logit_max_abs=max(float(np.abs(a - b).max())
+                          for a, b in zip(logits, ref_logits)),
+        visible_agree=float(np.mean(visibles == ref_visibles)))
+
+  for name in ("float32", "bfloat16"):
+    bf16 = name == "bfloat16"
+    predictor = OnlineTapirPredictor(
+        params, causal_bootstapir_config(compute_dtype=name))
+    reset_counts()
+    out = run_stream(predictor.init, predictor.step, predictor.add_points,
+                     frames, qp, new_qp)
+    counts = read_counts()
+    require(counts["corr_tents"] == ONLINE_K1_PER_STEP * steps
+            and sum(counts.values()) == counts["corr_tents"],
+            f"online-golden {name}: launches {counts}")
+    r = result[name] = apart(
+        out["tracks"], golden[f"{name}_tracks"],
+        [out["occlusion"], out["expected_dist"]],
+        [golden[f"{name}_occlusion"], golden[f"{name}_expected_dist"]],
+        out["visibles"], golden[f"{name}_visibles"])
+    r["k1_launches_per_step"] = counts["corr_tents"] / steps
+    judge(f"stream vs JAX {name}", r, bf16)
+
+    # The stream (no add_points) against the offline causal model.
+    predictor.init(frames[:, 0], qp)
+    stream = [predictor.step(frames[:, t]) for t in range(steps)]
+    model = predictor.model
+    p = model.config.num_pips_iter
+    with torch.inference_mode():
+      video = torch.from_numpy(frames).cuda()
+      grids = model.get_feature_grids(video)
+      qf = model.get_query_features(video.shape, torch.from_numpy(qp).cuda(),
+                                    grids)
+      reset_counts()
+      offline = model.estimate_trajectories(tuple(video.shape[2:4]), grids, qf,
+                                            None)
+      counts = read_counts()
+    mean = lambda key: torch.stack(offline[key][p::p]).mean(0).cpu()
+    occ, expd = mean("occlusion"), mean("expected_dist")
+    vis = postprocess_occlusions(occ, expd).numpy()
+    occ, expd = occ.numpy(), expd.numpy()
+    take = lambda key: np.stack([o[key] for o in stream], 2)  # [B, N, T, ...]
+    r = result[f"{name}_stream_vs_offline"] = apart(
+        take("tracks"), mean("tracks").numpy(),
+        [take("occlusion"), take("expected_dist")], [occ, expd],
+        take("visibles"), vis)
+    r["offline_launches"] = counts
+    require(counts["mixer_block"] == p * model.config.num_mixer_blocks
+            and counts["corr_tents"] == ONLINE_K1_PER_STEP,
+            f"offline causal run {name}: launches {counts}")
+    judge(f"stream vs offline {name}", r, bf16)
+    del predictor, model, video, grids, qf, offline
+    torch.cuda.empty_cache()
+  torch.backends.cudnn.allow_tf32 = True
+  require(not failed, "online golden check failed: " + "; ".join(failed))
+  return result
+
+
+def online_tapir(params, config):
+  """One online cell: 64 queries on frame 0 of a 256x256 clip, init, then
+  ONLINE_WARMUP steps and ONLINE_STEPS timed steps (host clock around
+  `predict`, which returns its tracks to the host); a 10-step profile."""
+  online = OnlineTapirPredictor(params, config)
+  (video, qp), = tapnext_videos(1, frames=ONLINE_WARMUP + ONLINE_STEPS + 1,
+                                queries=ONLINE_QUERIES, query_t=0)
+  online.init(video[:, 0], qp)
+  for t in range(1, ONLINE_WARMUP + 1):
+    online.predict(video[:, t])
+  torch.cuda.synchronize()
+  reset_counts()
+  step_ms, tracks = [], []
+  for t in range(ONLINE_WARMUP + 1, ONLINE_WARMUP + ONLINE_STEPS + 1):
+    begin = time.perf_counter()
+    tr, vis = online.predict(video[:, t])
+    step_ms.append((time.perf_counter() - begin) * 1e3)
+    tracks.append(tr)
+  launches = read_counts()
+  require(launches["corr_tents"] == ONLINE_K1_PER_STEP * ONLINE_STEPS
+          and sum(launches.values()) == launches["corr_tents"],
+          f"online TAPIR: launches {launches}, expected "
+          f"{ONLINE_K1_PER_STEP} K1 per step and no other kernel")
+  tracks = np.stack(tracks)
+  require(tracks.shape == (ONLINE_STEPS, 1, ONLINE_QUERIES, 2)
+          and np.isfinite(tracks).all() and np.abs(tracks).max() < 4 * TN_RES,
+          "online TAPIR: bad tracks")
+  mean_ms = float(np.mean(step_ms))
+  profile = profile_request(
+      lambda: [online.predict(video[:, t]) for t in range(1, 11)],
+      mean_ms * 10 / 1e3, top=15)
+  return dict(
+      config=dict(causal=True, extra_convs=config.extra_convs,
+                  compute_dtype=config.compute_dtype,
+                  weights="runs/bootstapir_synth/trained_params_f16.npy"
+                  + ("" if config.extra_convs else " without ExtraConvs")),
+      queries=ONLINE_QUERIES, resolution=TN_RES, steps=ONLINE_STEPS,
+      ms_per_frame_mean=mean_ms, ms_per_frame_median=float(np.median(step_ms)),
+      ms_per_frame_min=float(np.min(step_ms)),
+      k1_launches_per_step=launches["corr_tents"] / ONLINE_STEPS,
+      launches=launches, profile_10_steps=profile)
 
 
 # ------------------------------------------------------------------ TAPNext
@@ -1457,8 +1931,26 @@ def main():
   for name, run in runs.items():
     print(json.dumps({name: run, "card": card}), flush=True)
   stamp("BootsTAPIR serving")
+  runs["extra_convs_fp_480"] = extra_convs_fp_480(params, videos[:3])
+  print(json.dumps({"extra_convs_fp_480": runs["extra_convs_fp_480"],
+                    "card": card}), flush=True)
+  stamp("extra-convs-fp-480")
+  del videos
+  torch.cuda.empty_cache()
 
-  del params
+  print(json.dumps({"online_golden": online_golden_check(params)}), flush=True)
+  stamp("online golden checks")
+  causal_params = {k: v for k, v in params.items() if k != "extra"}
+  for name, phase in (
+      ("online_tapir_256", lambda: online_tapir(
+          causal_params, causal_tapir_config(compute_dtype="bfloat16"))),
+      ("online_bootstapir_256", lambda: online_tapir(
+          params, causal_bootstapir_config()))):
+    runs[name] = phase()
+    print(json.dumps({name: runs[name], "card": card}), flush=True)
+    stamp(name)
+
+  del params, causal_params
   tn_params = seeded_tapnext_params(SsmVitConfig(), TAPNEXT_SEED)
   print(json.dumps({"tapnext_golden": tapnext_golden_check(tn_params)}),
         flush=True)
@@ -1495,6 +1987,10 @@ def main():
         # X: cuDNN's bf16 convolution of the same shapes, for context only.
         **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}
            if "cudnn_same_shape_ms" in row else {}),
+        # K6f: the model's unfused float layer (cuDNN convolutions and
+        # PyTorch elementwise passes), for context only.
+        **({"production_layer_ms": row["production_layer_ms"]}
+           if "production_layer_ms" in row else {}),
     ))
   print(card)
   print(json.dumps({"kernels": kernels}))

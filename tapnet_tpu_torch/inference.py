@@ -1,5 +1,5 @@
 """User-facing inference (port of tapnet_tpu/inference.py: TapirPredictor,
-TapnextPredictor, OnlineTapnextPredictor).
+OnlineTapirPredictor, TapnextPredictor, OnlineTapnextPredictor).
 
 Each predictor binds a Flax-layout parameter tree to the port's model and
 tracks points on the CUDA card by default. Without a card, it raises unless
@@ -8,6 +8,8 @@ the caller asked for `device="cpu"`.
   * `TapirPredictor` pads query counts (and optionally frame counts) up to
     buckets, as in the JAX version, so results do not depend on how a
     request was cut.
+  * `OnlineTapirPredictor` runs causal TAPIR one frame at a time, with the
+    mixers' streaming state carried from step to step.
   * `TapnextPredictor` runs TAPNext offline, in time chunks with the SSM
     state carried from one to the next when `chunk_size` is set.
   * `OnlineTapnextPredictor` runs TAPNext one frame at a time.
@@ -155,6 +157,109 @@ class TapirPredictor:
       pending = dispatched
     if pending is not None:
       yield self._materialize(*pending)
+
+
+class OnlineTapirPredictor:
+  """Streaming TAPIR: per-frame tracking with typed causal state.
+
+    p = OnlineTapirPredictor(params, tapir.causal_bootstapir_config())
+    p.init(first_frame, query_points)       # query features + zero state
+    for frame in frames:
+      tracks, visibles = p.predict(frame)
+
+  The parameters keep their dtype, as the JAX predictor's do, and the
+  configuration's `compute_dtype` sets the casts (float32 or bfloat16). The
+  streaming state is float32. Only one refinement resolution is streamed:
+  frames at the initial resolution, or `num_resolutions` of the state
+  would have to grow (as in JAX).
+  """
+
+  def __init__(
+      self,
+      params: Mapping[str, Any],
+      config: Optional[tapir_lib.TapirConfig] = None,
+      device: Optional[Any] = None,
+  ):
+    """Args:
+      params: Flax-layout TAPIR parameter tree with numpy leaves.
+      config: a causal configuration (`use_causal_conv=True`), by default
+        `TapirConfig(use_causal_conv=True, num_pips_iter=4,
+        pyramid_level=1)`.
+      device: torch device; None means "cuda" (raises without a card).
+    """
+    config = config or tapir_lib.TapirConfig(
+        use_causal_conv=True, num_pips_iter=4, pyramid_level=1)
+    if not config.use_causal_conv:
+      raise ValueError("Online TAPIR requires use_causal_conv=True.")
+    if (config.quantized_mixer or config.quantized_corr
+        or config.quantized_extra_convs):
+      raise NotImplementedError(
+          "The int8 streaming modes are not ported yet (ROADMAP Queue 1, "
+          "slice 2: int8 streaming modes); use a float configuration.")
+    self.device = resolve_device(device)
+    model = tapir_lib.TAPIR(config)
+    load_flax_params(model, params)
+    self.model = model.to(self.device).eval()
+    self._query_features = None
+    self._state = None
+
+  def _frame(self, frame) -> torch.Tensor:
+    frame = torch.as_tensor(frame, dtype=torch.float32).to(self.device)
+    return frame[:, None] if frame.ndim == 4 else frame
+
+  def _query_features_of(self, frame, query_points):
+    query_points = torch.as_tensor(query_points, dtype=torch.float32).to(
+        self.device)
+    grids = self.model.get_feature_grids(frame)
+    return self.model.get_query_features(frame.shape, query_points, grids)
+
+  def init(self, frame, query_points) -> None:
+    """Query features from `frame` ([B, H, W, 3] or [B, 1, H, W, 3], in
+    [-1, 1]) at `query_points` ([B, N, 3] (t, y, x), t = 0), and a zero
+    state."""
+    frame = self._frame(frame)
+    b, n = np.shape(query_points)[:2]
+    with torch.inference_mode():
+      self._query_features = self._query_features_of(frame, query_points)
+      self._state = self.model.construct_initial_causal_state(b, n, 1)
+
+  def step(self, frame) -> Mapping[str, np.ndarray]:
+    """One streaming step on `frame` ([B, H, W, 3] in [-1, 1]): tracks
+    [B, N, 2] (x, y), visibles [B, N], and the occlusion and expected_dist
+    logits [B, N] (the mean over the last iteration of each resolution), as
+    numpy arrays."""
+    if self._query_features is None:
+      raise ValueError("Call init() before predict().")
+    frame = self._frame(frame)
+    cfg = self.model.config
+    with torch.inference_mode():
+      grids = self.model.get_feature_grids(frame)
+      out = self.model.estimate_trajectories(
+          tuple(frame.shape[-3:-1]), grids, self._query_features, None, None,
+          self._state, True)
+      self._state = out["causal_context"]
+      p = cfg.num_pips_iter
+      mean = lambda key: torch.stack(out[key][p::p]).mean(dim=0)[:, :, 0]
+      tracks, occ, expd = mean("tracks"), mean("occlusion"), mean("expected_dist")
+      visibles = sampling.postprocess_occlusions(occ, expd)
+    return dict(tracks=tracks.cpu().numpy(), visibles=visibles.cpu().numpy(),
+                occlusion=occ.cpu().numpy(), expected_dist=expd.cpu().numpy())
+
+  def predict(self, frame) -> Tuple[np.ndarray, np.ndarray]:
+    """One streaming step: (tracks [B, N, 2] (x, y), visibles [B, N])."""
+    out = self.step(frame)
+    return out["tracks"], out["visibles"]
+
+  def add_points(self, frame, query_points, idx: Sequence[int]) -> None:
+    """Replaces the tracked slots `idx` with new query points on `frame`
+    (t = 0), each with a fresh state."""
+    frame = self._frame(frame)
+    b = np.shape(query_points)[0]
+    with torch.inference_mode():
+      new_qf = self._query_features_of(frame, query_points)
+      fresh = self.model.construct_initial_causal_state(b, len(idx), 1)
+      self._query_features, self._state = tapir_lib.update_query_features(
+          self._query_features, new_qf, idx, self._state, fresh)
 
 
 def _tapnext_model(params, config, device) -> tapnext.TAPNextTracker:

@@ -1,5 +1,5 @@
-"""Neural-net layers of TAPIR (port of tapnet_tpu/models/layers.py, offline
-path).
+"""Neural-net layers of TAPIR (port of tapnet_tpu/models/layers.py): the
+offline path, and the streaming caches of the causal (online) mixer.
 
 Module and parameter names follow the Flax tree (`checkpoints/convert.py`
 maps `kernel` to `weight` and keeps the rest), so `ln_temporal.scale`,
@@ -8,12 +8,14 @@ the same names hold. Activations of the mixer are [batch*points, time,
 channels]; convolutional layers take NCHW.
 
 Dtypes follow Flax's promotion: a layer computes in the promoted type of its
-input and its parameters, with float32 normalization statistics.
+input and its parameters, with float32 normalization statistics. A streaming
+cache is float32 (`PipsMixer.init_cache`), so in bf16 mode `[cache ++ x]`
+promotes the temporal half, and the blocks after it, to float32, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,22 +111,86 @@ class _Depthwise(nn.Module):
     self.bias = _param(features, fill=0.0)
 
 
+class ConvCache(NamedTuple):
+  """Streaming cache of one temporal-mixing block: `pre` the last (k-1)
+  input frames of the first depthwise conv, `mid` the last (k-1) post-GELU
+  frames feeding the second. Leading axes are the caller's batch layout."""
+
+  pre: torch.Tensor  # [..., k-1, hidden]
+  mid: torch.Tensor  # [..., k-1, hidden * multiplier]
+
+
+class MixerCache(NamedTuple):
+  """Streaming cache of every mixer block, stacked on a leading
+  `num_blocks` axis: pre [L, ..., k-1, hidden], mid [L, ..., k-1, 4*hidden]."""
+
+  pre: torch.Tensor
+  mid: torch.Tensor
+
+
+def _shifted_fma(v, w, b):
+  """VALID depthwise conv over time as the sum of k shifted slices, in the
+  promoted type of its operands: v [..., T + k - 1, D], w [k, 1, D], b [D]
+  -> [..., T, D]."""
+  k = w.shape[0]
+  t_out = v.shape[-2] - (k - 1)
+  out = b
+  for j in range(k):
+    out = out + v[..., j : j + t_out, :] * w[j, 0]
+  return out
+
+
 class TemporalDepthwiseBlock(nn.Module):
   """Depthwise temporal mixing params: per-channel conv (multiplier 4) ->
   GELU -> per-channel conv, the 4 lanes of each channel folded back by
-  summation. The math is `ops.mixer_math.temporal_depthwise_math`, run by
-  `MixerBlock` through `ops.fused_mixer_block.mixer_block`."""
+  summation. Offline, `MixerBlock` runs the math through
+  `ops.fused_mixer_block.mixer_block`; `forward` is the causal streaming
+  form, which materializes the hidden lanes the caches hold."""
 
   def __init__(self, features: int = 512, kernel_size: int = 3,
                multiplier: int = 4):
     super().__init__()
+    self.multiplier = multiplier
     self.dw_up = _Depthwise(features * multiplier, kernel_size)
     self.dw_mix = _Depthwise(features * multiplier, kernel_size)
+
+  def forward(self, x: torch.Tensor, cache: Optional[ConvCache] = None,
+              return_cache: bool = False
+              ) -> Tuple[torch.Tensor, Optional[ConvCache]]:
+    """x [..., T, C] -> (y [..., T, C], the new cache or None).
+
+    Both convolutions run VALID over [cache ++ x] (exact causal streaming).
+    Without a cache they start from a zero one in x's dtype: the causal
+    block's zero padding of a clip, whose new cache is the clip's tail
+    (warm-up). Input channel c expands to lanes [4c, 4c+3].
+    """
+    k = self.dw_up.weight.shape[0]
+    c = x.shape[-1]
+    if cache is None:
+      lead = x.shape[:-2] + (k - 1,)
+      cache = ConvCache(pre=x.new_zeros(lead + (c,)),
+                        mid=x.new_zeros(lead + (c * self.multiplier,)))
+    w_up, b_up = self.dw_up.weight, self.dw_up.bias
+    w_mix, b_mix = self.dw_mix.weight, self.dw_mix.bias
+    dtype = torch.promote_types(cache.pre.dtype, x.dtype)
+    pre_in = torch.cat([cache.pre.to(dtype), x.to(dtype)], dim=-2)
+    h = mixer_math.gelu(_shifted_fma(
+        pre_in.repeat_interleave(self.multiplier, dim=-1), w_up, b_up))
+    dtype = torch.promote_types(cache.mid.dtype, h.dtype)
+    mid_in = torch.cat([cache.mid.to(dtype), h.to(dtype)], dim=-2)
+    y = _shifted_fma(mid_in, w_mix, b_mix)
+    new_cache = None
+    if return_cache:
+      new_cache = ConvCache(pre=pre_in[..., -(k - 1):, :],
+                            mid=mid_in[..., -(k - 1):, :])
+    y = y.reshape(y.shape[:-1] + (c, self.multiplier)).sum(-1)
+    return y, new_cache
 
 
 class MixerBlock(nn.Module):
   """One PIPs-mixer block: temporal depthwise mixing + channel MLP, both with
-  pre-LayerNorm residuals, as one `ops.fused_mixer_block.mixer_block` call.
+  pre-LayerNorm residuals, as one `ops.fused_mixer_block.mixer_block` call
+  offline, and as the unfused blocks with a streaming cache online.
 
   `quantized` runs the channel MLP in w8a8 int8 (the temporal conv and the
   LayerNorms stay in full precision). The int8 weights are derived from
@@ -159,16 +225,37 @@ class MixerBlock(nn.Module):
     return _derived(self._qcache, 0, (self.fc_up.weight, self.fc_down.weight),
                     make)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def forward(self, x: torch.Tensor, cache: Optional[ConvCache] = None,
+              return_cache: bool = False
+              ) -> Tuple[torch.Tensor, Optional[ConvCache]]:
+    """x [B, T, C] -> (y, the new cache or None). Without a cache and
+    `return_cache`, the whole block is one `fused_mixer_block.mixer_block`
+    call; otherwise the JAX unfused path: scale-only LayerNorm, the
+    streaming or warm-up temporal half, the residual, then the channel MLP
+    (`mixer_math.mlp_math`, plain matmuls, as JAX computes it outside any
+    Pallas kernel). Only a causal block streams."""
     t = self.temporal
-    return fused_mixer_block.mixer_block(
-        x, self.ln_temporal.scale, t.dw_up.weight, t.dw_up.bias,
-        t.dw_mix.weight, t.dw_mix.bias, self.ln_channel.scale,
-        self.fc_up.weight.t(), self.fc_up.bias,
-        self.fc_down.weight.t(), self.fc_down.bias, self.causal,
-        quantized=self.quantized,
-        qweights=self.quantized_weights() if self.quantized else None,
-    )
+    if cache is None and not return_cache:
+      return fused_mixer_block.mixer_block(
+          x, self.ln_temporal.scale, t.dw_up.weight, t.dw_up.bias,
+          t.dw_mix.weight, t.dw_mix.bias, self.ln_channel.scale,
+          self.fc_up.weight.t(), self.fc_up.bias,
+          self.fc_down.weight.t(), self.fc_down.bias, self.causal,
+          quantized=self.quantized,
+          qweights=self.quantized_weights() if self.quantized else None,
+      ), None
+    if self.quantized:
+      raise NotImplementedError(
+          "The w8a8 mixer has no streaming path in the port yet (ROADMAP "
+          "Queue 1, slice 2: the int8 streaming modes).")
+    if not self.causal:
+      raise ValueError("MixerBlock: a streaming cache needs a causal block")
+    h = mixer_math.layer_norm(x, self.ln_temporal.scale, dtype=x.dtype)
+    h, new_cache = t(h, cache, return_cache)
+    x = x + h
+    return mixer_math.mlp_math(
+        x, self.ln_channel.scale, self.fc_up.weight.t(), self.fc_up.bias,
+        self.fc_down.weight.t(), self.fc_down.bias), new_cache
 
 
 class PipsMixer(nn.Module):
@@ -190,13 +277,38 @@ class PipsMixer(nn.Module):
     self.ln_out = LayerNormScale(hidden_dim)
     self.out_proj = nn.Linear(hidden_dim, output_channels)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    """x: [B*N, T, input_channels] -> [B*N, T, output_channels]."""
+  def forward(self, x: torch.Tensor, cache: Optional[MixerCache] = None,
+              return_cache: bool = False):
+    """x: [B*N, T, input_channels] -> [B*N, T, output_channels], and with
+    `return_cache` also the new MixerCache. `cache` (a MixerCache of
+    [L, B*N, k-1, ...]) streams: each block's temporal convs continue from
+    it."""
     x = linear(x, self.in_proj)
+    new_pre, new_mid = [], []
     for i in range(self.num_blocks):
-      x = getattr(self, f"block_{i}")(x)
-    x = self.ln_out(x)
-    return linear(x, self.out_proj)
+      block_cache = (None if cache is None
+                     else ConvCache(pre=cache.pre[i], mid=cache.mid[i]))
+      x, block_cache = getattr(self, f"block_{i}")(x, block_cache, return_cache)
+      if return_cache:
+        new_pre.append(block_cache.pre)
+        new_mid.append(block_cache.mid)
+    out = linear(self.ln_out(x), self.out_proj)
+    if not return_cache:
+      return out
+    return out, MixerCache(pre=torch.stack(new_pre), mid=torch.stack(new_mid))
+
+  def init_cache(self, batch_shape, dtype=torch.float32,
+                 device=None) -> MixerCache:
+    """Zero streaming cache for `batch_shape` leading dims."""
+    block = self.block_0.temporal
+    k = block.dw_up.weight.shape[0] - 1
+    hidden = self.in_proj.weight.shape[0]
+    lead = (self.num_blocks,) + tuple(batch_shape) + (k,)
+    return MixerCache(
+        pre=torch.zeros(lead + (hidden,), dtype=dtype, device=device),
+        mid=torch.zeros(lead + (hidden * block.multiplier,), dtype=dtype,
+                        device=device),
+    )
 
 
 class _LnBias(nn.Module):

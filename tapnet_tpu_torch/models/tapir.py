@@ -1,11 +1,15 @@
-"""TAPIR two-stage point tracker (port of tapnet_tpu/models/tapir.py,
-offline inference path).
+"""TAPIR two-stage point tracker (port of tapnet_tpu/models/tapir.py:
+offline inference, and the causal streaming state of online TAPIR).
 
 Stage 1 initializes every query's trajectory from a global cost volume
 (per-frame feature matching + soft-argmax); stage 2 refines it with 7x7
 tent-interpolated local correlations over a feature pyramid
 (`ops.corr_tents`) fed through a depthwise-conv MLP-Mixer across time
 (`ops.fused_mixer_block`). Feature grids keep the JAX layout [B, T, H, W, C].
+
+Online (causal) TAPIR runs `estimate_trajectories` one frame at a time with
+a `TapirCausalState`: per refinement iteration and mixer block, the last
+k-1 frames entering each temporal conv, carried from step to step.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tapnet_tpu_torch.models import resnet as resnet_lib
-from tapnet_tpu_torch.models.layers import Conv, ExtraConvs, PipsMixer, linear
+from tapnet_tpu_torch.models.layers import (
+    Conv, ExtraConvs, MixerCache, PipsMixer, linear,
+)
 from tapnet_tpu_torch.ops import corr_tents
 from tapnet_tpu_torch.utils import sampling, transforms
 
@@ -80,6 +86,13 @@ def tapir_config(**overrides) -> TapirConfig:
   return TapirConfig(**kwargs)
 
 
+def causal_tapir_config(**overrides) -> TapirConfig:
+  """Online/causal TAPIR: pyramid level 1, causal temporal convs."""
+  kwargs = dict(pyramid_level=1, use_causal_conv=True)
+  kwargs.update(overrides)
+  return TapirConfig(**kwargs)
+
+
 def bootstapir_config(**overrides) -> TapirConfig:
   """BootsTAPIR: pyramid level 1, ExtraConvs, softmax temperature 10."""
   kwargs = dict(
@@ -90,6 +103,24 @@ def bootstapir_config(**overrides) -> TapirConfig:
   )
   kwargs.update(overrides)
   return TapirConfig(**kwargs)
+
+
+def causal_bootstapir_config(**overrides) -> TapirConfig:
+  """Online BootsTAPIR (causal convs + ExtraConvs)."""
+  return bootstapir_config(use_causal_conv=True, **overrides)
+
+
+class TapirCausalState(NamedTuple):
+  """Streaming state of online TAPIR, one entry per refinement iteration
+  and mixer block: `pre` the last (k-1) frames entering each block's first
+  depthwise conv, `mid` the post-GELU frames entering the second. float32,
+  pre [I, L, B, N, k-1, hidden], mid [I, L, B, N, k-1, 4*hidden]."""
+
+  pre: torch.Tensor
+  mid: torch.Tensor
+
+  def num_points(self) -> int:
+    return self.pre.shape[3]
 
 
 class FeatureGrids(NamedTuple):
@@ -361,8 +392,11 @@ class TAPIR(nn.Module):
       orig_hw: Tuple[int, int],
       resize_hw: Tuple[int, int],
       mixer_feats: Optional[torch.Tensor],
+      cache: Optional[MixerCache] = None,
+      return_cache: bool = False,
   ):
-    """One PIPs refinement step."""
+    """One PIPs refinement step. `cache` ([L, B, N, ...] per leaf) streams
+    the mixer; with `return_cache` the step also returns the new one."""
     cfg = self.config
     corrs_pyr = []
     for pyridx, (query, grid) in enumerate(zip(queries, pyramid)):
@@ -394,7 +428,16 @@ class TAPIR(nn.Module):
     )
     b, n, t, c = mlp_input.shape
     x = mlp_input.reshape(b * n, t, c).to(cfg.dtype)
-    res = self.mixer(x)
+    if cache is not None:
+      cache = MixerCache(*(v.reshape((v.shape[0], b * n) + v.shape[3:])
+                           for v in cache))
+    new_cache = None
+    if return_cache:
+      res, new_cache = self.mixer(x, cache, True)
+      new_cache = MixerCache(*(v.reshape((v.shape[0], b, n) + v.shape[2:])
+                               for v in new_cache))
+    else:
+      res = self.mixer(x, cache)
     res = res.reshape(b, n, t, res.shape[-1])
 
     orig_h, orig_w = orig_hw
@@ -407,16 +450,20 @@ class TAPIR(nn.Module):
         res[..., 2] + occ_guess,
         res[..., 3] + expd_guess,
         res[..., 4:] + feats,
+        new_cache,
     )
 
   # ------------------------------------------------------------ trajectories
 
   def _track_chunk(self, pyramids, feature_grids, qf_low, qf_hi, qp,
-                   im_shape, video_size, num_iters):
+                   im_shape, video_size, num_iters, state=None,
+                   get_causal_context=False):
     """Stage 1 + every refinement iteration for one query chunk.
 
     Returns [iters+1, B, n, T, 2] points and [iters+1, B, n, T] occlusion and
-    expected_dist logits.
+    expected_dist logits, and with `get_causal_context` the chunk's new
+    TapirCausalState (else None). `state` is the chunk's slice of the
+    causal state, or None.
     """
     cfg = self.config
 
@@ -433,20 +480,26 @@ class TAPIR(nn.Module):
     init_occ, init_expd = occlusion, expected_dist
 
     mixer_feats = None
+    new_states = []
     for i in range(num_iters):
       level = i // cfg.num_pips_iter + 1
       queries = [qf_hi[level], qf_low[level]]
       queries += [queries[-1]] * cfg.pyramid_level
-      points, occlusion, expected_dist, mixer_feats = self._refine_pips(
-          queries,
-          pyramids[level - 1],
-          points,
-          occlusion,
-          expected_dist,
-          orig_hw=cfg.initial_resolution,
-          resize_hw=feature_grids.resolutions[level],
-          mixer_feats=mixer_feats,
-      )
+      cache = None if state is None else MixerCache(state.pre[i], state.mid[i])
+      points, occlusion, expected_dist, mixer_feats, new_cache = (
+          self._refine_pips(
+              queries,
+              pyramids[level - 1],
+              points,
+              occlusion,
+              expected_dist,
+              orig_hw=cfg.initial_resolution,
+              resize_hw=feature_grids.resolutions[level],
+              mixer_feats=mixer_feats,
+              cache=cache,
+              return_cache=get_causal_context,
+          ))
+      new_states.append(new_cache)
       pts_i.append(train2orig(points))
       occ_i.append(occlusion)
       expd_i.append(expected_dist)
@@ -454,7 +507,13 @@ class TAPIR(nn.Module):
         # Next resolution starts again from the stage-1 estimate.
         mixer_feats = None
         occlusion, expected_dist = init_occ, init_expd
-    return torch.stack(pts_i), torch.stack(occ_i), torch.stack(expd_i)
+    new_state = None
+    if get_causal_context:
+      new_state = TapirCausalState(
+          pre=torch.stack([c.pre for c in new_states]),
+          mid=torch.stack([c.mid for c in new_states]))
+    return (torch.stack(pts_i), torch.stack(occ_i), torch.stack(expd_i),
+            new_state)
 
   def estimate_trajectories(
       self,
@@ -463,14 +522,19 @@ class TAPIR(nn.Module):
       query_features: QueryFeatures,
       query_points_in_video: Optional[torch.Tensor] = None,
       query_chunk_size: Optional[int] = None,
+      causal_state: Optional[TapirCausalState] = None,
+      get_causal_context: bool = False,
   ) -> Mapping[str, Any]:
     """Stage 1 + stage 2 over all queries, one query chunk at a time.
 
     Returns per-iteration lists under "tracks" / "occlusion" /
-    "expected_dist" (index 0 = cost-volume init). With more than one chunk,
-    the queries are padded to a multiple of the chunk size by repeating
-    query 0 (as the JAX scan does); chunks are independent and the padding
-    is dropped.
+    "expected_dist" (index 0 = cost-volume init), and with
+    `get_causal_context` the new TapirCausalState under "causal_context".
+    `causal_state` streams the mixers (each chunk reads its queries' slice).
+    With more than one chunk, the queries are padded to a multiple of the
+    chunk size by repeating query 0 (as the JAX scan does); chunks are
+    independent and the padding is dropped. Queries keep their order (the
+    JAX permutation is the identity outside training).
     """
     cfg = self.config
     num_resolutions = len(feature_grids.lowres) - 1
@@ -520,6 +584,9 @@ class TAPIR(nn.Module):
             (num_frames,) + tuple(cfg.initial_resolution),
             coordinate_format="tyx",
         )
+      state = None
+      if causal_state is not None:
+        state = TapirCausalState(*(v[:, :, :, idx] for v in causal_state))
       outs.append(self._track_chunk(
           pyramids,
           feature_grids,
@@ -529,13 +596,37 @@ class TAPIR(nn.Module):
           im_shape,
           video_size,
           num_iters,
+          state,
+          get_causal_context,
       ))
     points, occ, expd = (
-        torch.cat(parts, dim=2)[:, :, :num_queries] for parts in zip(*outs)
+        torch.cat(parts, dim=2)[:, :, :num_queries]
+        for parts in list(zip(*outs))[:3]
     )
-    return dict(
+    out = dict(
         tracks=list(points), occlusion=list(occ), expected_dist=list(expd)
     )
+    if get_causal_context:
+      out["causal_context"] = TapirCausalState(*(
+          torch.cat(parts, dim=3)[:, :, :, :num_queries]
+          for parts in zip(*(o[3] for o in outs))))
+    return out
+
+  # ------------------------------------------------------------ online state
+
+  def construct_initial_causal_state(
+      self, batch_size: int, num_points: int, num_resolutions: int = 1
+  ) -> TapirCausalState:
+    """Zero float32 streaming state for `num_points` tracks, on the model's
+    device."""
+    cfg = self.config
+    device = self.mixer.in_proj.weight.device
+    lead = (cfg.num_pips_iter * num_resolutions, cfg.num_mixer_blocks,
+            batch_size, num_points, cfg.mixer_kernel_size - 1)
+    zeros = lambda width: torch.zeros(lead + (width,), dtype=torch.float32,
+                                      device=device)
+    return TapirCausalState(pre=zeros(cfg.mixer_hidden_dim),
+                            mid=zeros(cfg.mixer_hidden_dim * 4))
 
   # ----------------------------------------------------------------- forward
 
@@ -587,3 +678,40 @@ class TAPIR(nn.Module):
         unrefined_tracks=trajectories["tracks"][:-1],
         unrefined_expected_dist=trajectories["expected_dist"][:-1],
     )
+
+
+def update_query_features(
+    query_features: QueryFeatures,
+    new_query_features: QueryFeatures,
+    idx_to_update: Sequence[int],
+    causal_state: Optional[TapirCausalState] = None,
+    fresh_state: Optional[TapirCausalState] = None,
+):
+  """New query descriptors (and fresh streaming state) in the slots
+  `idx_to_update` of copies of the old ones. Returns the QueryFeatures, and
+  the TapirCausalState too when `causal_state` is given."""
+  idx = torch.as_tensor(list(idx_to_update), dtype=torch.long)
+
+  def set_queries(olds, news):
+    out = []
+    for old, new in zip(olds, news):
+      old = old.clone()
+      old[:, idx.to(old.device)] = new.to(old.dtype)
+      out.append(old)
+    return tuple(out)
+
+  qf = QueryFeatures(
+      lowres=set_queries(query_features.lowres, new_query_features.lowres),
+      hires=set_queries(query_features.hires, new_query_features.hires),
+      resolutions=query_features.resolutions,
+  )
+  if causal_state is None:
+    return qf
+  if fresh_state is None:
+    raise ValueError("fresh_state required to reset causal state.")
+  new_state = []
+  for old, new in zip(causal_state, fresh_state):
+    old = old.clone()
+    old[:, :, :, idx.to(old.device)] = new.to(old.dtype)
+    new_state.append(old)
+  return qf, TapirCausalState(*new_state)

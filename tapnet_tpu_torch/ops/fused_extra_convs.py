@@ -1,5 +1,5 @@
-"""One ExtraConvs layer with per-pixel int8 scales (port of
-tapnet_tpu/ops/fused_extra_convs.py).
+"""One ExtraConvs layer, in full precision or with per-pixel int8 scales
+(port of tapnet_tpu/ops/fused_extra_convs.py).
 
 An ExtraConvs layer is
 
@@ -25,9 +25,13 @@ tap-decomposed kernel can dequantize exactly:
     float64 matrix products of the int8 values (exact).
   * CUDA tensors with `quantized=True` launch K6,
     `extra_convs_q8_pixel_forward` of `csrc/extra_convs.cu`.
-  * CUDA tensors with `quantized=False` raise: no path of the model runs the
-    float fused layer (`wants_fused` demands the per-pixel mode), so it has
-    no kernel. Any other device raises too.
+  * CUDA tensors with `quantized=False` launch K6f, `extra_convs_fp_forward`
+    of the same source (the JAX `_math_reference(quantized=False)`: conv
+    operands in x.dtype, float32 sums, the hidden rounded to x.dtype, the
+    residual on the float32 LN output). No model path reaches it, as in
+    JAX: `wants_fused` demands the per-pixel mode, and `layers.ExtraConvs`
+    runs its float layers as plain convolutions.
+  * Any other device raises. There is no size gate and no fallback.
 
 `wants_fused` is the JAX package's gate, and it chooses the *math*: the
 per-pixel scheme runs only where it holds; below it the ExtraConvs take the
@@ -42,9 +46,10 @@ import torch.nn.functional as F
 from tapnet_tpu_torch.ops import _build, qconv
 from tapnet_tpu_torch.ops.mixer_math import gelu
 
-# Number of CUDA launches of K6 made through `extra_convs_layer` (one per
-# layer call: its six kernels count once).
+# Number of CUDA launches made through `extra_convs_layer`, one per layer
+# call: K6 (its six kernels count once) and K6f (three kernels).
 LAUNCHES = 0
+LAUNCHES_FP = 0
 
 # The JAX gate's size threshold: the per-pixel scheme runs on activations of
 # at least this many elements.
@@ -86,13 +91,22 @@ def quantized_weights(wu: torch.Tensor, wo: torch.Tensor):
           *qconv.quantize_conv_weight(wo.permute(3, 2, 0, 1)))
 
 
-def _conv_fp(v, w, b):
-  """SAME 3x3 conv of [N, H, W, C_in] with an HWIO kernel: operands in
-  v.dtype, float32 accumulation and output (products of bf16 values are exact
-  in float32), + bias."""
-  w = w.to(v.dtype).float().permute(3, 2, 0, 1)
-  y = F.conv2d(v.float().permute(0, 3, 1, 2), w, padding=1)
-  return y.permute(0, 2, 3, 1) + b.float()
+def _conv_fp(v, w, b, padding=1):
+  """3x3 conv of [N, H, W, C_in] with an HWIO kernel (SAME with padding 1,
+  VALID with 0): operands in v.dtype, float32 products (exact for bf16
+  values) summed in float32, + bias. Written as 9 tap matmuls, so that the
+  sums are of the products themselves on any device, whatever algorithm a
+  convolution library would pick (Winograd and FFT algorithms transform the
+  operands first)."""
+  w = w.to(v.dtype).float()
+  vp = F.pad(v.float(), (0, 0, padding, padding, padding, padding))
+  h, wd = vp.shape[1] - 2, vp.shape[2] - 2
+  acc = None
+  for dy in range(3):
+    for dx in range(3):
+      part = torch.matmul(vp[:, dy : dy + h, dx : dx + wd], w[dy, dx])
+      acc = part if acc is None else acc + part
+  return acc + b.float()
 
 
 def _conv_q8_patch(v32, wuq, su, b):
@@ -210,6 +224,202 @@ def q8_output_controls(x, g, bln, bu, bo, qweights):
           "output_pixel_scale": (t32 + own_scale).to(x.dtype)}
 
 
+# Share of the hidden values that `fp_error_limit` lets the kernel and the
+# plain version round a bf16 step apart on their own: the two sum conv_up's
+# 9*C exact products in other orders (float32, about 1e-6 of the sum apart),
+# and a hidden value within that distance of a rounding midpoint rounds the
+# other way: 0.16% of them at the served widths (H100, PERF.md section 6).
+# The share keeps a margin of 10 over it.
+FP_HIDDEN_FLIP_SHARE = 1 / 64
+
+# How far the kernel's LayerNorm output t32 may lie from the plain version's,
+# in units of float32's unit roundoff (2^-24) of the terms it is made of (see
+# `ln_noise`): both sum the C values and squares in other orders (a few
+# roundings of the row's scale each) and take rsqrt to within 2 ulp.
+FP_T32_NOISE_ROUNDINGS = 32
+
+
+def _bf16_step(v: torch.Tensor) -> torch.Tensor:
+  """The spacing of bfloat16 values at |v| (float32 in, float32 out): 2^-7
+  of the power of two at or below |v|, read from the exponent bits."""
+  a = v.float().abs().clamp_min(2.0**-126)
+  return (a.view(torch.int32) & 0x7F800000).view(torch.float32) * 2.0**-7
+
+
+def _bf16_midpoint_distance(v: torch.Tensor) -> torch.Tensor:
+  """How far float32 v lies from the nearest point where its rounding to
+  bfloat16 changes (a midpoint between two bf16 neighbours); exact."""
+  a = v.float().abs()
+  below = (a.view(torch.int32) & -65536).view(torch.float32)  # |v| truncated
+  return ((a - below) - _bf16_step(a) / 2).abs()
+
+
+def ln_noise(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+  """(t32 of `_ln_bias`, a bound [N, ..., C] on how far another float32
+  single-pass LayerNorm of x may land from it): FP_T32_NOISE_ROUNDINGS
+  roundings of |xhat * g| * E[x^2] / var (the variance's sums and rsqrt), of
+  |g| * rsqrt(var) * rms(x) (the mean's sum) and of |t32| (the last add)."""
+  xf = x.float()
+  mu = xf.mean(-1, keepdim=True)
+  ex2 = (xf * xf).mean(-1, keepdim=True)
+  var = ex2 - mu * mu
+  rs = torch.rsqrt(var + _EPS)
+  xg = (xf - mu) * rs * g.float()
+  t32 = xg + b.float()
+  noise = (FP_T32_NOISE_ROUNDINGS * 2.0**-24) * (
+      xg.abs() * ex2 / (var + _EPS) + g.float().abs() * rs * ex2.sqrt()
+      + t32.abs())
+  return t32, noise
+
+
+def fp_error_limit(x, g, bln, wu, bu, wo, bo, unfused: bool = False):
+  """Per-element limit [N, H, W, C] float32 on |kernel - plain| for the
+  full-precision layer (with `unfused`, on |kernel - the model's unfused
+  float layer|, below).
+
+  float32: the port's 1e-4, absolute and relative (the two sum the same
+  float32 products in other orders, about 1e-7 apart).
+
+  bfloat16: both sides take conv products of the same bf16 values exactly
+  and sum them in float32, so they differ where that noise makes a rounding
+  to bf16 land a step apart, and the limit takes four deviations of what
+  such steps do to the output, plus two bf16 steps of |y| (both round
+  t32 + out separately). A hidden value a step s(h) apart moves out[p, col]
+  by s(h) * wo[j, k, col] through tap j: with independent signs, the
+  variance is a 3x3 convolution of the hidden's per-value variance with
+  wo^2. Two sources: (1) on their own, a share FP_HIDDEN_FLIP_SHARE of the
+  hidden values, variance share * s(h)^2; (2) a value of t a step apart: a
+  t32 that lies within `ln_noise` of a bf16 rounding midpoint may round the
+  other way in the kernel (about 5e-6 of them on the card), and shifts
+  conv_up at the 9 pixels that read it by s(t) * wu[tap, c, k] in every
+  hidden channel k: a fraction of a hidden step, which makes that fraction
+  of the pixel's hidden values round the other way all at once. So hidden
+  value k of pixel p moves by at most u = the sum over such t values in its
+  3x3xC patch of s(t) * |wu[tap, c, k]|, rounds the other way with
+  probability min(u / s(h), 1), and adds the variance min(u, s(h)) * s(h).
+
+  `unfused`: `models.layers.ExtraConvs(quantized=False)` computes the same
+  layer as plain bf16 convolutions, and rounds to bf16 at more points, each
+  by at most half a step: each convolution's sum before its bias is added,
+  and after; the GELU's output; the residual's t (not t32) and conv_out's
+  output before they are added. So every hidden value may be apart by
+  e = 1.13 * (s(up) + s(up + bu)) / 2 + s(h) / 2 (1.13 bounds GELU's
+  slope; where the bias cancels the sum, s(up) is many hidden steps),
+  which adds e^2 to each hidden value's variance (with a share of 1 for
+  the flips), and the output by (s(t32) + s(out_conv) + s(out)) / 2 more.
+  In float32 it rounds nowhere else, and the limit is the same.
+  """
+  if x.dtype != torch.bfloat16:
+    y = extra_convs_layer_reference(x, g, bln, wu, bu, wo, bo, False)
+    return 1e-4 * (1 + y.float().abs())
+  wo2 = wo.to(x.dtype).float().square()
+  wu_abs = wu.to(x.dtype).float().abs()
+  share = 1.0 if unfused else FP_HIDDEN_FLIP_SHARE
+
+  zero = lambda b: torch.zeros_like(b, dtype=torch.float32)
+
+  def limit_of(v):
+    t32, noise = ln_noise(v, g, bln)
+    t = t32.to(v.dtype)
+    up = _conv_fp(t, wu, zero(bu))
+    hidden = gelu(up + bu.float()).to(v.dtype)
+    out_conv = _conv_fp(hidden, wo, zero(bo))
+    out = out_conv + bo.float()
+    y = (t32 + out).to(v.dtype).float()
+    step_h = _bf16_step(hidden.float())
+    near = _bf16_midpoint_distance(t32) <= noise
+    t_flips = torch.where(near, _bf16_step(t32), torch.zeros_like(t32))
+    shift = torch.minimum(_conv_fp(t_flips, wu_abs, zero(bu)), step_h)
+    per_value = share * step_h.square() + shift * step_h
+    if unfused:
+      e = (1.13 * (_bf16_step(up) + _bf16_step(up + bu.float())) + step_h) / 2
+      per_value = per_value + e.square()
+    limit = 4 * _conv_fp(per_value, wo2, zero(bo)).sqrt() + 2 * 2.0**-7 * y.abs()
+    if unfused:
+      limit = limit + (_bf16_step(t32) + _bf16_step(out_conv)
+                       + _bf16_step(out)) / 2
+    return limit
+
+  return qconv.over_frames(limit_of, x, 3 * x.shape[-1] + 4 * bu.shape[0])
+
+
+def fp_output_controls(x, g, bln, wu, bu, wo, bo):
+  """Faulty versions of the plain full-precision layer on x, which
+  `fp_error_limit` must refuse in float32: `unmasked_pad` lets the hidden of
+  the pad ring (GELU of conv_up there, gelu(bu) and more) reach the edge
+  pixels through conv_out, as the TPU kernel would without its mask;
+  `bf16_t_residual` adds t rounded to bf16 where the residual takes t32 (in
+  float32, t32 rounded to bf16); `hidden_precision` keeps the hidden in
+  float32 in bf16 mode, and in float32 mode rounds it to bf16 (the mirror
+  fault: the hidden in the other dtype than x's)."""
+  dt = x.dtype
+  t32 = _ln_bias(x, g, bln)
+  t = t32.to(dt)
+  up = gelu(_conv_fp(t, wu, bu))
+  hidden = up.to(dt)
+  out = _conv_fp(hidden, wo, bo)
+  ring = F.pad(t, (0, 0, 1, 1, 1, 1))
+  unmasked = _conv_fp(gelu(_conv_fp(ring, wu, bu)).to(dt), wo, bo, padding=0)
+  other = up.bfloat16() if dt == torch.float32 else up
+  wo_dt = wo.to(dt).float()
+  return {
+      "unmasked_pad": (t32 + unmasked).to(dt),
+      "bf16_t_residual": (t32.bfloat16().float() + out).to(dt),
+      "hidden_precision": (t32 + _conv_fp(other.float(), wo_dt, bo)).to(dt),
+  }
+
+
+def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
+  """K6f on the card. If `scratch` is a dict, the kernels' t32 and hidden
+  are left in it, for checks."""
+  global LAUNCHES_FP
+  if x.dtype not in qconv.DTYPES:
+    raise TypeError(
+        f"extra_convs_layer: x must be float32 or bfloat16, got {x.dtype}")
+  if x.ndim != 4 or not x.is_contiguous():
+    raise ValueError("extra_convs_layer: x must be a contiguous [N, H, W, C]")
+  n, h, w, c = x.shape
+  m = wu.shape[-1]
+  dev = x.device
+  if tuple(wu.shape) != (3, 3, c, m) or tuple(wo.shape) != (3, 3, m, c):
+    raise ValueError(
+        f"extra_convs_layer: wu {tuple(wu.shape)} and wo {tuple(wo.shape)} "
+        f"must be [3, 3, {c}, M] and [3, 3, M, {c}]")
+  if c % 16 or m % 16:
+    raise ValueError(
+        "extra_convs_layer: K6f needs C and the hidden width multiples of 16, "
+        f"got {c} and {m}")
+  for name, p, size in (("g", g, c), ("bln", bln, c), ("bu", bu, m), ("bo", bo, c),
+                        ("wu", wu, None), ("wo", wo, None)):
+    if (size is not None and tuple(p.shape) != (size,)) or p.device != dev:
+      raise ValueError(f"extra_convs_layer: {name} must be on {dev}"
+                       + (f" with shape [{size}]" if size else ""))
+  g32, bln32, bu32, bo32 = (p.float().contiguous() for p in (g, bln, bu, bo))
+  # OHWI, in x.dtype: row o of [M, 9C] is output channel o, k = tap*C + c.
+  wu_t = wu.to(x.dtype).permute(3, 0, 1, 2).contiguous()
+  wo_t = wo.to(x.dtype).permute(3, 0, 1, 2).contiguous()
+
+  lib = _build.load("extra_convs", qconv.SIGNATURES)
+  rows = n * h * w
+  t32 = torch.empty((rows, c), dtype=torch.float32, device=dev)
+  t = (torch.empty((rows, c), dtype=x.dtype, device=dev)
+       if x.dtype == torch.bfloat16 else t32)
+  hidden = torch.empty((rows, m), dtype=x.dtype, device=dev)
+  out = torch.empty_like(x)
+  operands = (x, g32, bln32, wu_t, bu32, wo_t, bo32, t32, t, hidden, out)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  with torch.cuda.device(dev):
+    err = lib.extra_convs_fp_forward(
+        *[o.data_ptr() for o in operands], n, h, w, c, m,
+        qconv.DTYPES[x.dtype], stream,
+    )
+  _build.check(lib, err, "extra_convs_fp_forward")
+  LAUNCHES_FP += 1
+  if scratch is not None:
+    scratch.update(t32=t32, hidden=hidden)
+  return out
+
+
 def _launch(x, g, bln, bu, bo, qweights, scratch=None):
   """K6 on the card. If `scratch` is a dict, the kernels' intermediates are
   left in it (t32, the patch scales, the float32 hidden, the int8 hidden and
@@ -273,7 +483,8 @@ def extra_convs_layer(x, g, bln, wu, bu, wo, bo, quantized: bool = False,
     x: [N, H, W, C] activations.
     g / bln: [C] LayerNorm scale and bias.
     wu: [3, 3, C, M]; bu: [M]; wo: [3, 3, M, C]; bo: [C].
-    quantized: the per-pixel w8a8 scheme (see module docstring).
+    quantized: the per-pixel w8a8 scheme (see module docstring); False is
+      the full-precision layer (K6f on the card).
     qweights: with `quantized`, `quantized_weights(wu, wo)` made once by the
       caller; wu and wo are then not read and may be None.
 
@@ -285,9 +496,7 @@ def extra_convs_layer(x, g, bln, wu, bu, wo, bo, quantized: bool = False,
                                        qweights)
   if x.device.type == "cuda":
     if not quantized:
-      raise ValueError(
-          "extra_convs_layer: the float fused layer has no CUDA kernel; no "
-          "model path reaches it (wants_fused demands the per-pixel mode).")
+      return _launch_fp(x.contiguous(), g, bln, wu, bu, wo, bo)
     if qweights is None:
       qweights = quantized_weights(wu, wo)
     return _launch(x.contiguous(), g, bln, bu, bo, qweights)

@@ -53,6 +53,8 @@ SIGNATURES = {
     + [ctypes.c_void_p],
     "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 17
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "extra_convs_fp_forward": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
 }
 
 # The taps of a 3x3 SAME convolution, in the order of the weights' (kh, kw)

@@ -1,8 +1,8 @@
 """PyTorch port, CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
 the full-precision corr-tents and mixer-block kernels and their int8 forms,
-the per-frame int8 convolution, the per-pixel ExtraConvs layer (K6) and the
-RG-LRU linear scan (K5).
+the per-frame int8 convolution, the per-pixel and the full-precision
+ExtraConvs layers (K6, K6f) and the RG-LRU linear scan (K5).
 
 Marked `gpu`: skips without a CUDA card. This file imports no JAX, so it also
 runs where only the port is installed:
@@ -353,9 +353,57 @@ def test_extra_convs_module_launches_its_kernels(cuda, quantized, monkeypatch):
   assert float((out.cpu() - ref).abs().max()) < 0.05
 
 
+# K6f, the full-precision layer, against its plain version: fp32 within the
+# port's 1e-4 (absolute and relative; the plain version's float32
+# convolutions with TF32 off), bf16 within `fused_extra_convs.fp_error_limit`.
+# C = 128 and 256 (the served width, M = 4C), odd H and W, and a ragged W
+# whose pixel count is no multiple of the 128-row tile.
+EXTRA_FP_SHAPES = [(2, 9, 7, 128), (1, 11, 13, 256), (3, 5, 5, 64),
+                   (2, 6, 37, 32)]
+
+
+def _extra_convs_fp_check(args):
+  """(kernel output, its largest error over fp_error_limit)."""
+  out = fused_extra_convs.extra_convs_layer(*args, False)
+  torch.cuda.synchronize()
+  ref = fused_extra_convs.extra_convs_layer_reference(*args, False)
+  limit = fused_extra_convs.fp_error_limit(*args)
+  assert torch.isfinite(out.float()).all()
+  return out, ref, limit, float(((out.float() - ref.float()).abs() / limit).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c", EXTRA_FP_SHAPES,
+                         ids=["c128", "c256", "c64_5x5", "ragged_w"])
+def test_extra_convs_fp_kernel_matches_plain(cuda, dtype, n, h, w, c,
+                                             monkeypatch):
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  args = _extra_convs_args(cuda, dtype, n, h, w, c)
+  before = (fused_extra_convs.LAUNCHES_FP, fused_extra_convs.LAUNCHES,
+            qconv.LAUNCHES_Q8)
+  out, _, _, over = _extra_convs_fp_check(args)
+  assert (fused_extra_convs.LAUNCHES_FP, fused_extra_convs.LAUNCHES,
+          qconv.LAUNCHES_Q8) == (before[0] + 1, before[1], before[2])
+  assert out.shape == args[0].shape and out.dtype == args[0].dtype
+  assert over <= 1.0, over
+
+
+def test_extra_convs_fp_limit_refuses_controls_on_card(cuda, monkeypatch):
+  """At the served width in fp32, the kernel passes and each faulty plain
+  layer of `fp_output_controls` (the pad ring's hidden unmasked, the
+  residual on bf16 t, the hidden in the other dtype) is refused."""
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+  args = _extra_convs_args(cuda, "float32", 2, 8, 9, 256)
+  _, ref, limit, over = _extra_convs_fp_check(args)
+  assert over <= 1.0, over
+  for key, faulty in fused_extra_convs.fp_output_controls(*args).items():
+    assert float(((faulty - ref).abs() / limit).max()) > 1.0, key
+
+
 def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
-  """With the kernels' library unloadable, the int8 ExtraConvs entries raise
-  on CUDA tensors; the plain versions are never called."""
+  """With the kernels' library unloadable, the ExtraConvs entries raise on
+  CUDA tensors, the full-precision layer (K6f) too; the plain versions are
+  never called."""
   def unloadable(*args, **kwargs):
     raise RuntimeError("library unloadable")
 
@@ -371,7 +419,7 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
   args = _extra_convs_args(cuda, "float32", 1, 4, 4, 16)
   with pytest.raises(RuntimeError, match="unloadable"):
     fused_extra_convs.extra_convs_layer(*args, True)
-  with pytest.raises(ValueError, match="no CUDA kernel"):
+  with pytest.raises(RuntimeError, match="unloadable"):
     fused_extra_convs.extra_convs_layer(*args, False)
 
 
@@ -382,6 +430,8 @@ def test_extra_convs_wrappers_refuse_what_the_kernels_do_not_take(cuda):
   args = _extra_convs_args(cuda, "float32", 1, 4, 4, 24)
   with pytest.raises(ValueError, match="multiple of 16"):
     fused_extra_convs.extra_convs_layer(*args, True)
+  with pytest.raises(ValueError, match="multiples of 16"):
+    fused_extra_convs.extra_convs_layer(*args, False)
 
 
 # K5, the linear scan: the kernel makes the plain version's two roundings per

@@ -21,6 +21,7 @@ from tapnet_tpu.ops import fused_extra_convs as jax_fec
 from tapnet_tpu.ops import fused_mixer_block as jax_fmb
 from tapnet_tpu.ops import mixer_math as jax_mm
 from tapnet_tpu.ops import qconv as jax_qconv
+from tapnet_tpu_torch.models import layers
 from tapnet_tpu_torch.ops import (
     corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
 )
@@ -608,6 +609,91 @@ def test_extra_convs_layer_matches_pallas_interpret(hw, interpret_kernels):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(6, 4), (5, 7)], ids=["even", "odd"])
+def test_extra_convs_fp_layer_matches_pallas_interpret(dtype, hw,
+                                                      interpret_kernels):
+  """The full-precision layer (what K6f computes) against the TPU kernel in
+  interpret mode, which masks its pad rows and starts its tap sums from the
+  bias: fp32 within EXTRA_CONVS_FP_TOL, bf16 within `fp_error_limit`."""
+  h, w = hw
+  jargs, targs = _both(extra_convs_inputs(seed=20 + h, n=3, h=h, w=w, c=16),
+                       dtype)
+  ref = jax_fec._pallas_forward(*jargs, False)
+  out = fused_extra_convs.extra_convs_layer(*targs, False)
+  assert out.dtype == targs[0].dtype and out.shape == targs[0].shape
+  if dtype == "float32":
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=EXTRA_CONVS_FP_TOL,
+                               atol=EXTRA_CONVS_FP_TOL)
+  else:
+    limit = fused_extra_convs.fp_error_limit(*targs).numpy()
+    err = np.abs(_np(out) - _np(ref))
+    assert (err <= limit).all(), float((err / limit).max())
+
+
+def test_extra_convs_fp_bf16_matches_jax_reference():
+  """bf16: the plain layer against `_math_reference(..., False)` within
+  `fp_error_limit`: the same roundings (t and the hidden to bf16, the
+  residual on t32), summed in other orders."""
+  jargs, targs = _both(extra_convs_inputs(seed=4, n=3, h=7, w=6, c=16),
+                       "bfloat16")
+  ref = jax_fec._math_reference(*jargs, False)
+  out = fused_extra_convs.extra_convs_layer(*targs, False)
+  limit = fused_extra_convs.fp_error_limit(*targs)
+  assert limit.shape == targs[0].shape and limit.dtype == torch.float32
+  err = np.abs(_np(out) - _np(ref))
+  assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
+
+
+@pytest.mark.parametrize("control",
+                         ["unmasked_pad", "bf16_t_residual", "hidden_precision"])
+def test_extra_convs_fp_limit_refuses_controls(control):
+  """In float32, `fp_error_limit` (1e-4) refuses each faulty plain layer of
+  `fp_output_controls` at the served layer's scale (conv_up's output and the
+  residual O(1), as chip_smoke.py scales it), and the plain layer itself
+  passes."""
+  rng = np.random.RandomState(0)
+  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+  n, h, w, c, m = 2, 9, 7, 32, 128
+  args = (f(n, h, w, c), f(c) * 0.2 + 1, f(c) * 0.1, f(3, 3, c, m) / (3 * c**0.5),
+          f(m) * 0.1, f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1)
+  plain = fused_extra_convs.extra_convs_layer(*args, False)
+  limit = fused_extra_convs.fp_error_limit(*args)
+  faulty = fused_extra_convs.fp_output_controls(*args)
+  assert float(((faulty[control] - plain).abs() / limit).max()) > 1.0
+  ref = fused_extra_convs.extra_convs_layer_reference(*args, False)
+  assert float(((ref - plain).abs() / limit).max()) <= 1.0
+
+
+def test_extra_convs_fp_unfused_limit():
+  """bf16: the model's unfused float layer (`layers.ExtraConvs`, bf16
+  convolutions) against the plain layer within
+  `fp_error_limit(unfused=True)`, which still refuses the plain layer that
+  lets the pad ring's hidden through; `fp_error_limit` refuses it too."""
+  rng = np.random.RandomState(1)
+  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+  n, h, w, c, m = 3, 9, 7, 32, 128
+  args = [f(n, h, w, c).bfloat16(), f(c) * 0.2 + 1, f(c) * 0.1,
+          f(3, 3, c, m) / (3 * c**0.5), f(m) * 0.1,
+          f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1]
+  x, g, bln, wu, bu, wo, bo = args
+  model = layers.ExtraConvs(channels=c, num_layers=1, channel_multiplier=m // c)
+  model.load_state_dict({
+      "ln_0.scale": g, "ln_0.bias": bln,
+      "conv_up_0.weight": wu.permute(3, 2, 0, 1), "conv_up_0.bias": bu,
+      "conv_out_0.weight": wo.permute(3, 2, 0, 1), "conv_out_0.bias": bo})
+  with torch.no_grad():
+    unfused = model.to(torch.bfloat16)(x.permute(0, 3, 1, 2))
+  unfused = unfused.permute(0, 2, 3, 1).float()
+  plain = fused_extra_convs.extra_convs_layer(*args, False).float()
+  limit = fused_extra_convs.fp_error_limit(*args, unfused=True)
+  assert float(((plain - unfused).abs() / limit).max()) <= 1.0
+  faulty = fused_extra_convs.fp_output_controls(*args)["unmasked_pad"].float()
+  assert float(((faulty - unfused).abs() / limit).max()) > 1.0
+  fused_limit = fused_extra_convs.fp_error_limit(*args)
+  assert float(((faulty - plain).abs() / fused_limit).max()) > 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_extra_convs_layer_pieces(dtype, monkeypatch):
   """Pre-quantized weights and frame chunks give the same layer bit for
   bit; bf16 input stays float32 inside and is cast once at the end."""
@@ -635,9 +721,12 @@ def test_wants_fused_is_the_jax_gate():
 
 def test_extra_convs_layer_cpu_does_not_launch_and_rejects_other_devices():
   _, targs = _both(extra_convs_inputs(), "float32")
-  before = (fused_extra_convs.LAUNCHES, qconv.LAUNCHES_Q8)
+  counts = lambda: (fused_extra_convs.LAUNCHES, fused_extra_convs.LAUNCHES_FP,
+                    qconv.LAUNCHES_Q8)
+  before = counts()
   fused_extra_convs.extra_convs_layer(*targs, True)
-  assert (fused_extra_convs.LAUNCHES, qconv.LAUNCHES_Q8) == before
+  fused_extra_convs.extra_convs_layer(*targs, False)
+  assert counts() == before
   with pytest.raises(ValueError, match="unsupported device"):
     fused_extra_convs.extra_convs_layer(targs[0].to("meta"), *targs[1:], True)
 
