@@ -1,6 +1,6 @@
 """Drives the PyTorch port of BootsTAPIR on one CUDA card and checks it.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--records PATH]
 
 Phases (any failure raises and exits non-zero):
   1. Card and build: prints the card's name and power limit (nvidia-smi) and
@@ -49,14 +49,29 @@ Phases (any failure raises and exits non-zero):
      (TapnextPredictor, 250-frame 256x256 videos, 256 queries, chunks of 50:
      60 K5 launches per video) and online-tapnext-256 (64 queries, one
      frame per step: no K5 launch).
-  5. The last line: {"ok": true, "device": {...}}.
+  6. Training: K5b (the scan's backward) against its plain backward bit for
+     bit at the training shapes ([9216, 24, 768] fp32, [1088, 128, 768] with
+     h0 and dh_last carried, fp32 and bf16, an odd shape) beside four faulty
+     plain backwards that the check must refuse, and a finite-difference
+     row through the autograd Function; train-golden (the port's Trainer on
+     tools/make_tapnext_train_golden.py's small TAPNext, both losses, 3
+     steps, against the JAX numbers of tests/data/tapnext_train_golden.npz
+     within that tool's limits); train-tapnext-256 (tapnext_experiment():
+     ViT-B fp32 with remat, batch 8 x 24 frames x 256x256, 128 queries, a
+     warm-up and 3 timed steps: 24 K5 and 12 K5b launches a step, and a
+     one-step profile by layer); train-tapnextpp (tapnextpp_experiment() cut
+     from 1024 to 256 frames, two chunks of 128: a warm-up and 2 timed
+     steps, and the gradient through the state carried between chunks).
+  7. The last line: {"ok": true, "device": {...}}.
 
-Every phase prints its record as one JSON line. Exits non-zero, and prints
+Every phase prints its record as one JSON line (with `--records PATH`, also
+written to PATH). Exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -75,8 +90,11 @@ from tapnet_tpu_torch.inference import (  # noqa: E402
     OnlineTapirPredictor, OnlineTapnextPredictor, TapirPredictor,
     TapnextPredictor,
 )
-from tapnet_tpu_torch.models import layers  # noqa: E402
+from tapnet_tpu_torch.models import layers, tapnext_losses  # noqa: E402
 from tapnet_tpu_torch.models.ssm_vit import SsmVitConfig  # noqa: E402
+from tapnet_tpu_torch import configs as train_configs  # noqa: E402
+from tapnet_tpu_torch.data import synthetic  # noqa: E402
+from tapnet_tpu_torch.training import trainer as trainer_lib  # noqa: E402
 from tapnet_tpu_torch.models.tapir import (  # noqa: E402
     bootstapir_config, causal_bootstapir_config, causal_tapir_config,
     resize_video,
@@ -94,6 +112,7 @@ from tools.make_tapnext_golden import (  # noqa: E402
     CHUNK as TAPNEXT_GOLDEN_CHUNK, WEIGHT_SEED as TAPNEXT_SEED, golden_clip,
 )
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
+from tools import make_tapnext_train_golden as train_golden  # noqa: E402
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
@@ -322,6 +341,23 @@ TN_GOLDEN_FP32_TOL = dict(logits=2e-3, track_px=0.05, share=0.99)
 # differs: tracks within 0.01 px, occlusion logits within 1e-4 of their range.
 TN_CHUNKED_TOL = dict(track_px=0.01, logit_of_range=1e-4)
 
+# Training (phase 6). train-tapnext-256: tapnext_experiment() (ViT-B, fp32,
+# 256x256) with remat, batch 8 x 24 frames, 128 queries: the scan runs at
+# [8 * (1024 + 128), 24, 768]. train-tapnextpp: tapnextpp_experiment()
+# (remat, batch 1, 64 queries, chunks of 128) cut from 1024 frames to 256,
+# two chunks: [1024 + 64, 128, 768] per chunk.
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_QUERIES, TRAIN_STEPS = 8, 24, 128, 3
+TRAIN_SCAN_SHAPE = (TRAIN_BATCH * (TN_TOKENS + TRAIN_QUERIES), TRAIN_FRAMES,
+                    TN_WIDTH)
+TRAINPP_FRAMES, TRAINPP_QUERIES, TRAINPP_STEPS = 256, 64, 2
+TRAINPP_SCAN_SHAPE = (TN_TOKENS + TRAINPP_QUERIES, 128, TN_WIDTH)
+# K5b against its plain backward: the same two roundings per step, one for
+# da's product and the same casts, so bit-equal (limit 0); the faulty plain
+# backwards of ops/scan.py scan_backward_controls must be refused. A sanity
+# row holds the backward to central finite differences of the forward (float32,
+# step 1e-3 on a [2, 6, 8] scan): within 1e-2 of the largest gradient.
+SCAN_FD_SHAPE, SCAN_FD_STEP, SCAN_FD_TOL = (2, 6, 8), 1e-3, 1e-2
+
 
 def require(cond, msg):
   if not cond:
@@ -445,6 +481,7 @@ COUNTERS = {
     "extra_convs_q8_pixel": (fused_extra_convs, "LAUNCHES"),
     "extra_convs_fp": (fused_extra_convs, "LAUNCHES_FP"),
     "linear_scan": (scan, "LAUNCHES"),
+    "linear_scan_backward": (scan, "BACKWARD_LAUNCHES"),
 }
 
 
@@ -967,14 +1004,14 @@ def check_extra_convs_fp(dtype, gen, checks):
       mean_keys=("production_layer_ms",)))
 
 
-def scan_inputs(shape, dtype, carried, gen):
+def scan_inputs(shape, dtype, carried, gen, device="cuda"):
   """x, a [B, T, C] in `dtype` with a in (0.69, 0.99), as the RG-LRU's
   decays; h0 zero (a fresh sequence, the first chunk) or carried."""
   b, t, c = shape
-  x = torch.randn(b, t, c, device="cuda", generator=gen).to(dtype)
-  a = (torch.rand(b, t, c, device="cuda", generator=gen) * 0.3 + 0.69).to(dtype)
-  h0 = (torch.randn(b, c, device="cuda", generator=gen) if carried
-        else torch.zeros(b, c, device="cuda"))
+  x = torch.randn(b, t, c, device=device, generator=gen).to(dtype)
+  a = (torch.rand(b, t, c, device=device, generator=gen) * 0.3 + 0.69).to(dtype)
+  h0 = (torch.randn(b, c, device=device, generator=gen) if carried
+        else torch.zeros(b, c, device=device))
   return x, a, h0
 
 
@@ -993,7 +1030,10 @@ def check_scan(gen, checks):
   with a carried state (four of a video's five chunks)."""
   cases = [(SCAN_SHAPE, torch.float32, False), (SCAN_SHAPE, torch.float32, True),
            (SCAN_SHAPE, torch.bfloat16, True), (SCAN_ODD_SHAPE, torch.float32, True),
-           (SCAN_ODD_SHAPE, torch.bfloat16, True)]
+           (SCAN_ODD_SHAPE, torch.bfloat16, True),
+           # The training shapes (phase 6).
+           (TRAIN_SCAN_SHAPE, torch.float32, False),
+           (TRAINPP_SCAN_SHAPE, torch.float32, True)]
   for shape, dtype, carried in cases:
     name_dt = str(dtype).replace("torch.", "")
     name = f"linear_scan {name_dt} {'x'.join(map(str, shape))} h0 {'carried' if carried else 'zero'}"
@@ -1028,6 +1068,105 @@ def check_scan(gen, checks):
         bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops))
     del x, a, h0
     torch.cuda.empty_cache()
+
+
+def scan_backward_bound(y, dh_last):
+  """Bytes and operations of one backward: dy, a and y read, dx and da
+  written in their dtype; h0 (and dh_last) read and dh0 written in float32;
+  per element a multiply and an add for g and a multiply for da (float32)."""
+  b, _, c = y.shape
+  states = 3 if dh_last is not None else 2
+  return 5 * y.numel() * y.element_size() + states * b * c * 4, 3.0 * y.numel()
+
+
+def check_scan_backward(gen, checks, device="cuda"):
+  """K5b against its plain backward, bit for bit, at the training shapes
+  (train-tapnext-256: fp32, h0 zero, no dh_last; train-tapnextpp's chunk:
+  h0 carried and dh_last given), an odd shape and in bf16 I/O, beside the
+  faulty plain backwards that the check must refuse; then a finite-
+  difference sanity row through the autograd Function. The path row is the
+  train-tapnext-256 shape."""
+  cases = [(TRAIN_SCAN_SHAPE, torch.float32, False),
+           (TRAINPP_SCAN_SHAPE, torch.float32, True),
+           (TRAINPP_SCAN_SHAPE, torch.bfloat16, True),
+           (SCAN_ODD_SHAPE, torch.float32, True),
+           (SCAN_ODD_SHAPE, torch.bfloat16, True)]
+  for shape, dtype, carried in cases:
+    name_dt = str(dtype).replace("torch.", "")
+    what = (f"linear_scan_backward {name_dt} {'x'.join(map(str, shape))} "
+            f"{'h0 and dh_last carried' if carried else 'h0 zero'}")
+    x, a, h0 = scan_inputs(shape, dtype, carried, gen, device)
+    with torch.no_grad():
+      y, _ = scan.linear_scan(x, a, h0)
+    del x
+    dy = torch.randn(shape, device=device, generator=gen).to(dtype)
+    dh_last = (torch.randn(shape[0], shape[2], device=device, generator=gen)
+               if carried else None)
+    run = lambda: scan._launch_backward(dy, dh_last, a, h0, y)  # pylint: disable=protected-access
+    plain = lambda: scan.linear_scan_backward_reference(dy, dh_last, a, h0, y)
+    got = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+    exact = all(torch.equal(g, r) for g, r in zip(got, ref))
+    require(exact, f"{what}: not bit-equal to its plain backward, max_abs_err {err}")
+    controls = {}
+    zero = torch.zeros(shape[0], shape[2], device=device)
+    for key, faulty in scan.scan_backward_controls(
+        dy, zero if dh_last is None else dh_last, a, h0, y).items():
+      if key == "drops_dh_last" and dh_last is None:
+        continue
+      if key == "h0_unrounded" and not carried:
+        continue
+      apart = max(float((f.float() - r.float()).abs().max())
+                  for f, r in zip(faulty, ref))
+      controls[key] = dict(max_abs_err=apart, refused=apart > 0.0)
+      require(apart > 0.0, f"{what}: the bit-equality check passes the control {key}")
+    del got, ref
+    nbytes, flops = scan_backward_bound(y, dh_last)
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    checks.append(dict(
+        kernel="linear_scan_backward", dtype=name_dt,
+        path=shape == TRAIN_SCAN_SHAPE and dtype == torch.float32,
+        shape=list(shape), h0="carried" if carried else "zero",
+        dh_last=dh_last is not None, max_abs_err=err,
+        max_err_over_limit=0.0 if exact else float("inf"),
+        tol="bit-equal (limit 0)", bit_equal=exact, controls=controls,
+        ms=time_ms(run, reps=20), plain_ms=time_ms(plain, reps=3),
+        bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops))
+    del a, h0, y, dy, dh_last
+    torch.cuda.empty_cache()
+  # Finite differences of L = sum(wy * y) + sum(wh * h_last) through the
+  # autograd Function (K5 forward, K5b backward).
+  x, a, h0 = scan_inputs(SCAN_FD_SHAPE, torch.float32, True, gen, device)
+  wy = torch.randn(SCAN_FD_SHAPE, device=device, generator=gen)
+  wh = torch.randn(SCAN_FD_SHAPE[0], SCAN_FD_SHAPE[2], device=device, generator=gen)
+  loss = lambda x, a, h0: sum(
+      (w * o).sum() for w, o in zip((wy, wh), scan.linear_scan(x, a, h0)))
+  args = [t.clone().requires_grad_() for t in (x, a, h0)]
+  before = scan.BACKWARD_LAUNCHES
+  grads = torch.autograd.grad(loss(*args), args)
+  require(scan.BACKWARD_LAUNCHES == before + 1, "the Function did not launch K5b")
+  worst = 0.0
+  with torch.no_grad():
+    for i, (arg, grad) in enumerate(zip((x, a, h0), grads)):
+      flat = arg.reshape(-1)
+      for j in range(flat.numel()):
+        plus, minus = [list((x, a, h0)) for _ in range(2)]
+        for sign, inputs in ((1, plus), (-1, minus)):
+          t = flat.clone()
+          t[j] += sign * SCAN_FD_STEP
+          inputs[i] = t.reshape(arg.shape)
+        fd = (loss(*plus) - loss(*minus)) / (2 * SCAN_FD_STEP)
+        worst = max(worst, abs(float(fd) - float(grad.reshape(-1)[j])))
+  scale = max(float(g.abs().max()) for g in grads)
+  require(worst <= SCAN_FD_TOL * scale,
+          f"linear_scan gradients against finite differences: {worst} > "
+          f"{SCAN_FD_TOL} * {scale}")
+  checks.append(dict(kernel="linear_scan_backward", dtype="float32", path=False,
+                     shape=list(SCAN_FD_SHAPE), check="finite differences",
+                     max_abs_err=worst, max_err_over_limit=worst / (SCAN_FD_TOL * scale),
+                     tol=f"{SCAN_FD_TOL} of max|grad|, central step {SCAN_FD_STEP}"))
 
 
 def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
@@ -1090,6 +1229,7 @@ def check_kernels():
     check_extra_convs_q8(dtype, gen, checks)
     check_extra_convs_fp(dtype, gen, checks)
   check_scan(gen, checks)
+  check_scan_backward(gen, checks)
   return checks
 
 
@@ -1158,6 +1298,15 @@ KERNEL_META = {
         tpu_kernel="K5 scan._scan_kernel (via _scan_pallas :83, entry "
                    "linear_scan :159)",
         layer="K5 linear_scan", run="serve_tapnext", dtype="float32",
+    ),
+    # K5's backward, on the training path (fp32, as JAX trains TAPNext).
+    "linear_scan_backward": dict(
+        source="tapnet_tpu_torch/csrc/scan.cu",
+        replaces="tapnet_tpu/ops/scan.py:193",
+        tpu_kernel="K5b scan._scan_bwd (launches _scan_pallas on reversed "
+                   "time at :211)",
+        layer="K5b linear_scan_backward", run="train_tapnext_256",
+        dtype="float32", per="step",
     ),
 }
 
@@ -1870,12 +2019,229 @@ def online_tapnext(params):
       profile_10_steps=profile)
 
 
+# ----------------------------------------------------------------- training
+
+# Kernel-name fragments per layer of the training profile, matched in order.
+# fp32 attention runs PyTorch's memory-efficient kernels (fmha_cutlassF
+# forward, fmha_cutlassB backward).
+TRAIN_LAYERS = (
+    ("K5b linear_scan_backward", ("linear_scan_backward_kernel",)),
+    ("K5 linear_scan", ("linear_scan_kernel",)),
+    ("attention backward", ("cutlassb", "fmha_bwd", "flash_bwd", "backward")),
+    ("attention forward", ("cutlassf", "fmha", "flash", "attention")),
+    ("matmuls, fp32", ("f32f32", "sgemm", "gemvx", "gemm", "nvjet", "cutlass",
+                       "xmma")),
+)
+
+
+def train_golden_check(device="cuda"):
+  """The port's Trainer on tools/make_tapnext_train_golden.py's weights and
+  batch (fp32, TF32 off), both losses, 3 steps each, held to the JAX numbers
+  of tests/data/tapnext_train_golden.npz within the limits that tool states.
+  The steps launch K5 and K5b (T = 4 and chunks of 2) and no other kernel."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  golden = train_golden.load()
+  reset_counts()
+  port = train_golden.run_port(device, counters=read_counts)
+  record, failures = train_golden.judge(golden, port)
+  for name in train_golden.BUILDERS:
+    launches = port[name]["launches"]
+    record[name]["launches_per_3_steps"] = launches
+    require(launches["linear_scan"] > 0 and launches["linear_scan_backward"] > 0
+            and sum(launches.values()) == launches["linear_scan"]
+            + launches["linear_scan_backward"],
+            f"train-golden {name}: launches {launches}")
+  require(not failures, "train-golden: " + "; ".join(failures[:10]))
+  return record
+
+
+def _finite_scalars(scalars, what):
+  out = {k: float(v) for k, v in scalars.items()}
+  require(all(np.isfinite(v) for v in out.values()), f"{what}: {out}")
+  return out
+
+
+def _timed_step(trainer, state, batch, what):
+  """One training step timed by CUDA events and the host clock, with its
+  peak memory and the kernels it launched."""
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start = time.perf_counter()
+  begin.record()
+  state, scalars = trainer.step_fn(state, batch)
+  end.record()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - start
+  launches = read_counts()
+  return state, dict(
+      step=state.step - 1, ms=begin.elapsed_time(end), wall_ms=wall * 1e3,
+      max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+      learning_rate=trainer.lr_schedule(state.step - 1), launches=launches,
+      scalars=_finite_scalars(scalars, what))
+
+
+def train_tapnext_256(device="cuda", batch=TRAIN_BATCH, frames=TRAIN_FRAMES,
+                      queries=TRAIN_QUERIES, steps=TRAIN_STEPS, variant="B"):
+  """train-tapnext-256: tapnext_experiment() (ViT-B, fp32) with remat, its
+  full-T loss with deep supervision, synthetic batches made on the card; a
+  warm-up step (step 0, learning rate 0: the parameters must not move) and
+  `steps` timed steps (the first must move them). Each step launches K5
+  2 x depth times (forward and remat's recompute), K5b depth times and no
+  other kernel."""
+  exp = train_configs.tapnext_experiment(variant)
+  exp = dataclasses.replace(
+      exp, model_config=dataclasses.replace(exp.model_config, remat=True))
+  cfg = exp.model_config
+  t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, exp.total_steps,
+                          task=exp.task, loss_builder=exp.loss_builder,
+                          device=device)
+  state = t.init_state()
+  data = synthetic.batch_iterator(
+      seed=SEED, device=device, batch_size=batch, num_frames=frames,
+      height=cfg.image_size[0], width=cfg.image_size[1], num_queries=queries)
+  batches = [next(data) for _ in range(steps + 2)]
+  before = {k: p.detach().clone() for k, p in state.params.items()}
+  state, warm = _timed_step(t, state, batches[0], "train-tapnext warm-up")
+  require(all(torch.equal(before[k], p) for k, p in state.params.items()),
+          "train-tapnext: step 0 (learning rate 0) moved the parameters")
+  records = []
+  for i, b in enumerate(batches[1:steps + 1]):
+    state, rec = _timed_step(t, state, b, "train-tapnext")
+    launches = rec["launches"]
+    require(launches["linear_scan"] == 2 * cfg.depth
+            and launches["linear_scan_backward"] == cfg.depth
+            and sum(launches.values()) == 3 * cfg.depth,
+            f"train-tapnext: launches {launches}, expected {2 * cfg.depth} "
+            f"K5 and {cfg.depth} K5b")
+    if i == 0:
+      moved = sum(not torch.equal(before[k], p) for k, p in state.params.items())
+      require(moved == len(before),
+              f"train-tapnext: step 1 moved {moved} of {len(before)} parameters")
+    records.append(rec)
+  del before
+  require(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+          "train-tapnext: non-finite parameters")
+  mean_ms = float(np.mean([r["ms"] for r in records]))
+  profile = profile_request(lambda: t.step_fn(state, batches[-1]),
+                            float(np.mean([r["wall_ms"] for r in records])) / 1e3,
+                            layers=TRAIN_LAYERS, own=("linear_scan",), top=25)
+  # The products of a step: the forward's, again in remat's recompute, and
+  # twice in the backward (the input's and the weights' gradients).
+  flops = {k: 4 * batch * v for k, v in tapnext_flops(cfg, frames, queries).items()}
+  products = flops["fp32_ssm"] + flops["compute_dtype_vit"]
+  return dict(
+      config=dict(experiment="tapnext_experiment()", variant=variant,
+                  compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+                  weights="init_tapnext_params seed 42",
+                  data=f"data/synthetic.py on the card, seed {SEED}"),
+      batch=batch, frames=frames, queries=queries, resolution=cfg.image_size[0],
+      scan_shape=list(TRAIN_SCAN_SHAPE) if frames == TRAIN_FRAMES else None,
+      warm_up=warm, steps=records, ms_per_step_mean=mean_ms,
+      max_memory_gb=max(r["max_memory_gb"] for r in records),
+      launches_per_step=records[-1]["launches"],
+      fp32_matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
+      flops_per_step=flops,
+      products_tflop_per_s=(products / (profile["by_layer_ms"]["matmuls, fp32"] * 1e9)
+                            if profile["by_layer_ms"]["matmuls, fp32"] else None),
+      profile=profile)
+
+
+def train_tapnextpp(device="cuda", frames=TRAINPP_FRAMES,
+                    queries=TRAINPP_QUERIES, steps=TRAINPP_STEPS, variant="B"):
+  """train-tapnextpp: tapnextpp_experiment() (ViT-B, remat, batch 1, chunks
+  of 128) on `frames`-frame clips (cut from 1024): a warm-up step and `steps`
+  timed ones. Then the carried state's gradient: with every query on the
+  first chunk, the second chunk holds only [M] tokens, so the gradient of
+  the second chunk's loss reaches the query token and the full-resolution
+  position embedding only through the state carried from the first chunk:
+  it must be non-zero, and exactly zero with that state detached."""
+  exp = train_configs.tapnextpp_experiment(variant)
+  cfg, chunk = exp.model_config, exp.train_time_chunk
+  t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, exp.total_steps,
+                          task=exp.task, loss_builder=exp.loss_builder,
+                          device=device)
+  state = t.init_state()
+  data = synthetic.batch_iterator(
+      seed=SEED, device=device, batch_size=exp.data.batch_size,
+      num_frames=frames, height=cfg.image_size[0], width=cfg.image_size[1],
+      num_queries=queries)
+  batches = [next(data) for _ in range(steps + 1)]
+  state, warm = _timed_step(t, state, batches[0], "train-tapnextpp warm-up")
+  records = []
+  for b in batches[1:]:
+    state, rec = _timed_step(t, state, b, "train-tapnextpp")
+    require(rec["launches"]["linear_scan_backward"] == cfg.depth * (frames // chunk),
+            f"train-tapnextpp: launches {rec['launches']}")
+    records.append(rec)
+
+  model = t.model
+  b = batches[-1]
+  qp = torch.cat([torch.zeros_like(b["query_points"][..., :1]),
+                  b["target_points"][:, :, 0].flip(-1)], -1)
+  video = b["video"]
+  leaves = (model.backbone.point_query_token, model.backbone.pos_embedding_full)
+  reset_counts()
+  first = model.forward_step(video[:, :chunk], qp)
+
+  def second_chunk_loss(state):
+    r = model.forward_step(video[:, chunk:2 * chunk], state=state)
+    target = b["target_points"][:, :, chunk:2 * chunk].flip(-1)
+    visible = 1.0 - b["occluded"][:, :, chunk:2 * chunk]
+    return tapnext_losses.tapnext_loss(r, target, visible)[0]
+
+  grads = torch.autograd.grad(second_chunk_loss(first.state), leaves)
+  carried_launches = read_counts()
+  cut = dataclasses.replace(first.state, hidden_state=type(first.state.hidden_state)(
+      *(h.detach() for h in first.state.hidden_state)))
+  cut_grads = torch.autograd.grad(second_chunk_loss(cut), leaves,
+                                  allow_unused=True)
+  norms = [float(g.norm()) for g in grads]
+  cut_norms = [0.0 if g is None else float(g.norm()) for g in cut_grads]
+  require(all(n > 0 and np.isfinite(n) for n in norms),
+          f"train-tapnextpp: no gradient through the carried state: {norms}")
+  require(all(n == 0.0 for n in cut_norms),
+          f"train-tapnextpp: gradient without the carried state: {cut_norms}")
+  return dict(
+      config=dict(experiment="tapnextpp_experiment()", variant=variant,
+                  remat=cfg.remat, chunk=chunk,
+                  weights="init_tapnext_params seed 42"),
+      batch=exp.data.batch_size, frames=frames, frames_preset=exp.data.num_frames,
+      queries=queries, warm_up=warm, steps=records,
+      ms_per_step_mean=float(np.mean([r["ms"] for r in records])),
+      max_memory_gb=max(r["max_memory_gb"] for r in records),
+      launches_per_step=records[-1]["launches"],
+      carried_state_gradient=dict(
+          leaves=["backbone.point_query_token", "backbone.pos_embedding_full"],
+          norms=norms, norms_with_state_detached=cut_norms,
+          launches=carried_launches))
+
+
+# `--records PATH`: also write every record line to PATH, for a caller that
+# sees only the end of the output.
+RECORDS = None
+
+
+def emit(record):
+  """Prints a record as one JSON line (and appends it to RECORDS)."""
+  line = json.dumps(record)
+  print(line, flush=True)
+  if RECORDS:
+    with open(RECORDS, "a", encoding="utf-8") as f:
+      f.write(line + "\n")
+
+
 def main():
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     sys.exit(1)
   card = card_line()
   print(card, flush=True)
+  if RECORDS:
+    os.makedirs(os.path.dirname(os.path.abspath(RECORDS)), exist_ok=True)
+    with open(RECORDS, "w", encoding="utf-8") as f:
+      f.write(json.dumps({"card": card}) + "\n")
   t0 = time.perf_counter()
   built = _build.build_all()
   build_s = time.perf_counter() - t0
@@ -1884,15 +2250,14 @@ def main():
   stamp = lambda what: print(
       f"[{time.perf_counter() - t0:.1f} s] {what} done", flush=True)
   checks = check_kernels()
-  print(json.dumps({"kernel_checks": checks}), flush=True)
+  emit({"kernel_checks": checks})
   stamp("kernel checks")
 
   params = load_tapir_checkpoint(CHECKPOINT)
   golden = golden_check(params)
-  print(json.dumps({"golden": golden}), flush=True)
+  emit({"golden": golden})
   golden_int8, golden_int8_launches = golden_check_int8(params)
-  print(json.dumps({"golden_int8": golden_int8,
-                    "launches": golden_int8_launches}), flush=True)
+  emit({"golden_int8": golden_int8, "launches": golden_int8_launches})
   stamp("BootsTAPIR golden checks")
 
   videos = make_videos(4)
@@ -1929,16 +2294,15 @@ def main():
   runs["serve_int8"]["tracks_vs_bf16_same_steps"] = tracks_apart(
       tracks["serve_int8"], tracks["serve_bf16_2iter"])
   for name, run in runs.items():
-    print(json.dumps({name: run, "card": card}), flush=True)
+    emit({name: run, "card": card})
   stamp("BootsTAPIR serving")
   runs["extra_convs_fp_480"] = extra_convs_fp_480(params, videos[:3])
-  print(json.dumps({"extra_convs_fp_480": runs["extra_convs_fp_480"],
-                    "card": card}), flush=True)
+  emit({"extra_convs_fp_480": runs["extra_convs_fp_480"], "card": card})
   stamp("extra-convs-fp-480")
   del videos
   torch.cuda.empty_cache()
 
-  print(json.dumps({"online_golden": online_golden_check(params)}), flush=True)
+  emit({"online_golden": online_golden_check(params)})
   stamp("online golden checks")
   causal_params = {k: v for k, v in params.items() if k != "extra"}
   for name, phase in (
@@ -1947,19 +2311,29 @@ def main():
       ("online_bootstapir_256", lambda: online_tapir(
           params, causal_bootstapir_config()))):
     runs[name] = phase()
-    print(json.dumps({name: runs[name], "card": card}), flush=True)
+    emit({name: runs[name], "card": card})
     stamp(name)
 
   del params, causal_params
   tn_params = seeded_tapnext_params(SsmVitConfig(), TAPNEXT_SEED)
-  print(json.dumps({"tapnext_golden": tapnext_golden_check(tn_params)}),
-        flush=True)
+  emit({"tapnext_golden": tapnext_golden_check(tn_params)})
   stamp("TAPNext golden checks")
   for name, phase in (("serve_tapnext", serve_tapnext),
                       ("online_tapnext", online_tapnext)):
     runs[name] = phase(tn_params)
-    print(json.dumps({name: runs[name], "card": card}), flush=True)
+    emit({name: runs[name], "card": card})
     stamp(name)
+  del tn_params
+  torch.cuda.empty_cache()
+
+  emit({"train_golden": train_golden_check()})
+  stamp("train-golden")
+  for name, phase in (("train_tapnext_256", train_tapnext_256),
+                      ("train_tapnextpp", train_tapnextpp)):
+    runs[name] = phase()
+    emit({name: runs[name], "card": card})
+    stamp(name)
+    torch.cuda.empty_cache()
 
   # One row per kernel: bf16 model dtype (the served precision; K5's inputs
   # stay float32 in it), per launch at the served shapes, with the launches
@@ -1971,19 +2345,20 @@ def main():
     dtype = meta.get("dtype", "bfloat16")
     row = next(c for c in checks if c["kernel"] == name
                and c["dtype"] == dtype and c.get("path"))
-    launches = runs[meta["run"]]["launches_per_video"][name]
+    per = meta.get("per", "video")
+    launches = runs[meta["run"]][f"launches_per_{per}"][name]
     profile_ms = runs[meta["run"]]["profile"]["by_layer_ms"][meta["layer"]]
     require(launches > 0, f"{name} never launched on its path")
     kernels.append(dict(
         name=name, route="cuda", source=meta["source"],
         replaces=meta["replaces"], tpu_kernel=meta["tpu_kernel"],
-        launches=launches, launches_from=meta["run"],
+        launches=launches, launches_from=meta["run"], launches_per=per,
         max_abs_err=row["max_abs_err"],
         max_err_over_limit=row["max_err_over_limit"], tol=row["tol"],
         ms=row["ms"], kernel_ms=row["ms"], plain_ms=row["plain_ms"],
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
         shape=row["shape"], dtype=dtype,
-        profile_ms_per_video=profile_ms,
+        **{f"profile_ms_per_{per}": profile_ms},
         # X: cuDNN's bf16 convolution of the same shapes, for context only.
         **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}
            if "cudnn_same_shape_ms" in row else {}),
@@ -1993,11 +2368,15 @@ def main():
            if "production_layer_ms" in row else {}),
     ))
   print(card)
-  print(json.dumps({"kernels": kernels}))
+  emit({"kernels": kernels})
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--records"] and len(sys.argv) == 3:
+    RECORDS = sys.argv[2]
+  elif sys.argv[1:]:
+    sys.exit("usage: python3 chip_smoke.py [--records PATH]")
   main()

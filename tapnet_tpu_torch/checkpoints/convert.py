@@ -31,6 +31,13 @@ flat-key tree (`checkpoints/tapnext_checkpoint.load_tapnext_checkpoint`):
 
 Any leaf the bridge does not know, any key the model does not have, any
 parameter of the model left unfilled and any shape mismatch raises.
+
+`state_dict_to_tapnext` is the inverse for TAPNext: it turns the port's
+tensors (parameters, or anything of their shapes and names: gradients,
+optimizer moments) back into the Flax-layout tree, which training
+checkpoints store and the JAX package reads. `tapnext_flax_path` gives the
+Flax path of a port parameter name: `weight` is Flax's `kernel`, every other
+leaf keeps its name.
 """
 
 from __future__ import annotations
@@ -111,6 +118,43 @@ def tapnext_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     key = ".".join(path[:-1] + (leaf,))
     out[key] = torch.from_numpy(np.ascontiguousarray(arr))
   return out
+
+
+def tapnext_flax_path(name: str) -> Tuple[str, ...]:
+  """The Flax path of a TAPNext state_dict key."""
+  path = tuple(name.split("."))
+  return path[:-1] + ("kernel",) if path[-1] == "weight" else path
+
+
+def state_dict_to_tapnext(tensors: Mapping[str, torch.Tensor],
+                          num_heads: int,
+                          patch_size: Tuple[int, int, int]) -> Dict[str, Any]:
+  """The inverse of `tapnext_to_state_dict`: TAPNext tensors under the
+  port's names (any device) -> the Flax-layout tree of numpy leaves."""
+  tree: Dict[str, Any] = {}
+  _, ph, pw = patch_size
+  for name, value in tensors.items():
+    arr = value.detach().cpu().numpy()
+    path = tapnext_flax_path(name)
+    leaf, module = path[-1], path[-2] if len(path) > 1 else ""
+    if leaf == "kernel":
+      if module in _ATTENTION_INPUTS:
+        arr = arr.T.reshape(arr.shape[1], num_heads, -1)
+      elif module == "out" and "MultiHeadDotProductAttention_0" in path:
+        arr = arr.T.reshape(num_heads, -1, arr.shape[0])
+      elif module == "embedding":
+        arr = arr.T.reshape(1, ph, pw, -1, arr.shape[0])
+      else:
+        arr = arr.T
+    elif leaf == "bias" and module in _ATTENTION_INPUTS:
+      arr = arr.reshape(num_heads, -1)
+    elif leaf not in _TAPNEXT_PLAIN_LEAVES:
+      raise ValueError(f"Unmapped parameter: {name}")
+    node = tree
+    for part in path[:-1]:
+      node = node.setdefault(part, {})
+    node[leaf] = np.ascontiguousarray(arr)
+  return tree
 
 
 def load_tapnext_params(model: nn.Module, params: Mapping[str, Any]) -> None:

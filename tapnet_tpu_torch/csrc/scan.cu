@@ -31,6 +31,28 @@
 // Bound on the H100: memory. Per element it reads x and a and writes y (12
 // bytes in float32) against 2 flops; at [1280, 50, 768] float32 that is
 // 590 MB, 0.176 ms at 3.35 TB/s.
+//
+// K5b, the backward (linear_scan_backward): replaces the reverse-time launch
+// of the same Pallas kernel in tapnet_tpu/ops/scan.py::_scan_bwd. With the
+// output cotangent dy (and dh_last, the cotangent of h_last, folded into the
+// last step) it computes, for every row and channel,
+//   g[T-1] = dy[T-1] + dh_last;  g[t] = a[t+1] * g[t+1] + dy[t]
+//   dx[t] = g[t];  da[t] = g[t] * h[t-1];  dh0 = a[0] * g[0]
+// where h[t-1] is y[t-1], or h0 rounded to y's dtype at t = 0. The TPU code
+// flips dy and a in memory, shifts the decay by one step with a column of
+// ones and runs the forward kernel over that; here one thread owns one row
+// and 4 channels, as in the forward, and walks t = T-1 ... 0 with the
+// float32 carry g in registers. The decay a[t+1] of a step is the one the
+// thread loaded in the step before, so each of dy, a and y is read once and
+// nothing is flipped or copied. dx[t] and da[t] are written in the same
+// pass (da reads y[t-1], or h0 at t = 0) and dh0 once per row at the end.
+// The same two roundings per step (__fmul_rn, __fadd_rn), a product rounded
+// once for da and casts to nearest even make it equal to the plain version
+// (ops/scan.py::linear_scan_backward_reference) bit for bit.
+//
+// Bound: memory. Per element it reads dy, a, y and writes dx, da (20 bytes
+// in float32); at [9216, 24, 768] float32 that is 3.4 GB, 1.01 ms at
+// 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,6 +213,116 @@ int launch(const void* x, const void* a, const void* h0, void* y, void* h_last,
   return cudaGetLastError();
 }
 
+// dy, a, y, dx, da: [rows, steps, width] in T; h0, dh_last, dh0: [rows,
+// width] float32; dh_last may be null (no cotangent for h_last).
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+    linear_scan_backward_kernel(const T* __restrict__ dy,
+                                const T* __restrict__ a,
+                                const T* __restrict__ y,
+                                const float* __restrict__ h0,
+                                const float* __restrict__ dh_last,
+                                T* __restrict__ dx, T* __restrict__ da,
+                                float* __restrict__ dh0, int rows, int steps,
+                                int width) {
+  const int groups = (width + kVec - 1) / kVec;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(rows) * groups) return;
+  const int row = static_cast<int>(idx / groups);
+  const int c0 = static_cast<int>(idx % groups) * kVec;
+  const int valid = min(kVec, width - c0);
+  const size_t state = static_cast<size_t>(row) * width + c0;
+
+  const size_t base = static_cast<size_t>(row) * steps * width + c0;
+  const T* dyp = dy + base;
+  const T* ap = a + base;
+  const T* yp = y + base;
+  T* dxp = dx + base;
+  T* dap = da + base;
+
+  // The last step: g = dy[T-1] (+ dh_last).
+  const size_t last = static_cast<size_t>(steps - 1) * width;
+  float g[kVec];
+  {
+    const Vec4 dyv = load4<T, kVector>(dyp + last, valid);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) g[i] = dyv.v[i];
+    if (dh_last != nullptr) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        if (i < valid) g[i] = __fadd_rn(g[i], dh_last[state + i]);
+      }
+    }
+  }
+  // h[t-1] at t = 0: h0 rounded to y's dtype, as the plain version.
+  float h_first[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) h_first[i] = i < valid ? h0[state + i] : 0.f;
+  {
+    T rounded[kVec];
+    store4<T, false>(rounded, h_first, kVec);
+    const Vec4 back = load4<T, false>(rounded, kVec);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) h_first[i] = back.v[i];
+  }
+
+  Vec4 a_next = load4<T, kVector>(ap + last, valid);
+  for (int t = steps - 1; t >= 0; --t) {
+    const size_t off = static_cast<size_t>(t) * width;
+    if (t != steps - 1) {
+      const Vec4 dyv = load4<T, kVector>(dyp + off, valid);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        g[i] = __fadd_rn(__fmul_rn(a_next.v[i], g[i]), dyv.v[i]);
+      }
+      a_next = load4<T, kVector>(ap + off, valid);
+    }
+    store4<T, kVector>(dxp + off, g, valid);
+    float prod[kVec];
+    if (t > 0) {
+      const Vec4 hv = load4<T, kVector>(yp + off - width, valid);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) prod[i] = __fmul_rn(g[i], hv.v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) prod[i] = __fmul_rn(g[i], h_first[i]);
+    }
+    store4<T, kVector>(dap + off, prod, valid);
+  }
+  // a_next now holds a[0].
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    if (i < valid) dh0[state + i] = __fmul_rn(a_next.v[i], g[i]);
+  }
+}
+
+template <typename T>
+int launch_backward(const void* dy, const void* a, const void* y,
+                    const void* h0, const void* dh_last, void* dx, void* da,
+                    void* dh0, int rows, int steps, int width,
+                    cudaStream_t stream) {
+  const long long groups = (width + kVec - 1) / kVec;
+  const long long threads = static_cast<long long>(rows) * groups;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const uintptr_t align = kVec * sizeof(T);
+  const bool vector = width % kVec == 0 &&
+                      reinterpret_cast<uintptr_t>(dy) % align == 0 &&
+                      reinterpret_cast<uintptr_t>(a) % align == 0 &&
+                      reinterpret_cast<uintptr_t>(y) % align == 0 &&
+                      reinterpret_cast<uintptr_t>(dx) % align == 0 &&
+                      reinterpret_cast<uintptr_t>(da) % align == 0;
+  auto kernel = vector ? linear_scan_backward_kernel<T, true>
+                       : linear_scan_backward_kernel<T, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(a),
+      static_cast<const T*>(y), static_cast<const float*>(h0),
+      static_cast<const float*>(dh_last), static_cast<T*>(dx),
+      static_cast<T*>(da), static_cast<float*>(dh0), rows, steps, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -206,6 +338,26 @@ int linear_scan_forward(const void* x, const void* a, const void* h0, void* y,
   if (dtype == 0) return launch<float>(x, a, h0, y, h_last, rows, steps, width, s);
   if (dtype == 1) {
     return launch<__nv_bfloat16>(x, a, h0, y, h_last, rows, steps, width, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dy, a, y, dx, da [rows, steps, width] in float32 (dtype 0) or bfloat16
+// (dtype 1); h0, dh0 [rows, width] float32; dh_last [rows, width] float32 or
+// null; all contiguous. Returns the launch's cudaError_t.
+int linear_scan_backward(const void* dy, const void* a, const void* y,
+                         const void* h0, const void* dh_last, void* dx,
+                         void* da, void* dh0, int rows, int steps, int width,
+                         int dtype, void* stream) {
+  if (rows <= 0 || steps <= 0 || width <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_backward<float>(dy, a, y, h0, dh_last, dx, da, dh0, rows,
+                                  steps, width, s);
+  }
+  if (dtype == 1) {
+    return launch_backward<__nv_bfloat16>(dy, a, y, h0, dh_last, dx, da, dh0,
+                                          rows, steps, width, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 """Griffin recurrent block: RG-LRU + causal conv + gated MLP (port of
-tapnet_tpu/models/rglru.py, inference).
+tapnet_tpu/models/rglru.py).
 
 Module and parameter names follow the Flax tree
 (`checkpoints/convert.tapnext_to_state_dict`): `temporal_pre_norm.scale`,
@@ -10,8 +10,10 @@ and the paired up-projection (`w` [2, d, D], `b` [2, 1, 1, D]) keep the Flax
 tensors as they are.
 
 Activations are [batch, time, channels]. The linear recurrence runs
-`ops.scan.linear_scan` (K5 on the card). The sequence-parallel branches of
-the JAX module (`sp`) are not ported.
+`ops.scan.linear_scan` (K5 on the card, K5b in its backward). The input
+normalisation sqrt(1 - a^2) has the JAX module's clipped gradient
+(`sqrt_bound_derivative`). The sequence-parallel branches of the JAX module
+(`sp`) are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +26,28 @@ from torch import nn
 from tapnet_tpu_torch.models.layers import _param, linear
 from tapnet_tpu_torch.ops import scan
 from tapnet_tpu_torch.ops.mixer_math import gelu
+
+_MAX_SQRT_GRADIENT = 1000.0
+
+
+class _SqrtBoundDerivative(torch.autograd.Function):
+  """sqrt(x) with the backward g / sqrt(max(4x, 1 / 1000^2)): the gradient is
+  clipped at 1000 where x nears 0 (a near 1), as in the JAX module."""
+
+  @staticmethod
+  def forward(ctx, x):
+    ctx.save_for_backward(x)
+    return torch.sqrt(x)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, = ctx.saved_tensors
+    return g / torch.sqrt(torch.clamp(4.0 * x, min=1 / _MAX_SQRT_GRADIENT**2))
+
+
+def sqrt_bound_derivative(x: torch.Tensor) -> torch.Tensor:
+  """sqrt(x) with the backward pass clipped at `_MAX_SQRT_GRADIENT`."""
+  return _SqrtBoundDerivative.apply(x)
 
 
 class RMSNorm(nn.Module):
@@ -92,7 +116,7 @@ class RGLRU(nn.Module):
     a_square = torch.exp(2 * log_a.float())
 
     gated_x = x * gate_x
-    multiplier = torch.sqrt(1 - a_square)
+    multiplier = sqrt_bound_derivative(1 - a_square)
     if cache is None:
       # Fresh sequence: no normalization at the first step.
       t_idx = torch.arange(x.shape[1], device=x.device)[None, :, None]

@@ -1,5 +1,4 @@
-"""ViT-SSM backbone of TAPNext (port of tapnet_tpu/models/ssm_vit.py,
-inference).
+"""ViT-SSM backbone of TAPNext (port of tapnet_tpu/models/ssm_vit.py).
 
 Each layer runs a Griffin recurrent block over time (per token tube) and then
 a ViT attention block over the tokens of a frame. Queries are extra tokens
@@ -19,8 +18,11 @@ attention keeps its softmax in float32 where Flax rounds it to bfloat16.
 `compute_dtype="bfloat16"` runs the attention and MLP products of the ViT
 blocks and the final LayerNorm's output in bfloat16; the parameters, the
 residual stream, the whole SSM block (its products included) and the heads
-stay float32, as in the JAX package. `TokenSubsampling` (training) and the
-sequence-parallel options are not ported.
+stay float32, as in the JAX package. With `remat`, each ViT-SSM block's
+activations are recomputed in the backward (`torch.utils.checkpoint`, as the
+JAX package's `nn.remat`): only the blocks' inputs stay stored.
+`TokenSubsampling` (no JAX model instantiates it) and the sequence-parallel
+options are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tapnet_tpu_torch.models import rglru
@@ -206,9 +209,10 @@ class ViTSSMBackbone(nn.Module):
                mlp_dim: Optional[int] = None, dtype_mm=torch.float32,
                lru_width: Optional[int] = None, bidirectional_ssm: bool = False,
                mask_image2image: bool = False, mask_query2image: bool = False,
-               num_image_tokens: int = 1024):
+               num_image_tokens: int = 1024, remat: bool = False):
     super().__init__()
     self.depth = depth
+    self.remat = remat
     for lyr in range(depth):
       self.add_module(f"encoderblock_{lyr}", ViTSSMBlock(
           width, num_heads, mlp_dim, dtype_mm, lru_width, bidirectional_ssm,
@@ -231,7 +235,12 @@ class ViTSSMBackbone(nn.Module):
       if cache is not None:
         current = rglru.RecurrentBlockCache(
             cache.rg_lru_state[lyr], cache.conv1d_state[lyr])
-      x, outs = getattr(self, f"encoderblock_{lyr}")(x, current, b)
+      block = getattr(self, f"encoderblock_{lyr}")
+      if self.remat and torch.is_grad_enabled():
+        x, outs = torch.utils.checkpoint.checkpoint(
+            block, x, current, b, use_reentrant=False)
+      else:
+        x, outs = block(x, current, b)
       if intermediates:
         out[f"block{lyr:02d}"] = outs
       layer_caches.append(outs["ssm_block_cache"])
@@ -256,7 +265,7 @@ class TAPNextTrackingState:
 @dataclasses.dataclass(frozen=True)
 class SsmVitConfig:
   """Architecture config, as the JAX package's (less its sequence-parallel
-  and training options)."""
+  options)."""
 
   width: int = 768
   depth: int = 12
@@ -275,6 +284,9 @@ class SsmVitConfig:
   # float32; the RG-LRU recurrence, the SSM block, norms and heads stay
   # float32).
   compute_dtype: str = "float32"
+  # Recompute each ViT-SSM block in the backward (its input stored, its
+  # internals recomputed); changes memory, not numbers.
+  remat: bool = False
 
   @property
   def dtype_mm(self):
@@ -338,7 +350,8 @@ class MaskedSequenceDecoder(nn.Module):
         mlp_dim=cfg.mlp_dim, dtype_mm=cfg.dtype_mm, lru_width=cfg.lru_width,
         bidirectional_ssm=cfg.bidirectional_ssm,
         mask_image2image=cfg.mask_image2image,
-        mask_query2image=cfg.mask_query2image, num_image_tokens=h * w)
+        mask_query2image=cfg.mask_query2image, num_image_tokens=h * w,
+        remat=cfg.remat)
     c = cfg.width
     self.mask_token = nn.Parameter(torch.zeros(1, 1, 1, c))
     self.unknown_token = nn.Parameter(torch.zeros(1, 1, c))

@@ -1,5 +1,5 @@
 """TAPNext tracker: ViT-SSM backbone + quantized-coordinate heads (port of
-tapnet_tpu/models/tapnext.py, inference).
+tapnet_tpu/models/tapnext.py).
 
 Coordinates are 512 logits split into two 256-bin axes, decoded by a
 truncated soft-argmax (threshold 20 bins, temperature 0.5, +0.5 raster
@@ -10,8 +10,10 @@ offset), in float32 whatever the backbone's compute dtype. Query points are
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import math
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -161,3 +163,148 @@ def tracker_certainty(tracks: torch.Tensor, track_logits: torch.Tensor,
   c0 = torch.sum(probs_0 * in_r0, dim=-1)
   c1 = torch.sum(probs_1 * in_r1, dim=-1)
   return (c0 * c1)[..., None]
+
+
+# Flax's truncated normal divides its deviation by that of a unit normal
+# truncated at +-2.
+_TRUNC_STD = 0.87962566103423978
+
+
+class _Init:
+  """Flax's initialisers, drawn in float32 from one torch.Generator in the
+  order the arrays are asked for."""
+
+  def __init__(self, generator: torch.Generator):
+    self.gen = generator
+
+  def truncated(self, shape, variance, fan_in):
+    """variance_scaling(variance, "fan_in", "truncated_normal")."""
+    out = torch.empty(shape)
+    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=self.gen)
+    return (out * (math.sqrt(variance / fan_in) / _TRUNC_STD)).numpy()
+
+  def xavier(self, shape, fan_in, fan_out):
+    """xavier_uniform: uniform in +-sqrt(6 / (fan_in + fan_out))."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    out = torch.rand(shape, generator=self.gen) * (2 * limit) - limit
+    return out.numpy()
+
+  def normal(self, shape, std):
+    return (torch.randn(shape, generator=self.gen) * std).numpy()
+
+  @staticmethod
+  def const(shape, value):
+    return np.full(shape, value, np.float32)
+
+  def dense(self, fan_in, fan_out, variance=1.0):
+    """nn.Dense: lecun_normal (or the given fan-in variance), zero bias."""
+    return {"kernel": self.truncated((fan_in, fan_out), variance, fan_in),
+            "bias": self.const((fan_out,), 0.0)}
+
+  def layer_norm(self, width):
+    return {"scale": self.const((width,), 1.0),
+            "bias": self.const((width,), 0.0)}
+
+
+def _init_ssm_block(m: _Init, width, mlp_dim, lru_width, num_heads, depth):
+  bw = lru_width // num_heads
+  final = 2.0 / depth
+  # Griffin: a uniform in [0.9, 0.999], softplus(a_param) = -log(a) / 8.
+  u = torch.rand((lru_width,), generator=m.gen) * (0.999 - 0.9) + 0.9
+  a_param = torch.log(torch.expm1(-torch.log(u) / 8.0)).numpy()
+  # Flax's fan-in of a [H, bw, bw] kernel counts the leading axis: H * bw.
+  gate = lambda: {"w": m.truncated((num_heads, bw, bw), 1.0, num_heads * bw),
+                  "b": m.const((num_heads, bw), 0.0)}
+  return {
+      "temporal_pre_norm": {"scale": m.const((width,), 0.0)},
+      "recurrent_block": {
+          "linear_y": m.dense(width, lru_width),
+          "linear_x": m.dense(width, lru_width),
+          "conv_1d": {"w": m.truncated((4, lru_width), 0.01, 4),
+                      "b": m.const((lru_width,), 0.0)},
+          "rg_lru": {"a_param": a_param, "input_gate": gate(),
+                     "a_gate": gate()},
+          "linear_out": m.dense(lru_width, width, final),
+      },
+      "channel_pre_norm": {"scale": m.const((width,), 0.0)},
+      "mlp_block": {
+          # in_axis 1, out_axis 2 of [2, d, D]: the fan-in is 2 * d.
+          "ffw_up": {"w": m.truncated((2, width, mlp_dim), 1.0, 2 * width),
+                     "b": m.const((2, 1, 1, mlp_dim), 0.0)},
+          "ffw_down": m.dense(mlp_dim, width, final),
+      },
+  }
+
+
+def _init_vit_block(m: _Init, width, mlp_dim, num_heads):
+  hd = width // num_heads
+  attention = lambda: {"kernel": m.xavier((width, num_heads, hd), width, width),
+                       "bias": m.const((num_heads, hd), 0.0)}
+  return {
+      "LayerNorm_0": m.layer_norm(width),
+      "MultiHeadDotProductAttention_0": {
+          "query": attention(), "key": attention(), "value": attention(),
+          "out": {"kernel": m.xavier((num_heads, hd, width), width, width),
+                  "bias": m.const((width,), 0.0)},
+      },
+      "LayerNorm_1": m.layer_norm(width),
+      "MlpBlock_0": {
+          "Dense_0": {"kernel": m.xavier((width, mlp_dim), width, mlp_dim),
+                      "bias": m.normal((mlp_dim,), 1e-6)},
+          "Dense_1": {"kernel": m.xavier((mlp_dim, width), mlp_dim, width),
+                      "bias": m.normal((width,), 1e-6)},
+      },
+  }
+
+
+def _init_head(m: _Init, width, out_features, inner=256):
+  return {"layers_0": m.dense(width, inner), "layers_1": m.layer_norm(inner),
+          "layers_3": m.dense(inner, inner), "layers_4": m.layer_norm(inner),
+          "layers_6": m.dense(inner, out_features)}
+
+
+def init_tapnext_params(config: ssm_vit.SsmVitConfig,
+                        generator: torch.Generator) -> Dict[str, Any]:
+  """The TAPNextTracker parameter tree of a fresh training run, in the Flax
+  layout with numpy leaves, drawn from `generator` (a CPU generator).
+
+  The distributions are those of the JAX modules' Flax initialisers: LeCun
+  truncated normals for dense, patch-embedding and block-diagonal kernels,
+  Xavier-uniform for the ViT blocks, 2/depth fan-in variance for the SSM
+  block's two output projections, 0.01 for the temporal conv, Griffin's
+  `a_param`, normal(1/sqrt(width)) tokens and position embeddings,
+  normal(1e-6) MLP biases; every other bias and norm offset exactly 0 and
+  every LayerNorm scale exactly 1 (RMSNorm scales 0)."""
+  m = _Init(generator)
+  c = config.width
+  mlp_dim = config.mlp_dim or 4 * c
+  ssm_width = 2 * c if config.bidirectional_ssm else c
+  lru_width = config.lru_width or ssm_width
+  _, ph, pw = config.patch_size
+  h = config.image_size[0] // ph
+  w = config.image_size[1] // pw
+  token_std = 1.0 / math.sqrt(c)
+
+  transformer = {}
+  for lyr in range(config.depth):
+    transformer[f"encoderblock_{lyr}"] = {
+        "ssm_block": _init_ssm_block(m, ssm_width, mlp_dim, lru_width,
+                                     config.num_heads, config.depth),
+        "vit_block": _init_vit_block(m, c, mlp_dim, config.num_heads),
+    }
+  transformer["encoder_norm"] = m.layer_norm(c)
+  backbone = {
+      "embedding": {"kernel": m.truncated((1, ph, pw, 3, c), 1.0, ph * pw * 3),
+                    "bias": m.const((c,), 0.0)},
+      "Transformer": transformer,
+      "mask_token": m.normal((1, 1, 1, c), token_std),
+      "unknown_token": m.normal((1, 1, c), token_std),
+      "point_query_token": m.normal((1, 1, 1, c), token_std),
+  }
+  if config.posemb == "learn":
+    backbone["pos_embedding"] = m.normal((1, h * w, c), token_std)
+  if config.posemb_full == "learn":
+    full = config.image_size[0] * config.image_size[1] * config.query_scale**2
+    backbone["pos_embedding_full"] = m.normal((1, full, c), token_std)
+  return {"backbone": backbone, "visible_head": _init_head(m, c, 1),
+          "coordinate_head": _init_head(m, c, 512)}

@@ -2,7 +2,8 @@
 at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
 the full-precision corr-tents and mixer-block kernels and their int8 forms,
 the per-frame int8 convolution, the per-pixel and the full-precision
-ExtraConvs layers (K6, K6f) and the RG-LRU linear scan (K5).
+ExtraConvs layers (K6, K6f) and the RG-LRU linear scan (K5) with its
+backward (K5b).
 
 Marked `gpu`: skips without a CUDA card. This file imports no JAX, so it also
 runs where only the port is installed:
@@ -471,13 +472,21 @@ def test_linear_scan_kernel_bit_equal(cuda, dtype, carried, shape):
 
 
 def test_linear_scan_refuses_what_the_kernel_does_not_take(cuda):
+  """Inputs that require grad now run K5 and, in the backward, K5b, which
+  equals the plain backward bit for bit; dtypes, shapes and layouts the
+  kernels do not take still raise."""
   x, a, h0 = _scan_args(cuda, "float32", (2, 5, 8), True)
-  with pytest.raises(RuntimeError, match="no backward"):
-    scan.linear_scan(x.requires_grad_(), a, h0)
-  x = x.detach()
-  with torch.no_grad():
-    scan.linear_scan(x.requires_grad_(), a, h0)  # no graph: allowed
-  x = x.detach()
+  args = [t.clone().requires_grad_() for t in (x, a, h0)]
+  before = scan.BACKWARD_LAUNCHES
+  y, h_last = scan.linear_scan(*args)
+  dy = torch.randn_like(y)
+  dh_last = torch.randn_like(h_last)
+  grads = torch.autograd.grad((y, h_last), args, (dy, dh_last))
+  torch.cuda.synchronize()
+  assert scan.BACKWARD_LAUNCHES == before + 1
+  ref = scan.linear_scan_backward_reference(dy, dh_last, a, h0, y.detach())
+  for got, want in zip(grads, ref):
+    assert torch.equal(got, want)
   with pytest.raises(TypeError):
     scan.linear_scan(x, a.bfloat16(), h0)
   with pytest.raises(TypeError):
@@ -486,6 +495,68 @@ def test_linear_scan_refuses_what_the_kernel_does_not_take(cuda):
     scan.linear_scan(x.transpose(0, 1).contiguous().transpose(0, 1), a, h0)
   with pytest.raises(TypeError):
     scan.linear_scan(x.half(), a.half(), h0)
+  with pytest.raises(ValueError, match="shapes"):
+    scan.linear_scan(x, a[:, :4].contiguous(), h0)
+  with pytest.raises(TypeError):
+    scan._launch_backward(dy.bfloat16(), None, a, h0, y.detach())  # pylint: disable=protected-access
+  with pytest.raises(ValueError):
+    scan._launch_backward(dy, dh_last[:1].contiguous(), a, h0, y.detach())  # pylint: disable=protected-access
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh_last", [False, True], ids=["no_dh_last", "dh_last"])
+@pytest.mark.parametrize("carried", [False, True], ids=["h0_zero", "h0_carried"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_linear_scan_backward_kernel_bit_equal(cuda, dtype, carried, dh_last,
+                                               shape):
+  """K5b against the plain backward, bit for bit, beside the faulty plain
+  backwards that differ."""
+  x, a, h0 = _scan_args(cuda, dtype, shape, carried, seed=1)
+  with torch.no_grad():
+    y, _ = scan.linear_scan(x, a, h0)
+  gen = torch.Generator(device=cuda).manual_seed(2)
+  dy = torch.randn(shape, device=cuda, generator=gen).to(DTYPES[dtype])
+  g_last = (torch.randn(shape[0], shape[2], device=cuda, generator=gen)
+            if dh_last else None)
+  before = scan.BACKWARD_LAUNCHES
+  got = scan._launch_backward(dy, g_last, a, h0, y)  # pylint: disable=protected-access
+  torch.cuda.synchronize()
+  assert scan.BACKWARD_LAUNCHES == before + 1
+  ref = scan.linear_scan_backward_reference(dy, g_last, a, h0, y)
+  assert [t.dtype for t in got] == [DTYPES[dtype], DTYPES[dtype], torch.float32]
+  for g, r in zip(got, ref):
+    assert torch.equal(g, r)
+  if shape[1] > 1 and dh_last:
+    for name, faulty in scan.scan_backward_controls(dy, g_last, a, h0, y).items():
+      # Rounding h0 to bf16 moves da[0] by at most 2^-9 of it before da's
+      # own bf16 rounding, so it shows in about a quarter of the elements:
+      # look for it where h0 has 64 or more.
+      if name == "h0_unrounded" and (not carried or shape[0] * shape[2] < 64):
+        continue
+      assert not all(torch.equal(f, g) for f, g in zip(faulty, got)), name
+
+
+def test_rglru_gradients_match_cpu(cuda):
+  """The RG-LRU's gradients on the card (K5, K5b, the clipped sqrt) against
+  its CPU run (the plain scans), float32: the products sum in other
+  orders."""
+  torch.manual_seed(0)
+  mod = rglru.RGLRU(32, 2)
+  for p in mod.parameters():
+    torch.nn.init.normal_(p, std=0.3)
+  x = torch.randn(3, 9, 32, requires_grad=True)
+  h0 = torch.randn(3, 32, requires_grad=True)
+  y, h = mod(x, h0)
+  ref = torch.autograd.grad((y * y).sum() + h.sum(), [x, h0, *mod.parameters()])
+  mod = mod.to(cuda)
+  xc = x.detach().to(cuda).requires_grad_()
+  hc = h0.detach().to(cuda).requires_grad_()
+  before = scan.BACKWARD_LAUNCHES
+  y, h = mod(xc, hc)
+  got = torch.autograd.grad((y * y).sum() + h.sum(), [xc, hc, *mod.parameters()])
+  assert scan.BACKWARD_LAUNCHES == before + 1
+  for g, r in zip(got, ref):
+    torch.testing.assert_close(g.cpu(), r, rtol=1e-4, atol=1e-5)
 
 
 def test_rglru_launches_the_scan(cuda):

@@ -172,6 +172,42 @@ def test_tapnext_paths_run_without_jax():
   assert res.returncode == 0, res.stderr
 
 
+def test_training_runs_without_jax():
+  """A TAPNext training step (the Trainer, both losses, synthetic batches
+  made from a torch.Generator, a checkpoint) runs in a fresh process that
+  never imports JAX."""
+  code = (
+      "import sys, tempfile, os, torch\n"
+      "from tapnet_tpu_torch import configs\n"
+      "from tapnet_tpu_torch.data import synthetic\n"
+      "from tapnet_tpu_torch.models import ssm_vit, tapnext\n"
+      "from tapnet_tpu_torch.training import optimizers, trainer\n"
+      "cfg = ssm_vit.SsmVitConfig(width=32, depth=1, mlp_dim=64, num_heads=2, "
+      "image_size=(32, 32), remat=True)\n"
+      "gen = torch.Generator().manual_seed(0)\n"
+      "data = iter(lambda: synthetic.make_batch(gen, 1, 4, 32, 32, 3), None)\n"
+      "for builder in (trainer.tapnext_loss_builder, lambda m, t: "
+      "trainer.tapnext_chunked_loss_builder(m, t, 2)):\n"
+      "  d = tempfile.mkdtemp()\n"
+      "  t = trainer.Trainer(tapnext.TAPNextTracker(cfg), "
+      "optimizers.OptimizerConfig(warmup_steps=1), 10, loss_builder=builder, "
+      "checkpoint_path=os.path.join(d, 'c.npy'), checkpoint_every=1, "
+      "device='cpu')\n"
+      "  state = t.fit(t.restore_or_init(), data, num_steps=1, log_every=1)\n"
+      "  assert state.step == 1 and os.path.exists(os.path.join(d, 'c.npy'))\n"
+      "assert configs.get_experiment('tapnextpp').train_time_chunk == 128\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('jax', 'jaxlib', 'flax', 'optax', 'tapnet_tpu'))\n"
+      "assert not bad, bad\n"
+  )
+  env = dict(os.environ, PYTHONPATH=REPO)
+  res = subprocess.run(
+      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=300,
+  )
+  assert res.returncode == 0, res.stderr
+
+
 def test_int8_products_stay_in_the_ports_own_kernels():
   """No library stands in for an int8 product: the package names neither
   `_int_mm`, cuBLAS nor `torch.compile`, and each int8 entry point of the
