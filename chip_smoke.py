@@ -15,7 +15,9 @@ Phases (any failure raises and exits non-zero):
      full-precision ExtraConvs layer (K6f, beside three faulty plain layers
      that its fp32 check must refuse). The int8 kernels' own int8 tensors
      are held against the plain version's too, beside wrong quantizations
-     as controls.
+     as controls. K4's and K6's records split one launch by kernel
+     (torch.profiler): K4 into its temporal half and its MLP, K6 into
+     LayerNorm and patch scale, conv_up and conv_out, at each grid.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, in full precision and in the four int8 configurations
@@ -113,6 +115,9 @@ from tools.make_tapnext_golden import (  # noqa: E402
 )
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
 from tools import make_tapnext_train_golden as train_golden  # noqa: E402
+from tools.time_int8_kernels import (  # noqa: E402
+    K4_PHASES, K6_PHASES, split_ms as kernel_split,
+)
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
@@ -711,6 +716,9 @@ def check_mixer_q8(dtype, gen, checks):
       int8_flip_controls=controls,
       ms=time_ms(run), plain_ms=time_ms(plain, reps=3),
       bound_ms=b_ms, bound_by=b_by,
+      bound_note="the function's own operations at the int8 peak; the kernel "
+                 "computes the first product twice (1.5x the operations)",
+      split_ms=kernel_split(run, K4_PHASES),
       int_mm_products_ms=(None if up_ms is None or down_ms is None
                           else up_ms + down_ms),
       int_mm_note="torch._int_mm on the two bare products only: a part of "
@@ -878,12 +886,17 @@ def check_extra_convs_q8(dtype, gen, checks):
         int8_flips_vs_plain=flips, int8_flip_limits=EXTRA_Q8_FLIPS,
         int8_flip_controls=controls, ms=time_ms(run),
         plain_ms=time_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
-        bound_by=b_by, nbytes=nbytes, flops=flops))
+        bound_by=b_by, nbytes=nbytes, flops=flops,
+        split_ms=kernel_split(run, K6_PHASES)))
     del x, g, bln, wu, bu, wo, bo, qweights
     torch.cuda.empty_cache()
   checks.extend(records)
-  checks.append(path_record(
-      records, "mean of one launch at the 60x60 and 32x32 grids", torch.int8))
+  path = path_record(
+      records, "mean of one launch at the 60x60 and 32x32 grids", torch.int8)
+  path["ms_by_grid"] = {f"{r['shape'][1]}x{r['shape'][2]}": r["ms"] for r in records}
+  path["split_ms_by_grid"] = {f"{r['shape'][1]}x{r['shape'][2]}": r["split_ms"]
+                              for r in records}
+  checks.append(path)
 
 
 def extra_convs_fp_bound(x, m):
@@ -1266,6 +1279,7 @@ KERNEL_META = {
         tpu_kernel="K4 fused_mixer_block._kernel :256 with quantized=True "
                    "(_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225)",
         layer="K3/K4 mixer_block", run="serve_int8",
+        also_runs=("serve_headline",),
     ),
     "extra_convs_q8_frame": dict(
         source="tapnet_tpu_torch/csrc/extra_convs.cu",
@@ -1441,11 +1455,10 @@ def make_videos(count, queries=QUERIES):
 # Kernel-name fragments per layer, for the profile's breakdown; a kernel
 # counts in the first layer it matches.
 EXTRA_KERNELS = ("conv3x3_q8", "frame_amax", "quantize_frames", "ln_bias_rows",
-                 "patch_scale", "::quantize_rows")
+                 "patch_scale", "k6_conv_up", "k6_conv_out")
 LAYERS = (
     ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel")),
-    ("K3/K4 mixer_block",
-     ("mixer_temporal", "mixer_gemm", "mixer_quantize_rows")),
+    ("K3/K4 mixer_block", ("mixer_temporal", "mixer_gemm", "mixer_mlp_q8")),
     ("int8 ExtraConvs (X, K6)", EXTRA_KERNELS),
     ("convolutions (cuDNN, with its layout transforms)",
      ("conv", "fprop", "nchwtonhwc", "nhwctonchw")),
@@ -2359,6 +2372,14 @@ def main():
         bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
         shape=row["shape"], dtype=dtype,
         **{f"profile_ms_per_{per}": profile_ms},
+        # K4: its launches in the JAX headline's run too.
+        **({"launches_in": {run: runs[run][f"launches_per_{per}"][name]
+                            for run in (meta["run"], *meta["also_runs"])}}
+           if "also_runs" in meta else {}),
+        **({"split_ms": row["split_ms"]} if "split_ms" in row else {}),
+        **({"ms_by_grid": row["ms_by_grid"],
+            "split_ms_by_grid": row["split_ms_by_grid"]}
+           if "ms_by_grid" in row else {}),
         # X: cuDNN's bf16 convolution of the same shapes, for context only.
         **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}
            if "cudnn_same_shape_ms" in row else {}),

@@ -1,7 +1,9 @@
-// The ExtraConvs of BootsTAPIR, hand-written for Hopper (sm_90a). The two
-// int8 entry points and the float layer in bf16 share one implicit-GEMM loop
-// (conv3x3_mma, on int8 or bf16 mma.sync); the float layer in fp32 runs on
-// the SIMT cores (see extra_convs_fp_forward below).
+// The ExtraConvs of BootsTAPIR, hand-written for Hopper (sm_90a). The
+// per-frame int8 convolution (X) and the float layer in bf16 (K6f) share one
+// implicit-GEMM loop (conv3x3_mma, on int8 or bf16 mma.sync); the float
+// layer in fp32 runs on the SIMT cores (see extra_convs_fp_forward below).
+// The per-pixel int8 layer (K6) runs on the int8 tile loop of q8_tile.cuh,
+// which K4 (csrc/fused_mixer_block.cu) shares.
 //
 // conv3x3_q8_frame_forward: the per-frame w8a8 SAME 3x3 stride-1 convolution
 // (quantized_extra_convs=True). It replaces XLA's int8 convolution of
@@ -14,54 +16,73 @@
 //   (3) conv3x3_q8<kFrame>: y = acc * (xs[frame] * ws[col]) + b[col], cast to
 //       the model dtype.
 //
+// The implicit GEMM of X and K6f (conv3x3_mma): rows are output pixels (p =
+// (n*H + y)*W + x), columns output channels, K = 9 * C_in ordered tap-major
+// (k = tap*C_in + c, tap = (dy+1)*3 + (dx+1)); the weights are [C_out,
+// 9*C_in], one output channel per row. 128x128 tiles, K by 64 bytes, 8 warps
+// of 64x32, mma.sync (int8 m16n8k32 with int32 accumulation; bf16 m16n8k16),
+// operands double-buffered in shared memory by cp.async. A 64-byte K chunk
+// lies within one tap when C_in % 16 == 0, so each 16-byte piece of a row is
+// one contiguous read of the shifted pixel, or zeros outside the frame.
+//
+// Bound on the H100: operations. A 3x3 conv of [250, 60, 60] pixels from 256
+// to 1024 channels is 4.25 T int8 operations, 2.15 ms at 1979 TOP/s, against
+// 2.3 GB of bf16 activations (0.69 ms at 3.35 TB/s). What X's design gives
+// away: mma.sync without ldmatrix, TMA or wgmma reaches a fraction of the
+// int8 peak (ROADMAP Queue 2B).
+//
 // extra_convs_q8_pixel_forward: K6, one whole ExtraConvs layer with per-pixel
 // int8 scales (quantized_extra_convs="per_pixel"). It replaces the Pallas TPU
 // kernel tapnet_tpu/ops/fused_extra_convs.py::_kernel (launched by
 // _pallas_forward) with quantized=True, and computes what its reference
-// _math_reference(quantized=True) computes:
-//   (a) ln_bias_rows: t32 = LN(x) * g + b in float32 (single-pass statistics),
-//       and each pixel's amax of |t32|;
+// _math_reference(quantized=True) computes. Four launches:
+//   (a) ln_bias_rows: t32 = LN(x) * g + b in float32 (single-pass
+//       statistics), and each pixel's amax of |t32|;
 //   (b) patch_scale: cs[p] = max(amax over the in-frame 3x3 neighbours of p,
-//       1e-8) * (1/127), the scale of p's whole 3x3xC patch (zero padding does
-//       not raise an amax);
-//   (c) conv3x3_q8<kUp>: conv_up with the patch scheme. The A-operand loader
-//       reads float32 t32 and quantizes it on the fly with the scale of the
-//       OUTPUT row, so one input value is quantized differently for each of
-//       the 9 output pixels that read it. Epilogue: GELU(acc * (cs * su) + bu),
-//       the float32 hidden, and each pixel's amax of |hidden| by atomicMax
-//       (a row spans every column tile);
-//   (d) quantize_rows: the hidden to int8 with one scale per pixel, vs;
-//   (e) conv3x3_q8<kOut>: conv_out with per-tap exact dequantization: after
-//       each tap's K range, that tap's int32 partial is scaled by
-//       vs[p + off_tap] * so[col] (the scale of the pixel the tap READS, so it
-//       cannot leave the tap sum) and summed in float32 from zero in tap
-//       order; then + bo, + t32, cast to the model dtype.
-// The TPU kernel keeps one frame's t32, hidden and int8 copies in VMEM. One
-// frame's 62x62x1024 float32 hidden is 15.7 MB, against 227 KB of shared
-// memory on an SM, so here they go through device memory.
+//       1e-8) * (1/127), the scale of p's whole 3x3xC patch (zero padding
+//       does not raise an amax);
+//   (c) k6_conv_up: one CTA per block of 64 output pixels. It quantizes the
+//       block's 3x3xC patches once, with each row's patch scale (one IEEE
+//       division per value and output pixel: the same input value is
+//       quantized differently for each of the 9 output pixels that read it),
+//       and keeps them in shared memory (64 x 2304 bytes at C = 256). It then
+//       walks all M output columns over that patch twice. Its two
+//       warpgroups take alternate 128-column steps (wgmma m64n128k32), each
+//       streaming its int8 weights [M, 9C] through a cp.async ring of its
+//       own, from a different K panel, so that one's epilogue overlaps the
+//       other's loads. Pass 1 gathers each pixel's amax of
+//       GELU(acc * (cs * su) + bu): the CTA sees a pixel's whole hidden row,
+//       so the amax needs no atomics. Pass 2 recomputes the same products
+//       and values (one code site, rounded at every step, so both passes
+//       give the same floats), quantizes them with hs = max(amax, 1e-8) /
+//       127 and writes only the int8 hidden [P, M] and hs. The float32
+//       hidden never reaches device memory (a debug pointer, null on the
+//       main path, stores it for checks).
+//   (d) k6_conv_out: conv_out with per-tap exact dequantization, 128x128
+//       tiles (two warpgroups of m64n128) over a ring that carries both
+//       operands: after each tap's K range, that tap's int32 partial is
+//       scaled by vs[p + off_tap] * so[col] (the scale of the pixel the tap
+//       READS, so it cannot leave the tap sum) and summed in float32 from
+//       zero in tap order; then + bo, + t32, cast to the model dtype.
+// Both products run on the int8 tile loop of q8_tile.cuh (wgmma on
+// swizzled shared-memory panels). The TPU kernel keeps one frame's t32,
+// hidden and int8 copies in VMEM; here one frame's 62x62x1024 hidden does
+// not fit on an SM, and the int8 hidden goes through device memory.
 //
-// The implicit GEMM: rows are output pixels (p = (n*H + y)*W + x), columns
-// output channels, K = 9 * C_in ordered tap-major (k = tap*C_in + c, tap =
-// (dy+1)*3 + (dx+1)); the weights are int8 [C_out, 9*C_in], one output
-// channel per row. 128x128 tiles, K by 64 bytes, 8 warps of 64x32, int8
-// mma.sync m16n8k32 with int32 accumulation, operands double-buffered in
-// shared memory (cp.async for int8 operands; the float32 operand of (c) is
-// prefetched into registers and quantized into shared memory). A 64-byte K
-// chunk lies within one tap when C_in % 16 == 0, so each 16-byte piece of a
-// row is one contiguous read of the shifted pixel, or zeros outside the frame.
+// Bound on the H100: operations, two 3x3 products of 4.25 T int8 operations
+// each at [250, 60, 60] (4.29 ms at 1979 TOP/s); pass 1 adds half again to
+// the operations (the price of keeping the float32 hidden, 3.7 GB at that
+// shape, off device memory). What holds this design back (PERF.md section
+// 6): a 64-pixel CTA reads the weights (2.36 MB) twice from L2 for 604 M
+// operations, 128 a byte, and L2 feeds the SMs about 3.5 TB/s; the patch
+// (147 KB) leaves room for only 80 KB of ring, so the epilogues (GELU,
+// division, stores on 8 warps) and the patch build do not hide behind the
+// loads.
 //
-// Numerics as in the JAX code: quantizers divide (IEEE division, rintf rounds
-// half to even, no fast math), scales multiply as (row scale * column scale)
-// and then the accumulator, with __fmul_rn / __fadd_rn so that no multiply-add
-// is contracted; GELU is the tanh form; LN eps 1e-5.
-//
-// Bound on the H100: operations. A 3x3 conv of [250, 60, 60] pixels from 256
-// to 1024 channels is 4.25 T int8 operations, 2.15 ms at 1979 TOP/s, against
-// 2.3 GB of bf16 activations (0.69 ms at 3.35 TB/s); K6 is two of them,
-// 4.29 ms. What this first design gives away: mma.sync without ldmatrix, TMA
-// or wgmma reaches a fraction of the int8 peak; K6's float32 hidden (3.7 GB at
-// that shape) and t32 make round trips through device memory. A later design
-// keeps a row block's hidden on chip and uses wgmma.
+// Numerics as in the JAX code: quantizers divide (IEEE division, rintf
+// rounds half to even, no fast math), scales multiply as (row scale * column
+// scale) and then the accumulator, with __fmul_rn / __fadd_rn so that no
+// multiply-add is contracted; GELU is the tanh form; LN eps 1e-5.
 
 // extra_convs_fp_forward: K6f, one whole ExtraConvs layer in full
 // precision. It replaces the same Pallas kernel
@@ -91,13 +112,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "q8_tile.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using q8::cp_async16;
+using q8::cp_async_commit;
+using q8::cp_async_wait;
 
 constexpr float kEps = 1e-5f;
-constexpr float kAmaxFloor = 1e-8f;
-constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -119,13 +143,6 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.f + tanhf(inner));
 }
 
-// The ExtraConvs quantizer: clip(round(v / s), +-127), s from scale_of.
-__device__ __forceinline__ float scale_of(float amax) {
-  return __fmul_rn(fmaxf(amax, kAmaxFloor), kInv127);
-}
-__device__ __forceinline__ int quantize(float v, float s) {
-  return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f));
-}
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
   return (static_cast<uint32_t>(a) & 0xffu) |
          ((static_cast<uint32_t>(b) & 0xffu) << 8) |
@@ -174,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
     quantize_frames(const T* __restrict__ x, const int* __restrict__ amax_bits,
                     int8_t* __restrict__ q, float* __restrict__ scale,
                     long long per_frame) {
-  const float s = scale_of(__int_as_float(amax_bits[blockIdx.y]));
+  const float s = q8::scale_div(__int_as_float(amax_bits[blockIdx.y]));
   if (blockIdx.x == 0 && threadIdx.x == 0) scale[blockIdx.y] = s;
   const long long base = static_cast<long long>(blockIdx.y) * per_frame;
   const long long groups = per_frame / 16;
@@ -184,15 +201,17 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t words[4];
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-      words[w] = pack4(quantize(to_f(src[4 * w]), s), quantize(to_f(src[4 * w + 1]), s),
-                       quantize(to_f(src[4 * w + 2]), s), quantize(to_f(src[4 * w + 3]), s));
+      words[w] = pack4(q8::quantize_div(to_f(src[4 * w]), s),
+                       q8::quantize_div(to_f(src[4 * w + 1]), s),
+                       q8::quantize_div(to_f(src[4 * w + 2]), s),
+                       q8::quantize_div(to_f(src[4 * w + 3]), s));
     }
     *reinterpret_cast<uint4*>(q + base + gi * 16) =
         make_uint4(words[0], words[1], words[2], words[3]);
   }
 }
 
-// ------------------------------------------------------------- K6 pieces
+// ------------------------------------------------------- LayerNorm, scales
 
 // (a) One warp per pixel: t32 = (x - mu) * rsqrt(var + eps) * g + b with
 // var = mean(x^2) - mu^2; amax[p] = max |t32| (K6) and t = T(t32) (K6f) where
@@ -244,72 +263,60 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  cs[p] = scale_of(m);
+  cs[p] = q8::scale_div(m);
 }
 
-// (d) One warp per row: float32 [rows, n] -> int8 with the row's scale, from
-// the amax that the conv_up epilogue gathered (n % 4 == 0).
-__global__ void __launch_bounds__(kThreads)
-    quantize_rows(const float* __restrict__ h, const int* __restrict__ amax_bits,
-                  int8_t* __restrict__ q, float* __restrict__ scale, int rows,
-                  int n) {
-  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const float s = scale_of(__int_as_float(amax_bits[row]));
-  const float4* src = reinterpret_cast<const float4*>(h + static_cast<size_t>(row) * n);
-  uint32_t* dst = reinterpret_cast<uint32_t*>(q + static_cast<size_t>(row) * n);
-  for (int k = lane; k < n / 4; k += 32) {
-    const float4 v = src[k];
-    dst[k] = pack4(quantize(v.x, s), quantize(v.y, s), quantize(v.z, s),
-                   quantize(v.w, s));
+// Pixel coordinates of `count` rows from m0; past the last pixel -4, so that
+// every tap lands outside the frame.
+__device__ __forceinline__ void tile_rows(int* s_y, int* s_x, int m0, int count,
+                                          int rows, int h, int w) {
+  const int hw = h * w;
+  for (int r = threadIdx.x; r < count; r += blockDim.x) {
+    const int pix = m0 + r;
+    s_y[r] = pix < rows ? (pix % hw) / w : -4;
+    s_x[r] = pix < rows ? (pix % hw) % w : -4;
   }
-  if (lane == 0) scale[row] = s;
 }
 
-// ------------------------------------------------ implicit-GEMM 3x3 conv
+// Where the operand at K index k (in values) of tile row r (pixel m0 + r)
+// comes from: the element offset of the shifted pixel's channel run in the
+// [P, cin] operand, or -1 for zeros (outside the frame, past the last pixel
+// or past K).
+__device__ __forceinline__ long long a_source(const int* s_y, const int* s_x,
+                                              int m0, int r, int k, int K,
+                                              int cin, int h, int w) {
+  const int tap = k / cin;
+  const int c = k - tap * cin;
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  const int y = s_y[r] + dy, x = s_x[r] + dx;
+  if (k >= K || y < 0 || y >= h || x < 0 || x >= w) return -1;
+  return (static_cast<long long>(m0 + r) + dy * w + dx) * cin + c;
+}
+
+// -------------------------------------------- X and K6f: implicit-GEMM 3x3
 
 constexpr int kBM = 128, kBN = 128, kBK = 64;  // kBK in bytes of K
 constexpr int kLds = kBK + 16;                 // padded shared row (80 bytes)
 constexpr int kTileBytes = kBM * kLds;         // per operand and stage
 
-// Modes of the loop: int8 operands (X, K6) and operands in the model dtype
+// Modes of the loop: int8 operands (X) and operands in the model dtype
 // (K6f).
 constexpr int kFrame = 0;  // int8 A; y = T(acc * (xs[frame] * ws) + b)
-constexpr int kUp = 1;     // float32 A, quantized per output row; GELU hidden
-constexpr int kOut = 2;    // int8 A; per-tap dequantization; + t32 residual
 constexpr int kUpF = 3;    // K6f conv_up: hidden = T(gelu(acc + bu))
 constexpr int kOutF = 4;   // K6f conv_out: out = T(t32 + (acc + bo))
 
 struct ConvParams {
-  const void* a;           // kFrame, kOut: int8 [P, cin]; kUp: float32 [P, cin];
-                           // kUpF: t (t32 in fp32), kOutF: the hidden, in the
-                           // model dtype [P, cin]
+  const void* a;           // kFrame: int8 [P, cin]; kUpF: t (t32 in fp32),
+                           // kOutF: the hidden, in the model dtype [P, cin]
   const void* wt;          // [cout, 9 * cin], k = tap * cin + c: int8, or the
                            // model dtype in kUpF and kOutF
-  const float* row_scale;  // kFrame: [n] per frame; kUp: [P] patch; kOut: [P] pixel
-  const float* col_scale;  // int8 modes: [cout]
+  const float* row_scale;  // kFrame: [n] per frame
+  const float* col_scale;  // kFrame: [cout]
   const float* bias;       // [cout]
-  const float* t32;        // kOut, kOutF: [P, cout] residual
-  float* hidden;           // kUp: [P, cout]
-  int* amax_bits;          // kUp: [P], zeroed by the caller
+  const float* t32;        // kOutF: [P, cout] residual
   void* out;               // [P, cout] in the model dtype (kUpF: the hidden)
   int n, h, w, cin, cout;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The loop's MMA: int8 m16n8k32 with int32 accumulation, or bf16 m16n8k16
 // with float32 accumulation. Both take 32 bytes of K per instruction, and
@@ -320,12 +327,7 @@ struct MmaS8 {
   static constexpr int kElem = 1;
   static __device__ __forceinline__ void run(int* c, const uint32_t* a,
                                              const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-        : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-          "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
+    q8::mma_s8(c, a, b);
   }
 };
 struct MmaBf16 {
@@ -342,33 +344,6 @@ struct MmaBf16 {
   }
 };
 
-// Each tile row's pixel coordinates; past the last pixel -4, so that every
-// tap lands outside the frame.
-__device__ __forceinline__ void tile_rows(int* s_y, int* s_x, int m0, int rows,
-                                          int h, int w) {
-  const int hw = h * w;
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    const int pix = m0 + r;
-    s_y[r] = pix < rows ? (pix % hw) / w : -4;
-    s_x[r] = pix < rows ? (pix % hw) % w : -4;
-  }
-}
-
-// Where the A operand at K index k (in values) of tile row r (pixel m0 + r)
-// comes from: the element offset of the shifted pixel's channel run in the
-// [P, cin] operand, or -1 for zeros (outside the frame, past the last pixel
-// or past K).
-__device__ __forceinline__ long long a_source(const int* s_y, const int* s_x,
-                                              int m0, int r, int k, int K,
-                                              int cin, int h, int w) {
-  const int tap = k / cin;
-  const int c = k - tap * cin;
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int y = s_y[r] + dy, x = s_x[r] + dx;
-  if (k >= K || y < 0 || y >= h || x < 0 || x >= w) return -1;
-  return (static_cast<long long>(m0 + r) + dy * w + dx) * cin + c;
-}
-
 // K6f's epilogues, per output element: acc the float32 tap sum.
 template <typename T, int MODE>
 __device__ __forceinline__ void fp_epilogue(const ConvParams& p, int row,
@@ -383,12 +358,11 @@ __device__ __forceinline__ void fp_epilogue(const ConvParams& p, int row,
 }
 
 // The loop: 128x128 tiles, K by 64 bytes, 8 warps of 64x32, operands
-// double-buffered in shared memory (cp.async; the float32 operand of kUp is
-// prefetched into registers and quantized into shared memory). T is the
-// model dtype; Op the MMA, whose operand type the mode's A and weights have.
-// p by value, and each 16-byte piece of A issued beside the weights' piece:
-// with the parameters by reference and A and the weights in two passes, X
-// and K6f's bf16 path ran 2-5% slower (H100; PERF.md section 6).
+// double-buffered in shared memory by cp.async. T is the model dtype; Op the
+// MMA, whose operand type the mode's A and weights have. p by value, and
+// each 16-byte piece of A issued beside the weights' piece: with the
+// parameters by reference and A and the weights in two passes, X and K6f's
+// bf16 path ran 2-5% slower (H100; PERF.md section 6).
 template <typename Op, typename T, int MODE>
 __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   using Acc = typename Op::Acc;
@@ -397,7 +371,6 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   __shared__ __align__(128) int8_t as[2][kTileBytes];
   __shared__ __align__(128) int8_t bs[2][kTileBytes];
   __shared__ int s_y[kBM], s_x[kBM];
-  __shared__ float s_rs[kBM];  // kUp: each row's patch scale
 
   const int hw = p.h * p.w;
   const int rows = p.n * hw;
@@ -406,66 +379,26 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   const int m0 = (blockIdx.x / ncol) * kBM;
   const int n0 = (blockIdx.x % ncol) * kBN;
   const int tid = threadIdx.x;
-  tile_rows(s_y, s_x, m0, rows, p.h, p.w);
-  if constexpr (MODE == kUp) {
-    for (int r = tid; r < kBM; r += kThreads) {
-      s_rs[r] = m0 + r < rows ? p.row_scale[m0 + r] : 1.f;
-    }
-  }
+  tile_rows(s_y, s_x, m0, kBM, rows, p.h, p.w);
   __syncthreads();
 
   const char* a_bytes = static_cast<const char*>(p.a);
   const char* w_bytes = static_cast<const char*>(p.wt);
 
   // 512 pieces of 16 bytes per operand tile: 2 per thread, row = piece / 4.
-  // The weights' pieces, and with `with_a` the A operand's, by cp.async.
-  auto load = [&](int stage, int k0, bool with_a) {
+  auto load = [&](int stage, int k0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int piece = tid + i * kThreads;
       const int r = piece >> 2, cc = (piece & 3) * 16;
       const int k = k0 + cc / Op::kElem;
-      if (with_a) {
-        const long long src = a_source(s_y, s_x, m0, r, k, K, p.cin, p.h, p.w);
-        cp_async16(&as[stage][r * kLds + cc],
-                   src >= 0 ? a_bytes + src * Op::kElem : a_bytes, src >= 0);
-      }
+      const long long src = a_source(s_y, s_x, m0, r, k, K, p.cin, p.h, p.w);
+      cp_async16(&as[stage][r * kLds + cc],
+                 src >= 0 ? a_bytes + src * Op::kElem : a_bytes, src >= 0);
       const bool pred = (n0 + r < p.cout) && (k < K);
-      const char* src =
+      const char* wsrc =
           pred ? w_bytes + (static_cast<size_t>(n0 + r) * K + k) * Op::kElem : w_bytes;
-      cp_async16(&bs[stage][r * kLds + cc], src, pred);
-    }
-  };
-  float4 up_regs[2][4];
-  auto fetch_a_up = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece >> 2, cc = (piece & 3) * 16;
-      const long long src = a_source(s_y, s_x, m0, r, k0 + cc, K, p.cin, p.h, p.w);
-      const float4* v = reinterpret_cast<const float4*>(
-          static_cast<const float*>(p.a) + (src >= 0 ? src : 0));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        up_regs[i][j] = src >= 0 ? v[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  };
-  auto store_a_up = [&](int stage) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece >> 2, cc = (piece & 3) * 16;
-      const float s = s_rs[r];
-      uint32_t words[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = up_regs[i][j];
-        words[j] = pack4(quantize(v.x, s), quantize(v.y, s), quantize(v.z, s),
-                         quantize(v.w, s));
-      }
-      *reinterpret_cast<uint4*>(&as[stage][r * kLds + cc]) =
-          make_uint4(words[0], words[1], words[2], words[3]);
+      cp_async16(&bs[stage][r * kLds + cc], wsrc, pred);
     }
   };
 
@@ -488,32 +421,22 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   }
 
   Acc acc[4][4][4];
-  float facc[4][4][4];  // kOut: the float32 sum over the finished taps
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        facc[i][j][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
   const int nk = (K + kVals - 1) / kVals;
-  const int chunks_per_tap = p.cin / kBK;  // kOut: cin % kBK == 0
-  if constexpr (MODE == kUp) {
-    fetch_a_up(0);
-    store_a_up(0);
-  }
-  load(0, 0, MODE != kUp);
+  load(0, 0);
   cp_async_commit();
 
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) {
-      load(cur ^ 1, (kt + 1) * kVals, MODE != kUp);
+      load(cur ^ 1, (kt + 1) * kVals);
       cp_async_commit();
-      if constexpr (MODE == kUp) fetch_a_up((kt + 1) * kVals);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -542,40 +465,6 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) Op::run(acc[i][j], af[i], bfr[j]);
     }
-
-    if constexpr (MODE == kOut) {
-      // After the last K chunk of a tap: that tap's int32 partial, scaled by
-      // the scale of the pixel it read, joins the float32 sum.
-      if ((kt + 1) % chunks_per_tap == 0) {
-        const int tap = kt / chunks_per_tap;
-        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = wm * 64 + i * 16 + g + half * 8;
-            const int y = s_y[r] + dy, x = s_x[r] + dx;
-            const float vs = (y >= 0 && y < p.h && x >= 0 && x < p.w)
-                                 ? p.row_scale[m0 + r + dy * p.w + dx]
-                                 : 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int idx = half * 2 + e;
-                const float part = __int2float_rn(acc[i][j][idx]);
-                facc[i][j][idx] = __fadd_rn(
-                    facc[i][j][idx], __fmul_rn(part, __fmul_rn(vs, cscale[j][e])));
-                acc[i][j][idx] = 0;
-              }
-            }
-          }
-        }
-      }
-    }
-    if constexpr (MODE == kUp) {
-      if (kt + 1 < nk) store_a_up(cur ^ 1);
-    }
     __syncthreads();
   }
 
@@ -600,50 +489,30 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
           }
         }
       } else {
-        float rscale = 0.f;
-        if constexpr (MODE == kFrame) rscale = row_ok ? p.row_scale[row / hw] : 0.f;
-        if constexpr (MODE == kUp) rscale = s_rs[r];
-        float habs = 0.f;
+        const float rscale = row_ok ? p.row_scale[row / hw] : 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = n0 + wn * 32 + j * 8 + tq * 2 + e;
-            const int idx = half * 2 + e;
             if (!row_ok || col >= p.cout) continue;
             const size_t o = static_cast<size_t>(row) * p.cout + col;
-            if constexpr (MODE == kOut) {
-              const float y = __fadd_rn(facc[i][j][idx], cbias[j][e]);
-              static_cast<T*>(p.out)[o] = from_f<T>(__fadd_rn(p.t32[o], y));
-            } else {
-              const float v = __fadd_rn(
-                  __fmul_rn(__int2float_rn(acc[i][j][idx]), __fmul_rn(rscale, cscale[j][e])),
-                  cbias[j][e]);
-              if constexpr (MODE == kFrame) {
-                static_cast<T*>(p.out)[o] = from_f<T>(v);
-              } else {
-                const float hv = gelu_tanh(v);
-                p.hidden[o] = hv;
-                habs = fmaxf(habs, fabsf(hv));
-              }
-            }
+            const float v = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc[i][j][half * 2 + e]),
+                          __fmul_rn(rscale, cscale[j][e])),
+                cbias[j][e]);
+            static_cast<T*>(p.out)[o] = from_f<T>(v);
           }
-        }
-        if constexpr (MODE == kUp) {
-          // The 4 lanes of a group hold the same row.
-          habs = fmaxf(habs, __shfl_xor_sync(0xffffffffu, habs, 1));
-          habs = fmaxf(habs, __shfl_xor_sync(0xffffffffu, habs, 2));
-          if (tq == 0 && row_ok) atomicMax(p.amax_bits + row, __float_as_int(habs));
         }
       }
     }
   }
 }
 
-// X and K6: int8 operands.
-template <typename T, int MODE>
+// X: int8 operands.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) conv3x3_q8(ConvParams p) {
-  conv3x3_mma<MmaS8, T, MODE>(p);
+  conv3x3_mma<MmaS8, T, kFrame>(p);
 }
 
 // K6f in bf16: the same loop on bf16 operands (a 64-byte K chunk is 32
@@ -672,7 +541,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_f32(ConvParams p) {
   const int m0 = (blockIdx.x / ncol) * kBM;
   const int n0 = (blockIdx.x % ncol) * kBN;
   const int tid = threadIdx.x;
-  tile_rows(s_y, s_x, m0, rows, p.h, p.w);
+  tile_rows(s_y, s_x, m0, kBM, rows, p.h, p.w);
   __syncthreads();
   const float* a = static_cast<const float*>(p.a);
   const float* wt = static_cast<const float*>(p.wt);
@@ -757,14 +626,335 @@ cudaError_t run_conv(const ConvParams& prm, cudaStream_t s) {
   const long long blocks = ((rows + kBM - 1) / kBM) * ((prm.cout + kBN - 1) / kBN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>(blocks);
-  if constexpr (MODE != kUpF && MODE != kOutF) {
-    conv3x3_q8<T, MODE><<<grid, kThreads, 0, s>>>(prm);
+  if constexpr (MODE == kFrame) {
+    conv3x3_q8<T><<<grid, kThreads, 0, s>>>(prm);
   } else if constexpr (sizeof(T) == 2) {
     conv3x3_bf16<MODE><<<grid, kThreads, 0, s>>>(prm);
   } else {
     conv3x3_f32<MODE><<<grid, kThreads, 0, s>>>(prm);
   }
   return cudaGetLastError();
+}
+
+// ------------------------------------------------- K6 on the q8 tile loop
+
+// conv_up: 64 output pixels per CTA, the patch resident, all M columns in
+// steps of kUpCols = 128, alternate steps to each warpgroup (m64n128), whose
+// weights stream through a ring of its own, kUpStages stages of one panel
+// [128 rows][64 bytes]. conv_out: 128 x 128 tiles (two warpgroups of
+// m64n128), both operands through kOutStages stages of one A and one B
+// panel. fused_extra_convs.q8_launch_plan mirrors these numbers.
+constexpr int kUpRows = 64, kUpCols = 128, kUpStages = 5;
+constexpr int kOutRows = 128, kOutCols = 128, kOutStages = 6;
+
+// Dynamic shared memory of each, with the slack of q8::aligned_smem:
+// conv_up's patch panels, ring, patch scales, the two warpgroups' amax
+// partials and pixel coordinates; conv_out's ring and pixel coordinates.
+size_t up_smem_bytes(int c) {
+  const size_t panels = (9 * static_cast<size_t>(c) + q8::kPanel - 1) / q8::kPanel;
+  return q8::kSmemAlign + panels * kUpRows * q8::kPanel +
+         2 * kUpStages * kUpCols * q8::kPanel + kUpRows * sizeof(float) * (1 + 2) +
+         kUpRows * sizeof(int) * 2;
+}
+size_t out_smem_bytes() {
+  return q8::kSmemAlign + kOutStages * (kOutRows + kOutCols) * q8::kPanel +
+         kOutRows * sizeof(int) * 2;
+}
+
+struct UpParams {
+  const float* t32;   // [P, c]
+  const float* cs;    // [P] patch scales
+  const int8_t* wuq;  // [m, 9c]
+  const float* su;    // [m]
+  const float* bu;    // [m]
+  int8_t* hq;         // [P, m]
+  float* hs;          // [P]
+  float* hidden;      // [P, m] float32, or null (the main path)
+  int n, h, w, c, m;
+};
+
+// (c) conv_up, quantizing each patch value once and the hidden on chip. The
+// two warpgroups share the patch and nothing else until the passes meet:
+// warpgroup wg takes the 128-column steps s with s % 2 == wg, streams their
+// weights through a ring of its own and waits on its own named barrier
+// (1 + wg), and warpgroup 1 walks K from the middle, so that one's epilogue
+// (GELU, division, stores) runs while the other loads and multiplies. They
+// meet once, between the passes, to combine each row's amax (barriers 3, 4).
+__global__ void __launch_bounds__(q8::kThreads, 1) k6_conv_up(UpParams p) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  int8_t* smem = q8::aligned_smem(smem_raw);
+  constexpr int S = kUpStages;
+  constexpr int kWg = q8::kThreads / 2;                // threads of a warpgroup
+  constexpr int kStage = kUpCols * q8::kPanel;         // bytes of a stage
+  const int rows = p.n * p.h * p.w;
+  const int K = 9 * p.c;
+  const int kp = (K + q8::kPanel - 1) / q8::kPanel;    // panels of the patch
+  int8_t* patch = smem;
+  float* s_cs = reinterpret_cast<float*>(patch + kp * kUpRows * q8::kPanel +
+                                         2 * S * kStage);
+  float* s_part = s_cs + kUpRows;  // [2][kUpRows]
+  int* s_y = reinterpret_cast<int*>(s_part + 2 * kUpRows);
+  int* s_x = s_y + kUpRows;
+  const int m0 = blockIdx.x * kUpRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wtid = tid & (kWg - 1);
+  int8_t* ring = patch + kp * kUpRows * q8::kPanel + wg * S * kStage;
+  const int steps = ((p.m + kUpCols - 1) / kUpCols + 1 - wg) / 2;  // this wg's
+  const int koff = wg * (kp / 2);                       // its first K panel
+  const int tiles = 2 * steps * kp;                     // both passes
+
+  // Tile t: column step 2 * ((t / kp) % steps) + wg, K panel (t + koff) % kp.
+  // Every call commits a group, empty past the end.
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      q8::copy_panels<kUpCols, 1, kWg>(
+          ring + (t % S) * kStage, p.wuq, p.m, K,
+          (2 * ((t / kp) % steps) + wg) * kUpCols,
+          ((t + koff) % kp) * q8::kPanel, wtid);
+    }
+    q8::cp_async_commit();
+  };
+  for (int t = 0; t < S - 2; ++t) issue(t);
+
+  tile_rows(s_y, s_x, m0, kUpRows, rows, p.h, p.w);
+  for (int r = tid; r < kUpRows; r += q8::kThreads) {
+    s_cs[r] = m0 + r < rows ? p.cs[m0 + r] : 1.f;
+  }
+  __syncthreads();
+
+  // The patch: 16 values (one unit) per step, each divided once by its
+  // row's patch scale. Neighbouring threads read neighbouring 64 bytes of
+  // a shifted pixel's t32 row.
+  const int units = kp * 4;
+#pragma unroll 4
+  for (int idx = tid; idx < kUpRows * units; idx += q8::kThreads) {
+    const int r = idx / units, u = idx - r * units;
+    const long long src = a_source(s_y, s_x, m0, r, u * 16, K, p.c, p.h, p.w);
+    uint32_t words[4] = {0u, 0u, 0u, 0u};
+    if (src >= 0) {
+      const float s = s_cs[r];
+      const float4* v = reinterpret_cast<const float4*>(p.t32 + src);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 f = v[j];
+        words[j] = pack4(q8::quantize_div(f.x, s), q8::quantize_div(f.y, s),
+                         q8::quantize_div(f.z, s), q8::quantize_div(f.w, s));
+      }
+    }
+    *reinterpret_cast<uint4*>(patch + (u >> 2) * kUpRows * q8::kPanel +
+                              q8::panel_offset(r, u & 3)) =
+        make_uint4(words[0], words[1], words[2], words[3]);
+  }
+  q8::fence_proxy_async();
+  __syncthreads();
+
+  // This thread holds rows r0 and r0 + 8 of the block.
+  const int r0 = (warp & 3) * 16 + (lane >> 2), tq = lane & 3;
+  int acc[kUpCols / 2];
+  float amax[2] = {0.f, 0.f};
+  int t = 0;
+
+  // One code site for both passes' epilogue (the loops are not unrolled),
+  // so the value a pass-2 quantizer sees is the one pass 1 took the amax of.
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      // Each warpgroup's row amax, shared: arrive with ours, wait for theirs.
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float a = amax[half];
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+        if (tq == 0) s_part[wg * kUpRows + r0 + half * 8] = a;
+      }
+      q8::bar_arrive(3 + wg, q8::kThreads);
+      q8::bar_sync(4 - wg, q8::kThreads);
+    }
+#pragma unroll 1
+    for (int step = 0; step < steps; ++step) {
+#pragma unroll 1
+      for (int kk = 0; kk < kp; ++kk, ++t) {
+        q8::ring_wait<S>(1 + wg, kWg);
+        issue(t + S - 2);
+        q8::fence_regs<kUpCols / 2>(acc);
+        q8::wgmma_fence();
+        q8::wg_panel<kUpCols>(acc, patch + ((kk + koff) % kp) * kUpRows * q8::kPanel,
+                              ring + (t % S) * kStage, kk != 0);
+        q8::wgmma_commit();
+        q8::wgmma_wait<1>();
+      }
+      q8::wgmma_wait<0>();
+      q8::fence_regs<kUpCols / 2>(acc);
+
+      const int col0 = (2 * step + wg) * kUpCols;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + half * 8;
+        const int row = m0 + r;
+        const float rs = s_cs[r];
+        float hs = 0.f;
+        if (pass == 1) {
+          hs = q8::scale_div(fmaxf(s_part[r], s_part[kUpRows + r]));
+          if (step == 0 && wg == 0 && tq == 0 && row < rows) p.hs[row] = hs;
+        }
+#pragma unroll
+        for (int j = 0; j < kUpCols / 8; ++j) {
+          const int col = col0 + j * 8 + tq * 2;
+          if (row >= rows || col >= p.m) continue;  // m % 64 == 0: pairs whole
+          float hv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc[4 * j + 2 * half + e]),
+                          __fmul_rn(rs, p.su[col + e])),
+                p.bu[col + e]);
+            hv[e] = q8::gelu_rn(v);
+          }
+          const size_t o = static_cast<size_t>(row) * p.m + col;
+          if (pass == 0) {
+            amax[half] = fmaxf(amax[half], fmaxf(fabsf(hv[0]), fabsf(hv[1])));
+          } else {
+            *reinterpret_cast<uint16_t*>(p.hq + o) =
+                q8::pack2(q8::quantize_div(hv[0], hs), q8::quantize_div(hv[1], hs));
+            if (p.hidden != nullptr) {
+              *reinterpret_cast<float2*>(p.hidden + o) = make_float2(hv[0], hv[1]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+struct OutParams {
+  const int8_t* hq;   // [P, m]
+  const float* hs;    // [P]
+  const int8_t* woq;  // [c, 9m]
+  const float* so;    // [c]
+  const float* bo;    // [c]
+  const float* t32;   // [P, c]
+  void* out;          // [P, c] in the model dtype
+  int n, h, w, c, m;
+};
+
+// (d) conv_out with per-tap dequantization (m % 64 == 0: a panel of K lies
+// within one tap).
+template <typename T>
+__global__ void __launch_bounds__(q8::kThreads, 1) k6_conv_out(OutParams p) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  int8_t* smem = q8::aligned_smem(smem_raw);
+  constexpr int S = kOutStages;
+  constexpr int kStage = (kOutRows + kOutCols) * q8::kPanel;
+  const int hw = p.h * p.w;
+  const int rows = p.n * hw;
+  const int K = 9 * p.m;
+  const int kp = K / q8::kPanel;
+  const int per_tap = p.m / q8::kPanel;
+  const int ncol = (p.c + kOutCols - 1) / kOutCols;
+  const int m0 = (blockIdx.x / ncol) * kOutRows;
+  const int n0 = (blockIdx.x % ncol) * kOutCols;
+  const int tid = threadIdx.x;
+  int* s_y = reinterpret_cast<int*>(smem + S * kStage);
+  int* s_x = s_y + kOutRows;
+  tile_rows(s_y, s_x, m0, kOutRows, rows, p.h, p.w);
+  __syncthreads();
+
+  // Tile t: K panel t of the shifted pixels' int8 hidden (A) and of the
+  // weights (B).
+  auto issue = [&](int t) {
+    if (t < kp) {
+      int8_t* a_dst = smem + (t % S) * kStage;
+      constexpr int kPieces = kOutRows * 4 / q8::kThreads;
+#pragma unroll
+      for (int i = 0; i < kPieces; ++i) {
+        const int piece = tid + i * q8::kThreads;
+        const int r = piece >> 2, u = piece & 3;
+        const long long src =
+            a_source(s_y, s_x, m0, r, t * q8::kPanel + u * 16, K, p.m, p.h, p.w);
+        q8::cp_async16(a_dst + q8::panel_offset(r, u), src >= 0 ? p.hq + src : p.hq,
+                       src >= 0);
+      }
+      q8::copy_panels<kOutCols, 1>(a_dst + kOutRows * q8::kPanel, p.woq, p.c, K,
+                                   n0, t * q8::kPanel);
+    }
+    q8::cp_async_commit();
+  };
+  for (int t = 0; t < S - 2; ++t) issue(t);
+
+  // Warpgroup wg takes rows wg*64 .. +63 of the tile; its thread holds rows
+  // r0 and r0 + 8 of those, columns 8 j + 2 tq + e.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2), tq = lane & 3;
+  float cscale[kOutCols / 8][2];
+#pragma unroll
+  for (int j = 0; j < kOutCols / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + j * 8 + tq * 2 + e;
+      cscale[j][e] = col < p.c ? p.so[col] : 0.f;
+    }
+  int acc[kOutCols / 2];
+  float facc[kOutCols / 2];
+#pragma unroll
+  for (int i = 0; i < kOutCols / 2; ++i) facc[i] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < kp; ++t) {
+    q8::ring_wait<S>();
+    issue(t + S - 2);
+    const int8_t* stage = smem + (t % S) * kStage;
+    q8::fence_regs<kOutCols / 2>(acc);
+    q8::wgmma_fence();
+    q8::wg_panel<kOutCols>(acc, stage + wg * 64 * q8::kPanel,
+                           stage + kOutRows * q8::kPanel, t % per_tap != 0);
+    q8::wgmma_commit();
+    if ((t + 1) % per_tap != 0) {
+      q8::wgmma_wait<1>();
+      continue;
+    }
+    q8::wgmma_wait<0>();
+    q8::fence_regs<kOutCols / 2>(acc);
+    // The tap's int32 partial, scaled by the scale of the pixel it read,
+    // joins the float32 sum (the next tap's first wgmma starts from zero).
+    const int tap = t / per_tap;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + half * 8;
+      const int y = s_y[r] + dy, x = s_x[r] + dx;
+      const float vs = (y >= 0 && y < p.h && x >= 0 && x < p.w)
+                           ? p.hs[m0 + r + dy * p.w + dx]
+                           : 0.f;
+#pragma unroll
+      for (int j = 0; j < kOutCols / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * half + e;
+          const float part = __int2float_rn(acc[idx]);
+          facc[idx] = __fadd_rn(facc[idx], __fmul_rn(part, __fmul_rn(vs, cscale[j][e])));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + r0 + half * 8;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < kOutCols / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + j * 8 + tq * 2 + e;
+        if (col >= p.c) continue;
+        const size_t o = static_cast<size_t>(row) * p.c + col;
+        const float y = __fadd_rn(facc[4 * j + 2 * half + e], p.bo[col]);
+        static_cast<T*>(p.out)[o] = from_f<T>(__fadd_rn(p.t32[o], y));
+      }
+    }
+  }
 }
 
 int grid_for(long long work, int per_block) {
@@ -792,16 +982,25 @@ int launch_frame(const void* x, const void* wq, const void* ws, const void* bias
   if (err != cudaSuccess) return err;
   ConvParams prm{xq, wq, static_cast<const float*>(xs),
                  static_cast<const float*>(ws), static_cast<const float*>(bias),
-                 nullptr, nullptr, nullptr, out, n, h, w, cin, cout};
+                 nullptr, out, n, h, w, cin, cout};
   return run_conv<T, kFrame>(prm, s);
+}
+
+// Raises the kernel's dynamic shared-memory limit to `bytes` where that is
+// over the default 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 template <typename T>
 int launch_pixel(const void* x, const void* g, const void* bln, const void* wuq,
                  const void* su, const void* bu, const void* woq, const void* so,
                  const void* bo, void* t32, void* pixel_amax, void* cs,
-                 void* hidden, void* hidden_amax, void* hq, void* hs, void* out,
-                 int n, int h, int w, int c, int m, cudaStream_t s) {
+                 void* hidden, void* hq, void* hs, void* out, int n, int h,
+                 int w, int c, int m, cudaStream_t s) {
   const int rows = n * h * w;
   const int warp_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   ln_bias_rows<T><<<warp_blocks, kThreads, 0, s>>>(
@@ -814,24 +1013,29 @@ int launch_pixel(const void* x, const void* g, const void* bln, const void* wuq,
       static_cast<const float*>(pixel_amax), static_cast<float*>(cs), rows, h, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(hidden_amax, 0, sizeof(int) * rows, s);
+
+  const size_t up_smem = up_smem_bytes(c);
+  err = allow_smem(k6_conv_up, up_smem);
   if (err != cudaSuccess) return err;
-  ConvParams up{t32, wuq, static_cast<const float*>(cs),
-                static_cast<const float*>(su), static_cast<const float*>(bu),
-                nullptr, static_cast<float*>(hidden), static_cast<int*>(hidden_amax),
-                nullptr, n, h, w, c, m};
-  err = run_conv<T, kUp>(up, s);
-  if (err != cudaSuccess) return err;
-  quantize_rows<<<warp_blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(hidden), static_cast<const int*>(hidden_amax),
-      static_cast<int8_t*>(hq), static_cast<float*>(hs), rows, m);
+  UpParams up{static_cast<const float*>(t32), static_cast<const float*>(cs),
+              static_cast<const int8_t*>(wuq), static_cast<const float*>(su),
+              static_cast<const float*>(bu), static_cast<int8_t*>(hq),
+              static_cast<float*>(hs), static_cast<float*>(hidden), n, h, w, c, m};
+  k6_conv_up<<<(rows + kUpRows - 1) / kUpRows, q8::kThreads, up_smem, s>>>(up);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ConvParams down{hq, woq, static_cast<const float*>(hs),
-                  static_cast<const float*>(so), static_cast<const float*>(bo),
-                  static_cast<const float*>(t32), nullptr, nullptr, out,
-                  n, h, w, m, c};
-  return run_conv<T, kOut>(down, s);
+
+  const size_t out_smem = out_smem_bytes();
+  err = allow_smem(k6_conv_out<T>, out_smem);
+  if (err != cudaSuccess) return err;
+  OutParams down{static_cast<const int8_t*>(hq), static_cast<const float*>(hs),
+                 static_cast<const int8_t*>(woq), static_cast<const float*>(so),
+                 static_cast<const float*>(bo), static_cast<const float*>(t32),
+                 out, n, h, w, c, m};
+  const long long blocks = static_cast<long long>((rows + kOutRows - 1) / kOutRows) *
+                           ((c + kOutCols - 1) / kOutCols);
+  k6_conv_out<T><<<static_cast<unsigned>(blocks), q8::kThreads, out_smem, s>>>(down);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -851,12 +1055,11 @@ int launch_fp(const void* x, const void* g, const void* bln, const void* wu,
   if (err != cudaSuccess) return err;
   const void* up_in = sizeof(T) == 2 ? t : t32;
   ConvParams up{up_in, wu, nullptr, nullptr, static_cast<const float*>(bu),
-                nullptr, nullptr, nullptr, hidden, n, h, w, c, m};
+                nullptr, hidden, n, h, w, c, m};
   err = run_conv<T, kUpF>(up, s);
   if (err != cudaSuccess) return err;
   ConvParams down{hidden, wo, nullptr, nullptr, static_cast<const float*>(bo),
-                  static_cast<const float*>(t32), nullptr, nullptr, out,
-                  n, h, w, m, c};
+                  static_cast<const float*>(t32), out, n, h, w, m, c};
   return run_conv<T, kOutF>(down, s);
 }
 
@@ -892,31 +1095,34 @@ int conv3x3_q8_frame_forward(const void* x, const void* wq, const void* ws,
 // K6: one ExtraConvs layer with per-pixel int8 scales. x [n, h, w, c] (NHWC)
 // in the model dtype; g, bln [c], bu [m], bo [c] float32; wuq int8
 // [m, 3, 3, c] and woq int8 [c, 3, 3, m] with float32 scales su [m], so [c];
-// scratch t32 float32 [rows, c], pixel_amax and cs float32 [rows], hidden
-// float32 [rows, m], hidden_amax int32 [rows], hq int8 [rows, m], hs float32
-// [rows] (rows = n*h*w); out [n, h, w, c] in the model dtype. c % 16 == 0,
-// m % 64 == 0.
+// scratch t32 float32 [rows, c], pixel_amax and cs float32 [rows], hq int8
+// [rows, m], hs float32 [rows] (rows = n*h*w); hidden: null, or float32
+// [rows, m] to receive the hidden that conv_up quantizes; out [n, h, w, c]
+// in the model dtype. c % 16 == 0, m % 64 == 0. up_smem and out_smem: the
+// dynamic shared memory of conv_up and conv_out as the caller's launch plan
+// gives it; a plan that disagrees with the kernels' is refused.
 int extra_convs_q8_pixel_forward(const void* x, const void* g, const void* bln,
                                  const void* wuq, const void* su, const void* bu,
                                  const void* woq, const void* so, const void* bo,
                                  void* t32, void* pixel_amax, void* cs,
-                                 void* hidden, void* hidden_amax, void* hq,
-                                 void* hs, void* out, int n, int h, int w, int c,
-                                 int m, int dtype, void* stream) {
+                                 void* hidden, void* hq, void* hs, void* out,
+                                 int n, int h, int w, int c, int m, int up_smem,
+                                 int out_smem, int dtype, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || m <= 0 || c % 16 != 0 ||
-      m % kBK != 0) {
+      m % q8::kPanel != 0 || static_cast<size_t>(up_smem) != up_smem_bytes(c) ||
+      static_cast<size_t>(out_smem) != out_smem_bytes()) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_pixel<float>(x, g, bln, wuq, su, bu, woq, so, bo, t32,
-                               pixel_amax, cs, hidden, hidden_amax, hq, hs, out,
-                               n, h, w, c, m, s);
+                               pixel_amax, cs, hidden, hq, hs, out, n, h, w, c,
+                               m, s);
   }
   if (dtype == 1) {
     return launch_pixel<bf16>(x, g, bln, wuq, su, bu, woq, so, bo, t32,
-                              pixel_amax, cs, hidden, hidden_amax, hq, hs, out,
-                              n, h, w, c, m, s);
+                              pixel_amax, cs, hidden, hq, hs, out, n, h, w, c,
+                              m, s);
   }
   return cudaErrorInvalidValue;
 }

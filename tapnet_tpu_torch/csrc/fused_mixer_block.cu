@@ -24,28 +24,36 @@
 // accumulation; fp32 on SIMT 64x64 tiles with 4x4 register blocks.
 //
 // The w8a8 block (mixer_block_q8_forward) replaces the same TPU kernel with
-// quantized=True (_mlp_operand, _mlp_hidden, _mlp_epilogue). Five launches:
+// quantized=True (_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225).
+// Two launches:
 //   (a') mixer_temporal<Q>: as (a), but LN2's float32 output is quantized per
 //        row (amax floored at 1e-8, x * (127 / amax), round half to even, clip
 //        to +-127) into int8 [rows*T, C] with its scale amax / 127.
-//   (b') mixer_gemm_q8<gelu>: int8 x int8 -> int32 on the tensor cores (WMMA
-//        s8 m16n16k16, 128x128x64 tiles through cp.async); the epilogue does
-//        acc * (xs * s1) + b1 and GELU in float32, writes the float32 hidden
-//        and raises the row's amax with atomicMax on the bits of |h| (ordered
-//        as integers for non-negative floats), because a row's amax spans
-//        every column tile.
-//   (c') mixer_quantize_rows: the hidden, from its float32 value, to int8 and
-//        its row scale.
-//   (d') mixer_gemm_q8<residual>: the second int8 product; the epilogue does
-//        acc * (hs * s2) + b2, rounds to the compute dtype, adds x1 and zeroes
-//        rows >= t_real.
+//   (b') mixer_mlp_q8: the whole channel MLP, one CTA per 64 rows, on the int8
+//        tile loop of q8_tile.cuh (wgmma on swizzled shared-memory panels).
+//        The 64 x C int8 operand stays in shared memory. Four warpgroups
+//        each take a quarter of the hidden columns (m64n32) and of the
+//        output columns (m64n64), and stream their W1 and W2 tiles through
+//        cp.async rings of their own, from different K tiles. Pass 1 walks
+//        W1's column chunks of 128 for each row's amax of
+//        gelu(acc * (xs * s1) + b1); the CTA sees whole rows, so no atomics,
+//        and a value whose exact bound (gelu(v) <= v, |gelu(v)| <= |v| / 2)
+//        cannot raise the amax skips its GELU. Pass 2 recomputes each chunk
+//        (one code site, every step rounded, so both passes give the same
+//        floats), quantizes it as the plain version does (v * (127 / amax))
+//        into shared memory and feeds it at once to the second product,
+//        whose int32 sums [64, C <= 512] stay in registers; the epilogue
+//        does acc * (hs * s2) + b2, rounds to the compute dtype, adds x1 and
+//        zeroes rows >= t_real. Neither the float32 hidden [rows*T, 4C] (262
+//        MB at [128, 250, 512]) nor its int8 form reaches device memory
+//        (debug pointers, null on the main path, store them for checks).
 // bf16 enters only at x, x1 and the output. Bound on the H100: 134 G integer
-// operations at 1979 TOP/s dense int8 (0.07 ms) against the activations'
-// bytes. What this first design gives away: the float32 hidden [rows*T, 4C]
-// (262 MB at [128, 250, 512]) is written and read once and its int8 form
-// again, about 0.25 ms of memory traffic at 3.35 TB/s, and WMMA reaches a
-// fraction of the int8 peak. A later design keeps a row block's whole hidden
-// on chip.
+// operations at 1979 TOP/s dense int8 (0.068 ms) against the activations'
+// bytes; pass 1 adds half again to the operations. What holds this design
+// back (PERF.md section 6): a 64-row CTA reads 3 MB of weights from L2 for
+// 403 M operations (134 a byte), and its epilogues (the GELU twice, on 16
+// warps with 128 registers each) run beside a loop that L2 feeds; the
+// temporal half (a') is a sixth of the block's time.
 //
 // Numerics as in the JAX kernel: LN eps 1e-5 with float32 statistics (LN1
 // single-pass, LN2 two-pass as in mixer_math.mlp_math), GELU tanh, float32
@@ -63,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "q8_tile.cuh"
 
 namespace {
 
@@ -108,16 +118,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Symmetric int8 quantization, as mixer_math.quantize_rows: the caller gives
-// inv = 127 / max(amax, 1e-8); the row's scale is max(amax, 1e-8) * (1 / 127).
-constexpr float kAmaxFloor = 1e-8f;
-constexpr float kInv127 = static_cast<float>(1.0 / 127.0);
-
-__device__ __forceinline__ int8_t quantize(float v, float inv) {
-  return static_cast<int8_t>(
-      fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f));
 }
 
 // Q: write the MLP operand as int8 rows (q_out, with q_scale [rows*T]) in
@@ -241,11 +241,14 @@ __global__ void __launch_bounds__(kThreads)
         src[k] = v;
         amax = fmaxf(amax, fabsf(v));
       }
-      amax = fmaxf(warp_max(amax), kAmaxFloor);
+      // As mixer_math.quantize_rows: scale max(amax, 1e-8) / 127.
+      amax = fmaxf(warp_max(amax), q8::kAmaxFloor);
       const float inv = 127.f / amax;
       int8_t* qdst = q_out + orow * c;
-      for (int k = lane; k < c; k += 32) qdst[k] = quantize(src[k], inv);
-      if (lane == 0) q_scale[orow] = amax * kInv127;
+      for (int k = lane; k < c; k += 32) {
+        qdst[k] = static_cast<int8_t>(q8::quantize_mul(src[k], inv));
+      }
+      if (lane == 0) q_scale[orow] = amax * q8::kInv127;
     } else {
       T* dst = mlp_in + orow * c;
       for (int k = lane; k < c; k += 32) {
@@ -335,20 +338,9 @@ __global__ void __launch_bounds__(256)
 
 // ---------------------------------- bf16 GEMM: C = A . W^T (WMMA, cp.async)
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using q8::cp_async16;
+using q8::cp_async_commit;
+using q8::cp_async_wait;
 
 constexpr int kBM = 128, kBN = 128, kBK = 32, kLds = kBK + 8;
 constexpr int kTileElems = kBM * kLds;  // per operand and stage (kBM == kBN)
@@ -440,178 +432,271 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ------------------------- int8 GEMM: C = A . W^T (WMMA s8, cp.async), w8a8
+// ------------------------------- the w8a8 channel MLP on the q8 tile loop
 
-template <typename T>
-struct EpilogueQ8 {
-  const float* row_scale;  // [m] activation scales
-  const float* col_scale;  // [n] weight scales
-  const T* bias;           // [n]
-  const T* resid;          // [m, n] (residual epilogue only)
-  float* hidden;           // [m, n] float32 (gelu epilogue only)
-  int* row_amax_bits;      // [m] bits of max |hidden| (gelu epilogue only)
-  T* out;                  // [m, n] (residual epilogue only)
-  int n;
-  int t_full;
-  int t_real;
-};
+// 64 rows per CTA, kMlpWgs warpgroups. Warpgroup w computes hidden columns
+// w*32 .. +31 of each 128-column chunk and output columns w*128 .. +127
+// (c <= 512), and streams its W1 tiles (32 weight rows by 256 bytes of K)
+// and W2 tiles (64 weight rows by 128 bytes), 8 KB each, through kMlpStages
+// stages of a ring of its own. fused_mixer_block.q8_launch_plan mirrors these numbers.
+constexpr int kMlpRows = 64, kMlpTile = 128, kMlpStages = 4, kMlpWgs = 4;
+constexpr int kMlpThreads = 128 * kMlpWgs;
+constexpr int kMlpW1Rows = kMlpTile / kMlpWgs;        // a warpgroup's hidden columns
+constexpr int kMlpW1K = 256;                           // bytes of K of a W1 tile
+constexpr int kMlpOutCols = 512 / kMlpWgs;            // its output columns
+constexpr int kMlpOutBlocks = kMlpOutCols / 64;       // as m64n64 blocks
 
-constexpr int kQBK = 64, kQLds = kQBK + 16;   // bytes per tile row
-constexpr int kQTileBytes = kBM * kQLds;      // per operand and stage
-constexpr int kQGemmSmem = 2 * 2 * kQTileBytes;  // 40960 B
-
-// Copies a 128 x 64 tile of a row-major [rows, k] int8 matrix (k % 16 == 0)
-// into shared memory with row stride kQLds; rows/columns past the end are 0.
-__device__ __forceinline__ void load_tile_q8(int8_t* dst, const int8_t* src,
-                                             int rows, int k, int r0, int k0) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int chunk = threadIdx.x + i * 256;  // 512 chunks of 16 bytes
-    const int r = chunk / 4, cc = (chunk % 4) * 16;
-    const bool pred = (r0 + r < rows) && (k0 + cc < k);
-    const int8_t* g = pred ? src + static_cast<size_t>(r0 + r) * k + k0 + cc : src;
-    cp_async16(dst + r * kQLds + cc, g, pred);
-  }
+// Dynamic shared memory, with the slack of q8::aligned_smem: the int8 operand
+// (ceil(c / 256) tiles of four panels), two buffers of a 128-column chunk of
+// the int8 hidden (two panels each), the rings (stages of 64 rows by 128
+// bytes), the warpgroups' amax partials [kMlpWgs][64], the operand's and the
+// hidden's row scales.
+size_t mlp_smem_bytes(int c) {
+  const size_t ktiles = (c + kMlpW1K - 1) / kMlpW1K;
+  return q8::kSmemAlign + ktiles * kMlpW1K * kMlpRows +
+         2 * 2 * kMlpRows * q8::kPanel + kMlpWgs * kMlpStages * kMlpRows * kMlpTile +
+         kMlpRows * sizeof(float) * (kMlpWgs + 2);
 }
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(256)
-    mixer_gemm_q8(const int8_t* __restrict__ a, const int8_t* __restrict__ wt,
-                  int m, int n, int k, EpilogueQ8<T> ep) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem_raw[kQGemmSmem];
-  int8_t* as = reinterpret_cast<int8_t*>(smem_raw);  // [2][kQTileBytes]
-  int8_t* ws = as + 2 * kQTileBytes;                 // [2][kQTileBytes]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm_ = warp / 4, wn_ = warp % 4;  // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+template <typename T>
+struct MlpParams {
+  const int8_t* xq;   // [m, c] the int8 operand (LN2 quantized per row)
+  const float* xs;    // [m]
+  const int8_t* w1q;  // [hid, c]
+  const float* s1;    // [hid]
+  const T* b1;        // [hid]
+  const int8_t* w2q;  // [c, hid]
+  const float* s2;    // [c]
+  const T* b2;        // [c]
+  const T* x1;        // [m, c] the residual
+  T* out;             // [m, c]
+  float* hidden;      // [m, hid] float32, or null (the main path)
+  int8_t* hq;         // [m, hid], or null
+  float* hs;          // [m], or null
+  int m, c, hid, t_full, t_real;
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+// y = x1 + (q(gelu(xq . W1^T * (xs * s1) + b1)) . W2^T * (hs * s2) + b2),
+// rows >= t_real of each time series zeroed. Pass 1 walks W1's column chunks
+// for each row's amax of the hidden; pass 2 walks them again, quantizes each
+// 64 x 128 chunk of the hidden into shared memory as mixer_math.quantize_rows
+// does (v * (127 / amax)), and feeds it at once to the second product, whose
+// int32 sums [64, 512] stay in registers. One code site computes the hidden
+// in both passes (the loops are not unrolled). The warpgroups wait on
+// barriers of their own (1 + w) for their rings and walk K from different
+// tiles, so that in pass 1 one's epilogue runs while the others multiply.
+// They meet between the passes (the amax) and, in pass 2, once a chunk
+// (barrier 6: every part of the int8 hidden chunk written; the buffers
+// alternate, so a chunk's is rewritten only after the next chunk's meeting,
+// when all have finished reading it).
+template <typename T>
+__global__ void __launch_bounds__(kMlpThreads, 1) mixer_mlp_q8(MlpParams<T> p) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  int8_t* smem = q8::aligned_smem(smem_raw);
+  constexpr int S = kMlpStages;
+  constexpr int kWg = 128;
+  constexpr int kStage = kMlpRows * kMlpTile;          // bytes of a stage
+  constexpr int kChunk = 2 * kMlpRows * q8::kPanel;    // bytes of a hidden chunk
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wtid = tid & (kWg - 1);
+  const int ktiles = (p.c + kMlpW1K - 1) / kMlpW1K;    // W1 tiles per chunk
+  const int nob = min(kMlpOutBlocks, max(0, (p.c - wg * kMlpOutCols + 63) / 64));
+  const int nch = (p.hid + kMlpTile - 1) / kMlpTile;   // hidden chunks
+  const int koff = wg * ktiles / kMlpWgs;               // its first K tile
+  const int tiles = nch * ktiles + nch * (ktiles + nob);
+  int8_t* xq_s = smem;
+  int8_t* hq_s = xq_s + ktiles * kMlpW1K * kMlpRows;  // [2][chunk]
+  int8_t* ring = hq_s + 2 * kChunk + wg * S * kStage;
+  float* s_part = reinterpret_cast<float*>(hq_s + 2 * kChunk + kMlpWgs * S * kStage);
+  float* s_xs = s_part + kMlpWgs * kMlpRows;
+  float* s_hs = s_xs + kMlpRows;
+  const int m0 = blockIdx.x * kMlpRows;
 
-  const int nk = (k + kQBK - 1) / kQBK;
-  load_tile_q8(as, a, m, k, m0, 0);
-  load_tile_q8(ws, wt, n, k, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile_q8(as + (cur ^ 1) * kQTileBytes, a, m, k, m0, (kt + 1) * kQBK);
-      load_tile_q8(ws + (cur ^ 1) * kQTileBytes, wt, n, k, n0, (kt + 1) * kQBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const signed char* at =
-        reinterpret_cast<const signed char*>(as + cur * kQTileBytes);
-    const signed char* bt =
-        reinterpret_cast<const signed char*>(ws + cur * kQTileBytes);
-#pragma unroll
-    for (int ks = 0; ks < kQBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], at + (wm_ * 64 + i * 16) * kQLds + ks, kQLds);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bt + (wn_ * 32 + j * 16) * kQLds + ks, kQLds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  // The operand rows, by the whole CTA, before the warpgroups part.
+  for (int s = 0; s < ktiles; ++s) {
+    q8::copy_panels<kMlpRows, kMlpW1K / q8::kPanel, kMlpThreads>(
+        xq_s + s * kMlpW1K * kMlpRows, p.xq, p.m, p.c, m0, s * kMlpW1K);
   }
+  q8::cp_async_commit();
+  for (int r = tid; r < kMlpRows; r += kMlpThreads) {
+    s_xs[r] = m0 + r < p.m ? p.xs[m0 + r] : 0.f;
+  }
+  q8::cp_async_wait<0>();
+  q8::fence_proxy_async();
+  __syncthreads();
 
-  // Epilogue through a per-warp 16x16 int staging tile (reusing the operand
-  // buffers). Lanes 0-15 and 16-31 each hold one row of the tile per step.
-  int* stage = reinterpret_cast<int*>(smem_raw) + warp * 256;
+  // Tile t of this warpgroup: pass 1 is chunk-major W1 tiles; in pass 2
+  // each chunk's W1 tiles are followed by its W2 tiles (output blocks).
+  auto issue = [&](int t) {
+    if (t < tiles) {
+      int8_t* dst = ring + (t % S) * kStage;
+      const bool first = t < nch * ktiles;
+      const int u = first ? t : t - nch * ktiles;
+      const int per = first ? ktiles : ktiles + nob;
+      const int j = u / per, v = u % per;
+      if (v < ktiles) {
+        q8::copy_panels<kMlpW1Rows, kMlpW1K / q8::kPanel, kWg>(
+            dst, p.w1q, p.hid, p.c, j * kMlpTile + wg * kMlpW1Rows,
+            ((v + koff) % ktiles) * kMlpW1K, wtid);
+      } else {
+        q8::copy_panels<kMlpRows, 2, kWg>(dst, p.w2q, p.c, p.hid,
+                                          wg * kMlpOutCols + (v - ktiles) * 64,
+                                          j * kMlpTile, wtid);
+      }
+    }
+    q8::cp_async_commit();
+  };
+  for (int t = 0; t < S - 2; ++t) issue(t);
+
+  // This thread holds rows r0 and r0 + 8 of the block.
+  const int r0 = (warp & 3) * 16 + (lane >> 2), tq = lane & 3;
+  int acc1[kMlpW1Rows / 2];
+  int acc2[kMlpOutBlocks][32];
+  float amax[2] = {0.f, 0.f};
+  int t = 0;
+
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      // The warpgroups' row amaxes meet.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+      for (int half = 0; half < 2; ++half) {
+        float a = amax[half];
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 1));
+        a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, 2));
+        if (tq == 0) s_part[wg * kMlpRows + r0 + half * 8] = a;
+      }
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int j = 0; j < nch; ++j) {
+#pragma unroll 1
+      for (int s = 0; s < ktiles; ++s, ++t) {
+        q8::ring_wait<S>(1 + wg, kWg);
+        issue(t + S - 2);
+        const int8_t* stage = ring + (t % S) * kStage;
+        const int8_t* a = xq_s + ((s + koff) % ktiles) * kMlpW1K * kMlpRows;
+        q8::fence_regs<kMlpW1Rows / 2>(acc1);
+        q8::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = m0 + wm_ * 64 + i * 16 + e / 16;
-        const int col = n0 + wn_ * 32 + j * 16 + e % 16;
-        const bool ok = row < m && col < n;
-        float habs = 0.f;
-        if (ok) {
-          const size_t idx = static_cast<size_t>(row) * ep.n + col;
-          const float scale = __fmul_rn(ep.row_scale[row], ep.col_scale[col]);
-          const float v = __fadd_rn(
-              __fmul_rn(static_cast<float>(stage[e]), scale), to_f(ep.bias[col]));
-          if (EPI == kEpiGelu) {
-            const float hval = gelu_tanh(v);
-            ep.hidden[idx] = hval;
-            habs = fabsf(hval);
-          } else {
-            const bool valid = (row % ep.t_full) < ep.t_real;
-            const float y = round_to<T>(v);
-            ep.out[idx] = from_f<T>(valid ? to_f(ep.resid[idx]) + y : 0.f);
+        for (int pp = 0; pp < kMlpW1K / q8::kPanel; ++pp) {
+          q8::wg_panel<kMlpW1Rows>(acc1, a + pp * kMlpRows * q8::kPanel,
+                                   stage + pp * kMlpW1Rows * q8::kPanel,
+                                   s != 0 || pp != 0);
+        }
+        q8::wgmma_commit();
+        q8::wgmma_wait<1>();
+      }
+      q8::wgmma_wait<0>();
+      q8::fence_regs<kMlpW1Rows / 2>(acc1);
+      // The hidden chunk: pass 1 takes each row's amax, pass 2 quantizes it
+      // into this chunk's buffer of hq_s.
+      int8_t* chunk = hq_s + (j & 1) * kChunk;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + half * 8;
+        const int row = m0 + r;
+        float inv = 0.f;
+        if (pass == 1) {
+          float a = s_part[r];
+#pragma unroll
+          for (int w = 1; w < kMlpWgs; ++w) a = fmaxf(a, s_part[w * kMlpRows + r]);
+          a = fmaxf(a, q8::kAmaxFloor);
+          inv = __fdiv_rn(127.f, a);
+          if (j == 0 && wg == 0 && tq == 0) {
+            s_hs[r] = __fmul_rn(a, q8::kInv127);
+            if (p.hs != nullptr && row < p.m) p.hs[row] = s_hs[r];
           }
         }
-        if (EPI == kEpiGelu) {
 #pragma unroll
-          for (int o = 8; o > 0; o >>= 1) {
-            habs = fmaxf(habs, __shfl_xor_sync(0xffffffffu, habs, o));
+        for (int jj = 0; jj < kMlpW1Rows / 8; ++jj) {
+          const int cc = wg * kMlpW1Rows + jj * 8 + tq * 2;  // column in the chunk
+          const int col = j * kMlpTile + cc;
+          float hv[2] = {0.f, 0.f};
+          int q[2] = {0, 0};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= p.hid) continue;
+            const float scale = __fmul_rn(s_xs[r], p.s1[col + e]);
+            const float v = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc1[4 * jj + 2 * half + e]), scale),
+                to_f(p.b1[col + e]));
+            // Pass 1 skips the values that cannot raise the amax.
+            if (pass == 1 || (row < p.m && q8::gelu_bound(v) > amax[half])) {
+              hv[e] = q8::gelu_rn(v);
+              if (pass == 0) amax[half] = fmaxf(amax[half], fabsf(hv[e]));
+              q[e] = q8::quantize_mul(hv[e], inv);
+            }
           }
-          if ((lane & 15) == 0 && row < m) {
-            atomicMax(ep.row_amax_bits + row, __float_as_int(habs));
+          if (pass == 0) continue;
+          *reinterpret_cast<uint16_t*>(chunk + (cc >> 6) * kMlpRows * q8::kPanel +
+                                       q8::panel_offset(r, (cc & 63) >> 4) +
+                                       (cc & 15)) = q8::pack2(q[0], q[1]);
+          if (row < p.m && col < p.hid) {
+            const size_t o = static_cast<size_t>(row) * p.hid + col;
+            if (p.hq != nullptr) {
+              *reinterpret_cast<uint16_t*>(p.hq + o) = q8::pack2(q[0], q[1]);
+            }
+            if (p.hidden != nullptr) {
+              *reinterpret_cast<float2*>(p.hidden + o) = make_float2(hv[0], hv[1]);
+            }
           }
         }
       }
-      __syncwarp();
+      if (pass == 0) continue;
+      // Every part of the chunk written, then its share of the second
+      // product, one output block per tile.
+      q8::fence_proxy_async();
+      q8::bar_sync(1 + kMlpWgs, kMlpThreads);
+#pragma unroll
+      for (int ob = 0; ob < kMlpOutBlocks; ++ob) {
+        if (ob >= nob) break;
+        q8::ring_wait<S>(1 + wg, kWg);
+        issue(t + S - 2);
+        const int8_t* stage = ring + (t % S) * kStage;
+        q8::fence_regs<32>(acc2[ob]);
+        q8::wgmma_fence();
+        q8::wg_panel<64>(acc2[ob], chunk, stage, j != 0);
+        q8::wg_panel<64>(acc2[ob], chunk + kMlpRows * q8::kPanel,
+                         stage + kMlpRows * q8::kPanel, 1);
+        q8::wgmma_commit();
+        q8::wgmma_wait<1>();
+        ++t;
+      }
     }
   }
-}
+  q8::wgmma_wait<0>();
+#pragma unroll
+  for (int ob = 0; ob < kMlpOutBlocks; ++ob) q8::fence_regs<32>(acc2[ob]);
 
-// One warp per row: h [m, n] float32 -> int8 with the row's scale, from the
-// amax that the first product's epilogue gathered.
-__global__ void __launch_bounds__(kThreads)
-    mixer_quantize_rows(const float* __restrict__ h,
-                        const int* __restrict__ row_amax_bits,
-                        int8_t* __restrict__ q, float* __restrict__ q_scale,
-                        int m, int n) {
-  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= m) return;
-  const float amax = fmaxf(__int_as_float(row_amax_bits[row]), kAmaxFloor);
-  const float inv = 127.f / amax;
-  const float* src = h + static_cast<size_t>(row) * n;
-  int8_t* dst = q + static_cast<size_t>(row) * n;
-  if (n % 4 == 0) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    char4* dst4 = reinterpret_cast<char4*>(dst);
-    for (int k = lane; k < n / 4; k += 32) {
-      const float4 v = src4[k];
-      char4 o;
-      o.x = quantize(v.x, inv);
-      o.y = quantize(v.y, inv);
-      o.z = quantize(v.z, inv);
-      o.w = quantize(v.w, inv);
-      dst4[k] = o;
+  // y = acc2 * (hs * s2) + b2, rounded to T, + x1; rows >= t_real zeroed.
+#pragma unroll
+  for (int ob = 0; ob < kMlpOutBlocks; ++ob) {
+    if (ob >= nob) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + half * 8;
+      const int row = m0 + r;
+      if (row >= p.m) continue;
+      const bool valid = (row % p.t_full) < p.t_real;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = wg * kMlpOutCols + ob * 64 + jj * 8 + tq * 2 + e;
+          if (col >= p.c) continue;
+          const size_t idx = static_cast<size_t>(row) * p.c + col;
+          const float scale = __fmul_rn(s_hs[r], p.s2[col]);
+          const float v = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc2[ob][4 * jj + 2 * half + e]), scale),
+              to_f(p.b2[col]));
+          const float y = round_to<T>(v);
+          p.out[idx] = from_f<T>(valid ? to_f(p.x1[idx]) + y : 0.f);
+        }
+      }
     }
-  } else {
-    for (int k = lane; k < n; k += 32) dst[k] = quantize(src[k], inv);
   }
-  if (lane == 0) q_scale[row] = amax * kInv127;
-}
-
-template <typename T, int EPI>
-cudaError_t run_gemm_q8(const int8_t* a, const int8_t* wt, int m, int n, int k,
-                        EpilogueQ8<T> ep, cudaStream_t s) {
-  if (k % 16 != 0) return cudaErrorInvalidValue;
-  dim3 blocks((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  mixer_gemm_q8<T, EPI><<<blocks, 256, 0, s>>>(a, wt, m, n, k, ep);
-  return cudaGetLastError();
 }
 
 template <typename T, int K, bool Q>
@@ -645,37 +730,27 @@ int launch_q8(const void* x, const void* g1, const void* wu, const void* bu,
               const void* wm, const void* bm, const void* g2, const void* w1q,
               const void* s1, const void* b1, const void* w2q, const void* s2,
               const void* b2, void* x1, void* xq, void* xs, void* hidden,
-              void* hmax, void* hq, void* hs, void* out, int rows, int t_full,
-              int t_real, int c, int hid, int mult, int causal,
-              cudaStream_t s) {
+              void* hq, void* hs, void* out, int rows, int t_full, int t_real,
+              int c, int hid, int mult, int causal, cudaStream_t s) {
   cudaError_t err = run_temporal<T, 3, true>(
       x, g1, wu, bu, wm, bm, g2, x1, nullptr, xq, xs, rows, t_full, t_real, c,
       mult, causal, s);
   if (err != cudaSuccess) return err;
   const int mrows = rows * t_full;
-  err = cudaMemsetAsync(hmax, 0, sizeof(int) * mrows, s);
+  const size_t smem = mlp_smem_bytes(c);
+  err = cudaFuncSetAttribute(mixer_mlp_q8<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  EpilogueQ8<T> up{static_cast<const float*>(xs), static_cast<const float*>(s1),
-                   static_cast<const T*>(b1), nullptr,
-                   static_cast<float*>(hidden), static_cast<int*>(hmax),
-                   nullptr, hid, t_full, t_real};
-  err = run_gemm_q8<T, kEpiGelu>(static_cast<const int8_t*>(xq),
-                                 static_cast<const int8_t*>(w1q), mrows, hid, c,
-                                 up, s);
-  if (err != cudaSuccess) return err;
-  const int qblocks = (mrows + kThreads / 32 - 1) / (kThreads / 32);
-  mixer_quantize_rows<<<qblocks, kThreads, 0, s>>>(
-      static_cast<const float*>(hidden), static_cast<const int*>(hmax),
-      static_cast<int8_t*>(hq), static_cast<float*>(hs), mrows, hid);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  EpilogueQ8<T> down{static_cast<const float*>(hs),
-                     static_cast<const float*>(s2), static_cast<const T*>(b2),
-                     static_cast<const T*>(x1), nullptr, nullptr,
-                     static_cast<T*>(out), c, t_full, t_real};
-  return run_gemm_q8<T, kEpiResidual>(static_cast<const int8_t*>(hq),
-                                      static_cast<const int8_t*>(w2q), mrows, c,
-                                      hid, down, s);
+  MlpParams<T> prm{static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+                   static_cast<const int8_t*>(w1q), static_cast<const float*>(s1),
+                   static_cast<const T*>(b1), static_cast<const int8_t*>(w2q),
+                   static_cast<const float*>(s2), static_cast<const T*>(b2),
+                   static_cast<const T*>(x1), static_cast<T*>(out),
+                   static_cast<float*>(hidden), static_cast<int8_t*>(hq),
+                   static_cast<float*>(hs), mrows, c, hid, t_full, t_real};
+  mixer_mlp_q8<T><<<(mrows + kMlpRows - 1) / kMlpRows, kMlpThreads, smem, s>>>(prm);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -766,33 +841,38 @@ int mixer_block_forward(const void* x, const void* g1, const void* wu,
 
 // The block with the w8a8 channel MLP. x, g1, wu, bu, wm, bm, g2, b1, b2 as
 // above in the compute dtype; w1q [hid, c] and w2q [c, hid] int8 (Linear
-// layout, 16-byte aligned, c and hid multiples of 16) with their float32
-// column scales s1 [hid], s2 [c]; scratch x1 [rows, t_full, c] (compute
-// dtype), xq int8 [rows*t_full, c] with xs float32 [rows*t_full], hidden
-// float32 [rows*t_full, hid], hmax int32 [rows*t_full], hq int8
-// [rows*t_full, hid] with hs float32 [rows*t_full]; out [rows, t_full, c].
+// layout, 16-byte aligned, c and hid multiples of 16, c <= 512) with their
+// float32 column scales s1 [hid], s2 [c]; scratch x1 [rows, t_full, c]
+// (compute dtype), xq int8 [rows*t_full, c] with xs float32 [rows*t_full];
+// hidden (float32 [rows*t_full, hid]), hq (int8 [rows*t_full, hid]) and hs
+// (float32 [rows*t_full]): null on the main path, or the tensors to receive
+// the hidden that the MLP quantizes, its int8 form and row scales; out
+// [rows, t_full, c]. mlp_smem: the MLP kernel's dynamic shared memory as the
+// caller's launch plan gives it; a plan that disagrees is refused.
 int mixer_block_q8_forward(const void* x, const void* g1, const void* wu,
                            const void* bu, const void* wm, const void* bm,
                            const void* g2, const void* w1q, const void* s1,
                            const void* b1, const void* w2q, const void* s2,
                            const void* b2, void* x1, void* xq, void* xs,
-                           void* hidden, void* hmax, void* hq, void* hs,
-                           void* out, int rows, int t_full, int t_real, int c,
-                           int hid, int mult, int k, int causal, int dtype,
-                           void* stream) {
+                           void* hidden, void* hq, void* hs, void* out,
+                           int rows, int t_full, int t_real, int c, int hid,
+                           int mult, int k, int causal, int mlp_smem,
+                           int dtype, void* stream) {
   if (k != 3 || rows <= 0 || t_full <= 0 || t_real < 0 || t_real > t_full ||
-      c <= 0 || hid <= 0 || mult <= 0 || c % 16 != 0 || hid % 16 != 0) {
+      c <= 0 || hid <= 0 || mult <= 0 || c % 16 != 0 || hid % 16 != 0 ||
+      c > kMlpWgs * kMlpOutCols ||
+      static_cast<size_t>(mlp_smem) != mlp_smem_bytes(c)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_q8<float>(x, g1, wu, bu, wm, bm, g2, w1q, s1, b1, w2q, s2,
-                            b2, x1, xq, xs, hidden, hmax, hq, hs, out, rows,
-                            t_full, t_real, c, hid, mult, causal, s);
+                            b2, x1, xq, xs, hidden, hq, hs, out, rows, t_full,
+                            t_real, c, hid, mult, causal, s);
   }
   if (dtype == 1) {
     return launch_q8<bf16>(x, g1, wu, bu, wm, bm, g2, w1q, s1, b1, w2q, s2, b2,
-                           x1, xq, xs, hidden, hmax, hq, hs, out, rows, t_full,
+                           x1, xq, xs, hidden, hq, hs, out, rows, t_full,
                            t_real, c, hid, mult, causal, s);
   }
   return cudaErrorInvalidValue;

@@ -6,7 +6,8 @@ into `_build/<name>-<hash>.so` with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-keyed by a hash of the source and the flags, and is loaded with `ctypes`.
+keyed by a hash of the source, the shared headers `csrc/*.cuh` and the
+flags, and is loaded with `ctypes`.
 The build happens at the first CUDA launch of a kernel, never at import, so
 the package imports on machines without a CUDA toolchain. `load` builds one
 source; `build_all`, which `load` calls, starts one `nvcc` per source all
@@ -56,6 +57,9 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
   src = SRC_DIR / f"{name}.cu"
   digest = hashlib.sha256(src.read_bytes())
+  # The shared headers (csrc/*.cuh) too: a source may include any of them.
+  for header in sorted(SRC_DIR.glob("*.cuh")):
+    digest.update(header.read_bytes())
   digest.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -47,7 +47,7 @@ from tapnet_tpu_torch.ops import _build, qconv
 from tapnet_tpu_torch.ops.mixer_math import gelu
 
 # Number of CUDA launches made through `extra_convs_layer`, one per layer
-# call: K6 (its six kernels count once) and K6f (three kernels).
+# call: K6 (its four kernels count once) and K6f (three kernels).
 LAUNCHES = 0
 LAUNCHES_FP = 0
 
@@ -420,51 +420,103 @@ def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
   return out
 
 
+# K6's launch plan, as csrc/extra_convs.cu launches it (kUpRows, kUpCols,
+# kUpStages, kOutRows, kOutCols, kOutStages, up_smem_bytes, out_smem_bytes):
+# conv_up takes 64 output pixels per CTA with their quantized 3x3xC patches
+# resident in shared memory and walks all M columns in steps of 128 (twice:
+# the hidden's amax, then its int8 values), alternate steps to each of its two
+# warpgroups, each with a ring of one-panel stages of its own; conv_out takes
+# 128 x 128 tiles with both operands through one ring. The kernels refuse a
+# plan whose shared memory differs from their own count.
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
+THREADS = 256
+_PANEL = 64  # bytes of K per panel row (csrc/q8_tile.cuh)
+_SMEM_ALIGN = 1024  # slack to align the panels (csrc/q8_tile.cuh)
+_UP_ROWS, _UP_COLS, _UP_STAGES = 64, 128, 5
+_OUT_ROWS, _OUT_COLS, _OUT_STAGES = 128, 128, 6
+_INT32_MAX = 2**31 - 1
+
+
+def q8_launch_plan(n, h, w, c, m, dtype=torch.bfloat16):
+  """How K6 launches on x [n, h, w, c] with hidden width m in `dtype`: the
+  rows per block, dynamic shared-memory bytes, grid and ring stages of
+  conv_up and conv_out. Raises for what the kernels do not take."""
+  if dtype not in qconv.DTYPES:
+    raise TypeError(
+        f"extra_convs_layer: x must be float32 or bfloat16, got {dtype}")
+  if min(n, h, w, c, m) <= 0:
+    raise ValueError(f"extra_convs_layer: empty shape {(n, h, w, c)}, M={m}")
+  if c % 16 or m % 64:
+    raise ValueError(
+        "extra_convs_layer: K6 needs C a multiple of 16 and the hidden width "
+        f"a multiple of 64, got {c} and {m}")
+  rows = n * h * w
+  if rows + _OUT_ROWS > _INT32_MAX:
+    raise ValueError(f"extra_convs_layer: {rows} pixels overflow the kernels' "
+                     "32-bit pixel index")
+  panels = -(-9 * c // _PANEL)
+  up_smem = (_SMEM_ALIGN + panels * _UP_ROWS * _PANEL
+             + 2 * _UP_STAGES * _UP_COLS * _PANEL + _UP_ROWS * 4 * (1 + 2)
+             + _UP_ROWS * 4 * 2)
+  out_smem = (_SMEM_ALIGN + _OUT_STAGES * (_OUT_ROWS + _OUT_COLS) * _PANEL
+              + _OUT_ROWS * 4 * 2)
+  if up_smem > SMEM_LIMIT:
+    raise ValueError(
+        f"extra_convs_layer: K6's conv_up keeps a 64-pixel block's 3x3x{c} "
+        f"patch in shared memory: {up_smem} bytes with its ring, over the "
+        f"{SMEM_LIMIT} a block may use (C <= 256 fits)")
+  return dict(
+      rows=rows,
+      up=dict(rows_per_block=_UP_ROWS, cols_per_step=_UP_COLS,
+              smem_bytes=up_smem, grid=-(-rows // _UP_ROWS),
+              stages=_UP_STAGES, threads=THREADS),
+      out=dict(rows_per_block=_OUT_ROWS, cols_per_block=_OUT_COLS,
+               smem_bytes=out_smem,
+               grid=-(-rows // _OUT_ROWS) * -(-c // _OUT_COLS),
+               stages=_OUT_STAGES, threads=THREADS),
+  )
+
+
 def _launch(x, g, bln, bu, bo, qweights, scratch=None):
   """K6 on the card. If `scratch` is a dict, the kernels' intermediates are
-  left in it (t32, the patch scales, the float32 hidden, the int8 hidden and
-  its pixel scales), for checks."""
+  left in it (t32, the patch scales, the float32 hidden that conv_up
+  quantizes, the int8 hidden and its pixel scales), for checks; without it
+  no float32 hidden exists."""
   global LAUNCHES
-  if x.dtype not in qconv.DTYPES:
-    raise TypeError(
-        f"extra_convs_layer: x must be float32 or bfloat16, got {x.dtype}")
   if x.ndim != 4 or not x.is_contiguous():
     raise ValueError("extra_convs_layer: x must be a contiguous [N, H, W, C]")
   n, h, w, c = x.shape
   wuq, su, woq, so = qweights
   m = wuq.shape[0]
+  plan = q8_launch_plan(n, h, w, c, m, x.dtype)
   dev = x.device
   qconv._check_int8_conv_weights("extra_convs_layer", wuq, su, c, dev)  # pylint: disable=protected-access
   qconv._check_int8_conv_weights("extra_convs_layer", woq, so, m, dev)  # pylint: disable=protected-access
   if woq.shape[0] != c:
     raise ValueError(f"extra_convs_layer: conv_out has {woq.shape[0]} outputs, x {c}")
-  if c % 16 or m % 64:
-    raise ValueError(
-        "extra_convs_layer: K6 needs C a multiple of 16 and the hidden width "
-        f"a multiple of 64, got {c} and {m}")
   for name, p, size in (("g", g, c), ("bln", bln, c), ("bu", bu, m), ("bo", bo, c)):
     if tuple(p.shape) != (size,) or p.device != dev:
       raise ValueError(f"extra_convs_layer: {name} must be [{size}] on {dev}")
   g32, bln32, bu32, bo32 = (p.float().contiguous() for p in (g, bln, bu, bo))
 
   lib = _build.load("extra_convs", qconv.SIGNATURES)
-  rows = n * h * w
+  rows = plan["rows"]
   f32 = dict(dtype=torch.float32, device=dev)
   t32 = torch.empty((rows, c), **f32)
   pixel_amax = torch.empty((rows,), **f32)
   patch_scale = torch.empty((rows,), **f32)
-  hidden = torch.empty((rows, m), **f32)
-  hidden_amax = torch.empty((rows,), dtype=torch.int32, device=dev)
+  hidden = None if scratch is None else torch.empty((rows, m), **f32)
   hq = torch.empty((rows, m), dtype=torch.int8, device=dev)
   hs = torch.empty((rows,), **f32)
   out = torch.empty_like(x)
+  ptr = lambda o: None if o is None else o.data_ptr()
   operands = (x, g32, bln32, wuq, su, bu32, woq, so, bo32, t32, pixel_amax,
-              patch_scale, hidden, hidden_amax, hq, hs, out)
+              patch_scale, hidden, hq, hs, out)
   stream = torch.cuda.current_stream(dev).cuda_stream
   with torch.cuda.device(dev):
     err = lib.extra_convs_q8_pixel_forward(
-        *[o.data_ptr() for o in operands], n, h, w, c, m,
-        qconv.DTYPES[x.dtype], stream,
+        *[ptr(o) for o in operands], n, h, w, c, m, plan["up"]["smem_bytes"],
+        plan["out"]["smem_bytes"], qconv.DTYPES[x.dtype], stream,
     )
   _build.check(lib, err, "extra_convs_q8_pixel_forward")
   LAUNCHES += 1

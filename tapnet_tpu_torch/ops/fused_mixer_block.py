@@ -45,7 +45,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "mixer_block_forward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
-    "mixer_block_q8_forward": [ctypes.c_void_p] * 21 + [ctypes.c_int] * 9
+    "mixer_block_q8_forward": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
 }
 
@@ -231,16 +231,74 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
   return out
 
 
+# K4's launch plan, as csrc/fused_mixer_block.cu launches it (kTileT,
+# kMlpRows, kMlpTile, kMlpStages, kMlpWgs, kMlpW1K, mlp_smem_bytes): the
+# temporal half, one block per row and 16 time steps; the channel MLP, one
+# CTA per 64 rows of rows*T, with the int8 operand, two buffers of a
+# 128-column chunk of the int8 hidden and, for each of its four warpgroups, a
+# ring of 8 KB W1 / W2 tiles in shared memory, and the second product's sums
+# for up to 512 output columns in registers. The kernel refuses a plan whose
+# shared memory differs from its own count.
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
+THREADS = 256
+_TILE_T = 16
+_PANEL = 64  # bytes of K per panel row (csrc/q8_tile.cuh)
+_SMEM_ALIGN = 1024  # slack to align the panels (csrc/q8_tile.cuh)
+_MLP_ROWS, _MLP_TILE, _MLP_STAGES, _MLP_WGS, _MLP_W1K = 64, 128, 4, 4, 256
+_MLP_MAX_C = 512  # output columns the MLP holds in registers, 128 a warpgroup
+_INT32_MAX = 2**31 - 1
+
+
+def q8_launch_plan(b, t, c, hid, dtype=torch.bfloat16):
+  """How the w8a8 block launches on x [b, t, c] with hidden width hid in
+  `dtype`: grid and dynamic shared memory of the temporal half, and rows per
+  block, shared-memory bytes, grid and ring stages of the channel MLP.
+  Raises for what the kernels do not take."""
+  if dtype not in _DTYPES:
+    raise TypeError(f"mixer_block: x must be float32 or bfloat16, got {dtype}")
+  if min(b, t, c, hid) <= 0:
+    raise ValueError(f"mixer_block: empty shape {(b, t, c)}, H={hid}")
+  if c % 16 or hid % 16:
+    raise ValueError("mixer_block: int8 kernel needs C and H multiples of 16")
+  if c > _MLP_MAX_C:
+    raise ValueError(
+        f"mixer_block: the int8 MLP holds at most {_MLP_MAX_C} output columns "
+        f"in registers, got C={c}")
+  rows = b * t
+  if rows + _MLP_ROWS > _INT32_MAX or b * -(-t // _TILE_T) > _INT32_MAX:
+    raise ValueError(f"mixer_block: {rows} rows overflow the kernels' grid")
+  temporal_smem = 4 * (_TILE_T + 2 * (3 - 1)) * c
+  ktiles = -(-c // _MLP_W1K)
+  mlp_smem = (_SMEM_ALIGN + ktiles * _MLP_W1K * _MLP_ROWS
+              + 2 * 2 * _MLP_ROWS * _PANEL
+              + _MLP_WGS * _MLP_STAGES * _MLP_ROWS * _MLP_TILE
+              + _MLP_ROWS * 4 * (_MLP_WGS + 2))
+  if max(temporal_smem, mlp_smem) > SMEM_LIMIT:
+    raise ValueError(f"mixer_block: C={c} needs more than the {SMEM_LIMIT} "
+                     "bytes of shared memory a block may use")
+  return dict(
+      rows=rows,
+      temporal=dict(grid=b * -(-t // _TILE_T), smem_bytes=temporal_smem,
+                    threads=THREADS),
+      mlp=dict(rows_per_block=_MLP_ROWS, smem_bytes=mlp_smem,
+               grid=-(-rows // _MLP_ROWS), stages=_MLP_STAGES,
+               threads=128 * _MLP_WGS),
+  )
+
+
 def _launch_q8(x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, causal, valid_len,
                scratch=None):
   """The block with the w8a8 channel MLP on the card. If `scratch` is a dict,
-  the kernels' intermediate tensors are left in it (x1, the int8 operand and
-  hidden with their row scales), for checks."""
+  the kernels' intermediate tensors are left in it (x1, the int8 operand with
+  its row scales, and the float32 hidden that the MLP quantizes with its int8
+  form and row scales), for checks; without it no hidden exists outside the
+  kernel."""
   global LAUNCHES_Q8
   w1q, s1, w2q, s2 = qweights
   hid = w1q.shape[1]
   b, t, t_real, c, mult, k = _check_launch(
       x, g1, wu, bu, wm, bm, g2, b1, b2, hid, valid_len)
+  plan = q8_launch_plan(b, t, c, hid, x.dtype)
   expected = {
       "w1q": (w1q, (c, hid), torch.int8), "s1": (s1, (hid,), torch.float32),
       "w2q": (w2q, (hid, c), torch.int8), "s2": (s2, (c,), torch.float32),
@@ -251,8 +309,6 @@ def _launch_q8(x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, causal, valid_len,
           f"mixer_block: {name} is {tuple(p.shape)} {p.dtype} on {p.device}, "
           f"expected {shape} {dtype} on {x.device}"
       )
-  if c % 16 or hid % 16:
-    raise ValueError("mixer_block: int8 kernel needs C and H multiples of 16")
   # Linear layout [out, in]; no copy when the caller kept that storage.
   w1q_t = w1q.t().contiguous()
   w2q_t = w2q.t().contiguous()
@@ -262,25 +318,26 @@ def _launch_q8(x, g1, wu, bu, wm, bm, g2, b1, b2, qweights, causal, valid_len,
 
   lib = _build.load("fused_mixer_block", _SIGNATURES)
   dev = x.device
-  rows = b * t
+  rows = plan["rows"]
   # Scratch comes from PyTorch's caching allocator: a stack of blocks takes
   # back, at each call, what the previous block's call released.
   x1 = torch.empty_like(x)
   xq = torch.empty((rows, c), dtype=torch.int8, device=dev)
   xs = torch.empty((rows,), dtype=torch.float32, device=dev)
-  hidden = torch.empty((rows, hid), dtype=torch.float32, device=dev)
-  hmax = torch.empty((rows,), dtype=torch.int32, device=dev)
-  hq = torch.empty((rows, hid), dtype=torch.int8, device=dev)
-  hs = torch.empty((rows,), dtype=torch.float32, device=dev)
+  hidden = hq = hs = None
+  if scratch is not None:
+    hidden = torch.empty((rows, hid), dtype=torch.float32, device=dev)
+    hq = torch.empty((rows, hid), dtype=torch.int8, device=dev)
+    hs = torch.empty((rows,), dtype=torch.float32, device=dev)
   out = torch.empty_like(x)
   stream = torch.cuda.current_stream(dev).cuda_stream
   operands = (x, g1, wu, bu, wm, bm, g2, w1q_t, s1, b1, w2q_t, s2, b2,
-              x1, xq, xs, hidden, hmax, hq, hs, out)
+              x1, xq, xs, hidden, hq, hs, out)
   with torch.cuda.device(dev):
     err = lib.mixer_block_q8_forward(
-        *[o.data_ptr() for o in operands],
-        b, t, t_real, c, hid, mult, k, int(bool(causal)), _DTYPES[x.dtype],
-        stream,
+        *[None if o is None else o.data_ptr() for o in operands],
+        b, t, t_real, c, hid, mult, k, int(bool(causal)),
+        plan["mlp"]["smem_bytes"], _DTYPES[x.dtype], stream,
     )
   _build.check(lib, err, "mixer_block_q8_forward")
   LAUNCHES_Q8 += 1

@@ -51,8 +51,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SIGNATURES = {
     "conv3x3_q8_frame_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 17
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 16
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "extra_convs_fp_forward": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }

@@ -182,8 +182,10 @@ def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize(
     "b,t,valid_len,c,hid", [(3, 13, None, 64, 256), (5, 37, 30, 128, 512),
-                            (2, 150, 141, 48, 208)],
-    ids=["one_tile", "tiles_valid_len", "ragged_widths"],
+                            (2, 150, 141, 48, 208), (2, 9, 7, 512, 2048),
+                            (4, 70, 65, 96, 336), (1, 5, None, 16, 16)],
+    ids=["one_tile", "tiles_valid_len", "ragged_widths", "served_width",
+         "hid_not_128", "tiny"],
 )
 def test_mixer_block_q8_kernel_matches_plain(cuda, dtype, causal, b, t,
                                              valid_len, c, hid):
@@ -244,6 +246,17 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     fused_mixer_block.mixer_block(
         x, p(8), p(3, 1, 32), p(32), p(3, 1, 32), p(32), p(8), p(8, 32),
         p(32), p(32, 8), p(8), quantized=True)
+  # H not a multiple of 16; C over the 512 output columns the MLP holds.
+  x = torch.zeros(1, 4, 32, device=cuda)
+  with pytest.raises(ValueError, match="multiples of 16"):
+    fused_mixer_block.mixer_block(
+        x, p(32), p(3, 1, 128), p(128), p(3, 1, 128), p(128), p(32), p(32, 24),
+        p(24), p(24, 32), p(32), quantized=True)
+  x = torch.zeros(1, 4, 528, device=cuda)
+  with pytest.raises(ValueError, match="output columns"):
+    fused_mixer_block.mixer_block(
+        x, p(528), p(3, 1, 2112), p(2112), p(3, 1, 2112), p(2112), p(528),
+        p(528, 64), p(64), p(64, 528), p(528), quantized=True)
 
 
 # ------------------------------------------------------- int8 ExtraConvs
@@ -285,8 +298,13 @@ def test_conv2d_q8_kernel_matches_plain(cuda, dtype, n, h, w, cin, cout):
   assert (err <= rel * ref.float().abs() + 1e-30).all(), float(err.max())
 
 
-# (n, h, w, C): K6 at C = 128 and 256 (M = 4C), odd H and W.
-EXTRA_Q8_SHAPES = [(2, 9, 7, 128), (1, 11, 13, 256), (3, 5, 5, 128)]
+# (n, h, w, C): K6 at C = 128 and 256 (M = 4C), odd H and W; the served
+# width at a few frames; a ragged W with C = 48 (a partial K panel: 9C is no
+# multiple of 64); C = 16 with frames smaller than a 64-pixel block, so a
+# block spans several frames. Every pixel count but 4x8x10 is no multiple of
+# the 64- and 128-pixel blocks.
+EXTRA_Q8_SHAPES = [(2, 9, 7, 128), (1, 11, 13, 256), (3, 5, 5, 128),
+                   (4, 8, 10, 256), (2, 6, 37, 48), (5, 3, 4, 16)]
 # The int8 hidden of K6 against the plain version's: at most this share one
 # step apart at all, this share more than one step apart, and
 # `fused_extra_convs.Q8_PIXEL_FLIP_SHARE` of any one pixel's values (the
@@ -305,7 +323,9 @@ def _extra_convs_args(cuda, dtype, n, h, w, c, seed=1):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,h,w,c", EXTRA_Q8_SHAPES, ids=["c128", "c256", "c128_5x5"])
+@pytest.mark.parametrize("n,h,w,c", EXTRA_Q8_SHAPES,
+                         ids=["c128", "c256", "c128_5x5", "served_width",
+                              "c48_ragged_w", "c16_small_frames"])
 def test_extra_convs_q8_kernel_matches_plain(cuda, dtype, n, h, w, c):
   """K6 against its plain version: the output within
   `fused_extra_convs.q8_error_limit`, the kernel's own int8 hidden within
@@ -433,6 +453,48 @@ def test_extra_convs_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     fused_extra_convs.extra_convs_layer(*args, True)
   with pytest.raises(ValueError, match="multiples of 16"):
     fused_extra_convs.extra_convs_layer(*args, False)
+  # K6: a hidden width no multiple of 64; a patch too wide for shared memory.
+  x, g, bln, wu, bu, wo, bo = _extra_convs_args(cuda, "float32", 1, 4, 4, 32)
+  with pytest.raises(ValueError, match="multiple of 64"):
+    fused_extra_convs.extra_convs_layer(
+        x, g, bln, wu[..., :96], bu[:96], wo[:, :, :96], bo, True)
+  args = _extra_convs_args(cuda, "float32", 1, 2, 2, 288)
+  with pytest.raises(ValueError, match="shared memory"):
+    fused_extra_convs.extra_convs_layer(*args, True)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K6"])
+def test_q8_kernels_keep_the_float32_hidden_off_device_memory(cuda, kernel):
+  """On the main path (no scratch), one call's peak allocation above its
+  inputs and output stays under the float32 hidden's rows * hidden * 4
+  bytes: neither wrapper allocates it, and the kernels keep it on chip."""
+  if kernel == "K4":
+    b, t, c, hid = 8, 250, 512, 2048
+    rng = np.random.RandomState(2)
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    args = [f(b, t, c), f(c), f(3, 1, 4 * c), f(4 * c), f(3, 1, 4 * c),
+            f(4 * c), f(c), f(c, hid) * 0.05, f(hid), f(hid, c) * 0.05, f(c)]
+    qweights = (*mixer_math.quantize_weight_cols(args[7]),
+                *mixer_math.quantize_weight_cols(args[9]))
+    call = lambda: fused_mixer_block.mixer_block(
+        *args, quantized=True, qweights=qweights)
+    rows = b * t
+  else:
+    x, g, bln, wu, bu, wo, bo = _extra_convs_args(cuda, "bfloat16", 16, 32, 32, 256)
+    qweights = fused_extra_convs.quantized_weights(wu, wo)
+    call = lambda: fused_extra_convs.extra_convs_layer(
+        x, g, bln, None, bu, None, bo, True, qweights=qweights)
+    rows, hid = x.shape[0] * x.shape[1] * x.shape[2], 4 * x.shape[-1]
+  call()  # the kernels' library is loaded before the measured call
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  out = call()
+  torch.cuda.synchronize()
+  over = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+  assert over < rows * hid * 4, (over, rows * hid * 4)
 
 
 # K5, the linear scan: the kernel makes the plain version's two roundings per

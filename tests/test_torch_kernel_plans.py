@@ -1,0 +1,212 @@
+"""PyTorch port: the launch plans of the int8 kernels K6 and K4, on the CPU.
+
+Each wrapper computes its launch plan in a pure function (rows per block,
+dynamic shared memory, grid, ring stages) that the kernels check against
+their own count. These tests hold the plans to the card's shared memory at
+the served and test shapes in both dtypes, to the constants of the CUDA
+sources, to the shapes the kernels refuse, and the wrappers' shape checks to
+the plans. No JAX, no card.
+"""
+
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tapnet_tpu_torch.ops import (  # noqa: E402
+    _build, fused_extra_convs, fused_mixer_block, mixer_math,
+)
+
+DTYPES = [torch.float32, torch.bfloat16]
+SMEM_LIMIT = 232_448  # the shared memory a block may use on the H100 (227 KB)
+
+# (n, h, w, C): the served grids of a 480x480 video, the card tests' shapes
+# (tests/test_torch_cuda.py), and the edges: a pixel count no multiple of a
+# block, frames smaller than a block, a partial K panel (C = 16, 48).
+K6_SHAPES = [(250, 60, 60, 256), (250, 32, 32, 256), (2, 9, 7, 128),
+             (1, 11, 13, 256), (3, 5, 5, 128), (4, 8, 10, 256), (2, 6, 37, 48),
+             (1, 3, 4, 16)]
+# (B, T, C, H): the served block, the card tests' shapes and the edges (H no
+# multiple of 128, C below a tile).
+K4_SHAPES = [(128, 250, 512, 2048), (3, 13, 64, 256), (5, 37, 128, 512),
+             (2, 150, 48, 208), (2, 9, 512, 2048), (4, 70, 96, 336)]
+
+
+def _source(name):
+  return (_build.SRC_DIR / name).read_text()
+
+
+def _constants(text, names):
+  """The integer values of `constexpr int` constants in a CUDA source."""
+  found = {}
+  for name in names:
+    match = re.search(rf"\b{name} = (\d+)", text)
+    assert match, name
+    found[name] = int(match.group(1))
+  return found
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w,c", K6_SHAPES)
+def test_k6_plan_fits_the_card(dtype, n, h, w, c):
+  plan = fused_extra_convs.q8_launch_plan(n, h, w, c, 4 * c, dtype)
+  rows = n * h * w
+  assert plan["rows"] == rows
+  for part in ("up", "out"):
+    assert 0 < plan[part]["smem_bytes"] <= SMEM_LIMIT
+    assert plan[part]["threads"] == 256
+    assert plan[part]["stages"] >= 3
+  assert plan["up"]["grid"] * plan["up"]["rows_per_block"] >= rows
+  assert (plan["up"]["grid"] - 1) * plan["up"]["rows_per_block"] < rows
+  out = plan["out"]
+  assert out["grid"] == -(-rows // out["rows_per_block"]) * -(-c // out["cols_per_block"])
+  # conv_up keeps the whole 3x3xC patch of its block: 147,456 bytes at C=256.
+  assert plan["up"]["smem_bytes"] >= 64 * 9 * c
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,c,hid", K4_SHAPES)
+def test_k4_plan_fits_the_card(dtype, b, t, c, hid):
+  plan = fused_mixer_block.q8_launch_plan(b, t, c, hid, dtype)
+  rows = b * t
+  assert plan["rows"] == rows
+  for part in ("temporal", "mlp"):
+    assert 0 < plan[part]["smem_bytes"] <= SMEM_LIMIT
+  mlp = plan["mlp"]
+  assert mlp["grid"] == -(-rows // mlp["rows_per_block"])
+  assert plan["temporal"]["grid"] == b * -(-t // 16)
+  # The int8 operand of a block (64 x C) stays in shared memory.
+  assert mlp["smem_bytes"] >= mlp["rows_per_block"] * c
+
+
+def test_served_plans():
+  """The numbers PERF.md and the kernels' notes state for the served shapes."""
+  k6 = fused_extra_convs.q8_launch_plan(250, 60, 60, 256, 1024)
+  assert k6["up"]["grid"] == 14063 and k6["out"]["grid"] == 7032 * 2
+  assert k6["up"]["smem_bytes"] == 1024 + 147_456 + 2 * 5 * 128 * 64 + 64 * 4 * 5
+  k4 = fused_mixer_block.q8_launch_plan(128, 250, 512, 2048)
+  assert k4["mlp"]["grid"] == 500 and k4["temporal"]["grid"] == 128 * 16
+
+
+def test_plans_mirror_the_sources():
+  """The plans' tile sizes and stages are the CUDA sources' constants."""
+  up = _constants(_source("extra_convs.cu"),
+                  ["kUpRows", "kUpCols", "kUpStages", "kOutRows", "kOutCols",
+                   "kOutStages"])
+  assert (up["kUpRows"], up["kUpCols"], up["kUpStages"]) == (
+      fused_extra_convs._UP_ROWS, fused_extra_convs._UP_COLS,  # pylint: disable=protected-access
+      fused_extra_convs._UP_STAGES)  # pylint: disable=protected-access
+  assert (up["kOutRows"], up["kOutCols"], up["kOutStages"]) == (
+      fused_extra_convs._OUT_ROWS, fused_extra_convs._OUT_COLS,  # pylint: disable=protected-access
+      fused_extra_convs._OUT_STAGES)  # pylint: disable=protected-access
+  mlp = _constants(_source("fused_mixer_block.cu"),
+                   ["kMlpRows", "kMlpTile", "kMlpStages", "kMlpWgs", "kMlpW1K",
+                    "kTileT"])
+  assert (mlp["kMlpRows"], mlp["kMlpTile"], mlp["kMlpStages"], mlp["kMlpWgs"],
+          mlp["kMlpW1K"], mlp["kTileT"]) == (
+              fused_mixer_block._MLP_ROWS, fused_mixer_block._MLP_TILE,  # pylint: disable=protected-access
+              fused_mixer_block._MLP_STAGES, fused_mixer_block._MLP_WGS,  # pylint: disable=protected-access
+              fused_mixer_block._MLP_W1K, fused_mixer_block._TILE_T)  # pylint: disable=protected-access
+  tile = _constants(_source("q8_tile.cuh"), ["kThreads", "kPanel", "kSmemAlign"])
+  assert tile["kThreads"] == fused_extra_convs.THREADS
+  assert tile["kPanel"] == fused_extra_convs._PANEL == fused_mixer_block._PANEL  # pylint: disable=protected-access
+  assert (tile["kSmemAlign"] == fused_extra_convs._SMEM_ALIGN  # pylint: disable=protected-access
+          == fused_mixer_block._SMEM_ALIGN)  # pylint: disable=protected-access
+
+
+# Shapes the kernels refuse, with the error and a fragment of its message.
+K6_REFUSED = [
+    ((1, 4, 4, 24, 96, torch.float32), ValueError, "multiple of 16"),
+    ((1, 4, 4, 32, 96, torch.float32), ValueError, "multiple of 64"),
+    ((1, 4, 4, 288, 1152, torch.float32), ValueError, "shared memory"),
+    ((0, 4, 4, 32, 128, torch.float32), ValueError, "empty"),
+    ((1, 4, 4, 32, 128, torch.float16), TypeError, "float32 or bfloat16"),
+]
+K4_REFUSED = [
+    ((2, 5, 8, 32, torch.float32), ValueError, "multiples of 16"),
+    ((2, 5, 32, 24, torch.float32), ValueError, "multiples of 16"),
+    ((2, 5, 528, 2112, torch.float32), ValueError, "output columns"),
+    ((2, 0, 32, 128, torch.float32), ValueError, "empty"),
+    ((2, 5, 32, 128, torch.float16), TypeError, "float32 or bfloat16"),
+]
+
+
+@pytest.mark.parametrize("args,error,match", K6_REFUSED,
+                         ids=["c24", "m96", "c288_smem", "empty", "fp16"])
+def test_k6_plan_refuses(args, error, match):
+  with pytest.raises(error, match=match):
+    fused_extra_convs.q8_launch_plan(*args)
+
+
+@pytest.mark.parametrize("args,error,match", K4_REFUSED,
+                         ids=["c8", "h24", "c528", "empty", "fp16"])
+def test_k4_plan_refuses(args, error, match):
+  with pytest.raises(error, match=match):
+    fused_mixer_block.q8_launch_plan(*args)
+
+
+class _Reached(Exception):
+  """Raised in place of loading a library: the wrapper passed its checks."""
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+  def reached(*args, **kwargs):
+    raise _Reached()
+  monkeypatch.setattr(_build, "load", reached)
+
+
+def _plan_outcome(plan, *args):
+  try:
+    plan(*args)
+  except (ValueError, TypeError) as err:
+    return type(err)
+  return _Reached
+
+
+# (n, h, w, C, M) for K6 and (B, T, C, H) for K4: shapes both take and
+# shapes both refuse. The wrapper sees CPU tensors; it must raise exactly
+# where the plan does, and otherwise reach the library.
+K6_WRAPPER_SHAPES = [(1, 3, 4, 16, 64), (2, 5, 5, 32, 128), (1, 3, 4, 24, 96),
+                     (1, 3, 4, 32, 96), (1, 2, 2, 288, 1152)]
+K4_WRAPPER_SHAPES = [(2, 5, 32, 128), (1, 7, 48, 208), (2, 5, 8, 32),
+                     (2, 5, 32, 24), (1, 3, 528, 2112)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w,c,m", K6_WRAPPER_SHAPES)
+def test_k6_wrapper_checks_agree_with_the_plan(no_library, dtype, n, h, w, c, m):  # pylint: disable=redefined-outer-name,unused-argument
+  gen = torch.Generator().manual_seed(0)
+  f = lambda *s: torch.randn(*s, generator=gen)
+  x = f(n, h, w, c).to(dtype)
+  qweights = fused_extra_convs.quantized_weights(f(3, 3, c, m), f(3, 3, m, c))
+  expected = _plan_outcome(fused_extra_convs.q8_launch_plan, n, h, w, c, m, dtype)
+  with pytest.raises(expected):
+    fused_extra_convs._launch(x, f(c), f(c), f(m), f(c), qweights)  # pylint: disable=protected-access
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,c,hid", K4_WRAPPER_SHAPES)
+def test_k4_wrapper_checks_agree_with_the_plan(no_library, dtype, b, t, c, hid):  # pylint: disable=redefined-outer-name,unused-argument
+  gen = torch.Generator().manual_seed(0)
+  f = lambda *s: torch.randn(*s, generator=gen).to(dtype)
+  args = [f(b, t, c), f(c), f(3, 1, 4 * c), f(4 * c), f(3, 1, 4 * c),
+          f(4 * c), f(c), f(hid), f(c)]
+  qweights = (*mixer_math.quantize_weight_cols(f(c, hid)),
+              *mixer_math.quantize_weight_cols(f(hid, c)))
+  expected = _plan_outcome(fused_mixer_block.q8_launch_plan, b, t, c, hid, dtype)
+  with pytest.raises(expected):
+    fused_mixer_block._launch_q8(*args, qweights, False, None)  # pylint: disable=protected-access
+
+
+def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
+  """A library's key changes with the headers its source may include."""
+  src = tmp_path / "csrc"
+  src.mkdir()
+  (src / "k.cu").write_text('#include "t.cuh"\n')
+  (src / "t.cuh").write_text("// one\n")
+  monkeypatch.setattr(_build, "SRC_DIR", src)
+  before = _build._library_path("k")  # pylint: disable=protected-access
+  (src / "t.cuh").write_text("// two\n")
+  assert _build._library_path("k") != before  # pylint: disable=protected-access

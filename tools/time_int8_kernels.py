@@ -1,0 +1,159 @@
+"""Times the int8 kernels of a checkout on the card, with each one's phases.
+
+X (`qconv.conv2d_q8`: conv_up and conv_out of one grid), K6
+(`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False) and
+K4 (`mixer_block`, quantized=True, at [128, 250, 512]) in bf16 and fp32, on
+seeded inputs scaled as chip_smoke.py scales them. For K6 and K4 it also
+splits one launch by kernel with torch.profiler: K6 into LayerNorm and patch
+scale, conv_up, conv_out; K4 into the temporal half and the MLP. Prints the
+card's name and power limit, then one JSON line: ms per call (CUDA events,
+the mean of `--reps` calls after two warm-up calls) and the splits.
+
+`--root` names the checkout whose `tapnet_tpu_torch` is timed (default: the
+one this file is in), so one script times two versions. To compare them on
+one card, run it for each in turn in one call, in the order A B B A:
+
+    python3 tools/time_int8_kernels.py --root path/to/other/checkout
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_ms(fn, reps):
+  for _ in range(2):
+    fn()
+  torch.cuda.synchronize()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+def split_ms(fn, phases):
+  """Device ms of one call of fn by phase (torch.profiler): phases maps a
+  name to kernel-name fragments; a kernel counts in the first phase it
+  matches, else `other`."""
+  from torch.profiler import ProfilerActivity, profile  # pylint: disable=import-outside-toplevel
+
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  out = {name: 0.0 for name in phases}
+  out["other"] = 0.0
+  for e in prof.key_averages():
+    if not str(e.device_type).endswith("CUDA"):
+      continue
+    us = getattr(e, "self_device_time_total", None)
+    if us is None:
+      us = e.self_cuda_time_total
+    name = next((n for n, keys in phases.items()
+                 if any(k in e.key for k in keys)), "other")
+    out[name] += us / 1e3
+  return out
+
+
+# Kernel-name fragments of each phase of K6 and K4 (chip_smoke.py's splits
+# too); the names of the designs before the shared int8 tile loop come
+# second, so that the tool splits an older checkout alike.
+K6_PHASES = {
+    "ln_and_patch_scale": ("ln_bias_rows", "patch_scale"),
+    "conv_up": ("k6_conv_up", "conv3x3_q8<float, 1>", "conv3x3_q8<__nv_bfloat16, 1>",
+                "quantize_rows"),
+    "conv_out": ("k6_conv_out", "conv3x3_q8<float, 2>", "conv3x3_q8<__nv_bfloat16, 2>"),
+}
+K4_PHASES = {
+    "temporal": ("mixer_temporal",),
+    "mlp": ("mixer_mlp_q8", "mixer_gemm_q8", "mixer_quantize_rows", "Memset"),
+}
+
+
+def main():
+  parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+  parser.add_argument("--root", default=ROOT)
+  parser.add_argument("--frames", type=int, default=250)
+  parser.add_argument("--grids", default="60,32")
+  parser.add_argument("--reps", type=int, default=5)
+  parser.add_argument("--seed", type=int, default=0)
+  args = parser.parse_args()
+  sys.path.insert(0, os.path.abspath(args.root))
+  from tapnet_tpu_torch.ops import (  # pylint: disable=import-outside-toplevel
+      fused_extra_convs, fused_mixer_block, mixer_math, qconv)
+
+  if not torch.cuda.is_available():
+    sys.exit("time_int8_kernels: no CUDA device")
+  card = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True, check=False).stdout.strip()
+  print(card, flush=True)
+  gen = torch.Generator(device="cuda").manual_seed(args.seed)
+  f = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+  c, m = 256, 1024
+  params = [f(c) * 0.2 + 1, f(c) * 0.1, f(3, 3, c, m) / (3 * c**0.5),
+            f(m) * 0.1, f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1]
+  g, bln, wu, bu, wo, bo = params
+  qweights = fused_extra_convs.quantized_weights(wu, wo)
+  wq_up = qconv.quantize_conv_weight(wu.permute(3, 2, 0, 1))
+  wq_out = qconv.quantize_conv_weight(wo.permute(3, 2, 0, 1))
+  mc = 512
+  mixer = [f(128, args.frames, mc), f(mc) * 0.2 + 1, f(3, 1, 4 * mc) * 0.3,
+           f(4 * mc) * 0.1, f(3, 1, 4 * mc) * 0.3, f(4 * mc) * 0.1,
+           f(mc) * 0.2 + 1, f(mc, 4 * mc) / mc**0.5, f(4 * mc) * 0.1,
+           f(4 * mc, mc) / (4 * mc)**0.5, f(mc) * 0.1]
+  mixer_q = []
+  for w in (mixer[7], mixer[9]):
+    q, scale = mixer_math.quantize_weight_cols(w)
+    mixer_q += [q.t().contiguous().t(), scale]
+  times, splits = {}, {}
+  for dtype in (torch.bfloat16, torch.float32):
+    name = str(dtype).replace("torch.", "")
+    for grid in (int(v) for v in args.grids.split(",")):
+      x = f(args.frames, grid, grid, c).to(dtype)
+      x_nchw = x.permute(0, 3, 1, 2)
+      hidden_nchw = mixer_math.gelu(f(args.frames, grid, grid, m)).to(dtype).permute(0, 3, 1, 2)
+      times[f"X conv_up {grid} {name}"] = time_ms(
+          lambda: qconv.conv2d_q8(x_nchw, None, bu, qweights=wq_up), args.reps)
+      times[f"X conv_out {grid} {name}"] = time_ms(
+          lambda: qconv.conv2d_q8(hidden_nchw, None, bo, qweights=wq_out),
+          args.reps)
+      del hidden_nchw
+      k6 = lambda: fused_extra_convs.extra_convs_layer(
+          x, g, bln, None, bu, None, bo, True, qweights=qweights)
+      times[f"K6 {grid} {name}"] = time_ms(k6, args.reps)
+      splits[f"K6 {grid} {name}"] = split_ms(k6, K6_PHASES)
+      times[f"K6f {grid} {name}"] = time_ms(
+          lambda: fused_extra_convs.extra_convs_layer(x, *params, False),
+          args.reps)
+      del x, x_nchw
+      torch.cuda.empty_cache()
+    margs = [a.to(dtype) for a in mixer]
+    k4 = lambda: fused_mixer_block.mixer_block(
+        *margs, False, None, quantized=True, qweights=tuple(mixer_q))
+    times[f"K4 {name}"] = time_ms(k4, 4 * args.reps)
+    splits[f"K4 {name}"] = split_ms(k4, K4_PHASES)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k4()
+    torch.cuda.synchronize()
+    times[f"K4 {name} peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
+  print(json.dumps(dict(card=card, root=os.path.abspath(args.root),
+                        frames=args.frames, ms=times, split_ms=splits)),
+        flush=True)
+
+
+if __name__ == "__main__":
+  main()
