@@ -15,9 +15,12 @@ Phases (any failure raises and exits non-zero):
      full-precision ExtraConvs layer (K6f, beside three faulty plain layers
      that its fp32 check must refuse). The int8 kernels' own int8 tensors
      are held against the plain version's too, beside wrong quantizations
-     as controls. K4's and K6's records split one launch by kernel
-     (torch.profiler): K4 into its temporal half and its MLP, K6 into
-     LayerNorm and patch scale, conv_up and conv_out, at each grid.
+     as controls; X's padded int8 frames must have a zero ring. The records
+     of K3 (bf16, served shape), K4, X and K6 split one launch by kernel
+     (torch.profiler): K3 into its temporal half and its two products, K4
+     into its temporal half and its MLP, X into its quantization and its
+     product, K6 into LayerNorm and patch scale, conv_up and conv_out, at
+     each grid. K3's served row also times cuBLAS's two bare products.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, in full precision and in the four int8 configurations
@@ -116,7 +119,7 @@ from tools.make_tapnext_golden import (  # noqa: E402
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
 from tools import make_tapnext_train_golden as train_golden  # noqa: E402
 from tools.time_int8_kernels import (  # noqa: E402
-    K4_PHASES, K6_PHASES, split_ms as kernel_split,
+    K3_PHASES, K4_PHASES, K6_PHASES, X_PHASES, split_ms as kernel_split,
 )
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
@@ -770,6 +773,11 @@ def check_conv_q8(dtype, gen, checks):
     scratch = {}
     qconv._launch_q8(x, qweights, b, scratch)  # pylint: disable=protected-access
     torch.cuda.synchronize()
+    # The padded frames' ring, which the GEMM's shifted boxes read, is zero.
+    ring = scratch["xq_padded"].clone()
+    ring[:, 1:-1, 1:-1] = 0
+    require(not bool(ring.any()), f"{name}: the padded operand's ring is not zero")
+    del ring
     xf = x.permute(0, 2, 3, 1).float()
     xq_ref, xs_ref = qconv.quantize_per_frame(xf)
     flips = int8_apart(scratch["xq"], xq_ref)
@@ -799,7 +807,7 @@ def check_conv_q8(dtype, gen, checks):
         int8_flip_controls=controls, ms=time_ms(run),
         plain_ms=time_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
         bound_by=b_by, nbytes=nbytes, flops=flops,
-        cudnn_same_shape_ms=cudnn_ms))
+        cudnn_same_shape_ms=cudnn_ms, split_ms=kernel_split(run, X_PHASES)))
     del x, k, b, qweights, k_dt, b_dt
     torch.cuda.empty_cache()
   checks.extend(records)
@@ -1212,12 +1220,27 @@ def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
     del limit
   nbytes, flops = mixer_bound(args)
   b_ms, b_by = bound_ms(nbytes, flops, dtype)
+  path = shape == MIXER_SHAPE and not causal
+  extra = {}
+  if path and dtype == torch.bfloat16:
+    # For context, the two bare products through cuBLAS (no temporal half,
+    # LayerNorm or epilogue), which the port never calls.
+    rows = args[0].reshape(-1, shape[-1])
+    hidden = torch.empty(rows.shape[0], args[7].shape[1], dtype=dtype,
+                         device="cuda")
+    extra = dict(
+        cublas_products_ms=time_ms(lambda: torch.matmul(rows, args[7]))
+        + time_ms(lambda: torch.matmul(hidden, args[9])),
+        cublas_note="torch.matmul of [32000, 512].[512, 2048] and "
+                    "[32000, 2048].[2048, 512] in bf16: a part of the "
+                    "function, not a library call for the whole of it",
+        split_ms=kernel_split(run, K3_PHASES))
+    del rows, hidden
   checks.append(dict(
-      kernel="mixer_block", dtype=name_dt,
-      path=shape == MIXER_SHAPE and not causal, causal=causal,
+      kernel="mixer_block", dtype=name_dt, path=path, causal=causal,
       shape=list(shape), max_abs_err=err, max_err_over_limit=over, tol=tol,
       ms=time_ms(run), plain_ms=time_ms(plain, reps=3),
-      bound_ms=b_ms, bound_by=b_by,
+      bound_ms=b_ms, bound_by=b_by, **extra,
   ))
   del args, out, ref, diff
   torch.cuda.empty_cache()
@@ -1272,6 +1295,8 @@ KERNEL_META = {
         replaces="tapnet_tpu/ops/fused_mixer_block.py:256",
         tpu_kernel="K3 fused_mixer_block._kernel (via _pallas_forward :318)",
         layer="K3/K4 mixer_block", run="serve",
+        loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (the two bf16 products, "
+             "mixer_gemm_tma)",
     ),
     "mixer_block_q8": dict(
         source="tapnet_tpu_torch/csrc/fused_mixer_block.cu",
@@ -1280,6 +1305,7 @@ KERNEL_META = {
                    "(_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225)",
         layer="K3/K4 mixer_block", run="serve_int8",
         also_runs=("serve_headline",),
+        loop="tapnet_tpu_torch/csrc/q8_tile.cuh (mixer_mlp_q8)",
     ),
     "extra_convs_q8_frame": dict(
         source="tapnet_tpu_torch/csrc/extra_convs.cu",
@@ -1287,6 +1313,7 @@ KERNEL_META = {
         tpu_kernel="(X) qconv.conv2d_q8_math, XLA's int8 convolution (no "
                    "Pallas kernel), per-frame scales",
         layer="int8 ExtraConvs (X, K6)", run="serve_headline",
+        loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (conv3x3_q8_tma)",
     ),
     "extra_convs_q8_pixel": dict(
         source="tapnet_tpu_torch/csrc/extra_convs.cu",
@@ -1294,6 +1321,7 @@ KERNEL_META = {
         tpu_kernel="K6 fused_extra_convs._kernel with quantized=True (via "
                    "_pallas_forward :261)",
         layer="int8 ExtraConvs (X, K6)", run="serve_int8_pp",
+        loop="tapnet_tpu_torch/csrc/q8_tile.cuh (k6_conv_up, k6_conv_out)",
     ),
     # No model path reaches K6f (JAX's gate demands the per-pixel mode): its
     # run is the trained ExtraConvs stack at the served grids.
@@ -1454,11 +1482,12 @@ def make_videos(count, queries=QUERIES):
 
 # Kernel-name fragments per layer, for the profile's breakdown; a kernel
 # counts in the first layer it matches.
-EXTRA_KERNELS = ("conv3x3_q8", "frame_amax", "quantize_frames", "ln_bias_rows",
-                 "patch_scale", "k6_conv_up", "k6_conv_out")
+EXTRA_KERNELS = ("conv3x3_q8_tma", "frame_amax", "quantize_frames",
+                 "ln_bias_rows", "patch_scale", "k6_conv_up", "k6_conv_out")
 LAYERS = (
     ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel")),
-    ("K3/K4 mixer_block", ("mixer_temporal", "mixer_gemm", "mixer_mlp_q8")),
+    ("K3/K4 mixer_block", ("mixer_temporal", "mixer_gemm_tma", "mixer_gemm_f32",
+                           "mixer_mlp_q8")),
     ("int8 ExtraConvs (X, K6)", EXTRA_KERNELS),
     ("convolutions (cuDNN, with its layout transforms)",
      ("conv", "fprop", "nchwtonhwc", "nhwctonchw")),
@@ -2365,6 +2394,7 @@ def main():
     kernels.append(dict(
         name=name, route="cuda", source=meta["source"],
         replaces=meta["replaces"], tpu_kernel=meta["tpu_kernel"],
+        **({"loop": meta["loop"]} if "loop" in meta else {}),
         launches=launches, launches_from=meta["run"], launches_per=per,
         max_abs_err=row["max_abs_err"],
         max_err_over_limit=row["max_err_over_limit"], tol=row["tol"],
@@ -2380,9 +2410,12 @@ def main():
         **({"ms_by_grid": row["ms_by_grid"],
             "split_ms_by_grid": row["split_ms_by_grid"]}
            if "ms_by_grid" in row else {}),
-        # X: cuDNN's bf16 convolution of the same shapes, for context only.
+        # X: cuDNN's bf16 convolution of the same shapes; K3: cuBLAS's two
+        # bare products; for context only.
         **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}
            if "cudnn_same_shape_ms" in row else {}),
+        **({"cublas_products_ms": row["cublas_products_ms"]}
+           if "cublas_products_ms" in row else {}),
         # K6f: the model's unfused float layer (cuDNN convolutions and
         # PyTorch elementwise passes), for context only.
         **({"production_layer_ms": row["production_layer_ms"]}

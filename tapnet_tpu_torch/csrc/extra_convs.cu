@@ -1,9 +1,10 @@
 // The ExtraConvs of BootsTAPIR, hand-written for Hopper (sm_90a). The
-// per-frame int8 convolution (X) and the float layer in bf16 (K6f) share one
-// implicit-GEMM loop (conv3x3_mma, on int8 or bf16 mma.sync); the float
-// layer in fp32 runs on the SIMT cores (see extra_convs_fp_forward below).
-// The per-pixel int8 layer (K6) runs on the int8 tile loop of q8_tile.cuh,
-// which K4 (csrc/fused_mixer_block.cu) shares.
+// per-frame int8 convolution (X) runs on the TMA + wgmma GEMM loop of
+// tma_gemm.cuh, which K3's bf16 products share; the float layer in bf16
+// (K6f) on an implicit-GEMM loop of its own (conv3x3_mma, mma.sync), in fp32
+// on the SIMT cores (see extra_convs_fp_forward below). The per-pixel int8
+// layer (K6) runs on the int8 tile loop of q8_tile.cuh, which K4
+// (csrc/fused_mixer_block.cu) shares.
 //
 // conv3x3_q8_frame_forward: the per-frame w8a8 SAME 3x3 stride-1 convolution
 // (quantized_extra_convs=True). It replaces XLA's int8 convolution of
@@ -12,24 +13,27 @@
 //   (1) frame_amax: max |x| over each frame's H*W*C (atomicMax on the bits of
 //       a non-negative float, ordered as integers);
 //   (2) quantize_frames: xq = clip(rint(x / xs), +-127), xs = max(amax, 1e-8)
-//       * (1/127), one scale per frame;
-//   (3) conv3x3_q8<kFrame>: y = acc * (xs[frame] * ws[col]) + b[col], cast to
-//       the model dtype.
-//
-// The implicit GEMM of X and K6f (conv3x3_mma): rows are output pixels (p =
-// (n*H + y)*W + x), columns output channels, K = 9 * C_in ordered tap-major
-// (k = tap*C_in + c, tap = (dy+1)*3 + (dx+1)); the weights are [C_out,
-// 9*C_in], one output channel per row. 128x128 tiles, K by 64 bytes, 8 warps
-// of 64x32, mma.sync (int8 m16n8k32 with int32 accumulation; bf16 m16n8k16),
-// operands double-buffered in shared memory by cp.async. A 64-byte K chunk
-// lies within one tap when C_in % 16 == 0, so each 16-byte piece of a row is
-// one contiguous read of the shifted pixel, or zeros outside the frame.
+//       * (1/127), one scale per frame, written as padded frames [N, H+2,
+//       W+2, C_in] with a zero ring;
+//   (3) conv3x3_q8_tma: the convolution as one GEMM over the padded raster
+//       (tg::gemm, s8 x s8 -> s32, 128 x 256 tiles), then y = acc *
+//       (xs[frame] * ws[col]) + b[col], cast to the model dtype, stored for
+//       the rows inside their frame only.
+// The padded slab: row p' = (n (H+2) + y') (W+2) + x' of the GEMM is a
+// padded pixel, and tap (dy, dx) of every row of a tile reads the rows p' +
+// dy (W+2) + dx of xq viewed as [N (H+2) (W+2), C_in]: one 2D TMA box at a
+// shifted row coordinate (TMA fills rows outside the tensor with zeros; a
+// row inside its frame never reads across the ring). K = 9 C_in tap-major,
+// in steps of 128 channels (zeros past C_in), the weights [C_out, 3, 3,
+// C_in] a 3D tensor map {C_in, 9, C_out}. The ring rows are computed and
+// dropped: 6.8% more work at 60x60, 13% at 32x32, the price of one box per
+// tap (ops/qconv.py::conv2d_q8_padded_slab emulates this indexing in
+// float64).
 //
 // Bound on the H100: operations. A 3x3 conv of [250, 60, 60] pixels from 256
 // to 1024 channels is 4.25 T int8 operations, 2.15 ms at 1979 TOP/s, against
-// 2.3 GB of bf16 activations (0.69 ms at 3.35 TB/s). What X's design gives
-// away: mma.sync without ldmatrix, TMA or wgmma reaches a fraction of the
-// int8 peak (ROADMAP Queue 2B).
+// 2.3 GB of bf16 activations (0.69 ms at 3.35 TB/s). PERF.md section 6 has
+// what the design reaches and what holds it back.
 //
 // extra_convs_q8_pixel_forward: K6, one whole ExtraConvs layer with per-pixel
 // int8 scales (quantized_extra_convs="per_pixel"). It replaces the Pallas TPU
@@ -98,8 +102,8 @@
 //   (c) conv3x3_<dtype><kOutF>: conv_out of the hidden, + bo, + t32 (the
 //       residual adds the float32 LN output, not t), cast to the model dtype.
 // Taps outside the frame read zeros, so the hidden of a pad pixel, which
-// would be gelu(bu), never exists. bf16: the int8 loop instantiated with
-// mma.sync m16n8k16 and float32 accumulation (a 64-byte K chunk is 32
+// would be gelu(bu), never exists. bf16: conv3x3_mma, an implicit GEMM on
+// mma.sync m16n8k16 with float32 accumulation (a 64-byte K chunk is 32
 // values).
 // fp32: IEEE float32 products on the SIMT cores (FFMA), not TF32, which
 // keeps 10 bits and could not hold the port's 1e-4. Bound: operations,
@@ -113,6 +117,7 @@
 #include <stdint.h>
 
 #include "q8_tile.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
@@ -163,7 +168,33 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ------------------------------------------------------- per-frame quantizer
 
-// amax_bits [n] zeroed by the caller; grid (blocks, n).
+// 16 consecutive values (64- or 32-byte aligned) as floats, in 16-byte loads.
+__device__ __forceinline__ void load16(const float* p, float* v) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 q = reinterpret_cast<const float4*>(p)[i];
+    v[4 * i] = q.x;
+    v[4 * i + 1] = q.y;
+    v[4 * i + 2] = q.z;
+    v[4 * i + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load16(const bf16* p, float* v) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[8 * i + 2 * k] = f.x;
+      v[8 * i + 2 * k + 1] = f.y;
+    }
+  }
+}
+
+// amax_bits [n] zeroed by the caller; 16 values per thread and step
+// (per_frame % 16 == 0, x 16-byte aligned); grid (blocks, n).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     frame_amax(const T* __restrict__ x, int* __restrict__ amax_bits,
@@ -171,9 +202,12 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float partial[kThreads / 32];
   const T* src = x + static_cast<long long>(blockIdx.y) * per_frame;
   float m = 0.f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < per_frame; i += static_cast<long long>(gridDim.x) * kThreads) {
-    m = fmaxf(m, fabsf(to_f(src[i])));
+  for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       g < per_frame / 16; g += static_cast<long long>(gridDim.x) * kThreads) {
+    float v[16];
+    load16(src + g * 16, v);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) m = fmaxf(m, fabsf(v[k]));
   }
   m = warp_max(m);
   if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = m;
@@ -185,30 +219,101 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// 16 values per thread and step (per_frame % 16 == 0); grid (blocks, n).
+// Writes the padded frames xq [n, h+2, w+2, c] (c % 16 == 0, x 16-byte
+// aligned): the quantized frame inside a ring of zeros, 16 values per thread
+// and step; grid (blocks, n).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     quantize_frames(const T* __restrict__ x, const int* __restrict__ amax_bits,
-                    int8_t* __restrict__ q, float* __restrict__ scale,
-                    long long per_frame) {
+                    int8_t* __restrict__ q, float* __restrict__ scale, int h,
+                    int w, int c) {
   const float s = q8::scale_div(__int_as_float(amax_bits[blockIdx.y]));
   if (blockIdx.x == 0 && threadIdx.x == 0) scale[blockIdx.y] = s;
-  const long long base = static_cast<long long>(blockIdx.y) * per_frame;
-  const long long groups = per_frame / 16;
+  const int wp = w + 2, groups_per_pixel = c / 16;
+  const long long padded = static_cast<long long>(h + 2) * wp * c;
+  const T* src_frame = x + static_cast<long long>(blockIdx.y) * h * w * c;
+  int8_t* dst_frame = q + static_cast<long long>(blockIdx.y) * padded;
+  const long long groups = padded / 16;
   for (long long gi = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
        gi < groups; gi += static_cast<long long>(gridDim.x) * kThreads) {
-    const T* src = x + base + gi * 16;
-    uint32_t words[4];
+    const int pixel = static_cast<int>(gi / groups_per_pixel);
+    const int ch = static_cast<int>(gi - static_cast<long long>(pixel) * groups_per_pixel) * 16;
+    const int py = pixel / wp, px = pixel - py * wp;
+    uint32_t words[4] = {0u, 0u, 0u, 0u};
+    if (py >= 1 && py <= h && px >= 1 && px <= w) {
+      float v[16];
+      load16(src_frame + (static_cast<long long>(py - 1) * w + (px - 1)) * c + ch, v);
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      words[w] = pack4(q8::quantize_div(to_f(src[4 * w]), s),
-                       q8::quantize_div(to_f(src[4 * w + 1]), s),
-                       q8::quantize_div(to_f(src[4 * w + 2]), s),
-                       q8::quantize_div(to_f(src[4 * w + 3]), s));
+      for (int k = 0; k < 4; ++k) {
+        words[k] = pack4(q8::quantize_div(v[4 * k], s), q8::quantize_div(v[4 * k + 1], s),
+                         q8::quantize_div(v[4 * k + 2], s), q8::quantize_div(v[4 * k + 3], s));
+      }
     }
-    *reinterpret_cast<uint4*>(q + base + gi * 16) =
+    *reinterpret_cast<uint4*>(dst_frame + gi * 16) =
         make_uint4(words[0], words[1], words[2], words[3]);
   }
+}
+
+// ------------------------------------------------------ X on tma_gemm.cuh
+
+// K step kk of X is tap kk / per_tap, channels (kk % per_tap) * 128 ..; the
+// A box of a tile at padded row m0 starts at row m0 + dy (w+2) + dx of the
+// padded frames [rows, c_in], the B box at {channel, tap, column} of the
+// weights [c_out, 9, c_in].
+struct SlabLoader {
+  static constexpr int kBDims = 3;
+  int per_tap, wp;
+  __device__ __forceinline__ void a(int kk, int m0, int& c0, int& c1) const {
+    const int tap = kk / per_tap;
+    c0 = (kk - tap * per_tap) * tg::kBK;
+    c1 = m0 + (tap / 3 - 1) * wp + (tap % 3 - 1);
+  }
+  __device__ __forceinline__ void b(int kk, int n, int& c0, int& c1, int& c2) const {
+    const int tap = kk / per_tap;
+    c0 = (kk - tap * per_tap) * tg::kBK;
+    c1 = tap;
+    c2 = n;
+  }
+};
+
+// y = T(acc * (xs[frame] * ws[col]) + b[col]) for the padded rows inside
+// their frame, into out [n, h, w, c_out].
+template <typename T>
+struct FrameEpilogue {
+  using Out = T;
+  const float* xs;
+  const float* ws;
+  const float* bias;
+  T* out;
+  int h, w, cout;
+  struct Row {
+    bool ok;
+    float scale;
+    T* dst;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    const int wp = w + 2, plane = (h + 2) * wp;
+    const int frame = r / plane, rem = r - frame * plane;
+    const int y = rem / wp - 1, x = rem - (y + 1) * wp - 1;
+    if (y < 0 || y >= h || x < 0 || x >= w) return Row{false, 0.f, nullptr};
+    return Row{true, xs[frame],
+               out + ((static_cast<size_t>(frame) * h + y) * w + x) * cout};
+  }
+  __device__ __forceinline__ float value(const Row& r, int col, int s) const {
+    return __fadd_rn(__fmul_rn(__int2float_rn(s), __fmul_rn(r.scale, ws[col])), bias[col]);
+  }
+  __device__ __forceinline__ void store(const Row& r, int col, uint4 v) const {
+    *reinterpret_cast<uint4*>(r.dst + col) = v;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(tg::kThreads, 1)
+    conv3x3_q8_tma(const __grid_constant__ CUtensorMap xq_map,
+                   const __grid_constant__ CUtensorMap w_map, tg::Problem pb,
+                   SlabLoader ld, FrameEpilogue<T> ep) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  tg::gemm<tg::S8>(smem_raw, &xq_map, &w_map, pb, ld, ep);
 }
 
 // ------------------------------------------------------- LayerNorm, scales
@@ -293,43 +398,29 @@ __device__ __forceinline__ long long a_source(const int* s_y, const int* s_x,
   return (static_cast<long long>(m0 + r) + dy * w + dx) * cin + c;
 }
 
-// -------------------------------------------- X and K6f: implicit-GEMM 3x3
+// ------------------------------------------------ K6f: implicit-GEMM 3x3
 
 constexpr int kBM = 128, kBN = 128, kBK = 64;  // kBK in bytes of K
 constexpr int kLds = kBK + 16;                 // padded shared row (80 bytes)
 constexpr int kTileBytes = kBM * kLds;         // per operand and stage
 
-// Modes of the loop: int8 operands (X) and operands in the model dtype
-// (K6f).
-constexpr int kFrame = 0;  // int8 A; y = T(acc * (xs[frame] * ws) + b)
+// Modes of the loop: K6f's two convolutions.
 constexpr int kUpF = 3;    // K6f conv_up: hidden = T(gelu(acc + bu))
 constexpr int kOutF = 4;   // K6f conv_out: out = T(t32 + (acc + bo))
 
 struct ConvParams {
-  const void* a;           // kFrame: int8 [P, cin]; kUpF: t (t32 in fp32),
-                           // kOutF: the hidden, in the model dtype [P, cin]
-  const void* wt;          // [cout, 9 * cin], k = tap * cin + c: int8, or the
-                           // model dtype in kUpF and kOutF
-  const float* row_scale;  // kFrame: [n] per frame
-  const float* col_scale;  // kFrame: [cout]
+  const void* a;           // kUpF: t (t32 in fp32), kOutF: the hidden, in
+                           // the model dtype [P, cin]
+  const void* wt;          // [cout, 9 * cin] in the model dtype, k = tap *
+                           // cin + c
   const float* bias;       // [cout]
   const float* t32;        // kOutF: [P, cout] residual
   void* out;               // [P, cout] in the model dtype (kUpF: the hidden)
   int n, h, w, cin, cout;
 };
 
-// The loop's MMA: int8 m16n8k32 with int32 accumulation, or bf16 m16n8k16
-// with float32 accumulation. Both take 32 bytes of K per instruction, and
-// their fragments and accumulators sit at the same offsets, so one tile
-// layout serves both. kElem: bytes per operand value.
-struct MmaS8 {
-  using Acc = int;
-  static constexpr int kElem = 1;
-  static __device__ __forceinline__ void run(int* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    q8::mma_s8(c, a, b);
-  }
-};
+// The loop's MMA: bf16 m16n8k16 with float32 accumulation, 32 bytes of K
+// per instruction. kElem: bytes per operand value.
 struct MmaBf16 {
   using Acc = float;
   static constexpr int kElem = 2;
@@ -362,18 +453,17 @@ __device__ __forceinline__ void fp_epilogue(const ConvParams& p, int row,
 // MMA, whose operand type the mode's A and weights have. p by value, and
 // each 16-byte piece of A issued beside the weights' piece: with the
 // parameters by reference and A and the weights in two passes, X and K6f's
-// bf16 path ran 2-5% slower (H100; PERF.md section 6).
+// bf16 path ran 2-5% slower (H100, when X shared this loop; PERF.md
+// section 6).
 template <typename Op, typename T, int MODE>
 __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   using Acc = typename Op::Acc;
-  constexpr bool kFloat = MODE == kUpF || MODE == kOutF;
   constexpr int kVals = kBK / Op::kElem;  // K values per chunk
   __shared__ __align__(128) int8_t as[2][kTileBytes];
   __shared__ __align__(128) int8_t bs[2][kTileBytes];
   __shared__ int s_y[kBM], s_x[kBM];
 
-  const int hw = p.h * p.w;
-  const int rows = p.n * hw;
+  const int rows = p.n * p.h * p.w;
   const int K = 9 * p.cin;
   const int ncol = (p.cout + kBN - 1) / kBN;
   const int m0 = (blockIdx.x / ncol) * kBM;
@@ -405,20 +495,6 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
   const int g = lane >> 2, tq = lane & 3;
-
-  // This thread's 8 columns: col(j, e) = n0 + wn*32 + j*8 + tq*2 + e.
-  float cscale[4][2], cbias[4][2];
-  if constexpr (!kFloat) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + wn * 32 + j * 8 + tq * 2 + e;
-        cscale[j][e] = col < p.cout ? p.col_scale[col] : 0.f;
-        cbias[j][e] = col < p.cout ? p.bias[col] : 0.f;
-      }
-    }
-  }
 
   Acc acc[4][4][4];
 #pragma unroll
@@ -474,49 +550,21 @@ __device__ __forceinline__ void conv3x3_mma(ConvParams p) {
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = wm * 64 + i * 16 + g + half * 8;
-      const int row = m0 + r;
-      const bool row_ok = row < rows;
-      if constexpr (kFloat) {
+      const int row = m0 + wm * 64 + i * 16 + g + half * 8;
+      if (row >= rows) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + wn * 32 + j * 8 + tq * 2 + e;
-            if (row_ok && col < p.cout) {
-              fp_epilogue<T, MODE>(p, row, col, acc[i][j][half * 2 + e]);
-            }
-          }
-        }
-      } else {
-        const float rscale = row_ok ? p.row_scale[row / hw] : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + wn * 32 + j * 8 + tq * 2 + e;
-            if (!row_ok || col >= p.cout) continue;
-            const size_t o = static_cast<size_t>(row) * p.cout + col;
-            const float v = __fadd_rn(
-                __fmul_rn(__int2float_rn(acc[i][j][half * 2 + e]),
-                          __fmul_rn(rscale, cscale[j][e])),
-                cbias[j][e]);
-            static_cast<T*>(p.out)[o] = from_f<T>(v);
-          }
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + wn * 32 + j * 8 + tq * 2 + e;
+          if (col < p.cout) fp_epilogue<T, MODE>(p, row, col, acc[i][j][half * 2 + e]);
         }
       }
     }
   }
 }
 
-// X: int8 operands.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) conv3x3_q8(ConvParams p) {
-  conv3x3_mma<MmaS8, T, kFrame>(p);
-}
-
-// K6f in bf16: the same loop on bf16 operands (a 64-byte K chunk is 32
-// values).
+// K6f in bf16 (a 64-byte K chunk is 32 values).
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) conv3x3_bf16(ConvParams p) {
   conv3x3_mma<MmaBf16, bf16, MODE>(p);
@@ -626,9 +674,7 @@ cudaError_t run_conv(const ConvParams& prm, cudaStream_t s) {
   const long long blocks = ((rows + kBM - 1) / kBM) * ((prm.cout + kBN - 1) / kBN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>(blocks);
-  if constexpr (MODE == kFrame) {
-    conv3x3_q8<T><<<grid, kThreads, 0, s>>>(prm);
-  } else if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2) {
     conv3x3_bf16<MODE><<<grid, kThreads, 0, s>>>(prm);
   } else {
     conv3x3_f32<MODE><<<grid, kThreads, 0, s>>>(prm);
@@ -967,6 +1013,8 @@ int launch_frame(const void* x, const void* wq, const void* ws, const void* bias
                  void* amax, void* xq, void* xs, void* out, int n, int h, int w,
                  int cin, int cout, cudaStream_t s) {
   const long long per_frame = static_cast<long long>(h) * w * cin;
+  const long long rows = static_cast<long long>(n) * (h + 2) * (w + 2);
+  if (rows + tg::kBM + w + 3 > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(int) * n, s);
   if (err != cudaSuccess) return err;
   dim3 amax_grid(grid_for(per_frame, kThreads * 16), n);
@@ -974,16 +1022,30 @@ int launch_frame(const void* x, const void* wq, const void* ws, const void* bias
                                                static_cast<int*>(amax), per_frame);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 q_grid(grid_for(per_frame / 16, kThreads * 4), n);
+  dim3 q_grid(grid_for(rows / n * cin / 16, kThreads * 4), n);
   quantize_frames<T><<<q_grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const int*>(amax),
-      static_cast<int8_t*>(xq), static_cast<float*>(xs), per_frame);
+      static_cast<int8_t*>(xq), static_cast<float*>(xs), h, w, cin);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ConvParams prm{xq, wq, static_cast<const float*>(xs),
-                 static_cast<const float*>(ws), static_cast<const float*>(bias),
-                 nullptr, out, n, h, w, cin, cout};
-  return run_conv<T, kFrame>(prm, s);
+
+  CUtensorMap a_map, b_map;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(rows)};
+  const uint64_t a_strides[1] = {static_cast<uint64_t>(cin)};
+  err = tg::make_map(&a_map, tg::S8::kType, 1, 2, xq, a_dims, a_strides);
+  if (err != cudaSuccess) return err;
+  const uint64_t b_dims[3] = {static_cast<uint64_t>(cin), 9, static_cast<uint64_t>(cout)};
+  const uint64_t b_strides[2] = {static_cast<uint64_t>(cin), 9ull * cin};
+  err = tg::make_map(&b_map, tg::S8::kType, 1, 3, wq, b_dims, b_strides);
+  if (err != cudaSuccess) return err;
+  const int per_tap = (cin + tg::kBK - 1) / tg::kBK;
+  const tg::Problem pb =
+      tg::problem(static_cast<int>(rows), cout, 9LL * per_tap * tg::kBK);
+  const SlabLoader ld{per_tap, w + 2};
+  const FrameEpilogue<T> ep{static_cast<const float*>(xs), static_cast<const float*>(ws),
+                            static_cast<const float*>(bias), static_cast<T*>(out), h, w,
+                            cout};
+  return tg::launch(conv3x3_q8_tma<T>, pb, s, a_map, b_map, pb, ld, ep);
 }
 
 // Raises the kernel's dynamic shared-memory limit to `bytes` where that is
@@ -1054,11 +1116,11 @@ int launch_fp(const void* x, const void* g, const void* bln, const void* wu,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const void* up_in = sizeof(T) == 2 ? t : t32;
-  ConvParams up{up_in, wu, nullptr, nullptr, static_cast<const float*>(bu),
-                nullptr, hidden, n, h, w, c, m};
+  ConvParams up{up_in, wu, static_cast<const float*>(bu), nullptr, hidden, n, h,
+                w, c, m};
   err = run_conv<T, kUpF>(up, s);
   if (err != cudaSuccess) return err;
-  ConvParams down{hidden, wo, nullptr, nullptr, static_cast<const float*>(bo),
+  ConvParams down{hidden, wo, static_cast<const float*>(bo),
                   static_cast<const float*>(t32), out, n, h, w, m, c};
   return run_conv<T, kOutF>(down, s);
 }
@@ -1070,14 +1132,17 @@ extern "C" {
 // Per-frame int8 SAME 3x3 convolution. x [n, h, w, cin] (NHWC) in the model
 // dtype (0: float32, 1: bfloat16); wq int8 [cout, 3, 3, cin] with float32
 // scales ws [cout]; bias float32 [cout]; scratch amax int32 [n], xq int8
-// [n, h, w, cin], xs float32 [n]; out [n, h, w, cout] in the model dtype.
-// cin and cout multiples of 16. Returns the first failing cudaError_t.
+// [n, h+2, w+2, cin] (the padded frames), xs float32 [n]; out [n, h, w,
+// cout] in the model dtype; every pointer 16-byte aligned. cin and cout
+// multiples of 16. gemm_smem: the GEMM's dynamic shared memory as the
+// caller's launch plan gives it; a plan that disagrees is refused. Returns
+// the first failing cudaError_t.
 int conv3x3_q8_frame_forward(const void* x, const void* wq, const void* ws,
                              const void* bias, void* amax, void* xq, void* xs,
                              void* out, int n, int h, int w, int cin, int cout,
-                             int dtype, void* stream) {
+                             int gemm_smem, int dtype, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || cin % 16 != 0 ||
-      cout % 16 != 0) {
+      cout % 16 != 0 || gemm_smem != tg::kSmemBytes) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

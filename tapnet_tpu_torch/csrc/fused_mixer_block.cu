@@ -19,9 +19,13 @@
 //       operand LN2(x1) in the compute dtype.
 //   (b) gemm (W1): hidden = gelu(LN2(x1) . W1^T + b1) into [rows*T, 4C].
 //   (c) gemm (W2): y = x1 + (hidden . W2^T + b2), rows >= t_real zeroed.
-// The GEMMs are written here: bf16 on the tensor cores with WMMA (mma.sync
-// underneath), 128x128x32 tiles double-buffered through cp.async, float32
-// accumulation; fp32 on SIMT 64x64 tiles with 4x4 register blocks.
+// bf16: both GEMMs are mixer_gemm_tma, the TMA + wgmma loop of tma_gemm.cuh
+// (128 x 256 tiles, 128-byte-swizzled TMA boxes in a 4-stage ring, a
+// producer warp and two consumer warpgroups, persistent CTAs) with float32
+// sums and the epilogues of apply_epilogue. The hidden goes through device
+// memory as bf16, as JAX rounds it (_mlp_hidden :212-223) before the second
+// product: 131 MB each way at [128, 250, 512], about 0.08 ms. fp32: SIMT
+// 64x64 tiles with 4x4 register blocks (IEEE products, not TF32).
 //
 // The w8a8 block (mixer_block_q8_forward) replaces the same TPU kernel with
 // quantized=True (_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225).
@@ -61,18 +65,18 @@
 //
 // Bound on the H100: the two products, 2 * 2 * rows*T * C * 4C flops (about
 // 134 GFLOP per launch at [128, 250, 512], 0.14 ms at 989 TFLOP/s bf16)
-// against ~70 MB of activations (0.02 ms at 3.35 TB/s): compute-bound. What
-// this first design gives away: the [rows*T, 4C] hidden makes a round trip
-// through device memory between (b) and (c) (the TPU kernel kept it in VMEM),
-// and WMMA without TMA/wgmma reaches a fraction of the tensor-core peak. A
-// later design fuses (b) and (c) on wgmma with the hidden kept on chip.
+// against ~70 MB of activations (0.02 ms at 3.35 TB/s): compute-bound. The
+// products are not fused: a CTA that kept the hidden on chip would hold 64
+// rows and read the bf16 weights from L2 at 64 flops a byte (PR 7's fused
+// K4 was L2-bound at twice that); PERF.md section 6 has what the two
+// GEMMs reach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "q8_tile.cuh"
+#include "tma_gemm.cuh"
 
 namespace {
 
@@ -336,100 +340,69 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---------------------------------- bf16 GEMM: C = A . W^T (WMMA, cp.async)
+// ------------------------------ bf16 GEMM: C = A . W^T on tma_gemm.cuh
 
-using q8::cp_async16;
-using q8::cp_async_commit;
-using q8::cp_async_wait;
-
-constexpr int kBM = 128, kBN = 128, kBK = 32, kLds = kBK + 8;
-constexpr int kTileElems = kBM * kLds;  // per operand and stage (kBM == kBN)
-constexpr int kGemmSmem = 2 * 2 * kTileElems * sizeof(bf16);  // 40960 B
-
-// Copies a 128 x 32 tile of a row-major [rows, k] bf16 matrix (k % 8 == 0)
-// into shared memory with row stride kLds; rows/columns past the end are 0.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int rows, int k, int r0, int k0) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int chunk = threadIdx.x + i * 256;  // 512 chunks of 8 values
-    const int r = chunk / 4, cc = (chunk % 4) * 8;
-    const bool pred = (r0 + r < rows) && (k0 + cc < k);
-    const bf16* g = pred ? src + static_cast<size_t>(r0 + r) * k + k0 + cc : src;
-    cp_async16(dst + r * kLds + cc, g, pred);
+// K step kk of a tile: A's box {64 kk, m0} of [m, k], B's {64 kk, n} of the
+// weights [n, k] (Linear's layout, K-major).
+struct RowLoader {
+  static constexpr int kBDims = 2;
+  __device__ __forceinline__ void a(int kk, int m0, int& c0, int& c1) const {
+    c0 = kk * (tg::kBK / 2);
+    c1 = m0;
   }
-}
+  __device__ __forceinline__ void b(int kk, int n, int& c0, int& c1, int& c2) const {
+    c0 = kk * (tg::kBK / 2);
+    c1 = n;
+    c2 = 0;
+  }
+};
+
+// apply_epilogue's arithmetic on tg::gemm's staged values: GEMM 1 writes
+// bf16(gelu(acc + b1)); GEMM 2 stages y = bf16(acc + b2) and writes
+// bf16(x1 + y), rows at t >= t_real 0.
+template <int EPI>
+struct MlpEpilogue {
+  using Out = bf16;
+  Epilogue<bf16> ep;
+  struct Row {
+    bool ok;
+    bool valid;
+    size_t base;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return Row{true, (r % ep.t_full) < ep.t_real, static_cast<size_t>(r) * ep.n};
+  }
+  __device__ __forceinline__ float value(const Row&, int col, float s) const {
+    const float v = s + to_f(ep.bias[col]);
+    return EPI == kEpiGelu ? gelu_tanh(v) : v;
+  }
+  __device__ __forceinline__ void store(const Row& r, int col, uint4 y) const {
+    uint4 o = y;
+    if constexpr (EPI == kEpiResidual) {
+      o = make_uint4(0u, 0u, 0u, 0u);
+      if (r.valid) {
+        const uint4 x1 = *reinterpret_cast<const uint4*>(ep.resid + r.base + col);
+        const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x1);
+        const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
+        __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 a = __bfloat1622float2(xh[k]), b = __bfloat1622float2(yh[k]);
+          oh[k] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(ep.out + r.base + col) = o;
+  }
+};
 
 template <int EPI>
-__global__ void __launch_bounds__(256)
-    mixer_gemm_bf16(const bf16* __restrict__ a, const bf16* __restrict__ wt, int m,
-              int n, int k, Epilogue<bf16> ep) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem_raw[kGemmSmem];
-  bf16* as = reinterpret_cast<bf16*>(smem_raw);        // [2][kTileElems]
-  bf16* ws = as + 2 * kTileElems;                      // [2][kTileElems]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm_ = warp / 4, wn_ = warp % 4;  // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (k + kBK - 1) / kBK;
-  load_tile(as, a, m, k, m0, 0);
-  load_tile(ws, wt, n, k, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(as + (cur ^ 1) * kTileElems, a, m, k, m0, (kt + 1) * kBK);
-      load_tile(ws + (cur ^ 1) * kTileElems, wt, n, k, n0, (kt + 1) * kBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* at = as + cur * kTileElems;
-    const bf16* bt = ws + cur * kTileElems;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], at + (wm_ * 64 + i * 16) * kLds + ks, kLds);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bt + (wn_ * 32 + j * 16) * kLds + ks, kLds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue through a per-warp 16x16 float staging tile (reusing the
-  // operand buffers, free after the last __syncthreads above).
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = m0 + wm_ * 64 + i * 16 + e / 16;
-        const int col = n0 + wn_ * 32 + j * 16 + e % 16;
-        if (row < m && col < n) apply_epilogue<bf16, EPI>(ep, stage[e], row, col);
-      }
-      __syncwarp();
-    }
-  }
+__global__ void __launch_bounds__(tg::kThreads, 1)
+    mixer_gemm_tma(const __grid_constant__ CUtensorMap a_map,
+                   const __grid_constant__ CUtensorMap w_map, tg::Problem pb,
+                   RowLoader ld, MlpEpilogue<EPI> ep) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  tg::gemm<tg::Bf16>(smem_raw, &a_map, &w_map, pb, ld, ep);
 }
 
 // ------------------------------- the w8a8 channel MLP on the q8 tile loop
@@ -772,10 +745,18 @@ struct Gemm<bf16> {
   template <int EPI>
   static cudaError_t run(const bf16* a, const bf16* wt, int m, int n, int k,
                          Epilogue<bf16> ep, cudaStream_t s) {
-    if (k % 8 != 0) return cudaErrorInvalidValue;
-    dim3 blocks((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    mixer_gemm_bf16<EPI><<<blocks, 256, 0, s>>>(a, wt, m, n, k, ep);
-    return cudaGetLastError();
+    if (k % 8 != 0 || n % 8 != 0) return cudaErrorInvalidValue;
+    CUtensorMap a_map, w_map;
+    const uint64_t a_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
+    const uint64_t w_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(n)};
+    const uint64_t strides[1] = {2ull * k};
+    cudaError_t err = tg::make_map(&a_map, tg::Bf16::kType, 2, 2, a, a_dims, strides);
+    if (err != cudaSuccess) return err;
+    err = tg::make_map(&w_map, tg::Bf16::kType, 2, 2, wt, w_dims, strides);
+    if (err != cudaSuccess) return err;
+    const tg::Problem pb = tg::problem(m, n, 2LL * k);
+    const MlpEpilogue<EPI> pep{ep};
+    return tg::launch(mixer_gemm_tma<EPI>, pb, s, a_map, w_map, pb, RowLoader{}, pep);
   }
 };
 
@@ -810,19 +791,25 @@ int launch(const void* x, const void* g1, const void* wu, const void* bu,
 extern "C" {
 
 // x [rows, t_full, c]; g1, g2, b2 [c]; wu, wm [3, 1, c*mult] (c-major);
-// bu, bm [c*mult]; w1 [hid, c] and w2 [c, hid] (Linear layout, out x in);
-// b1 [hid]; scratch x1, mlp_in [rows, t_full, c] and hidden
-// [rows*t_full, hid]; out [rows, t_full, c]. Every tensor in the compute dtype
-// (dtype 0: float32, 1: bfloat16). Returns the first failing cudaError_t.
+// bu, bm [c*mult]; w1 [hid, c] and w2 [c, hid] (Linear layout, out x in;
+// bf16: 16-byte aligned, c and hid multiples of 8); b1 [hid]; scratch x1,
+// mlp_in [rows, t_full, c] and hidden [rows*t_full, hid]; out [rows, t_full,
+// c]. Every tensor in the compute dtype (dtype 0: float32, 1: bfloat16).
+// gemm_smem: the GEMMs' dynamic shared memory as the caller's launch plan
+// gives it (bf16: tg::kSmemBytes; fp32: 0); a plan that disagrees is
+// refused. Returns the first failing cudaError_t.
 int mixer_block_forward(const void* x, const void* g1, const void* wu,
                         const void* bu, const void* wm, const void* bm,
                         const void* g2, const void* w1, const void* b1,
                         const void* w2, const void* b2, void* x1,
                         void* mlp_in, void* hidden, void* out, int rows,
                         int t_full, int t_real, int c, int hid, int mult,
-                        int k, int causal, int dtype, void* stream) {
+                        int k, int causal, int gemm_smem, int dtype,
+                        void* stream) {
   if (k != 3 || rows <= 0 || t_full <= 0 || t_real < 0 || t_real > t_full ||
-      c <= 0 || hid <= 0 || mult <= 0) {
+      c <= 0 || hid <= 0 || mult <= 0 ||
+      static_cast<long long>(rows) * t_full + tg::kBM > 0x7fffffffLL ||
+      gemm_smem != (dtype == 1 ? tg::kSmemBytes : 0)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

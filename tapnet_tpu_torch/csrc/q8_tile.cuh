@@ -24,8 +24,6 @@
 //     visible to wgmma's async proxy, and a barrier (the CTA's, or a
 //     warpgroup's own named barrier where it has a ring of its own) makes
 //     the tile visible to all who read it;
-//   mma_s8: mma.sync m16n8k32, the product of the per-frame convolution (X)
-//     in csrc/extra_convs.cu;
 //   gelu_rn, gelu_bound, quantize_div, quantize_mul: the epilogue arithmetic,
 //     rounded at the plain versions' points with no contraction, so that a
 //     value computed twice (K4's and K6's two passes) is the same float both
@@ -81,15 +79,6 @@ __device__ __forceinline__ void copy_panels(int8_t* dst, const int8_t* src,
     const int8_t* g = pred ? src + static_cast<size_t>(r0 + r) * src_k + k : src;
     cp_async16(dst + (u >> 2) * ROWS * kPanel + panel_offset(r, u & 3), g, pred);
   }
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]));
 }
 
 // The kernels' dynamic shared memory from its first 1024-byte boundary: the

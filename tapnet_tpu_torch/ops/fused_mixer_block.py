@@ -10,9 +10,12 @@ w1 [C, H], b1 [H], w2 [H, C], b2 [C].
     `_math_reference`.
   * CUDA tensors launch the hand-written kernels of
     `csrc/fused_mixer_block.cu` (temporal half + LN2, then the two MLP
-    products). The dense weights are passed to it in Linear's [out, in]
-    layout: for the transposed view of a Linear weight that `w1.t()` gives,
-    that is the weight's own storage, so no copy is made.
+    products; in bf16 on the TMA + wgmma loop of `csrc/tma_gemm.cuh`, plan
+    in `launch_plan`). The dense weights are passed to it in Linear's [out,
+    in] layout, K-major as TMA reads them: for the transposed view of a
+    Linear weight that `w1.t()` gives (what `layers.MixerBlock` passes),
+    that is the weight's own storage, so no copy is made; any other layout
+    is copied into it for the call (`_linear_layout`).
   * Anything else raises. There is no size gate and no fallback.
 
 `quantized=True` runs the channel MLP in w8a8 int8 (`mixer_math.mlp_math_q8`):
@@ -34,7 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tapnet_tpu_torch.ops import _build, mixer_math
+from tapnet_tpu_torch.ops import _build, mixer_math, tma_gemm
 
 # Number of CUDA launches of the block kernel made through `mixer_block`:
 # the full-precision block, and the block with the w8a8 channel MLP.
@@ -43,7 +46,7 @@ LAUNCHES_Q8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    "mixer_block_forward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+    "mixer_block_forward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     "mixer_block_q8_forward": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
@@ -199,17 +202,14 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
   hid = w1.shape[1]
   b, t, t_real, c, mult, k = _check_launch(
       x, g1, wu, bu, wm, bm, g2, b1, b2, hid, valid_len)
+  plan = launch_plan(b, t, c, hid, x.dtype)
   for name, w, shape in (("w1", w1, (c, hid)), ("w2", w2, (hid, c))):
     if tuple(w.shape) != shape or w.dtype != x.dtype or w.device != x.device:
       raise ValueError(
           f"mixer_block: {name} is {tuple(w.shape)} {w.dtype} on {w.device}, "
           f"expected {shape} {x.dtype} on {x.device}"
       )
-  if x.dtype == torch.bfloat16 and (c % 8 or hid % 8):
-    raise ValueError("mixer_block: bf16 kernel needs C and H multiples of 8")
-  # Linear layout [out, in]: a view back onto the Linear weight's storage.
-  w1_t = w1.t().contiguous()
-  w2_t = w2.t().contiguous()
+  w1_t, w2_t = _linear_layout(w1), _linear_layout(w2)
   if x.dtype == torch.bfloat16 and any(o.data_ptr() % 16 for o in (w1_t, w2_t)):
     raise ValueError("mixer_block: bf16 weights must be 16-byte aligned")
 
@@ -223,8 +223,8 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
     err = lib.mixer_block_forward(
         *[o.data_ptr() for o in (x, g1, wu, bu, wm, bm, g2, w1_t, b1, w2_t, b2)],
         x1.data_ptr(), mlp_in.data_ptr(), hidden.data_ptr(), out.data_ptr(),
-        b, t, t_real, c, hid, mult, k, int(bool(causal)), _DTYPES[x.dtype],
-        stream,
+        b, t, t_real, c, hid, mult, k, int(bool(causal)),
+        plan["gemm_smem_bytes"], _DTYPES[x.dtype], stream,
     )
   _build.check(lib, err, "mixer_block_forward")
   LAUNCHES += 1
@@ -247,6 +247,56 @@ _SMEM_ALIGN = 1024  # slack to align the panels (csrc/q8_tile.cuh)
 _MLP_ROWS, _MLP_TILE, _MLP_STAGES, _MLP_WGS, _MLP_W1K = 64, 128, 4, 4, 256
 _MLP_MAX_C = 512  # output columns the MLP holds in registers, 128 a warpgroup
 _INT32_MAX = 2**31 - 1
+
+
+# K3's launch plan, as csrc/fused_mixer_block.cu launches it: the temporal
+# half (one block per row and 16 time steps, LN1 of the tile and its halo in
+# float32 shared memory), then the two products of the channel MLP over the
+# rows*T rows: in bf16 on the TMA + wgmma loop (`tma_gemm.gemm_plan`: GEMM 1
+# [rows*T, H] over K = C, GEMM 2 [rows*T, C] over K = H), in fp32 on SIMT
+# 64 x 64 tiles in static shared memory (0 dynamic bytes). The kernel
+# refuses a plan whose GEMM shared memory differs from its own count.
+_F32_GEMM_TILE = 64
+
+
+def launch_plan(b, t, c, hid, dtype=torch.bfloat16):
+  """How the full-precision block launches on x [b, t, c] with hidden width
+  hid in `dtype`: the temporal half's grid and dynamic shared memory, and
+  each product's plan with the GEMMs' dynamic shared memory. Raises for what
+  the kernels do not take."""
+  if dtype not in _DTYPES:
+    raise TypeError(f"mixer_block: x must be float32 or bfloat16, got {dtype}")
+  if min(b, t, c, hid) <= 0:
+    raise ValueError(f"mixer_block: empty shape {(b, t, c)}, H={hid}")
+  if dtype == torch.bfloat16 and (c % 8 or hid % 8):
+    raise ValueError("mixer_block: bf16 kernel needs C and H multiples of 8")
+  rows = b * t
+  if b * -(-t // _TILE_T) > _INT32_MAX:
+    raise ValueError(f"mixer_block: {rows} rows overflow the kernels' grid")
+  temporal = dict(grid=b * -(-t // _TILE_T),
+                  smem_bytes=4 * (_TILE_T + 2 * (3 - 1)) * c, threads=THREADS)
+  if temporal["smem_bytes"] > SMEM_LIMIT:
+    raise ValueError(f"mixer_block: C={c} needs more than the {SMEM_LIMIT} "
+                     "bytes of shared memory a block may use")
+  if dtype == torch.bfloat16:
+    up = tma_gemm.gemm_plan(rows, hid, 2 * c)
+    down = tma_gemm.gemm_plan(rows, c, 2 * hid)
+    gemm_smem = tma_gemm.SMEM_BYTES
+  else:
+    if rows + _F32_GEMM_TILE > _INT32_MAX:
+      raise ValueError(f"mixer_block: {rows} rows overflow the kernels' grid")
+    tiles = lambda n: -(-rows // _F32_GEMM_TILE) * -(-n // _F32_GEMM_TILE)
+    up = dict(m=rows, n=hid, tiles=tiles(hid), grid=tiles(hid), threads=256)
+    down = dict(m=rows, n=c, tiles=tiles(c), grid=tiles(c), threads=256)
+    gemm_smem = 0
+  return dict(rows=rows, temporal=temporal, gemm_up=up, gemm_down=down,
+              gemm_smem_bytes=gemm_smem)
+
+
+def _linear_layout(w):
+  """Linear's [out, in] layout of a [in, out] weight: for the transposed view
+  of a Linear weight, a view of its own storage; otherwise a copy."""
+  return w.t().contiguous()
 
 
 def q8_launch_plan(b, t, c, hid, dtype=torch.bfloat16):

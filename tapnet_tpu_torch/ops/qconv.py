@@ -21,9 +21,10 @@ x.dtype. Only the SAME 3x3 stride-1 form that the ExtraConvs use is ported.
     as float64 matrix products of the int8 values, which hold every partial
     sum (at most 9 * C_in * 127^2) exactly, in any order.
   * CUDA tensors launch `conv3x3_q8_frame_forward` of
-    `csrc/extra_convs.cu` (frame amax, quantization, and an int8
-    implicit-GEMM convolution on the tensor cores). PyTorch has no int8
-    convolution on CUDA.
+    `csrc/extra_convs.cu` (frame amax, quantization into zero-padded
+    frames, and the convolution as one int8 GEMM over the padded raster on
+    the TMA + wgmma loop of `csrc/tma_gemm.cuh`; `conv2d_q8_padded_slab`
+    emulates its indexing). PyTorch has no int8 convolution on CUDA.
   * Anything else raises. There is no size gate and no fallback.
 
 The ExtraConvs quantizers divide: q = clip(round(v / s), -127, 127) with
@@ -40,7 +41,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tapnet_tpu_torch.ops import _build
+from tapnet_tpu_torch.ops import _build, tma_gemm
 
 # Number of CUDA launches of the per-frame int8 convolution made through
 # `conv2d_q8` (one per call: its three kernels count once).
@@ -49,7 +50,7 @@ LAUNCHES_Q8 = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Entry points of csrc/extra_convs.cu, for `_build.load`.
 SIGNATURES = {
-    "conv3x3_q8_frame_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    "conv3x3_q8_frame_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 16
     + [ctypes.c_int] * 8 + [ctypes.c_void_p],
@@ -201,7 +202,71 @@ def conv2d_q8_math(
   return y.permute(0, 3, 1, 2)
 
 
+def conv2d_q8_padded_slab(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor],
+    bias: torch.Tensor,
+    qweights=None,
+) -> torch.Tensor:
+  """The CUDA kernel's indexing of the per-frame int8 conv, in float64.
+
+  Arguments and result as `conv2d_q8_math`, which this must equal exactly.
+  The int8 frames are padded with a zero ring to [N, H+2, W+2, C_in] and
+  viewed as rows [N (H+2) (W+2), C_in]. GEMM row p' (a padded pixel) sums,
+  over the taps (dy, dx) and K steps of `tma_gemm.K_BYTES` channels (zeros
+  past C_in), the rows p' + dy (W+2) + dx of that view (zeros outside it, as
+  TMA fills a box) times the tap's weights; the rows inside their frame are
+  the output. Rows of the ring read across frames and are dropped.
+  """
+  wq, ws = qweights if qweights is not None else quantize_conv_weight(weight)
+  nhwc = x.permute(0, 2, 3, 1)
+  n, h, w, cin = nhwc.shape
+  xq, xs = quantize_per_frame(nhwc)
+  step = tma_gemm.K_BYTES
+  cpad = -(-cin // step) * step
+  slab = F.pad(xq.double(), (0, cpad - cin, 1, 1, 1, 1)).reshape(-1, cpad)
+  wpad = F.pad(wq.double(), (0, cpad - cin))
+  rows = slab.shape[0]
+  acc = torch.zeros(rows, wq.shape[0], dtype=torch.float64)
+  for dy, dx in TAPS:
+    src = torch.arange(rows) + dy * (w + 2) + dx
+    inside = (src >= 0) & (src < rows)
+    for c0 in range(0, cpad, step):
+      box = torch.zeros(rows, step, dtype=torch.float64)
+      box[inside] = slab[src[inside], c0:c0 + step]
+      acc += box @ wpad[:, dy + 1, dx + 1, c0:c0 + step].t()
+  acc = acc.reshape(n, h + 2, w + 2, -1)[:, 1:h + 1, 1:w + 1]
+  y = acc.float() * (xs[:, None, None, None] * ws) + bias.float()
+  return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
 # ------------------------------------------------------------- CUDA kernel
+
+
+def q8_frame_launch_plan(n, h, w, cin, cout, dtype=torch.bfloat16):
+  """How `conv3x3_q8_frame_forward` launches on x [n, h, w, cin] with cout
+  output channels: the padded int8 frames it writes, and the GEMM over
+  their rows (`tma_gemm.gemm_plan`: 9 * ceil(cin / 128) K steps). Raises
+  for what the kernels do not take."""
+  if dtype not in DTYPES:
+    raise TypeError(f"conv2d_q8: x must be float32 or bfloat16, got {dtype}")
+  if min(n, h, w, cin, cout) <= 0:
+    raise ValueError(f"conv2d_q8: empty shape {(n, h, w, cin)} -> {cout}")
+  if cin % 16 or cout % 16:
+    raise ValueError(
+        f"conv2d_q8: the int8 kernel needs C_in and C_out multiples of 16, "
+        f"got {cin} and {cout}")
+  rows = n * (h + 2) * (w + 2)
+  if rows + w + 3 + tma_gemm.TILE_M > tma_gemm.INT32_MAX:
+    raise ValueError(f"conv2d_q8: {rows} padded rows overflow the kernel's "
+                     "coordinates")
+  per_tap = -(-cin // tma_gemm.K_BYTES)
+  return dict(
+      xq_shape=(n, h + 2, w + 2, cin), padded_rows=rows,
+      gemm=tma_gemm.gemm_plan(rows, cout, 9 * per_tap * tma_gemm.K_BYTES),
+  )
+
+
 
 
 def _check_int8_conv_weights(name, wq, ws, cin, dev):
@@ -217,25 +282,27 @@ def _check_int8_conv_weights(name, wq, ws, cin, dev):
 
 def _launch_q8(x, qweights, bias, scratch=None):
   """The per-frame int8 conv on the card. If `scratch` is a dict, the kernels'
-  int8 operand [N, H, W, C_in] and frame scales are left in it, for checks."""
+  int8 operand (`xq` [N, H, W, C_in], a view of `xq_padded` [N, H+2, W+2,
+  C_in]) and frame scales `xs` are left in it, for checks."""
   global LAUNCHES_Q8
   if x.dtype not in DTYPES:
     raise TypeError(f"conv2d_q8: x must be float32 or bfloat16, got {x.dtype}")
   wq, ws = qweights
   nhwc = x.permute(0, 2, 3, 1).contiguous()
+  if nhwc.data_ptr() % 16:  # the quantizer reads 16-byte pieces
+    nhwc = nhwc.clone()
   n, h, w, cin = nhwc.shape
   cout = wq.shape[0]
   dev = x.device
   _check_int8_conv_weights("conv2d_q8", wq, ws, cin, dev)
-  if cin % 16 or cout % 16:
-    raise ValueError(
-        f"conv2d_q8: the int8 kernel needs C_in and C_out multiples of 16, "
-        f"got {cin} and {cout}")
+  plan = q8_frame_launch_plan(n, h, w, cin, cout, x.dtype)
   if tuple(bias.shape) != (cout,) or bias.device != dev:
     raise ValueError(f"conv2d_q8: bias must be [{cout}] on {dev}")
+  if wq.data_ptr() % 16:
+    raise ValueError("conv2d_q8: the int8 weight must be 16-byte aligned")
   lib = _build.load("extra_convs", SIGNATURES)
   amax = torch.empty((n,), dtype=torch.int32, device=dev)
-  xq = torch.empty((n, h, w, cin), dtype=torch.int8, device=dev)
+  xq = torch.empty(plan["xq_shape"], dtype=torch.int8, device=dev)
   xs = torch.empty((n,), dtype=torch.float32, device=dev)
   out = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
   bias32 = bias.float().contiguous()
@@ -243,12 +310,13 @@ def _launch_q8(x, qweights, bias, scratch=None):
   with torch.cuda.device(dev):
     err = lib.conv3x3_q8_frame_forward(
         *[o.data_ptr() for o in (nhwc, wq, ws, bias32, amax, xq, xs, out)],
-        n, h, w, cin, cout, DTYPES[x.dtype], stream,
+        n, h, w, cin, cout, plan["gemm"]["smem_bytes"], DTYPES[x.dtype],
+        stream,
     )
   _build.check(lib, err, "conv3x3_q8_frame_forward")
   LAUNCHES_Q8 += 1
   if scratch is not None:
-    scratch.update(xq=xq, xs=xs)
+    scratch.update(xq=xq[:, 1:-1, 1:-1], xq_padded=xq, xs=xs)
   return out.permute(0, 3, 1, 2)
 
 

@@ -77,8 +77,11 @@ MIXER_FP32_TOL = (2e-4, 2e-4)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize(
-    "b,t,valid_len,c,hid", [(3, 13, None, 64, 256), (5, 37, 30, 128, 512)],
-    ids=["one_tile", "tiles_valid_len"],
+    "b,t,valid_len,c,hid",
+    [(3, 13, None, 64, 256), (5, 37, 30, 128, 512),
+     (9, 41, 29, 96, 336), (1, 300, 250, 512, 2048)],
+    ids=["one_tile", "tiles_valid_len", "ragged_tiles_valid_len",
+         "served_width_valid_len"],
 )
 def test_mixer_block_kernel_matches_plain(cuda, dtype, causal, b, t, valid_len,
                                           c, hid):
@@ -264,7 +267,9 @@ def test_q8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # (n, h, w, C_in, C_out): conv_up and conv_out of C = 128 and 256, odd and
 # unequal H and W, a pixel count that is not a multiple of the 128-row tile.
 CONV_Q8_SHAPES = [(3, 9, 7, 128, 512), (2, 7, 9, 512, 128),
-                  (2, 11, 13, 256, 1024), (1, 5, 6, 1024, 256)]
+                  (2, 11, 13, 256, 1024), (1, 5, 6, 1024, 256),
+                  (3, 13, 11, 48, 272), (1, 17, 19, 160, 48),
+                  (1, 1, 1, 16, 16), (4, 1, 1, 32, 272)]
 
 
 def _conv_q8_args(cuda, dtype, n, h, w, cin, cout, seed=0):
@@ -279,7 +284,9 @@ def _conv_q8_args(cuda, dtype, n, h, w, cin, cout, seed=0):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,h,w,cin,cout", CONV_Q8_SHAPES,
-                         ids=["up128", "out128", "up256", "out256"])
+                         ids=["up128", "out128", "up256", "out256",
+                              "ragged_rows_and_cols", "n1_two_k_steps",
+                              "one_pixel_n1", "one_pixel_frames"])
 def test_conv2d_q8_kernel_matches_plain(cuda, dtype, n, h, w, cin, cout):
   """Both sides quantize the same floats with the same division and round
   the same exact integers through the same float32 products in the same
@@ -296,6 +303,26 @@ def test_conv2d_q8_kernel_matches_plain(cuda, dtype, n, h, w, cin, cout):
   rel = 1e-6 if dtype == "float32" else 2.0**-7
   err = (out.float() - ref.float()).abs()
   assert (err <= rel * ref.float().abs() + 1e-30).all(), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,cin", [(3, 13, 11, 48), (2, 1, 1, 16)],
+                         ids=["ragged", "one_pixel"])
+def test_conv2d_q8_padded_operand(cuda, dtype, n, h, w, cin):
+  """The kernel's int8 operand: zero-ringed frames [N, H+2, W+2, C_in] whose
+  inside equals the plain quantizer's output and whose frame scales are the
+  plain version's, bit for bit (the same IEEE division)."""
+  x, k, b = _conv_q8_args(cuda, dtype, n, h, w, cin, 32)
+  scratch = {}
+  qconv._launch_q8(x, qconv.quantize_conv_weight(k), b, scratch)  # pylint: disable=protected-access
+  torch.cuda.synchronize()
+  xq_ref, xs_ref = qconv.quantize_per_frame(x.permute(0, 2, 3, 1))
+  assert scratch["xq_padded"].shape == (n, h + 2, w + 2, cin)
+  assert torch.equal(scratch["xq"], xq_ref)
+  assert torch.equal(scratch["xs"], xs_ref)
+  ring = scratch["xq_padded"].clone()
+  ring[:, 1:-1, 1:-1] = 0
+  assert not ring.any()
 
 
 # (n, h, w, C): K6 at C = 128 and 256 (M = 4C), odd H and W; the served

@@ -1,8 +1,10 @@
-"""PyTorch port: the launch plans of the int8 kernels K6 and K4, on the CPU.
+"""PyTorch port: the launch plans of the kernels on shared-memory rings, on
+the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X and K3 in
+bf16 (the TMA + wgmma loop of csrc/tma_gemm.cuh).
 
 Each wrapper computes its launch plan in a pure function (rows per block,
-dynamic shared memory, grid, ring stages) that the kernels check against
-their own count. These tests hold the plans to the card's shared memory at
+tiles, dynamic shared memory, grid, ring stages) that the kernels check
+against their own count. These tests hold the plans to the card's shared memory at
 the served and test shapes in both dtypes, to the constants of the CUDA
 sources, to the shapes the kernels refuse, and the wrappers' shape checks to
 the plans. No JAX, no card.
@@ -14,8 +16,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tapnet_tpu_torch.models import layers  # noqa: E402
 from tapnet_tpu_torch.ops import (  # noqa: E402
-    _build, fused_extra_convs, fused_mixer_block, mixer_math,
+    _build, fused_extra_convs, fused_mixer_block, mixer_math, qconv, tma_gemm,
 )
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -210,3 +213,182 @@ def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
   before = _build._library_path("k")  # pylint: disable=protected-access
   (src / "t.cuh").write_text("// two\n")
   assert _build._library_path("k") != before  # pylint: disable=protected-access
+
+
+# ------------------------------------------ X and K3 on csrc/tma_gemm.cuh
+
+# (n, h, w, C_in, C_out) of X: the four served shapes (conv_up and conv_out
+# at both grids of a 480x480 video), the card tests' shapes and the edges
+# (single-pixel frames, C_in below and over one K step, C_out over one tile).
+X_SHAPES = [(250, 60, 60, 256, 1024), (250, 60, 60, 1024, 256),
+            (250, 32, 32, 256, 1024), (250, 32, 32, 1024, 256),
+            (3, 9, 7, 128, 512), (2, 11, 13, 256, 1024), (1, 1, 1, 16, 16),
+            (2, 6, 9, 48, 272), (1, 5, 6, 1024, 256)]
+# (B, T, C, H) of K3: the served block, the causal shapes chip_smoke.py
+# checks, the card tests' shapes and the edges.
+K3_SHAPES = [(128, 250, 512, 2048), (32, 8, 512, 2048), (3, 13, 64, 256),
+             (5, 37, 128, 512), (2, 150, 48, 208), (7, 19, 40, 160)]
+H100_SMS = 132
+
+
+def _check_gemm(g, m, n, k_bytes):
+  assert (g["m"], g["n"]) == (m, n)
+  assert 0 < g["smem_bytes"] <= SMEM_LIMIT
+  assert g["threads"] == 384 and g["stages"] >= 3
+  assert (g["tiles_m"] - 1) * 128 < m <= g["tiles_m"] * 128
+  assert (g["tiles_n"] - 1) * 256 < n <= g["tiles_n"] * 256
+  assert (g["k_steps"] - 1) * 128 < k_bytes <= g["k_steps"] * 128
+  assert g["tiles"] == g["tiles_m"] * g["tiles_n"]
+  assert g["grid"] == min(g["tiles"], H100_SMS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,cout", X_SHAPES)
+def test_x_plan_fits_the_card(dtype, n, h, w, cin, cout):
+  plan = qconv.q8_frame_launch_plan(n, h, w, cin, cout, dtype)
+  rows = n * (h + 2) * (w + 2)
+  assert plan["xq_shape"] == (n, h + 2, w + 2, cin)
+  assert plan["padded_rows"] == rows
+  # K is nine taps of whole 128-channel steps (zeros past C_in).
+  _check_gemm(plan["gemm"], rows, cout, 9 * -(-cin // 128) * 128)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,c,hid", K3_SHAPES)
+def test_k3_plan_fits_the_card(dtype, b, t, c, hid):
+  plan = fused_mixer_block.launch_plan(b, t, c, hid, dtype)
+  rows = b * t
+  assert plan["rows"] == rows
+  assert plan["temporal"]["grid"] == b * -(-t // 16)
+  assert 0 < plan["temporal"]["smem_bytes"] <= SMEM_LIMIT
+  if dtype == torch.bfloat16:
+    _check_gemm(plan["gemm_up"], rows, hid, 2 * c)
+    _check_gemm(plan["gemm_down"], rows, c, 2 * hid)
+    assert plan["gemm_smem_bytes"] == plan["gemm_up"]["smem_bytes"]
+  else:  # SIMT 64 x 64 tiles in static shared memory
+    assert plan["gemm_smem_bytes"] == 0
+    assert plan["gemm_up"]["grid"] == -(-rows // 64) * -(-hid // 64)
+    assert plan["gemm_down"]["grid"] == -(-rows // 64) * -(-c // 64)
+
+
+def test_served_tma_plans():
+  """The numbers PERF.md and the kernels' notes state for the served shapes."""
+  up60 = qconv.q8_frame_launch_plan(250, 60, 60, 256, 1024)
+  assert (up60["gemm"]["tiles_m"], up60["gemm"]["tiles_n"],
+          up60["gemm"]["k_steps"]) == (7508, 4, 18)
+  # The ring rows computed and dropped: 6.8% more rows at 60x60, 13% at 32x32.
+  assert round(up60["padded_rows"] / (250 * 60 * 60) - 1, 4) == 0.0678
+  out32 = qconv.q8_frame_launch_plan(250, 32, 32, 1024, 256)
+  assert (out32["gemm"]["tiles_m"], out32["gemm"]["tiles_n"],
+          out32["gemm"]["k_steps"]) == (2258, 1, 72)
+  assert round(out32["padded_rows"] / (250 * 32 * 32) - 1, 4) == 0.1289
+  k3 = fused_mixer_block.launch_plan(128, 250, 512, 2048)
+  assert (k3["gemm_up"]["tiles_m"], k3["gemm_up"]["tiles_n"],
+          k3["gemm_up"]["k_steps"]) == (250, 8, 8)
+  assert (k3["gemm_down"]["tiles_m"], k3["gemm_down"]["tiles_n"],
+          k3["gemm_down"]["k_steps"]) == (250, 2, 32)
+  # Four stages of a 128 x 128-byte A box and a 256 x 128-byte B tile, the
+  # 1024-byte alignment slack, eight mbarriers and the epilogue's staging
+  # (16 rows of 144 bytes for each of the 8 consumer warps).
+  assert (k3["gemm_smem_bytes"] == up60["gemm"]["smem_bytes"]
+          == 1024 + 4 * (128 + 256) * 128 + 8 * 8 + 8 * 16 * 144 == 216_128)
+  assert fused_mixer_block.launch_plan(128, 250, 512, 2048,
+                                       torch.float32)["gemm_smem_bytes"] == 0
+
+
+def test_tma_plan_mirrors_the_header():
+  """The plan's tile, ring and register numbers are tma_gemm.cuh's."""
+  head = _constants(_source("tma_gemm.cuh"),
+                    ["kBM", "kBN", "kBK", "kBoxRows", "kStages", "kConsumers",
+                     "kSmemAlign", "kProducerRegs", "kConsumerRegs",
+                     "kChunkBytes"])
+  assert (head["kBM"], head["kBN"], head["kBK"], head["kBoxRows"]) == (
+      tma_gemm.TILE_M, tma_gemm.TILE_N, tma_gemm.K_BYTES, tma_gemm.BOX_ROWS)
+  assert (head["kStages"], head["kConsumers"], head["kSmemAlign"]) == (
+      tma_gemm.STAGES, tma_gemm.CONSUMERS, tma_gemm.SMEM_ALIGN)
+  assert (head["kProducerRegs"], head["kConsumerRegs"]) == (
+      tma_gemm.PRODUCER_REGS, tma_gemm.CONSUMER_REGS)
+  assert head["kChunkBytes"] == tma_gemm.CHUNK_BYTES
+  # setmaxnreg hands the consumers what the producer gives up: the 384
+  # threads must start with (2 * 232 + 40) / 3 = 168 registers, which the
+  # launcher checks, and the register file (65,536) must hold them.
+  launch_regs = (tma_gemm.CONSUMERS * tma_gemm.CONSUMER_REGS
+                 + tma_gemm.PRODUCER_REGS) // (tma_gemm.CONSUMERS + 1)
+  assert launch_regs == 168 and launch_regs * tma_gemm.THREADS <= 65_536
+  assert tma_gemm.BOX_ROWS * 2 == tma_gemm.TILE_N  # two B boxes a stage
+  assert tma_gemm.TILE_M == 64 * tma_gemm.CONSUMERS  # a wgmma m64 each
+
+
+X_REFUSED = [
+    ((1, 4, 4, 24, 64, torch.float32), ValueError, "multiples of 16"),
+    ((1, 4, 4, 32, 40, torch.bfloat16), ValueError, "multiples of 16"),
+    ((0, 4, 4, 32, 64, torch.float32), ValueError, "empty"),
+    ((1, 4, 4, 32, 64, torch.float16), TypeError, "float32 or bfloat16"),
+]
+K3_REFUSED = [
+    ((2, 5, 12, 64, torch.bfloat16), ValueError, "multiples of 8"),
+    ((2, 5, 32, 36, torch.bfloat16), ValueError, "multiples of 8"),
+    ((2, 0, 32, 128, torch.float32), ValueError, "empty"),
+    ((2, 5, 32, 128, torch.float16), TypeError, "float32 or bfloat16"),
+]
+
+
+@pytest.mark.parametrize("args,error,match", X_REFUSED,
+                         ids=["cin24", "cout40", "empty", "fp16"])
+def test_x_plan_refuses(args, error, match):
+  with pytest.raises(error, match=match):
+    qconv.q8_frame_launch_plan(*args)
+
+
+@pytest.mark.parametrize("args,error,match", K3_REFUSED,
+                         ids=["c12_bf16", "h36_bf16", "empty", "fp16"])
+def test_k3_plan_refuses(args, error, match):
+  with pytest.raises(error, match=match):
+    fused_mixer_block.launch_plan(*args)
+
+
+def test_k3_fp32_plan_takes_any_width():
+  """The fp32 GEMMs (SIMT) take widths the bf16 TMA boxes do not."""
+  plan = fused_mixer_block.launch_plan(2, 5, 12, 36, torch.float32)
+  assert plan["gemm_up"]["n"] == 36 and plan["gemm_down"]["n"] == 12
+
+
+X_WRAPPER_SHAPES = [(1, 3, 4, 16, 32), (2, 5, 5, 48, 272), (1, 1, 1, 16, 16),
+                    (1, 3, 4, 24, 32), (1, 3, 4, 32, 40)]
+K3_WRAPPER_SHAPES = [(2, 5, 32, 128), (1, 7, 48, 208), (2, 5, 12, 64),
+                     (2, 5, 32, 36)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,cout", X_WRAPPER_SHAPES)
+def test_x_wrapper_checks_agree_with_the_plan(no_library, dtype, n, h, w, cin, cout):  # pylint: disable=redefined-outer-name,unused-argument
+  gen = torch.Generator().manual_seed(0)
+  x = torch.randn(n, cin, h, w, generator=gen).to(dtype)
+  qweights = qconv.quantize_conv_weight(torch.randn(cout, cin, 3, 3, generator=gen))
+  expected = _plan_outcome(qconv.q8_frame_launch_plan, n, h, w, cin, cout, dtype)
+  with pytest.raises(expected):
+    qconv._launch_q8(x, qweights, torch.randn(cout, generator=gen))  # pylint: disable=protected-access
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,c,hid", K3_WRAPPER_SHAPES)
+def test_k3_wrapper_checks_agree_with_the_plan(no_library, dtype, b, t, c, hid):  # pylint: disable=redefined-outer-name,unused-argument
+  gen = torch.Generator().manual_seed(0)
+  f = lambda *s: torch.randn(*s, generator=gen).to(dtype)
+  args = [f(b, t, c), f(c), f(3, 1, 4 * c), f(4 * c), f(3, 1, 4 * c),
+          f(4 * c), f(c), f(c, hid), f(hid), f(hid, c), f(c)]
+  expected = _plan_outcome(fused_mixer_block.launch_plan, b, t, c, hid, dtype)
+  with pytest.raises(expected):
+    fused_mixer_block._launch(*args, False, None)  # pylint: disable=protected-access
+
+
+def test_mixer_module_hands_the_kernel_its_weights_in_place():
+  """MixerBlock passes its Linear weights as `weight.t()`: the K-major layout
+  the bf16 GEMMs' TMA boxes read is the weight's own storage, with no copy
+  per call; a weight in any other layout is copied."""
+  block = layers.MixerBlock(64)
+  for lin in (block.fc_up, block.fc_down):
+    kernel_w = fused_mixer_block._linear_layout(lin.weight.t())  # pylint: disable=protected-access
+    assert kernel_w.data_ptr() == lin.weight.data_ptr()
+  w = torch.randn(64, 256)
+  assert fused_mixer_block._linear_layout(w).data_ptr() != w.data_ptr()  # pylint: disable=protected-access

@@ -549,6 +549,36 @@ def test_conv2d_q8_over_frame_chunks(monkeypatch):
   torch.testing.assert_close(qconv.conv2d_q8_math(*args), whole, rtol=0, atol=0)
 
 
+# (n, h, w, C_in, C_out) for the padded-slab emulation: N = 1-3, H != W,
+# W + 2 no divisor of 128, C_in = 16 and 48 (a K step mostly zeros), C_in
+# over one K step of 128 channels, C_out over one 256-column tile, and
+# single-pixel frames.
+SLAB_SHAPES = [(1, 5, 7, 16, 32), (2, 6, 9, 48, 16), (3, 4, 3, 16, 48),
+               (2, 1, 1, 48, 32), (1, 3, 13, 160, 272)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,cin,cout", SLAB_SHAPES,
+                         ids=["c16", "c48_w9", "n3_c16", "one_pixel",
+                              "two_k_steps_ragged_n"])
+def test_padded_slab_equals_conv2d_q8(dtype, n, h, w, cin, cout):
+  """The CUDA kernel's indexing of X (one GEMM over the zero-ringed frames,
+  a shifted row box per tap, K steps of 128 channels) gives the plain
+  version's output bit for bit, and JAX's within `test_conv2d_q8_matches_jax`'s
+  contraction allowance."""
+  (jx, jk, jb), (tx, tk, tb) = _both(
+      conv_q8_inputs(seed=n + h, n=n, h=h, w=w, cin=cin, cout=cout), dtype)
+  args = (tx.permute(0, 3, 1, 2), tk.permute(3, 2, 0, 1), tb)
+  slab = qconv.conv2d_q8_padded_slab(*args)
+  plain = qconv.conv2d_q8_math(*args)
+  assert slab.shape == plain.shape == (n, cout, h, w)
+  torch.testing.assert_close(slab, plain, rtol=0, atol=0)
+  ref = jax_qconv.conv2d_q8_math(jx, jk, jb)
+  tol = 1e-6 if dtype == "float32" else 2.0**-8
+  np.testing.assert_allclose(_np(slab.permute(0, 2, 3, 1)), _np(ref), rtol=tol,
+                             atol=tol)
+
+
 def test_conv2d_q8_rejects_other_devices():
   _, (tx, tk, tb) = _both(conv_q8_inputs(), "float32")
   with pytest.raises(ValueError, match="unsupported device"):

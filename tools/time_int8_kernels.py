@@ -1,13 +1,19 @@
-"""Times the int8 kernels of a checkout on the card, with each one's phases.
+"""Times the ExtraConvs and mixer kernels of a checkout on the card, with
+each one's phases.
 
 X (`qconv.conv2d_q8`: conv_up and conv_out of one grid), K6
-(`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False) and
-K4 (`mixer_block`, quantized=True, at [128, 250, 512]) in bf16 and fp32, on
-seeded inputs scaled as chip_smoke.py scales them. For K6 and K4 it also
-splits one launch by kernel with torch.profiler: K6 into LayerNorm and patch
-scale, conv_up, conv_out; K4 into the temporal half and the MLP. Prints the
-card's name and power limit, then one JSON line: ms per call (CUDA events,
-the mean of `--reps` calls after two warm-up calls) and the splits.
+(`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False),
+K4 (`mixer_block`, quantized=True, at [128, 250, 512]) and K3 (the same
+block in full precision) in bf16 and fp32, on seeded inputs scaled as
+chip_smoke.py scales them. It splits one launch by kernel with
+torch.profiler: X into its quantization (frame amax and quantize) and its
+product; K6 into LayerNorm and patch scale, conv_up, conv_out; K4 into the
+temporal half and the MLP; K3 into the temporal half and its two products.
+For context it times cuBLAS's two bare bf16 products of K3's shape
+(torch.matmul), which the port never calls. Prints the card's name and
+power limit, then one JSON line: ms per call (CUDA events, the mean of
+`--reps` calls after two warm-up calls) and the splits. `--kernels` picks a
+subset (default: all of X, K6, K6f, K4, K3).
 
 `--root` names the checkout whose `tapnet_tpu_torch` is timed (default: the
 one this file is in), so one script times two versions. To compare them on
@@ -80,6 +86,18 @@ K4_PHASES = {
     "temporal": ("mixer_temporal",),
     "mlp": ("mixer_mlp_q8", "mixer_gemm_q8", "mixer_quantize_rows", "Memset"),
 }
+# X and K3 (before PR 8: conv3x3_q8<T> and mixer_gemm_bf16<EPI> on older
+# loops). K3's GEMM 1 is epilogue 0 (GELU), GEMM 2 epilogue 1 (residual).
+X_PHASES = {
+    "quantize": ("frame_amax", "quantize_frames", "Memset"),
+    "product": ("conv3x3_q8",),
+}
+K3_PHASES = {
+    "temporal": ("mixer_temporal",),
+    "gemm_up": ("mixer_gemm_tma<0", "mixer_gemm_bf16<0", "mixer_gemm_f32<0"),
+    "gemm_down": ("mixer_gemm_tma<1", "mixer_gemm_bf16<1", "mixer_gemm_f32<1"),
+}
+KERNELS = ("X", "K6", "K6f", "K4", "K3")
 
 
 def main():
@@ -89,7 +107,9 @@ def main():
   parser.add_argument("--grids", default="60,32")
   parser.add_argument("--reps", type=int, default=5)
   parser.add_argument("--seed", type=int, default=0)
+  parser.add_argument("--kernels", default=",".join(KERNELS))
   args = parser.parse_args()
+  chosen = set(args.kernels.split(","))
   sys.path.insert(0, os.path.abspath(args.root))
   from tapnet_tpu_torch.ops import (  # pylint: disable=import-outside-toplevel
       fused_extra_convs, fused_mixer_block, mixer_math, qconv)
@@ -124,32 +144,47 @@ def main():
     for grid in (int(v) for v in args.grids.split(",")):
       x = f(args.frames, grid, grid, c).to(dtype)
       x_nchw = x.permute(0, 3, 1, 2)
-      hidden_nchw = mixer_math.gelu(f(args.frames, grid, grid, m)).to(dtype).permute(0, 3, 1, 2)
-      times[f"X conv_up {grid} {name}"] = time_ms(
-          lambda: qconv.conv2d_q8(x_nchw, None, bu, qweights=wq_up), args.reps)
-      times[f"X conv_out {grid} {name}"] = time_ms(
-          lambda: qconv.conv2d_q8(hidden_nchw, None, bo, qweights=wq_out),
-          args.reps)
-      del hidden_nchw
-      k6 = lambda: fused_extra_convs.extra_convs_layer(
-          x, g, bln, None, bu, None, bo, True, qweights=qweights)
-      times[f"K6 {grid} {name}"] = time_ms(k6, args.reps)
-      splits[f"K6 {grid} {name}"] = split_ms(k6, K6_PHASES)
-      times[f"K6f {grid} {name}"] = time_ms(
-          lambda: fused_extra_convs.extra_convs_layer(x, *params, False),
-          args.reps)
+      if "X" in chosen:
+        hidden_nchw = mixer_math.gelu(f(args.frames, grid, grid, m)).to(dtype).permute(0, 3, 1, 2)
+        for conv, xin, bias, wq in (("conv_up", x_nchw, bu, wq_up),
+                                    ("conv_out", hidden_nchw, bo, wq_out)):
+          run = lambda: qconv.conv2d_q8(xin, None, bias, qweights=wq)  # pylint: disable=cell-var-from-loop
+          times[f"X {conv} {grid} {name}"] = time_ms(run, args.reps)
+          splits[f"X {conv} {grid} {name}"] = split_ms(run, X_PHASES)
+        del hidden_nchw
+      if "K6" in chosen:
+        k6 = lambda: fused_extra_convs.extra_convs_layer(
+            x, g, bln, None, bu, None, bo, True, qweights=qweights)
+        times[f"K6 {grid} {name}"] = time_ms(k6, args.reps)
+        splits[f"K6 {grid} {name}"] = split_ms(k6, K6_PHASES)
+      if "K6f" in chosen:
+        times[f"K6f {grid} {name}"] = time_ms(
+            lambda: fused_extra_convs.extra_convs_layer(x, *params, False),
+            args.reps)
       del x, x_nchw
       torch.cuda.empty_cache()
     margs = [a.to(dtype) for a in mixer]
-    k4 = lambda: fused_mixer_block.mixer_block(
-        *margs, False, None, quantized=True, qweights=tuple(mixer_q))
-    times[f"K4 {name}"] = time_ms(k4, 4 * args.reps)
-    splits[f"K4 {name}"] = split_ms(k4, K4_PHASES)
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    k4()
-    torch.cuda.synchronize()
-    times[f"K4 {name} peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
+    if "K4" in chosen:
+      k4 = lambda: fused_mixer_block.mixer_block(
+          *margs, False, None, quantized=True, qweights=tuple(mixer_q))
+      times[f"K4 {name}"] = time_ms(k4, 4 * args.reps)
+      splits[f"K4 {name}"] = split_ms(k4, K4_PHASES)
+      torch.cuda.reset_peak_memory_stats()
+      base = torch.cuda.memory_allocated()
+      k4()
+      torch.cuda.synchronize()
+      times[f"K4 {name} peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
+    if "K3" in chosen:
+      k3 = lambda: fused_mixer_block.mixer_block(*margs, False, None)
+      times[f"K3 {name}"] = time_ms(k3, 4 * args.reps)
+      splits[f"K3 {name}"] = split_ms(k3, K3_PHASES)
+      if dtype == torch.bfloat16:
+        rows = margs[0].reshape(-1, mc)
+        hidden = torch.empty(rows.shape[0], 4 * mc, dtype=dtype, device="cuda")
+        times["cuBLAS K3 products bf16"] = (
+            time_ms(lambda: torch.matmul(rows, margs[7]), 4 * args.reps)
+            + time_ms(lambda: torch.matmul(hidden, margs[9]), 4 * args.reps))
+        del rows, hidden
   print(json.dumps(dict(card=card, root=os.path.abspath(args.root),
                         frames=args.frames, ms=times, split_ms=splits)),
         flush=True)
