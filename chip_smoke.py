@@ -9,18 +9,24 @@ Phases (any failure raises and exits non-zero):
      at the shapes the 480x480 main path gives it, in fp32 and bf16 model
      dtype, timed with CUDA events beside the plain version and a bound from
      bytes and operations: the full-precision corr-tents (K1) and mixer
-     block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents,
-     the w8a8 mixer block (K4), the per-frame int8 3x3 convolution of the
+     block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents
+     with their per-row quantizer (quantize_rows, bit-equal to its plain
+     version at the three grids and the queries; K2b on the grid quantized
+     once, as the model runs it, and bit-equal to the inline route), the
+     w8a8 mixer block (K4), the per-frame int8 3x3 convolution of the
      ExtraConvs (X), the per-pixel ExtraConvs layer (K6) and the
      full-precision ExtraConvs layer (K6f, beside three faulty plain layers
-     that its fp32 check must refuse). The int8 kernels' own int8 tensors
-     are held against the plain version's too, beside wrong quantizations
-     as controls; X's padded int8 frames must have a zero ring. The records
-     of K3 (bf16, served shape), K4, X and K6 split one launch by kernel
+     that its fp32 check must refuse; in bf16 its padded t and hidden must
+     have zero rings). The int8 kernels' own int8 tensors are held against
+     the plain version's too, beside wrong quantizations as controls; X's
+     padded int8 frames must have a zero ring. The records of K3 (bf16,
+     served shape), K4, X, K6 and K6f split one launch by kernel
      (torch.profiler): K3 into its temporal half and its two products, K4
      into its temporal half and its MLP, X into its quantization and its
-     product, K6 into LayerNorm and patch scale, conv_up and conv_out, at
-     each grid. K3's served row also times cuBLAS's two bare products.
+     product, K6 into LayerNorm and patch scale, conv_up and conv_out, K6f
+     into LayerNorm, conv_up and conv_out, at each grid. K3's served row
+     also times cuBLAS's two bare products, K6f's the model's unfused
+     layer.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, in full precision and in the four int8 configurations
@@ -119,7 +125,8 @@ from tools.make_tapnext_golden import (  # noqa: E402
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
 from tools import make_tapnext_train_golden as train_golden  # noqa: E402
 from tools.time_int8_kernels import (  # noqa: E402
-    K3_PHASES, K4_PHASES, K6_PHASES, X_PHASES, split_ms as kernel_split,
+    K3_PHASES, K4_PHASES, K6_PHASES, K6F_PHASES, X_PHASES,
+    split_ms as kernel_split,
 )
 
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
@@ -314,11 +321,14 @@ GOLDEN_INT8_FP32_TOL = {
 ONLINE_QUERIES, ONLINE_WARMUP, ONLINE_STEPS = 64, 5, 50
 ONLINE_K1_PER_STEP = 12
 
-# The kernels each int8 configuration must launch, and no other.
+# The kernels each int8 configuration must launch, and no other (the int8
+# correlation quantizes its queries, and in b its grids, with
+# corr_quantize).
 INT8_LAUNCHES = {
-    "a": {"corr_tents_q8_frame", "mixer_block_q8"},
-    "b": {"corr_tents_q8_position", "mixer_block"},
-    "c": {"corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"},
+    "a": {"corr_tents_q8_frame", "corr_quantize", "mixer_block_q8"},
+    "b": {"corr_tents_q8_position", "corr_quantize", "mixer_block"},
+    "c": {"corr_tents_q8_frame", "corr_quantize", "mixer_block_q8",
+          "extra_convs_q8_frame"},
     "d": {"corr_tents", "mixer_block", "extra_convs_q8_pixel"},
 }
 
@@ -483,6 +493,7 @@ COUNTERS = {
     "corr_tents": (corr_tents, "LAUNCHES"),
     "corr_tents_q8_frame": (corr_tents, "LAUNCHES_Q8_FRAME"),
     "corr_tents_q8_position": (corr_tents, "LAUNCHES_Q8_POSITION"),
+    "corr_quantize": (corr_tents, "LAUNCHES_QUANTIZE"),
     "mixer_block": (fused_mixer_block, "LAUNCHES"),
     "mixer_block_q8": (fused_mixer_block, "LAUNCHES_Q8"),
     "extra_convs_q8_frame": (qconv, "LAUNCHES_Q8"),
@@ -516,7 +527,8 @@ def int_mm_ms(a, b):
 
 def corr_variants(dtype, gen):
   """Per corr-tents kernel: (name, per level a tuple of (shape, kernel call,
-  plain call, tolerance, bound inputs, operand type of the bound))."""
+  plain call, tolerance, bound inputs, operand type of the bound, and a
+  call that must give the kernel call's output bit for bit, or None))."""
   for name in ("corr_tents", "corr_tents_q8_frame", "corr_tents_q8_position"):
     levels = []
     for h, w, c in CORR_LEVELS:
@@ -526,6 +538,7 @@ def corr_variants(dtype, gen):
         plain = lambda a=(grid, query, cy, cx): (
             corr_tents.corr_tent_patches_reference(*a, 7))
         tol, bound_of, op_type = corr_tol(grid, query), grid, dtype
+        same = None
       elif name == "corr_tents_q8_frame":
         # The grid is quantized once per video, outside the timed call.
         gq, gs = corr_tents.quantize_per_frame(grid)
@@ -533,15 +546,22 @@ def corr_variants(dtype, gen):
             corr_tents.corr_tent_patches_prequantized(*a, 7))
         plain = lambda a=(gq, gs, query, cy, cx): (
             corr_tents.corr_tent_patches_prequantized_reference(*a, 7))
-        tol, bound_of, op_type = None, gq, torch.int8
+        tol, bound_of, op_type, same = None, gq, torch.int8, None
       else:
-        run = lambda a=(grid, query, cy, cx): (
+        # Likewise the per-position grid (quantize_rows), as the model runs
+        # it; the inline route, which quantizes the grid in the call, must
+        # give the same bits.
+        gq, gs = corr_tents.quantize_per_position(grid)
+        run = lambda a=(gq, gs, query, cy, cx): (
+            corr_tents.corr_tent_patches_prequantized_per_position(*a, 7))
+        plain = lambda a=(gq, gs, query, cy, cx): (
+            corr_tents.corr_tent_patches_prequantized_per_position_reference(
+                *a, 7))
+        same = lambda a=(grid, query, cy, cx): (
             corr_tents.corr_tent_patches(*a, 7, True))
-        plain = lambda a=(grid, query, cy, cx): (
-            corr_tents.corr_tent_patches_quantized_reference(*a, 7))
-        tol, bound_of, op_type = None, grid, torch.int8
+        tol, bound_of, op_type = None, gq, torch.int8
       levels.append(((h, w, c), run, plain, tol,
-                     (bound_of, query, cy, cx), op_type))
+                     (bound_of, query, cy, cx), op_type, same))
     yield name, levels
 
 
@@ -566,11 +586,17 @@ def check_corr(dtype, gen, checks):
   name_dt = str(dtype).replace("torch.", "")
   for name, levels in corr_variants(dtype, gen):
     records = []
-    for (h, w, c), run, plain, tol, bound_args, op_type in levels:
+    for (h, w, c), run, plain, tol, bound_args, op_type, same in levels:
       out = run()
       torch.cuda.synchronize()
       ref = plain()
       torch.cuda.synchronize()
+      extra = {}
+      if same is not None:
+        require(torch.equal(out, same()),
+                f"{name} {name_dt} {h}x{w}x{c}: the pre-quantized route and "
+                "the inline one differ")
+        extra = dict(equals_inline_route=True, inline_route_ms=time_ms(same))
       if tol is None:
         tol = (CORR_Q8_TOL[0], CORR_Q8_TOL[1] * float(ref.abs().max()))
       diff = (out - ref).abs()
@@ -586,16 +612,63 @@ def check_corr(dtype, gen, checks):
           max_abs_err=err, max_err_over_limit=over,
           ref_max_abs=float(ref.abs().max()), tol=tol, ms=time_ms(run),
           plain_ms=time_ms(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
-          nbytes=nbytes, flops=flops))
+          nbytes=nbytes, flops=flops, **extra))
       del out, ref, diff
     checks.extend(records)
     checks.append(path_record(
         records,
         f"mean of one launch at each of the {len(levels)} pyramid levels",
-        levels[0][5], tol=max((r["tol"] for r in records), key=lambda t: t[1])))
+        levels[0][5], tol=max((r["tol"] for r in records), key=lambda t: t[1]),
+        mean_keys=("inline_route_ms",) if "inline_route_ms" in records[0] else ()))
     del levels
     torch.cuda.empty_cache()
+  check_quantize_rows(dtype, gen, checks)
   check_corr_online(dtype, gen, checks)
+
+
+# quantize_rows per served video of serve-480-int8-b, per pyramid level: the
+# grid once, the query [FRAMES, CHUNK, C] in every call (2 chunks x 4
+# refinement steps).
+QUANTIZE_QUERIES_PER_GRID = 8
+
+
+def check_quantize_rows(dtype, gen, checks):
+  """The int8 correlation's per-row quantizer (the kernel quantize_rows, via
+  corr_tents.quantize_per_position) against its plain version
+  _quantize_lastdim at the three served grids and their queries: bit-equal
+  int8 values and scales. Bound: bytes, the values read once, the int8
+  values and the scales written once; a few float32 operations a value."""
+  name_dt = str(dtype).replace("torch.", "")
+  records, weighted = [], []
+  for h, w, c in CORR_LEVELS:
+    grid, query, _, _ = corr_inputs(h, w, c, dtype, gen)
+    for what, v in (("grid", grid), ("query", query)):
+      run = lambda v=v: corr_tents.quantize_per_position(v)
+      plain = lambda v=v: corr_tents._quantize_lastdim(v)  # pylint: disable=protected-access
+      (q, scale), (q_ref, scale_ref) = run(), plain()
+      torch.cuda.synchronize()
+      steps = int((q.int() - q_ref.int()).abs().max())
+      scale_err = float((scale - scale_ref).abs().max())
+      equal = torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+      require(equal, f"quantize_rows {name_dt} {what} {tuple(v.shape)}: "
+              f"{steps} int8 steps, scales {scale_err} apart")
+      nbytes = v.numel() * (v.element_size() + 1) + scale.numel() * 4
+      flops = 3.0 * v.numel()  # |v| and its max, the division, the rounding
+      b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+      records.append(dict(
+          kernel="corr_quantize", dtype=name_dt, operand=what,
+          shape=list(v.shape), max_abs_err=max(steps, scale_err),
+          max_err_over_limit=0.0, tol="bit-equal (0)", ms=time_ms(run),
+          plain_ms=time_ms(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+          nbytes=nbytes, flops=flops))
+      del q, scale, q_ref, scale_ref
+    weighted += [records[-2]] + [records[-1]] * QUANTIZE_QUERIES_PER_GRID
+    del grid, query
+    torch.cuda.empty_cache()
+  checks.extend(records)
+  checks.append(path_record(
+      weighted, f"mean of one serve-480-int8-b launch: each pyramid grid once "
+      f"and its query {QUANTIZE_QUERIES_PER_GRID} times", torch.float32))
 
 
 def check_corr_online(dtype, gen, checks):
@@ -942,9 +1015,18 @@ def fp_limit_assumptions(x, params):
   fused_extra_convs._launch_fp(x, *params, scratch=scratch)  # pylint: disable=protected-access
   torch.cuda.synchronize()
   t32, noise = fused_extra_convs.ln_noise(x, g, bln)
-  t32_k = scratch["t32"].view(t32.shape)
+  t32_k = scratch["t32"]
   hidden = mixer_math.gelu(fused_extra_convs._conv_fp(  # pylint: disable=protected-access
       t32_k.to(x.dtype), wu, bu)).to(x.dtype)
+  # The padded slabs of the bf16 kernel: zero rings (conv_up's epilogue
+  # writes the hidden's), and t inside is t32 rounded.
+  n, h, w, _ = x.shape
+  ring = torch.ones(n, h + 2, w + 2, dtype=torch.bool, device=x.device)
+  ring[:, 1:h + 1, 1:w + 1] = False
+  rings_zero = all(float(scratch[k][ring].float().abs().max()) == 0.0
+                   for k in ("t_padded", "hidden_padded"))
+  t_is_rounded = torch.equal(scratch["t_padded"][:, 1:h + 1, 1:w + 1],
+                             t32_k.to(x.dtype))
   found = dict(
       t32_apart_over_noise=float(((t32_k - t32).abs()
                                   / noise.clamp_min(1e-30)).max()),
@@ -952,12 +1034,14 @@ def fp_limit_assumptions(x, params):
       near_midpoint_share=float(
           (fused_extra_convs._bf16_midpoint_distance(t32) <= noise)  # pylint: disable=protected-access
           .float().mean()),
-      hidden_flip_share=float(
-          (scratch["hidden"].view(hidden.shape) != hidden).float().mean()),
-      hidden_flip_share_allowed=fused_extra_convs.FP_HIDDEN_FLIP_SHARE)
+      hidden_flip_share=float((scratch["hidden"] != hidden).float().mean()),
+      hidden_flip_share_allowed=fused_extra_convs.FP_HIDDEN_FLIP_SHARE,
+      padded_rings_zero=rings_zero, padded_t_is_t32_rounded=t_is_rounded)
   require(found["t32_apart_over_noise"] <= 1.0
           and found["hidden_flip_share"] <= found["hidden_flip_share_allowed"],
           f"K6f bf16: the limit's assumptions do not hold: {found}")
+  require(rings_zero and t_is_rounded,
+          f"K6f bf16: the padded slabs are wrong: {found}")
   return found
 
 
@@ -1015,14 +1099,19 @@ def check_extra_convs_fp(dtype, gen, checks):
         ms=time_ms(run, reps=5),
         plain_ms=time_ms(plain, reps=2, warmup=1), bound_ms=b_ms,
         bound_by=b_by, nbytes=nbytes, flops=flops,
-        production_layer_ms=production_ms))
+        production_layer_ms=production_ms,
+        split_ms=kernel_split(run, K6F_PHASES)))
     del args, x, production, x_nchw
     torch.cuda.empty_cache()
   torch.backends.cudnn.allow_tf32 = True
   checks.extend(records)
-  checks.append(path_record(
+  path = path_record(
       records, "mean of one launch at the 60x60 and 32x32 grids", dtype,
-      mean_keys=("production_layer_ms",)))
+      mean_keys=("production_layer_ms",))
+  path["ms_by_grid"] = {f"{r['shape'][1]}x{r['shape'][2]}": r["ms"] for r in records}
+  path["split_ms_by_grid"] = {f"{r['shape'][1]}x{r['shape'][2]}": r["split_ms"]
+                              for r in records}
+  checks.append(path)
 
 
 def scan_inputs(shape, dtype, carried, gen, device="cuda"):
@@ -1287,7 +1376,17 @@ KERNEL_META = {
         source="tapnet_tpu_torch/csrc/corr_tents.cu",
         replaces="tapnet_tpu/ops/corr_tents.py:239",
         tpu_kernel="K2b corr_tents._kernel_quantized (quantized=True, "
-                   "_pallas_forward :292)",
+                   "_pallas_forward :292), on a grid quantized once per "
+                   "video (corr_tent_patches_prequantized_per_position)",
+        layer="K1/K2 corr_tents", run="serve_int8_b",
+    ),
+    # The int8 modes' quantizer of the queries (every call) and of the
+    # per-position grids (once per video), which JAX leaves to XLA.
+    "corr_quantize": dict(
+        source="tapnet_tpu_torch/csrc/corr_tents.cu",
+        replaces="tapnet_tpu/ops/corr_tents.py:62",
+        tpu_kernel="corr_tents._quantize_lastdim (XLA, no Pallas kernel), "
+                   "before K2 (:288) and K2b (:300-301)",
         layer="K1/K2 corr_tents", run="serve_int8_b",
     ),
     "mixer_block": dict(
@@ -1332,6 +1431,7 @@ KERNEL_META = {
                    "(:233-237, operands :294-297; via _pallas_forward :261, "
                    "entry extra_convs_layer :336)",
         layer="K6f float ExtraConvs", run="extra_convs_fp_480",
+        loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (bf16: conv3x3_bf16_tma)",
     ),
     # TAPNext: the scan's inputs stay float32 in the served bf16 model.
     "linear_scan": dict(
@@ -1485,7 +1585,8 @@ def make_videos(count, queries=QUERIES):
 EXTRA_KERNELS = ("conv3x3_q8_tma", "frame_amax", "quantize_frames",
                  "ln_bias_rows", "patch_scale", "k6_conv_up", "k6_conv_out")
 LAYERS = (
-    ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel")),
+    ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel",
+                          "corr_quantize_rows")),
     ("K3/K4 mixer_block", ("mixer_temporal", "mixer_gemm_tma", "mixer_gemm_f32",
                            "mixer_mlp_q8")),
     ("int8 ExtraConvs (X, K6)", EXTRA_KERNELS),
@@ -1495,7 +1596,8 @@ LAYERS = (
 )
 
 
-OWN_KERNELS = ("mixer_", "corr_tents", "conv3x3_bf16", "conv3x3_f32") + EXTRA_KERNELS
+OWN_KERNELS = ("mixer_", "corr_tents", "corr_quantize", "conv3x3_bf16",
+               "conv3x3_f32", "ln_bias_slab") + EXTRA_KERNELS
 
 
 def profile_request(request, unprofiled_wall_s, layers=LAYERS, own=OWN_KERNELS,
@@ -1680,7 +1782,8 @@ def extra_convs_fp_480(params, videos):
     profile = profile_request(
         lambda: [k6f_stack(x) for x in grids], float(np.mean(per_video)) / 1e3,
         layers=(("K6f float ExtraConvs", ("conv3x3_bf16", "conv3x3_f32",
-                                          "ln_bias_rows")),) + LAYERS)
+                                          "ln_bias_rows", "ln_bias_slab")),)
+        + LAYERS)
   return dict(
       config="bootstapir_config(), bf16 model, trained weights", videos=count,
       frames=FRAMES, grids=[[256 // 8] * 2, [RES // 8] * 2],
@@ -2310,7 +2413,7 @@ def main():
       # serve-480-int8: w8a8 mixer, per-frame int8 correlation, 2 steps.
       "serve_int8": serve(
           params, videos, dict(INT8_CONFIGS["a"], **fast),
-          ("corr_tents_q8_frame", "mixer_block_q8")),
+          ("corr_tents_q8_frame", "corr_quantize", "mixer_block_q8")),
       # The same step count in bf16, to tell int8's share from the steps'.
       "serve_bf16_2iter": serve(
           params, videos, fast, ("corr_tents", "mixer_block")),
@@ -2318,19 +2421,21 @@ def main():
       # phase 2 checks it at, two videos after the warm-up.
       "serve_int8_b": serve(
           params, videos[:3], INT8_CONFIGS["b"],
-          ("corr_tents_q8_position", "mixer_block")),
+          ("corr_tents_q8_position", "corr_quantize", "mixer_block")),
       # serve-480-headline: the JAX package's headline (bench.py) at its full
       # size, 1024 queries; per-frame int8 ExtraConvs (X), K2 and K4.
       "serve_headline": serve(
           params, make_videos(3, HEADLINE_QUERIES), INT8_CONFIGS["c"],
-          ("corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"),
+          ("corr_tents_q8_frame", "corr_quantize", "mixer_block_q8",
+           "extra_convs_q8_frame"),
           queries=HEADLINE_QUERIES),
       # serve-480-int8-pp: serve-480-int8 with the per-pixel int8
       # ExtraConvs: K6 at both grids, no per-frame conv.
       "serve_int8_pp": serve(
           params, videos[:3],
           dict(INT8_CONFIGS["a"], quantized_extra_convs="per_pixel", **fast),
-          ("corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_pixel")),
+          ("corr_tents_q8_frame", "corr_quantize", "mixer_block_q8",
+           "extra_convs_q8_pixel")),
   }
   tracks = {name: run.pop("tracks") for name, run in runs.items()}
   runs["serve_int8"]["tracks_vs_bf16_same_steps"] = tracks_apart(
@@ -2380,8 +2485,8 @@ def main():
   # One row per kernel: bf16 model dtype (the served precision; K5's inputs
   # stay float32 in it), per launch at the served shapes, with the launches
   # per video of the run that drives it. launches * ms should come near the
-  # profile's time for the kernel (K2 and K2b: less the quantization their
-  # entries do in PyTorch).
+  # profile's time for the kernel's layer (corr-tents: with corr_quantize's
+  # launches, and K2's scale product in PyTorch).
   kernels = []
   for name, meta in KERNEL_META.items():
     dtype = meta.get("dtype", "bfloat16")
@@ -2420,6 +2525,10 @@ def main():
         # PyTorch elementwise passes), for context only.
         **({"production_layer_ms": row["production_layer_ms"]}
            if "production_layer_ms" in row else {}),
+        # K2b: the inline route (the grid quantized in the call), as the
+        # model ran it before the grids were quantized once per video.
+        **({"inline_route_ms": row["inline_route_ms"]}
+           if "inline_route_ms" in row else {}),
     ))
   print(card)
   emit({"kernels": kernels})

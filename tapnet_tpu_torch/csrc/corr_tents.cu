@@ -54,11 +54,26 @@
 // 2*64*C flops, far below the ~295 flop/byte the tensor cores need; the
 // roofline time is the grid's bytes over 3.35 TB/s. Scalar lane-strided loads
 // keep any C legal; wider vector loads are later work.
+//
+// quantize_rows: the int8 modes' quantizer of the grid per position and of
+// the query per descriptor, which the JAX package leaves to XLA
+// (tapnet_tpu/ops/corr_tents.py::_quantize_lastdim): for each row of [R, C]
+// in float32 or bfloat16, s = max(amax |row|, 1e-8) * (1/127) and q =
+// clip(rint(v / s), +-127) (IEEE division, round half to even), int8 [R, C]
+// and float32 s [R], bit-equal to the port's plain _quantize_lastdim. One
+// warp per row: the amax pass and the quantizing pass read the row in
+// 16-byte pieces (the second from L1), lanes on neighbouring pieces. Bound:
+// memory, each value read once and written once as int8 (at the served
+// hires grid, [250 * 120 * 120, 128] bf16, 0.92 + 0.46 GB: 0.41 ms at 3.35
+// TB/s). The per-position grid is quantized once per video
+// (models/tapir.py), the query at every call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "q8_tile.cuh"
 
 namespace {
 
@@ -329,6 +344,99 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// 16 values a lane reads in one piece: 4 float32 or 8 bfloat16.
+__device__ __forceinline__ void load_piece(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_piece(const __nv_bfloat16* p, float* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One warp per row of v [rows, c]; PIECES: c % (16 / sizeof(T)) == 0 and v
+// 16-byte aligned (16-byte loads, 4- or 8-byte int8 stores), otherwise one
+// value a lane at a time.
+template <typename T, bool PIECES>
+__global__ void __launch_bounds__(kThreads)
+    corr_quantize_rows(const T* __restrict__ v, int8_t* __restrict__ q,
+                       float* __restrict__ scale, long long rows, int c) {
+  constexpr int kVec = 16 / sizeof(T);
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* src = v + row * c;
+  int8_t* dst = q + row * c;
+  float m = 0.f;
+  if (PIECES) {
+    for (int k = lane * kVec; k < c; k += 32 * kVec) {
+      float f[kVec];
+      load_piece(src + k, f);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) m = fmaxf(m, fabsf(f[e]));
+    }
+  } else {
+    for (int k = lane; k < c; k += 32) m = fmaxf(m, fabsf(to_f(src[k])));
+  }
+  const float s = q8::scale_div(warp_max(m));
+  if (lane == 0) scale[row] = s;
+  if (PIECES) {
+    for (int k = lane * kVec; k < c; k += 32 * kVec) {
+      float f[kVec];
+      load_piece(src + k, f);
+      uint32_t words[kVec / 4];
+#pragma unroll
+      for (int i = 0; i < kVec / 4; ++i) {
+        words[i] = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          words[i] |= (static_cast<uint32_t>(q8::quantize_div(f[4 * i + e], s)) & 0xffu)
+                      << (8 * e);
+        }
+      }
+      if constexpr (kVec == 8) {
+        *reinterpret_cast<uint2*>(dst + k) = make_uint2(words[0], words[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst + k) = words[0];
+      }
+    }
+  } else {
+    for (int k = lane; k < c; k += 32) {
+      dst[k] = static_cast<int8_t>(q8::quantize_div(to_f(src[k]), s));
+    }
+  }
+}
+
+template <typename T>
+int launch_quantize(const void* v, void* q, void* scale, long long rows, int c,
+                    cudaStream_t stream) {
+  const long long blocks = (rows + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool pieces = c % (16 / static_cast<int>(sizeof(T))) == 0 &&
+                      reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  auto kernel = pieces ? corr_quantize_rows<T, true> : corr_quantize_rows<T, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(v), static_cast<int8_t*>(q), static_cast<float*>(scale),
+      rows, c);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* grid, const void* query, const void* cy,
            const void* cx, void* out, int bt, int h, int w, int c, int n,
@@ -407,6 +515,18 @@ int corr_tents_q8_forward(const void* grid, const void* query,
       static_cast<const float*>(out_scale), static_cast<const float*>(cy),
       static_cast<const float*>(cx), static_cast<float*>(out), h, w, c, n);
   return cudaGetLastError();
+}
+
+// Symmetric per-row int8 quantization: v [rows, c] (dtype 0: float32, 1:
+// bfloat16) -> q int8 [rows, c] and scale float32 [rows] (see
+// corr_quantize_rows). Returns the launch's cudaError_t.
+int quantize_rows(const void* v, void* q, void* scale, long long rows, int c,
+                  int dtype, void* stream) {
+  if (rows <= 0 || c <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_quantize<float>(v, q, scale, rows, c, s);
+  if (dtype == 1) return launch_quantize<__nv_bfloat16>(v, q, scale, rows, c, s);
+  return cudaErrorInvalidValue;
 }
 
 const char* tapnet_cuda_error_string(int err) {

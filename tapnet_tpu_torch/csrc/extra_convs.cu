@@ -1,10 +1,10 @@
 // The ExtraConvs of BootsTAPIR, hand-written for Hopper (sm_90a). The
-// per-frame int8 convolution (X) runs on the TMA + wgmma GEMM loop of
-// tma_gemm.cuh, which K3's bf16 products share; the float layer in bf16
-// (K6f) on an implicit-GEMM loop of its own (conv3x3_mma, mma.sync), in fp32
-// on the SIMT cores (see extra_convs_fp_forward below). The per-pixel int8
-// layer (K6) runs on the int8 tile loop of q8_tile.cuh, which K4
-// (csrc/fused_mixer_block.cu) shares.
+// per-frame int8 convolution (X) and the float layer's two bf16 products
+// (K6f in bf16) run on the TMA + wgmma GEMM loop of tma_gemm.cuh, which K3's
+// bf16 products share; K6f in fp32 on the SIMT cores (see
+// extra_convs_fp_forward below). The per-pixel int8 layer (K6) runs on the
+// int8 tile loop of q8_tile.cuh, which K4 (csrc/fused_mixer_block.cu)
+// shares.
 //
 // conv3x3_q8_frame_forward: the per-frame w8a8 SAME 3x3 stride-1 convolution
 // (quantized_extra_convs=True). It replaces XLA's int8 convolution of
@@ -93,24 +93,36 @@
 // tapnet_tpu/ops/fused_extra_convs.py::_kernel with quantized=False (no model
 // path reaches it: the JAX gate wants_fused demands the per-pixel mode), and
 // computes what _math_reference(quantized=False) computes:
-//   (a) ln_bias_rows: t32 = LN(x) * g + b in float32, and t = t32 rounded to
-//       the model dtype (bf16 only; in fp32 conv_up reads t32);
-//   (b) conv3x3_<dtype><kUpF>: conv_up of t with the weights in the model
-//       dtype, float32 sums, then + bu, GELU (tanh), rounded to the model
-//       dtype: the hidden [P, 4C], through device memory (one frame's
-//       3600 x 1024 hidden does not fit on an SM);
-//   (c) conv3x3_<dtype><kOutF>: conv_out of the hidden, + bo, + t32 (the
-//       residual adds the float32 LN output, not t), cast to the model dtype.
-// Taps outside the frame read zeros, so the hidden of a pad pixel, which
-// would be gelu(bu), never exists. bf16: conv3x3_mma, an implicit GEMM on
-// mma.sync m16n8k16 with float32 accumulation (a 64-byte K chunk is 32
-// values).
-// fp32: IEEE float32 products on the SIMT cores (FFMA), not TF32, which
-// keeps 10 bits and could not hold the port's 1e-4. Bound: operations,
-// 8.49 T at [250, 60, 60] (8.6 ms at the bf16 peak, 127 ms at the fp32
-// SIMT peak); the hidden's round trip (1.84 GB in bf16) is 0.55 ms more.
-// What this first design gives away: mma.sync without ldmatrix or wgmma,
-// the hidden through device memory.
+//   t32 = LN(x) * g + b (float32);  h = T(gelu(conv_up(T(t32)) + bu));
+//   y = T(t32 + (conv_out(h) + bo))
+// with T the model dtype, float32 sums, the residual on the float32 LN
+// output (not t). Taps outside the frame read zeros, so the hidden of a pad
+// pixel, which would be gelu(bu), never reaches conv_out.
+// bf16, three launches, X's padded-slab formulation in 2-byte operands:
+//   (a) ln_bias_slab: t32 dense [n*h*w, c], and t = bf16(t32) into the
+//       padded slab [n, h+2, w+2, c] with a zero ring;
+//   (b) conv3x3_bf16_tma<UpSlabEpilogue>: conv_up as one tg::gemm (bf16 x
+//       bf16 -> f32) over the padded raster, a shifted row box of the slab
+//       per tap (SlabLoader), the weights [m, 3, 3, c] a 3D tensor map {c,
+//       9, m}; the epilogue writes bf16(gelu(acc + bu)) into a second padded
+//       slab [n, h+2, w+2, m], zeros on its ring rows, so that conv_out
+//       reads a zero ring without a memset;
+//   (c) conv3x3_bf16_tma<OutSlabEpilogue>: conv_out the same way over the
+//       hidden slab; the epilogue stages acc + bo in float32 and stores
+//       bf16(t32 + (acc + bo)) for the rows inside their frame only, dense
+//       [n, h, w, c].
+// fp32: ln_bias_rows, then conv3x3_f32 twice, IEEE float32 products on the
+// SIMT cores (FFMA), not TF32, which keeps 10 bits and could not hold the
+// port's 1e-4; the hidden dense [n*h*w, m].
+// Bound: operations, two 3x3 products of 2 * 9 * 256 * 1024 operations per
+// pixel, 8.49 T at [250, 60, 60] (8.6 ms at the bf16 peak, 127 ms at the
+// fp32 SIMT peak); the hidden's round trip (1.97 GB in the bf16 slab) is
+// 0.6 ms more. The ring rows are computed and dropped, as X's: 6.8% more
+// work at 60x60, 13% at 32x32. conv_up has 36 K steps a tile (9 taps x 4),
+// so its GELU epilogue weighs a ninth of what it does in K3's 8-step GEMM 1;
+// conv_up's four N tiles of the 4.7 MB weights and conv_out's one of 0.5 MB
+// stay in L2 while the persistent CTAs walk N fastest.
+// (fused_extra_convs.fp_padded_slab emulates this indexing in float64.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,9 +134,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using q8::cp_async16;
-using q8::cp_async_commit;
-using q8::cp_async_wait;
 
 constexpr float kEps = 1e-5f;
 constexpr int kThreads = 256;
@@ -256,23 +265,44 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------ X on tma_gemm.cuh
 
-// K step kk of X is tap kk / per_tap, channels (kk % per_tap) * 128 ..; the
-// A box of a tile at padded row m0 starts at row m0 + dy (w+2) + dx of the
-// padded frames [rows, c_in], the B box at {channel, tap, column} of the
-// weights [c_out, 9, c_in].
+// K step kk of a convolution over padded frames (X, K6f in bf16) is tap kk /
+// per_tap, channels (kk % per_tap) * step .. (step: the values of tg::kBK
+// bytes); the A box of a tile at padded row m0 starts at row m0 + dy (w+2) +
+// dx of the padded frames [rows, c_in], the B box at {channel, tap, column}
+// of the weights [c_out, 9, c_in].
 struct SlabLoader {
   static constexpr int kBDims = 3;
-  int per_tap, wp;
+  int per_tap, wp, step;
   __device__ __forceinline__ void a(int kk, int m0, int& c0, int& c1) const {
     const int tap = kk / per_tap;
-    c0 = (kk - tap * per_tap) * tg::kBK;
+    c0 = (kk - tap * per_tap) * step;
     c1 = m0 + (tap / 3 - 1) * wp + (tap % 3 - 1);
   }
   __device__ __forceinline__ void b(int kk, int n, int& c0, int& c1, int& c2) const {
     const int tap = kk / per_tap;
-    c0 = (kk - tap * per_tap) * tg::kBK;
+    c0 = (kk - tap * per_tap) * step;
     c1 = tap;
     c2 = n;
+  }
+};
+
+// Row r of padded frames [n, h+2, w+2, .]: its frame and its pixel's row and
+// column in the frame (-1, h or w on the ring).
+struct PaddedRow {
+  int frame, y, x;
+  __device__ __forceinline__ PaddedRow(int r, int h, int w) {
+    const int wp = w + 2, plane = (h + 2) * wp;
+    frame = r / plane;
+    const int rem = r - frame * plane;
+    y = rem / wp - 1;
+    x = rem - (y + 1) * wp - 1;
+  }
+  __device__ __forceinline__ bool inside(int h, int w) const {
+    return y >= 0 && y < h && x >= 0 && x < w;
+  }
+  // The pixel's index in dense frames [n, h, w, .].
+  __device__ __forceinline__ size_t pixel(int h, int w) const {
+    return (static_cast<size_t>(frame) * h + y) * w + x;
   }
 };
 
@@ -292,12 +322,9 @@ struct FrameEpilogue {
     T* dst;
   };
   __device__ __forceinline__ Row row(int r) const {
-    const int wp = w + 2, plane = (h + 2) * wp;
-    const int frame = r / plane, rem = r - frame * plane;
-    const int y = rem / wp - 1, x = rem - (y + 1) * wp - 1;
-    if (y < 0 || y >= h || x < 0 || x >= w) return Row{false, 0.f, nullptr};
-    return Row{true, xs[frame],
-               out + ((static_cast<size_t>(frame) * h + y) * w + x) * cout};
+    const PaddedRow p(r, h, w);
+    if (!p.inside(h, w)) return Row{false, 0.f, nullptr};
+    return Row{true, xs[p.frame], out + p.pixel(h, w) * cout};
   }
   __device__ __forceinline__ float value(const Row& r, int col, int s) const {
     return __fadd_rn(__fmul_rn(__int2float_rn(s), __fmul_rn(r.scale, ws[col])), bias[col]);
@@ -318,18 +345,15 @@ __global__ void __launch_bounds__(tg::kThreads, 1)
 
 // ------------------------------------------------------- LayerNorm, scales
 
-// (a) One warp per pixel: t32 = (x - mu) * rsqrt(var + eps) * g + b with
-// var = mean(x^2) - mu^2; amax[p] = max |t32| (K6) and t = T(t32) (K6f) where
-// those pointers are not null.
+// One warp's LayerNorm of a pixel's c values: t32 = (x - mu) * rsqrt(var +
+// eps) * g + b with var = mean(x^2) - mu^2, into dst32, and T(t32) into t
+// where it is not null. Returns the row's max |t32| (in every lane).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_bias_rows(const T* __restrict__ x, const float* __restrict__ g,
-                 const float* __restrict__ b, float* __restrict__ t32,
-                 float* __restrict__ amax, T* __restrict__ t, int rows, int c) {
-  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* src = x + static_cast<size_t>(row) * c;
+__device__ __forceinline__ float ln_row(const T* __restrict__ src,
+                                        const float* __restrict__ g,
+                                        const float* __restrict__ b,
+                                        float* __restrict__ dst32,
+                                        T* __restrict__ t, int c, int lane) {
   float s = 0.f, s2 = 0.f;
   for (int k = lane; k < c; k += 32) {
     const float v = to_f(src[k]);
@@ -340,16 +364,49 @@ __global__ void __launch_bounds__(kThreads)
   const float mu = warp_sum(s) * inv_c;
   const float var = warp_sum(s2) * inv_c - mu * mu;
   const float rs = rsqrtf(var + kEps);
-  float* dst = t32 + static_cast<size_t>(row) * c;
   float m = 0.f;
   for (int k = lane; k < c; k += 32) {
     const float v = __fadd_rn(__fmul_rn(__fmul_rn(to_f(src[k]) - mu, rs), g[k]), b[k]);
-    dst[k] = v;
-    if (t != nullptr) t[static_cast<size_t>(row) * c + k] = from_f<T>(v);
+    dst32[k] = v;
+    if (t != nullptr) t[k] = from_f<T>(v);
     m = fmaxf(m, fabsf(v));
   }
-  m = warp_max(m);
+  return warp_max(m);
+}
+
+// (a) One warp per pixel: t32 and, where amax is not null, amax[p] = max
+// |t32| (K6; K6f in fp32 passes null).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ln_bias_rows(const T* __restrict__ x, const float* __restrict__ g,
+                 const float* __restrict__ b, float* __restrict__ t32,
+                 float* __restrict__ amax, int rows, int c) {
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float m = ln_row<T>(x + static_cast<size_t>(row) * c, g, b,
+                            t32 + static_cast<size_t>(row) * c, nullptr, c, lane);
   if (lane == 0 && amax != nullptr) amax[row] = m;
+}
+
+// (a) of K6f in bf16: one warp per row of the padded slab t [n, h+2, w+2, c]:
+// zeros on the ring; inside, the pixel's t32 (dense [n*h*w, c]) and its bf16
+// rounding in the slab row.
+__global__ void __launch_bounds__(kThreads)
+    ln_bias_slab(const bf16* __restrict__ x, const float* __restrict__ g,
+                 const float* __restrict__ b, float* __restrict__ t32,
+                 bf16* __restrict__ t, int padded_rows, int h, int w, int c) {
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= padded_rows) return;
+  bf16* dst = t + static_cast<size_t>(row) * c;
+  const PaddedRow p(row, h, w);
+  if (!p.inside(h, w)) {
+    for (int k = lane; k < c; k += 32) dst[k] = __float2bfloat16_rn(0.f);
+    return;
+  }
+  const size_t pix = p.pixel(h, w) * c;
+  ln_row<bf16>(x + pix, g, b, t32 + pix, dst, c, lane);
 }
 
 // (b) One thread per pixel: the scale of its 3x3 patch.
@@ -398,176 +455,128 @@ __device__ __forceinline__ long long a_source(const int* s_y, const int* s_x,
   return (static_cast<long long>(m0 + r) + dy * w + dx) * cin + c;
 }
 
-// ------------------------------------------------ K6f: implicit-GEMM 3x3
+// ------------------------------------------------ K6f in bf16 on tma_gemm
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;  // kBK in bytes of K
-constexpr int kLds = kBK + 16;                 // padded shared row (80 bytes)
-constexpr int kTileBytes = kBM * kLds;         // per operand and stage
-
-// Modes of the loop: K6f's two convolutions.
-constexpr int kUpF = 3;    // K6f conv_up: hidden = T(gelu(acc + bu))
-constexpr int kOutF = 4;   // K6f conv_out: out = T(t32 + (acc + bo))
-
-struct ConvParams {
-  const void* a;           // kUpF: t (t32 in fp32), kOutF: the hidden, in
-                           // the model dtype [P, cin]
-  const void* wt;          // [cout, 9 * cin] in the model dtype, k = tap *
-                           // cin + c
-  const float* bias;       // [cout]
-  const float* t32;        // kOutF: [P, cout] residual
-  void* out;               // [P, cout] in the model dtype (kUpF: the hidden)
-  int n, h, w, cin, cout;
-};
-
-// The loop's MMA: bf16 m16n8k16 with float32 accumulation, 32 bytes of K
-// per instruction. kElem: bytes per operand value.
-struct MmaBf16 {
-  using Acc = float;
-  static constexpr int kElem = 2;
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+// conv_up's epilogue: the hidden slab [n, h+2, w+2, m] gets
+// bf16(gelu(acc + bu)) on the rows inside their frame and zeros on its ring
+// rows (every row of the GEMM is stored), so that conv_out reads a zero ring
+// without a memset.
+struct UpSlabEpilogue {
+  using Out = bf16;
+  const float* bias;
+  bf16* hidden;
+  int h, w, m;
+  struct Row {
+    bool ok;
+    bool inside;
+    bf16* dst;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return Row{true, PaddedRow(r, h, w).inside(h, w),
+               hidden + static_cast<size_t>(r) * m};
+  }
+  __device__ __forceinline__ float value(const Row&, int col, float s) const {
+    return gelu_tanh(__fadd_rn(s, bias[col]));
+  }
+  __device__ __forceinline__ void store(const Row& r, int col, uint4 v) const {
+    *reinterpret_cast<uint4*>(r.dst + col) = r.inside ? v : make_uint4(0u, 0u, 0u, 0u);
   }
 };
 
+// conv_out's epilogue: it stages acc + bo in float32, and stores
+// bf16(t32 + (acc + bo)) for the rows inside their frame into out [n, h, w,
+// c], reading t32 (dense [n*h*w, c]) beside it as 16-byte pieces.
+struct OutSlabEpilogue {
+  using Out = float;
+  const float* bias;
+  const float* t32;
+  bf16* out;
+  int h, w, c;
+  struct Row {
+    bool ok;
+    size_t base;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    const PaddedRow p(r, h, w);
+    if (!p.inside(h, w)) return Row{false, 0};
+    return Row{true, p.pixel(h, w) * c};
+  }
+  __device__ __forceinline__ float value(const Row&, int col, float s) const {
+    return __fadd_rn(s, bias[col]);
+  }
+  __device__ __forceinline__ void store(const Row& r, int col, uint4 v) const {
+    const float4 t = *reinterpret_cast<const float4*>(t32 + r.base + col);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(
+        __fadd_rn(t.x, __uint_as_float(v.x)), __fadd_rn(t.y, __uint_as_float(v.y)));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(
+        __fadd_rn(t.z, __uint_as_float(v.z)), __fadd_rn(t.w, __uint_as_float(v.w)));
+    uint2 o;
+    o.x = *reinterpret_cast<const uint32_t*>(&lo);
+    o.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + r.base + col) = o;
+  }
+};
+
+template <typename Epi>
+__global__ void __launch_bounds__(tg::kThreads, 1)
+    conv3x3_bf16_tma(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap w_map, tg::Problem pb,
+                     SlabLoader ld, Epi ep) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  tg::gemm<tg::Bf16>(smem_raw, &a_map, &w_map, pb, ld, ep);
+}
+
+// One 3x3 convolution of padded frames a [rows, cin] (rows = n (h+2) (w+2))
+// with the weights wt [cout, 3, 3, cin], in Op's operand type, as one GEMM
+// over the padded raster on `kernel` (a __global__ that calls tg::gemm<Op>):
+// K = 9 taps of whole tg::kBK-byte steps of channels (zeros past cin).
+template <typename Op, typename Kernel, typename Epi>
+cudaError_t conv3x3_slab(Kernel kernel, const void* a, const void* wt, int rows,
+                         int cin, int cout, int w, const Epi& ep, cudaStream_t s) {
+  CUtensorMap a_map, w_map;
+  const uint64_t row_bytes = static_cast<uint64_t>(cin) * Op::kElem;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(rows)};
+  const uint64_t a_strides[1] = {row_bytes};
+  cudaError_t err = tg::make_map(&a_map, Op::kType, Op::kElem, 2, a, a_dims, a_strides);
+  if (err != cudaSuccess) return err;
+  const uint64_t w_dims[3] = {static_cast<uint64_t>(cin), 9, static_cast<uint64_t>(cout)};
+  const uint64_t w_strides[2] = {row_bytes, 9 * row_bytes};
+  err = tg::make_map(&w_map, Op::kType, Op::kElem, 3, wt, w_dims, w_strides);
+  if (err != cudaSuccess) return err;
+  const int per_tap = static_cast<int>((row_bytes + tg::kBK - 1) / tg::kBK);
+  const tg::Problem pb = tg::problem(rows, cout, 9LL * per_tap * tg::kBK);
+  const SlabLoader ld{per_tap, w + 2, tg::kBK / Op::kElem};
+  return tg::launch(kernel, pb, s, a_map, w_map, pb, ld, ep);
+}
+
+// ------------------------------------------------------- K6f in fp32, SIMT
+
+constexpr int kBM = 128, kBN = 128;  // the fp32 loop's output tile
+
+// Modes of the loop: K6f's two convolutions.
+constexpr int kUpF = 3;    // conv_up: hidden = gelu(acc + bu)
+constexpr int kOutF = 4;   // conv_out: out = t32 + (acc + bo)
+
+struct ConvParams {
+  const float* a;          // kUpF: t32, kOutF: the hidden [P, cin]
+  const float* wt;         // [cout, 9 * cin], k = tap * cin + c
+  const float* bias;       // [cout]
+  const float* t32;        // kOutF: [P, cout] residual
+  float* out;              // [P, cout] (kUpF: the hidden)
+  int n, h, w, cin, cout;
+};
+
 // K6f's epilogues, per output element: acc the float32 tap sum.
-template <typename T, int MODE>
+template <int MODE>
 __device__ __forceinline__ void fp_epilogue(const ConvParams& p, int row,
                                             int col, float acc) {
   const size_t o = static_cast<size_t>(row) * p.cout + col;
   const float v = __fadd_rn(acc, p.bias[col]);
   if constexpr (MODE == kUpF) {
-    static_cast<T*>(p.out)[o] = from_f<T>(gelu_tanh(v));
+    p.out[o] = gelu_tanh(v);
   } else {
-    static_cast<T*>(p.out)[o] = from_f<T>(__fadd_rn(p.t32[o], v));
+    p.out[o] = __fadd_rn(p.t32[o], v);
   }
-}
-
-// The loop: 128x128 tiles, K by 64 bytes, 8 warps of 64x32, operands
-// double-buffered in shared memory by cp.async. T is the model dtype; Op the
-// MMA, whose operand type the mode's A and weights have. p by value, and
-// each 16-byte piece of A issued beside the weights' piece: with the
-// parameters by reference and A and the weights in two passes, X and K6f's
-// bf16 path ran 2-5% slower (H100, when X shared this loop; PERF.md
-// section 6).
-template <typename Op, typename T, int MODE>
-__device__ __forceinline__ void conv3x3_mma(ConvParams p) {
-  using Acc = typename Op::Acc;
-  constexpr int kVals = kBK / Op::kElem;  // K values per chunk
-  __shared__ __align__(128) int8_t as[2][kTileBytes];
-  __shared__ __align__(128) int8_t bs[2][kTileBytes];
-  __shared__ int s_y[kBM], s_x[kBM];
-
-  const int rows = p.n * p.h * p.w;
-  const int K = 9 * p.cin;
-  const int ncol = (p.cout + kBN - 1) / kBN;
-  const int m0 = (blockIdx.x / ncol) * kBM;
-  const int n0 = (blockIdx.x % ncol) * kBN;
-  const int tid = threadIdx.x;
-  tile_rows(s_y, s_x, m0, kBM, rows, p.h, p.w);
-  __syncthreads();
-
-  const char* a_bytes = static_cast<const char*>(p.a);
-  const char* w_bytes = static_cast<const char*>(p.wt);
-
-  // 512 pieces of 16 bytes per operand tile: 2 per thread, row = piece / 4.
-  auto load = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece >> 2, cc = (piece & 3) * 16;
-      const int k = k0 + cc / Op::kElem;
-      const long long src = a_source(s_y, s_x, m0, r, k, K, p.cin, p.h, p.w);
-      cp_async16(&as[stage][r * kLds + cc],
-                 src >= 0 ? a_bytes + src * Op::kElem : a_bytes, src >= 0);
-      const bool pred = (n0 + r < p.cout) && (k < K);
-      const char* wsrc =
-          pred ? w_bytes + (static_cast<size_t>(n0 + r) * K + k) * Op::kElem : w_bytes;
-      cp_async16(&bs[stage][r * kLds + cc], wsrc, pred);
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 64 x 32 each
-  const int g = lane >> 2, tq = lane & 3;
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int nk = (K + kVals - 1) / kVals;
-  load(0, 0);
-  cp_async_commit();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load(cur ^ 1, (kt + 1) * kVals);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* base = &as[cur][(wm * 64 + i * 16 + g) * kLds + ks + tq * 4];
-        af[i][0] = *reinterpret_cast<const uint32_t*>(base);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kLds);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kLds + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* base = &bs[cur][(wn * 32 + j * 8 + g) * kLds + ks + tq * 4];
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(base);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) Op::run(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue. Accumulator element idx = half*2 + e of tile (i, j) is row
-  // wm*64 + i*16 + g + half*8, column wn*32 + j*8 + tq*2 + e.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + i * 16 + g + half * 8;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn * 32 + j * 8 + tq * 2 + e;
-          if (col < p.cout) fp_epilogue<T, MODE>(p, row, col, acc[i][j][half * 2 + e]);
-        }
-      }
-    }
-  }
-}
-
-// K6f in bf16 (a 64-byte K chunk is 32 values).
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) conv3x3_bf16(ConvParams p) {
-  conv3x3_mma<MmaBf16, bf16, MODE>(p);
 }
 
 // K6f in fp32: SIMT, 128 x 128 tiles, K chunks of 16 values, each thread an
@@ -591,8 +600,8 @@ __global__ void __launch_bounds__(kThreads) conv3x3_f32(ConvParams p) {
   const int tid = threadIdx.x;
   tile_rows(s_y, s_x, m0, kBM, rows, p.h, p.w);
   __syncthreads();
-  const float* a = static_cast<const float*>(p.a);
-  const float* wt = static_cast<const float*>(p.wt);
+  const float* a = p.a;
+  const float* wt = p.wt;
 
   float4 ra[2], rb[2];
   auto fetch = [&](int k0) {
@@ -663,22 +672,17 @@ __global__ void __launch_bounds__(kThreads) conv3x3_f32(ConvParams p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = n0 + tx * 8 + j;
-      if (col < p.cout) fp_epilogue<float, MODE>(p, row, col, acc[i][j]);
+      if (col < p.cout) fp_epilogue<MODE>(p, row, col, acc[i][j]);
     }
   }
 }
 
-template <typename T, int MODE>
+template <int MODE>
 cudaError_t run_conv(const ConvParams& prm, cudaStream_t s) {
   const long long rows = static_cast<long long>(prm.n) * prm.h * prm.w;
   const long long blocks = ((rows + kBM - 1) / kBM) * ((prm.cout + kBN - 1) / kBN);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const unsigned grid = static_cast<unsigned>(blocks);
-  if constexpr (sizeof(T) == 2) {
-    conv3x3_bf16<MODE><<<grid, kThreads, 0, s>>>(prm);
-  } else {
-    conv3x3_f32<MODE><<<grid, kThreads, 0, s>>>(prm);
-  }
+  conv3x3_f32<MODE><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(prm);
   return cudaGetLastError();
 }
 
@@ -1029,23 +1033,11 @@ int launch_frame(const void* x, const void* wq, const void* ws, const void* bias
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  CUtensorMap a_map, b_map;
-  const uint64_t a_dims[2] = {static_cast<uint64_t>(cin), static_cast<uint64_t>(rows)};
-  const uint64_t a_strides[1] = {static_cast<uint64_t>(cin)};
-  err = tg::make_map(&a_map, tg::S8::kType, 1, 2, xq, a_dims, a_strides);
-  if (err != cudaSuccess) return err;
-  const uint64_t b_dims[3] = {static_cast<uint64_t>(cin), 9, static_cast<uint64_t>(cout)};
-  const uint64_t b_strides[2] = {static_cast<uint64_t>(cin), 9ull * cin};
-  err = tg::make_map(&b_map, tg::S8::kType, 1, 3, wq, b_dims, b_strides);
-  if (err != cudaSuccess) return err;
-  const int per_tap = (cin + tg::kBK - 1) / tg::kBK;
-  const tg::Problem pb =
-      tg::problem(static_cast<int>(rows), cout, 9LL * per_tap * tg::kBK);
-  const SlabLoader ld{per_tap, w + 2};
   const FrameEpilogue<T> ep{static_cast<const float*>(xs), static_cast<const float*>(ws),
                             static_cast<const float*>(bias), static_cast<T*>(out), h, w,
                             cout};
-  return tg::launch(conv3x3_q8_tma<T>, pb, s, a_map, b_map, pb, ld, ep);
+  return conv3x3_slab<tg::S8>(conv3x3_q8_tma<T>, xq, wq, static_cast<int>(rows), cin,
+                              cout, w, ep, s);
 }
 
 // Raises the kernel's dynamic shared-memory limit to `bytes` where that is
@@ -1068,7 +1060,7 @@ int launch_pixel(const void* x, const void* g, const void* bln, const void* wuq,
   ln_bias_rows<T><<<warp_blocks, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const float*>(bln), static_cast<float*>(t32),
-      static_cast<float*>(pixel_amax), nullptr, rows, c);
+      static_cast<float*>(pixel_amax), rows, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   patch_scale<<<(rows + kThreads - 1) / kThreads, kThreads, 0, s>>>(
@@ -1100,29 +1092,55 @@ int launch_pixel(const void* x, const void* g, const void* bln, const void* wuq,
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_fp(const void* x, const void* g, const void* bln, const void* wu,
-              const void* bu, const void* wo, const void* bo, void* t32,
-              void* t, void* hidden, void* out, int n, int h, int w, int c,
-              int m, cudaStream_t s) {
+// K6f in fp32: LN, then conv_up and conv_out on the SIMT loop, the hidden
+// dense [rows, m].
+int launch_fp32(const void* x, const void* g, const void* bln, const void* wu,
+                const void* bu, const void* wo, const void* bo, void* t32,
+                void* hidden, void* out, int n, int h, int w, int c, int m,
+                cudaStream_t s) {
   const int rows = n * h * w;
   const int warp_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  // fp32: conv_up reads t32 itself.
-  T* t_cast = sizeof(T) == 2 ? static_cast<T*>(t) : nullptr;
-  ln_bias_rows<T><<<warp_blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(bln), static_cast<float*>(t32), nullptr,
-      t_cast, rows, c);
+  ln_bias_rows<float><<<warp_blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(bln), static_cast<float*>(t32), nullptr, rows, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const void* up_in = sizeof(T) == 2 ? t : t32;
-  ConvParams up{up_in, wu, static_cast<const float*>(bu), nullptr, hidden, n, h,
-                w, c, m};
-  err = run_conv<T, kUpF>(up, s);
+  ConvParams up{static_cast<const float*>(t32), static_cast<const float*>(wu),
+                static_cast<const float*>(bu), nullptr, static_cast<float*>(hidden),
+                n, h, w, c, m};
+  err = run_conv<kUpF>(up, s);
   if (err != cudaSuccess) return err;
-  ConvParams down{hidden, wo, static_cast<const float*>(bo),
-                  static_cast<const float*>(t32), out, n, h, w, m, c};
-  return run_conv<T, kOutF>(down, s);
+  ConvParams down{static_cast<const float*>(hidden), static_cast<const float*>(wo),
+                  static_cast<const float*>(bo), static_cast<const float*>(t32),
+                  static_cast<float*>(out), n, h, w, m, c};
+  return run_conv<kOutF>(down, s);
+}
+
+// K6f in bf16: LN into the padded slab t, then conv_up into the padded
+// hidden slab and conv_out into out, each one GEMM on tma_gemm.cuh.
+int launch_fp_bf16(const void* x, const void* g, const void* bln, const void* wu,
+                   const void* bu, const void* wo, const void* bo, void* t32,
+                   void* t, void* hidden, void* out, int n, int h, int w, int c,
+                   int m, cudaStream_t s) {
+  const long long rows = static_cast<long long>(n) * (h + 2) * (w + 2);
+  if (rows + tg::kBM + w + 3 > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int padded = static_cast<int>(rows);
+  ln_bias_slab<<<(padded + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(bln), static_cast<float*>(t32),
+      static_cast<bf16*>(t), padded, h, w, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const UpSlabEpilogue up{static_cast<const float*>(bu), static_cast<bf16*>(hidden),
+                          h, w, m};
+  err = conv3x3_slab<tg::Bf16>(conv3x3_bf16_tma<UpSlabEpilogue>, t, wu, padded, c,
+                               m, w, up, s);
+  if (err != cudaSuccess) return err;
+  const OutSlabEpilogue down{static_cast<const float*>(bo),
+                             static_cast<const float*>(t32), static_cast<bf16*>(out),
+                             h, w, c};
+  return conv3x3_slab<tg::Bf16>(conv3x3_bf16_tma<OutSlabEpilogue>, hidden, wo,
+                                padded, m, c, w, down, s);
 }
 
 }  // namespace
@@ -1195,26 +1213,30 @@ int extra_convs_q8_pixel_forward(const void* x, const void* g, const void* bln,
 // K6f: one ExtraConvs layer in full precision. x [n, h, w, c] (NHWC) in the
 // model dtype (0: float32, 1: bfloat16); g, bln [c], bu [m], bo [c] float32;
 // wu [m, 3, 3, c] and wo [c, 3, 3, m] in the model dtype (OHWI); scratch t32
-// float32 [rows, c], t [rows, c] in the model dtype (read only in bf16),
-// hidden [rows, m] in the model dtype (rows = n*h*w); out [n, h, w, c] in
-// the model dtype. c and m multiples of 16.
+// float32 [n*h*w, c]; out [n, h, w, c] in the model dtype. bf16: t [n, h+2,
+// w+2, c] and hidden [n, h+2, w+2, m] bf16, the padded slabs (every pointer
+// 16-byte aligned); fp32: t unused, hidden float32 [n*h*w, m]. c and m
+// multiples of 16. gemm_smem: the GEMMs' dynamic shared memory as the
+// caller's launch plan gives it (bf16: tg::kSmemBytes; fp32: 0); a plan
+// that disagrees is refused.
 int extra_convs_fp_forward(const void* x, const void* g, const void* bln,
                            const void* wu, const void* bu, const void* wo,
                            const void* bo, void* t32, void* t, void* hidden,
                            void* out, int n, int h, int w, int c, int m,
-                           int dtype, void* stream) {
+                           int gemm_smem, int dtype, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || m <= 0 || c % 16 != 0 ||
-      m % 16 != 0) {
+      m % 16 != 0 || static_cast<long long>(n) * h * w + kBM > 0x7fffffffLL ||
+      gemm_smem != (dtype == 1 ? tg::kSmemBytes : 0)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_fp<float>(x, g, bln, wu, bu, wo, bo, t32, t, hidden, out, n,
-                            h, w, c, m, s);
+    return launch_fp32(x, g, bln, wu, bu, wo, bo, t32, hidden, out, n, h, w, c,
+                       m, s);
   }
   if (dtype == 1) {
-    return launch_fp<bf16>(x, g, bln, wu, bu, wo, bo, t32, t, hidden, out, n,
-                           h, w, c, m, s);
+    return launch_fp_bf16(x, g, bln, wu, bu, wo, bo, t32, t, hidden, out, n, h,
+                          w, c, m, s);
   }
   return cudaErrorInvalidValue;
 }

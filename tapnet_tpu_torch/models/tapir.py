@@ -342,7 +342,7 @@ class TAPIR(nn.Module):
 
   def _corr_patches(
       self,
-      grid,  # [B, T, H, W, C], or (int8 grid, [B, T] scale) pre-quantized
+      grid,  # [B, T, H, W, C], or (int8 grid, scale) pre-quantized
       query: torch.Tensor,  # [B, N, C] (first iteration) or [B, N, T, C]
       pos_guess: torch.Tensor,  # [B, N, T, 2] xy at initial resolution
       orig_hw: Tuple[int, int],
@@ -351,8 +351,9 @@ class TAPIR(nn.Module):
     cfg = self.config
     p = cfg.patch_size
     orig_h, orig_w = orig_hw
-    # Per-frame int8 grids arrive quantized, as (int8, [B, T] scale) tuples
-    # (see estimate_trajectories).
+    # int8 grids arrive quantized (see estimate_trajectories), as (int8,
+    # [B, T] scale) tuples per frame and (int8, [B, T, H, W] scale) tuples
+    # per position.
     prequant = isinstance(grid, tuple)
     grid_arr = grid[0] if prequant else grid
     b, t, h, w, c = grid_arr.shape
@@ -368,10 +369,15 @@ class TAPIR(nn.Module):
     cyx = coords - 0.5  # index space
     cy = cyx[..., 0].permute(0, 2, 1).reshape(b * t, n).contiguous()
     cx = cyx[..., 1].permute(0, 2, 1).reshape(b * t, n).contiguous()
-    if prequant:
+    if prequant and cfg.quantized_corr == "per_frame":
       pat = corr_tents.corr_tent_patches_prequantized(
           grid_arr.reshape(b * t, h, w, c), grid[1].reshape(b * t), q_bt,
           cy, cx, p,
+      )
+    elif prequant:
+      pat = corr_tents.corr_tent_patches_prequantized_per_position(
+          grid_arr.reshape(b * t, h, w, c), grid[1].reshape(b * t, h, w),
+          q_bt, cy, cx, p,
       )
     else:
       grid_bt = grid.reshape(b * t, h, w, c).to(cfg.dtype).contiguous()
@@ -550,16 +556,18 @@ class TAPIR(nn.Module):
       for _ in range(cfg.pyramid_level):
         pyramid.append(_avg_pool_2x(pyramid[-1]))
       pyramids.append(pyramid)
-    if cfg.quantized_corr == "per_frame":
-      # Quantize every pyramid grid once per video: the chunks and the
-      # refinement iterations all read the same int8 grids. A grid may be a
-      # channels-last view of the backbone's output; the kernel reads dense
-      # [B, T, H, W, C], and the int8 copy is made dense here, once.
+    if cfg.quantized_corr:
+      # Quantize every pyramid grid once per video, per frame or per
+      # position: the chunks and the refinement iterations all read the same
+      # int8 grids and scales (a position's scale does not depend on the
+      # query). A grid may be a channels-last view of the backbone's output;
+      # the kernel reads dense [B, T, H, W, C], and the int8 copy is made
+      # dense here, once.
+      quantize = (corr_tents.quantize_per_frame
+                  if cfg.quantized_corr == "per_frame"
+                  else corr_tents.quantize_per_position)
       pyramids = [
-          [
-              corr_tents.quantize_per_frame(g.to(cfg.dtype).contiguous())
-              for g in pyr
-          ]
+          [quantize(g.to(cfg.dtype).contiguous()) for g in pyr]
           for pyr in pyramids
       ]
 

@@ -11,16 +11,21 @@ index space (raster - 0.5), output [BT, p, p, N] float32.
     computes only the (p+1) x (p+1) correlation window each patch needs.
   * Anything else raises. There is no size gate and no fallback.
 
-The int8 modes (`quantized=True | "per_frame"`, and
-`corr_tent_patches_prequantized` for grids quantized once per video with
-`quantize_per_frame`) multiply an int8 grid by int8 queries with int32
-accumulation, round the correlation to bfloat16 (after the per-position grid
-scale, where there is one), run the y-tents in bfloat16 whatever the model's
-dtype, and apply the per-query and per-frame scales to the float32 output.
-The quantizers are plain PyTorch on every device (one reduction and one
-elementwise pass each); the integer product and the tents are the kernels
-`corr_tents_q8_forward` of the same source on CUDA tensors, and the plain
-versions `corr_tent_patches_*quantized_reference` on CPU tensors.
+The int8 modes (`quantized=True | "per_frame"`, and for grids quantized once
+per video `corr_tent_patches_prequantized` after `quantize_per_frame` and
+`corr_tent_patches_prequantized_per_position` after `quantize_per_position`)
+multiply an int8 grid by int8 queries with int32 accumulation, round the
+correlation to bfloat16 (after the per-position grid scale, where there is
+one), run the y-tents in bfloat16 whatever the model's dtype, and apply the
+per-query and per-frame scales to the float32 output. The integer product
+and the tents are the kernel `corr_tents_q8_forward` of the same source on
+CUDA tensors, and the plain versions `corr_tent_patches_*_reference` on CPU
+tensors. The per-row quantizer of the query and of the per-position grid
+(`quantize_per_position`) is the kernel `quantize_rows` of the same source
+on CUDA tensors, bit-equal to its plain version `_quantize_lastdim`, which
+CPU tensors run; the per-frame grid quantizer `quantize_per_frame` is plain
+PyTorch on every device (one reduction and one elementwise pass, once per
+video).
 """
 
 from __future__ import annotations
@@ -33,11 +38,13 @@ from tapnet_tpu_torch.ops import _build
 
 # Number of CUDA kernel launches made through `corr_tent_patches`: the float
 # kernel, the int8 kernel with a scale per frame (also reached through
-# `corr_tent_patches_prequantized`), and the int8 kernel with a scale per
-# grid position.
+# `corr_tent_patches_prequantized`), the int8 kernel with a scale per grid
+# position (also reached through `corr_tent_patches_prequantized_per_position`),
+# and the per-row quantizer (`quantize_rows`).
 LAUNCHES = 0
 LAUNCHES_Q8_FRAME = 0
 LAUNCHES_Q8_POSITION = 0
+LAUNCHES_QUANTIZE = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -45,6 +52,8 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "corr_tents_q8_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    "quantize_rows": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -91,6 +100,44 @@ def _quantize_lastdim(v: torch.Tensor, eps: float = 1e-8):
   scale = torch.clamp(vf.abs().amax(-1), min=eps) * (1.0 / 127.0)
   q = torch.clamp(torch.round(vf / scale[..., None]), -127.0, 127.0)
   return q.to(torch.int8), scale
+
+
+def _launch_quantize(v: torch.Tensor):
+  """`quantize_rows` of csrc/corr_tents.cu on a CUDA tensor."""
+  global LAUNCHES_QUANTIZE
+  if v.dtype not in _DTYPES:
+    raise TypeError(f"quantize_rows: float32 or bfloat16, got {v.dtype}")
+  if v.ndim == 0 or v.numel() == 0:
+    raise ValueError(f"quantize_rows: empty shape {tuple(v.shape)}")
+  v = v.contiguous()
+  c = v.shape[-1]
+  q = torch.empty(v.shape, dtype=torch.int8, device=v.device)
+  scale = torch.empty(v.shape[:-1], dtype=torch.float32, device=v.device)
+  lib = _build.load("corr_tents", _SIGNATURES)
+  stream = torch.cuda.current_stream(v.device).cuda_stream
+  with torch.cuda.device(v.device):
+    err = lib.quantize_rows(v.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                            v.numel() // c, c, _DTYPES[v.dtype], stream)
+  _build.check(lib, err, "quantize_rows")
+  LAUNCHES_QUANTIZE += 1
+  return q, scale
+
+
+def quantize_per_position(grid: torch.Tensor):
+  """Pre-quantizes feature grids for the per-position int8 correlation mode.
+
+  [BT, H, W, C] -> (int8 grid, float32 scale [BT, H, W] per position), what
+  `corr_tent_patches(..., quantized=True)` computes inline: `_quantize_lastdim`
+  on CPU tensors, the kernel `quantize_rows` (bit-equal to it, any leading
+  shape) on CUDA tensors; anything else raises. Call it once per video,
+  outside the chunk and iteration loops: a position's scale does not depend
+  on the query. The result is what
+  `corr_tent_patches_prequantized_per_position` takes."""
+  if grid.device.type == "cpu":
+    return _quantize_lastdim(grid)
+  if grid.device.type == "cuda":
+    return _launch_quantize(grid)
+  raise ValueError(f"quantize_per_position: unsupported device {grid.device}")
 
 
 def quantize_per_frame(grid: torch.Tensor):
@@ -145,6 +192,24 @@ def corr_tent_patches_prequantized_reference(
   return _bf16_tents(corrs, qs * frame_scale[:, None], cy, cx, p)
 
 
+def corr_tent_patches_prequantized_per_position_reference(
+    grid_q8: torch.Tensor,
+    pos_scale: torch.Tensor,
+    query: torch.Tensor,
+    cy: torch.Tensor,
+    cx: torch.Tensor,
+    p: int = 7,
+) -> torch.Tensor:
+  """Plain version of the pre-quantized per-position path: the query
+  quantized per descriptor, the grid scales [BT, H, W] applied to the int32
+  correlation in float32 before it is rounded to bfloat16, the query scales
+  on the output."""
+  qq, qs = _quantize_lastdim(query)  # [BT, N]
+  corrs = (_int8_corr(grid_q8, qq).float() * pos_scale[:, None]).to(
+      torch.bfloat16)
+  return _bf16_tents(corrs, qs, cy, cx, p)
+
+
 def corr_tent_patches_quantized_reference(
     grid: torch.Tensor,
     query: torch.Tensor,
@@ -154,17 +219,15 @@ def corr_tent_patches_quantized_reference(
     per_frame: bool = False,
 ) -> torch.Tensor:
   """Plain version of the inline int8 modes: the grid quantized per position
-  (or per frame, with one scale), the query per descriptor, the grid scales
-  applied to the int32 correlation in float32 before it is rounded to
-  bfloat16, the query scales on the output."""
+  (or per frame, with one scale), then as
+  `corr_tent_patches_prequantized_per_position_reference`."""
   if per_frame:
     gq, frame_scale = quantize_per_frame(grid)
     gs = frame_scale[:, None, None].expand(grid.shape[:3])
   else:
     gq, gs = _quantize_lastdim(grid)  # [BT, H, W]
-  qq, qs = _quantize_lastdim(query)  # [BT, N]
-  corrs = (_int8_corr(gq, qq).float() * gs[:, None]).to(torch.bfloat16)
-  return _bf16_tents(corrs, qs, cy, cx, p)
+  return corr_tent_patches_prequantized_per_position_reference(
+      gq, gs, query, cy, cx, p)
 
 
 def _check_launch(grid, query, cy, cx, p, extra=()):
@@ -270,8 +333,10 @@ def corr_tent_patches(
       output (quantizes the grid in this call; a caller that reuses grids
       quantizes them once with `quantize_per_frame` and calls
       `corr_tent_patches_prequantized`). True: one grid scale per position,
-      applied to the correlation before the tents mix positions. The tents
-      run in bfloat16 in both.
+      applied to the correlation before the tents mix positions (likewise
+      `quantize_per_position` and
+      `corr_tent_patches_prequantized_per_position`). The tents run in
+      bfloat16 in both.
 
   Returns:
     [BT, p, p, N] float32 tent-interpolated correlation patches.
@@ -291,9 +356,8 @@ def corr_tent_patches(
     )
   if device == "cpu":
     return corr_tent_patches_quantized_reference(grid, query, cy, cx, p)
-  gq, gs = _quantize_lastdim(grid)
-  qq, qs = _quantize_lastdim(query)
-  return _launch_q8(gq, qq, qs, gs, cy, cx, p)
+  return corr_tent_patches_prequantized_per_position(
+      *quantize_per_position(grid), query, cy, cx, p)
 
 
 def corr_tent_patches_prequantized(
@@ -318,9 +382,38 @@ def corr_tent_patches_prequantized(
         grid_q8, frame_scale, query, cy, cx, p
     )
   if device == "cuda":
-    qq, qs = _quantize_lastdim(query)
+    qq, qs = _launch_quantize(query)
     out_scale = (qs * frame_scale[:, None]).contiguous()
     return _launch_q8(grid_q8, qq, out_scale, None, cy, cx, p)
   raise ValueError(
       f"corr_tent_patches_prequantized: unsupported device {grid_q8.device}"
   )
+
+
+def corr_tent_patches_prequantized_per_position(
+    grid_q8: torch.Tensor,
+    pos_scale: torch.Tensor,
+    query: torch.Tensor,
+    cy: torch.Tensor,
+    cx: torch.Tensor,
+    p: int = 7,
+) -> torch.Tensor:
+  """Per-position int8 correlation patches from a pre-quantized grid: what
+  `corr_tent_patches(..., quantized=True)` computes, bit for bit.
+
+  Args:
+    grid_q8: [BT, H, W, C] int8 (from `quantize_per_position`).
+    pos_scale: [BT, H, W] float32 per-position scales.
+    query / cy / cx / p: as `corr_tent_patches`; the query is quantized per
+      descriptor in this call.
+  """
+  device = grid_q8.device.type
+  if device == "cpu":
+    return corr_tent_patches_prequantized_per_position_reference(
+        grid_q8, pos_scale, query, cy, cx, p)
+  if device == "cuda":
+    qq, qs = _launch_quantize(query)
+    return _launch_q8(grid_q8, qq, qs, pos_scale, cy, cx, p)
+  raise ValueError(
+      "corr_tent_patches_prequantized_per_position: unsupported device "
+      f"{grid_q8.device}")

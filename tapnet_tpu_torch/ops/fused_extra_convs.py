@@ -28,9 +28,12 @@ tap-decomposed kernel can dequantize exactly:
   * CUDA tensors with `quantized=False` launch K6f, `extra_convs_fp_forward`
     of the same source (the JAX `_math_reference(quantized=False)`: conv
     operands in x.dtype, float32 sums, the hidden rounded to x.dtype, the
-    residual on the float32 LN output). No model path reaches it, as in
-    JAX: `wants_fused` demands the per-pixel mode, and `layers.ExtraConvs`
-    runs its float layers as plain convolutions.
+    residual on the float32 LN output). In bf16 its two products are one
+    GEMM each over zero-ringed frames on the TMA + wgmma loop of
+    `csrc/tma_gemm.cuh`, as X's (`fp_launch_plan`; `fp_padded_slab`
+    emulates the indexing); in fp32 they run on the SIMT cores. No model
+    path reaches it, as in JAX: `wants_fused` demands the per-pixel mode,
+    and `layers.ExtraConvs` runs its float layers as plain convolutions.
   * Any other device raises. There is no size gate and no fallback.
 
 `wants_fused` is the JAX package's gate, and it chooses the *math*: the
@@ -43,7 +46,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tapnet_tpu_torch.ops import _build, qconv
+from tapnet_tpu_torch.ops import _build, qconv, tma_gemm
 from tapnet_tpu_torch.ops.mixer_math import gelu
 
 # Number of CUDA launches made through `extra_convs_layer`, one per layer
@@ -369,9 +372,87 @@ def fp_output_controls(x, g, bln, wu, bu, wo, bo):
   }
 
 
+def fp_padded_slab(x, g, bln, wu, bu, wo, bo):
+  """The bf16 kernel's indexing of the full-precision layer (K6f), in
+  float64 products on the CPU. Arguments and result as
+  `extra_convs_layer_reference(quantized=False)`, which this must equal up
+  to float32 summation order.
+
+  t = T(t32) goes into zero-ringed frames viewed as rows [N (H+2) (W+2), C];
+  conv_up is one GEMM over those rows (`qconv.slab_conv3x3`, K steps of
+  `tma_gemm.K_BYTES` bytes of the model dtype), whose epilogue writes
+  T(gelu(acc + bu)) on the rows inside their frame and zeros on the ring
+  into the padded hidden; conv_out is one GEMM over the hidden's rows, and
+  the rows inside their frame give y = T(t32 + (acc + bo)). Returns (y, the
+  padded hidden [N, H+2, W+2, M])."""
+  n, h, w, c = x.shape
+  m = wu.shape[-1]
+  dt = x.dtype
+  step = tma_gemm.K_BYTES // x.element_size()
+  t32 = _ln_bias(x, g, bln)
+  inside = torch.zeros(n, h + 2, w + 2, 1, dtype=torch.bool)
+  inside[:, 1:h + 1, 1:w + 1] = True
+  slab = F.pad(t32.to(dt).double(), (0, 0, 1, 1, 1, 1)).reshape(-1, c)
+  wu_t = wu.to(dt).permute(3, 0, 1, 2)
+  up = qconv.slab_conv3x3(slab, wu_t, w + 2, step).float().reshape(
+      n, h + 2, w + 2, m)
+  hidden = torch.where(inside, gelu(up + bu.float()), 0.0).to(dt)
+  wo_t = wo.to(dt).permute(3, 0, 1, 2)
+  out = qconv.slab_conv3x3(hidden.reshape(-1, m), wo_t, w + 2, step)
+  out = out.float().reshape(n, h + 2, w + 2, c)[:, 1:h + 1, 1:w + 1]
+  return (t32 + (out + bo.float())).to(dt), hidden
+
+
+# K6f in fp32 (csrc/extra_convs.cu, conv3x3_f32): 128 x 128 output tiles of
+# 256 threads, operands in static shared memory.
+_FP32_TILE, _FP32_THREADS = 128, 256
+
+
+def fp_launch_plan(n, h, w, c, m, dtype=torch.bfloat16):
+  """How K6f launches on x [n, h, w, c] with hidden width m in `dtype`.
+
+  bf16: the LayerNorm writes t into zero-ringed frames `t_shape`; conv_up
+  and conv_out are one GEMM each over the padded rows (`tma_gemm.gemm_plan`,
+  9 taps of ceil(2 C / 128) and ceil(2 M / 128) K steps), conv_up writing
+  the padded hidden `hidden_shape`. fp32: the SIMT loop's 128 x 128 tiles,
+  the hidden dense [n*h*w, m], no dynamic shared memory. `gemm_smem_bytes`
+  is what the wrapper passes and the kernel checks. Raises for what the
+  kernels do not take."""
+  if dtype not in qconv.DTYPES:
+    raise TypeError(
+        f"extra_convs_layer: x must be float32 or bfloat16, got {dtype}")
+  if min(n, h, w, c, m) <= 0:
+    raise ValueError(f"extra_convs_layer: empty shape {(n, h, w, c)}, M={m}")
+  if c % 16 or m % 16:
+    raise ValueError(
+        "extra_convs_layer: K6f needs C and the hidden width multiples of 16, "
+        f"got {c} and {m}")
+  rows = n * h * w
+  if rows + _FP32_TILE > _INT32_MAX:
+    raise ValueError(f"extra_convs_layer: {rows} pixels overflow the kernels' "
+                     "32-bit pixel index")
+  if dtype == torch.float32:
+    tiles = lambda cols: -(-rows // _FP32_TILE) * -(-cols // _FP32_TILE)
+    return dict(rows=rows, t_shape=None, hidden_shape=(rows, m),
+                up=dict(grid=tiles(m), threads=_FP32_THREADS),
+                out=dict(grid=tiles(c), threads=_FP32_THREADS),
+                gemm_smem_bytes=0)
+  padded = n * (h + 2) * (w + 2)
+  if padded + w + 3 + tma_gemm.TILE_M > _INT32_MAX:
+    raise ValueError(f"extra_convs_layer: {padded} padded rows overflow the "
+                     "kernels' coordinates")
+  k_bytes = lambda cin: 9 * -(-2 * cin // tma_gemm.K_BYTES) * tma_gemm.K_BYTES
+  return dict(rows=rows, padded_rows=padded, t_shape=(n, h + 2, w + 2, c),
+              hidden_shape=(n, h + 2, w + 2, m),
+              up=tma_gemm.gemm_plan(padded, m, k_bytes(c)),
+              out=tma_gemm.gemm_plan(padded, c, k_bytes(m)),
+              gemm_smem_bytes=tma_gemm.SMEM_BYTES)
+
+
 def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
-  """K6f on the card. If `scratch` is a dict, the kernels' t32 and hidden
-  are left in it, for checks."""
+  """K6f on the card. If `scratch` is a dict, the kernels' t32 [N, H, W, C]
+  and hidden [N, H, W, M] are left in it, for checks (in bf16 views of the
+  padded slabs, which it holds too, as `t_padded` and `hidden_padded`)."""
   global LAUNCHES_FP
   if x.dtype not in qconv.DTYPES:
     raise TypeError(
@@ -385,10 +466,7 @@ def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
     raise ValueError(
         f"extra_convs_layer: wu {tuple(wu.shape)} and wo {tuple(wo.shape)} "
         f"must be [3, 3, {c}, M] and [3, 3, M, {c}]")
-  if c % 16 or m % 16:
-    raise ValueError(
-        "extra_convs_layer: K6f needs C and the hidden width multiples of 16, "
-        f"got {c} and {m}")
+  plan = fp_launch_plan(n, h, w, c, m, x.dtype)
   for name, p, size in (("g", g, c), ("bln", bln, c), ("bu", bu, m), ("bo", bo, c),
                         ("wu", wu, None), ("wo", wo, None)):
     if (size is not None and tuple(p.shape) != (size,)) or p.device != dev:
@@ -400,23 +478,27 @@ def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
   wo_t = wo.to(x.dtype).permute(3, 0, 1, 2).contiguous()
 
   lib = _build.load("extra_convs", qconv.SIGNATURES)
-  rows = n * h * w
-  t32 = torch.empty((rows, c), dtype=torch.float32, device=dev)
-  t = (torch.empty((rows, c), dtype=x.dtype, device=dev)
-       if x.dtype == torch.bfloat16 else t32)
-  hidden = torch.empty((rows, m), dtype=x.dtype, device=dev)
+  t32 = torch.empty((plan["rows"], c), dtype=torch.float32, device=dev)
+  t = (None if plan["t_shape"] is None
+       else torch.empty(plan["t_shape"], dtype=x.dtype, device=dev))
+  hidden = torch.empty(plan["hidden_shape"], dtype=x.dtype, device=dev)
   out = torch.empty_like(x)
   operands = (x, g32, bln32, wu_t, bu32, wo_t, bo32, t32, t, hidden, out)
   stream = torch.cuda.current_stream(dev).cuda_stream
   with torch.cuda.device(dev):
     err = lib.extra_convs_fp_forward(
-        *[o.data_ptr() for o in operands], n, h, w, c, m,
-        qconv.DTYPES[x.dtype], stream,
+        *[None if o is None else o.data_ptr() for o in operands], n, h, w, c,
+        m, plan["gemm_smem_bytes"], qconv.DTYPES[x.dtype], stream,
     )
   _build.check(lib, err, "extra_convs_fp_forward")
   LAUNCHES_FP += 1
   if scratch is not None:
-    scratch.update(t32=t32, hidden=hidden)
+    scratch.update(t32=t32.view(n, h, w, c))
+    if t is None:
+      scratch.update(hidden=hidden.view(n, h, w, m))
+    else:
+      scratch.update(hidden=hidden[:, 1:h + 1, 1:w + 1], hidden_padded=hidden,
+                     t_padded=t)
   return out
 
 

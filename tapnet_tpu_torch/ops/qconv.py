@@ -54,7 +54,7 @@ SIGNATURES = {
     + [ctypes.c_void_p],
     "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 16
     + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "extra_convs_fp_forward": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    "extra_convs_fp_forward": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 
@@ -202,6 +202,30 @@ def conv2d_q8_math(
   return y.permute(0, 3, 1, 2)
 
 
+def slab_conv3x3(slab: torch.Tensor, w: torch.Tensor, wp: int,
+                 step: int) -> torch.Tensor:
+  """A 3x3 convolution over padded frames as the CUDA kernels on
+  `csrc/tma_gemm.cuh` run it (X, K6f in bf16), in float64: slab [rows,
+  cin] holds the frames with their zero ring as rows (wp = W + 2 a row),
+  w is [cout, 3, 3, cin]. GEMM row p' sums, over the taps (dy, dx) and K
+  steps of `step` channels (zeros past cin), the rows p' + dy wp + dx of the
+  slab (zeros outside it, as TMA fills a box) times the tap's weights.
+  Returns float64 [rows, cout]; rows of the ring read across frames."""
+  rows, cin = slab.shape
+  cpad = -(-cin // step) * step
+  slab = F.pad(slab.double(), (0, cpad - cin))
+  w = F.pad(w.double(), (0, cpad - cin))
+  acc = torch.zeros(rows, w.shape[0], dtype=torch.float64)
+  for dy, dx in TAPS:
+    src = torch.arange(rows) + dy * wp + dx
+    inside = (src >= 0) & (src < rows)
+    for c0 in range(0, cpad, step):
+      box = torch.zeros(rows, step, dtype=torch.float64)
+      box[inside] = slab[src[inside], c0:c0 + step]
+      acc += box @ w[:, dy + 1, dx + 1, c0:c0 + step].t()
+  return acc
+
+
 def conv2d_q8_padded_slab(
     x: torch.Tensor,
     weight: Optional[torch.Tensor],
@@ -212,29 +236,16 @@ def conv2d_q8_padded_slab(
 
   Arguments and result as `conv2d_q8_math`, which this must equal exactly.
   The int8 frames are padded with a zero ring to [N, H+2, W+2, C_in] and
-  viewed as rows [N (H+2) (W+2), C_in]. GEMM row p' (a padded pixel) sums,
-  over the taps (dy, dx) and K steps of `tma_gemm.K_BYTES` channels (zeros
-  past C_in), the rows p' + dy (W+2) + dx of that view (zeros outside it, as
-  TMA fills a box) times the tap's weights; the rows inside their frame are
-  the output. Rows of the ring read across frames and are dropped.
+  viewed as rows [N (H+2) (W+2), C_in], convolved by `slab_conv3x3` in K
+  steps of `tma_gemm.K_BYTES` channels; the rows inside their frame are the
+  output. Rows of the ring read across frames and are dropped.
   """
   wq, ws = qweights if qweights is not None else quantize_conv_weight(weight)
   nhwc = x.permute(0, 2, 3, 1)
   n, h, w, cin = nhwc.shape
   xq, xs = quantize_per_frame(nhwc)
-  step = tma_gemm.K_BYTES
-  cpad = -(-cin // step) * step
-  slab = F.pad(xq.double(), (0, cpad - cin, 1, 1, 1, 1)).reshape(-1, cpad)
-  wpad = F.pad(wq.double(), (0, cpad - cin))
-  rows = slab.shape[0]
-  acc = torch.zeros(rows, wq.shape[0], dtype=torch.float64)
-  for dy, dx in TAPS:
-    src = torch.arange(rows) + dy * (w + 2) + dx
-    inside = (src >= 0) & (src < rows)
-    for c0 in range(0, cpad, step):
-      box = torch.zeros(rows, step, dtype=torch.float64)
-      box[inside] = slab[src[inside], c0:c0 + step]
-      acc += box @ wpad[:, dy + 1, dx + 1, c0:c0 + step].t()
+  slab = F.pad(xq.double(), (0, 0, 1, 1, 1, 1)).reshape(-1, cin)
+  acc = slab_conv3x3(slab, wq, w + 2, tma_gemm.K_BYTES)
   acc = acc.reshape(n, h + 2, w + 2, -1)[:, 1:h + 1, 1:w + 1]
   y = acc.float() * (xs[:, None, None, None] * ws) + bias.float()
   return y.to(x.dtype).permute(0, 3, 1, 2)

@@ -1,6 +1,7 @@
 """PyTorch port, CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
-the full-precision corr-tents and mixer-block kernels and their int8 forms,
+the full-precision corr-tents and mixer-block kernels and their int8 forms
+with the int8 modes' per-row quantizer,
 the per-frame int8 convolution, the per-pixel and the full-precision
 ExtraConvs layers (K6, K6f) and the RG-LRU linear scan (K5) with its
 backward (K5b).
@@ -147,7 +148,8 @@ CORR_Q8_SHAPES = [
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position"])
+@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position",
+                                  "prequantized_per_position"])
 @pytest.mark.parametrize(
     "bt,h,w,c,n", CORR_Q8_SHAPES,
     ids=["tiny", "ragged", "wide", "c16", "c32", "c64"],
@@ -155,7 +157,19 @@ CORR_Q8_SHAPES = [
 def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
   grid, query, cy, cx = _corr_args(cuda, dtype, bt, h, w, c, n)
   frame = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
-  if mode == "prequantized":
+  quantized = corr_tents.LAUNCHES_QUANTIZE
+  if mode == "prequantized_per_position":
+    gq, gs = corr_tents.quantize_per_position(grid)
+    quantized += 1  # the grid's, made once per video on the model path
+    out = corr_tents.corr_tent_patches_prequantized_per_position(
+        gq, gs, query, cy, cx, 7)
+    ref = corr_tents.corr_tent_patches_prequantized_per_position_reference(
+        gq, gs, query, cy, cx, 7)
+    # The route the model takes is the inline one, bit for bit.
+    inline = corr_tents.corr_tent_patches(grid, query, cy, cx, 7, True)
+    torch.testing.assert_close(out, inline, rtol=0, atol=0)
+    quantized += 2
+  elif mode == "prequantized":
     gq, gs = corr_tents.quantize_per_frame(grid)
     out = corr_tents.corr_tent_patches_prequantized(gq, gs, query, cy, cx, 7)
     ref = corr_tents.corr_tent_patches_prequantized_reference(
@@ -170,8 +184,12 @@ def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
         grid, query, cy, cx, 7)
   torch.cuda.synchronize()
   after = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
-  expected = (0, 1) if mode == "per_position" else (1, 0)
+  expected = {"per_position": (0, 1), "prequantized_per_position": (0, 2)}.get(
+      mode, (1, 0))
   assert (after[0] - frame[0], after[1] - frame[1]) == expected
+  # The query's quantizer every call; the per-position grid's inline too.
+  assert corr_tents.LAUNCHES_QUANTIZE - quantized == (
+      2 if mode == "per_position" else 1)
   assert out.shape == (bt, 7, 7, n) and out.dtype == torch.float32
   assert float(ref.abs().max()) > 0.05
   torch.testing.assert_close(
@@ -179,6 +197,45 @@ def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
   # The float kernel on the same inputs: the int8 result is that, quantized.
   full = corr_tents.corr_tent_patches(grid, query, cy, cx, 7)
   assert float((out - full).abs().max()) < 0.05 * float(full.abs().max())
+
+
+# quantize_rows against its plain version `_quantize_lastdim`, bit for bit in
+# the int8 values and the scales: rows of mixed magnitude, values on exact
+# half steps (round half to even), a row of zeros (the amax floor); widths
+# of the 16-byte pieces (128, 256: the grids; 16, 32: the small
+# configurations) and not (C = 40 in bf16, 6), and a base that is not
+# 16-byte aligned (both: one value a lane).
+QUANTIZE_SHAPES = [(2, 9, 30, 256), (3, 7, 5, 128), (5, 70, 40), (4, 11, 16),
+                   (3, 9, 32), (7, 6)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", QUANTIZE_SHAPES,
+                         ids=["c256", "c128", "c40", "c16", "c32", "c6"])
+@pytest.mark.parametrize("kind", ["random", "halves", "offset"])
+def test_quantize_rows_kernel_bit_equal(cuda, dtype, shape, kind):
+  rng = np.random.RandomState(len(shape) + shape[-1])
+  x = rng.randn(*shape).astype(np.float32)
+  x *= np.exp(rng.randn(*shape[:-1], 1) * 2).astype(np.float32)
+  if kind == "halves":
+    x = (rng.randint(-254, 255, shape) / 2.0).astype(np.float32)
+    x[..., 0] = 127.0
+    x.reshape(-1, shape[-1])[0] = 0.0
+  v = torch.from_numpy(x).to(cuda, DTYPES[dtype])
+  if kind == "offset":
+    v = torch.cat([v.reshape(-1)[:1], v.reshape(-1)]).narrow(0, 1, v.numel())
+    v = v.view(shape)
+    assert v.data_ptr() % 16
+  before = corr_tents.LAUNCHES_QUANTIZE
+  q, scale = corr_tents.quantize_per_position(v)
+  torch.cuda.synchronize()
+  assert corr_tents.LAUNCHES_QUANTIZE == before + 1
+  q_ref, scale_ref = corr_tents._quantize_lastdim(v)  # pylint: disable=protected-access
+  assert q.dtype == torch.int8 and scale.dtype == torch.float32
+  assert q.shape == v.shape and scale.shape == v.shape[:-1]
+  torch.testing.assert_close(q, q_ref, rtol=0, atol=0)
+  torch.testing.assert_close(scale, scale_ref, rtol=0, atol=0)
+  assert int(q.abs().max()) == 127
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -404,10 +461,11 @@ def test_extra_convs_module_launches_its_kernels(cuda, quantized, monkeypatch):
 # K6f, the full-precision layer, against its plain version: fp32 within the
 # port's 1e-4 (absolute and relative; the plain version's float32
 # convolutions with TF32 off), bf16 within `fused_extra_convs.fp_error_limit`.
-# C = 128 and 256 (the served width, M = 4C), odd H and W, and a ragged W
-# whose pixel count is no multiple of the 128-row tile.
+# C = 128 and 256 (the served width, M = 4C), odd H and W, a ragged W whose
+# pixel count is no multiple of the 128-row tile, single-pixel frames, and
+# C = 48 (in bf16 a K step of 64 values past C).
 EXTRA_FP_SHAPES = [(2, 9, 7, 128), (1, 11, 13, 256), (3, 5, 5, 64),
-                   (2, 6, 37, 32)]
+                   (2, 6, 37, 32), (3, 1, 1, 16), (2, 7, 6, 48)]
 
 
 def _extra_convs_fp_check(args):
@@ -422,7 +480,8 @@ def _extra_convs_fp_check(args):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,h,w,c", EXTRA_FP_SHAPES,
-                         ids=["c128", "c256", "c64_5x5", "ragged_w"])
+                         ids=["c128", "c256", "c64_5x5", "ragged_w",
+                              "one_pixel", "c48"])
 def test_extra_convs_fp_kernel_matches_plain(cuda, dtype, n, h, w, c,
                                              monkeypatch):
   monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -434,6 +493,39 @@ def test_extra_convs_fp_kernel_matches_plain(cuda, dtype, n, h, w, c,
           qconv.LAUNCHES_Q8) == (before[0] + 1, before[1], before[2])
   assert out.shape == args[0].shape and out.dtype == args[0].dtype
   assert over <= 1.0, over
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 9, 7, 128), (4, 20, 20, 64),
+                                     (3, 1, 1, 16)],
+                         ids=["c128", "many_tiles", "one_pixel"])
+def test_extra_convs_fp_bf16_padded_slabs(cuda, n, h, w, c):
+  """K6f in bf16 writes t and the hidden as zero-ringed frames: both rings
+  are zero (conv_up's epilogue writes the hidden's, no memset), t inside is
+  bf16(t32), and the hidden inside is, but for a share FP_HIDDEN_FLIP_SHARE
+  a bf16 step apart (the sums' order), gelu(conv_up(t) + bu) of the
+  kernel's own t; the output equals the float64 emulation of the
+  formulation (`fp_padded_slab`) within `fp_error_limit`."""
+  args = _extra_convs_args(cuda, "bfloat16", n, h, w, c)
+  x, g, bln, wu, bu = args[:5]
+  scratch = {}
+  out = fused_extra_convs._launch_fp(x.contiguous(), *args[1:], scratch=scratch)  # pylint: disable=protected-access
+  torch.cuda.synchronize()
+  ring = torch.ones(n, h + 2, w + 2, dtype=torch.bool, device=cuda)
+  ring[:, 1:h + 1, 1:w + 1] = False
+  assert scratch["t_padded"].shape == (n, h + 2, w + 2, c)
+  assert scratch["hidden_padded"].shape == (n, h + 2, w + 2, 4 * c)
+  assert not scratch["t_padded"][ring].float().any()
+  assert not scratch["hidden_padded"][ring].float().any()
+  t32 = scratch["t32"]
+  torch.testing.assert_close(scratch["t_padded"][:, 1:h + 1, 1:w + 1],
+                             t32.bfloat16(), rtol=0, atol=0)
+  hidden = mixer_math.gelu(fused_extra_convs._conv_fp(t32.bfloat16(), wu, bu))  # pylint: disable=protected-access
+  apart = (scratch["hidden"] != hidden.bfloat16()).float().mean()
+  assert float(apart) <= fused_extra_convs.FP_HIDDEN_FLIP_SHARE
+  emulated, _ = fused_extra_convs.fp_padded_slab(*(a.cpu() for a in args))
+  limit = fused_extra_convs.fp_error_limit(*(a.cpu() for a in args))
+  err = (out.float().cpu() - emulated.float()).abs()
+  assert (err <= limit).all(), float((err / limit).max())
 
 
 def test_extra_convs_fp_limit_refuses_controls_on_card(cuda, monkeypatch):

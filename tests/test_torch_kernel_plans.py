@@ -1,5 +1,5 @@
 """PyTorch port: the launch plans of the kernels on shared-memory rings, on
-the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X and K3 in
+the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X, K3 and K6f in
 bf16 (the TMA + wgmma loop of csrc/tma_gemm.cuh).
 
 Each wrapper computes its launch plan in a pure function (rows per block,
@@ -392,3 +392,114 @@ def test_mixer_module_hands_the_kernel_its_weights_in_place():
     assert kernel_w.data_ptr() == lin.weight.data_ptr()
   w = torch.randn(64, 256)
   assert fused_mixer_block._linear_layout(w).data_ptr() != w.data_ptr()  # pylint: disable=protected-access
+
+
+# ------------------------------------------- K6f in bf16 on csrc/tma_gemm.cuh
+
+# (n, h, w, C, M) of K6f: the served grids of a 480x480 video (M = 4C), the
+# card tests' shapes (tests/test_torch_cuda.py) and the edges (single-pixel
+# frames, C = 16 below one K step, M no multiple of 64).
+K6F_SHAPES = [(250, 60, 60, 256, 1024), (250, 32, 32, 256, 1024),
+              (2, 9, 7, 128, 512), (1, 11, 13, 256, 1024), (3, 5, 5, 64, 256),
+              (2, 6, 37, 32, 128), (4, 20, 20, 64, 256), (2, 1, 1, 16, 64),
+              (1, 3, 4, 48, 80)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w,c,m", K6F_SHAPES)
+def test_k6f_plan_fits_the_card(dtype, n, h, w, c, m):
+  plan = fused_extra_convs.fp_launch_plan(n, h, w, c, m, dtype)
+  rows = n * h * w
+  assert plan["rows"] == rows
+  if dtype == torch.float32:  # SIMT 128 x 128 tiles in static shared memory
+    assert plan["gemm_smem_bytes"] == 0 and plan["t_shape"] is None
+    assert plan["hidden_shape"] == (rows, m)
+    assert plan["up"]["grid"] == -(-rows // 128) * -(-m // 128)
+    assert plan["out"]["grid"] == -(-rows // 128) * -(-c // 128)
+    return
+  padded = n * (h + 2) * (w + 2)
+  assert plan["padded_rows"] == padded
+  assert plan["t_shape"] == (n, h + 2, w + 2, c)
+  assert plan["hidden_shape"] == (n, h + 2, w + 2, m)
+  # K is nine taps of whole 128-byte steps of bf16 channels (zeros past C).
+  _check_gemm(plan["up"], padded, m, 9 * -(-2 * c // 128) * 128)
+  _check_gemm(plan["out"], padded, c, 9 * -(-2 * m // 128) * 128)
+  assert (plan["gemm_smem_bytes"] == plan["up"]["smem_bytes"]
+          == plan["out"]["smem_bytes"] == tma_gemm.SMEM_BYTES)
+
+
+def test_served_k6f_plans():
+  """The numbers PERF.md and the kernel's notes state for the served
+  shapes: 36 K steps a conv_up tile (9 taps x 4), 144 a conv_out tile, four
+  N tiles of conv_up and one of conv_out, and the padded hidden (1.97 GB at
+  60x60 in bf16, against 1.84 GB dense)."""
+  p60 = fused_extra_convs.fp_launch_plan(250, 60, 60, 256, 1024)
+  assert (p60["up"]["tiles_m"], p60["up"]["tiles_n"], p60["up"]["k_steps"]) == (
+      7508, 4, 36)
+  assert (p60["out"]["tiles_m"], p60["out"]["tiles_n"],
+          p60["out"]["k_steps"]) == (7508, 1, 144)
+  assert p60["padded_rows"] == 961_000
+  assert round(p60["padded_rows"] * 1024 * 2 / 1e9, 2) == 1.97
+  assert round(250 * 60 * 60 * 1024 * 2 / 1e9, 2) == 1.84
+  p32 = fused_extra_convs.fp_launch_plan(250, 32, 32, 256, 1024)
+  assert p32["padded_rows"] == 250 * 34 * 34 and p32["up"]["tiles_m"] == 2258
+
+
+def test_k6f_plan_mirrors_the_sources():
+  """The bf16 plan steps K by the header's 128 bytes (64 bf16 values) over
+  ceil(2 C / 128) steps a tap, as X's int8 plan does over ceil(C / 128),
+  and the fp32 plan's tiles are the SIMT loop's."""
+  src = _source("extra_convs.cu")
+  assert "const SlabLoader ld{per_tap, w + 2, tg::kBK / Op::kElem};" in src
+  assert ("const uint64_t row_bytes = static_cast<uint64_t>(cin) * Op::kElem;"
+          in src)
+  assert ("const int per_tap = static_cast<int>((row_bytes + tg::kBK - 1) / "
+          "tg::kBK);" in src)
+  assert src.count("conv3x3_slab<tg::Bf16>(") == 2
+  assert src.count("conv3x3_slab<tg::S8>(") == 1
+  tile = _constants(src, ["kBM", "kBN"])
+  assert tile["kBM"] == tile["kBN"] == fused_extra_convs._FP32_TILE  # pylint: disable=protected-access
+  # The mma.sync bf16 loop is gone: both bf16 products are tg::gemm.
+  assert "mma.sync" not in src and "conv3x3_bf16_tma" in src
+
+
+K6F_REFUSED = [
+    ((1, 4, 4, 24, 96, torch.bfloat16), ValueError, "multiples of 16"),
+    ((1, 4, 4, 32, 40, torch.float32), ValueError, "multiples of 16"),
+    ((0, 4, 4, 32, 128, torch.bfloat16), ValueError, "empty"),
+    ((1, 4, 4, 32, 128, torch.float16), TypeError, "float32 or bfloat16"),
+    ((600_000, 60, 60, 16, 64, torch.float32), ValueError, "overflow"),
+    ((580_000, 60, 60, 16, 64, torch.bfloat16), ValueError, "overflow"),
+]
+
+
+@pytest.mark.parametrize("args,error,match", K6F_REFUSED,
+                         ids=["c24", "m40", "empty", "fp16", "rows_fp32",
+                              "padded_rows_bf16"])
+def test_k6f_plan_refuses(args, error, match):
+  with pytest.raises(error, match=match):
+    fused_extra_convs.fp_launch_plan(*args)
+
+
+def test_k6f_padded_rows_bound_is_the_kernels():
+  """580,000 60x60 frames fit the dense pixel index but not the padded
+  rows' coordinates (rows + a tile + a row and a pixel of the ring)."""
+  assert 580_000 * 60 * 60 + 128 < tma_gemm.INT32_MAX
+  assert 580_000 * 62 * 62 + 60 + 3 + 128 > tma_gemm.INT32_MAX
+  fused_extra_convs.fp_launch_plan(580_000, 60, 60, 16, 64, torch.float32)
+
+
+K6F_WRAPPER_SHAPES = [(1, 3, 4, 16, 64), (2, 5, 5, 32, 128), (1, 3, 4, 24, 96),
+                      (1, 3, 4, 32, 40), (2, 1, 1, 16, 64)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,h,w,c,m", K6F_WRAPPER_SHAPES)
+def test_k6f_wrapper_checks_agree_with_the_plan(no_library, dtype, n, h, w, c, m):  # pylint: disable=redefined-outer-name,unused-argument
+  gen = torch.Generator().manual_seed(0)
+  f = lambda *s: torch.randn(*s, generator=gen)
+  args = [f(n, h, w, c).to(dtype), f(c), f(c), f(3, 3, c, m), f(m),
+          f(3, 3, m, c), f(c)]
+  expected = _plan_outcome(fused_extra_convs.fp_launch_plan, n, h, w, c, m, dtype)
+  with pytest.raises(expected):
+    fused_extra_convs._launch_fp(*args)  # pylint: disable=protected-access

@@ -230,6 +230,11 @@ QUANTIZERS = {
         jax_mm.quantize_weight_cols, mixer_math.quantize_weight_cols, (48, 20)),
     "quantize_lastdim": (
         jax_corr._quantize_lastdim, corr_tents._quantize_lastdim, (3, 7, 6, 16)),
+    # The entry the port calls on grids (and, on the card, queries): the
+    # plain version on CPU tensors.
+    "quantize_per_position": (
+        jax_corr._quantize_lastdim, corr_tents.quantize_per_position,
+        (3, 7, 6, 16)),
     "quantize_per_frame": (
         jax_corr.quantize_per_frame, corr_tents.quantize_per_frame,
         (2, 3, 7, 6, 16)),
@@ -268,7 +273,8 @@ CORR_Q8_TOL = 2.0**-8
 
 
 def _corr_q8_jax(mode, g, q, cy, cx):
-  """The JAX package's function for `mode`, as its dispatch picks it."""
+  """The JAX package's function for `mode`, as its dispatch picks it (JAX
+  quantizes the per-position grid inline, in every call)."""
   if mode == "prequantized":
     gq, gs = jax_corr.quantize_per_frame(g)
     return jax_corr.corr_tent_patches_prequantized(gq, gs, q, cy, cx, 7)
@@ -282,6 +288,11 @@ def _corr_q8_torch(mode, g, q, cy, cx, entry):
     fn = (corr_tents.corr_tent_patches_prequantized if entry
           else corr_tents.corr_tent_patches_prequantized_reference)
     return fn(gq, gs, q, cy, cx, 7)
+  if mode == "prequantized_per_position":
+    gq, gs = corr_tents.quantize_per_position(g)
+    fn = (corr_tents.corr_tent_patches_prequantized_per_position if entry
+          else corr_tents.corr_tent_patches_prequantized_per_position_reference)
+    return fn(gq, gs, q, cy, cx, 7)
   if entry:
     return corr_tents.corr_tent_patches(
         g, q, cy, cx, 7, "per_frame" if mode == "per_frame" else True)
@@ -289,8 +300,12 @@ def _corr_q8_torch(mode, g, q, cy, cx, entry):
       g, q, cy, cx, 7, per_frame=mode == "per_frame")
 
 
+Q8_MODES = ["prequantized", "per_frame", "per_position",
+            "prequantized_per_position"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position"])
+@pytest.mark.parametrize("mode", Q8_MODES)
 @pytest.mark.parametrize("shape", CORR_SHAPES, ids=["small", "tall_ragged"])
 def test_corr_tents_q8_reference_matches_jax_reference(dtype, mode, shape):
   """The plain int8 versions against `_math_reference_prequantized` and
@@ -308,7 +323,7 @@ def test_corr_tents_q8_reference_matches_jax_reference(dtype, mode, shape):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position"])
+@pytest.mark.parametrize("mode", Q8_MODES)
 def test_corr_tents_q8_entry_matches_pallas_interpret(dtype, mode,
                                                       interpret_kernels):
   """The entries on CPU tensors against the Pallas kernel in interpret mode
@@ -346,15 +361,54 @@ def test_corr_tents_prequantized_equals_inline_per_frame(dtype):
   torch.testing.assert_close(pre, mirror, rtol=0, atol=2.0**-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CORR_SHAPES, ids=["small", "tall_ragged"])
+def test_corr_tents_prequantized_per_position_equals_inline(dtype, shape):
+  """The per-position grid quantized once (`quantize_per_position`) and
+  reused through `corr_tent_patches_prequantized_per_position` gives what
+  the inline `quantized=True` mode gives, bit for bit (the model's
+  refinement loop takes the first route, once per video), and the JAX
+  Pallas kernel's result (interpret mode, which quantizes inline) within
+  the float route's bf16 tolerance."""
+  (g, q, cy, cx), (tg, tq, tcy, tcx) = _both(corr_inputs(**shape), dtype)
+  gq, gs = corr_tents.quantize_per_position(tg)
+  assert gq.dtype == torch.int8 and gs.shape == tg.shape[:3]
+  hoisted = corr_tents.corr_tent_patches_prequantized_per_position(
+      gq, gs, tq, tcy, tcx, 7)
+  inline = corr_tents.corr_tent_patches(tg, tq, tcy, tcx, 7, True)
+  torch.testing.assert_close(hoisted, inline, rtol=0, atol=0)
+  jq, js = jax_corr._quantize_lastdim(g)
+  np.testing.assert_array_equal(gq.numpy(), np.asarray(jq))
+  np.testing.assert_array_equal(gs.numpy(), np.asarray(js))
+  jax_corr.FORCE_INTERPRET = True
+  try:
+    ref = jax_corr._pallas_forward(g, q, cy.astype(jnp.float32),
+                                   cx.astype(jnp.float32), 7, True)
+  finally:
+    jax_corr.FORCE_INTERPRET = False
+  np.testing.assert_allclose(_np(hoisted), _np(ref), rtol=0,
+                             atol=CORR_TOL["bfloat16"])
+
+
 def test_corr_tents_rejects_unknown_quantized_mode():
   tensors = [torch.from_numpy(a) for a in corr_inputs()]
   with pytest.raises(ValueError, match="quantized"):
     corr_tents.corr_tent_patches(*tensors, 7, "per_pixel")
-  before = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
+  before = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION,
+            corr_tents.LAUNCHES_QUANTIZE)
   corr_tents.corr_tent_patches(*tensors, 7, True)
   corr_tents.corr_tent_patches(*tensors, 7, "per_frame")
+  corr_tents.corr_tent_patches_prequantized_per_position(
+      *corr_tents.quantize_per_position(tensors[0]), *tensors[1:], 7)
   assert before == (corr_tents.LAUNCHES_Q8_FRAME,
-                    corr_tents.LAUNCHES_Q8_POSITION)
+                    corr_tents.LAUNCHES_Q8_POSITION,
+                    corr_tents.LAUNCHES_QUANTIZE)
+  with pytest.raises(ValueError, match="unsupported device"):
+    corr_tents.quantize_per_position(tensors[0].to("meta"))
+  with pytest.raises(ValueError, match="unsupported device"):
+    corr_tents.corr_tent_patches_prequantized_per_position(
+        *(t.to("meta") for t in corr_tents.quantize_per_position(tensors[0])),
+        *tensors[1:], 7)
 
 
 # ------------------------------------------------------ w8a8 mixer block
@@ -721,6 +775,36 @@ def test_extra_convs_fp_unfused_limit():
   assert float(((faulty - unfused).abs() / limit).max()) > 1.0
   fused_limit = fused_extra_convs.fp_error_limit(*args)
   assert float(((faulty - plain).abs() / fused_limit).max()) > 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c", [(2, 6, 5, 16), (1, 3, 7, 48),
+                                     (2, 1, 1, 16), (1, 5, 4, 80)],
+                         ids=["c16", "c48_two_k_steps", "one_pixel",
+                              "c80_ragged_k"])
+def test_fp_padded_slab_equals_plain_layer(dtype, n, h, w, c):
+  """The bf16 kernel's formulation of K6f (t and the hidden in zero-ringed
+  frames, each product one GEMM over the padded rows with a shifted row box
+  per tap and K steps of 64 bf16 values), emulated in float64 products,
+  against the plain layer and the JAX reference within `fp_error_limit`
+  (the limit the card holds K6f to: fp32 1e-4 absolute and relative, since
+  at C = 80 the float32 sums of 720 products in other orders already differ
+  by 2e-5); the padded hidden's ring is zero. A card failure of K6f that
+  this passes is the kernel's, not the indexing's."""
+  jargs, targs = _both(extra_convs_inputs(seed=30 + c, n=n, h=h, w=w, c=c),
+                       dtype)
+  slab, hidden = fused_extra_convs.fp_padded_slab(*targs)
+  plain = fused_extra_convs.extra_convs_layer_reference(*targs, False)
+  ref = jax_fec._math_reference(*jargs, False)
+  assert slab.shape == plain.shape and slab.dtype == plain.dtype
+  assert hidden.shape == (n, h + 2, w + 2, 4 * c)
+  ring = torch.ones(n, h + 2, w + 2, dtype=torch.bool)
+  ring[:, 1:h + 1, 1:w + 1] = False
+  assert not hidden[ring].any()
+  limit = fused_extra_convs.fp_error_limit(*targs).numpy()
+  for other in (plain, ref):
+    err = np.abs(_np(slab) - _np(other))
+    assert (err <= limit).all(), float((err / limit).max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

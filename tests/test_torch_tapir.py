@@ -253,6 +253,45 @@ def test_per_frame_grids_are_quantized_once_per_video(int8_model, monkeypatch):
     assert not calls
 
 
+@pytest.mark.parametrize("int8_model", REFINEMENT_CONFIGS, indirect=True)
+def test_per_position_grids_are_quantized_once_per_video(int8_model, monkeypatch):
+  """Configuration b quantizes each pyramid grid once per video
+  (`quantize_per_position`) and every chunk and refinement step takes the
+  pre-quantized entry, never the inline `quantized=True` one; the result
+  still matches JAX, which quantizes inline in every call."""
+  overrides, params, video, qp, ref, tol = int8_model
+  from tapnet_tpu_torch.ops import corr_tents
+
+  calls, entries = [], []
+  real_quantize = corr_tents.quantize_per_position
+  real_entry = corr_tents.corr_tent_patches_prequantized_per_position
+  real_inline = corr_tents.corr_tent_patches
+  monkeypatch.setattr(
+      corr_tents, "quantize_per_position",
+      lambda g: calls.append(tuple(g.shape)) or real_quantize(g))
+  monkeypatch.setattr(
+      corr_tents, "corr_tent_patches_prequantized_per_position",
+      lambda *a: entries.append(tuple(a[0].shape)) or real_entry(*a))
+
+  def inline(*args):
+    assert not (len(args) > 5 and args[5] is True), "inline per-position call"
+    return real_inline(*args)
+
+  monkeypatch.setattr(corr_tents, "corr_tent_patches", inline)
+  predictor = TapirPredictor(
+      params, tapir.bootstapir_config(**SMALL, **overrides),
+      query_bucket=1, query_chunk_size=2, device="cpu",
+  )
+  out = predictor(video, qp)
+  if overrides["quantized_corr"] is True:
+    # 2 refinement resolutions x 3 pyramid grids, not x 3 chunks x 2 steps.
+    assert len(calls) == 6, calls
+    assert len(entries) == 6 * 3 * 2, len(entries)
+    _check_int8(out, ref, tol)
+  else:
+    assert not calls and not entries
+
+
 @pytest.mark.parametrize("mode", [False, True, "per_pixel"])
 def test_quantized_extra_convs_modes_build(mode):
   """Each ExtraConvs mode is accepted and reaches the model's stack."""

@@ -1,19 +1,35 @@
-"""Times the ExtraConvs and mixer kernels of a checkout on the card, with
-each one's phases.
+"""Times the ExtraConvs, mixer and int8 corr-tents kernels of a checkout on
+the card, with each one's phases, and optionally whole served videos.
 
 X (`qconv.conv2d_q8`: conv_up and conv_out of one grid), K6
-(`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False),
-K4 (`mixer_block`, quantized=True, at [128, 250, 512]) and K3 (the same
-block in full precision) in bf16 and fp32, on seeded inputs scaled as
-chip_smoke.py scales them. It splits one launch by kernel with
+(`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False)
+at each grid beside the model's unfused float layer (`layers.ExtraConvs`:
+cuDNN convolutions and PyTorch elementwise passes, which the port's K6f
+entry never calls), K4 (`mixer_block`, quantized=True, at [128, 250, 512])
+and K3 (the same block in full precision) in bf16 and fp32, on seeded
+inputs scaled as chip_smoke.py scales them; K2 and K2b (the int8
+corr-tents at the three pyramid grids of a 480x480 video, 250 frames, 128
+queries) as the model calls them once per chunk and step: K2 on a grid
+quantized once per video, K2b on a grid quantized once per video where the
+checkout has `quantize_per_position` and inline otherwise, with the grid's
+quantization timed on its own. It splits one launch by kernel with
 torch.profiler: X into its quantization (frame amax and quantize) and its
-product; K6 into LayerNorm and patch scale, conv_up, conv_out; K4 into the
-temporal half and the MLP; K3 into the temporal half and its two products.
-For context it times cuBLAS's two bare bf16 products of K3's shape
-(torch.matmul), which the port never calls. Prints the card's name and
-power limit, then one JSON line: ms per call (CUDA events, the mean of
-`--reps` calls after two warm-up calls) and the splits. `--kernels` picks a
-subset (default: all of X, K6, K6f, K4, K3).
+product; K6 into LayerNorm and patch scale, conv_up, conv_out; K6f into
+LayerNorm, conv_up, conv_out; K4 into the temporal half and the MLP; K3
+into the temporal half and its two products; K2 and K2b into the
+quantizer and the kernel. For context it times cuBLAS's two bare bf16
+products of K3's shape (torch.matmul), which the port never calls. Prints
+the card's name and power limit, then one JSON line: ms per call (CUDA
+events, the mean of `--reps` calls after two warm-up calls) and the
+splits. `--kernels` picks a subset (default: all of X, K6, K6f, K4, K3,
+K2, K2b).
+
+`--walls int8_b,int8,headline` also serves 480x480 videos of 250 frames
+through `TapirPredictor` in bf16 with the committed trained weights
+(serve-480-int8-b: configuration b; -int8: a with 2 refinement steps;
+-headline: c with 1024 queries), one warm-up video and WALL_VIDEOS timed
+ones through `track_many`, and reports the wall per video (host clock,
+synchronised).
 
 `--root` names the checkout whose `tapnet_tpu_torch` is timed (default: the
 one this file is in), so one script times two versions. To compare them on
@@ -29,7 +45,9 @@ import json
 import os
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,6 +106,17 @@ K4_PHASES = {
 }
 # X and K3 (before PR 8: conv3x3_q8<T> and mixer_gemm_bf16<EPI> on older
 # loops). K3's GEMM 1 is epilogue 0 (GELU), GEMM 2 epilogue 1 (residual).
+# K6f: the names before the TMA loop (conv3x3_bf16<MODE>) come second.
+K6F_PHASES = {
+    "ln": ("ln_bias_rows", "ln_bias_slab"),
+    "conv_up": ("UpSlabEpilogue", "conv3x3_bf16<3>", "conv3x3_f32<3>"),
+    "conv_out": ("OutSlabEpilogue", "conv3x3_bf16<4>", "conv3x3_f32<4>"),
+}
+# K2 and K2b: the quantizer in PyTorch before the quantize_rows kernel.
+CORR_Q8_PHASES = {
+    "quantize": ("corr_quantize_rows",),
+    "kernel": ("corr_tents_q8_kernel",),
+}
 X_PHASES = {
     "quantize": ("frame_amax", "quantize_frames", "Memset"),
     "product": ("conv3x3_q8",),
@@ -97,7 +126,74 @@ K3_PHASES = {
     "gemm_up": ("mixer_gemm_tma<0", "mixer_gemm_bf16<0", "mixer_gemm_f32<0"),
     "gemm_down": ("mixer_gemm_tma<1", "mixer_gemm_bf16<1", "mixer_gemm_f32<1"),
 }
-KERNELS = ("X", "K6", "K6f", "K4", "K3")
+KERNELS = ("X", "K6", "K6f", "K4", "K3", "K2", "K2b")
+# The corr-tents grids of a 480x480 video (H, W, C), 250 frames, a chunk of
+# 128 queries.
+CORR_LEVELS = [(120, 120, 128), (60, 60, 256), (30, 30, 256)]
+CORR_QUERIES = 128
+# Served configurations (`--walls`): tools/golden_clip.py's int8
+# configuration, further overrides of bootstapir_config() and queries per
+# video; timed videos after the warm-up.
+WALLS = {
+    "int8_b": ("b", {}, 256),
+    "int8": ("a", dict(num_pips_iter=2), 256),
+    "headline": ("c", {}, 1024),
+}
+WALL_VIDEOS = 2
+CHECKPOINT = os.path.join(ROOT, "runs/bootstapir_synth/trained_params_f16.npy")
+
+
+def corr_inputs(h, w, c, frames, gen, dtype):
+  """Unit-norm grids, queries near grid features, centres over the frame."""
+  grid = torch.nn.functional.normalize(
+      torch.randn(frames, h, w, c, device="cuda", generator=gen), dim=-1)
+  cy = torch.rand(frames, CORR_QUERIES, device="cuda", generator=gen) * h - 0.5
+  cx = torch.rand(frames, CORR_QUERIES, device="cuda", generator=gen) * w - 0.5
+  query = grid[torch.arange(frames, device="cuda")[:, None],
+               cy.round().clamp(0, h - 1).long(), cx.round().clamp(0, w - 1).long()]
+  return grid.to(dtype), query.to(dtype).contiguous(), cy, cx
+
+
+def serve_walls(names, frames, videos, seed):
+  """Wall seconds per video of each served configuration in `names`."""
+  from tapnet_tpu_torch.checkpoints.tapir_checkpoint import load_tapir_checkpoint  # pylint: disable=import-outside-toplevel
+  from tapnet_tpu_torch.inference import TapirPredictor  # pylint: disable=import-outside-toplevel
+  from tapnet_tpu_torch.models.tapir import bootstapir_config  # pylint: disable=import-outside-toplevel
+  sys.path.append(ROOT)
+  from tools.golden_clip import INT8_CONFIGS  # pylint: disable=import-outside-toplevel
+
+  params = load_tapir_checkpoint(CHECKPOINT)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  res = 480
+  base = torch.nn.functional.interpolate(
+      torch.rand(1, 3, 60, 60, device="cuda", generator=gen), size=(res, res),
+      mode="bilinear")[0]
+  walls = {}
+  for name in names:
+    config, extra, queries = WALLS[name]
+    overrides = dict(INT8_CONFIGS[config], **extra)
+    predictor = TapirPredictor(
+        params, bootstapir_config(**overrides), bfloat16=True,
+        query_chunk_size=128, refinement_resolutions=[(res, res)])
+    clips = []
+    for k in range(videos + 1):
+      video = torch.stack([torch.roll(base, (k + 1) * t, dims=2)
+                           for t in range(frames)]).permute(0, 2, 3, 1)[None]
+      qp = np.stack([np.random.RandomState(seed + k).randint(0, frames, queries),
+                     np.random.RandomState(seed + k + 1).rand(queries) * (res - 16) + 8,
+                     np.random.RandomState(seed + k + 2).rand(queries) * (res - 16) + 8],
+                    -1)[None].astype(np.float32)
+      clips.append((video * 2 - 1, qp))
+    predictor(*clips[0])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    outs = list(predictor.track_many(clips[1:]))
+    torch.cuda.synchronize()
+    walls[name] = (time.perf_counter() - start) / videos
+    assert all(np.isfinite(o["tracks"]).all() for o in outs), name
+    del predictor, clips, outs
+    torch.cuda.empty_cache()
+  return walls
 
 
 def main():
@@ -108,11 +204,13 @@ def main():
   parser.add_argument("--reps", type=int, default=5)
   parser.add_argument("--seed", type=int, default=0)
   parser.add_argument("--kernels", default=",".join(KERNELS))
+  parser.add_argument("--walls", default="")
   args = parser.parse_args()
   chosen = set(args.kernels.split(","))
   sys.path.insert(0, os.path.abspath(args.root))
+  from tapnet_tpu_torch.models import layers  # pylint: disable=import-outside-toplevel
   from tapnet_tpu_torch.ops import (  # pylint: disable=import-outside-toplevel
-      fused_extra_convs, fused_mixer_block, mixer_math, qconv)
+      corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv)
 
   if not torch.cuda.is_available():
     sys.exit("time_int8_kernels: no CUDA device")
@@ -158,11 +256,48 @@ def main():
         times[f"K6 {grid} {name}"] = time_ms(k6, args.reps)
         splits[f"K6 {grid} {name}"] = split_ms(k6, K6_PHASES)
       if "K6f" in chosen:
-        times[f"K6f {grid} {name}"] = time_ms(
-            lambda: fused_extra_convs.extra_convs_layer(x, *params, False),
-            args.reps)
+        k6f = lambda: fused_extra_convs.extra_convs_layer(x, *params, False)
+        times[f"K6f {grid} {name}"] = time_ms(k6f, args.reps)
+        splits[f"K6f {grid} {name}"] = split_ms(k6f, K6F_PHASES)
+        unfused = layers.ExtraConvs(channels=c, num_layers=1,
+                                    channel_multiplier=m // c)
+        unfused.load_state_dict({
+            "ln_0.scale": g, "ln_0.bias": bln,
+            "conv_up_0.weight": wu.permute(3, 2, 0, 1), "conv_up_0.bias": bu,
+            "conv_out_0.weight": wo.permute(3, 2, 0, 1), "conv_out_0.bias": bo})
+        unfused = unfused.to(device="cuda", dtype=dtype).eval()
+        with torch.inference_mode():
+          times[f"unfused layer {grid} {name}"] = time_ms(
+              lambda: unfused(x_nchw), args.reps)
+        del unfused
       del x, x_nchw
       torch.cuda.empty_cache()
+    if {"K2", "K2b"} & chosen:
+      for h, w, cc in CORR_LEVELS:
+        grid, query, cy, cx = corr_inputs(h, w, cc, args.frames, gen, dtype)
+        level = f"{h}x{w}x{cc} {name}"
+        if "K2" in chosen:
+          gq, gs = corr_tents.quantize_per_frame(grid)
+          k2 = lambda: corr_tents.corr_tent_patches_prequantized(
+              gq, gs, query, cy, cx, 7)
+          times[f"K2 {level}"] = time_ms(k2, 4 * args.reps)
+          splits[f"K2 {level}"] = split_ms(k2, CORR_Q8_PHASES)
+        if "K2b" in chosen:
+          inline = lambda: corr_tents.corr_tent_patches(
+              grid, query, cy, cx, 7, True)
+          times[f"K2b inline {level}"] = time_ms(inline, 4 * args.reps)
+          k2b = inline
+          if hasattr(corr_tents, "quantize_per_position"):
+            quantize = lambda: corr_tents.quantize_per_position(grid)
+            times[f"K2b grid quantization {level}"] = time_ms(
+                quantize, 4 * args.reps)
+            gq, gs = quantize()
+            k2b = lambda: corr_tents.corr_tent_patches_prequantized_per_position(
+                gq, gs, query, cy, cx, 7)
+          times[f"K2b {level}"] = time_ms(k2b, 4 * args.reps)
+          splits[f"K2b {level}"] = split_ms(k2b, CORR_Q8_PHASES)
+        del grid, query, cy, cx
+        torch.cuda.empty_cache()
     margs = [a.to(dtype) for a in mixer]
     if "K4" in chosen:
       k4 = lambda: fused_mixer_block.mixer_block(
@@ -185,8 +320,11 @@ def main():
             time_ms(lambda: torch.matmul(rows, margs[7]), 4 * args.reps)
             + time_ms(lambda: torch.matmul(hidden, margs[9]), 4 * args.reps))
         del rows, hidden
+  walls = (serve_walls(args.walls.split(","), args.frames, WALL_VIDEOS,
+                       args.seed) if args.walls else {})
   print(json.dumps(dict(card=card, root=os.path.abspath(args.root),
-                        frames=args.frames, ms=times, split_ms=splits)),
+                        frames=args.frames, ms=times, split_ms=splits,
+                        wall_s_per_video=walls)),
         flush=True)
 
 
