@@ -19,14 +19,17 @@ Phases (any failure raises and exits non-zero):
      that its fp32 check must refuse; in bf16 its padded t and hidden must
      have zero rings). The int8 kernels' own int8 tensors are held against
      the plain version's too, beside wrong quantizations as controls; X's
-     padded int8 frames must have a zero ring. The records of K3 (bf16,
-     served shape), K4, X, K6 and K6f split one launch by kernel
+     padded int8 frames must have a zero ring. K3 in fp32 (its products as
+     error-compensated TF32) beside two faulty fp32 blocks that its limit
+     must refuse (fused_mixer_block.fp32_controls: one TF32 product; the
+     split without A_small . B_big). The records of K3 (served shape), K4,
+     X, K6 and K6f split one launch by kernel
      (torch.profiler): K3 into its temporal half and its two products, K4
      into its temporal half and its MLP, X into its quantization and its
      product, K6 into LayerNorm and patch scale, conv_up and conv_out, K6f
-     into LayerNorm, conv_up and conv_out, at each grid. K3's served row
-     also times cuBLAS's two bare products, K6f's the model's unfused
-     layer.
+     into LayerNorm, conv_up and conv_out, at each grid. K3's served rows
+     also time cuBLAS's two bare products (fp32: TF32 off), K6f's the
+     model's unfused layer.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, in full precision and in the four int8 configurations
@@ -35,7 +38,10 @@ Phases (any failure raises and exits non-zero):
      ExtraConvs and 2 refinement steps; d: the per-pixel int8 ExtraConvs,
      on a 24-frame clip). Then track_many over 480x480 videos in bf16 (250
      frames, chunk 128: the shapes phase 2 checks): the full-precision
-     configuration, int8 configuration a with num_pips_iter=2, bf16 with
+     configuration, the same in the predictor's default float32
+     (serve-480-fp32, PyTorch's TF32 settings at their defaults; its
+     profile must name the float32 tensor-core GEMMs), int8 configuration
+     a with num_pips_iter=2, bf16 with
      num_pips_iter=2 beside it, configuration b (K2b), the headline
      configuration with 1024 queries, and a with the per-pixel int8
      ExtraConvs (K6). The kernels' launch counters are set to 0 before each
@@ -137,11 +143,17 @@ GOLDEN_ONLINE = os.path.join(REPO, "tests/data/bootstapir_golden_online.npz")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
-# by operand type (bf16 and int8 on the tensor cores, fp32 outside them).
-# The int8 kernels' bounds use the int8 tensor-core peak whatever the model's
-# dtype: their products are int8 in both.
+# by operand type (bf16 and int8 on the tensor cores). A float32-accurate
+# product on the tensor cores costs three TF32 products (error-compensated
+# TF32, as K3's float32 form computes it), so float32 operations are bound
+# at a third of the 495 TFLOP/s TF32 peak, above the 67 TFLOP/s of the
+# float32 pipes outside them. The int8 kernels' bounds use the int8
+# tensor-core peak whatever the model's dtype: their products are int8 in
+# both.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+PEAK_TF32_FLOPS = 495e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: PEAK_TF32_FLOPS / 3,
+              torch.int8: 1979e12}
 
 # Main-path shapes of the served videos at 480x480 (refinement at 480 only,
 # chunk 128, 250 frames): corr-tents grids per pyramid level (H, W, C), with
@@ -1281,8 +1293,9 @@ def check_scan_backward(gen, checks, device="cuda"):
 
 def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
   """K3 at `shape` against its plain version: fp32 within MIXER_FP32_TOL,
-  bf16 within fused_mixer_block.bf16_error_limit. The served path's row is
-  MIXER_SHAPE with SAME padding."""
+  beside the faulty blocks of fused_mixer_block.fp32_controls that it must
+  refuse; bf16 within fused_mixer_block.bf16_error_limit. The served path's
+  row is MIXER_SHAPE with SAME padding."""
   name_dt = str(dtype).replace("torch.", "")
   name = f"mixer_block {name_dt} {'x'.join(map(str, shape))} causal={causal}"
   args = mixer_inputs(dtype, gen, shape)
@@ -1295,11 +1308,21 @@ def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
   diff = (out.float() - ref.float()).abs()
   err = float(diff.max())
   require(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
+  extra = {}
   if dtype == torch.float32:
     tol = MIXER_FP32_TOL
     over = float((diff / (tol[1] + tol[0] * ref.abs())).max())
     require(torch.allclose(out, ref, *tol),
             f"{name}: max_abs_err {err}, tol {tol}")
+    controls = {}
+    for key, faulty in fused_mixer_block.fp32_controls(*args, causal).items():
+      ratio = float(((faulty - ref).abs() / (tol[1] + tol[0] * ref.abs())).max())
+      controls[key] = dict(max_abs_err=float((faulty - ref).abs().max()),
+                           max_err_over_limit=ratio, refused=ratio > 1.0)
+      require(ratio > 1.0, f"{name}: the limit passes the control {key}: "
+              f"{controls[key]}")
+      del faulty
+    extra["fp32_controls"] = controls
   else:
     tol = "2 bf16 steps of |h|, |x1|, |out| and rms(y), per element"
     limit = fused_mixer_block.bf16_error_limit(*args, causal)
@@ -1310,19 +1333,22 @@ def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
   nbytes, flops = mixer_bound(args)
   b_ms, b_by = bound_ms(nbytes, flops, dtype)
   path = shape == MIXER_SHAPE and not causal
-  extra = {}
-  if path and dtype == torch.bfloat16:
+  if path:
     # For context, the two bare products through cuBLAS (no temporal half,
-    # LayerNorm or epilogue), which the port never calls.
+    # LayerNorm or epilogue; fp32 with TF32 off, as the port's fp32 runs),
+    # which the port never calls.
     rows = args[0].reshape(-1, shape[-1])
     hidden = torch.empty(rows.shape[0], args[7].shape[1], dtype=dtype,
                          device="cuda")
-    extra = dict(
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extra.update(
         cublas_products_ms=time_ms(lambda: torch.matmul(rows, args[7]))
         + time_ms(lambda: torch.matmul(hidden, args[9])),
-        cublas_note="torch.matmul of [32000, 512].[512, 2048] and "
-                    "[32000, 2048].[2048, 512] in bf16: a part of the "
-                    "function, not a library call for the whole of it",
+        cublas_note=f"torch.matmul of [32000, 512].[512, 2048] and "
+                    f"[32000, 2048].[2048, 512] in {name_dt}"
+                    + (" (TF32 off)" if dtype == torch.float32 else "")
+                    + ": a part of the function, not a library call for the "
+                    "whole of it",
         split_ms=kernel_split(run, K3_PHASES))
     del rows, hidden
   checks.append(dict(
@@ -1396,6 +1422,24 @@ KERNEL_META = {
         layer="K3/K4 mixer_block", run="serve",
         loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (the two bf16 products, "
              "mixer_gemm_tma)",
+    ),
+    # K3 and K1 in the predictor's default float32 (serve-480-fp32).
+    "mixer_block_fp32": dict(
+        counter="mixer_block", dtype="float32",
+        source="tapnet_tpu_torch/csrc/fused_mixer_block.cu",
+        replaces="tapnet_tpu/ops/fused_mixer_block.py:256",
+        tpu_kernel="K3 fused_mixer_block._kernel (via _pallas_forward :318), "
+                   "float32",
+        layer="K3/K4 mixer_block", run="serve_fp32",
+        loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (the two float32 products "
+             "as error-compensated TF32, tg::Tf32x3, mixer_gemm_tma)",
+    ),
+    "corr_tents_fp32": dict(
+        counter="corr_tents", dtype="float32",
+        source="tapnet_tpu_torch/csrc/corr_tents.cu",
+        replaces="tapnet_tpu/ops/corr_tents.py:182",
+        tpu_kernel="K1 corr_tents._kernel (via _pallas_forward :243), float32",
+        layer="K1/K2 corr_tents", run="serve_fp32",
     ),
     "mixer_block_q8": dict(
         source="tapnet_tpu_torch/csrc/fused_mixer_block.cu",
@@ -1587,7 +1631,7 @@ EXTRA_KERNELS = ("conv3x3_q8_tma", "frame_amax", "quantize_frames",
 LAYERS = (
     ("K1/K2 corr_tents", ("corr_tents_kernel", "corr_tents_q8_kernel",
                           "corr_quantize_rows")),
-    ("K3/K4 mixer_block", ("mixer_temporal", "mixer_gemm_tma", "mixer_gemm_f32",
+    ("K3/K4 mixer_block", ("mixer_temporal", "mixer_gemm_tma", "split_tf32",
                            "mixer_mlp_q8")),
     ("int8 ExtraConvs (X, K6)", EXTRA_KERNELS),
     ("convolutions (cuDNN, with its layout transforms)",
@@ -1596,7 +1640,7 @@ LAYERS = (
 )
 
 
-OWN_KERNELS = ("mixer_", "corr_tents", "corr_quantize", "conv3x3_bf16",
+OWN_KERNELS = ("mixer_", "split_tf32", "corr_tents", "corr_quantize", "conv3x3_bf16",
                "conv3x3_f32", "ln_bias_slab") + EXTRA_KERNELS
 
 
@@ -1641,24 +1685,31 @@ def profile_request(request, unprofiled_wall_s, layers=LAYERS, own=OWN_KERNELS,
   )
 
 
-def serve(params, videos, overrides, launched, queries=QUERIES):
-  """Serves videos[1:] after a warm-up request on videos[0], in bf16 with
-  `overrides` of bootstapir_config(). `launched` names the kernels this
-  configuration must launch, equally often per video; every other kernel's
-  count must stay 0."""
+def serve(params, videos, overrides, launched, queries=QUERIES,
+          bfloat16=True):
+  """Serves videos[1:] after a warm-up request on videos[0], in bf16 (or,
+  with bfloat16=False, in the predictor's default float32, with PyTorch's
+  TF32 settings at their defaults) with `overrides` of bootstapir_config().
+  `launched` names the kernels this configuration must launch, equally often
+  per video; every other kernel's count must stay 0."""
   count = len(videos) - 1
+  # PyTorch's defaults: float32 matmuls in full float32, cuDNN in TF32.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = True
   predictor = TapirPredictor(
-      params, bootstapir_config(**overrides), bfloat16=True,
+      params, bootstapir_config(**overrides), bfloat16=bfloat16,
       query_chunk_size=CHUNK, refinement_resolutions=[(RES, RES)],
   )
   # Warm-up request: cuDNN algorithm choice and allocator growth.
   predictor(*videos[0])
   torch.cuda.synchronize()
   reset_counts()
+  torch.cuda.reset_peak_memory_stats()
   start = time.perf_counter()
   outs = list(predictor.track_many(videos[1:]))
   wall = time.perf_counter() - start
   launches = read_counts()
+  peak = torch.cuda.max_memory_allocated()
   require(len(outs) == count, f"track_many yielded {len(outs)} of {count}")
   require(all(v % count == 0 for v in launches.values()),
           f"launches differ between equal requests: {launches}")
@@ -1670,9 +1721,12 @@ def serve(params, videos, overrides, launched, queries=QUERIES):
     require(np.abs(out["tracks"]).max() < 4 * RES, "tracks far off the frame")
   require({k for k, v in launches.items() if v > 0} == set(launched),
           f"launched {launches}, expected exactly {sorted(launched)}")
-  return dict(config=overrides, videos=count, frames=FRAMES, queries=queries,
+  return dict(config=overrides, dtype="bfloat16" if bfloat16 else "float32",
+              tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                        cudnn=torch.backends.cudnn.allow_tf32),
+              videos=count, frames=FRAMES, queries=queries,
               chunk=CHUNK, resolution=RES, wall_s_total=wall,
-              wall_s_per_video=wall / count,
+              wall_s_per_video=wall / count, peak_memory_bytes=peak,
               launches_per_video={k: v // count for k, v in launches.items()},
               visible_frac=[float(predictor.visibles(o).mean()) for o in outs],
               tracks=[o["tracks"] for o in outs],
@@ -2410,6 +2464,10 @@ def main():
   runs = {
       # serve-480: the full-precision configuration.
       "serve": serve(params, videos, {}, ("corr_tents", "mixer_block")),
+      # serve-480-fp32: the same in the predictor's default float32: K1 and
+      # K3 in float32, K3's products as error-compensated TF32.
+      "serve_fp32": serve(params, videos, {}, ("corr_tents", "mixer_block"),
+                          bfloat16=False),
       # serve-480-int8: w8a8 mixer, per-frame int8 correlation, 2 steps.
       "serve_int8": serve(
           params, videos, dict(INT8_CONFIGS["a"], **fast),
@@ -2438,6 +2496,14 @@ def main():
            "extra_convs_q8_pixel")),
   }
   tracks = {name: run.pop("tracks") for name, run in runs.items()}
+  # The float32 products run on the tensor-core GEMM, and no SIMT one is left.
+  fp32_kernels = [k["name"] for k in runs["serve_fp32"]["profile"]["own_kernels"]]
+  require(any("mixer_gemm_tma<0, float>" in k for k in fp32_kernels)
+          and any("mixer_gemm_tma<1, float>" in k for k in fp32_kernels)
+          and not any("mixer_gemm_f32" in k for k in fp32_kernels),
+          f"serve-480-fp32's mixer products: {fp32_kernels}")
+  runs["serve_fp32"]["tracks_vs_bf16"] = tracks_apart(
+      tracks["serve_fp32"], tracks["serve"])
   runs["serve_int8"]["tracks_vs_bf16_same_steps"] = tracks_apart(
       tracks["serve_int8"], tracks["serve_bf16_2iter"])
   for name, run in runs.items():
@@ -2483,17 +2549,19 @@ def main():
     torch.cuda.empty_cache()
 
   # One row per kernel: bf16 model dtype (the served precision; K5's inputs
-  # stay float32 in it), per launch at the served shapes, with the launches
-  # per video of the run that drives it. launches * ms should come near the
+  # stay float32 in it), and K3 and K1 in float32 too (the predictor's
+  # default, serve-480-fp32), per launch at the served shapes, with the
+  # launches per video of the run that drives it. launches * ms should come near the
   # profile's time for the kernel's layer (corr-tents: with corr_quantize's
   # launches, and K2's scale product in PyTorch).
   kernels = []
   for name, meta in KERNEL_META.items():
     dtype = meta.get("dtype", "bfloat16")
-    row = next(c for c in checks if c["kernel"] == name
+    counter = meta.get("counter", name)
+    row = next(c for c in checks if c["kernel"] == counter
                and c["dtype"] == dtype and c.get("path"))
     per = meta.get("per", "video")
-    launches = runs[meta["run"]][f"launches_per_{per}"][name]
+    launches = runs[meta["run"]][f"launches_per_{per}"][counter]
     profile_ms = runs[meta["run"]]["profile"]["by_layer_ms"][meta["layer"]]
     require(launches > 0, f"{name} never launched on its path")
     kernels.append(dict(
@@ -2516,7 +2584,7 @@ def main():
             "split_ms_by_grid": row["split_ms_by_grid"]}
            if "ms_by_grid" in row else {}),
         # X: cuDNN's bf16 convolution of the same shapes; K3: cuBLAS's two
-        # bare products; for context only.
+        # bare products (fp32: TF32 off); for context only.
         **({"cudnn_same_shape_ms": row["cudnn_same_shape_ms"]}
            if "cudnn_same_shape_ms" in row else {}),
         **({"cublas_products_ms": row["cublas_products_ms"]}

@@ -14,12 +14,37 @@
 // badly. The patch is linear in the correlation and every one of the p*p taps
 // shares the same fractional offset, so a patch needs the correlation only on
 // the (p+1) x (p+1) integer window around the centre. This kernel computes
-// just those 64 dot products per query (one warp per query: lanes split C,
-// float32 accumulation, shuffle reductions), rounds them to the compute
-// dtype as the TPU kernel does, and mixes them with the tents: y-tents in the
-// compute dtype, x-tents and all sums in float32. It reads the window rows the
-// queries touch, never the whole frame. Outputs of an 8-query tile are staged
-// in shared memory and written as [p*p, 8] rows of 32-byte sectors.
+// just those 64 dot products per query (float32 accumulation, shuffle
+// reductions), rounds them to the compute dtype as the TPU kernel does, and
+// mixes them with the tents: y-tents in the compute dtype, x-tents and all
+// sums in float32. It reads the window rows the queries touch, never the
+// whole frame. The grid is [query blocks, frames], so that the blocks at work
+// at one time cover a few frames, whose window rows stay in L2 (with the
+// frames fastest, as the int8 kernel's grid still has them, every frame of
+// the video was in flight at once). A block of 8 warps takes 8 queries of a
+// frame, one warp each, or 4, 2 or 1 queries whose 2, 4 or 8 warps split
+// the window's 8 rows (corr_tents.float_launch_plan chooses): where 8 would
+// give the card fewer than 528 blocks (an online step, 1 frame x 64
+// queries: 64 blocks in place of 8, 512 warps busy instead of 64), or where
+// the frames under way would hold more than 32 MB of grid (the served
+// 120x120 and 60x60 grids). Outputs are staged in shared memory and written
+// as [p*p, queries] rows (32-byte sectors for 8).
+// Two inner loops, chosen by C and alignment (float_rows_ok):
+//   * row-wise, where C * sizeof(T) is a power-of-two number L >= 4 of
+//     16-byte pieces (L <= 128) and both bases are 16-byte aligned: the
+//     model's widths (C = 128 and 256 in either dtype) and the test
+//     configurations' 32 (and 16 in float32). A window row is (p+1) * C
+//     contiguous values (2 KB at the hires level in bf16, 8 KB at C = 256
+//     in fp32); the warp reads it 16 bytes a lane, min(L, 32) lanes a
+//     position (L / 32 pieces a lane beyond), all of a lane's loads of a row
+//     at once, with the query's pieces in registers, and reduces the row's 8
+//     positions together by a transposing butterfly: 8x fewer load
+//     instructions than value by value, one memory latency a row instead of
+//     one a position, and V + 1 shuffles instead of 5 a position.
+//   * scalar, for every other C (L no power of two: 40, 48, 80 ...; L < 4:
+//     bf16 C = 16) or a base off 16 bytes: lanes split C value by value,
+//     the query in shared memory, and every position is reduced over the
+//     whole warp.
 //
 // The int8 kernel (corr_tents_q8_kernel) replaces the same TPU kernel on its
 // int8 paths: `frame_scale` given (grid quantized once per video, one scale
@@ -49,11 +74,14 @@
 // kernel's, half of the bfloat16 one's) against 2*64*C integer operations per
 // query: memory, as above.
 //
-// Bound on the H100: memory. Per query it moves 64*C grid values (through
-// L2, since a frame's window rows are shared between queries) against
+// Bound on the H100: memory. Per query it moves 64*C grid values against
 // 2*64*C flops, far below the ~295 flop/byte the tensor cores need; the
-// roofline time is the grid's bytes over 3.35 TB/s. Scalar lane-strided loads
-// keep any C legal; wider vector loads are later work.
+// roofline time is the bytes of the grid positions the windows touch over
+// 3.35 TB/s. A frame's window rows are shared between its queries and read
+// again through L2 (32 KB a query at C = 256 in bf16), so the design keeps
+// the frames under way within L2 and many 16-byte loads in flight: a row's
+// loads are issued together, one memory latency a row. PERF.md section 6
+// has what it reaches (about 60% of the bound in bf16).
 //
 // quantize_rows: the int8 modes' quantizer of the grid per position and of
 // the query per descriptor, which the JAX package leaves to XLA
@@ -109,88 +137,217 @@ __device__ __forceinline__ float tent(float centre, int cell) {
   return fmaxf(0.f, 1.f - fabsf(centre - static_cast<float>(cell)));
 }
 
-template <typename T, int P>
+// 16 bytes as 4 float32 or 8 bfloat16 values (the pointer type selects).
+__device__ __forceinline__ void unpack_piece(const uint4& q, const float*, float* v) {
+  v[0] = __uint_as_float(q.x);
+  v[1] = __uint_as_float(q.y);
+  v[2] = __uint_as_float(q.z);
+  v[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack_piece(const uint4& q, const __nv_bfloat16*,
+                                             float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+// 16 bytes a lane reads in one piece: 4 float32 or 8 bfloat16 values.
+template <typename T>
+__device__ __forceinline__ void load_piece(const T* p, float* v) {
+  unpack_piece(*reinterpret_cast<const uint4*>(p), p, v);
+}
+
+// The row-wise loop reads a position's C values as L = C * sizeof(T) / 16
+// pieces of 16 bytes, at most kMaxLanePieces of them a lane (L <= 128).
+constexpr int kMaxLanePieces = 4;
+
+// Whether the float kernel's row-wise loop takes width c of T at these
+// bases: C * sizeof(T) a power-of-two number L of 16-byte pieces, 4 <= L <=
+// 32 * kMaxLanePieces, and both bases 16-byte aligned.
+template <typename T>
+bool float_rows_ok(const void* grid, const void* query, int c) {
+  const long long bytes = static_cast<long long>(c) * sizeof(T);
+  const long long pieces = bytes / 16;
+  return bytes % 16 == 0 && pieces >= 4 && pieces <= 32 * kMaxLanePieces &&
+         (pieces & (pieces - 1)) == 0 &&
+         reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(query) % 16 == 0;
+}
+
+// grid [bt, h, w, c] and query [bt, n, c] in T; cy, cx [bt, n]; out [bt, P,
+// P, n]. A block of kWarps warps takes `qpb` queries of one frame (1, 2, 4
+// or 8), each with kWarps / qpb warps that split its window rows. LC > 0:
+// the row-wise loop with LC = min(L, 32) lanes a position and PL = L / LC
+// pieces of a position a lane (float_rows_ok); LC = 0: the scalar loop.
+template <typename T, int P, int LC, int PL>
 __global__ void __launch_bounds__(kThreads)
     corr_tents_kernel(const T* __restrict__ grid, const T* __restrict__ query,
                       const float* __restrict__ cy,
                       const float* __restrict__ cx, float* __restrict__ out,
-                      int h, int w, int c, int n) {
+                      int h, int w, int c, int n, int qpb) {
   constexpr int kWin = P + 1;
   constexpr int kHalf = (P - 1) / 2;
-  extern __shared__ float smem[];
+  constexpr int kVec = 16 / sizeof(T);  // values of a 16-byte piece
+  __shared__ float corr_s[kTileN][kWin * kWin];
+  __shared__ float out_s[P * P * kTileN];
+  extern __shared__ float q_s[];  // scalar loop: [qpb, c]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* q_s = smem + warp * c;                                   // [c]
-  float* corr_s = smem + kWarps * c + warp * kWin * kWin;         // [win, win]
-  float* out_s = smem + kWarps * c + kWarps * kWin * kWin;        // [P*P, tile]
-
-  const int bt = blockIdx.x;
-  const int n0 = blockIdx.y * kTileN;
+  const int wpq = kWarps / qpb;  // warps of a query
+  const int qi = warp / wpq;
+  const int bt = blockIdx.y;
+  const int n0 = blockIdx.x * qpb;
+  const int nq = n0 + qi;
   const T* g = grid + static_cast<size_t>(bt) * h * w * c;
 
-  for (int qi = warp; qi < kTileN; qi += kWarps) {
-    const int nq = n0 + qi;
-    if (nq >= n) break;  // warp-uniform
+  if (LC == 0) {
+    for (int e = threadIdx.x; e < qpb * c; e += kThreads) {
+      const int q = e / c;
+      q_s[e] = n0 + q < n ? to_f(query[(static_cast<size_t>(bt) * n + n0 + q) * c + e % c])
+                          : 0.f;
+    }
+    __syncthreads();
+  }
+
+  if (nq < n) {  // warp-uniform
     const size_t qoff = static_cast<size_t>(bt) * n + nq;
-    const T* qv = query + qoff * c;
-    for (int k = lane; k < c; k += 32) q_s[k] = to_f(qv[k]);
-    __syncwarp();
+    const int y0 = static_cast<int>(floorf(cy[qoff])) - kHalf;
+    const int x0 = static_cast<int>(floorf(cx[qoff])) - kHalf;
+    float* corr = corr_s[qi];
+    // Correlation on the integer window, rounded to the compute dtype; the
+    // query's warps take its rows in turn. Positions outside the grid stay 0.
+    if constexpr (LC > 0) {
+      // A lane takes pieces kk + LC i (i < PL) of the row's positions s =
+      // j * span + lane / LC, j < V. It issues all its V * PL loads of a row
+      // before it uses any (a position off the grid loads the query's own
+      // piece, a valid address, and counts 0), so a row costs one memory
+      // latency, not one a position: the warp issues in order, and a load
+      // under a branch per position would wait for the previous position's
+      // sums. The query's pieces stay in registers. Then one transposing
+      // reduction: at each xor offset from LC / 2 down to 4 a lane hands
+      // half of its V sums to its partner and adds the other half, so after
+      // offsets 2 and 1 lane l holds the sum of position ((l % LC) >> 2) *
+      // span + l / LC: V + 1 shuffles a row, where a reduction per position
+      // takes 5 each.
+      constexpr int V = LC / 4;       // positions (partial sums) a lane
+      constexpr int span = 32 / LC;   // positions side by side in a warp
+      const int kk = lane % LC;
+      const T* qrow = query + qoff * c;
+      float qv[PL][kVec];
+#pragma unroll
+      for (int i = 0; i < PL; ++i) load_piece(qrow + (kk + LC * i) * kVec, qv[i]);
+      for (int r = warp % wpq; r < kWin; r += wpq) {
+        const int iy = y0 + r;
+        const bool row_ok = iy >= 0 && iy < h;
+        const T* row = g + (static_cast<ptrdiff_t>(iy) * w + x0) * c;
+        uint4 raw[V][PL];
+        bool ok[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int s = j * span + lane / LC;
+          const int ix = x0 + s;
+          ok[j] = row_ok && ix >= 0 && ix < w;
+          const T* src = ok[j] ? row + s * c : qrow;
+#pragma unroll
+          for (int i = 0; i < PL; ++i) {
+            raw[j][i] = *reinterpret_cast<const uint4*>(src + (kk + LC * i) * kVec);
+          }
+        }
+        float acc[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < PL; ++i) {
+            float v[kVec];
+            unpack_piece(raw[j][i], static_cast<const T*>(nullptr), v);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) sum = fmaf(v[e], qv[i][e], sum);
+          }
+          acc[j] = ok[j] ? sum : 0.f;
+        }
+        int nv = V;
+#pragma unroll
+        for (int o = LC / 2; o >= 4; o >>= 1) {
+          const bool upper = (lane & o) != 0;
+          nv /= 2;
+#pragma unroll
+          for (int j = 0; j < V / 2; ++j) {
+            if (j < nv) {
+              const float lo = acc[j], hi = acc[j + nv];
+              const float got = __shfl_xor_sync(0xffffffffu, upper ? lo : hi, o);
+              acc[j] = (upper ? hi : lo) + got;
+            }
+          }
+        }
+        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 2);
+        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 1);
+        if (lane % 4 == 0) {
+          corr[r * kWin + ((lane % LC) >> 2) * span + lane / LC] = round_to<T>(acc[0]);
+        }
+      }
+    } else {
+      // Lanes split C value by value; each keeps one partial sum per
+      // position of the row, reduced over the whole warp.
+      const float* qv = q_s + qi * c;
+      for (int r = warp % wpq; r < kWin; r += wpq) {
+        const int iy = y0 + r;
+        float acc[kWin];
+#pragma unroll
+        for (int s = 0; s < kWin; ++s) acc[s] = 0.f;
+        if (iy >= 0 && iy < h) {  // warp-uniform
+          const T* row = g + (static_cast<ptrdiff_t>(iy) * w + x0) * c;
+          for (int k = lane; k < c; k += 32) {
+            const float qk = qv[k];
+#pragma unroll
+            for (int s = 0; s < kWin; ++s) {
+              const int ix = x0 + s;
+              if (ix >= 0 && ix < w) acc[s] = fmaf(to_f(row[s * c + k]), qk, acc[s]);
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kWin; ++s) {
+          const float v = warp_sum(acc[s]);
+          if (lane == 0) corr[r * kWin + s] = round_to<T>(v);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // Tap (i, j) of a query is centred at (y + i - half, x + j - half); its
+  // tents are non-zero only on window rows i, i+1 and columns j, j+1.
+  for (int e = threadIdx.x; e < qpb * P * P; e += kThreads) {
+    const int q = e / (P * P);
+    const int tap = e % (P * P);
+    if (n0 + q >= n) continue;
+    const size_t qoff = static_cast<size_t>(bt) * n + n0 + q;
     const float y = cy[qoff];
     const float x = cx[qoff];
     const int y0 = static_cast<int>(floorf(y)) - kHalf;
     const int x0 = static_cast<int>(floorf(x)) - kHalf;
-
-    // Correlation on the integer window, rounded to the compute dtype. A
-    // window row is kWin neighbouring grid positions; each lane keeps one
-    // partial sum per position, so the row's loads and the reductions are
-    // independent of each other. Positions outside the grid stay 0.
-    for (int r = 0; r < kWin; ++r) {
-      const int iy = y0 + r;
-      float acc[kWin];
-#pragma unroll
-      for (int s = 0; s < kWin; ++s) acc[s] = 0.f;
-      if (iy >= 0 && iy < h) {  // warp-uniform
-        const T* row = g + (static_cast<ptrdiff_t>(iy) * w + x0) * c;
-        for (int k = lane; k < c; k += 32) {
-          const float qk = q_s[k];
-#pragma unroll
-          for (int s = 0; s < kWin; ++s) {
-            const int ix = x0 + s;
-            if (ix >= 0 && ix < w) acc[s] = fmaf(to_f(row[s * c + k]), qk, acc[s]);
-          }
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kWin; ++s) {
-        const float v = warp_sum(acc[s]);
-        if (lane == 0) corr_s[r * kWin + s] = round_to<T>(v);
-      }
-    }
-    __syncwarp();
-
-    // Tap (i, j) is centred at (y + i - half, x + j - half); its tents are
-    // non-zero only on window rows i, i+1 and columns j, j+1.
-    for (int tap = lane; tap < P * P; tap += 32) {
-      const int i = tap / P;
-      const int j = tap % P;
-      const float cyi = y + static_cast<float>(i - kHalf);
-      const float cxj = x + static_cast<float>(j - kHalf);
-      const float wy0 = round_to<T>(tent(cyi, y0 + i));
-      const float wy1 = round_to<T>(tent(cyi, y0 + i + 1));
-      const float wx0 = tent(cxj, x0 + j);
-      const float wx1 = tent(cxj, x0 + j + 1);
-      const float* c0 = corr_s + i * kWin + j;
-      const float ya = wy0 * c0[0] + wy1 * c0[kWin];
-      const float yb = wy0 * c0[1] + wy1 * c0[kWin + 1];
-      out_s[tap * kTileN + qi] = wx0 * ya + wx1 * yb;
-    }
-    __syncwarp();
+    const int i = tap / P;
+    const int j = tap % P;
+    const float cyi = y + static_cast<float>(i - kHalf);
+    const float cxj = x + static_cast<float>(j - kHalf);
+    const float wy0 = round_to<T>(tent(cyi, y0 + i));
+    const float wy1 = round_to<T>(tent(cyi, y0 + i + 1));
+    const float wx0 = tent(cxj, x0 + j);
+    const float wx1 = tent(cxj, x0 + j + 1);
+    const float* c0 = corr_s[q] + i * kWin + j;
+    const float ya = wy0 * c0[0] + wy1 * c0[kWin];
+    const float yb = wy0 * c0[1] + wy1 * c0[kWin + 1];
+    out_s[tap * qpb + q] = wx0 * ya + wx1 * yb;
   }
   __syncthreads();
 
-  for (int e = threadIdx.x; e < P * P * kTileN; e += kThreads) {
-    const int tap = e / kTileN;
-    const int q = e % kTileN;
+  for (int e = threadIdx.x; e < P * P * qpb; e += kThreads) {
+    const int tap = e / qpb;
+    const int q = e % qpb;
     if (n0 + q < n) {
       out[(static_cast<size_t>(bt) * P * P + tap) * n + n0 + q] = out_s[e];
     }
@@ -344,25 +501,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// 16 values a lane reads in one piece: 4 float32 or 8 bfloat16.
-__device__ __forceinline__ void load_piece(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-__device__ __forceinline__ void load_piece(const __nv_bfloat16* p, float* v) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    v[2 * k] = f.x;
-    v[2 * k + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -440,22 +578,33 @@ int launch_quantize(const void* v, void* q, void* scale, long long rows, int c,
 template <typename T>
 int launch(const void* grid, const void* query, const void* cy,
            const void* cx, void* out, int bt, int h, int w, int c, int n,
-           cudaStream_t stream) {
+           int qpb, int rows, cudaStream_t stream) {
   constexpr int P = 7;
-  const size_t smem =
-      sizeof(float) * (kWarps * c + kWarps * (P + 1) * (P + 1) + P * P * kTileN);
-  auto kernel = corr_tents_kernel<T, P>;
+  if (rows != static_cast<int>(float_rows_ok<T>(grid, query, c))) {
+    return cudaErrorInvalidValue;
+  }
+  const int pieces = rows ? static_cast<int>(c * sizeof(T) / 16) : 0;
+  auto kernel = pieces == 4     ? corr_tents_kernel<T, P, 4, 1>
+                : pieces == 8   ? corr_tents_kernel<T, P, 8, 1>
+                : pieces == 16  ? corr_tents_kernel<T, P, 16, 1>
+                : pieces == 32  ? corr_tents_kernel<T, P, 32, 1>
+                : pieces == 64  ? corr_tents_kernel<T, P, 32, 2>
+                : pieces == 128 ? corr_tents_kernel<T, P, 32, 4>
+                                : corr_tents_kernel<T, P, 0, 1>;
+  const size_t smem = rows ? 0 : sizeof(float) * qpb * c;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  dim3 blocks(bt, (n + kTileN - 1) / kTileN);
+  // The query blocks of a frame are neighbours in launch order, so the
+  // blocks at work share a few frames' window rows in L2.
+  dim3 blocks((n + qpb - 1) / qpb, bt);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(grid), static_cast<const T*>(query),
       static_cast<const float*>(cy), static_cast<const float*>(cx),
-      static_cast<float*>(out), h, w, c, n);
+      static_cast<float*>(out), h, w, c, n, qpb);
   return cudaGetLastError();
 }
 
@@ -465,16 +614,24 @@ extern "C" {
 
 // grid [bt, h, w, c] and query [bt, n, c] in the compute dtype (dtype 0:
 // float32, 1: bfloat16); cy, cx [bt, n] float32; out [bt, p, p, n] float32.
-// Only p == 7 is instantiated. Returns the launch's cudaError_t.
+// qpb (queries a block: 1, 2, 4 or 8) and rows (1: the row-wise loop) as the
+// caller's launch plan gives them (corr_tents.float_launch_plan); a loop
+// that disagrees with float_rows_ok is refused. Only p == 7 is
+// instantiated. Returns the launch's cudaError_t.
 int corr_tents_forward(const void* grid, const void* query, const void* cy,
                        const void* cx, void* out, int bt, int h, int w, int c,
-                       int n, int p, int dtype, void* stream) {
-  if (p != 7 || bt <= 0 || n <= 0 || c <= 0) return cudaErrorInvalidValue;
-  if (n > 65535 * kTileN) return cudaErrorInvalidValue;
+                       int n, int p, int qpb, int rows, int dtype, void* stream) {
+  if (p != 7 || bt <= 0 || n <= 0 || c <= 0 || bt > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (qpb != 1 && qpb != 2 && qpb != 4 && qpb != 8) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(grid, query, cy, cx, out, bt, h, w, c, n, s);
+  if (dtype == 0) {
+    return launch<float>(grid, query, cy, cx, out, bt, h, w, c, n, qpb, rows, s);
+  }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(grid, query, cy, cx, out, bt, h, w, c, n, s);
+    return launch<__nv_bfloat16>(grid, query, cy, cx, out, bt, h, w, c, n, qpb,
+                                 rows, s);
   }
   return cudaErrorInvalidValue;
 }

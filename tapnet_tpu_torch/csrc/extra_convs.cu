@@ -544,7 +544,7 @@ cudaError_t conv3x3_slab(Kernel kernel, const void* a, const void* wt, int rows,
   err = tg::make_map(&w_map, Op::kType, Op::kElem, 3, wt, w_dims, w_strides);
   if (err != cudaSuccess) return err;
   const int per_tap = static_cast<int>((row_bytes + tg::kBK - 1) / tg::kBK);
-  const tg::Problem pb = tg::problem(rows, cout, 9LL * per_tap * tg::kBK);
+  const tg::Problem pb = tg::problem<Op>(rows, cout, 9LL * per_tap * tg::kBK);
   const SlabLoader ld{per_tap, w + 2, tg::kBK / Op::kElem};
   return tg::launch(kernel, pb, s, a_map, w_map, pb, ld, ep);
 }

@@ -9,7 +9,7 @@
 // over x [rows, T, C]; rows at or beyond `t_real` come out exactly zero and
 // are treated as absent (zero) by the temporal convolutions.
 //
-// Design: three launches from one file.
+// Design: three launches from one file (two more small ones in float32).
 //   (a) mixer_temporal: one block per (row, tile of 16 time steps). LN1 of the
 //       tile plus its 2-step temporal halo goes to shared memory in float32;
 //       each thread owns a channel and runs the depthwise pair over its mult
@@ -19,13 +19,27 @@
 //       operand LN2(x1) in the compute dtype.
 //   (b) gemm (W1): hidden = gelu(LN2(x1) . W1^T + b1) into [rows*T, 4C].
 //   (c) gemm (W2): y = x1 + (hidden . W2^T + b2), rows >= t_real zeroed.
-// bf16: both GEMMs are mixer_gemm_tma, the TMA + wgmma loop of tma_gemm.cuh
-// (128 x 256 tiles, 128-byte-swizzled TMA boxes in a 4-stage ring, a
-// producer warp and two consumer warpgroups, persistent CTAs) with float32
-// sums and the epilogues of apply_epilogue. The hidden goes through device
-// memory as bf16, as JAX rounds it (_mlp_hidden :212-223) before the second
-// product: 131 MB each way at [128, 250, 512], about 0.08 ms. fp32: SIMT
-// 64x64 tiles with 4x4 register blocks (IEEE products, not TF32).
+// Both GEMMs are mixer_gemm_tma<EPI, T>, the TMA + wgmma loop of
+// tma_gemm.cuh (a 4-stage ring of 128-byte-swizzled TMA boxes, a producer
+// warp and two consumer warpgroups, persistent CTAs) with float32 sums and
+// the epilogues of MlpEpilogue. The hidden goes through device memory in
+// the compute dtype, as JAX rounds it (_mlp_hidden :212-223) before the
+// second product.
+//   * bf16: tg::Bf16, 128 x 256 tiles (131 MB of hidden each way at [128,
+//     250, 512], about 0.08 ms).
+//   * float32: tg::Tf32x3, 128 x 128 tiles of error-compensated TF32: each
+//     float32 value v is split into big = tf32(v) and small = tf32(v -
+//     big), and a product is As.Bb + Ab.Bs + Ab.Bb into one float32
+//     accumulator, within about 2^-21 of a product of the float32 values
+//     where one TF32 product is 2^-11 off (the 1e-4 limit of the fp32 block
+//     refuses that: fused_mixer_block.fp32_controls). The activations are
+//     split in registers as the consumers read them; the weights are split
+//     into [2, n, k] (big rows, then small rows) by tg::split_tf32, two
+//     small launches per call (8 MB read, 16 MB written). Bound: three TF32
+//     products, 3 x 134 GFLOP at 495 TFLOP/s, 0.81 ms at [128, 250, 512]
+//     (the hidden, 262 MB each way in float32, 0.16 ms of bytes, is below
+//     it); the SIMT float32 GEMMs this replaces were bound at 2.0 ms by the
+//     67 TFLOP/s of the float32 pipes.
 //
 // The w8a8 block (mixer_block_q8_forward) replaces the same TPU kernel with
 // quantized=True (_mlp_operand :187, _mlp_hidden :212, _mlp_epilogue :225).
@@ -64,16 +78,20 @@
 // accumulation, depthwise fold bias = sum over the mult lanes of b_mix.
 //
 // Bound on the H100: the two products, 2 * 2 * rows*T * C * 4C flops (about
-// 134 GFLOP per launch at [128, 250, 512], 0.14 ms at 989 TFLOP/s bf16)
-// against ~70 MB of activations (0.02 ms at 3.35 TB/s): compute-bound. The
+// 134 GFLOP per launch at [128, 250, 512]): in bf16 0.14 ms at 989 TFLOP/s,
+// in float32 0.81 ms (three TF32 products at 495) against ~70 MB (bf16) or
+// 140 MB of activations (0.02 / 0.04 ms at 3.35 TB/s): compute-bound. The
 // products are not fused: a CTA that kept the hidden on chip would hold 64
-// rows and read the bf16 weights from L2 at 64 flops a byte (PR 7's fused
-// K4 was L2-bound at twice that); PERF.md section 6 has what the two
-// GEMMs reach.
+// rows and read the weights from L2 at 64 flops a byte (the fused w8a8 MLP
+// below is L2-bound at twice that); PERF.md section 6 has what the two GEMMs
+// reach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "q8_tile.cuh"
 #include "tma_gemm.cuh"
@@ -277,93 +295,45 @@ struct Epilogue {
 constexpr int kEpiGelu = 0;      // out = gelu(acc + bias)
 constexpr int kEpiResidual = 1;  // out = resid + (acc + bias), masked rows 0
 
-template <typename T, int EPI>
-__device__ __forceinline__ void apply_epilogue(const Epilogue<T>& ep, float acc,
-                                               int row, int col) {
-  const size_t idx = static_cast<size_t>(row) * ep.n + col;
-  const float v = acc + to_f(ep.bias[col]);
-  if (EPI == kEpiGelu) {
-    ep.out[idx] = from_f<T>(gelu_tanh(v));
-  } else {
-    const bool valid = (row % ep.t_full) < ep.t_real;
-    const float y = round_to<T>(v);
-    ep.out[idx] = from_f<T>(valid ? to_f(ep.resid[idx]) + y : 0.f);
-  }
-}
+// ------------------------- the two products: C = A . W^T on tma_gemm.cuh
 
-// ------------------------------------------- fp32 GEMM: C = A . W^T (SIMT)
+// bf16 operands are tg::Bf16; float32 ones tg::Tf32x3 (error-compensated
+// TF32, the weights pre-split by tg::split_tf32).
+template <typename T>
+struct GemmOp;
+template <>
+struct GemmOp<bf16> {
+  using type = tg::Bf16;
+};
+template <>
+struct GemmOp<float> {
+  using type = tg::Tf32x3;
+};
 
-template <int EPI>
-__global__ void __launch_bounds__(256)
-    mixer_gemm_f32(const float* __restrict__ a, const float* __restrict__ wt, int m,
-             int n, int k, Epilogue<float> ep) {
-  constexpr int BM = 64, BN = 64, BK = 16;
-  __shared__ float as[BK][BM + 4];
-  __shared__ float ws[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < k; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + i * 256;
-      const int r = e / BK, kk = e % BK;
-      const int gk = k0 + kk;
-      as[kk][r] = (m0 + r < m && gk < k) ? a[static_cast<size_t>(m0 + r) * k + gk] : 0.f;
-      ws[kk][r] = (n0 + r < n && gk < k) ? wt[static_cast<size_t>(n0 + r) * k + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < n) apply_epilogue<float, EPI>(ep, acc[i][j], row, col);
-    }
-  }
-}
-
-// ------------------------------ bf16 GEMM: C = A . W^T on tma_gemm.cuh
-
-// K step kk of a tile: A's box {64 kk, m0} of [m, k], B's {64 kk, n} of the
-// weights [n, k] (Linear's layout, K-major).
+// K step kk of a tile: A's box {step kk, m0} of [m, k], B's {step kk, n} of
+// the weights [n, k] (Linear's layout, K-major; for Tf32x3 [2n, k], the big
+// rows then the small ones); step: the values in tg::kBK bytes.
 struct RowLoader {
   static constexpr int kBDims = 2;
+  int step;
   __device__ __forceinline__ void a(int kk, int m0, int& c0, int& c1) const {
-    c0 = kk * (tg::kBK / 2);
+    c0 = kk * step;
     c1 = m0;
   }
   __device__ __forceinline__ void b(int kk, int n, int& c0, int& c1, int& c2) const {
-    c0 = kk * (tg::kBK / 2);
+    c0 = kk * step;
     c1 = n;
     c2 = 0;
   }
 };
 
-// apply_epilogue's arithmetic on tg::gemm's staged values: GEMM 1 writes
-// bf16(gelu(acc + b1)); GEMM 2 stages y = bf16(acc + b2) and writes
-// bf16(x1 + y), rows at t >= t_real 0.
-template <int EPI>
+// The epilogues on tg::gemm's staged values, at the rounding points of the
+// plain version: GEMM 1 writes T(gelu(acc + b1)); GEMM 2 stages y = T(acc +
+// b2) and writes T(x1 + y), rows at t >= t_real 0.
+template <int EPI, typename T>
 struct MlpEpilogue {
-  using Out = bf16;
-  Epilogue<bf16> ep;
+  using Out = T;
+  Epilogue<T> ep;
   struct Row {
     bool ok;
     bool valid;
@@ -382,13 +352,21 @@ struct MlpEpilogue {
       o = make_uint4(0u, 0u, 0u, 0u);
       if (r.valid) {
         const uint4 x1 = *reinterpret_cast<const uint4*>(ep.resid + r.base + col);
-        const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x1);
-        const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
-        __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+        if constexpr (sizeof(T) == 4) {
+          const float* xf = reinterpret_cast<const float*>(&x1);
+          const float* yf = reinterpret_cast<const float*>(&y);
+          float* of = reinterpret_cast<float*>(&o);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 a = __bfloat1622float2(xh[k]), b = __bfloat1622float2(yh[k]);
-          oh[k] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+          for (int k = 0; k < 4; ++k) of[k] = xf[k] + yf[k];
+        } else {
+          const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x1);
+          const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
+          __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 a = __bfloat1622float2(xh[k]), b = __bfloat1622float2(yh[k]);
+            oh[k] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+          }
         }
       }
     }
@@ -396,13 +374,13 @@ struct MlpEpilogue {
   }
 };
 
-template <int EPI>
+template <int EPI, typename T>
 __global__ void __launch_bounds__(tg::kThreads, 1)
     mixer_gemm_tma(const __grid_constant__ CUtensorMap a_map,
                    const __grid_constant__ CUtensorMap w_map, tg::Problem pb,
-                   RowLoader ld, MlpEpilogue<EPI> ep) {
+                   RowLoader ld, MlpEpilogue<EPI, T> ep) {
   extern __shared__ __align__(16) int8_t smem_raw[];
-  tg::gemm<tg::Bf16>(smem_raw, &a_map, &w_map, pb, ld, ep);
+  tg::gemm<typename GemmOp<T>::type>(smem_raw, &a_map, &w_map, pb, ld, ep);
 }
 
 // ------------------------------- the w8a8 channel MLP on the q8 tile loop
@@ -726,48 +704,58 @@ int launch_q8(const void* x, const void* g1, const void* wu, const void* bu,
   return cudaGetLastError();
 }
 
-template <typename T>
-struct Gemm;
+// out = epilogue(a [m, k] . w^T): w is [n, k] for bf16, the split [2, n, k]
+// for float32. k and n multiples of 16 bytes of T, bases 16-byte aligned.
+template <int EPI, typename T>
+cudaError_t run_gemm(const T* a, const T* w, int m, int n, int k, Epilogue<T> ep,
+                     cudaStream_t s) {
+  using Op = typename GemmOp<T>::type;
+  constexpr int kUnit = 16 / sizeof(T);
+  if (k % kUnit != 0 || n % kUnit != 0) return cudaErrorInvalidValue;
+  const int w_rows = std::is_same<Op, tg::Tf32x3>::value ? 2 * n : n;
+  CUtensorMap a_map, w_map;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(w_rows)};
+  const uint64_t strides[1] = {sizeof(T) * static_cast<uint64_t>(k)};
+  cudaError_t err = tg::make_map(&a_map, Op::kType, Op::kElem, 2, a, a_dims, strides);
+  if (err != cudaSuccess) return err;
+  err = tg::make_map(&w_map, Op::kType, Op::kElem, 2, w, w_dims, strides);
+  if (err != cudaSuccess) return err;
+  const tg::Problem pb = tg::problem<Op>(m, n, static_cast<long long>(sizeof(T)) * k);
+  const MlpEpilogue<EPI, T> pep{ep};
+  return tg::launch(mixer_gemm_tma<EPI, T>, pb, s, a_map, w_map, pb,
+                    RowLoader{tg::kBK / Op::kElem}, pep);
+}
 
-template <>
-struct Gemm<float> {
-  template <int EPI>
-  static cudaError_t run(const float* a, const float* wt, int m, int n, int k,
-                         Epilogue<float> ep, cudaStream_t s) {
-    dim3 blocks((n + 63) / 64, (m + 63) / 64);
-    mixer_gemm_f32<EPI><<<blocks, 256, 0, s>>>(a, wt, m, n, k, ep);
-    return cudaGetLastError();
-  }
-};
-
-template <>
-struct Gemm<bf16> {
-  template <int EPI>
-  static cudaError_t run(const bf16* a, const bf16* wt, int m, int n, int k,
-                         Epilogue<bf16> ep, cudaStream_t s) {
-    if (k % 8 != 0 || n % 8 != 0) return cudaErrorInvalidValue;
-    CUtensorMap a_map, w_map;
-    const uint64_t a_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
-    const uint64_t w_dims[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(n)};
-    const uint64_t strides[1] = {2ull * k};
-    cudaError_t err = tg::make_map(&a_map, tg::Bf16::kType, 2, 2, a, a_dims, strides);
-    if (err != cudaSuccess) return err;
-    err = tg::make_map(&w_map, tg::Bf16::kType, 2, 2, wt, w_dims, strides);
-    if (err != cudaSuccess) return err;
-    const tg::Problem pb = tg::problem(m, n, 2LL * k);
-    const MlpEpilogue<EPI> pep{ep};
-    return tg::launch(mixer_gemm_tma<EPI>, pb, s, a_map, w_map, pb, RowLoader{}, pep);
-  }
-};
+// float32: splits w [n, k] into out [2, n, k] for tg::Tf32x3.
+cudaError_t split_weight(const float* w, float* out, long long count, cudaStream_t s) {
+  const long long blocks = std::min<long long>((count + 255) / 256, 4096);
+  tg::split_tf32<<<static_cast<unsigned>(blocks), 256, 0, s>>>(w, out, count);
+  return cudaGetLastError();
+}
 
 template <typename T>
 int launch(const void* x, const void* g1, const void* wu, const void* bu,
            const void* wm, const void* bm, const void* g2, const void* w1,
            const void* b1, const void* w2, const void* b2, void* x1,
-           void* mlp_in, void* hidden, void* out, int rows, int t_full,
-           int t_real, int c, int hid, int mult, int causal,
+           void* mlp_in, void* hidden, void* wsplit, void* out, int rows,
+           int t_full, int t_real, int c, int hid, int mult, int causal,
            cudaStream_t s) {
-  cudaError_t err = run_temporal<T, 3, false>(
+  const T* w1_op = static_cast<const T*>(w1);
+  const T* w2_op = static_cast<const T*>(w2);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    // The weights' big and small TF32 parts, [2, hid, c] and [2, c, hid].
+    const long long count = static_cast<long long>(hid) * c;
+    float* split = static_cast<float*>(wsplit);
+    err = split_weight(w1_op, split, count, s);
+    if (err != cudaSuccess) return err;
+    err = split_weight(w2_op, split + 2 * count, count, s);
+    if (err != cudaSuccess) return err;
+    w1_op = split;
+    w2_op = split + 2 * count;
+  }
+  err = run_temporal<T, 3, false>(
       x, g1, wu, bu, wm, bm, g2, x1, mlp_in, nullptr, nullptr, rows, t_full,
       t_real, c, mult, causal, s);
   if (err != cudaSuccess) return err;
@@ -775,15 +763,12 @@ int launch(const void* x, const void* g1, const void* wu, const void* bu,
   const int mrows = rows * t_full;
   Epilogue<T> up{static_cast<const T*>(b1), nullptr, static_cast<T*>(hidden),
                  hid, t_full, t_real};
-  err = Gemm<T>::template run<kEpiGelu>(static_cast<const T*>(mlp_in),
-                                        static_cast<const T*>(w1), mrows, hid,
-                                        c, up, s);
+  err = run_gemm<kEpiGelu>(static_cast<const T*>(mlp_in), w1_op, mrows, hid, c, up, s);
   if (err != cudaSuccess) return err;
   Epilogue<T> down{static_cast<const T*>(b2), static_cast<const T*>(x1),
                    static_cast<T*>(out), c, t_full, t_real};
-  return Gemm<T>::template run<kEpiResidual>(static_cast<const T*>(hidden),
-                                             static_cast<const T*>(w2), mrows,
-                                             c, hid, down, s);
+  return run_gemm<kEpiResidual>(static_cast<const T*>(hidden), w2_op, mrows, c, hid,
+                                down, s);
 }
 
 }  // namespace
@@ -792,36 +777,37 @@ extern "C" {
 
 // x [rows, t_full, c]; g1, g2, b2 [c]; wu, wm [3, 1, c*mult] (c-major);
 // bu, bm [c*mult]; w1 [hid, c] and w2 [c, hid] (Linear layout, out x in;
-// bf16: 16-byte aligned, c and hid multiples of 8); b1 [hid]; scratch x1,
-// mlp_in [rows, t_full, c] and hidden [rows*t_full, hid]; out [rows, t_full,
-// c]. Every tensor in the compute dtype (dtype 0: float32, 1: bfloat16).
-// gemm_smem: the GEMMs' dynamic shared memory as the caller's launch plan
-// gives it (bf16: tg::kSmemBytes; fp32: 0); a plan that disagrees is
+// bf16: 16-byte aligned); b1 [hid]; scratch x1, mlp_in [rows, t_full, c]
+// and hidden [rows*t_full, hid], and for float32 wsplit [4 * hid * c] (the
+// weights' TF32 parts; null for bf16); out [rows, t_full, c]. Every tensor
+// in the compute dtype (dtype 0: float32, 1: bfloat16); c and hid multiples
+// of 16 bytes of it. gemm_smem: the GEMMs' dynamic shared memory as the
+// caller's launch plan gives it (tg::kSmemBytes); a plan that disagrees is
 // refused. Returns the first failing cudaError_t.
 int mixer_block_forward(const void* x, const void* g1, const void* wu,
                         const void* bu, const void* wm, const void* bm,
                         const void* g2, const void* w1, const void* b1,
                         const void* w2, const void* b2, void* x1,
-                        void* mlp_in, void* hidden, void* out, int rows,
-                        int t_full, int t_real, int c, int hid, int mult,
-                        int k, int causal, int gemm_smem, int dtype,
+                        void* mlp_in, void* hidden, void* wsplit, void* out,
+                        int rows, int t_full, int t_real, int c, int hid,
+                        int mult, int k, int causal, int gemm_smem, int dtype,
                         void* stream) {
   if (k != 3 || rows <= 0 || t_full <= 0 || t_real < 0 || t_real > t_full ||
       c <= 0 || hid <= 0 || mult <= 0 ||
       static_cast<long long>(rows) * t_full + tg::kBM > 0x7fffffffLL ||
-      gemm_smem != (dtype == 1 ? tg::kSmemBytes : 0)) {
+      gemm_smem != tg::kSmemBytes || (dtype == 0 && wsplit == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch<float>(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, x1, mlp_in,
-                         hidden, out, rows, t_full, t_real, c, hid, mult,
-                         causal, s);
+                         hidden, wsplit, out, rows, t_full, t_real, c, hid,
+                         mult, causal, s);
   }
   if (dtype == 1) {
     return launch<bf16>(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, x1, mlp_in,
-                        hidden, out, rows, t_full, t_real, c, hid, mult,
-                        causal, s);
+                        hidden, nullptr, out, rows, t_full, t_real, c, hid,
+                        mult, causal, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,18 @@
 // A warp-specialised GEMM loop for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages, wgmma products, and an epilogue the caller supplies.
-// X (the per-frame int8 3x3 convolution, csrc/extra_convs.cu) instantiates
-// it for s8 x s8 -> s32, K3's two channel-MLP products in bf16
-// (csrc/fused_mixer_block.cu) for bf16 x bf16 -> f32.
+// Three operand types (the Op traits below) instantiate it:
+//   * S8: X, the per-frame int8 3x3 convolution (csrc/extra_convs.cu), s8 x
+//     s8 -> s32;
+//   * Bf16: K3's two channel-MLP products in bf16 (csrc/fused_mixer_block.cu)
+//     and K6f's conv_up and conv_out in bf16 (csrc/extra_convs.cu), bf16 x
+//     bf16 -> f32;
+//   * Tf32x3: K3's two products in float32, as error-compensated TF32 (three
+//     tensor-core products of the operands' big and small TF32 parts).
 //
 // C[M, N] = A[M, K] . B[N, K]^T, both operands K-major. A CTA owns a 128 x
-// 256 output tile (kBM x kBN); K goes in steps of 128 bytes (kBK: 128 int8
-// or 64 bf16 values), one 128-byte swizzle row.
+// Op::kBN output tile (256 columns for S8 and Bf16, 128 for Tf32x3); K goes
+// in steps of 128 bytes (kBK: 128 int8, 64 bf16 or 32 float32 values), one
+// 128-byte swizzle row.
 //
 //   * Operands: 2D (or, for B, 3D) TMA boxes of 128 bytes of K by 128 rows,
 //     with the 128-byte swizzle (16-byte unit u of row r at u ^ (r % 8)),
@@ -17,18 +23,29 @@
 //     address. TMA fills a box's part outside the tensor with zeros, so a
 //     ragged M, N or K needs no code: the epilogue skips rows >= M and
 //     columns >= N.
-//   * The ring: kStages stages of one A box (128 rows) and two B boxes (256
-//     rows), 48 KB a stage, each with a `full` mbarrier (the producer's
+//   * The ring: kStages stages of one A box (128 rows) and two B boxes (128
+//     rows each), 48 KB a stage, each with a `full` mbarrier (the producer's
 //     arrival with the stage's bytes, completed by TMA) and an `empty` one
-//     (one arrival per consumer warp).
-//   * Warp specialisation: warpgroups 0 and 1 consume (wgmma m64n256, k32
-//     for s8 and k16 for bf16, rows 64 w .. 64 w + 63 of the tile; 128
-//     accumulator registers a thread), warpgroup 2 produces (one thread
-//     issues the TMA loads). setmaxnreg moves registers from the producer
-//     (40) to the consumers (232); the launcher refuses a build whose
-//     register count at launch (168 at 384 threads) would not cover that.
-//   * A consumer keeps one wgmma group in flight: it releases stage s when
-//     the group after the one that read it has been issued.
+//     (one arrival per consumer warp). S8 and Bf16 read the two B boxes as
+//     the tile's 256 columns; Tf32x3 as the big and the small parts of its
+//     128 columns (B given pre-split, [2, N, K]).
+//   * Warp specialisation: warpgroups 0 and 1 consume (rows 64 w .. 64 w + 63
+//     of the tile; wgmma m64n256 k32 for s8 and k16 for bf16, 128
+//     accumulator registers a thread; m64n128k8 for tf32, 64), warpgroup 2
+//     produces (one thread issues the TMA loads). setmaxnreg moves registers
+//     from the producer (40) to the consumers (232); the launcher refuses a
+//     build whose register count at launch (168 at 384 threads) would not
+//     cover that.
+//   * S8 and Bf16 read A through a descriptor, and a consumer keeps one
+//     wgmma group in flight: it releases stage s when the group after the
+//     one that read it has been issued. Tf32x3 reads A into registers
+//     (wgmma's register-A form), splits each value there, and waits for its
+//     stage's group before the registers are written again; the two
+//     consumer warpgroups overlap each other's splits. Its stage's products
+//     start from zero and are added to a second set of 64 registers in IEEE
+//     float32 (the tensor cores' float32 accumulation truncates: summed in
+//     them alone, K = 2048 values of the mixer's second product drifted by
+//     2.7e-4 at |y| ~ 10 on the card, over the 1e-4 limit).
 //   * Persistent CTAs: one per SM, walking the tiles with N fastest, so the
 //     CTAs at work share their weight tiles in L2 and one tile's epilogue
 //     overlaps the loads of the next (the producer runs up to kStages steps
@@ -45,8 +62,11 @@
 //
 // Bound and design: a 128 x 256 tile reads 48 KB a K step for 8.4 M int8
 // operations (4.2 M bf16 flops), 175 operations a byte from L2; the weights
-// of X and K3 (2-2.4 MB) stay in L2. PERF.md section 6 has what this design
-// reaches.
+// of X and K3 (2-2.4 MB) stay in L2. Tf32x3's 128 x 128 tile does 3.1 M
+// TF32 flops (1.05 M float32-accurate ones) on its 48 KB, 64 a byte. The
+// float32-accurate product costs three TF32 products, so its bound is 3x
+// the operations over the 495 TFLOP/s TF32 peak. PERF.md section 6 has what
+// this design reaches.
 #pragma once
 
 #include <cuda.h>
@@ -59,14 +79,15 @@
 namespace tg {
 
 constexpr int kBM = 128;    // rows of a tile: two consumer warpgroups of 64
-constexpr int kBN = 256;    // columns of a tile: wgmma n256
+constexpr int kBN = 256;    // columns of an S8 or Bf16 tile: wgmma n256
+constexpr int kBNTf32 = 128;  // columns of a Tf32x3 tile: wgmma n128
 constexpr int kBK = 128;    // bytes of K a stage: one 128-byte swizzle row
 constexpr int kBoxRows = 128;  // rows of a TMA box (A: one, B: two a stage)
 constexpr int kStages = 4;
 constexpr int kConsumers = 2;
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kABytes = kBM * kBK;
-constexpr int kBBytes = kBN * kBK;
+constexpr int kBBytes = 2 * kBoxRows * kBK;
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kSmemAlign = 1024;  // the 128-byte swizzle repeats every 1024
 // The epilogue's staging: per consumer warp, its 16 rows by kChunkBytes of
@@ -172,13 +193,15 @@ __device__ __forceinline__ void wgmma_wait() {
 // move their reads above a wgmma_wait, nor their writes below a
 // wgmma_fence, which it would otherwise do, since the waits name no
 // registers.
+template <int N>
 __device__ __forceinline__ void fence_regs(int* d) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+template <int N>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (128 registers) = A[64 rows, 32 bytes of K] . B[256 rows, 32 bytes]^T
@@ -253,6 +276,40 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 registers) = A[64 rows, 8 values of K] . B[128 rows, 8 values]^T
+// (+ d if `accumulate`) in TF32, A from registers: a[i] of a thread holds
+// A[16 (warp % 4) + lane / 4 + 8 (i % 2), lane % 4 + 4 (i / 2)] (pinned on
+// the card by a probe kernel). Accumulator element 4 j + e as above, j < 16.
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// A float32 value rounded to TF32 (10 mantissa bits, to nearest, ties away
+// from zero), as float32 bits whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
 // Writes two values into the epilogue's staging buffer as the output type
 // (the last argument selects it): float2, or two bf16 rounded to nearest.
 __device__ __forceinline__ void stage_pair(int8_t* p, float a, float b, float*) {
@@ -262,8 +319,32 @@ __device__ __forceinline__ void stage_pair(int8_t* p, float a, float b, __nv_bfl
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// The operand types: int8 (X) and bf16 (K3).
-struct S8 {
+// The operand types. Each gives its accumulator type, TMA element type and
+// size, its tile's columns (kBN), where B box `half` of a stage starts for
+// tile column n0 of a problem with n columns (b_row), whether a consumer
+// keeps one wgmma group in flight across stages (kInFlight: A read through
+// a descriptor; not when A sits in registers), and one stage of products of
+// a consumer warpgroup (stage): `a` is its 64 rows of the stage's A box,
+// `b` the stage's two B boxes, `first` the tile's first K step.
+template <typename Self, int BN>
+struct DescOp {
+  static constexpr int kBN = BN;
+  static constexpr bool kInFlight = true;
+  static __device__ __forceinline__ int b_row(int n0, int half, int) {
+    return n0 + half * kBoxRows;
+  }
+  template <typename Acc>
+  static __device__ __forceinline__ void stage(Acc* acc, const int8_t* a,
+                                               const int8_t* b, bool first) {
+    const uint64_t da = desc_sw128(a), db = desc_sw128(b);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      Self::mma(acc, da + 2 * ks, db + 2 * ks, !first || ks > 0);
+    }
+  }
+};
+struct S8 : DescOp<S8, kBN> {
   using Acc = int;
   static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   static constexpr int kElem = 1;
@@ -271,7 +352,7 @@ struct S8 {
     wgmma_s8(d, a, b, acc);
   }
 };
-struct Bf16 {
+struct Bf16 : DescOp<Bf16, kBN> {
   using Acc = float;
   static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr int kElem = 2;
@@ -279,6 +360,66 @@ struct Bf16 {
     wgmma_bf16(d, a, b, acc);
   }
 };
+// float32 operands, error-compensated TF32 ("3xTF32"): v = big + small with
+// big = tf32(v) and small = tf32(v - big) (v - big is exact in float32), and
+// A.B ~ As.Bb + Ab.Bs + Ab.Bb into one float32 accumulator; the dropped
+// As.Bs and the rounding of small are about 2^-22 of a product. B arrives
+// split, [2, n, K] (big rows, then small rows: split_tf32 below); A is split
+// in registers as it is read from the stage. A consumer thread reads its 16
+// values of a stage (wgmma's register-A layout) from the swizzled box: row
+// 16 warp + g (+8) has swizzle phase g = lane / 4, so the 32 lanes of a load
+// hit 32 banks.
+struct Tf32x3 {
+  using Acc = float;
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int kElem = 4;
+  static constexpr int kBN = kBNTf32;
+  static constexpr bool kInFlight = false;
+  static __device__ __forceinline__ int b_row(int n0, int half, int n) {
+    return n0 + half * n;
+  }
+  static __device__ __forceinline__ void stage(float* acc, const int8_t* a,
+                                               const int8_t* b, bool first) {
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int g = lane / 4, t = lane % 4;
+    constexpr int kSteps = kBK / 32;  // k8 steps of 8 float32 values
+    uint32_t big[kSteps][4], small[kSteps][4];
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 16 * warp + g + 8 * (i % 2);
+        const int unit = 2 * ks + i / 2;
+        const float v = *reinterpret_cast<const float*>(
+            a + row * kBK + ((unit ^ g) * 16) + t * 4);
+        big[ks][i] = tf32_rna(v);
+        small[ks][i] = tf32_rna(v - __uint_as_float(big[ks][i]));
+      }
+    }
+    const uint64_t db_big = desc_sw128(b);
+    const uint64_t db_small = desc_sw128(b + kBoxRows * kBK);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      wgmma_tf32(acc, small[ks], db_big + 2 * ks, !first || ks > 0);
+      wgmma_tf32(acc, big[ks], db_small + 2 * ks, 1);
+      wgmma_tf32(acc, big[ks], db_big + 2 * ks, 1);
+    }
+  }
+};
+
+// B's split for Tf32x3: out[i] = tf32(w[i]), out[count + i] = tf32(w[i] -
+// out[i]), for w [n, K] (count = n K values) into out [2, n, K].
+__global__ void split_tf32(const float* __restrict__ w, float* __restrict__ out,
+                           long long count) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < count; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float v = w[i];
+    const uint32_t big = tf32_rna(v);
+    out[i] = __uint_as_float(big);
+    out[count + i] = __uint_as_float(tf32_rna(v - __uint_as_float(big)));
+  }
+}
 
 // The problem: C [m, n], K in nk steps of kBK bytes, tiles_m x tiles_n
 // tiles.
@@ -290,7 +431,8 @@ struct Problem {
 //   static constexpr int kBDims;   // 2 or 3: the rank of B's tensor map
 //   // K step kk of the tile at row m0: A's box coordinates {k, row} ...
 //   __device__ void a(int kk, int m0, int& c0, int& c1) const;
-//   // ... and B's box of 128 rows from row n: {k, row} or {k, mid, row}.
+//   // ... and B's box of 128 rows from row n (Op::b_row): {k, row} or
+//   // {k, mid, row}.
 //   __device__ void b(int kk, int n, int& c0, int& c1, int& c2) const;
 // Epilogue concept (Acc: int or float; Out: the output's float or bf16):
 //   using Out = ...;
@@ -311,6 +453,8 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
                                      const CUtensorMap* mb, const Problem& pb,
                                      const Loader& ld, const Epilogue& ep) {
   using Acc = typename Op::Acc;
+  constexpr int BN = Op::kBN;
+  constexpr int kAcc = BN / 2;  // accumulator registers a thread: m64 x BN
   const uint32_t raw = smem_u32(smem_raw);
   int8_t* smem = smem_raw + ((kSmemAlign - (raw & (kSmemAlign - 1))) & (kSmemAlign - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
@@ -336,7 +480,7 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
         const int m0 = (u / pb.tiles_n) * kBM;
-        const int n0 = (u % pb.tiles_n) * kBN;
+        const int n0 = (u % pb.tiles_n) * BN;
         for (int kk = 0; kk < pb.nk; ++kk) {
           mbar_wait(&empty[stage], phase ^ 1);
           uint64_t* bar = &full[stage];
@@ -347,8 +491,8 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
           ld.a(kk, m0, c0, c1);
           tma_2d(ma, sa, bar, c0, c1);
 #pragma unroll
-          for (int half = 0; half < kBN / kBoxRows; ++half) {
-            ld.b(kk, n0 + half * kBoxRows, c0, c1, c2);
+          for (int half = 0; half < 2; ++half) {
+            ld.b(kk, Op::b_row(n0, half, pb.n), c0, c1, c2);
             int8_t* dst = sb + half * kBoxRows * kBK;
             if constexpr (Loader::kBDims == 3) {
               tma_3d(mb, dst, bar, c0, c1, c2);
@@ -366,7 +510,12 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    Acc acc[128];
+    Acc acc[kAcc];
+    // Without a group in flight, each stage's products start from zero and
+    // are added to `sums` in IEEE float32: the tensor cores' float32
+    // accumulation truncates, and a K of 2048 summed in them alone drifts by
+    // about 2^-14 of the sum.
+    Acc sums[Op::kInFlight ? 1 : kAcc];
     int stage = 0;
     uint32_t phase = 0;
     // A consumer warp's release of a stage: one arrival on its empty barrier.
@@ -375,31 +524,40 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
     };
     for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
       const int m0 = (u / pb.tiles_n) * kBM;
-      const int n0 = (u % pb.tiles_n) * kBN;
+      const int n0 = (u % pb.tiles_n) * BN;
       int prev = -1;
       for (int kk = 0; kk < pb.nk; ++kk) {
         mbar_wait(&full[stage], phase);
         const int8_t* sa = smem + stage * kStageBytes;
-        const uint64_t da = desc_sw128(sa + wg * 64 * kBK);
-        const uint64_t db = desc_sw128(sa + kABytes);
-        fence_regs(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kBK / 32; ++ks) {
-          Op::mma(acc, da + 2 * ks, db + 2 * ks, kk > 0 || ks > 0);
-        }
+        fence_regs<kAcc>(acc);
+        Op::stage(acc, sa + wg * 64 * kBK, sa + kABytes, kk == 0 || !Op::kInFlight);
         wgmma_commit();
-        wgmma_wait<1>();
-        if (prev >= 0) release(prev);
-        prev = stage;
+        if constexpr (Op::kInFlight) {
+          wgmma_wait<1>();
+          if (prev >= 0) release(prev);
+          prev = stage;
+        } else {
+          wgmma_wait<0>();
+          fence_regs<kAcc>(acc);
+          release(stage);
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i) sums[i] = kk == 0 ? acc[i] : sums[i] + acc[i];
+        }
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
         }
       }
       wgmma_wait<0>();
-      fence_regs(acc);
+      fence_regs<kAcc>(acc);
       if (prev >= 0) release(prev);
+      auto total = [&](int i) -> Acc {
+        if constexpr (Op::kInFlight) {
+          return acc[i];
+        } else {
+          return sums[i];
+        }
+      };
 
       // Rows of this thread: in the sums (lane / 4, + 8) and in the stores
       // (lane / 8 + 4 i), of the warp's 16 from w0.
@@ -422,7 +580,7 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
       constexpr int kChunkCols = kChunkBytes / static_cast<int>(sizeof(Out));
       constexpr int kUnit = 16 / static_cast<int>(sizeof(Out));  // values a store
 #pragma unroll
-      for (int c0 = 0; c0 < kBN; c0 += kChunkCols) {
+      for (int c0 = 0; c0 < BN; c0 += kChunkCols) {
         if (n0 + c0 >= pb.n) break;
 #pragma unroll
         for (int jj = 0; jj < kChunkCols / 8; ++jj) {
@@ -433,8 +591,8 @@ __device__ __forceinline__ void gemm(int8_t* smem_raw, const CUtensorMap* ma,
           for (int h = 0; h < 2; ++h) {
             float v0 = 0.f, v1 = 0.f;
             if (col < pb.n) {
-              v0 = ep.value(sum_rows[h], col, acc[4 * j + 2 * h]);
-              v1 = ep.value(sum_rows[h], col + 1, acc[4 * j + 2 * h + 1]);
+              v0 = ep.value(sum_rows[h], col, total(4 * j + 2 * h));
+              v1 = ep.value(sum_rows[h], col + 1, total(4 * j + 2 * h + 1));
             }
             stage_pair(staging + (lane / 4 + 8 * h) * kStagingPitch + cc * sizeof(Out),
                        v0, v1, static_cast<Out*>(nullptr));
@@ -505,10 +663,11 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elem
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The problem of C [m, n] with k_bytes bytes of K per row.
+// The problem of C [m, n] with k_bytes bytes of K per row, in Op's tiles.
+template <typename Op>
 inline Problem problem(int m, int n, long long k_bytes) {
   return Problem{m, n, static_cast<int>((k_bytes + kBK - 1) / kBK), (m + kBM - 1) / kBM,
-                 (n + kBN - 1) / kBN};
+                 (n + Op::kBN - 1) / Op::kBN};
 }
 
 // Launches `kernel` (a __global__ that calls tg::gemm) on a persistent

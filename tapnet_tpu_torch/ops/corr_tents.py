@@ -8,7 +8,8 @@ index space (raster - 0.5), output [BT, p, p, N] float32.
     `_math_reference` (correlation einsum rounded to the compute dtype, tent
     contractions with float32 accumulation).
   * CUDA tensors launch the hand-written kernel `csrc/corr_tents.cu`, which
-    computes only the (p+1) x (p+1) correlation window each patch needs.
+    computes only the (p+1) x (p+1) correlation window each patch needs
+    (its loop and queries per block: `float_launch_plan`).
   * Anything else raises. There is no size gate and no fallback.
 
 The int8 modes (`quantized=True | "per_frame"`, and for grids quantized once
@@ -48,7 +49,7 @@ LAUNCHES_QUANTIZE = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    "corr_tents_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    "corr_tents_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "corr_tents_q8_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
@@ -251,6 +252,59 @@ def _check_launch(grid, query, cy, cx, p, extra=()):
   return bt, h, w, c, n
 
 
+# K1's launch plan, as csrc/corr_tents.cu launches it: blocks of 8 warps, a
+# query's warps splitting its 8 window rows, a frame's blocks neighbours in
+# launch order. A block takes 8 queries of a frame (a warp each), or 4, 2, 1
+# where 8 would leave fewer than _MIN_BLOCKS blocks (an online step, 1 frame
+# x 64 queries: 64 blocks of one query instead of 8 of eight) or where the
+# frames that the resident blocks cover would hold more than _FRAME_BYTES of
+# grid (fewer queries a block spread a frame over more blocks, so fewer
+# frames are in flight and their window rows stay in L2: at the served
+# 60x60x256 grid in float32, 8 queries a block took 0.53 ms and 2 took 0.36
+# on the H100).
+_WARPS = 8
+_MIN_BLOCKS = 4 * 132  # four blocks per SM of the H100
+_RESIDENT_BLOCKS = 3 * 132  # blocks at work at one time, about
+_FRAME_BYTES = 32 * 2**20  # of the H100's 50 MB of L2
+_MAX_LANE_PIECES = 4  # kMaxLanePieces: 16-byte pieces of a position a lane reads
+
+
+def float_rows_ok(c: int, element_bytes: int, aligned: bool) -> bool:
+  """Whether K1 takes its row-wise loop (16-byte loads) for width c of a
+  dtype of `element_bytes` bytes, the csrc's float_rows_ok: C * size a
+  power-of-two number of 16-byte pieces from 4 to 32 * _MAX_LANE_PIECES,
+  and both bases 16-byte aligned (`aligned`). Otherwise its scalar loop."""
+  nbytes = c * element_bytes
+  pieces = nbytes // 16
+  return (aligned and nbytes % 16 == 0 and 4 <= pieces <= 32 * _MAX_LANE_PIECES
+          and pieces & (pieces - 1) == 0)
+
+
+def float_launch_plan(bt: int, h: int, w: int, c: int, n: int,
+                      dtype=torch.bfloat16, aligned: bool = True) -> dict:
+  """How K1 launches on a grid [bt, h, w, c] with n queries in `dtype`:
+  its loop ("rows" or "scalar"), queries per block, warps per query, grid
+  (blocks of queries, bt: a frame's blocks neighbours in launch order) and
+  dynamic shared memory (the scalar loop keeps the block's queries in
+  float32)."""
+  if dtype not in _DTYPES:
+    raise TypeError(f"corr_tents: float32 or bfloat16, got {dtype}")
+  if min(bt, h, w, c, n) <= 0:
+    raise ValueError(f"corr_tents: empty shape {(bt, h, w, c)}, n={n}")
+  if bt > 65535:
+    raise ValueError(f"corr_tents: {bt} frames overflow the kernel's grid")
+  elt = torch.empty((), dtype=dtype).element_size()
+  rows = float_rows_ok(c, elt, aligned)
+  in_flight = lambda q: min(bt, _RESIDENT_BLOCKS / -(-n // q)) * h * w * c * elt
+  qpb = _WARPS
+  while qpb > 1 and (bt * -(-n // qpb) < _MIN_BLOCKS
+                     or in_flight(qpb) > _FRAME_BYTES):
+    qpb //= 2
+  return dict(loop="rows" if rows else "scalar", queries_per_block=qpb,
+              warps_per_query=_WARPS // qpb, grid=(-(-n // qpb), bt),
+              smem_bytes=0 if rows else 4 * qpb * c)
+
+
 def _launch(grid, query, cy, cx, p):
   global LAUNCHES
   if grid.dtype not in _DTYPES or query.dtype != grid.dtype:
@@ -259,13 +313,17 @@ def _launch(grid, query, cy, cx, p):
         f"{query.dtype}"
     )
   bt, h, w, c, n = _check_launch(grid, query, cy, cx, p)
+  plan = float_launch_plan(
+      bt, h, w, c, n, grid.dtype,
+      aligned=grid.data_ptr() % 16 == 0 and query.data_ptr() % 16 == 0)
   lib = _build.load("corr_tents", _SIGNATURES)
   out = torch.empty((bt, p, p, n), dtype=torch.float32, device=grid.device)
   stream = torch.cuda.current_stream(grid.device).cuda_stream
   with torch.cuda.device(grid.device):
     err = lib.corr_tents_forward(
         grid.data_ptr(), query.data_ptr(), cy.data_ptr(), cx.data_ptr(),
-        out.data_ptr(), bt, h, w, c, n, p, _DTYPES[grid.dtype], stream,
+        out.data_ptr(), bt, h, w, c, n, p, plan["queries_per_block"],
+        int(plan["loop"] == "rows"), _DTYPES[grid.dtype], stream,
     )
   _build.check(lib, err, "corr_tents_forward")
   LAUNCHES += 1

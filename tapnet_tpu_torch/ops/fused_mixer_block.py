@@ -10,12 +10,15 @@ w1 [C, H], b1 [H], w2 [H, C], b2 [C].
     `_math_reference`.
   * CUDA tensors launch the hand-written kernels of
     `csrc/fused_mixer_block.cu` (temporal half + LN2, then the two MLP
-    products; in bf16 on the TMA + wgmma loop of `csrc/tma_gemm.cuh`, plan
-    in `launch_plan`). The dense weights are passed to it in Linear's [out,
-    in] layout, K-major as TMA reads them: for the transposed view of a
-    Linear weight that `w1.t()` gives (what `layers.MixerBlock` passes),
-    that is the weight's own storage, so no copy is made; any other layout
-    is copied into it for the call (`_linear_layout`).
+    products on the TMA + wgmma loop of `csrc/tma_gemm.cuh`, plan in
+    `launch_plan`: bf16 products in bf16, float32 ones as error-compensated
+    TF32, three tensor-core products of the operands' big and small TF32
+    parts, `tf32x3_matmul` below). The dense weights are passed to it in
+    Linear's [out, in] layout, K-major as TMA reads them: for the transposed
+    view of a Linear weight that `w1.t()` gives (what `layers.MixerBlock`
+    passes), that is the weight's own storage, so no copy is made; any other
+    layout is copied into it for the call (`_linear_layout`). In float32 the
+    kernel splits them into a scratch tensor of this call.
   * Anything else raises. There is no size gate and no fallback.
 
 `quantized=True` runs the channel MLP in w8a8 int8 (`mixer_math.mlp_math_q8`):
@@ -45,8 +48,9 @@ LAUNCHES = 0
 LAUNCHES_Q8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _SIGNATURES = {
-    "mixer_block_forward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+    "mixer_block_forward": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     "mixer_block_q8_forward": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
@@ -63,9 +67,11 @@ def _quantized_weights(w1, w2, qweights):
 
 
 def _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal,
-                     valid_len, quantized=False, qweights=None):
+                     valid_len, quantized=False, qweights=None,
+                     matmul=torch.matmul):
   """The plain block's temporal output h, x1 = x + h and out = x1 + MLP(x1),
-  each [B, valid_len, C] in x.dtype."""
+  each [B, valid_len, C] in x.dtype; `matmul`: the full-precision MLP's
+  product (`mixer_math.mlp_math`)."""
   if valid_len is not None and valid_len != x.shape[1]:
     x = x[:, :valid_len]
   h = mixer_math.temporal_depthwise_math(
@@ -78,7 +84,7 @@ def _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal,
     w1q, s1, w2q, s2 = _quantized_weights(w1, w2, qweights)
     out = mixer_math.mlp_math_q8(rows, g2, w1q, s1, b1, w2q, s2, b2)
   else:
-    out = mixer_math.mlp_math(rows, g2, w1, b1, w2, b2)
+    out = mixer_math.mlp_math(rows, g2, w1, b1, w2, b2, matmul)
   return h, x1, out.reshape(b, t, c)
 
 
@@ -139,6 +145,80 @@ def mixer_block_reference(
   _, _, y = _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2,
                              causal, valid_len, quantized, qweights)
   return F.pad(y, (0, 0, 0, x.shape[1] - y.shape[1]))
+
+
+def tf32_round(v):
+  """float32 v rounded to TF32 (10 mantissa bits, to nearest, ties away from
+  zero) as `cvt.rna.tf32.f32` rounds it: float32 with the low 13 bits 0."""
+  bits = v.float().contiguous().view(torch.int32)
+  return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+# The products of the float32 kernel's split (each operand v = big + small,
+# big = tf32(v), small = tf32(v - big)): all three terms it sums, and the
+# two faults `fp32_controls` holds against MIXER_FP32_TOL.
+TF32X3_TERMS = {
+    "tf32x3": ("small_big", "big_small", "big_big"),
+    "single_tf32": ("big_big",),
+    "no_small_a": ("big_small", "big_big"),
+}
+
+
+def tf32x3_matmul(terms="tf32x3"):
+  """A product a [..., K] . w [K, N] of float32 operands computed from their
+  TF32 parts (`TF32X3_TERMS[terms]`, e.g. "small_big" = A_small . B_big) in
+  float64 and rounded to float32 once: the float32 kernel's arithmetic with
+  an exact accumulator (`mixer_math.mlp_math`'s `matmul`)."""
+  chosen = TF32X3_TERMS[terms]
+
+  def matmul(a, w):
+    parts = {}
+    for name, v in (("a", a.float()), ("b", w.float())):
+      big = tf32_round(v)
+      parts[name] = dict(big=big.double(), small=tf32_round(v - big).double())
+    out = 0
+    for term in chosen:
+      left, right = term.split("_")
+      out = out + torch.matmul(parts["a"][left], parts["b"][right])
+    return out.float()
+
+  return matmul
+
+
+def mixer_block_tf32x3(
+    x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal: bool = False,
+    valid_len: Optional[int] = None, terms: str = "tf32x3",
+):
+  """The plain float32 block with its two products as `tf32x3_matmul(terms)`
+  computes them: with "tf32x3", what the float32 kernel computes, up to the
+  order of its float32 sums."""
+  _, _, y = _reference_parts(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2,
+                             causal, valid_len, matmul=tf32x3_matmul(terms))
+  return F.pad(y, (0, 0, 0, x.shape[1] - y.shape[1]))
+
+
+def fp32_controls(
+    x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal: bool = False,
+    valid_len: Optional[int] = None,
+):
+  """Faulty float32 blocks that the float32 kernel's limit (1e-4 absolute and
+  relative against `mixer_block_reference`) must refuse: `single_tf32`,
+  both products in one TF32 product (on a CUDA tensor the plain block with
+  `torch.backends.cuda.matmul.allow_tf32` on; on the CPU float64 products of
+  the operands rounded to TF32); `no_small_a`, the split without its
+  A_small . B_big term (A rounded to TF32)."""
+  args = (x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len)
+  if x.device.type == "cuda":
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+      single = mixer_block_reference(*args)
+    finally:
+      torch.backends.cuda.matmul.allow_tf32 = before
+  else:
+    single = mixer_block_tf32x3(*args, terms="single_tf32")
+  return {"single_tf32": single,
+          "no_small_a": mixer_block_tf32x3(*args, terms="no_small_a")}
 
 
 def bf16_error_limit(
@@ -217,12 +297,16 @@ def _launch(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len):
   x1 = torch.empty_like(x)
   mlp_in = torch.empty_like(x)
   hidden = torch.empty((b * t, hid), dtype=x.dtype, device=x.device)
+  # float32: the weights' big and small TF32 parts, [2, H, C] and [2, C, H].
+  wsplit = (torch.empty((4 * hid * c,), dtype=x.dtype, device=x.device)
+            if x.dtype == torch.float32 else None)
   out = torch.empty_like(x)
   stream = torch.cuda.current_stream(x.device).cuda_stream
   with torch.cuda.device(x.device):
     err = lib.mixer_block_forward(
         *[o.data_ptr() for o in (x, g1, wu, bu, wm, bm, g2, w1_t, b1, w2_t, b2)],
-        x1.data_ptr(), mlp_in.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+        x1.data_ptr(), mlp_in.data_ptr(), hidden.data_ptr(),
+        None if wsplit is None else wsplit.data_ptr(), out.data_ptr(),
         b, t, t_real, c, hid, mult, k, int(bool(causal)),
         plan["gemm_smem_bytes"], _DTYPES[x.dtype], stream,
     )
@@ -252,24 +336,26 @@ _INT32_MAX = 2**31 - 1
 # K3's launch plan, as csrc/fused_mixer_block.cu launches it: the temporal
 # half (one block per row and 16 time steps, LN1 of the tile and its halo in
 # float32 shared memory), then the two products of the channel MLP over the
-# rows*T rows: in bf16 on the TMA + wgmma loop (`tma_gemm.gemm_plan`: GEMM 1
-# [rows*T, H] over K = C, GEMM 2 [rows*T, C] over K = H), in fp32 on SIMT
-# 64 x 64 tiles in static shared memory (0 dynamic bytes). The kernel
+# rows*T rows on the TMA + wgmma loop (`tma_gemm.gemm_plan`: GEMM 1 [rows*T,
+# H] over K = C, GEMM 2 [rows*T, C] over K = H), in bf16 on 128 x 256 tiles,
+# in float32 on 128 x 128 tiles of error-compensated TF32. The kernel
 # refuses a plan whose GEMM shared memory differs from its own count.
-_F32_GEMM_TILE = 64
 
 
 def launch_plan(b, t, c, hid, dtype=torch.bfloat16):
   """How the full-precision block launches on x [b, t, c] with hidden width
   hid in `dtype`: the temporal half's grid and dynamic shared memory, and
   each product's plan with the GEMMs' dynamic shared memory. Raises for what
-  the kernels do not take."""
+  the kernels do not take: C and H must be multiples of 16 bytes of the
+  dtype (the TMA rows' strides and the epilogue's 16-byte stores)."""
   if dtype not in _DTYPES:
     raise TypeError(f"mixer_block: x must be float32 or bfloat16, got {dtype}")
   if min(b, t, c, hid) <= 0:
     raise ValueError(f"mixer_block: empty shape {(b, t, c)}, H={hid}")
-  if dtype == torch.bfloat16 and (c % 8 or hid % 8):
-    raise ValueError("mixer_block: bf16 kernel needs C and H multiples of 8")
+  unit = 16 // _ELEMENT_BYTES[dtype]
+  if c % unit or hid % unit:
+    raise ValueError(f"mixer_block: {dtype} kernel needs C and H multiples of "
+                     f"{unit}")
   rows = b * t
   if b * -(-t // _TILE_T) > _INT32_MAX:
     raise ValueError(f"mixer_block: {rows} rows overflow the kernels' grid")
@@ -278,19 +364,12 @@ def launch_plan(b, t, c, hid, dtype=torch.bfloat16):
   if temporal["smem_bytes"] > SMEM_LIMIT:
     raise ValueError(f"mixer_block: C={c} needs more than the {SMEM_LIMIT} "
                      "bytes of shared memory a block may use")
-  if dtype == torch.bfloat16:
-    up = tma_gemm.gemm_plan(rows, hid, 2 * c)
-    down = tma_gemm.gemm_plan(rows, c, 2 * hid)
-    gemm_smem = tma_gemm.SMEM_BYTES
-  else:
-    if rows + _F32_GEMM_TILE > _INT32_MAX:
-      raise ValueError(f"mixer_block: {rows} rows overflow the kernels' grid")
-    tiles = lambda n: -(-rows // _F32_GEMM_TILE) * -(-n // _F32_GEMM_TILE)
-    up = dict(m=rows, n=hid, tiles=tiles(hid), grid=tiles(hid), threads=256)
-    down = dict(m=rows, n=c, tiles=tiles(c), grid=tiles(c), threads=256)
-    gemm_smem = 0
+  tile_n = tma_gemm.TILE_N if dtype == torch.bfloat16 else tma_gemm.TILE_N_TF32
+  elt = _ELEMENT_BYTES[dtype]
+  up = tma_gemm.gemm_plan(rows, hid, elt * c, tile_n=tile_n)
+  down = tma_gemm.gemm_plan(rows, c, elt * hid, tile_n=tile_n)
   return dict(rows=rows, temporal=temporal, gemm_up=up, gemm_down=down,
-              gemm_smem_bytes=gemm_smem)
+              gemm_smem_bytes=tma_gemm.SMEM_BYTES)
 
 
 def _linear_layout(w):

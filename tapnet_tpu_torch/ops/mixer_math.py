@@ -90,21 +90,24 @@ def mlp_math(
     b1: torch.Tensor,
     w2: torch.Tensor,
     b2: torch.Tensor,
+    matmul=torch.matmul,
 ) -> torch.Tensor:
   """x + Dense(gelu(Dense(LN(x)))): scale-only LN with float32 two-pass
   statistics, float32 matmul accumulation, IO in x.dtype.
 
   Args:
     x: [..., C]; ln_scale: [C]; w1: [C, H]; b1: [H]; w2: [H, C]; b2: [C].
+    matmul: the product of the float32 operands (another one emulates a
+      kernel's products, `fused_mixer_block.tf32x3_matmul`).
   """
   xf = x.float()
   mu = xf.mean(-1, keepdim=True)
   var = (xf - mu).square().mean(-1, keepdim=True)
   xn = (xf - mu) * torch.rsqrt(var + _LN_EPS)
   xn = (xn * ln_scale.float()).to(x.dtype)
-  h = torch.matmul(xn.float(), w1.float()) + b1.float()
+  h = matmul(xn.float(), w1.float()) + b1.float()
   h = gelu(h).to(x.dtype)
-  y = torch.matmul(h.float(), w2.float()) + b2.float()
+  y = matmul(h.float(), w2.float()) + b2.float()
   return x + y.to(x.dtype)
 
 

@@ -1,15 +1,19 @@
 """The launch plan of the TMA + wgmma GEMM loop of `csrc/tma_gemm.cuh`.
 
-X (`qconv.conv2d_q8` on CUDA) and K3's two bf16 products
-(`fused_mixer_block.mixer_block`) run on that loop. Its plan is computed here
-in pure Python, so that the CPU tests can hold it to the card's shared
-memory and to the header's constants, and the wrappers pass its shared-memory
-bytes to the kernels, which refuse a plan that differs from their own count.
+X (`qconv.conv2d_q8` on CUDA), K6f's two bf16 products
+(`fused_extra_convs.extra_convs_layer`) and K3's two products
+(`fused_mixer_block.mixer_block`: bf16, and float32 as error-compensated
+TF32) run on that loop. Its plan is computed here in pure Python, so that
+the CPU tests can hold it to the card's shared memory and to the header's
+constants, and the wrappers pass its shared-memory bytes to the kernels,
+which refuse a plan that differs from their own count.
 
-A CTA owns a TILE_M x TILE_N output tile; K goes in steps of K_BYTES bytes
-through a ring of STAGES stages of one A box and two B boxes (BOX_ROWS rows
-each); a producer warpgroup issues the TMA loads and CONSUMERS warpgroups
-the wgmma products, whose epilogue stages each warp's values in shared
+A CTA owns a TILE_M x TILE_N output tile (int8 and bf16; TILE_N_TF32 for
+float32, whose two B boxes are the big and the small TF32 parts of the same
+columns); K goes in steps of K_BYTES bytes through a ring of STAGES stages of
+one A box and two B boxes (BOX_ROWS rows each), the same bytes for every
+operand type; a producer warpgroup issues the TMA loads and CONSUMERS
+warpgroups the wgmma products, whose epilogue stages each warp's values in shared
 memory and stores them in 16-byte pieces. The grid is persistent: one CTA
 per SM (132 on the H100 SXM), at most one per tile.
 """
@@ -17,13 +21,14 @@ per SM (132 on the H100 SXM), at most one per tile.
 from __future__ import annotations
 
 TILE_M, TILE_N, K_BYTES = 128, 256, 128  # tg::kBM, kBN, kBK
+TILE_N_TF32 = 128  # tg::kBNTf32
 BOX_ROWS = 128  # tg::kBoxRows
 STAGES = 4  # tg::kStages
 CONSUMERS = 2  # tg::kConsumers
 THREADS = 128 * (CONSUMERS + 1)
 SMEM_ALIGN = 1024  # tg::kSmemAlign
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on the H100
-STAGE_BYTES = (TILE_M + TILE_N) * K_BYTES
+STAGE_BYTES = (TILE_M + 2 * BOX_ROWS) * K_BYTES
 # The epilogue's staging: per consumer warp, 16 rows of CHUNK_BYTES bytes of
 # columns, each row padded by 16 bytes.
 CHUNK_BYTES = 128  # tg::kChunkBytes
@@ -35,17 +40,19 @@ H100_SMS = 132
 INT32_MAX = 2**31 - 1
 
 
-def gemm_plan(m: int, n: int, k_bytes: int, sms: int = H100_SMS) -> dict:
-  """The loop's plan for C [m, n] with k_bytes bytes of K a row: tiles, K
-  steps, the persistent grid on `sms` SMs, threads, stages and dynamic
-  shared memory. Raises where the kernel's int32 row coordinates would
-  overflow."""
+def gemm_plan(m: int, n: int, k_bytes: int, sms: int = H100_SMS,
+              tile_n: int = TILE_N) -> dict:
+  """The loop's plan for C [m, n] with k_bytes bytes of K a row in tiles of
+  TILE_M x tile_n: tiles, K steps, the persistent grid on `sms` SMs,
+  threads, stages and dynamic shared memory. Raises where the kernel's int32
+  row coordinates would overflow."""
   if min(m, n, k_bytes) <= 0:
     raise ValueError(f"tma_gemm: empty problem {(m, n, k_bytes)}")
   if m + TILE_M > INT32_MAX:
     raise ValueError(f"tma_gemm: {m} rows overflow the kernel's coordinates")
-  tiles_m, tiles_n = -(-m // TILE_M), -(-n // TILE_N)
+  tiles_m, tiles_n = -(-m // TILE_M), -(-n // tile_n)
   tiles = tiles_m * tiles_n
-  return dict(m=m, n=n, k_steps=-(-k_bytes // K_BYTES), tiles_m=tiles_m,
-              tiles_n=tiles_n, tiles=tiles, grid=min(tiles, sms),
+  return dict(m=m, n=n, k_steps=-(-k_bytes // K_BYTES), tile_n=tile_n,
+              tiles_m=tiles_m, tiles_n=tiles_n, tiles=tiles,
+              grid=min(tiles, sms),
               threads=THREADS, stages=STAGES, smem_bytes=SMEM_BYTES)

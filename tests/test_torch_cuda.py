@@ -44,11 +44,22 @@ def cuda():
 CORR_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.0, 2.0**-6)}
 
 
+# (bt, h, w, C, n): a width of no power of two of 16-byte pieces (the scalar
+# loop), ragged grids, every power-of-two width from 16 to 256 at several
+# frames (the row-wise loop from 4 to 32 lanes a position, 2 pieces a lane at
+# C = 256 in fp32; the scalar loop at C = 16 in bf16), and an online step's
+# one frame of 64 queries (a query a block, its 8 warps splitting the window
+# rows).
+CORR_SHAPES = {
+    "tiny": (3, 12, 10, 40, 5), "ragged": (2, 39, 17, 128, 70),
+    **{f"frames_c{c}": (3, 21, 17, c, 37) for c in (16, 32, 64, 256)},
+    **{f"online_c{c}": (1, 16, 16, c, 64) for c in (16, 32, 64, 128, 256)},
+}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "bt,h,w,c,n", [(3, 12, 10, 40, 5), (2, 39, 17, 128, 70)],
-    ids=["tiny", "ragged"],
-)
+@pytest.mark.parametrize("bt,h,w,c,n", list(CORR_SHAPES.values()),
+                         ids=list(CORR_SHAPES))
 def test_corr_tents_kernel_matches_plain(cuda, dtype, bt, h, w, c, n):
   rng = np.random.RandomState(0)
   grid = rng.randn(bt, h, w, c).astype(np.float32)
@@ -60,6 +71,9 @@ def test_corr_tents_kernel_matches_plain(cuda, dtype, bt, h, w, c, n):
   tdt = DTYPES[dtype]
   args = [torch.from_numpy(grid).to(cuda, tdt), torch.from_numpy(query).to(cuda, tdt),
           torch.from_numpy(cy).to(cuda), torch.from_numpy(cx).to(cuda)]
+  row_bytes = c * args[0].element_size()
+  expected = "rows" if row_bytes in (64, 128, 256, 512, 1024) else "scalar"
+  assert corr_tents.float_launch_plan(bt, h, w, c, n, tdt)["loop"] == expected
   before = corr_tents.LAUNCHES
   out = corr_tents.corr_tent_patches(*args, 7)
   torch.cuda.synchronize()
@@ -69,10 +83,48 @@ def test_corr_tents_kernel_matches_plain(cuda, dtype, bt, h, w, c, n):
   torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
 
 
-# fp32: SIMT GEMM vs cuBLAS fp32 (TF32 off), summation order (2e-4).
+def _unit_rows(rng, *shape):
+  v = rng.randn(*shape).astype(np.float32)
+  return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_tents_kernel_misaligned_base_takes_the_scalar_loop(cuda, dtype):
+  """Grid and query views 4 bytes past a 16-byte boundary: the scalar loop,
+  which reads value by value and never past the views' ends (the storage
+  after them holds NaN, which a stray read would carry into the patches)."""
+  rng = np.random.RandomState(5)
+  tdt = DTYPES[dtype]
+  bt, h, w, c, n = 2, 13, 11, 128, 19
+  off = 4 // torch.empty((), dtype=tdt).element_size()
+  grid_store = torch.full((bt * h * w * c + 2 * off,), float("nan"), device=cuda,
+                          dtype=tdt)
+  query_store = torch.full((bt * n * c + 2 * off,), float("nan"), device=cuda,
+                           dtype=tdt)
+  grid = grid_store[off:off + bt * h * w * c].view(bt, h, w, c)
+  query = query_store[off:off + bt * n * c].view(bt, n, c)
+  grid.copy_(torch.from_numpy(_unit_rows(rng, bt, h, w, c)))
+  query.copy_(torch.from_numpy(_unit_rows(rng, bt, n, c)))
+  cy = torch.from_numpy((rng.rand(bt, n) * (h + 8) - 4).astype(np.float32)).to(cuda)
+  cx = torch.from_numpy((rng.rand(bt, n) * (w + 8) - 4).astype(np.float32)).to(cuda)
+  assert grid.data_ptr() % 16 and query.data_ptr() % 16
+  assert corr_tents.float_launch_plan(bt, h, w, c, n, tdt,
+                                      aligned=False)["loop"] == "scalar"
+  out = corr_tents.corr_tent_patches(grid, query, cy, cx, 7)
+  torch.cuda.synchronize()
+  assert bool(torch.isfinite(out).all())
+  ref = corr_tents.corr_tent_patches_reference(grid, query, cy, cx, 7)
+  rtol, atol = CORR_TOL[dtype]
+  torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+# fp32: error-compensated TF32 products (about 2^-21 of a product) and
+# float32 sums in another order than cuBLAS fp32 (TF32 off): 1e-4, the limit
+# chip_smoke.py holds the served block to, which one TF32 product breaks
+# (`fused_mixer_block.fp32_controls`).
 # bf16: elementwise, two bf16 steps of each value that the kernel and the
 # plain version round separately (`fused_mixer_block.bf16_error_limit`).
-MIXER_FP32_TOL = (2e-4, 2e-4)
+MIXER_FP32_TOL = (1e-4, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -108,6 +160,45 @@ def test_mixer_block_kernel_matches_plain(cuda, dtype, causal, b, t, valid_len,
     assert (err <= limit).all(), float((err / limit.clamp_min(1e-30)).max())
   if valid_len is not None:
     assert not out[:, valid_len:].any()
+
+
+def _mixer_args(cuda, rng, b, t, c, hid):
+  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+  args = [
+      f(b, t, c), f(c) * 0.2 + 1, f(3, 1, 4 * c) * 0.3, f(4 * c) * 0.1,
+      f(3, 1, 4 * c) * 0.3, f(4 * c) * 0.1, f(c) * 0.2 + 1,
+      f(c, hid) / c**0.5, f(hid) * 0.1, f(hid, c) / hid**0.5, f(c) * 0.1,
+  ]
+  return [a.to(cuda) for a in args]
+
+
+@pytest.mark.parametrize(
+    "b,t,valid_len,causal",
+    [(128, 250, None, False), (128, 250, None, True), (32, 8, None, True),
+     (7, 45, 40, False)],
+    ids=["served", "served_causal", "offline_causal", "rows_not_tiles"],
+)
+def test_mixer_block_fp32_kernel_at_served_widths(cuda, b, t, valid_len,
+                                                  causal):
+  """The float32 block (error-compensated TF32 products) at C = 512, H =
+  2048: the served shape, SAME and causal, the offline causal run's shape,
+  and rows * T = 315 (no multiple of the 128-row tile) with t_real < T;
+  within MIXER_FP32_TOL, which both `fp32_controls` break."""
+  args = _mixer_args(cuda, np.random.RandomState(2), b, t, 512, 2048)
+  before = fused_mixer_block.LAUNCHES
+  out = fused_mixer_block.mixer_block(*args, causal, valid_len)
+  torch.cuda.synchronize()
+  assert fused_mixer_block.LAUNCHES == before + 1
+  ref = fused_mixer_block.mixer_block_reference(*args, causal, valid_len)
+  rtol, atol = MIXER_FP32_TOL
+  torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+  if valid_len is not None:
+    assert not out[:, valid_len:].any()
+  if b * t <= 4096:
+    for key, faulty in fused_mixer_block.fp32_controls(
+        *args, causal, valid_len).items():
+      over = ((faulty - ref).abs() / (atol + rtol * ref.abs())).max()
+      assert float(over) > 1.0, key
 
 
 # ------------------------------------------------------------- int8 kernels

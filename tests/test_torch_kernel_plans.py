@@ -1,6 +1,7 @@
 """PyTorch port: the launch plans of the kernels on shared-memory rings, on
-the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X, K3 and K6f in
-bf16 (the TMA + wgmma loop of csrc/tma_gemm.cuh).
+the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X, K3 (bf16 and
+float32) and K6f in bf16 (the TMA + wgmma loop of csrc/tma_gemm.cuh), and
+K1's loop and queries per block.
 
 Each wrapper computes its launch plan in a pure function (rows per block,
 tiles, dynamic shared memory, grid, ring stages) that the kernels check
@@ -18,7 +19,8 @@ torch = pytest.importorskip("torch")
 
 from tapnet_tpu_torch.models import layers  # noqa: E402
 from tapnet_tpu_torch.ops import (  # noqa: E402
-    _build, fused_extra_convs, fused_mixer_block, mixer_math, qconv, tma_gemm,
+    _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+    tma_gemm,
 )
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -231,12 +233,12 @@ K3_SHAPES = [(128, 250, 512, 2048), (32, 8, 512, 2048), (3, 13, 64, 256),
 H100_SMS = 132
 
 
-def _check_gemm(g, m, n, k_bytes):
-  assert (g["m"], g["n"]) == (m, n)
+def _check_gemm(g, m, n, k_bytes, tile_n=256):
+  assert (g["m"], g["n"], g["tile_n"]) == (m, n, tile_n)
   assert 0 < g["smem_bytes"] <= SMEM_LIMIT
   assert g["threads"] == 384 and g["stages"] >= 3
   assert (g["tiles_m"] - 1) * 128 < m <= g["tiles_m"] * 128
-  assert (g["tiles_n"] - 1) * 256 < n <= g["tiles_n"] * 256
+  assert (g["tiles_n"] - 1) * tile_n < n <= g["tiles_n"] * tile_n
   assert (g["k_steps"] - 1) * 128 < k_bytes <= g["k_steps"] * 128
   assert g["tiles"] == g["tiles_m"] * g["tiles_n"]
   assert g["grid"] == min(g["tiles"], H100_SMS)
@@ -261,14 +263,12 @@ def test_k3_plan_fits_the_card(dtype, b, t, c, hid):
   assert plan["rows"] == rows
   assert plan["temporal"]["grid"] == b * -(-t // 16)
   assert 0 < plan["temporal"]["smem_bytes"] <= SMEM_LIMIT
-  if dtype == torch.bfloat16:
-    _check_gemm(plan["gemm_up"], rows, hid, 2 * c)
-    _check_gemm(plan["gemm_down"], rows, c, 2 * hid)
-    assert plan["gemm_smem_bytes"] == plan["gemm_up"]["smem_bytes"]
-  else:  # SIMT 64 x 64 tiles in static shared memory
-    assert plan["gemm_smem_bytes"] == 0
-    assert plan["gemm_up"]["grid"] == -(-rows // 64) * -(-hid // 64)
-    assert plan["gemm_down"]["grid"] == -(-rows // 64) * -(-c // 64)
+  # bf16: 128 x 256 tiles; float32 (error-compensated TF32): 128 x 128, the
+  # stage's two B boxes being the big and small parts of 128 columns.
+  elt, tile_n = (2, 256) if dtype == torch.bfloat16 else (4, 128)
+  _check_gemm(plan["gemm_up"], rows, hid, elt * c, tile_n)
+  _check_gemm(plan["gemm_down"], rows, c, elt * hid, tile_n)
+  assert plan["gemm_smem_bytes"] == plan["gemm_up"]["smem_bytes"]
 
 
 def test_served_tma_plans():
@@ -292,8 +292,13 @@ def test_served_tma_plans():
   # (16 rows of 144 bytes for each of the 8 consumer warps).
   assert (k3["gemm_smem_bytes"] == up60["gemm"]["smem_bytes"]
           == 1024 + 4 * (128 + 256) * 128 + 8 * 8 + 8 * 16 * 144 == 216_128)
-  assert fused_mixer_block.launch_plan(128, 250, 512, 2048,
-                                       torch.float32)["gemm_smem_bytes"] == 0
+  # float32: 128 x 128 tiles, K steps of 32 values, the same ring and bytes.
+  f32 = fused_mixer_block.launch_plan(128, 250, 512, 2048, torch.float32)
+  assert (f32["gemm_up"]["tiles_m"], f32["gemm_up"]["tiles_n"],
+          f32["gemm_up"]["k_steps"]) == (250, 16, 16)
+  assert (f32["gemm_down"]["tiles_m"], f32["gemm_down"]["tiles_n"],
+          f32["gemm_down"]["k_steps"]) == (250, 4, 64)
+  assert f32["gemm_smem_bytes"] == 216_128
 
 
 def test_tma_plan_mirrors_the_header():
@@ -309,6 +314,11 @@ def test_tma_plan_mirrors_the_header():
   assert (head["kProducerRegs"], head["kConsumerRegs"]) == (
       tma_gemm.PRODUCER_REGS, tma_gemm.CONSUMER_REGS)
   assert head["kChunkBytes"] == tma_gemm.CHUNK_BYTES
+  assert _constants(_source("tma_gemm.cuh"), ["kBNTf32"])["kBNTf32"] == (
+      tma_gemm.TILE_N_TF32)
+  # A Tf32x3 stage holds the same bytes: a 128-row A box and the big and
+  # small B boxes of its 128 columns.
+  assert tma_gemm.STAGE_BYTES == (tma_gemm.TILE_M + 2 * tma_gemm.TILE_N_TF32) * 128
   # setmaxnreg hands the consumers what the producer gives up: the 384
   # threads must start with (2 * 232 + 40) / 3 = 168 registers, which the
   # launcher checks, and the register file (65,536) must hold them.
@@ -328,6 +338,8 @@ X_REFUSED = [
 K3_REFUSED = [
     ((2, 5, 12, 64, torch.bfloat16), ValueError, "multiples of 8"),
     ((2, 5, 32, 36, torch.bfloat16), ValueError, "multiples of 8"),
+    ((2, 5, 10, 64, torch.float32), ValueError, "multiples of 4"),
+    ((2, 5, 32, 18, torch.float32), ValueError, "multiples of 4"),
     ((2, 0, 32, 128, torch.float32), ValueError, "empty"),
     ((2, 5, 32, 128, torch.float16), TypeError, "float32 or bfloat16"),
 ]
@@ -341,14 +353,16 @@ def test_x_plan_refuses(args, error, match):
 
 
 @pytest.mark.parametrize("args,error,match", K3_REFUSED,
-                         ids=["c12_bf16", "h36_bf16", "empty", "fp16"])
+                         ids=["c12_bf16", "h36_bf16", "c10_fp32", "h18_fp32",
+                              "empty", "fp16"])
 def test_k3_plan_refuses(args, error, match):
   with pytest.raises(error, match=match):
     fused_mixer_block.launch_plan(*args)
 
 
 def test_k3_fp32_plan_takes_any_width():
-  """The fp32 GEMMs (SIMT) take widths the bf16 TMA boxes do not."""
+  """The fp32 GEMMs take widths the bf16 TMA boxes do not: any multiple of
+  4 (16 bytes of float32), where bf16 needs multiples of 8."""
   plan = fused_mixer_block.launch_plan(2, 5, 12, 36, torch.float32)
   assert plan["gemm_up"]["n"] == 36 and plan["gemm_down"]["n"] == 12
 
@@ -356,7 +370,7 @@ def test_k3_fp32_plan_takes_any_width():
 X_WRAPPER_SHAPES = [(1, 3, 4, 16, 32), (2, 5, 5, 48, 272), (1, 1, 1, 16, 16),
                     (1, 3, 4, 24, 32), (1, 3, 4, 32, 40)]
 K3_WRAPPER_SHAPES = [(2, 5, 32, 128), (1, 7, 48, 208), (2, 5, 12, 64),
-                     (2, 5, 32, 36)]
+                     (2, 5, 32, 36), (2, 5, 10, 64)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
@@ -503,3 +517,74 @@ def test_k6f_wrapper_checks_agree_with_the_plan(no_library, dtype, n, h, w, c, m
   expected = _plan_outcome(fused_extra_convs.fp_launch_plan, n, h, w, c, m, dtype)
   with pytest.raises(expected):
     fused_extra_convs._launch_fp(*args)  # pylint: disable=protected-access
+
+
+# --------------------------------------------- K1: loop and queries per block
+
+# (C, element bytes, aligned bases) -> K1's loop: the row-wise loop wherever
+# a position is a power of two of 16-byte pieces (4 to 128) at aligned
+# bases, the scalar loop elsewhere.
+K1_LOOPS = [
+    ((128, 2, True), "rows"), ((256, 2, True), "rows"), ((128, 4, True), "rows"),
+    ((256, 4, True), "rows"), ((32, 2, True), "rows"), ((16, 4, True), "rows"),
+    ((512, 4, True), "rows"), ((1024, 2, True), "rows"), ((16, 2, True), "scalar"),
+    ((40, 4, True), "scalar"), ((48, 2, True), "scalar"), ((8, 4, True), "scalar"),
+    ((1024, 4, True), "scalar"), ((128, 2, False), "scalar"),
+    ((256, 4, False), "scalar"),
+]
+
+
+@pytest.mark.parametrize("args,loop", K1_LOOPS)
+def test_k1_loop_by_width_and_alignment(args, loop):
+  c, elt, aligned = args
+  dtype = torch.float32 if elt == 4 else torch.bfloat16
+  plan = corr_tents.float_launch_plan(250, 30, 30, c, 128, dtype, aligned)
+  assert plan["loop"] == loop
+  assert corr_tents.float_rows_ok(c, elt, aligned) == (loop == "rows")
+  assert plan["smem_bytes"] == (
+      0 if loop == "rows" else 4 * plan["queries_per_block"] * c)
+
+
+def test_k1_queries_per_block_fill_the_card():
+  """Served 480x480 grids (250 frames x 128 queries): 8 queries a block, a
+  warp each, at the 30x30 grid; 4 at 60x60 and 2 at 120x120 in bf16 (2 and
+  1 in float32), so that the frames the resident blocks cover keep their
+  grid within 32 MB of L2. An online step (1 frame x 64 queries): a query a
+  block and its 8 warps split the window rows, 64 blocks in place of 8."""
+  served = corr_tents.float_launch_plan(250, 30, 30, 256, 128)
+  assert (served["queries_per_block"], served["warps_per_query"],
+          served["grid"]) == (8, 1, (16, 250))
+  by_level = {
+      dtype: [corr_tents.float_launch_plan(250, h, h, c, 128, dtype)
+              ["queries_per_block"] for h, c in ((120, 128), (60, 256), (30, 256))]
+      for dtype in (torch.bfloat16, torch.float32)}
+  assert by_level == {torch.bfloat16: [2, 4, 8], torch.float32: [1, 2, 8]}
+  for h, c in ((64, 128), (32, 256), (16, 256)):
+    online = corr_tents.float_launch_plan(1, h, h, c, 64, torch.float32)
+    assert (online["queries_per_block"], online["warps_per_query"],
+            online["grid"]) == (1, 8, (64, 1))
+  # Between the two: the largest block that still gives 528 blocks.
+  mid = corr_tents.float_launch_plan(8, 16, 16, 128, 256)
+  assert mid["queries_per_block"] == 2 and mid["grid"] == (128, 8)
+  for bt, n in ((1, 1), (3, 37), (250, 128), (2, 1000)):
+    plan = corr_tents.float_launch_plan(bt, 20, 20, 64, n)
+    qpb = plan["queries_per_block"]
+    assert qpb in (1, 2, 4, 8) and plan["warps_per_query"] * qpb == 8
+    assert plan["grid"] == (-(-n // qpb), bt)
+
+
+def test_k1_plan_mirrors_the_source():
+  text = _source("corr_tents.cu")
+  found = _constants(text, ["kWarps", "kMaxLanePieces"])
+  assert found["kWarps"] == corr_tents._WARPS  # pylint: disable=protected-access
+  assert found["kMaxLanePieces"] == corr_tents._MAX_LANE_PIECES  # pylint: disable=protected-access
+
+
+@pytest.mark.parametrize("args,error,match", [
+    ((0, 4, 4, 64, 5, torch.float32), ValueError, "empty"),
+    ((1, 4, 4, 64, 5, torch.float16), TypeError, "float32 or bfloat16"),
+    ((65536, 4, 4, 64, 5, torch.float32), ValueError, "overflow"),
+], ids=["empty", "fp16", "grid_overflow"])
+def test_k1_plan_refuses(args, error, match):
+  with pytest.raises(error, match=match):
+    corr_tents.float_launch_plan(*args)

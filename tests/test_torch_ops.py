@@ -207,6 +207,56 @@ def test_mixer_block_rejects_other_devices():
     fused_mixer_block.mixer_block(*args)
 
 
+# The float32 kernel's limit (chip_smoke.py's MIXER_FP32_TOL): 1e-4 absolute
+# and relative against the plain float32 block.
+MIXER_FP32_KERNEL_TOL = (1e-4, 1e-4)
+
+
+def _over_fp32_limit(v, ref):
+  rtol, atol = MIXER_FP32_KERNEL_TOL
+  return float(((v.float() - ref.float()).abs() / (atol + rtol * ref.abs())).max())
+
+
+def test_tf32_round_is_cvt_rna():
+  """tf32_round keeps 10 mantissa bits, rounding to nearest with ties away
+  from zero, as cvt.rna.tf32.f32 does."""
+  v = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-12, -(1 + 2**-11),
+                    1 + 2**-11 - 2**-23, 0.0])
+  assert fused_mixer_block.tf32_round(v).tolist() == [
+      1.0, 1 + 2**-10, 1 + 2**-10, -(1 + 2**-10), 1.0, 0.0]
+  x = torch.randn(1000)
+  big = fused_mixer_block.tf32_round(x)
+  assert not (big.view(torch.int32) & 0x1FFF).any()
+  assert ((x - big).abs() <= 2.0**-11 * x.abs()).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "b,t,c,hid,valid_len",
+    [(3, 13, 16, 64, 11), (2, 9, 64, 256, None), (2, 12, 512, 2048, 10)],
+    ids=["small", "c64", "served_widths"],
+)
+def test_mixer_fp32_split_emulation_within_limit(causal, b, t, c, hid,
+                                                 valid_len):
+  """The float32 kernel's products, error-compensated TF32 (each operand v =
+  tf32(v) + tf32(v - tf32(v)), three TF32 products), emulated in float64:
+  within the kernel's limit of the plain float32 block (which
+  `test_mixer_block_matches_jax_reference` holds to JAX's), at small widths
+  and at the served C = 512, H = 2048; both `fp32_controls` (one TF32
+  product; the split without A_small . B_big) are outside the limit."""
+  targs = [torch.from_numpy(a)
+           for a in mixer_inputs(seed=c, b=b, t=t, c=c, hid=hid)]
+  plain = fused_mixer_block.mixer_block_reference(*targs, causal, valid_len)
+  emulated = fused_mixer_block.mixer_block_tf32x3(*targs, causal, valid_len)
+  assert _over_fp32_limit(emulated, plain) <= 1.0
+  controls = fused_mixer_block.fp32_controls(*targs, causal, valid_len)
+  assert set(controls) == {"single_tf32", "no_small_a"}
+  for key, faulty in controls.items():
+    assert _over_fp32_limit(faulty, plain) > 1.0, key
+    if valid_len is not None:
+      assert not faulty[:, valid_len:].any()
+
+
 # ------------------------------------------------------------ int8 quantizers
 
 

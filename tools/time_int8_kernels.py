@@ -1,5 +1,5 @@
-"""Times the ExtraConvs, mixer and int8 corr-tents kernels of a checkout on
-the card, with each one's phases, and optionally whole served videos.
+"""Times the ExtraConvs, mixer and corr-tents kernels of a checkout on the
+card, with each one's phases, and optionally whole served videos.
 
 X (`qconv.conv2d_q8`: conv_up and conv_out of one grid), K6
 (`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False)
@@ -7,29 +7,32 @@ at each grid beside the model's unfused float layer (`layers.ExtraConvs`:
 cuDNN convolutions and PyTorch elementwise passes, which the port's K6f
 entry never calls), K4 (`mixer_block`, quantized=True, at [128, 250, 512])
 and K3 (the same block in full precision) in bf16 and fp32, on seeded
-inputs scaled as chip_smoke.py scales them; K2 and K2b (the int8
-corr-tents at the three pyramid grids of a 480x480 video, 250 frames, 128
-queries) as the model calls them once per chunk and step: K2 on a grid
-quantized once per video, K2b on a grid quantized once per video where the
-checkout has `quantize_per_position` and inline otherwise, with the grid's
-quantization timed on its own. It splits one launch by kernel with
-torch.profiler: X into its quantization (frame amax and quantize) and its
-product; K6 into LayerNorm and patch scale, conv_up, conv_out; K6f into
-LayerNorm, conv_up, conv_out; K4 into the temporal half and the MLP; K3
-into the temporal half and its two products; K2 and K2b into the
-quantizer and the kernel. For context it times cuBLAS's two bare bf16
-products of K3's shape (torch.matmul), which the port never calls. Prints
-the card's name and power limit, then one JSON line: ms per call (CUDA
-events, the mean of `--reps` calls after two warm-up calls) and the
-splits. `--kernels` picks a subset (default: all of X, K6, K6f, K4, K3,
+inputs scaled as chip_smoke.py scales them; K1 (the full-precision
+corr-tents) at the three pyramid grids of a 480x480 video (250 frames, 128
+queries) and of an online 256x256 step (1 frame, 64 queries); K2 and K2b
+(the int8 corr-tents at the 480x480 grids) as the model calls them once per
+chunk and step: K2 on a grid quantized once per video, K2b on a grid
+quantized once per video where the checkout has `quantize_per_position` and
+inline otherwise, with the grid's quantization timed on its own. It splits
+one launch by kernel with torch.profiler: X into its quantization (frame
+amax and quantize) and its product; K6 into LayerNorm and patch scale,
+conv_up, conv_out; K6f into LayerNorm, conv_up, conv_out; K4 into the
+temporal half and the MLP; K3 into the temporal half, its two products and
+(float32) the weights' split; K2 and K2b into the quantizer and the kernel.
+For context it times cuBLAS's two bare products of K3's shape
+(torch.matmul; bf16, and fp32 with TF32 off), which the port never calls.
+Prints the card's name and power limit, then one JSON line: ms per call
+(CUDA events, the mean of `--reps` calls after two warm-up calls) and the
+splits. `--kernels` picks a subset (default: all of X, K6, K6f, K4, K3, K1,
 K2, K2b).
 
-`--walls int8_b,int8,headline` also serves 480x480 videos of 250 frames
-through `TapirPredictor` in bf16 with the committed trained weights
-(serve-480-int8-b: configuration b; -int8: a with 2 refinement steps;
--headline: c with 1024 queries), one warm-up video and WALL_VIDEOS timed
-ones through `track_many`, and reports the wall per video (host clock,
-synchronised).
+`--walls serve,serve_fp32,int8_b,int8,headline` also serves 480x480 videos
+of 250 frames through `TapirPredictor` with the committed trained weights
+(serve-480: bf16, full precision; -fp32: the same in the predictor's
+default float32, PyTorch's TF32 settings at their defaults; -int8-b:
+configuration b in bf16; -int8: a with 2 refinement steps; -headline: c
+with 1024 queries), one warm-up video and WALL_VIDEOS timed ones through
+`track_many`, and reports the wall per video (host clock, synchronised).
 
 `--root` names the checkout whose `tapnet_tpu_torch` is timed (default: the
 one this file is in), so one script times two versions. To compare them on
@@ -125,30 +128,36 @@ K3_PHASES = {
     "temporal": ("mixer_temporal",),
     "gemm_up": ("mixer_gemm_tma<0", "mixer_gemm_bf16<0", "mixer_gemm_f32<0"),
     "gemm_down": ("mixer_gemm_tma<1", "mixer_gemm_bf16<1", "mixer_gemm_f32<1"),
+    "weight_split": ("split_tf32",),
 }
-KERNELS = ("X", "K6", "K6f", "K4", "K3", "K2", "K2b")
+KERNELS = ("X", "K6", "K6f", "K4", "K3", "K1", "K2", "K2b")
 # The corr-tents grids of a 480x480 video (H, W, C), 250 frames, a chunk of
-# 128 queries.
+# 128 queries; and of an online 256x256 step, 1 frame, 64 queries.
 CORR_LEVELS = [(120, 120, 128), (60, 60, 256), (30, 30, 256)]
 CORR_QUERIES = 128
+ONLINE_CORR_LEVELS = [(64, 64, 128), (32, 32, 256), (16, 16, 256)]
+ONLINE_QUERIES = 64
 # Served configurations (`--walls`): tools/golden_clip.py's int8
-# configuration, further overrides of bootstapir_config() and queries per
-# video; timed videos after the warm-up.
+# configuration (None: full precision), further overrides of
+# bootstapir_config(), queries per video and whether the predictor runs in
+# bf16; timed videos after the warm-up.
 WALLS = {
-    "int8_b": ("b", {}, 256),
-    "int8": ("a", dict(num_pips_iter=2), 256),
-    "headline": ("c", {}, 1024),
+    "serve": (None, {}, 256, True),
+    "serve_fp32": (None, {}, 256, False),
+    "int8_b": ("b", {}, 256, True),
+    "int8": ("a", dict(num_pips_iter=2), 256, True),
+    "headline": ("c", {}, 1024, True),
 }
 WALL_VIDEOS = 2
 CHECKPOINT = os.path.join(ROOT, "runs/bootstapir_synth/trained_params_f16.npy")
 
 
-def corr_inputs(h, w, c, frames, gen, dtype):
+def corr_inputs(h, w, c, frames, gen, dtype, queries=CORR_QUERIES):
   """Unit-norm grids, queries near grid features, centres over the frame."""
   grid = torch.nn.functional.normalize(
       torch.randn(frames, h, w, c, device="cuda", generator=gen), dim=-1)
-  cy = torch.rand(frames, CORR_QUERIES, device="cuda", generator=gen) * h - 0.5
-  cx = torch.rand(frames, CORR_QUERIES, device="cuda", generator=gen) * w - 0.5
+  cy = torch.rand(frames, queries, device="cuda", generator=gen) * h - 0.5
+  cx = torch.rand(frames, queries, device="cuda", generator=gen) * w - 0.5
   query = grid[torch.arange(frames, device="cuda")[:, None],
                cy.round().clamp(0, h - 1).long(), cx.round().clamp(0, w - 1).long()]
   return grid.to(dtype), query.to(dtype).contiguous(), cy, cx
@@ -169,11 +178,14 @@ def serve_walls(names, frames, videos, seed):
       torch.rand(1, 3, 60, 60, device="cuda", generator=gen), size=(res, res),
       mode="bilinear")[0]
   walls = {}
+  # PyTorch's defaults: float32 matmuls in full float32, cuDNN in TF32.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = True
   for name in names:
-    config, extra, queries = WALLS[name]
-    overrides = dict(INT8_CONFIGS[config], **extra)
+    config, extra, queries, bfloat16 = WALLS[name]
+    overrides = dict(INT8_CONFIGS[config] if config else {}, **extra)
     predictor = TapirPredictor(
-        params, bootstapir_config(**overrides), bfloat16=True,
+        params, bootstapir_config(**overrides), bfloat16=bfloat16,
         query_chunk_size=128, refinement_resolutions=[(res, res)])
     clips = []
     for k in range(videos + 1):
@@ -272,6 +284,17 @@ def main():
         del unfused
       del x, x_nchw
       torch.cuda.empty_cache()
+    if "K1" in chosen:
+      for frames, queries, levels, what in (
+          (args.frames, CORR_QUERIES, CORR_LEVELS, ""),
+          (1, ONLINE_QUERIES, ONLINE_CORR_LEVELS, "online ")):
+        for h, w, cc in levels:
+          grid, query, cy, cx = corr_inputs(h, w, cc, frames, gen, dtype,
+                                            queries)
+          k1 = lambda: corr_tents.corr_tent_patches(grid, query, cy, cx, 7)  # pylint: disable=cell-var-from-loop
+          times[f"K1 {what}{h}x{w}x{cc} {name}"] = time_ms(k1, 4 * args.reps)
+          del grid, query, cy, cx
+        torch.cuda.empty_cache()
     if {"K2", "K2b"} & chosen:
       for h, w, cc in CORR_LEVELS:
         grid, query, cy, cx = corr_inputs(h, w, cc, args.frames, gen, dtype)
@@ -313,13 +336,13 @@ def main():
       k3 = lambda: fused_mixer_block.mixer_block(*margs, False, None)
       times[f"K3 {name}"] = time_ms(k3, 4 * args.reps)
       splits[f"K3 {name}"] = split_ms(k3, K3_PHASES)
-      if dtype == torch.bfloat16:
-        rows = margs[0].reshape(-1, mc)
-        hidden = torch.empty(rows.shape[0], 4 * mc, dtype=dtype, device="cuda")
-        times["cuBLAS K3 products bf16"] = (
-            time_ms(lambda: torch.matmul(rows, margs[7]), 4 * args.reps)
-            + time_ms(lambda: torch.matmul(hidden, margs[9]), 4 * args.reps))
-        del rows, hidden
+      torch.backends.cuda.matmul.allow_tf32 = False
+      rows = margs[0].reshape(-1, mc)
+      hidden = torch.empty(rows.shape[0], 4 * mc, dtype=dtype, device="cuda")
+      times[f"cuBLAS K3 products {name}"] = (
+          time_ms(lambda: torch.matmul(rows, margs[7]), 4 * args.reps)
+          + time_ms(lambda: torch.matmul(hidden, margs[9]), 4 * args.reps))
+      del rows, hidden
   walls = (serve_walls(args.walls.split(","), args.frames, WALL_VIDEOS,
                        args.seed) if args.walls else {})
   print(json.dumps(dict(card=card, root=os.path.abspath(args.root),
