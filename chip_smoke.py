@@ -9,10 +9,11 @@ Phases (any failure raises and exits non-zero):
      at the shapes the 480x480 main path gives it, in fp32 and bf16 model
      dtype, timed with CUDA events beside the plain version and a bound from
      bytes and operations: the full-precision corr-tents (K1) and mixer
-     block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents
-     with their per-row quantizer (quantize_rows, bit-equal to its plain
-     version at the three grids and the queries; K2b on the grid quantized
-     once, as the model runs it, and bit-equal to the inline route), the
+     block (K3), the per-frame (K2) and per-position (K2b) int8 corr-tents,
+     which quantize their queries inside the kernel, with the per-position
+     grid quantizer (quantize_rows, bit-equal to its plain version at the
+     three grids; K2b on the grid quantized once, as the model runs it, and
+     bit-equal to the inline route), the
      w8a8 mixer block (K4), the per-frame int8 3x3 convolution of the
      ExtraConvs (X), the per-pixel ExtraConvs layer (K6) and the
      full-precision ExtraConvs layer (K6f, beside three faulty plain layers
@@ -32,7 +33,10 @@ Phases (any failure raises and exits non-zero):
      model's unfused layer.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
-     outputs, in full precision and in the four int8 configurations
+     outputs, and in the predictor's default float32 at PyTorch's TF32
+     settings (cuDNN on, matmul off), printed against the fp32 and the bf16
+     limits and held to the bf16 ones; in full precision and in the four
+     int8 configurations
      (a: w8a8 mixer with per-frame int8 correlation; b: per-position int8
      correlation; c: the JAX package's headline, a with the per-frame int8
      ExtraConvs and 2 refinement steps; d: the per-pixel int8 ExtraConvs,
@@ -334,13 +338,12 @@ ONLINE_QUERIES, ONLINE_WARMUP, ONLINE_STEPS = 64, 5, 50
 ONLINE_K1_PER_STEP = 12
 
 # The kernels each int8 configuration must launch, and no other (the int8
-# correlation quantizes its queries, and in b its grids, with
-# corr_quantize).
+# correlation quantizes its queries inside its kernel; b quantizes its grids
+# per position with corr_quantize, once per video).
 INT8_LAUNCHES = {
-    "a": {"corr_tents_q8_frame", "corr_quantize", "mixer_block_q8"},
+    "a": {"corr_tents_q8_frame", "mixer_block_q8"},
     "b": {"corr_tents_q8_position", "corr_quantize", "mixer_block"},
-    "c": {"corr_tents_q8_frame", "corr_quantize", "mixer_block_q8",
-          "extra_convs_q8_frame"},
+    "c": {"corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"},
     "d": {"corr_tents", "mixer_block", "extra_convs_q8_pixel"},
 }
 
@@ -638,49 +641,42 @@ def check_corr(dtype, gen, checks):
   check_corr_online(dtype, gen, checks)
 
 
-# quantize_rows per served video of serve-480-int8-b, per pyramid level: the
-# grid once, the query [FRAMES, CHUNK, C] in every call (2 chunks x 4
-# refinement steps).
-QUANTIZE_QUERIES_PER_GRID = 8
-
-
 def check_quantize_rows(dtype, gen, checks):
-  """The int8 correlation's per-row quantizer (the kernel quantize_rows, via
+  """The per-position grid quantizer (the kernel quantize_rows, via
   corr_tents.quantize_per_position) against its plain version
-  _quantize_lastdim at the three served grids and their queries: bit-equal
-  int8 values and scales. Bound: bytes, the values read once, the int8
-  values and the scales written once; a few float32 operations a value."""
+  _quantize_lastdim at the three served grids, which serve-480-int8-b
+  quantizes once each per video (the int8 corr-tents quantizes its queries
+  itself): bit-equal int8 values and scales. Bound: bytes, the values read
+  once, the int8 values and the scales written once; a few float32
+  operations a value."""
   name_dt = str(dtype).replace("torch.", "")
-  records, weighted = [], []
+  records = []
   for h, w, c in CORR_LEVELS:
-    grid, query, _, _ = corr_inputs(h, w, c, dtype, gen)
-    for what, v in (("grid", grid), ("query", query)):
-      run = lambda v=v: corr_tents.quantize_per_position(v)
-      plain = lambda v=v: corr_tents._quantize_lastdim(v)  # pylint: disable=protected-access
-      (q, scale), (q_ref, scale_ref) = run(), plain()
-      torch.cuda.synchronize()
-      steps = int((q.int() - q_ref.int()).abs().max())
-      scale_err = float((scale - scale_ref).abs().max())
-      equal = torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
-      require(equal, f"quantize_rows {name_dt} {what} {tuple(v.shape)}: "
-              f"{steps} int8 steps, scales {scale_err} apart")
-      nbytes = v.numel() * (v.element_size() + 1) + scale.numel() * 4
-      flops = 3.0 * v.numel()  # |v| and its max, the division, the rounding
-      b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-      records.append(dict(
-          kernel="corr_quantize", dtype=name_dt, operand=what,
-          shape=list(v.shape), max_abs_err=max(steps, scale_err),
-          max_err_over_limit=0.0, tol="bit-equal (0)", ms=time_ms(run),
-          plain_ms=time_ms(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
-          nbytes=nbytes, flops=flops))
-      del q, scale, q_ref, scale_ref
-    weighted += [records[-2]] + [records[-1]] * QUANTIZE_QUERIES_PER_GRID
-    del grid, query
+    v, _, _, _ = corr_inputs(h, w, c, dtype, gen)
+    run = lambda v=v: corr_tents.quantize_per_position(v)
+    plain = lambda v=v: corr_tents._quantize_lastdim(v)  # pylint: disable=protected-access
+    (q, scale), (q_ref, scale_ref) = run(), plain()
+    torch.cuda.synchronize()
+    steps = int((q.int() - q_ref.int()).abs().max())
+    scale_err = float((scale - scale_ref).abs().max())
+    equal = torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+    require(equal, f"quantize_rows {name_dt} grid {tuple(v.shape)}: "
+            f"{steps} int8 steps, scales {scale_err} apart")
+    nbytes = v.numel() * (v.element_size() + 1) + scale.numel() * 4
+    flops = 3.0 * v.numel()  # |v| and its max, the division, the rounding
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    records.append(dict(
+        kernel="corr_quantize", dtype=name_dt, operand="grid",
+        shape=list(v.shape), max_abs_err=max(steps, scale_err),
+        max_err_over_limit=0.0, tol="bit-equal (0)", ms=time_ms(run),
+        plain_ms=time_ms(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+        nbytes=nbytes, flops=flops))
+    del v, q, scale, q_ref, scale_ref
     torch.cuda.empty_cache()
   checks.extend(records)
   checks.append(path_record(
-      weighted, f"mean of one serve-480-int8-b launch: each pyramid grid once "
-      f"and its query {QUANTIZE_QUERIES_PER_GRID} times", torch.float32))
+      records, "mean of one serve-480-int8-b launch: each pyramid grid once",
+      torch.float32))
 
 
 def check_corr_online(dtype, gen, checks):
@@ -1397,6 +1393,7 @@ KERNEL_META = {
         tpu_kernel="K2 corr_tents._kernel :182 with frame_scale "
                    "(_pallas_forward :266, corr_tent_patches_prequantized :390)",
         layer="K1/K2 corr_tents", run="serve_int8",
+        also_runs=("serve_headline",),
     ),
     "corr_tents_q8_position": dict(
         source="tapnet_tpu_torch/csrc/corr_tents.cu",
@@ -1406,13 +1403,14 @@ KERNEL_META = {
                    "video (corr_tent_patches_prequantized_per_position)",
         layer="K1/K2 corr_tents", run="serve_int8_b",
     ),
-    # The int8 modes' quantizer of the queries (every call) and of the
-    # per-position grids (once per video), which JAX leaves to XLA.
+    # The per-position grids' quantizer (once per video), which JAX leaves
+    # to XLA; K2 and K2b quantize their queries inside the kernel.
     "corr_quantize": dict(
         source="tapnet_tpu_torch/csrc/corr_tents.cu",
         replaces="tapnet_tpu/ops/corr_tents.py:62",
-        tpu_kernel="corr_tents._quantize_lastdim (XLA, no Pallas kernel), "
-                   "before K2 (:288) and K2b (:300-301)",
+        tpu_kernel="corr_tents._quantize_lastdim (XLA, no Pallas kernel) on "
+                   "K2b's grid (:299); the queries' (:271, :300) are "
+                   "quantized inside K2 and K2b",
         layer="K1/K2 corr_tents", run="serve_int8_b",
     ),
     "mixer_block": dict(
@@ -1500,7 +1498,39 @@ KERNEL_META = {
 # ---------------------------------------------------------------- main path
 
 
+def golden_errors(predictor, out, golden):
+  """Track and logit errors of one golden run against the JAX outputs."""
+  err = np.linalg.norm(out["tracks"] - golden["tracks"], axis=-1)
+  return dict(
+      track_max_px=float(np.abs(out["tracks"] - golden["tracks"]).max()),
+      track_median_px=float(np.median(err)),
+      track_p95_px=float(np.percentile(err, 95)),
+      logit_max_abs=max(float(np.abs(out[k] - golden[k]).max())
+                        for k in ("occlusion", "expected_dist")),
+      visible_agree=float(np.mean(
+          predictor.visibles(out) == predictor.visibles(dict(golden)))),
+  )
+
+
+def within_fp32(r):
+  return (r["track_max_px"] <= GOLDEN_FP32_TOL["tracks"]
+          and r["logit_max_abs"] <= GOLDEN_FP32_TOL["logits"])
+
+
+def within_bf16(r):
+  tol = GOLDEN_BF16_TOL
+  return (r["track_median_px"] <= tol["median_px"]
+          and r["track_p95_px"] <= tol["p95_px"]
+          and r["visible_agree"] >= tol["visible_agree"])
+
+
 def golden_check(params):
+  """The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
+  outputs, then the predictor's default float32 once more at PyTorch's own
+  TF32 settings (cuDNN on, matmul off), as `serve` and every user of
+  `TapirPredictor(bfloat16=False)` run it: its error is printed against the
+  fp32 and the bf16 limits, and it must stay within the bf16 ones (TF32
+  keeps 10 mantissa bits, bf16 7)."""
   golden = np.load(GOLDEN)
   frames = preprocess_frames(torch.from_numpy(golden["video"]))
   result = {}
@@ -1509,35 +1539,31 @@ def golden_check(params):
   for bf16 in (False, True):
     predictor = TapirPredictor(params, bootstapir_config(), bfloat16=bf16)
     out = predictor(frames, golden["query_points"])
-    err = np.linalg.norm(out["tracks"] - golden["tracks"], axis=-1)
-    logit_err = max(
-        float(np.abs(out[k] - golden[k]).max())
-        for k in ("occlusion", "expected_dist")
-    )
-    agree = float(np.mean(
-        predictor.visibles(out) == predictor.visibles(dict(golden))
-    ))
     key = "bf16" if bf16 else "fp32"
-    result[key] = dict(
-        track_max_px=float(np.abs(out["tracks"] - golden["tracks"]).max()),
-        track_median_px=float(np.median(err)),
-        track_p95_px=float(np.percentile(err, 95)),
-        logit_max_abs=logit_err, visible_agree=agree,
-    )
-    r = result[key]
+    r = result[key] = golden_errors(predictor, out, golden)
     if bf16:
-      tol = GOLDEN_BF16_TOL
-      require(r["track_median_px"] <= tol["median_px"]
-              and r["track_p95_px"] <= tol["p95_px"]
-              and agree >= tol["visible_agree"],
-              f"bf16 golden check failed: {r} vs {tol}")
+      require(within_bf16(r), f"bf16 golden check failed: {r} vs {GOLDEN_BF16_TOL}")
     else:
-      tol = GOLDEN_FP32_TOL
-      require(r["track_max_px"] <= tol["tracks"]
-              and logit_err <= tol["logits"],
-              f"fp32 golden check failed: {r} vs {tol}")
+      require(within_fp32(r), f"fp32 golden check failed: {r} vs {GOLDEN_FP32_TOL}")
     del predictor
   torch.backends.cudnn.allow_tf32 = True
+  predictor = TapirPredictor(params, bootstapir_config())
+  out = predictor(frames, golden["query_points"])
+  r = result["fp32_tf32_defaults"] = dict(
+      golden_errors(predictor, out, golden),
+      tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32))
+  r.update(within_fp32_limits=within_fp32(r), within_bf16_limits=within_bf16(r))
+  print(f"golden fp32 at PyTorch's TF32 defaults (cuDNN on, matmul off): "
+        f"track max {r['track_max_px']:.4g} px, median {r['track_median_px']:.4g}, "
+        f"p95 {r['track_p95_px']:.4g}, logits {r['logit_max_abs']:.4g}, flags "
+        f"{r['visible_agree']:.4f}; fp32 limits {GOLDEN_FP32_TOL}: "
+        f"{'within' if r['within_fp32_limits'] else 'over'}; bf16 limits "
+        f"{GOLDEN_BF16_TOL}: {'within' if r['within_bf16_limits'] else 'over'}",
+        flush=True)
+  require(r["within_bf16_limits"],
+          f"fp32 golden check at the TF32 defaults failed: {r} vs {GOLDEN_BF16_TOL}")
+  del predictor
   return result
 
 
@@ -2471,7 +2497,7 @@ def main():
       # serve-480-int8: w8a8 mixer, per-frame int8 correlation, 2 steps.
       "serve_int8": serve(
           params, videos, dict(INT8_CONFIGS["a"], **fast),
-          ("corr_tents_q8_frame", "corr_quantize", "mixer_block_q8")),
+          ("corr_tents_q8_frame", "mixer_block_q8")),
       # The same step count in bf16, to tell int8's share from the steps'.
       "serve_bf16_2iter": serve(
           params, videos, fast, ("corr_tents", "mixer_block")),
@@ -2484,16 +2510,14 @@ def main():
       # size, 1024 queries; per-frame int8 ExtraConvs (X), K2 and K4.
       "serve_headline": serve(
           params, make_videos(3, HEADLINE_QUERIES), INT8_CONFIGS["c"],
-          ("corr_tents_q8_frame", "corr_quantize", "mixer_block_q8",
-           "extra_convs_q8_frame"),
+          ("corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"),
           queries=HEADLINE_QUERIES),
       # serve-480-int8-pp: serve-480-int8 with the per-pixel int8
       # ExtraConvs: K6 at both grids, no per-frame conv.
       "serve_int8_pp": serve(
           params, videos[:3],
           dict(INT8_CONFIGS["a"], quantized_extra_convs="per_pixel", **fast),
-          ("corr_tents_q8_frame", "corr_quantize", "mixer_block_q8",
-           "extra_convs_q8_pixel")),
+          ("corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_pixel")),
   }
   tracks = {name: run.pop("tracks") for name, run in runs.items()}
   # The float32 products run on the tensor-core GEMM, and no SIMT one is left.
@@ -2552,8 +2576,8 @@ def main():
   # stay float32 in it), and K3 and K1 in float32 too (the predictor's
   # default, serve-480-fp32), per launch at the served shapes, with the
   # launches per video of the run that drives it. launches * ms should come near the
-  # profile's time for the kernel's layer (corr-tents: with corr_quantize's
-  # launches, and K2's scale product in PyTorch).
+  # profile's time for the kernel's layer (corr-tents in -int8-b: with
+  # corr_quantize's launches).
   kernels = []
   for name, meta in KERNEL_META.items():
     dtype = meta.get("dtype", "bfloat16")

@@ -20,7 +20,7 @@
 // sums in float32. It reads the window rows the queries touch, never the
 // whole frame. The grid is [query blocks, frames], so that the blocks at work
 // at one time cover a few frames, whose window rows stay in L2 (with the
-// frames fastest, as the int8 kernel's grid still has them, every frame of
+// frames fastest, as both kernels' grids had them before, every frame of
 // the video was in flight at once). A block of 8 warps takes 8 queries of a
 // frame, one warp each, or 4, 2 or 1 queries whose 2, 4 or 8 warps split
 // the window's 8 rows (corr_tents.float_launch_plan chooses): where 8 would
@@ -47,21 +47,36 @@
 //     whole warp.
 //
 // The int8 kernel (corr_tents_q8_kernel) replaces the same TPU kernel on its
-// int8 paths: `frame_scale` given (grid quantized once per video, one scale
-// per frame) and `quantized=True` (_kernel_quantized: one grid scale per
-// position). Same design; the dot over C is __dp4a with an int accumulator,
-// which is exact. It has two inner loops, chosen by the width C:
-//   * row-wise, for the model's full widths (C = 16 * 2^k with 64 <= C <= 512,
-//     16-byte aligned: 128 and 256 in BootsTAPIR). A window row is (p+1)*C
-//     contiguous bytes; the warp reads it 512 bytes at a time (16 bytes a
-//     lane, C/16 lanes a position) and reduces within those lanes. From C = 64
-//     on a row is a whole number of 512-byte passes, so all 32 lanes take part
-//     in every shuffle. 2.7x faster on the H100 than the word-wise loop.
+// int8 paths: `frame_scale` given (K2: grid quantized once per video, one
+// scale per frame) and `quantized=True` (K2b, _kernel_quantized: one grid
+// scale per position). Same design as the float kernel: the grid is [query
+// blocks, frames] and a block takes 8, 4, 2 or 1 queries of a frame
+// (corr_tents.q8_launch_plan: at least 528 blocks, at most 32 MB of int8
+// grid in flight). The dot over C is __dp4a with an int accumulator, which
+// is exact. The query arrives in the compute dtype and each warp quantizes
+// its own in the prologue with q8::scale_div and q8::quantize_div, as
+// quantize_rows does: the int8 values and the scale are bit-equal to
+// _quantize_lastdim's, and no launch, int8 copy or scale product sits
+// between the model and the kernel. In per-frame mode the kernel forms the
+// output scale qs * fs itself. Two inner loops, chosen by the width C:
+//   * row-wise, for the model's full widths (C = 16 * 2^k with 64 <= C <=
+//     512 and both bases 16-byte aligned: 128 and 256 in BootsTAPIR). A
+//     window row is 8 * C contiguous bytes; C / 16 lanes take a position, 16
+//     bytes each, so a lane has C / 64 positions of a row (2 at C = 128, 4
+//     at C = 256). It issues all its loads of a row before its first
+//     __dp4a, a position off the grid from a clamped address under a zero
+//     mask, and the next row's loads before this row's products; one
+//     transposing butterfly reduces the row's 8 positions together, and
+//     K2b loads the scale of the position a lane's sum ends on beside the
+//     row. (The design before it put frames fastest in the grid, so every
+//     frame of the video was in flight, and loaded one 16-byte chunk per
+//     pass under a branch per position, then reduced that pass before the
+//     next load: four dependent passes a row at C = 256.)
 //   * word-wise, for every other C % 4 == 0: the narrow widths of the small
-//     test configurations (16 and 32, where a row-wise pass would leave lanes
-//     outside a full-mask shuffle) and widths that are no power of two. C is
-//     split over the 32 lanes word by word and every position is reduced over
-//     the whole warp.
+//     test configurations (16 and 32) and widths that are no power of two.
+//     The warp quantizes its query into shared memory, C is split over the
+//     32 lanes word by word, and every position is reduced over the whole
+//     warp.
 // Both give the same bits. The roundings after the dot are those of the
 // einsum mirror of the TPU kernel: the int32 correlation goes to float32 (exact,
 // below 2^24), is multiplied by the position's grid scale where there is one,
@@ -72,7 +87,7 @@
 // each stage adds two of them, so every step is reproducible bit for bit.
 // Bound: the grid's bytes at 1 byte per value (a quarter of the float32
 // kernel's, half of the bfloat16 one's) against 2*64*C integer operations per
-// query: memory, as above.
+// query: memory, as below.
 //
 // Bound on the H100: memory. Per query it moves 64*C grid values against
 // 2*64*C flops, far below the ~295 flop/byte the tensor cores need; the
@@ -81,20 +96,22 @@
 // again through L2 (32 KB a query at C = 256 in bf16), so the design keeps
 // the frames under way within L2 and many 16-byte loads in flight: a row's
 // loads are issued together, one memory latency a row. PERF.md section 6
-// has what it reaches (about 60% of the bound in bf16).
+// has what each kernel reaches.
 //
-// quantize_rows: the int8 modes' quantizer of the grid per position and of
-// the query per descriptor, which the JAX package leaves to XLA
-// (tapnet_tpu/ops/corr_tents.py::_quantize_lastdim): for each row of [R, C]
-// in float32 or bfloat16, s = max(amax |row|, 1e-8) * (1/127) and q =
-// clip(rint(v / s), +-127) (IEEE division, round half to even), int8 [R, C]
-// and float32 s [R], bit-equal to the port's plain _quantize_lastdim. One
-// warp per row: the amax pass and the quantizing pass read the row in
-// 16-byte pieces (the second from L1), lanes on neighbouring pieces. Bound:
-// memory, each value read once and written once as int8 (at the served
-// hires grid, [250 * 120 * 120, 128] bf16, 0.92 + 0.46 GB: 0.41 ms at 3.35
-// TB/s). The per-position grid is quantized once per video
-// (models/tapir.py), the query at every call.
+// quantize_rows: the int8 modes' quantizer of the grid per position, which
+// the JAX package leaves to XLA (tapnet_tpu/ops/corr_tents.py::
+// _quantize_lastdim): for each row of [R, C] in float32 or bfloat16, s =
+// max(amax |row|, 1e-8) * (1/127) and q = clip(rint(v / s), +-127) (IEEE
+// division, round half to even), int8 [R, C] and float32 s [R], bit-equal
+// to the port's plain _quantize_lastdim. A warp reads a contiguous run of
+// rows in 16-byte pieces, 512 bytes an instruction and four pieces a lane in
+// flight, and reduces each row's amax over the lanes that hold it: 8 rows a
+// warp on the hires grid (bf16 C = 128), where one warp a row left half the
+// warp idle; a row stays in registers between its amax and its quantizing
+// pass. Bound: memory, each value read once and written once as int8 (at
+// the served hires grid, [250 * 120 * 120, 128] bf16, 0.92 + 0.46 GB: 0.41
+// ms at 3.35 TB/s). The per-position grid is quantized once per video
+// (models/tapir.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,8 +124,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-// Queries per block: one per warp, so the main path's 250 frames x 128
-// queries give 4000 blocks; a tile's output rows are 32-byte sectors.
+// Most queries a block takes: one per warp (the launch plans take 8, 4, 2
+// or 1); a tile of 8 writes its output rows as 32-byte sectors.
 constexpr int kTileN = kWarps;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -360,218 +377,441 @@ __device__ __forceinline__ int warp_sum_int(int v) {
   return v;
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// grid [bt, h, w, c] and query [bt, n, c] int8; pos_scale [bt, h, w] or null;
-// out_scale [bt, n]. ROWS: c is 16 * 2^k with 64 <= c <= 512 and both are
-// 16-byte aligned (row-wise 16-byte loads; (p+1) * c/16 is then a multiple
-// of 32, so no lane is absent from a shuffle); otherwise c % 4 == 0 (word
-// loads).
-template <int P, bool ROWS>
-__global__ void __launch_bounds__(kThreads)
-    corr_tents_q8_kernel(const int8_t* __restrict__ grid,
-                         const int8_t* __restrict__ query,
-                         const float* __restrict__ pos_scale,
-                         const float* __restrict__ out_scale,
-                         const float* __restrict__ cy,
-                         const float* __restrict__ cx, float* __restrict__ out,
-                         int h, int w, int c, int n) {
-  constexpr int kWin = P + 1;
-  constexpr int kHalf = (P - 1) / 2;
-  extern __shared__ __align__(16) float smem_q8[];
-  float* smem = smem_q8;
-  const int c4 = c / 4;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  int* q_s = reinterpret_cast<int*>(smem) + warp * c4;            // [c4]
-  float* corr_s = smem + kWarps * c4 + warp * kWin * kWin;        // [win, win]
-  float* out_s = smem + kWarps * c4 + kWarps * kWin * kWin;       // [P*P, tile]
-
-  const int bt = blockIdx.x;
-  const int n0 = blockIdx.y * kTileN;
-  const int* g =
-      reinterpret_cast<const int*>(grid + static_cast<size_t>(bt) * h * w * c);
-  const float* gs =
-      pos_scale ? pos_scale + static_cast<size_t>(bt) * h * w : nullptr;
-
-  for (int qi = warp; qi < kTileN; qi += kWarps) {
-    const int nq = n0 + qi;
-    if (nq >= n) break;  // warp-uniform
-    const size_t qoff = static_cast<size_t>(bt) * n + nq;
-    const int* qv = reinterpret_cast<const int*>(query + qoff * c);
-    for (int k = lane; k < c4; k += 32) q_s[k] = qv[k];
-    __syncwarp();
-    const float y = cy[qoff];
-    const float x = cx[qoff];
-    const int y0 = static_cast<int>(floorf(y)) - kHalf;
-    const int x0 = static_cast<int>(floorf(x)) - kHalf;
-
-    // Integer correlation on the window, then the one rounding to bfloat16.
-    for (int r = 0; r < kWin; ++r) {
-      const int iy = y0 + r;
-      const bool row_ok = iy >= 0 && iy < h;  // warp-uniform
-      if (ROWS) {
-        // idx runs over the row's (p+1) * C/16 16-byte chunks: position
-        // idx / L, channel chunk idx % L; L >= 4 lanes share a position and
-        // kWin * L is a multiple of 32: every lane runs every pass.
-        const int L = c / 16;
-        const int4* q4 = reinterpret_cast<const int4*>(q_s);
-        const int4* row4 = reinterpret_cast<const int4*>(
-            reinterpret_cast<const int8_t*>(g) +
-            (static_cast<ptrdiff_t>(iy) * w + x0) * c);
-        for (int idx = lane; idx < kWin * L; idx += 32) {
-          const int s = idx / L, kk = idx % L;
-          const int ix = x0 + s;
-          const bool ok = row_ok && ix >= 0 && ix < w;
-          int acc = 0;
-          if (ok) {
-            const int4 gv = row4[idx], qk = q4[kk];
-            acc = __dp4a(gv.x, qk.x, acc);
-            acc = __dp4a(gv.y, qk.y, acc);
-            acc = __dp4a(gv.z, qk.z, acc);
-            acc = __dp4a(gv.w, qk.w, acc);
-          }
-          for (int o = L >> 1; o > 0; o >>= 1) {
-            acc += __shfl_xor_sync(0xffffffffu, acc, o);
-          }
-          if (kk == 0) {
-            float f = static_cast<float>(acc);
-            if (gs != nullptr && ok) f = __fmul_rn(f, gs[iy * w + ix]);
-            corr_s[r * kWin + s] = round_bf16(f);
-          }
-        }
-        continue;
-      }
-      int acc[kWin];
-#pragma unroll
-      for (int s = 0; s < kWin; ++s) acc[s] = 0;
-      if (row_ok) {
-        const int* row = g + (static_cast<ptrdiff_t>(iy) * w + x0) * c4;
-        for (int k = lane; k < c4; k += 32) {
-          const int qk = q_s[k];
-#pragma unroll
-          for (int s = 0; s < kWin; ++s) {
-            const int ix = x0 + s;
-            if (ix >= 0 && ix < w) acc[s] = __dp4a(row[s * c4 + k], qk, acc[s]);
-          }
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < kWin; ++s) {
-        const int v = warp_sum_int(acc[s]);
-        if (lane == 0) {
-          float f = static_cast<float>(v);
-          const int ix = x0 + s;
-          if (gs != nullptr && row_ok && ix >= 0 && ix < w) {
-            f = __fmul_rn(f, gs[iy * w + ix]);
-          }
-          corr_s[r * kWin + s] = round_bf16(f);
-        }
-      }
-    }
-    __syncwarp();
-
-    const float scale = out_scale[qoff];
-    for (int tap = lane; tap < P * P; tap += 32) {
-      const int i = tap / P;
-      const int j = tap % P;
-      const float cyi = y + static_cast<float>(i - kHalf);
-      const float cxj = x + static_cast<float>(j - kHalf);
-      const float wy0 = round_bf16(tent(cyi, y0 + i));
-      const float wy1 = round_bf16(tent(cyi, y0 + i + 1));
-      const float wx0 = round_bf16(tent(cxj, x0 + j));
-      const float wx1 = round_bf16(tent(cxj, x0 + j + 1));
-      const float* c0 = corr_s + i * kWin + j;
-      const float ya = round_bf16(wy0 * c0[0] + wy1 * c0[kWin]);
-      const float yb = round_bf16(wy0 * c0[1] + wy1 * c0[kWin + 1]);
-      out_s[tap * kTileN + qi] = __fmul_rn(wx0 * ya + wx1 * yb, scale);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < P * P * kTileN; e += kThreads) {
-    const int tap = e / kTileN;
-    const int q = e % kTileN;
-    if (n0 + q < n) {
-      out[(static_cast<size_t>(bt) * P * P + tap) * n + n0 + q] = out_s[e];
-    }
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-// One warp per row of v [rows, c]; PIECES: c % (16 / sizeof(T)) == 0 and v
-// 16-byte aligned (16-byte loads, 4- or 8-byte int8 stores), otherwise one
-// value a lane at a time.
-template <typename T, bool PIECES>
-__global__ void __launch_bounds__(kThreads)
-    corr_quantize_rows(const T* __restrict__ v, int8_t* __restrict__ q,
-                       float* __restrict__ scale, long long rows, int c) {
-  constexpr int kVec = 16 / sizeof(T);
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* src = v + row * c;
-  int8_t* dst = q + row * c;
-  float m = 0.f;
-  if (PIECES) {
-    for (int k = lane * kVec; k < c; k += 32 * kVec) {
-      float f[kVec];
-      load_piece(src + k, f);
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Four values quantized with scale s (q8::quantize_div, as _quantize_lastdim
+// rounds them), packed little-endian into one word of int8.
+__device__ __forceinline__ uint32_t pack4_q8(const float* v, float s) {
+  uint32_t word = 0u;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) m = fmaxf(m, fabsf(f[e]));
-    }
-  } else {
-    for (int k = lane; k < c; k += 32) m = fmaxf(m, fabsf(to_f(src[k])));
+  for (int e = 0; e < 4; ++e) {
+    word |= (static_cast<uint32_t>(q8::quantize_div(v[e], s)) & 0xffu) << (8 * e);
   }
-  const float s = q8::scale_div(warp_max(m));
-  if (lane == 0) scale[row] = s;
-  if (PIECES) {
-    for (int k = lane * kVec; k < c; k += 32 * kVec) {
-      float f[kVec];
-      load_piece(src + k, f);
-      uint32_t words[kVec / 4];
+  return word;
+}
+
+// Widths of the int8 kernel's row-wise loop: C = 16 * 2^k from
+// kQ8MinRowWidth to kQ8MaxRowWidth, C / 16 lanes (4 to 32) a position.
+constexpr int kQ8MinRowWidth = 64;
+constexpr int kQ8MaxRowWidth = 512;
+
+bool q8_rows_ok(const void* grid, const void* query, int c) {
+  return c % 16 == 0 && c >= kQ8MinRowWidth && c <= kQ8MaxRowWidth &&
+         ((c / 16) & (c / 16 - 1)) == 0 &&
+         reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(query) % 16 == 0;
+}
+
+// The int8 row-wise loop's loads of window row iy: a lane's V = LC / 4
+// chunks of 16 bytes (chunk kk = lane % LC of positions j * span + lane /
+// LC), each from a clamped address (the frame's first position) with a
+// clear bit in the returned mask where the position lies off the grid, so
+// that no load waits behind a branch; and, for K2b, the grid scale of the
+// position the lane's sum ends on (0 off the grid).
+template <int LC>
+__device__ __forceinline__ unsigned load_q8_row(const int8_t* g, const float* gs,
+                                                int h, int w, int c, int iy,
+                                                int x0, int lane, int4* raw,
+                                                float* gsv) {
+  constexpr int V = LC / 4;
+  constexpr int span = 32 / LC;
+  const int kk = lane % LC;
+  const bool row_ok = iy >= 0 && iy < h;
+  unsigned ok = 0u;
 #pragma unroll
-      for (int i = 0; i < kVec / 4; ++i) {
-        words[i] = 0u;
+  for (int j = 0; j < V; ++j) {
+    const int ix = x0 + j * span + lane / LC;
+    const bool in = row_ok && ix >= 0 && ix < w;
+    ok |= static_cast<unsigned>(in) << j;
+    const ptrdiff_t pos = in ? static_cast<ptrdiff_t>(iy) * w + ix : 0;
+    raw[j] = __ldg(reinterpret_cast<const int4*>(g + pos * c) + kk);
+  }
+  if (gs != nullptr) {
+    const int ix = x0 + (kk >> 2) * span + lane / LC;
+    const bool in = row_ok && ix >= 0 && ix < w;
+    const float v = __ldg(gs + (in ? static_cast<ptrdiff_t>(iy) * w + ix : 0));
+    *gsv = in ? v : 0.f;
+  }
+  return ok;
+}
+
+// The row's exact int32 correlations: a lane's V partial dot products
+// (__dp4a over its 16-byte chunk), zero where the mask bit is clear, then
+// one transposing butterfly over the row's 8 positions (as the float
+// kernel's): at each xor offset from LC / 2 down to 4 a lane hands half of
+// its sums to its partner and adds the other half; after offsets 2 and 1
+// lane l holds the sum of position ((l % LC) >> 2) * span + l / LC.
+template <int LC>
+__device__ __forceinline__ int dot_q8_row(const int4* raw, unsigned ok,
+                                          const int4& q, int lane) {
+  constexpr int V = LC / 4;
+  int acc[V];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          words[i] |= (static_cast<uint32_t>(q8::quantize_div(f[4 * i + e], s)) & 0xffu)
-                      << (8 * e);
+  for (int j = 0; j < V; ++j) {
+    int a = __dp4a(raw[j].x, q.x, 0);
+    a = __dp4a(raw[j].y, q.y, a);
+    a = __dp4a(raw[j].z, q.z, a);
+    a = __dp4a(raw[j].w, q.w, a);
+    acc[j] = (ok >> j) & 1u ? a : 0;
+  }
+  int nv = V;
+#pragma unroll
+  for (int o = LC / 2; o >= 4; o >>= 1) {
+    const bool upper = (lane & o) != 0;
+    nv /= 2;
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) {
+      if (j < nv) {
+        const int lo = acc[j], hi = acc[j + nv];
+        const int got = __shfl_xor_sync(0xffffffffu, upper ? lo : hi, o);
+        acc[j] = (upper ? hi : lo) + got;
+      }
+    }
+  }
+  acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 2);
+  acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 1);
+  return acc[0];
+}
+
+// K2 and K2b. grid [bt, h, w, c] int8 (c % 4 == 0, 4-byte aligned); query
+// [bt, n, c] in the compute dtype T; exactly one of pos_scale [bt, h, w]
+// (K2b) and frame_scale [bt] (K2); cy, cx [bt, n]; out [bt, P, P, n]. A
+// block of kWarps warps takes qpb queries (1, 2, 4 or 8) of frame
+// blockIdx.y, each with kWarps / qpb warps that split its window rows
+// (corr_tents.q8_launch_plan). Each warp first quantizes its query as
+// _quantize_lastdim does (the same q8::scale_div and q8::quantize_div as
+// quantize_rows), so the int8 values and the scale are bit-equal to the
+// plain version's and the query makes no round trip through memory. LC > 0:
+// the row-wise loop with LC = C / 16 lanes a position (q8_rows_ok); LC = 0:
+// the word-wise loop.
+template <typename T, int P, int LC>
+__global__ void __launch_bounds__(kThreads)
+    corr_tents_q8_kernel(const int8_t* __restrict__ grid,
+                         const T* __restrict__ query,
+                         const float* __restrict__ pos_scale,
+                         const float* __restrict__ frame_scale,
+                         const float* __restrict__ cy,
+                         const float* __restrict__ cx, float* __restrict__ out,
+                         int h, int w, int c, int n, int qpb) {
+  constexpr int kWin = P + 1;
+  constexpr int kHalf = (P - 1) / 2;
+  __shared__ float corr_s[kTileN][kWin * kWin];
+  __shared__ float out_s[P * P * kTileN];
+  __shared__ float scale_s[kTileN];  // a query's output scale
+  extern __shared__ int qw_s[];      // word-wise loop: [kWarps, c / 4] int8 words
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wpq = kWarps / qpb;  // warps of a query
+  const int qi = warp / wpq;
+  const int bt = blockIdx.y;
+  const int n0 = blockIdx.x * qpb;
+  const int nq = n0 + qi;
+  const int8_t* g = grid + static_cast<size_t>(bt) * h * w * c;
+  const float* gs =
+      pos_scale ? pos_scale + static_cast<size_t>(bt) * h * w : nullptr;
+
+  if (nq < n) {  // warp-uniform
+    const size_t qoff = static_cast<size_t>(bt) * n + nq;
+    const T* qrow = query + qoff * c;
+    const int y0 = static_cast<int>(floorf(cy[qoff])) - kHalf;
+    const int x0 = static_cast<int>(floorf(cx[qoff])) - kHalf;
+    float* corr = corr_s[qi];
+    float qscale;
+    if constexpr (LC > 0) {
+      // A lane's chunk kk of every position is query values [16 kk, 16 kk
+      // + 16): it loads those in T with its first row, and the LC lanes of a
+      // position, which hold the whole query, reduce its amax. Each row's
+      // loads go out before the previous row's products (two rows in
+      // registers), so a warp waits about one memory latency, not one a row.
+      constexpr int V = LC / 4;
+      constexpr int span = 32 / LC;
+      constexpr int kVec = 16 / sizeof(T);
+      const int kk = lane % LC;
+      const int sf = (kk >> 2) * span + lane / LC;  // where the lane's sum ends
+      float qv[16];
+#pragma unroll
+      for (int i = 0; i < 16 / kVec; ++i) load_piece(qrow + kk * 16 + i * kVec, qv + i * kVec);
+      int4 raw[V], ahead[V];
+      float gsv = 0.f, gs_next = 0.f;
+      int r = warp % wpq;
+      unsigned ok = load_q8_row<LC>(g, gs, h, w, c, y0 + r, x0, lane, raw, &gsv);
+      float m = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(qv[e]));
+#pragma unroll
+      for (int o = LC / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      qscale = q8::scale_div(m);
+      const int4 q = make_int4(
+          static_cast<int>(pack4_q8(qv, qscale)), static_cast<int>(pack4_q8(qv + 4, qscale)),
+          static_cast<int>(pack4_q8(qv + 8, qscale)), static_cast<int>(pack4_q8(qv + 12, qscale)));
+      for (; r < kWin; r += wpq) {
+        unsigned ok_next = 0u;
+        if (r + wpq < kWin) {  // warp-uniform
+          ok_next = load_q8_row<LC>(g, gs, h, w, c, y0 + r + wpq, x0, lane, ahead, &gs_next);
+        }
+        const int sum = dot_q8_row<LC>(raw, ok, q, lane);
+        if (lane % 4 == 0) {
+          float f = static_cast<float>(sum);  // exact: |sum| < 2^24
+          if (gs != nullptr) f = __fmul_rn(f, gsv);
+          corr[r * kWin + sf] = round_bf16(f);
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) raw[j] = ahead[j];
+        ok = ok_next;
+        gsv = gs_next;
+      }
+    } else {
+      // Word-wise: the warp quantizes its query into shared memory, then
+      // lanes split C word by word and every position is reduced over the
+      // whole warp.
+      const int c4 = c / 4;
+      int* qw = qw_s + warp * c4;
+      float m = 0.f;
+      for (int k = lane; k < c; k += 32) m = fmaxf(m, fabsf(to_f(qrow[k])));
+      qscale = q8::scale_div(warp_max(m));
+      for (int k = lane; k < c4; k += 32) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = to_f(qrow[4 * k + e]);
+        qw[k] = static_cast<int>(pack4_q8(v, qscale));
+      }
+      __syncwarp();
+      const int* g4 = reinterpret_cast<const int*>(g);
+      for (int r = warp % wpq; r < kWin; r += wpq) {
+        const int iy = y0 + r;
+        const bool row_ok = iy >= 0 && iy < h;  // warp-uniform
+        int acc[kWin];
+#pragma unroll
+        for (int s = 0; s < kWin; ++s) acc[s] = 0;
+        if (row_ok) {
+          const int* row = g4 + (static_cast<ptrdiff_t>(iy) * w + x0) * c4;
+          for (int k = lane; k < c4; k += 32) {
+            const int qk = qw[k];
+#pragma unroll
+            for (int s = 0; s < kWin; ++s) {
+              const int ix = x0 + s;
+              if (ix >= 0 && ix < w) acc[s] = __dp4a(row[s * c4 + k], qk, acc[s]);
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kWin; ++s) {
+          const int v = warp_sum_int(acc[s]);
+          if (lane == 0) {
+            float f = static_cast<float>(v);
+            const int ix = x0 + s;
+            if (gs != nullptr && row_ok && ix >= 0 && ix < w) {
+              f = __fmul_rn(f, gs[iy * w + ix]);
+            }
+            corr[r * kWin + s] = round_bf16(f);
+          }
         }
       }
-      if constexpr (kVec == 8) {
-        *reinterpret_cast<uint2*>(dst + k) = make_uint2(words[0], words[1]);
-      } else {
-        *reinterpret_cast<uint32_t*>(dst + k) = words[0];
-      }
     }
-  } else {
-    for (int k = lane; k < c; k += 32) {
-      dst[k] = static_cast<int8_t>(q8::quantize_div(to_f(src[k]), s));
+    if (warp % wpq == 0 && lane == 0) {
+      scale_s[qi] = frame_scale != nullptr ? __fmul_rn(qscale, frame_scale[bt]) : qscale;
+    }
+  }
+  __syncthreads();
+
+  // Tap (i, j) of a query is centred at (y + i - half, x + j - half); its
+  // tents are non-zero only on window rows i, i+1 and columns j, j+1.
+  for (int e = threadIdx.x; e < qpb * P * P; e += kThreads) {
+    const int q = e / (P * P);
+    const int tap = e % (P * P);
+    if (n0 + q >= n) continue;
+    const size_t qoff = static_cast<size_t>(bt) * n + n0 + q;
+    const float y = cy[qoff];
+    const float x = cx[qoff];
+    const int y0 = static_cast<int>(floorf(y)) - kHalf;
+    const int x0 = static_cast<int>(floorf(x)) - kHalf;
+    const int i = tap / P;
+    const int j = tap % P;
+    const float cyi = y + static_cast<float>(i - kHalf);
+    const float cxj = x + static_cast<float>(j - kHalf);
+    const float wy0 = round_bf16(tent(cyi, y0 + i));
+    const float wy1 = round_bf16(tent(cyi, y0 + i + 1));
+    const float wx0 = round_bf16(tent(cxj, x0 + j));
+    const float wx1 = round_bf16(tent(cxj, x0 + j + 1));
+    const float* c0 = corr_s[q] + i * kWin + j;
+    const float ya = round_bf16(wy0 * c0[0] + wy1 * c0[kWin]);
+    const float yb = round_bf16(wy0 * c0[1] + wy1 * c0[kWin + 1]);
+    out_s[tap * qpb + q] = __fmul_rn(wx0 * ya + wx1 * yb, scale_s[q]);
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < P * P * qpb; e += kThreads) {
+    const int tap = e / qpb;
+    const int q = e % qpb;
+    if (n0 + q < n) {
+      out[(static_cast<size_t>(bt) * P * P + tap) * n + n0 + q] = out_s[e];
     }
   }
 }
 
+// quantize_rows on 16-byte pieces. A row is P = C * sizeof(T) / 16 pieces,
+// P a power of two; a warp takes a contiguous run of K * 32 pieces and reads
+// it in K steps, lane l taking piece 32 k + l at step k, so every load
+// instruction reads 512 contiguous bytes and a lane has K pieces (64 bytes
+// at K = 4) in flight. Where P <= 32 a step holds 32 / P whole rows (the
+// hires grid, bf16 C = 128: 2 rows a step, 8 a warp), and a row's amax is a
+// segmented shuffle over its P lanes; where P > 32 a row spans P / 32 steps
+// and its amax is a shuffle over the warp. A row's pieces stay in registers
+// from the amax to the quantizing pass (each value is read once), and each
+// step stores a piece's int8 values (8 bytes bf16, 4 float32), consecutive
+// lanes on consecutive bytes. (One warp a row, the design before it, left
+// half the warp idle on the hires grid.)
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+    corr_quantize_rows(const T* __restrict__ v, int8_t* __restrict__ q,
+                       float* __restrict__ scale, long long rows, int pieces) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32) * K * 32 + lane;
+  const long long total = rows * pieces;
+  const int shift = __ffs(pieces) - 1;  // log2(pieces), no 64-bit division
+  uint4 raw[K];
+  float m[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long p = first + 32 * k;
+    raw[k] = p < total ? __ldg(reinterpret_cast<const uint4*>(v) + p)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    float f[kVec];
+    unpack_piece(raw[k], static_cast<const T*>(nullptr), f);
+    m[k] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) m[k] = fmaxf(m[k], fabsf(f[e]));
+  }
+  if (pieces >= 32) {  // a row spans pieces / 32 whole steps
+    const int steps = pieces / 32;
+    for (int k0 = 0; k0 < K; k0 += steps) {
+      float mm = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k >= k0 && k < k0 + steps) mm = fmaxf(mm, m[k]);
+      }
+      mm = warp_max(mm);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k >= k0 && k < k0 + steps) m[k] = mm;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      for (int o = pieces / 2; o > 0; o >>= 1) {
+        m[k] = fmaxf(m[k], __shfl_xor_sync(0xffffffffu, m[k], o));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long p = first + 32 * k;
+    if (p >= total) continue;
+    const float s = q8::scale_div(m[k]);
+    if ((p & (pieces - 1)) == 0) scale[p >> shift] = s;  // a row's first piece
+    float f[kVec];
+    unpack_piece(raw[k], static_cast<const T*>(nullptr), f);
+    if constexpr (kVec == 8) {
+      reinterpret_cast<uint2*>(q)[p] = make_uint2(pack4_q8(f, s), pack4_q8(f + 4, s));
+    } else {
+      reinterpret_cast<uint32_t*>(q)[p] = pack4_q8(f, s);
+    }
+  }
+}
+
+// quantize_rows for any other width or base: one warp per row, one value a
+// lane at a time, two passes over the row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    corr_quantize_rows_scalar(const T* __restrict__ v, int8_t* __restrict__ q,
+                              float* __restrict__ scale, long long rows, int c) {
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // warp-uniform
+  const T* src = v + row * c;
+  float m = 0.f;
+  for (int k = lane; k < c; k += 32) m = fmaxf(m, fabsf(to_f(src[k])));
+  const float s = q8::scale_div(warp_max(m));
+  if (lane == 0) scale[row] = s;
+  for (int k = lane; k < c; k += 32) {
+    q[row * c + k] = static_cast<int8_t>(q8::quantize_div(to_f(src[k]), s));
+  }
+}
+
+// Pieces of a row that corr_quantize_rows takes (a power of two up to
+// 32 * kQuantizeSteps: bf16 C <= 2048, float32 C <= 1024); its steps a warp.
+constexpr int kQuantizeSteps = 8;
+
 template <typename T>
 int launch_quantize(const void* v, void* q, void* scale, long long rows, int c,
                     cudaStream_t stream) {
-  const long long blocks = (rows + kWarps - 1) / kWarps;
+  const long long bytes = static_cast<long long>(c) * sizeof(T);
+  const long long pieces = bytes / 16;
+  const bool fits = bytes % 16 == 0 && pieces <= 32 * kQuantizeSteps &&
+                    (pieces & (pieces - 1)) == 0 &&
+                    reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  if (!fits) {
+    const long long blocks = (rows + kWarps - 1) / kWarps;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    corr_quantize_rows_scalar<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        static_cast<const T*>(v), static_cast<int8_t*>(q), static_cast<float*>(scale),
+        rows, c);
+    return cudaGetLastError();
+  }
+  // 4 steps a warp (64 bytes a lane in flight), 8 where a row spans more.
+  const int steps = pieces > 128 ? kQuantizeSteps : 4;
+  const long long per_block = static_cast<long long>(kWarps) * steps * 32;
+  const long long blocks = (rows * pieces + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool pieces = c % (16 / static_cast<int>(sizeof(T))) == 0 &&
-                      reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  auto kernel = pieces ? corr_quantize_rows<T, true> : corr_quantize_rows<T, false>;
+  auto kernel = steps == 4 ? corr_quantize_rows<T, 4> : corr_quantize_rows<T, kQuantizeSteps>;
   kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(v), static_cast<int8_t*>(q), static_cast<float*>(scale),
-      rows, c);
+      rows, static_cast<int>(pieces));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_q8(const void* grid, const void* query, const void* pos_scale,
+              const void* frame_scale, const void* cy, const void* cx, void* out,
+              int bt, int h, int w, int c, int n, int qpb, int rows,
+              cudaStream_t stream) {
+  constexpr int P = 7;
+  if (rows != static_cast<int>(q8_rows_ok(grid, query, c))) {
+    return cudaErrorInvalidValue;
+  }
+  const int lanes = rows ? c / 16 : 0;
+  auto kernel = lanes == 4    ? corr_tents_q8_kernel<T, P, 4>
+                : lanes == 8  ? corr_tents_q8_kernel<T, P, 8>
+                : lanes == 16 ? corr_tents_q8_kernel<T, P, 16>
+                : lanes == 32 ? corr_tents_q8_kernel<T, P, 32>
+                              : corr_tents_q8_kernel<T, P, 0>;
+  const size_t smem = rows ? 0 : sizeof(int) * kWarps * (c / 4);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  // Query-major, as the float kernel: a frame's query blocks are neighbours
+  // in launch order.
+  dim3 blocks((n + qpb - 1) / qpb, bt);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(grid), static_cast<const T*>(query),
+      static_cast<const float*>(pos_scale), static_cast<const float*>(frame_scale),
+      static_cast<const float*>(cy), static_cast<const float*>(cx),
+      static_cast<float*>(out), h, w, c, n, qpb);
   return cudaGetLastError();
 }
 
@@ -636,47 +876,41 @@ int corr_tents_forward(const void* grid, const void* query, const void* cy,
   return cudaErrorInvalidValue;
 }
 
-// grid [bt, h, w, c] and query [bt, n, c] int8 with c % 4 == 0 and 4-byte
-// aligned bases; pos_scale [bt, h, w] float32 or null (per-frame mode);
-// out_scale [bt, n] float32; cy, cx [bt, n] float32; out [bt, p, p, n] float32.
-// Only p == 7 is instantiated. Returns the launch's cudaError_t.
+// grid [bt, h, w, c] int8 with c % 4 == 0 and a 4-byte aligned base; query
+// [bt, n, c] in the compute dtype (dtype 0: float32, 1: bfloat16), quantized
+// per row inside the kernel; exactly one of pos_scale [bt, h, w] (per
+// position) and frame_scale [bt] (per frame) float32, the other null; cy, cx
+// [bt, n] float32; out [bt, p, p, n] float32. qpb (queries a block: 1, 2, 4
+// or 8) and rows (1: the row-wise loop) as the caller's launch plan gives
+// them (corr_tents.q8_launch_plan); a loop that disagrees with q8_rows_ok is
+// refused. Only p == 7 is instantiated. Returns the launch's cudaError_t.
 int corr_tents_q8_forward(const void* grid, const void* query,
-                          const void* pos_scale, const void* out_scale,
+                          const void* pos_scale, const void* frame_scale,
                           const void* cy, const void* cx, void* out, int bt,
-                          int h, int w, int c, int n, int p, void* stream) {
-  if (p != 7 || bt <= 0 || n <= 0 || c <= 0 || c % 4 != 0) {
+                          int h, int w, int c, int n, int p, int qpb, int rows,
+                          int dtype, void* stream) {
+  if (p != 7 || bt <= 0 || n <= 0 || c <= 0 || c % 4 != 0 || bt > 65535 ||
+      reinterpret_cast<uintptr_t>(grid) % 4 != 0) {
     return cudaErrorInvalidValue;
   }
-  if (n > 65535 * kTileN) return cudaErrorInvalidValue;
-  constexpr int P = 7;
-  const size_t smem = sizeof(float) * (kWarps * (c / 4) +
-                                       kWarps * (P + 1) * (P + 1) +
-                                       P * P * kTileN);
-  const int lanes = c / 16;  // lanes per position of the row-wise form
-  const bool rows =
-      c % 16 == 0 && lanes >= 4 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
-      reinterpret_cast<uintptr_t>(grid) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(query) % 16 == 0;
-  auto kernel = rows ? corr_tents_q8_kernel<P, true>
-                     : corr_tents_q8_kernel<P, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  if ((pos_scale == nullptr) == (frame_scale == nullptr)) return cudaErrorInvalidValue;
+  if (qpb != 1 && qpb != 2 && qpb != 4 && qpb != 8) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_q8<float>(grid, query, pos_scale, frame_scale, cy, cx, out, bt, h,
+                            w, c, n, qpb, rows, s);
   }
-  dim3 blocks(bt, (n + kTileN - 1) / kTileN);
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(grid), static_cast<const int8_t*>(query),
-      static_cast<const float*>(pos_scale),
-      static_cast<const float*>(out_scale), static_cast<const float*>(cy),
-      static_cast<const float*>(cx), static_cast<float*>(out), h, w, c, n);
-  return cudaGetLastError();
+  if (dtype == 1) {
+    return launch_q8<__nv_bfloat16>(grid, query, pos_scale, frame_scale, cy, cx, out,
+                                    bt, h, w, c, n, qpb, rows, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Symmetric per-row int8 quantization: v [rows, c] (dtype 0: float32, 1:
 // bfloat16) -> q int8 [rows, c] and scale float32 [rows] (see
-// corr_quantize_rows). Returns the launch's cudaError_t.
+// corr_quantize_rows and corr_quantize_rows_scalar). Returns the launch's
+// cudaError_t.
 int quantize_rows(const void* v, void* q, void* scale, long long rows, int c,
                   int dtype, void* stream) {
   if (rows <= 0 || c <= 0) return cudaErrorInvalidValue;

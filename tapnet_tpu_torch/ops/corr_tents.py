@@ -18,10 +18,12 @@ per video `corr_tent_patches_prequantized` after `quantize_per_frame` and
 multiply an int8 grid by int8 queries with int32 accumulation, round the
 correlation to bfloat16 (after the per-position grid scale, where there is
 one), run the y-tents in bfloat16 whatever the model's dtype, and apply the
-per-query and per-frame scales to the float32 output. The integer product
-and the tents are the kernel `corr_tents_q8_forward` of the same source on
-CUDA tensors, and the plain versions `corr_tent_patches_*_reference` on CPU
-tensors. The per-row quantizer of the query and of the per-position grid
+per-query and per-frame scales to the float32 output. On CUDA tensors that
+is one launch of the kernel `corr_tents_q8_forward` of the same source,
+which takes the query in the compute dtype and quantizes it per descriptor
+itself, bit-equal to `_quantize_lastdim` (its loop and queries per block:
+`q8_launch_plan`); CPU tensors run the plain versions
+`corr_tent_patches_*_reference`. The per-position grid quantizer
 (`quantize_per_position`) is the kernel `quantize_rows` of the same source
 on CUDA tensors, bit-equal to its plain version `_quantize_lastdim`, which
 CPU tensors run; the per-frame grid quantizer `quantize_per_frame` is plain
@@ -41,7 +43,7 @@ from tapnet_tpu_torch.ops import _build
 # kernel, the int8 kernel with a scale per frame (also reached through
 # `corr_tent_patches_prequantized`), the int8 kernel with a scale per grid
 # position (also reached through `corr_tent_patches_prequantized_per_position`),
-# and the per-row quantizer (`quantize_rows`).
+# and the per-row quantizer of the per-position grids (`quantize_rows`).
 LAUNCHES = 0
 LAUNCHES_Q8_FRAME = 0
 LAUNCHES_Q8_POSITION = 0
@@ -51,7 +53,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "corr_tents_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
-    "corr_tents_q8_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    "corr_tents_q8_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "quantize_rows": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_void_p],
@@ -150,7 +152,10 @@ def quantize_per_frame(grid: torch.Tensor):
   """
   gf = grid.float()
   amax = torch.clamp(gf.abs().amax((-3, -2, -1), keepdim=True), min=1e-8)
-  q = torch.clamp(torch.round(gf * (127.0 / amax)), -127.0, 127.0)
+  # torch.div rounds 127 / amax once, as JAX does: `127.0 / amax` in PyTorch
+  # is reciprocal(amax) * 127, two roundings, which can move a value that
+  # sits on a rounding midpoint (bf16 x = amax / 2) by one int8 step.
+  q = torch.clamp(torch.round(gf * torch.div(127.0, amax)), -127.0, 127.0)
   return q.to(torch.int8), (amax * (1.0 / 127.0)).reshape(grid.shape[:-3])
 
 
@@ -252,7 +257,8 @@ def _check_launch(grid, query, cy, cx, p, extra=()):
   return bt, h, w, c, n
 
 
-# K1's launch plan, as csrc/corr_tents.cu launches it: blocks of 8 warps, a
+# The launch plans of K1 and of K2/K2b (the int8 kernel), as
+# csrc/corr_tents.cu launches them: blocks of 8 warps, a
 # query's warps splitting its 8 window rows, a frame's blocks neighbours in
 # launch order. A block takes 8 queries of a frame (a warp each), or 4, 2, 1
 # where 8 would leave fewer than _MIN_BLOCKS blocks (an online step, 1 frame
@@ -295,14 +301,57 @@ def float_launch_plan(bt: int, h: int, w: int, c: int, n: int,
     raise ValueError(f"corr_tents: {bt} frames overflow the kernel's grid")
   elt = torch.empty((), dtype=dtype).element_size()
   rows = float_rows_ok(c, elt, aligned)
-  in_flight = lambda q: min(bt, _RESIDENT_BLOCKS / -(-n // q)) * h * w * c * elt
+  qpb = _queries_per_block(bt, n, h * w * c * elt)
+  return dict(loop="rows" if rows else "scalar", queries_per_block=qpb,
+              warps_per_query=_WARPS // qpb, grid=(-(-n // qpb), bt),
+              smem_bytes=0 if rows else 4 * qpb * c)
+
+
+def _queries_per_block(bt: int, n: int, frame_bytes: int) -> int:
+  """Queries a block of K1, K2 and K2b takes: 8, or the largest of 4, 2, 1
+  that gives the card _MIN_BLOCKS blocks and keeps the grid of the frames
+  that the resident blocks cover within _FRAME_BYTES."""
+  in_flight = lambda q: min(bt, _RESIDENT_BLOCKS / -(-n // q)) * frame_bytes
   qpb = _WARPS
   while qpb > 1 and (bt * -(-n // qpb) < _MIN_BLOCKS
                      or in_flight(qpb) > _FRAME_BYTES):
     qpb //= 2
-  return dict(loop="rows" if rows else "scalar", queries_per_block=qpb,
+  return qpb
+
+
+# Widths of the int8 kernel's row-wise loop (kQ8MinRowWidth, kQ8MaxRowWidth):
+# C = 16 * 2^k, C / 16 lanes a position.
+_Q8_ROW_WIDTHS = (64, 512)
+
+
+def q8_rows_ok(c: int, aligned: bool) -> bool:
+  """Whether K2 and K2b take their row-wise loop (16-byte loads of the int8
+  grid) for width c, the csrc's q8_rows_ok: C = 16 * 2^k within
+  _Q8_ROW_WIDTHS and both bases 16-byte aligned (`aligned`). Otherwise their
+  word-wise loop."""
+  lo, hi = _Q8_ROW_WIDTHS
+  return (aligned and c % 16 == 0 and lo <= c <= hi
+          and (c // 16) & (c // 16 - 1) == 0)
+
+
+def q8_launch_plan(bt: int, h: int, w: int, c: int, n: int,
+                   aligned: bool = True) -> dict:
+  """How K2 and K2b launch on an int8 grid [bt, h, w, c] with n queries: as
+  `float_launch_plan` at one byte a value, with the loop "rows" or "words"
+  and dynamic shared memory for the word-wise loop's quantized queries (a
+  warp's int8 copy of its query)."""
+  if min(bt, h, w, c, n) <= 0:
+    raise ValueError(f"int8 corr-tents: empty shape {(bt, h, w, c)}, n={n}")
+  if bt > 65535:
+    raise ValueError(f"int8 corr-tents: {bt} frames overflow the kernel's grid")
+  if c % 4:
+    raise ValueError(
+        f"int8 corr-tents kernel needs C a multiple of 4, got C={c}")
+  rows = q8_rows_ok(c, aligned)
+  qpb = _queries_per_block(bt, n, h * w * c)
+  return dict(loop="rows" if rows else "words", queries_per_block=qpb,
               warps_per_query=_WARPS // qpb, grid=(-(-n // qpb), bt),
-              smem_bytes=0 if rows else 4 * qpb * c)
+              smem_bytes=0 if rows else _WARPS * c)
 
 
 def _launch(grid, query, cy, cx, p):
@@ -330,38 +379,40 @@ def _launch(grid, query, cy, cx, p):
   return out
 
 
-def _launch_q8(grid_q8, query_q8, out_scale, pos_scale, cy, cx, p):
-  """Launches the int8 kernel. out_scale [BT, N] multiplies the output;
-  pos_scale [BT, H, W] (or None) multiplies the int32 correlation in float32
-  before it is rounded to bfloat16."""
+def _launch_q8(grid_q8, query, frame_scale, pos_scale, cy, cx, p):
+  """Launches the int8 kernel on an int8 grid and a query in the compute
+  dtype, which the kernel quantizes. Exactly one of frame_scale [BT] (K2:
+  the output times qs * fs) and pos_scale [BT, H, W] (K2b: the int32
+  correlation times it in float32 before the rounding to bfloat16, the
+  output times qs)."""
   global LAUNCHES_Q8_FRAME, LAUNCHES_Q8_POSITION
-  if grid_q8.dtype != torch.int8 or query_q8.dtype != torch.int8:
+  if grid_q8.dtype != torch.int8 or query.dtype not in _DTYPES:
     raise TypeError(
-        f"int8 corr-tents needs int8 grid/query, got {grid_q8.dtype}, "
-        f"{query_q8.dtype}"
+        "int8 corr-tents needs an int8 grid and a float32 or bfloat16 "
+        f"query, got {grid_q8.dtype}, {query.dtype}"
     )
-  extra = (out_scale,) if pos_scale is None else (out_scale, pos_scale)
-  if any(t.dtype != torch.float32 for t in extra):
+  scale = frame_scale if pos_scale is None else pos_scale
+  if scale.dtype != torch.float32:
     raise TypeError("int8 corr-tents scales must be float32")
-  bt, h, w, c, n = _check_launch(grid_q8, query_q8, cy, cx, p, extra)
-  if out_scale.shape != (bt, n) or (
-      pos_scale is not None and pos_scale.shape != (bt, h, w)
-  ):
+  bt, h, w, c, n = _check_launch(grid_q8, query, cy, cx, p, (scale,))
+  if scale.shape != ((bt,) if pos_scale is None else (bt, h, w)):
     raise ValueError("int8 corr-tents: scale shapes do not match grid/query")
-  if c % 4 or grid_q8.data_ptr() % 4 or query_q8.data_ptr() % 4:
-    raise ValueError(
-        "int8 corr-tents kernel needs C a multiple of 4 and 4-byte aligned "
-        f"grid/query, got C={c}"
-    )
+  if grid_q8.data_ptr() % 4:
+    raise ValueError("int8 corr-tents kernel needs a 4-byte aligned grid")
+  plan = q8_launch_plan(  # raises for C % 4 != 0
+      bt, h, w, c, n,
+      aligned=grid_q8.data_ptr() % 16 == 0 and query.data_ptr() % 16 == 0)
   lib = _build.load("corr_tents", _SIGNATURES)
   out = torch.empty((bt, p, p, n), dtype=torch.float32, device=grid_q8.device)
   stream = torch.cuda.current_stream(grid_q8.device).cuda_stream
   with torch.cuda.device(grid_q8.device):
     err = lib.corr_tents_q8_forward(
-        grid_q8.data_ptr(), query_q8.data_ptr(),
+        grid_q8.data_ptr(), query.data_ptr(),
         0 if pos_scale is None else pos_scale.data_ptr(),
-        out_scale.data_ptr(), cy.data_ptr(), cx.data_ptr(), out.data_ptr(),
-        bt, h, w, c, n, p, stream,
+        0 if frame_scale is None else frame_scale.data_ptr(),
+        cy.data_ptr(), cx.data_ptr(), out.data_ptr(),
+        bt, h, w, c, n, p, plan["queries_per_block"],
+        int(plan["loop"] == "rows"), _DTYPES[query.dtype], stream,
     )
   _build.check(lib, err, "corr_tents_q8_forward")
   if pos_scale is None:
@@ -432,7 +483,7 @@ def corr_tent_patches_prequantized(
     grid_q8: [BT, H, W, C] int8 (from `quantize_per_frame`).
     frame_scale: [BT] float32 per-frame scales.
     query / cy / cx / p: as `corr_tent_patches`; the query is quantized per
-      descriptor in this call.
+      descriptor in this call (on CUDA tensors inside the kernel).
   """
   device = grid_q8.device.type
   if device == "cpu":
@@ -440,9 +491,7 @@ def corr_tent_patches_prequantized(
         grid_q8, frame_scale, query, cy, cx, p
     )
   if device == "cuda":
-    qq, qs = _launch_quantize(query)
-    out_scale = (qs * frame_scale[:, None]).contiguous()
-    return _launch_q8(grid_q8, qq, out_scale, None, cy, cx, p)
+    return _launch_q8(grid_q8, query, frame_scale, None, cy, cx, p)
   raise ValueError(
       f"corr_tent_patches_prequantized: unsupported device {grid_q8.device}"
   )
@@ -463,15 +512,14 @@ def corr_tent_patches_prequantized_per_position(
     grid_q8: [BT, H, W, C] int8 (from `quantize_per_position`).
     pos_scale: [BT, H, W] float32 per-position scales.
     query / cy / cx / p: as `corr_tent_patches`; the query is quantized per
-      descriptor in this call.
+      descriptor in this call (on CUDA tensors inside the kernel).
   """
   device = grid_q8.device.type
   if device == "cpu":
     return corr_tent_patches_prequantized_per_position_reference(
         grid_q8, pos_scale, query, cy, cx, p)
   if device == "cuda":
-    qq, qs = _launch_quantize(query)
-    return _launch_q8(grid_q8, qq, qs, pos_scale, cy, cx, p)
+    return _launch_q8(grid_q8, query, None, pos_scale, cy, cx, p)
   raise ValueError(
       "corr_tent_patches_prequantized_per_position: unsupported device "
       f"{grid_q8.device}")

@@ -118,7 +118,9 @@ def quantize_rows(x: torch.Tensor):
   Rounds half to even; a zero row gets amax 1e-8.
   """
   amax = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-8)
-  q = torch.clamp(torch.round(x * (127.0 / amax)), -127.0, 127.0)
+  # One rounding of 127 / amax, as JAX and the kernels (`127.0 / amax` in
+  # PyTorch is reciprocal(amax) * 127: two).
+  q = torch.clamp(torch.round(x * torch.div(127.0, amax)), -127.0, 127.0)
   return q.to(torch.int8), amax * (1.0 / 127.0)
 
 

@@ -1,7 +1,8 @@
 """PyTorch port, CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes (the main-path shapes are held in chip_smoke.py):
 the full-precision corr-tents and mixer-block kernels and their int8 forms
-with the int8 modes' per-row quantizer,
+(the int8 corr-tents quantizing its queries itself) with the per-row
+quantizer of the per-position grids,
 the per-frame int8 convolution, the per-pixel and the full-precision
 ExtraConvs layers (K6, K6f) and the RG-LRU linear scan (K5) with its
 backward (K5b).
@@ -207,9 +208,10 @@ def test_mixer_block_fp32_kernel_at_served_widths(cuda, b, t, valid_len,
 # the same points: an exact integer correlation, one rounding to bf16 (after
 # the float32 grid scale, where there is one), bf16 tent weights, float32
 # sums of two exact products per stage, the y-stage rounded to bf16, one
-# float32 multiply by the output scale. Both quantize with the same PyTorch
-# code. So the two agree to float32 rounding: 1e-6 relative, with an absolute
-# floor of 1e-6 of the largest value.
+# float32 multiply by the output scale. The kernel quantizes the query itself
+# with the plain quantizer's arithmetic, bit for bit. So the two agree to
+# float32 rounding: 1e-6 relative, with an absolute floor of 1e-6 of the
+# largest value.
 CORR_Q8_RTOL = 1e-6
 
 
@@ -229,29 +231,42 @@ def _corr_args(cuda, dtype, bt, h, w, c, n):
           torch.from_numpy(cy).to(cuda), torch.from_numpy(cx).to(cuda)]
 
 
-# C = 40: word-wise loop at a width that is no power of two; 16 and 32: the
-# small configurations' widths, word-wise; 64: the narrowest row-wise width
-# (one 512-byte pass per window row); 128 and 256: the full widths.
-CORR_Q8_SHAPES = [
-    (3, 12, 10, 40, 5), (2, 39, 17, 128, 70), (2, 9, 30, 256, 13),
-    (2, 11, 9, 16, 9), (2, 8, 13, 32, 11), (2, 10, 12, 64, 10),
-]
+# (bt, h, w, C, n) -> (loop, queries a block). C = 40: word-wise loop at a
+# width that is no power of two; 16 and 32: the small configurations' widths,
+# word-wise; 64: the narrowest row-wise width (4 lanes a position); 128 and
+# 256: the full widths. The first six take a query a block (too few for 528
+# blocks); the last four 8, 4, 2 and 1 (q8_launch_plan), with N no multiple
+# of the block's queries. Centres lie up to 4 cells off every edge.
+CORR_Q8_SHAPES = {
+    "tiny": ((3, 12, 10, 40, 5), ("words", 1)),
+    "ragged": ((2, 39, 17, 128, 70), ("rows", 1)),
+    "wide": ((2, 9, 30, 256, 13), ("rows", 1)),
+    "c16": ((2, 11, 9, 16, 9), ("words", 1)),
+    "c32": ((2, 8, 13, 32, 11), ("words", 1)),
+    "c64": ((2, 10, 12, 64, 10), ("rows", 1)),
+    "qpb8": ((17, 9, 11, 128, 253), ("rows", 8)),
+    "qpb4": ((9, 10, 12, 256, 251), ("rows", 4)),
+    "qpb2": ((8, 12, 9, 128, 250), ("rows", 2)),
+    "qpb1_c32": ((1, 14, 13, 32, 61), ("words", 1)),
+}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["prequantized", "per_frame", "per_position",
                                   "prequantized_per_position"])
 @pytest.mark.parametrize(
-    "bt,h,w,c,n", CORR_Q8_SHAPES,
-    ids=["tiny", "ragged", "wide", "c16", "c32", "c64"],
+    "bt,h,w,c,n", [shape for shape, _ in CORR_Q8_SHAPES.values()],
+    ids=list(CORR_Q8_SHAPES),
 )
 def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
   grid, query, cy, cx = _corr_args(cuda, dtype, bt, h, w, c, n)
+  plan = corr_tents.q8_launch_plan(bt, h, w, c, n)
+  loop, qpb = next(v for s, v in CORR_Q8_SHAPES.values() if s == (bt, h, w, c, n))
+  assert (plan["loop"], plan["queries_per_block"]) == (loop, qpb)
   frame = (corr_tents.LAUNCHES_Q8_FRAME, corr_tents.LAUNCHES_Q8_POSITION)
   quantized = corr_tents.LAUNCHES_QUANTIZE
   if mode == "prequantized_per_position":
     gq, gs = corr_tents.quantize_per_position(grid)
-    quantized += 1  # the grid's, made once per video on the model path
     out = corr_tents.corr_tent_patches_prequantized_per_position(
         gq, gs, query, cy, cx, 7)
     ref = corr_tents.corr_tent_patches_prequantized_per_position_reference(
@@ -259,7 +274,6 @@ def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
     # The route the model takes is the inline one, bit for bit.
     inline = corr_tents.corr_tent_patches(grid, query, cy, cx, 7, True)
     torch.testing.assert_close(out, inline, rtol=0, atol=0)
-    quantized += 2
   elif mode == "prequantized":
     gq, gs = corr_tents.quantize_per_frame(grid)
     out = corr_tents.corr_tent_patches_prequantized(gq, gs, query, cy, cx, 7)
@@ -278,9 +292,10 @@ def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
   expected = {"per_position": (0, 1), "prequantized_per_position": (0, 2)}.get(
       mode, (1, 0))
   assert (after[0] - frame[0], after[1] - frame[1]) == expected
-  # The query's quantizer every call; the per-position grid's inline too.
-  assert corr_tents.LAUNCHES_QUANTIZE - quantized == (
-      2 if mode == "per_position" else 1)
+  # The kernel quantizes the query; quantize_rows runs only on per-position
+  # grids (the pre-quantized one, and the inline route's own).
+  assert corr_tents.LAUNCHES_QUANTIZE - quantized == {
+      "per_position": 1, "prequantized_per_position": 2}.get(mode, 0)
   assert out.shape == (bt, 7, 7, n) and out.dtype == torch.float32
   assert float(ref.abs().max()) > 0.05
   torch.testing.assert_close(
@@ -290,19 +305,69 @@ def test_corr_tents_q8_kernel_matches_plain(cuda, dtype, mode, bt, h, w, c, n):
   assert float((out - full).abs().max()) < 0.05 * float(full.abs().max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("what", ["grid", "query"])
+def test_corr_tents_q8_kernel_misaligned_base_takes_the_word_loop(cuda, dtype,
+                                                                  what):
+  """An int8 grid 4 bytes past a 16-byte boundary, or a query view 4 bytes
+  past one, at a row-wise width (C = 128): the word-wise loop, which reads
+  neither view past its end (the storage after them holds 127 or NaN, which
+  a stray read would carry into the patches); both modes against their
+  plain versions, a query of zeros among them (the scale's 1e-8 floor)."""
+  bt, h, w, c, n = 3, 13, 11, 128, 21
+  grid, query, cy, cx = _corr_args(cuda, dtype, bt, h, w, c, n)
+  query[1, 3] = 0
+  gq, gs = corr_tents.quantize_per_position(grid)
+  gq_frame, fs = corr_tents.quantize_per_frame(grid)
+  if what == "grid":
+    store = torch.full((2, gq.numel() + 8), 127, dtype=torch.int8, device=cuda)
+    views = [store[k, 4:4 + gq.numel()].view(gq.shape) for k in range(2)]
+    views[0].copy_(gq)
+    views[1].copy_(gq_frame)
+    gq, gq_frame = views
+    assert gq.data_ptr() % 16 and gq_frame.data_ptr() % 16
+  else:
+    off = 4 // query.element_size()
+    store = torch.full((query.numel() + 2 * off,), float("nan"), device=cuda,
+                       dtype=query.dtype)
+    query = store[off:off + query.numel()].view(query.shape)
+    query.copy_(_corr_args(cuda, dtype, bt, h, w, c, n)[1])
+    query[1, 3] = 0
+    assert query.data_ptr() % 16
+  assert corr_tents.q8_launch_plan(bt, h, w, c, n, aligned=False)["loop"] == "words"
+  for out, ref in (
+      (corr_tents.corr_tent_patches_prequantized_per_position(gq, gs, query, cy, cx, 7),
+       corr_tents.corr_tent_patches_prequantized_per_position_reference(
+           gq, gs, query, cy, cx, 7)),
+      (corr_tents.corr_tent_patches_prequantized(gq_frame, fs, query, cy, cx, 7),
+       corr_tents.corr_tent_patches_prequantized_reference(
+           gq_frame, fs, query, cy, cx, 7))):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and not out[1, :, :, 3].any()
+    torch.testing.assert_close(
+        out, ref, rtol=CORR_Q8_RTOL, atol=CORR_Q8_RTOL * float(ref.abs().max()))
+
+
 # quantize_rows against its plain version `_quantize_lastdim`, bit for bit in
 # the int8 values and the scales: rows of mixed magnitude, values on exact
-# half steps (round half to even), a row of zeros (the amax floor); widths
-# of the 16-byte pieces (128, 256: the grids; 16, 32: the small
-# configurations) and not (C = 40 in bf16, 6), and a base that is not
-# 16-byte aligned (both: one value a lane).
-QUANTIZE_SHAPES = [(2, 9, 30, 256), (3, 7, 5, 128), (5, 70, 40), (4, 11, 16),
-                   (3, 9, 32), (7, 6)]
+# half steps (round half to even), a row of zeros (the amax floor); rows of
+# a power of two of 16-byte pieces (several rows a warp step: C = 16, 32,
+# 64, 128; a row over 1 to 8 steps: 256, 512, 2048 in bf16), rows of no
+# power of two (C = 40, 6, 1536: one value a lane) and a base that is not
+# 16-byte aligned (one value a lane); row counts that are not a multiple of
+# the rows a warp takes (c128: 105 rows, 8 a warp in bf16 and 4 in
+# float32; c64_ragged: 13, 16 and 8; c256_ragged: 35, 4 and 2).
+QUANTIZE_SHAPES = {
+    "c256": (2, 9, 30, 256), "c128": (3, 7, 5, 128), "c40": (5, 70, 40),
+    "c16": (4, 11, 16), "c32": (3, 9, 32), "c6": (7, 6),
+    "c64_ragged": (13, 64), "c256_ragged": (7, 5, 256), "c512": (9, 512),
+    "c1536": (5, 1536), "c2048": (3, 2048),
+}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", QUANTIZE_SHAPES,
-                         ids=["c256", "c128", "c40", "c16", "c32", "c6"])
+@pytest.mark.parametrize("shape", list(QUANTIZE_SHAPES.values()),
+                         ids=list(QUANTIZE_SHAPES))
 @pytest.mark.parametrize("kind", ["random", "halves", "offset"])
 def test_quantize_rows_kernel_bit_equal(cuda, dtype, shape, kind):
   rng = np.random.RandomState(len(shape) + shape[-1])

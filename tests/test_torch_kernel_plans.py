@@ -1,7 +1,7 @@
 """PyTorch port: the launch plans of the kernels on shared-memory rings, on
 the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X, K3 (bf16 and
 float32) and K6f in bf16 (the TMA + wgmma loop of csrc/tma_gemm.cuh), and
-K1's loop and queries per block.
+the loops and queries per block of K1 and of the int8 corr-tents (K2, K2b).
 
 Each wrapper computes its launch plan in a pure function (rows per block,
 tiles, dynamic shared memory, grid, ring stages) that the kernels check
@@ -588,3 +588,79 @@ def test_k1_plan_mirrors_the_source():
 def test_k1_plan_refuses(args, error, match):
   with pytest.raises(error, match=match):
     corr_tents.float_launch_plan(*args)
+
+
+# ------------------------------- K2 and K2b: the int8 kernel's loop and plan
+
+# (C, aligned bases) -> the int8 kernel's loop: row-wise for C = 16 * 2^k
+# from 64 to 512 at 16-byte aligned bases, word-wise elsewhere (the small
+# configurations' 16 and 32, widths of no power of two, a base off 16 bytes).
+K2_LOOPS = [
+    ((128, True), "rows"), ((256, True), "rows"), ((64, True), "rows"),
+    ((512, True), "rows"), ((16, True), "words"), ((32, True), "words"),
+    ((40, True), "words"), ((192, True), "words"), ((1024, True), "words"),
+    ((128, False), "words"), ((256, False), "words"),
+]
+
+
+@pytest.mark.parametrize("args,loop", K2_LOOPS)
+def test_k2_loop_by_width_and_alignment(args, loop):
+  c, aligned = args
+  plan = corr_tents.q8_launch_plan(250, 30, 30, c, 128, aligned)
+  assert plan["loop"] == loop
+  assert corr_tents.q8_rows_ok(c, aligned) == (loop == "rows")
+  # The word-wise loop keeps each warp's int8 query in shared memory.
+  assert plan["smem_bytes"] == (0 if loop == "rows" else 8 * c)
+
+
+# (bt, h, w, C, n) -> queries a block: the served 480x480 grids (250 frames x
+# 128 queries; the hires grid's 1.8 MB frames put 4 a block, so that the
+# frames in flight hold at most 32 MB), the headline's 1024 queries, and a
+# one-frame call of 64 queries, which falls to a query a block so that the
+# card gets 64 blocks and not 8.
+K2_PLANS = [
+    ((250, 120, 120, 128, 128), 4), ((250, 60, 60, 256, 128), 8),
+    ((250, 30, 30, 256, 128), 8), ((250, 120, 120, 128, 1024), 8),
+    ((250, 60, 60, 256, 1024), 8), ((250, 30, 30, 256, 1024), 8),
+    ((1, 64, 64, 128, 64), 1), ((1, 16, 16, 256, 64), 1), ((8, 16, 16, 128, 256), 2),
+]
+
+
+@pytest.mark.parametrize("shape,qpb", K2_PLANS)
+def test_k2_queries_per_block(shape, qpb):
+  bt, h, w, c, n = shape
+  plan = corr_tents.q8_launch_plan(bt, h, w, c, n)
+  assert plan["queries_per_block"] == qpb
+  assert plan["warps_per_query"] * qpb == 8
+  assert plan["grid"] == (-(-n // qpb), bt)
+  blocks = plan["grid"][0] * bt
+  # At least 528 blocks where 8 queries a block would give fewer, and at
+  # most 32 MB of int8 grid in the frames the resident blocks cover.
+  assert blocks >= 528 or qpb == 1
+  frames = min(bt, 396 / plan["grid"][0])
+  assert frames * h * w * c <= 32 * 2**20 or qpb == 1
+  # The int8 grid is half the bf16 one: never fewer queries a block than K1.
+  assert qpb >= corr_tents.float_launch_plan(bt, h, w, c, n)["queries_per_block"]
+
+
+def test_k2_plan_mirrors_the_source():
+  text = _source("corr_tents.cu")
+  found = _constants(text, ["kWarps", "kQ8MinRowWidth", "kQ8MaxRowWidth"])
+  assert found["kWarps"] == corr_tents._WARPS  # pylint: disable=protected-access
+  assert (found["kQ8MinRowWidth"], found["kQ8MaxRowWidth"]) == (
+      corr_tents._Q8_ROW_WIDTHS)  # pylint: disable=protected-access
+  # kTileN is kWarps: a block takes at most a query a warp.
+  assert re.search(r"\bkTileN = kWarps\b", text)
+  # The C side refuses a queries-per-block count or loop of no plan.
+  assert re.search(r"qpb != 1 && qpb != 2 && qpb != 4 && qpb != 8", text)
+  assert "rows != static_cast<int>(q8_rows_ok(grid, query, c))" in text
+
+
+@pytest.mark.parametrize("args,match", [
+    ((0, 4, 4, 64, 5), "empty"), ((2, 4, 4, 64, 0), "empty"),
+    ((65536, 4, 4, 64, 5), "overflow"), ((2, 4, 4, 6, 5), "multiple of 4"),
+    ((2, 4, 4, 130, 5), "multiple of 4"),
+], ids=["no_frames", "no_queries", "grid_overflow", "c6", "c130"])
+def test_k2_plan_refuses(args, match):
+  with pytest.raises(ValueError, match=match):
+    corr_tents.q8_launch_plan(*args)

@@ -10,6 +10,8 @@ inputs are rounded once (round-to-nearest-even in both) from the same fp32
 values.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -262,7 +264,13 @@ def test_mixer_fp32_split_emulation_within_limit(causal, b, t, c, hid,
 
 def _quantizer_input(seed, shape, kind):
   """Rows of mixed magnitude; "halves" puts many values exactly on .5 steps
-  (so rounding half to even shows) and one row of zeros (the amax floor)."""
+  (so rounding half to even shows) and one row of zeros (the amax floor);
+  "midpoints" puts values at amax / 2 and 3 amax / 2^k, amax one per
+  leading index (so per row and per frame) among bf16 values k / 128 for
+  which 127 / amax rounded twice (PyTorch's `127.0 / amax` is
+  reciprocal(amax) * 127) differs from one rounding: there x * (127 / amax)
+  lands within a float32 step of a .5, and the double rounding moves the
+  result by one int8 step."""
   rng = np.random.RandomState(seed)
   x = rng.randn(*shape).astype(np.float32)
   x *= np.exp(rng.randn(*shape[:-1], 1) * 2).astype(np.float32)
@@ -270,6 +278,12 @@ def _quantizer_input(seed, shape, kind):
     x = (rng.randint(-254, 255, shape) / 2.0).astype(np.float32)
     x[..., 0] = 127.0  # amax 127: the scale is 1 and .5 values stay .5
     x[0] = 0.0
+  if kind == "midpoints":
+    ks = np.array([135, 147, 190, 163, 183, 152])[np.arange(shape[0]) % 6]
+    amax = (ks / 128.0).astype(np.float32).reshape((-1,) + (1,) * (len(shape) - 1))
+    frac = rng.choice([0.5, 0.75, 0.375, -0.5, 1.0 / 128], shape)
+    x = (amax * frac).astype(np.float32)
+    x[..., 0] = amax[..., 0]
   return x
 
 
@@ -293,7 +307,7 @@ QUANTIZERS = {
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["random", "halves"])
+@pytest.mark.parametrize("kind", ["random", "halves", "midpoints"])
 @pytest.mark.parametrize("name", sorted(QUANTIZERS))
 def test_quantizer_is_bit_equal_to_jax(name, kind, dtype):
   """Same formulas in the same order and float32 throughout: the int8 values
@@ -459,6 +473,92 @@ def test_corr_tents_rejects_unknown_quantized_mode():
     corr_tents.corr_tent_patches_prequantized_per_position(
         *(t.to("meta") for t in corr_tents.quantize_per_position(tensors[0])),
         *tensors[1:], 7)
+
+
+# The int8 corr-tents at its edges, one shape for every case (2 frames of
+# 9 x 11 x 16, 13 queries: N no multiple of the kernel's 8 queries a block):
+# windows off every edge and corner of the grid; random centres; a query row
+# and a grid row of zeros (the 1e-8 floor of the scale); and rows of exact
+# halves with amax 127 (scale 1), so that quantizing rounds .5 ties to even.
+Q8_EDGE_CASES = ["off_every_edge", "ragged_n", "zero_rows", "half_ties"]
+
+
+def _q8_edge_inputs(case, bt=2, h=9, w=11, c=16, n=13):
+  grid, query, cy, cx = corr_inputs(seed=5, bt=bt, h=h, w=w, c=c, n=n)
+  if case == "off_every_edge":
+    # Centres beyond each edge and corner, and just inside them.
+    ys = np.array([-4.6, -1.3, 0.2, 4.5, h - 1.1, h + 0.4, h + 3.8])
+    xs = np.array([-5.1, -0.7, 0.4, 5.5, w - 0.9, w + 0.6, w + 4.2])
+    yy, xx = np.meshgrid(ys, xs, indexing="ij")
+    pick = np.random.RandomState(6).permutation(yy.size)[:bt * n]
+    cy = yy.ravel()[pick].reshape(bt, n).astype(np.float32)
+    cx = xx.ravel()[pick].reshape(bt, n).astype(np.float32)
+  elif case == "zero_rows":
+    query[1, 4] = 0.0
+    grid[0, 3, 5] = 0.0
+  elif case == "half_ties":
+    rng = np.random.RandomState(7)
+    for v in (grid, query):
+      v[...] = rng.randint(-254, 255, v.shape) / 2.0
+      v[..., 0] = 127.0
+  return grid, query, cy, cx
+
+
+@functools.lru_cache(maxsize=None)
+def _q8_edge_refs(mode, dtype):
+  """JAX's einsum mirror and the Pallas kernel (interpret mode) on the edge
+  cases stacked along BT, as numpy: the quantizers work per frame, grid
+  position or query row, so the cases do not mix, and each mode and dtype
+  costs one trace of each instead of one a case."""
+  arrays = [np.concatenate(parts)
+            for parts in zip(*(_q8_edge_inputs(case) for case in Q8_EDGE_CASES))]
+  (g, q, cy, cx), _ = _both(arrays, dtype)
+  cy, cx = cy.astype(jnp.float32), cx.astype(jnp.float32)
+  if mode == "prequantized":
+    gq, gs = jax_corr.quantize_per_frame(g)
+    mirror = jax_corr._math_reference_prequantized(gq, gs, q, cy, cx, 7)
+    grid, operands = gq, dict(frame_scale=gs)
+  else:
+    mirror = jax_corr._math_reference_quantized(g, q, cy, cx, 7)
+    grid, operands = g, dict(quantized=True)
+  jax_corr.FORCE_INTERPRET = True
+  try:
+    ref = jax_corr._pallas_forward(grid, q, cy, cx, 7, **operands)
+  finally:
+    jax_corr.FORCE_INTERPRET = False
+  return _np(mirror), _np(ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["prequantized", "prequantized_per_position"])
+@pytest.mark.parametrize("case", Q8_EDGE_CASES)
+def test_corr_tents_q8_edge_cases_match_jax(case, mode, dtype):
+  """The two int8 routes of the model (K2: a grid quantized per frame; K2b:
+  per position, both once per video) at their edges, against JAX's einsum
+  mirror (`_math_reference_prequantized`; `_math_reference_quantized`,
+  which quantizes the same grid inline) within one bf16 step of the largest
+  patch value, and against the Pallas kernel in interpret mode within the
+  float route's bf16 tolerance (it rounds each tent product), both relative
+  to the largest patch value (the half-tie rows reach |corr| ~ 1e5)."""
+  arrays = _q8_edge_inputs(case)
+  (_, q, _, _), (tg, tq, tcy, tcx) = _both(arrays, dtype)
+  out = _np(_corr_q8_torch(mode, tg, tq, tcy.float(), tcx.float(), entry=True))
+  frames = slice(Q8_EDGE_CASES.index(case) * len(arrays[0]),
+                 (Q8_EDGE_CASES.index(case) + 1) * len(arrays[0]))
+  mirror, ref = (r[frames] for r in _q8_edge_refs(mode, dtype))
+  top = float(np.abs(mirror).max())
+  assert top > 0
+  np.testing.assert_allclose(out, mirror, rtol=0, atol=CORR_Q8_TOL * top)
+  np.testing.assert_allclose(out, ref, rtol=0, atol=CORR_TOL["bfloat16"] * top)
+  if case == "zero_rows":
+    # A query of zeros quantizes to zeros with the floor's scale: no patch.
+    assert not out[1, :, :, 4].any()
+    np.testing.assert_array_equal(corr_tents._quantize_lastdim(tq)[1].numpy(),
+                                  np.asarray(jax_corr._quantize_lastdim(q)[1]))
+  if case == "off_every_edge":
+    # Windows wholly off the grid give zero patches on both sides.
+    far = np.abs(ref).max(axis=(1, 2)) == 0
+    assert far.any() and not out.transpose(0, 3, 1, 2)[far].any()
 
 
 # ------------------------------------------------------ w8a8 mixer block

@@ -11,14 +11,20 @@ inputs scaled as chip_smoke.py scales them; K1 (the full-precision
 corr-tents) at the three pyramid grids of a 480x480 video (250 frames, 128
 queries) and of an online 256x256 step (1 frame, 64 queries); K2 and K2b
 (the int8 corr-tents at the 480x480 grids) as the model calls them once per
-chunk and step: K2 on a grid quantized once per video, K2b on a grid
-quantized once per video where the checkout has `quantize_per_position` and
-inline otherwise, with the grid's quantization timed on its own. It splits
+chunk and step, the whole call as a caller sees it (a checkout that
+quantizes the query in a launch of its own, or scales the output in
+PyTorch, pays for that in the call): K2 on a grid quantized once per video,
+K2b on a grid quantized once per video where the checkout has
+`quantize_per_position` and inline otherwise, with the grid's quantization
+(quantize_rows) timed on its own. It splits
 one launch by kernel with torch.profiler: X into its quantization (frame
 amax and quantize) and its product; K6 into LayerNorm and patch scale,
 conv_up, conv_out; K6f into LayerNorm, conv_up, conv_out; K4 into the
 temporal half and the MLP; K3 into the temporal half, its two products and
-(float32) the weights' split; K2 and K2b into the quantizer and the kernel.
+(float32) the weights' split; K2 and K2b into the query's quantizer (none
+where the kernel quantizes it), the kernel and the rest (PyTorch's scale
+product). `means` holds the mean over the three levels of each K2 and K2b
+route and of the grid's quantization.
 For context it times cuBLAS's two bare products of K3's shape
 (torch.matmul; bf16, and fp32 with TF32 off), which the port never calls.
 Prints the card's name and power limit, then one JSON line: ms per call
@@ -115,7 +121,8 @@ K6F_PHASES = {
     "conv_up": ("UpSlabEpilogue", "conv3x3_bf16<3>", "conv3x3_f32<3>"),
     "conv_out": ("OutSlabEpilogue", "conv3x3_bf16<4>", "conv3x3_f32<4>"),
 }
-# K2 and K2b: the quantizer in PyTorch before the quantize_rows kernel.
+# K2 and K2b: the query's quantize_rows launch, where a checkout has one,
+# and the kernel.
 CORR_Q8_PHASES = {
     "quantize": ("corr_quantize_rows",),
     "kernel": ("corr_tents_q8_kernel",),
@@ -345,9 +352,16 @@ def main():
       del rows, hidden
   walls = (serve_walls(args.walls.split(","), args.frames, WALL_VIDEOS,
                        args.seed) if args.walls else {})
+  means = {}
+  for what in ("K2", "K2b", "K2b grid quantization"):
+    for name in ("bfloat16", "float32"):
+      level_ms = [times.get(f"{what} {h}x{w}x{cc} {name}")
+                  for h, w, cc in CORR_LEVELS]
+      if None not in level_ms:
+        means[f"{what} {name}"] = sum(level_ms) / len(level_ms)
   print(json.dumps(dict(card=card, root=os.path.abspath(args.root),
                         frames=args.frames, ms=times, split_ms=splits,
-                        wall_s_per_video=walls)),
+                        means=means, wall_s_per_video=walls)),
         flush=True)
 
 
