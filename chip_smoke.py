@@ -16,9 +16,11 @@ Phases (any failure raises and exits non-zero):
      bit-equal to the inline route), the
      w8a8 mixer block (K4), the per-frame int8 3x3 convolution of the
      ExtraConvs (X), the per-pixel ExtraConvs layer (K6) and the
-     full-precision ExtraConvs layer (K6f, beside three faulty plain layers
-     that its fp32 check must refuse; in bf16 its padded t and hidden must
-     have zero rings). The int8 kernels' own int8 tensors are held against
+     full-precision ExtraConvs layer (K6f, its fp32 products as
+     error-compensated TF32, beside five faulty plain layers that its fp32
+     check must refuse: three of fused_extra_convs.fp_output_controls, and
+     fp32_controls' one TF32 product and split without A_small . B_big; in
+     bf16 its padded t and hidden must have zero rings). The int8 kernels' own int8 tensors are held against
      the plain version's too, beside wrong quantizations as controls; X's
      padded int8 frames must have a zero ring. K3 in fp32 (its products as
      error-compensated TF32) beside two faulty fp32 blocks that its limit
@@ -28,7 +30,8 @@ Phases (any failure raises and exits non-zero):
      (torch.profiler): K3 into its temporal half and its two products, K4
      into its temporal half and its MLP, X into its quantization and its
      product, K6 into LayerNorm and patch scale, conv_up and conv_out, K6f
-     into LayerNorm, conv_up and conv_out, at each grid. K3's served rows
+     into LayerNorm, conv_up and conv_out (fp32: and the weights' split), at
+     each grid. K3's served rows
      also time cuBLAS's two bare products (fp32: TF32 off), K6f's the
      model's unfused layer.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
@@ -283,16 +286,22 @@ def _multiplying(v, amax):
 K6_CONTROL_FRAMES = 16
 
 # K6f, kernel vs plain, per element: fused_extra_convs.fp_error_limit. fp32:
-# the port's 1e-4, absolute and relative (the plain version's float32
-# convolutions with TF32 off). bf16: four deviations of a 64th of the hidden
+# the port's 1e-4, absolute and relative, against the plain version's
+# float32 convolutions with TF32 off (the kernel's products are three TF32
+# products of the operands' big and small parts, summed a K step at a time
+# in the tensor cores and across steps in IEEE float32; the CPU tests
+# emulate that in float64 within the limit at the served widths). bf16:
+# four deviations of a 64th of the hidden
 # values a bf16 step apart, and of the hidden shifts that the t values lying
 # within float32 noise of a bf16 rounding midpoint may cause, through
 # conv_out, plus two bf16 steps of |y| (the two round the output
 # separately); fp_limit_assumptions reads both premises off the kernel's own
-# t32 and hidden. Its controls (fused_extra_convs.fp_output_controls, on the
-# first K6_CONTROL_FRAMES frames): the pad ring's hidden unmasked, the
-# residual on bf16 t, the hidden in the other dtype; the fp32 check must
-# refuse all three, and the bf16 ones are recorded. In extra-convs-fp-480
+# t32 and hidden. Its controls, on the first K6_CONTROL_FRAMES frames:
+# fused_extra_convs.fp_output_controls (the pad ring's hidden unmasked, the
+# residual on bf16 t, the hidden in the other dtype) and, in fp32,
+# fp32_controls (the plain layer with TF32 matmuls on; the TF32 split
+# without A_small . B_big); the fp32 check must refuse all five, and the
+# bf16 ones are recorded. In extra-convs-fp-480
 # each K6f layer is held against the model's unfused float layer on the same
 # input, within fp_error_limit(unfused=True): every hidden value a step
 # apart, plus the unfused layer's own roundings of t and of conv_out's
@@ -1056,7 +1065,8 @@ def fp_limit_assumptions(x, params):
 def check_extra_convs_fp(dtype, gen, checks):
   """K6f at the two grids of a served video against its plain version
   within fused_extra_convs.fp_error_limit, beside the faulty plain layers
-  that the fp32 check must refuse; timed beside the plain version and the
+  that the fp32 check must refuse (fp_output_controls, and in fp32
+  fp32_controls); timed beside the plain version and the
   model's own unfused float layer (context: no single PyTorch call computes
   the layer)."""
   name_dt = str(dtype).replace("torch.", "")
@@ -1080,15 +1090,19 @@ def check_extra_convs_fp(dtype, gen, checks):
             f"{name}: max_abs_err {err}, {over} of its limit")
     k = K6_CONTROL_FRAMES
     controls = {}
-    for key, faulty in fused_extra_convs.fp_output_controls(
-        x[:k], *args[1:]).items():
+    faulty_layers = fused_extra_convs.fp_output_controls(x[:k], *args[1:])
+    if dtype == torch.float32:
+      faulty_layers.update(fused_extra_convs.fp32_controls(x[:k], *args[1:]))
+    for key, faulty in faulty_layers.items():
       apart = (faulty.float() - ref[:k].float()).abs()
       ratio = float((apart / limit[:k].clamp_min(1e-30)).max())
       controls[key] = dict(max_abs_err=float(apart.max()),
                            max_err_over_limit=ratio, refused=ratio > 1.0)
       require(ratio > 1.0 or dtype != torch.float32,
               f"{name}: the limit passes the control {key}: {controls[key]}")
-    del out, ref, diff, limit, apart, faulty
+    require(len(controls) == (5 if dtype == torch.float32 else 3),
+            f"{name}: controls {sorted(controls)}")
+    del out, ref, diff, limit, apart, faulty, faulty_layers
     assumptions = (fp_limit_assumptions(x[:k], args[1:])
                    if dtype == torch.bfloat16 else None)
     torch.cuda.empty_cache()
@@ -1473,7 +1487,8 @@ KERNEL_META = {
                    "(:233-237, operands :294-297; via _pallas_forward :261, "
                    "entry extra_convs_layer :336)",
         layer="K6f float ExtraConvs", run="extra_convs_fp_480",
-        loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (bf16: conv3x3_bf16_tma)",
+        loop="tapnet_tpu_torch/csrc/tma_gemm.cuh (bf16: conv3x3_bf16_tma; "
+             "fp32: split_tf32, conv3x3_tf32x3_tma, error-compensated TF32)",
     ),
     # TAPNext: the scan's inputs stay float32 in the served bf16 model.
     "linear_scan": dict(
@@ -1667,7 +1682,7 @@ LAYERS = (
 
 
 OWN_KERNELS = ("mixer_", "split_tf32", "corr_tents", "corr_quantize", "conv3x3_bf16",
-               "conv3x3_f32", "ln_bias_slab") + EXTRA_KERNELS
+               "conv3x3_tf32x3", "ln_bias_slab") + EXTRA_KERNELS
 
 
 def profile_request(request, unprofiled_wall_s, layers=LAYERS, own=OWN_KERNELS,
@@ -1861,8 +1876,8 @@ def extra_convs_fp_480(params, videos):
       require(bool(torch.isfinite(y.float()).all()), "extra-convs-fp-480: non-finite")
     profile = profile_request(
         lambda: [k6f_stack(x) for x in grids], float(np.mean(per_video)) / 1e3,
-        layers=(("K6f float ExtraConvs", ("conv3x3_bf16", "conv3x3_f32",
-                                          "ln_bias_rows", "ln_bias_slab")),)
+        layers=(("K6f float ExtraConvs", ("conv3x3_bf16", "conv3x3_tf32x3",
+                                          "ln_bias_slab")),)
         + LAYERS)
   return dict(
       config="bootstapir_config(), bf16 model, trained weights", videos=count,

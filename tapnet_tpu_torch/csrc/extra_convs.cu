@@ -1,10 +1,9 @@
 // The ExtraConvs of BootsTAPIR, hand-written for Hopper (sm_90a). The
-// per-frame int8 convolution (X) and the float layer's two bf16 products
-// (K6f in bf16) run on the TMA + wgmma GEMM loop of tma_gemm.cuh, which K3's
-// bf16 products share; K6f in fp32 on the SIMT cores (see
-// extra_convs_fp_forward below). The per-pixel int8 layer (K6) runs on the
-// int8 tile loop of q8_tile.cuh, which K4 (csrc/fused_mixer_block.cu)
-// shares.
+// per-frame int8 convolution (X) and the float layer's two products (K6f:
+// bf16, and float32 as error-compensated TF32) run on the TMA + wgmma GEMM
+// loop of tma_gemm.cuh, which K3's products share. The per-pixel int8 layer
+// (K6) runs on the int8 tile loop of q8_tile.cuh, which K4
+// (csrc/fused_mixer_block.cu) shares.
 //
 // conv3x3_q8_frame_forward: the per-frame w8a8 SAME 3x3 stride-1 convolution
 // (quantized_extra_convs=True). It replaces XLA's int8 convolution of
@@ -97,36 +96,45 @@
 //   y = T(t32 + (conv_out(h) + bo))
 // with T the model dtype, float32 sums, the residual on the float32 LN
 // output (not t). Taps outside the frame read zeros, so the hidden of a pad
-// pixel, which would be gelu(bu), never reaches conv_out.
-// bf16, three launches, X's padded-slab formulation in 2-byte operands:
-//   (a) ln_bias_slab: t32 dense [n*h*w, c], and t = bf16(t32) into the
-//       padded slab [n, h+2, w+2, c] with a zero ring;
-//   (b) conv3x3_bf16_tma<UpSlabEpilogue>: conv_up as one tg::gemm (bf16 x
-//       bf16 -> f32) over the padded raster, a shifted row box of the slab
-//       per tap (SlabLoader), the weights [m, 3, 3, c] a 3D tensor map {c,
-//       9, m}; the epilogue writes bf16(gelu(acc + bu)) into a second padded
-//       slab [n, h+2, w+2, m], zeros on its ring rows, so that conv_out
-//       reads a zero ring without a memset;
-//   (c) conv3x3_bf16_tma<OutSlabEpilogue>: conv_out the same way over the
-//       hidden slab; the epilogue stages acc + bo in float32 and stores
-//       bf16(t32 + (acc + bo)) for the rows inside their frame only, dense
-//       [n, h, w, c].
-// fp32: ln_bias_rows, then conv3x3_f32 twice, IEEE float32 products on the
-// SIMT cores (FFMA), not TF32, which keeps 10 bits and could not hold the
-// port's 1e-4; the hidden dense [n*h*w, m].
+// pixel, which would be gelu(bu), never reaches conv_out. Three launches
+// (float32: five, the weights' split first), X's padded-slab formulation:
+//   (a) ln_bias_slab<T>: t32 dense [n*h*w, c], and t = T(t32) into the
+//       padded slab [n, h+2, w+2, c] with a zero ring (in float32 t is t32);
+//   (b) conv_up as one tg::gemm over the padded raster, a shifted row box of
+//       the slab per tap (SlabLoader), the weights [m, 3, 3, c] a 3D tensor
+//       map {c, 9, m}; the epilogue (UpSlabEpilogue) writes T(gelu(acc +
+//       bu)) into a second padded slab [n, h+2, w+2, m], zeros on its ring
+//       rows, so that conv_out reads a zero ring without a memset;
+//   (c) conv_out the same way over the hidden slab; the epilogue
+//       (OutSlabEpilogue) stages acc + bo in float32 and stores T(t32 + (acc
+//       + bo)) for the rows inside their frame only, dense [n, h, w, c].
+// bf16 (conv3x3_bf16_tma): bf16 x bf16 -> f32 on 128 x 256 tiles. float32
+// (conv3x3_tf32x3_tma): tg::Tf32x3 on 128 x 128 tiles, each operand v =
+// tf32(v) + tf32(v - tf32(v)) and three TF32 products, each stage's sum
+// added to a second accumulator in IEEE float32, which holds the port's
+// 1e-4 at conv_out's K of 9 * 1024 (PERF.md section 6). tg::split_weights
+// splits each conv's weights into a [2, cout, 9, cin] scratch first (big
+// rows, then small); the B map {cin, 9, 2 cout} puts the small half of a
+// tile's columns n0 .. at row n0 + cout (Tf32x3::b_row). A is split in
+// registers from the swizzled slab box.
 // Bound: operations, two 3x3 products of 2 * 9 * 256 * 1024 operations per
-// pixel, 8.49 T at [250, 60, 60] (8.6 ms at the bf16 peak, 127 ms at the
-// fp32 SIMT peak); the hidden's round trip (1.97 GB in the bf16 slab) is
-// 0.6 ms more. The ring rows are computed and dropped, as X's: 6.8% more
-// work at 60x60, 13% at 32x32. conv_up has 36 K steps a tile (9 taps x 4),
-// so its GELU epilogue weighs a ninth of what it does in K3's 8-step GEMM 1;
-// conv_up's four N tiles of the 4.7 MB weights and conv_out's one of 0.5 MB
-// stay in L2 while the persistent CTAs walk N fastest.
-// (fused_extra_convs.fp_padded_slab emulates this indexing in float64.)
+// pixel, 8.49 T at [250, 60, 60]: 8.6 ms at the bf16 peak, 51.5 ms in
+// float32 (three TF32 products at 495 TFLOP/s); the hidden's round trip
+// (1.97 GB in the bf16 slab, 3.94 GB in float32) is 0.6 and 1.2 ms more. The
+// ring rows are computed and dropped, as X's: 6.8% more work at 60x60, 13%
+// at 32x32. conv_up has 36 K steps a tile in bf16 (9 taps x 4), 72 in
+// float32 (9 x 8), so its GELU epilogue weighs little beside the products;
+// the persistent CTAs walk N fastest, so conv_up's N tiles of the weights
+// (bf16: four of 1.2 MB; float32: eight of 2.4 MB, split) and conv_out's
+// (one of 4.7 MB; two of 9.4 MB) stay in L2 (50 MB).
+// (fused_extra_convs.fp_padded_slab emulates this indexing in float64, and
+// with terms="tf32x3" the float32 arithmetic.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "q8_tile.cuh"
 #include "tma_gemm.cuh"
@@ -389,24 +397,25 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0 && amax != nullptr) amax[row] = m;
 }
 
-// (a) of K6f in bf16: one warp per row of the padded slab t [n, h+2, w+2, c]:
-// zeros on the ring; inside, the pixel's t32 (dense [n*h*w, c]) and its bf16
-// rounding in the slab row.
+// (a) of K6f: one warp per row of the padded slab t [n, h+2, w+2, c] in the
+// model dtype T: zeros on the ring; inside, the pixel's t32 (dense [n*h*w,
+// c]) and T(t32) in the slab row (in float32 the same values).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ln_bias_slab(const bf16* __restrict__ x, const float* __restrict__ g,
+    ln_bias_slab(const T* __restrict__ x, const float* __restrict__ g,
                  const float* __restrict__ b, float* __restrict__ t32,
-                 bf16* __restrict__ t, int padded_rows, int h, int w, int c) {
+                 T* __restrict__ t, int padded_rows, int h, int w, int c) {
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= padded_rows) return;
-  bf16* dst = t + static_cast<size_t>(row) * c;
+  T* dst = t + static_cast<size_t>(row) * c;
   const PaddedRow p(row, h, w);
   if (!p.inside(h, w)) {
-    for (int k = lane; k < c; k += 32) dst[k] = __float2bfloat16_rn(0.f);
+    for (int k = lane; k < c; k += 32) dst[k] = from_f<T>(0.f);
     return;
   }
   const size_t pix = p.pixel(h, w) * c;
-  ln_row<bf16>(x + pix, g, b, t32 + pix, dst, c, lane);
+  ln_row<T>(x + pix, g, b, t32 + pix, dst, c, lane);
 }
 
 // (b) One thread per pixel: the scale of its 3x3 patch.
@@ -455,21 +464,22 @@ __device__ __forceinline__ long long a_source(const int* s_y, const int* s_x,
   return (static_cast<long long>(m0 + r) + dy * w + dx) * cin + c;
 }
 
-// ------------------------------------------------ K6f in bf16 on tma_gemm
+// ------------------------------------------------------ K6f on tma_gemm
 
-// conv_up's epilogue: the hidden slab [n, h+2, w+2, m] gets
-// bf16(gelu(acc + bu)) on the rows inside their frame and zeros on its ring
-// rows (every row of the GEMM is stored), so that conv_out reads a zero ring
-// without a memset.
+// conv_up's epilogue: the hidden slab [n, h+2, w+2, m] in the model dtype T
+// gets T(gelu(acc + bu)) on the rows inside their frame and zeros on its
+// ring rows (every row of the GEMM is stored), so that conv_out reads a zero
+// ring without a memset.
+template <typename T>
 struct UpSlabEpilogue {
-  using Out = bf16;
+  using Out = T;
   const float* bias;
-  bf16* hidden;
+  T* hidden;
   int h, w, m;
   struct Row {
     bool ok;
     bool inside;
-    bf16* dst;
+    T* dst;
   };
   __device__ __forceinline__ Row row(int r) const {
     return Row{true, PaddedRow(r, h, w).inside(h, w),
@@ -483,14 +493,29 @@ struct UpSlabEpilogue {
   }
 };
 
-// conv_out's epilogue: it stages acc + bo in float32, and stores
-// bf16(t32 + (acc + bo)) for the rows inside their frame into out [n, h, w,
-// c], reading t32 (dense [n*h*w, c]) beside it as 16-byte pieces.
+// Four float32 values stored as T: one 16-byte float4, or four bf16 rounded
+// to nearest.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 o;
+  o.x = *reinterpret_cast<const uint32_t*>(&lo);
+  o.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = o;
+}
+
+// conv_out's epilogue: it stages acc + bo in float32, and stores T(t32 +
+// (acc + bo)) for the rows inside their frame into out [n, h, w, c], reading
+// t32 (dense [n*h*w, c]) beside it as 16-byte pieces.
+template <typename T>
 struct OutSlabEpilogue {
   using Out = float;
   const float* bias;
   const float* t32;
-  bf16* out;
+  T* out;
   int h, w, c;
   struct Row {
     bool ok;
@@ -506,14 +531,11 @@ struct OutSlabEpilogue {
   }
   __device__ __forceinline__ void store(const Row& r, int col, uint4 v) const {
     const float4 t = *reinterpret_cast<const float4*>(t32 + r.base + col);
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(
-        __fadd_rn(t.x, __uint_as_float(v.x)), __fadd_rn(t.y, __uint_as_float(v.y)));
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(
-        __fadd_rn(t.z, __uint_as_float(v.z)), __fadd_rn(t.w, __uint_as_float(v.w)));
-    uint2 o;
-    o.x = *reinterpret_cast<const uint32_t*>(&lo);
-    o.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(out + r.base + col) = o;
+    const float y[4] = {__fadd_rn(t.x, __uint_as_float(v.x)),
+                        __fadd_rn(t.y, __uint_as_float(v.y)),
+                        __fadd_rn(t.z, __uint_as_float(v.z)),
+                        __fadd_rn(t.w, __uint_as_float(v.w))};
+    store4(out + r.base + col, y);
   }
 };
 
@@ -526,10 +548,20 @@ __global__ void __launch_bounds__(tg::kThreads, 1)
   tg::gemm<tg::Bf16>(smem_raw, &a_map, &w_map, pb, ld, ep);
 }
 
+template <typename Epi>
+__global__ void __launch_bounds__(tg::kThreads, 1)
+    conv3x3_tf32x3_tma(const __grid_constant__ CUtensorMap a_map,
+                       const __grid_constant__ CUtensorMap w_map, tg::Problem pb,
+                       SlabLoader ld, Epi ep) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  tg::gemm<tg::Tf32x3>(smem_raw, &a_map, &w_map, pb, ld, ep);
+}
+
 // One 3x3 convolution of padded frames a [rows, cin] (rows = n (h+2) (w+2))
-// with the weights wt [cout, 3, 3, cin], in Op's operand type, as one GEMM
-// over the padded raster on `kernel` (a __global__ that calls tg::gemm<Op>):
-// K = 9 taps of whole tg::kBK-byte steps of channels (zeros past cin).
+// with the weights wt [cout, 3, 3, cin] (Tf32x3: split, [2 cout, 3, 3, cin]),
+// in Op's operand type, as one GEMM over the padded raster on `kernel` (a
+// __global__ that calls tg::gemm<Op>): K = 9 taps of whole tg::kBK-byte
+// steps of channels (zeros past cin).
 template <typename Op, typename Kernel, typename Epi>
 cudaError_t conv3x3_slab(Kernel kernel, const void* a, const void* wt, int rows,
                          int cin, int cout, int w, const Epi& ep, cudaStream_t s) {
@@ -539,7 +571,9 @@ cudaError_t conv3x3_slab(Kernel kernel, const void* a, const void* wt, int rows,
   const uint64_t a_strides[1] = {row_bytes};
   cudaError_t err = tg::make_map(&a_map, Op::kType, Op::kElem, 2, a, a_dims, a_strides);
   if (err != cudaSuccess) return err;
-  const uint64_t w_dims[3] = {static_cast<uint64_t>(cin), 9, static_cast<uint64_t>(cout)};
+  const uint64_t w_rows =
+      static_cast<uint64_t>(cout) * (std::is_same<Op, tg::Tf32x3>::value ? 2 : 1);
+  const uint64_t w_dims[3] = {static_cast<uint64_t>(cin), 9, w_rows};
   const uint64_t w_strides[2] = {row_bytes, 9 * row_bytes};
   err = tg::make_map(&w_map, Op::kType, Op::kElem, 3, wt, w_dims, w_strides);
   if (err != cudaSuccess) return err;
@@ -549,141 +583,18 @@ cudaError_t conv3x3_slab(Kernel kernel, const void* a, const void* wt, int rows,
   return tg::launch(kernel, pb, s, a_map, w_map, pb, ld, ep);
 }
 
-// ------------------------------------------------------- K6f in fp32, SIMT
-
-constexpr int kBM = 128, kBN = 128;  // the fp32 loop's output tile
-
-// Modes of the loop: K6f's two convolutions.
-constexpr int kUpF = 3;    // conv_up: hidden = gelu(acc + bu)
-constexpr int kOutF = 4;   // conv_out: out = t32 + (acc + bo)
-
-struct ConvParams {
-  const float* a;          // kUpF: t32, kOutF: the hidden [P, cin]
-  const float* wt;         // [cout, 9 * cin], k = tap * cin + c
-  const float* bias;       // [cout]
-  const float* t32;        // kOutF: [P, cout] residual
-  float* out;              // [P, cout] (kUpF: the hidden)
-  int n, h, w, cin, cout;
-};
-
-// K6f's epilogues, per output element: acc the float32 tap sum.
-template <int MODE>
-__device__ __forceinline__ void fp_epilogue(const ConvParams& p, int row,
-                                            int col, float acc) {
-  const size_t o = static_cast<size_t>(row) * p.cout + col;
-  const float v = __fadd_rn(acc, p.bias[col]);
-  if constexpr (MODE == kUpF) {
-    p.out[o] = gelu_tanh(v);
+// One of K6f's products in the model dtype T: bf16 on tg::Bf16, float32 on
+// tg::Tf32x3 (wt split).
+template <typename T, typename Epi>
+cudaError_t fp_conv(const void* a, const void* wt, int rows, int cin, int cout, int w,
+                    const Epi& ep, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    return conv3x3_slab<tg::Tf32x3>(conv3x3_tf32x3_tma<Epi>, a, wt, rows, cin, cout, w,
+                                    ep, s);
   } else {
-    p.out[o] = __fadd_rn(p.t32[o], v);
+    return conv3x3_slab<tg::Bf16>(conv3x3_bf16_tma<Epi>, a, wt, rows, cin, cout, w, ep,
+                                  s);
   }
-}
-
-// K6f in fp32: SIMT, 128 x 128 tiles, K chunks of 16 values, each thread an
-// 8 x 8 block of outputs by fmaf (IEEE float32). Both operands are read as
-// 16-byte pieces into registers one chunk ahead and stored k-major
-// ([k][row]), so a step of the product reads 8 rows and 8 columns as float4s.
-constexpr int kFK = 16;
-constexpr int kFLd = kBM + 4;
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) conv3x3_f32(ConvParams p) {
-  __shared__ __align__(16) float as[2][kFK][kFLd];
-  __shared__ __align__(16) float bs[2][kFK][kFLd];
-  __shared__ int s_y[kBM], s_x[kBM];
-
-  const int rows = p.n * p.h * p.w;
-  const int K = 9 * p.cin;
-  const int ncol = (p.cout + kBN - 1) / kBN;
-  const int m0 = (blockIdx.x / ncol) * kBM;
-  const int n0 = (blockIdx.x % ncol) * kBN;
-  const int tid = threadIdx.x;
-  tile_rows(s_y, s_x, m0, kBM, rows, p.h, p.w);
-  __syncthreads();
-  const float* a = p.a;
-  const float* wt = p.wt;
-
-  float4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece >> 2, k = k0 + (piece & 3) * 4;
-      const long long src = a_source(s_y, s_x, m0, r, k, K, p.cin, p.h, p.w);
-      ra[i] = src >= 0 ? *reinterpret_cast<const float4*>(a + src)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      rb[i] = (n0 + r < p.cout && k < K)
-                  ? *reinterpret_cast<const float4*>(
-                        wt + static_cast<size_t>(n0 + r) * K + k)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store = [&](int stage) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int piece = tid + i * kThreads;
-      const int r = piece >> 2, kk = (piece & 3) * 4;
-      as[stage][kk][r] = ra[i].x;
-      as[stage][kk + 1][r] = ra[i].y;
-      as[stage][kk + 2][r] = ra[i].z;
-      as[stage][kk + 3][r] = ra[i].w;
-      bs[stage][kk][r] = rb[i].x;
-      bs[stage][kk + 1][r] = rb[i].y;
-      bs[stage][kk + 2][r] = rb[i].z;
-      bs[stage][kk + 3][r] = rb[i].w;
-    }
-  };
-
-  const int tx = tid & 15, ty = tid >> 4;  // rows ty*8.., columns tx*8..
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int nk = (K + kFK - 1) / kFK;
-  fetch(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * kFK);
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[cur][kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 8 + 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + ty * 8 + i;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx * 8 + j;
-      if (col < p.cout) fp_epilogue<MODE>(p, row, col, acc[i][j]);
-    }
-  }
-}
-
-template <int MODE>
-cudaError_t run_conv(const ConvParams& prm, cudaStream_t s) {
-  const long long rows = static_cast<long long>(prm.n) * prm.h * prm.w;
-  const long long blocks = ((rows + kBM - 1) / kBM) * ((prm.cout + kBN - 1) / kBN);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  conv3x3_f32<MODE><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(prm);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------- K6 on the q8 tile loop
@@ -1092,55 +1003,45 @@ int launch_pixel(const void* x, const void* g, const void* bln, const void* wuq,
   return cudaGetLastError();
 }
 
-// K6f in fp32: LN, then conv_up and conv_out on the SIMT loop, the hidden
-// dense [rows, m].
-int launch_fp32(const void* x, const void* g, const void* bln, const void* wu,
-                const void* bu, const void* wo, const void* bo, void* t32,
-                void* hidden, void* out, int n, int h, int w, int c, int m,
-                cudaStream_t s) {
-  const int rows = n * h * w;
-  const int warp_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  ln_bias_rows<float><<<warp_blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(bln), static_cast<float*>(t32), nullptr, rows, c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ConvParams up{static_cast<const float*>(t32), static_cast<const float*>(wu),
-                static_cast<const float*>(bu), nullptr, static_cast<float*>(hidden),
-                n, h, w, c, m};
-  err = run_conv<kUpF>(up, s);
-  if (err != cudaSuccess) return err;
-  ConvParams down{static_cast<const float*>(hidden), static_cast<const float*>(wo),
-                  static_cast<const float*>(bo), static_cast<const float*>(t32),
-                  static_cast<float*>(out), n, h, w, m, c};
-  return run_conv<kOutF>(down, s);
-}
-
-// K6f in bf16: LN into the padded slab t, then conv_up into the padded
-// hidden slab and conv_out into out, each one GEMM on tma_gemm.cuh.
-int launch_fp_bf16(const void* x, const void* g, const void* bln, const void* wu,
-                   const void* bu, const void* wo, const void* bo, void* t32,
-                   void* t, void* hidden, void* out, int n, int h, int w, int c,
-                   int m, cudaStream_t s) {
+// K6f: LN into the padded slab t, then conv_up into the padded hidden slab
+// and conv_out into out, each one GEMM on tma_gemm.cuh; in float32 each
+// conv's weights are first split into their TF32 parts in wsplit.
+template <typename T>
+int launch_fp(const void* x, const void* g, const void* bln, const void* wu,
+              const void* bu, const void* wo, const void* bo, void* t32, void* t,
+              void* hidden, void* wsplit, void* out, int n, int h, int w, int c,
+              int m, cudaStream_t s) {
   const long long rows = static_cast<long long>(n) * (h + 2) * (w + 2);
   if (rows + tg::kBM + w + 3 > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int padded = static_cast<int>(rows);
-  ln_bias_slab<<<(padded + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(bln), static_cast<float*>(t32),
-      static_cast<bf16*>(t), padded, h, w, c);
-  cudaError_t err = cudaGetLastError();
+  const void* wu_op = wu;
+  const void* wo_op = wo;
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    // [2, m, 9, c] for conv_up, then [2, c, 9, m] for conv_out.
+    const long long count = 9LL * m * c;
+    float* split = static_cast<float*>(wsplit);
+    err = tg::split_weights(static_cast<const float*>(wu), split, count, s);
+    if (err != cudaSuccess) return err;
+    err = tg::split_weights(static_cast<const float*>(wo), split + 2 * count, count, s);
+    if (err != cudaSuccess) return err;
+    wu_op = split;
+    wo_op = split + 2 * count;
+  }
+  ln_bias_slab<T><<<(padded + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(bln), static_cast<float*>(t32), static_cast<T*>(t),
+      padded, h, w, c);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const UpSlabEpilogue up{static_cast<const float*>(bu), static_cast<bf16*>(hidden),
-                          h, w, m};
-  err = conv3x3_slab<tg::Bf16>(conv3x3_bf16_tma<UpSlabEpilogue>, t, wu, padded, c,
-                               m, w, up, s);
+  const UpSlabEpilogue<T> up{static_cast<const float*>(bu), static_cast<T*>(hidden), h,
+                             w, m};
+  err = fp_conv<T>(t, wu_op, padded, c, m, w, up, s);
   if (err != cudaSuccess) return err;
-  const OutSlabEpilogue down{static_cast<const float*>(bo),
-                             static_cast<const float*>(t32), static_cast<bf16*>(out),
-                             h, w, c};
-  return conv3x3_slab<tg::Bf16>(conv3x3_bf16_tma<OutSlabEpilogue>, hidden, wo,
-                                padded, m, c, w, down, s);
+  const OutSlabEpilogue<T> down{static_cast<const float*>(bo),
+                                static_cast<const float*>(t32), static_cast<T*>(out),
+                                h, w, c};
+  return fp_conv<T>(hidden, wo_op, padded, m, c, w, down, s);
 }
 
 }  // namespace
@@ -1213,30 +1114,29 @@ int extra_convs_q8_pixel_forward(const void* x, const void* g, const void* bln,
 // K6f: one ExtraConvs layer in full precision. x [n, h, w, c] (NHWC) in the
 // model dtype (0: float32, 1: bfloat16); g, bln [c], bu [m], bo [c] float32;
 // wu [m, 3, 3, c] and wo [c, 3, 3, m] in the model dtype (OHWI); scratch t32
-// float32 [n*h*w, c]; out [n, h, w, c] in the model dtype. bf16: t [n, h+2,
-// w+2, c] and hidden [n, h+2, w+2, m] bf16, the padded slabs (every pointer
-// 16-byte aligned); fp32: t unused, hidden float32 [n*h*w, m]. c and m
-// multiples of 16. gemm_smem: the GEMMs' dynamic shared memory as the
-// caller's launch plan gives it (bf16: tg::kSmemBytes; fp32: 0); a plan
-// that disagrees is refused.
+// float32 [n*h*w, c], t [n, h+2, w+2, c] and hidden [n, h+2, w+2, m] in the
+// model dtype (the padded slabs), and for float32 wsplit [4 * 9 * m * c]
+// (the weights' TF32 parts; null for bf16); out [n, h, w, c] in the model
+// dtype; every pointer 16-byte aligned. c and m multiples of 16. gemm_smem:
+// the GEMMs' dynamic shared memory as the caller's launch plan gives it
+// (tg::kSmemBytes); a plan that disagrees is refused.
 int extra_convs_fp_forward(const void* x, const void* g, const void* bln,
                            const void* wu, const void* bu, const void* wo,
                            const void* bo, void* t32, void* t, void* hidden,
-                           void* out, int n, int h, int w, int c, int m,
-                           int gemm_smem, int dtype, void* stream) {
+                           void* wsplit, void* out, int n, int h, int w, int c,
+                           int m, int gemm_smem, int dtype, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || m <= 0 || c % 16 != 0 ||
-      m % 16 != 0 || static_cast<long long>(n) * h * w + kBM > 0x7fffffffLL ||
-      gemm_smem != (dtype == 1 ? tg::kSmemBytes : 0)) {
+      m % 16 != 0 || gemm_smem != tg::kSmemBytes || (dtype == 0 && wsplit == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_fp32(x, g, bln, wu, bu, wo, bo, t32, hidden, out, n, h, w, c,
-                       m, s);
+    return launch_fp<float>(x, g, bln, wu, bu, wo, bo, t32, t, hidden, wsplit, out, n,
+                            h, w, c, m, s);
   }
   if (dtype == 1) {
-    return launch_fp_bf16(x, g, bln, wu, bu, wo, bo, t32, t, hidden, out, n, h,
-                          w, c, m, s);
+    return launch_fp<bf16>(x, g, bln, wu, bu, wo, bo, t32, t, hidden, nullptr, out, n,
+                           h, w, c, m, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -90,7 +90,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <type_traits>
 
 #include "q8_tile.cuh"
@@ -727,13 +726,6 @@ cudaError_t run_gemm(const T* a, const T* w, int m, int n, int k, Epilogue<T> ep
                     RowLoader{tg::kBK / Op::kElem}, pep);
 }
 
-// float32: splits w [n, k] into out [2, n, k] for tg::Tf32x3.
-cudaError_t split_weight(const float* w, float* out, long long count, cudaStream_t s) {
-  const long long blocks = std::min<long long>((count + 255) / 256, 4096);
-  tg::split_tf32<<<static_cast<unsigned>(blocks), 256, 0, s>>>(w, out, count);
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch(const void* x, const void* g1, const void* wu, const void* bu,
            const void* wm, const void* bm, const void* g2, const void* w1,
@@ -748,9 +740,9 @@ int launch(const void* x, const void* g1, const void* wu, const void* bu,
     // The weights' big and small TF32 parts, [2, hid, c] and [2, c, hid].
     const long long count = static_cast<long long>(hid) * c;
     float* split = static_cast<float*>(wsplit);
-    err = split_weight(w1_op, split, count, s);
+    err = tg::split_weights(w1_op, split, count, s);
     if (err != cudaSuccess) return err;
-    err = split_weight(w2_op, split + 2 * count, count, s);
+    err = tg::split_weights(w2_op, split + 2 * count, count, s);
     if (err != cudaSuccess) return err;
     w1_op = split;
     w2_op = split + 2 * count;

@@ -6,8 +6,10 @@
 //   * Bf16: K3's two channel-MLP products in bf16 (csrc/fused_mixer_block.cu)
 //     and K6f's conv_up and conv_out in bf16 (csrc/extra_convs.cu), bf16 x
 //     bf16 -> f32;
-//   * Tf32x3: K3's two products in float32, as error-compensated TF32 (three
-//     tensor-core products of the operands' big and small TF32 parts).
+//   * Tf32x3: K3's two products and K6f's conv_up and conv_out in float32
+//     (csrc/fused_mixer_block.cu, csrc/extra_convs.cu), as error-compensated
+//     TF32 (three tensor-core products of the operands' big and small TF32
+//     parts).
 //
 // C[M, N] = A[M, K] . B[N, K]^T, both operands K-major. A CTA owns a 128 x
 // Op::kBN output tile (256 columns for S8 and Bf16, 128 for Tf32x3); K goes
@@ -419,6 +421,14 @@ __global__ void split_tf32(const float* __restrict__ w, float* __restrict__ out,
     out[i] = __uint_as_float(big);
     out[count + i] = __uint_as_float(tf32_rna(v - __uint_as_float(big)));
   }
+}
+
+// Launches split_tf32 on w [count values] into out [2 * count] on stream s.
+inline cudaError_t split_weights(const float* w, float* out, long long count,
+                                 cudaStream_t s) {
+  const long long blocks = (count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096;
+  split_tf32<<<static_cast<unsigned>(blocks > 0 ? blocks : 1), 256, 0, s>>>(w, out, count);
+  return cudaGetLastError();
 }
 
 // The problem: C [m, n], K in nk steps of kBK bytes, tiles_m x tiles_n

@@ -28,12 +28,13 @@ tap-decomposed kernel can dequantize exactly:
   * CUDA tensors with `quantized=False` launch K6f, `extra_convs_fp_forward`
     of the same source (the JAX `_math_reference(quantized=False)`: conv
     operands in x.dtype, float32 sums, the hidden rounded to x.dtype, the
-    residual on the float32 LN output). In bf16 its two products are one
-    GEMM each over zero-ringed frames on the TMA + wgmma loop of
-    `csrc/tma_gemm.cuh`, as X's (`fp_launch_plan`; `fp_padded_slab`
-    emulates the indexing); in fp32 they run on the SIMT cores. No model
-    path reaches it, as in JAX: `wants_fused` demands the per-pixel mode,
-    and `layers.ExtraConvs` runs its float layers as plain convolutions.
+    residual on the float32 LN output). Its two products are one GEMM each
+    over zero-ringed frames on the TMA + wgmma loop of `csrc/tma_gemm.cuh`,
+    as X's (`fp_launch_plan`): bf16 in bf16, float32 as error-compensated
+    TF32 (`fp_padded_slab` emulates the indexing, and with `terms` the
+    float32 arithmetic). No model path reaches it, as in JAX: `wants_fused`
+    demands the per-pixel mode, and `layers.ExtraConvs` runs its float
+    layers as plain convolutions.
   * Any other device raises. There is no size gate and no fallback.
 
 `wants_fused` is the JAX package's gate, and it chooses the *math*: the
@@ -50,7 +51,8 @@ from tapnet_tpu_torch.ops import _build, qconv, tma_gemm
 from tapnet_tpu_torch.ops.mixer_math import gelu
 
 # Number of CUDA launches made through `extra_convs_layer`, one per layer
-# call: K6 (its four kernels count once) and K6f (three kernels).
+# call: K6 (its four kernels count once) and K6f (three kernels; five in
+# float32, with the weights' split).
 LAUNCHES = 0
 LAUNCHES_FP = 0
 
@@ -94,22 +96,25 @@ def quantized_weights(wu: torch.Tensor, wo: torch.Tensor):
           *qconv.quantize_conv_weight(wo.permute(3, 2, 0, 1)))
 
 
-def _conv_fp(v, w, b, padding=1):
+def _conv_fp(v, w, b, padding=1, terms=None):
   """3x3 conv of [N, H, W, C_in] with an HWIO kernel (SAME with padding 1,
   VALID with 0): operands in v.dtype, float32 products (exact for bf16
   values) summed in float32, + bias. Written as 9 tap matmuls, so that the
   sums are of the products themselves on any device, whatever algorithm a
   convolution library would pick (Winograd and FFT algorithms transform the
-  operands first)."""
+  operands first). With `terms` (float32 operands), the products of the
+  operands' TF32 parts that `tma_gemm.TF32X3_TERMS[terms]` names, summed in
+  float64 and rounded to float32 once."""
   w = w.to(v.dtype).float()
   vp = F.pad(v.float(), (0, 0, padding, padding, padding, padding))
   h, wd = vp.shape[1] - 2, vp.shape[2] - 2
-  acc = None
-  for dy in range(3):
-    for dx in range(3):
-      part = torch.matmul(vp[:, dy : dy + h, dx : dx + wd], w[dy, dx])
-      acc = part if acc is None else acc + part
-  return acc + b.float()
+  pairs = [(vp, w)] if terms is None else tma_gemm.tf32x3_pairs(vp, w, terms)
+  acc = 0
+  for a, k in pairs:
+    for dy in range(3):
+      for dx in range(3):
+        acc = acc + torch.matmul(a[:, dy : dy + h, dx : dx + wd], k[dy, dx])
+  return acc.float() + b.float()
 
 
 def _conv_q8_patch(v32, wuq, su, b):
@@ -134,17 +139,18 @@ def _conv_q8(v32, woq, so, b):
 
 
 def _layer_reference(x, g, bln, wu, bu, wo, bo, quantized, qweights,
-                     parts=False):
+                     parts=False, terms=None):
   """The layer; with `parts` (quantized only), also (t32, the int8 hidden
-  and its pixel scales)."""
+  and its pixel scales); with `terms`, the full-precision layer's products
+  as `_conv_fp` computes them from TF32 parts."""
   t32 = _ln_bias(x, g, bln)
   if quantized:
     wuq, su, woq, so = qweights
     hidden = gelu(_conv_q8_patch(t32, wuq, su, bu))
     out, hq, hs = _conv_q8(hidden, woq, so, bo)
   else:
-    hidden = gelu(_conv_fp(t32.to(x.dtype), wu, bu)).to(x.dtype)
-    out = _conv_fp(hidden, wo, bo)
+    hidden = gelu(_conv_fp(t32.to(x.dtype), wu, bu, terms=terms)).to(x.dtype)
+    out = _conv_fp(hidden, wo, bo, terms=terms)
   y = (t32 + out).to(x.dtype)
   return (y, t32, hq, hs) if parts else y
 
@@ -280,8 +286,14 @@ def fp_error_limit(x, g, bln, wu, bu, wo, bo, unfused: bool = False):
   full-precision layer (with `unfused`, on |kernel - the model's unfused
   float layer|, below).
 
-  float32: the port's 1e-4, absolute and relative (the two sum the same
-  float32 products in other orders, about 1e-7 apart).
+  float32: the port's 1e-4, absolute and relative. The kernel takes each
+  product as three TF32 products of the operands' big and small parts
+  (about 2^-22 of the product apart: the dropped A_small . B_small and the
+  small parts' rounding), sums each K step's in the tensor cores and the
+  steps in IEEE float32, in another order than the plain version's float32
+  sums; `fp_padded_slab(terms="tf32x3")` emulates that within the limit
+  at the served widths, and the limit refuses one TF32 product and the
+  split without A_small . B_big (`fp32_controls`).
 
   bfloat16: both sides take conv products of the same bf16 values exactly
   and sum them in float32, so they differ where that noise makes a rounding
@@ -372,11 +384,39 @@ def fp_output_controls(x, g, bln, wu, bu, wo, bo):
   }
 
 
-def fp_padded_slab(x, g, bln, wu, bu, wo, bo):
-  """The bf16 kernel's indexing of the full-precision layer (K6f), in
-  float64 products on the CPU. Arguments and result as
+def fp32_controls(x, g, bln, wu, bu, wo, bo):
+  """Faulty float32 layers that `fp_error_limit` (1e-4) must refuse, as
+  `fused_mixer_block.fp32_controls` are for K3: `single_tf32`, both
+  convolutions in one TF32 product (on a CUDA tensor the plain layer with
+  `torch.backends.cuda.matmul.allow_tf32` on; on the CPU float64 products of
+  the operands rounded to TF32); `no_small_a`, the split without its
+  A_small . B_big term (the activations rounded to TF32)."""
+  width = 3 * (9 * x.shape[-1] + 4 * bu.shape[0])  # float64 parts
+
+  def layer(terms):
+    return qconv.over_frames(
+        lambda v: _layer_reference(v, g, bln, wu, bu, wo, bo, False, None,
+                                   terms=terms), x, width)
+
+  if x.device.type == "cuda":
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+      single = extra_convs_layer_reference(x, g, bln, wu, bu, wo, bo, False)
+    finally:
+      torch.backends.cuda.matmul.allow_tf32 = before
+  else:
+    single = layer("single_tf32")
+  return {"single_tf32": single, "no_small_a": layer("no_small_a")}
+
+
+def fp_padded_slab(x, g, bln, wu, bu, wo, bo, terms=None):
+  """The kernel's indexing of the full-precision layer (K6f), in float64
+  products on the CPU. Arguments and result as
   `extra_convs_layer_reference(quantized=False)`, which this must equal up
-  to float32 summation order.
+  to float32 summation order. With `terms` (float32), the products are
+  those of the operands' TF32 parts that `tma_gemm.TF32X3_TERMS[terms]`
+  names: "tf32x3" is the float32 kernel's arithmetic with exact sums.
 
   t = T(t32) goes into zero-ringed frames viewed as rows [N (H+2) (W+2), C];
   conv_up is one GEMM over those rows (`qconv.slab_conv3x3`, K steps of
@@ -389,35 +429,35 @@ def fp_padded_slab(x, g, bln, wu, bu, wo, bo):
   m = wu.shape[-1]
   dt = x.dtype
   step = tma_gemm.K_BYTES // x.element_size()
+
+  def conv(slab, wt):
+    pairs = ([(slab, wt)] if terms is None
+             else tma_gemm.tf32x3_pairs(slab, wt, terms))
+    return sum(qconv.slab_conv3x3(a, k, w + 2, step) for a, k in pairs).float()
+
   t32 = _ln_bias(x, g, bln)
   inside = torch.zeros(n, h + 2, w + 2, 1, dtype=torch.bool)
   inside[:, 1:h + 1, 1:w + 1] = True
-  slab = F.pad(t32.to(dt).double(), (0, 0, 1, 1, 1, 1)).reshape(-1, c)
-  wu_t = wu.to(dt).permute(3, 0, 1, 2)
-  up = qconv.slab_conv3x3(slab, wu_t, w + 2, step).float().reshape(
-      n, h + 2, w + 2, m)
+  slab = F.pad(t32.to(dt), (0, 0, 1, 1, 1, 1)).reshape(-1, c)
+  up = conv(slab, wu.to(dt).permute(3, 0, 1, 2)).reshape(n, h + 2, w + 2, m)
   hidden = torch.where(inside, gelu(up + bu.float()), 0.0).to(dt)
-  wo_t = wo.to(dt).permute(3, 0, 1, 2)
-  out = qconv.slab_conv3x3(hidden.reshape(-1, m), wo_t, w + 2, step)
-  out = out.float().reshape(n, h + 2, w + 2, c)[:, 1:h + 1, 1:w + 1]
+  out = conv(hidden.reshape(-1, m), wo.to(dt).permute(3, 0, 1, 2))
+  out = out.reshape(n, h + 2, w + 2, c)[:, 1:h + 1, 1:w + 1]
   return (t32 + (out + bo.float())).to(dt), hidden
-
-
-# K6f in fp32 (csrc/extra_convs.cu, conv3x3_f32): 128 x 128 output tiles of
-# 256 threads, operands in static shared memory.
-_FP32_TILE, _FP32_THREADS = 128, 256
 
 
 def fp_launch_plan(n, h, w, c, m, dtype=torch.bfloat16):
   """How K6f launches on x [n, h, w, c] with hidden width m in `dtype`.
 
-  bf16: the LayerNorm writes t into zero-ringed frames `t_shape`; conv_up
-  and conv_out are one GEMM each over the padded rows (`tma_gemm.gemm_plan`,
-  9 taps of ceil(2 C / 128) and ceil(2 M / 128) K steps), conv_up writing
-  the padded hidden `hidden_shape`. fp32: the SIMT loop's 128 x 128 tiles,
-  the hidden dense [n*h*w, m], no dynamic shared memory. `gemm_smem_bytes`
-  is what the wrapper passes and the kernel checks. Raises for what the
-  kernels do not take."""
+  The LayerNorm writes t into zero-ringed frames `t_shape`; conv_up and
+  conv_out are one GEMM each over the padded rows (`tma_gemm.gemm_plan`, 9
+  taps of ceil(e C / 128) and ceil(e M / 128) K steps for e bytes a value),
+  conv_up writing the padded hidden `hidden_shape`. bf16 on TILE_N-column
+  tiles; float32 as error-compensated TF32 on TILE_N_TF32-column tiles,
+  with the weights' big and small TF32 parts in a float32 scratch of
+  `split_elements` values ([2, M, 9, C] for conv_up, then [2, C, 9, M]).
+  `gemm_smem_bytes` is what the wrapper passes and the kernel checks.
+  Raises for what the kernels do not take."""
   if dtype not in qconv.DTYPES:
     raise TypeError(
         f"extra_convs_layer: x must be float32 or bfloat16, got {dtype}")
@@ -427,32 +467,27 @@ def fp_launch_plan(n, h, w, c, m, dtype=torch.bfloat16):
     raise ValueError(
         "extra_convs_layer: K6f needs C and the hidden width multiples of 16, "
         f"got {c} and {m}")
-  rows = n * h * w
-  if rows + _FP32_TILE > _INT32_MAX:
-    raise ValueError(f"extra_convs_layer: {rows} pixels overflow the kernels' "
-                     "32-bit pixel index")
-  if dtype == torch.float32:
-    tiles = lambda cols: -(-rows // _FP32_TILE) * -(-cols // _FP32_TILE)
-    return dict(rows=rows, t_shape=None, hidden_shape=(rows, m),
-                up=dict(grid=tiles(m), threads=_FP32_THREADS),
-                out=dict(grid=tiles(c), threads=_FP32_THREADS),
-                gemm_smem_bytes=0)
   padded = n * (h + 2) * (w + 2)
   if padded + w + 3 + tma_gemm.TILE_M > _INT32_MAX:
     raise ValueError(f"extra_convs_layer: {padded} padded rows overflow the "
                      "kernels' coordinates")
-  k_bytes = lambda cin: 9 * -(-2 * cin // tma_gemm.K_BYTES) * tma_gemm.K_BYTES
-  return dict(rows=rows, padded_rows=padded, t_shape=(n, h + 2, w + 2, c),
+  fp32 = dtype == torch.float32
+  elt = 4 if fp32 else 2
+  tile_n = tma_gemm.TILE_N_TF32 if fp32 else tma_gemm.TILE_N
+  k_bytes = lambda cin: 9 * -(-elt * cin // tma_gemm.K_BYTES) * tma_gemm.K_BYTES
+  return dict(rows=n * h * w, padded_rows=padded, t_shape=(n, h + 2, w + 2, c),
               hidden_shape=(n, h + 2, w + 2, m),
-              up=tma_gemm.gemm_plan(padded, m, k_bytes(c)),
-              out=tma_gemm.gemm_plan(padded, c, k_bytes(m)),
+              up=tma_gemm.gemm_plan(padded, m, k_bytes(c), tile_n=tile_n),
+              out=tma_gemm.gemm_plan(padded, c, k_bytes(m), tile_n=tile_n),
+              split_elements=4 * 9 * m * c if fp32 else 0,
               gemm_smem_bytes=tma_gemm.SMEM_BYTES)
 
 
 def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
   """K6f on the card. If `scratch` is a dict, the kernels' t32 [N, H, W, C]
-  and hidden [N, H, W, M] are left in it, for checks (in bf16 views of the
-  padded slabs, which it holds too, as `t_padded` and `hidden_padded`)."""
+  and hidden [N, H, W, M] are left in it, for checks (the hidden a view of
+  the padded slab, which it holds too, as `hidden_padded`, beside t's,
+  `t_padded`)."""
   global LAUNCHES_FP
   if x.dtype not in qconv.DTYPES:
     raise TypeError(
@@ -479,11 +514,14 @@ def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
 
   lib = _build.load("extra_convs", qconv.SIGNATURES)
   t32 = torch.empty((plan["rows"], c), dtype=torch.float32, device=dev)
-  t = (None if plan["t_shape"] is None
-       else torch.empty(plan["t_shape"], dtype=x.dtype, device=dev))
+  t = torch.empty(plan["t_shape"], dtype=x.dtype, device=dev)
   hidden = torch.empty(plan["hidden_shape"], dtype=x.dtype, device=dev)
+  # float32: the weights' big and small TF32 parts.
+  wsplit = (torch.empty((plan["split_elements"],), dtype=torch.float32,
+                        device=dev) if plan["split_elements"] else None)
   out = torch.empty_like(x)
-  operands = (x, g32, bln32, wu_t, bu32, wo_t, bo32, t32, t, hidden, out)
+  operands = (x, g32, bln32, wu_t, bu32, wo_t, bo32, t32, t, hidden, wsplit,
+              out)
   stream = torch.cuda.current_stream(dev).cuda_stream
   with torch.cuda.device(dev):
     err = lib.extra_convs_fp_forward(
@@ -493,12 +531,8 @@ def _launch_fp(x, g, bln, wu, bu, wo, bo, scratch=None):
   _build.check(lib, err, "extra_convs_fp_forward")
   LAUNCHES_FP += 1
   if scratch is not None:
-    scratch.update(t32=t32.view(n, h, w, c))
-    if t is None:
-      scratch.update(hidden=hidden.view(n, h, w, m))
-    else:
-      scratch.update(hidden=hidden[:, 1:h + 1, 1:w + 1], hidden_padded=hidden,
-                     t_padded=t)
+    scratch.update(t32=t32.view(n, h, w, c), hidden=hidden[:, 1:h + 1, 1:w + 1],
+                   hidden_padded=hidden, t_padded=t)
   return out
 
 

@@ -147,40 +147,15 @@ def mixer_block_reference(
   return F.pad(y, (0, 0, 0, x.shape[1] - y.shape[1]))
 
 
-def tf32_round(v):
-  """float32 v rounded to TF32 (10 mantissa bits, to nearest, ties away from
-  zero) as `cvt.rna.tf32.f32` rounds it: float32 with the low 13 bits 0."""
-  bits = v.float().contiguous().view(torch.int32)
-  return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-# The products of the float32 kernel's split (each operand v = big + small,
-# big = tf32(v), small = tf32(v - big)): all three terms it sums, and the
-# two faults `fp32_controls` holds against MIXER_FP32_TOL.
-TF32X3_TERMS = {
-    "tf32x3": ("small_big", "big_small", "big_big"),
-    "single_tf32": ("big_big",),
-    "no_small_a": ("big_small", "big_big"),
-}
-
-
 def tf32x3_matmul(terms="tf32x3"):
   """A product a [..., K] . w [K, N] of float32 operands computed from their
-  TF32 parts (`TF32X3_TERMS[terms]`, e.g. "small_big" = A_small . B_big) in
-  float64 and rounded to float32 once: the float32 kernel's arithmetic with
-  an exact accumulator (`mixer_math.mlp_math`'s `matmul`)."""
-  chosen = TF32X3_TERMS[terms]
+  TF32 parts (`tma_gemm.TF32X3_TERMS[terms]`, e.g. "small_big" = A_small .
+  B_big) in float64 and rounded to float32 once: the float32 kernel's
+  arithmetic with an exact accumulator (`mixer_math.mlp_math`'s `matmul`)."""
 
   def matmul(a, w):
-    parts = {}
-    for name, v in (("a", a.float()), ("b", w.float())):
-      big = tf32_round(v)
-      parts[name] = dict(big=big.double(), small=tf32_round(v - big).double())
-    out = 0
-    for term in chosen:
-      left, right = term.split("_")
-      out = out + torch.matmul(parts["a"][left], parts["b"][right])
-    return out.float()
+    return sum(torch.matmul(left, right)
+               for left, right in tma_gemm.tf32x3_pairs(a, w, terms)).float()
 
   return matmul
 

@@ -54,7 +54,7 @@ SIGNATURES = {
     + [ctypes.c_void_p],
     "extra_convs_q8_pixel_forward": [ctypes.c_void_p] * 16
     + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "extra_convs_fp_forward": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    "extra_convs_fp_forward": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 
@@ -205,7 +205,7 @@ def conv2d_q8_math(
 def slab_conv3x3(slab: torch.Tensor, w: torch.Tensor, wp: int,
                  step: int) -> torch.Tensor:
   """A 3x3 convolution over padded frames as the CUDA kernels on
-  `csrc/tma_gemm.cuh` run it (X, K6f in bf16), in float64: slab [rows,
+  `csrc/tma_gemm.cuh` run it (X, K6f), in float64: slab [rows,
   cin] holds the frames with their zero ring as rows (wp = W + 2 a row),
   w is [cout, 3, 3, cin]. GEMM row p' sums, over the taps (dy, dx) and K
   steps of `step` channels (zeros past cin), the rows p' + dy wp + dx of the

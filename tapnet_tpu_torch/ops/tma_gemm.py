@@ -1,9 +1,11 @@
-"""The launch plan of the TMA + wgmma GEMM loop of `csrc/tma_gemm.cuh`.
+"""The launch plan of the TMA + wgmma GEMM loop of `csrc/tma_gemm.cuh`, and
+the float32 operands' TF32 split.
 
-X (`qconv.conv2d_q8` on CUDA), K6f's two bf16 products
+X (`qconv.conv2d_q8` on CUDA), K6f's two products
 (`fused_extra_convs.extra_convs_layer`) and K3's two products
-(`fused_mixer_block.mixer_block`: bf16, and float32 as error-compensated
-TF32) run on that loop. Its plan is computed here in pure Python, so that
+(`fused_mixer_block.mixer_block`) run on that loop: bf16 in bf16, float32 as
+error-compensated TF32 (`tf32x3_pairs` gives the products the kernels sum,
+for the CPU emulations). Its plan is computed here in pure Python, so that
 the CPU tests can hold it to the card's shared memory and to the header's
 constants, and the wrappers pass its shared-memory bytes to the kernels,
 which refuse a plan that differs from their own count.
@@ -19,6 +21,8 @@ per SM (132 on the H100 SXM), at most one per tile.
 """
 
 from __future__ import annotations
+
+import torch
 
 TILE_M, TILE_N, K_BYTES = 128, 256, 128  # tg::kBM, kBN, kBK
 TILE_N_TF32 = 128  # tg::kBNTf32
@@ -56,3 +60,34 @@ def gemm_plan(m: int, n: int, k_bytes: int, sms: int = H100_SMS,
               tiles_m=tiles_m, tiles_n=tiles_n, tiles=tiles,
               grid=min(tiles, sms),
               threads=THREADS, stages=STAGES, smem_bytes=SMEM_BYTES)
+
+
+def tf32_round(v):
+  """float32 v rounded to TF32 (10 mantissa bits, to nearest, ties away from
+  zero) as `cvt.rna.tf32.f32` rounds it: float32 with the low 13 bits 0."""
+  bits = v.float().contiguous().view(torch.int32)
+  return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+# The products of the float32 kernels' split (each operand v = big + small,
+# big = tf32(v), small = tf32(v - big)), named operand A's part first: all
+# three terms they sum, and the two faults that their checks' limits must
+# refuse (`fused_mixer_block.fp32_controls`, `fused_extra_convs.fp32_controls`).
+TF32X3_TERMS = {
+    "tf32x3": ("small_big", "big_small", "big_big"),
+    "single_tf32": ("big_big",),
+    "no_small_a": ("big_small", "big_big"),
+}
+
+
+def tf32x3_pairs(a, b, terms="tf32x3"):
+  """The float64 operand pairs (A part, B part) of `TF32X3_TERMS[terms]` for
+  float32 operands a and b (e.g. "small_big" = (tf32(a - tf32(a)), tf32(b))):
+  the products of the pairs summed in float64 and rounded to float32 once
+  are the float32 kernels' arithmetic with an exact accumulator."""
+  parts = []
+  for v in (a, b):
+    big = tf32_round(v)
+    parts.append(dict(big=big.double(), small=tf32_round(v.float() - big).double()))
+  return [(parts[0][left], parts[1][right])
+          for left, right in (term.split("_") for term in TF32X3_TERMS[terms])]

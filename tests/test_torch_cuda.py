@@ -684,15 +684,53 @@ def test_extra_convs_fp_bf16_padded_slabs(cuda, n, h, w, c):
   assert (err <= limit).all(), float((err / limit).max())
 
 
+@pytest.mark.parametrize("n,h,w,c", [(2, 9, 7, 128), (4, 20, 20, 64),
+                                     (3, 1, 1, 16), (2, 7, 6, 48)],
+                         ids=["c128", "many_tiles", "one_pixel", "c48"])
+def test_extra_convs_fp32_padded_slabs(cuda, n, h, w, c):
+  """K6f in float32 writes t and the hidden as zero-ringed float32 frames:
+  both rings are zero, t inside is t32 itself, and the kernel's hidden (its
+  conv_up as error-compensated TF32) equals the float64 emulation of that
+  arithmetic (`fp_padded_slab(terms="tf32x3")`) within 1e-4 absolute and
+  relative, as its output does within `fp_error_limit`. At one-pixel frames
+  and C = 48 the first frame's shifted boxes start at negative rows and a K
+  step of 32 values runs past C: TMA's zeros."""
+  args = _extra_convs_args(cuda, "float32", n, h, w, c)
+  scratch = {}
+  out = fused_extra_convs._launch_fp(args[0], *args[1:], scratch=scratch)  # pylint: disable=protected-access
+  torch.cuda.synchronize()
+  ring = torch.ones(n, h + 2, w + 2, dtype=torch.bool, device=cuda)
+  ring[:, 1:h + 1, 1:w + 1] = False
+  assert scratch["t_padded"].dtype == scratch["hidden_padded"].dtype == torch.float32
+  assert scratch["hidden_padded"].shape == (n, h + 2, w + 2, 4 * c)
+  assert not scratch["t_padded"][ring].any()
+  assert not scratch["hidden_padded"][ring].any()
+  torch.testing.assert_close(scratch["t_padded"][:, 1:h + 1, 1:w + 1],
+                             scratch["t32"], rtol=0, atol=0)
+  emulated, hidden = fused_extra_convs.fp_padded_slab(
+      *(a.cpu() for a in args), terms="tf32x3")
+  torch.testing.assert_close(scratch["hidden_padded"].cpu(), hidden,
+                             rtol=1e-4, atol=1e-4)
+  limit = fused_extra_convs.fp_error_limit(*(a.cpu() for a in args))
+  err = (out.cpu() - emulated).abs()
+  assert (err <= limit).all(), float((err / limit).max())
+
+
 def test_extra_convs_fp_limit_refuses_controls_on_card(cuda, monkeypatch):
   """At the served width in fp32, the kernel passes and each faulty plain
   layer of `fp_output_controls` (the pad ring's hidden unmasked, the
-  residual on bf16 t, the hidden in the other dtype) is refused."""
+  residual on bf16 t, the hidden in the other dtype) and of `fp32_controls`
+  (the plain layer with TF32 matmuls on; the TF32 split without A_small .
+  B_big) is refused."""
   monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
   args = _extra_convs_args(cuda, "float32", 2, 8, 9, 256)
   _, ref, limit, over = _extra_convs_fp_check(args)
   assert over <= 1.0, over
-  for key, faulty in fused_extra_convs.fp_output_controls(*args).items():
+  controls = {**fused_extra_convs.fp_output_controls(*args),
+              **fused_extra_convs.fp32_controls(*args)}
+  assert len(controls) == 5
+  assert not torch.backends.cuda.matmul.allow_tf32
+  for key, faulty in controls.items():
     assert float(((faulty - ref).abs() / limit).max()) > 1.0, key
 
 

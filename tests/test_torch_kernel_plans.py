@@ -1,6 +1,6 @@
 """PyTorch port: the launch plans of the kernels on shared-memory rings, on
-the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X, K3 (bf16 and
-float32) and K6f in bf16 (the TMA + wgmma loop of csrc/tma_gemm.cuh), and
+the CPU: K6 and K4 (the int8 tile loop of csrc/q8_tile.cuh), X, K3 and K6f
+(bf16 and float32: the TMA + wgmma loop of csrc/tma_gemm.cuh), and
 the loops and queries per block of K1 and of the int8 corr-tents (K2, K2b).
 
 Each wrapper computes its launch plan in a pure function (rows per block,
@@ -11,6 +11,7 @@ sources, to the shapes the kernels refuse, and the wrappers' shape checks to
 the plans. No JAX, no card.
 """
 
+import ctypes
 import re
 
 import pytest
@@ -408,7 +409,7 @@ def test_mixer_module_hands_the_kernel_its_weights_in_place():
   assert fused_mixer_block._linear_layout(w).data_ptr() != w.data_ptr()  # pylint: disable=protected-access
 
 
-# ------------------------------------------- K6f in bf16 on csrc/tma_gemm.cuh
+# ------------------------------------------------- K6f on csrc/tma_gemm.cuh
 
 # (n, h, w, C, M) of K6f: the served grids of a 480x480 video (M = 4C), the
 # card tests' shapes (tests/test_torch_cuda.py) and the edges (single-pixel
@@ -425,28 +426,30 @@ def test_k6f_plan_fits_the_card(dtype, n, h, w, c, m):
   plan = fused_extra_convs.fp_launch_plan(n, h, w, c, m, dtype)
   rows = n * h * w
   assert plan["rows"] == rows
-  if dtype == torch.float32:  # SIMT 128 x 128 tiles in static shared memory
-    assert plan["gemm_smem_bytes"] == 0 and plan["t_shape"] is None
-    assert plan["hidden_shape"] == (rows, m)
-    assert plan["up"]["grid"] == -(-rows // 128) * -(-m // 128)
-    assert plan["out"]["grid"] == -(-rows // 128) * -(-c // 128)
-    return
   padded = n * (h + 2) * (w + 2)
   assert plan["padded_rows"] == padded
   assert plan["t_shape"] == (n, h + 2, w + 2, c)
   assert plan["hidden_shape"] == (n, h + 2, w + 2, m)
-  # K is nine taps of whole 128-byte steps of bf16 channels (zeros past C).
-  _check_gemm(plan["up"], padded, m, 9 * -(-2 * c // 128) * 128)
-  _check_gemm(plan["out"], padded, c, 9 * -(-2 * m // 128) * 128)
+  # K is nine taps of whole 128-byte steps of channels (zeros past C): 64
+  # bf16 or 32 float32 values; float32 on 128-column Tf32x3 tiles, its
+  # weights' two TF32 parts in the split scratch.
+  elt, tile_n = (4, 128) if dtype == torch.float32 else (2, 256)
+  _check_gemm(plan["up"], padded, m, 9 * -(-elt * c // 128) * 128, tile_n)
+  _check_gemm(plan["out"], padded, c, 9 * -(-elt * m // 128) * 128, tile_n)
+  assert plan["split_elements"] == (2 * 2 * 9 * m * c
+                                    if dtype == torch.float32 else 0)
   assert (plan["gemm_smem_bytes"] == plan["up"]["smem_bytes"]
           == plan["out"]["smem_bytes"] == tma_gemm.SMEM_BYTES)
 
 
 def test_served_k6f_plans():
   """The numbers PERF.md and the kernel's notes state for the served
-  shapes: 36 K steps a conv_up tile (9 taps x 4), 144 a conv_out tile, four
-  N tiles of conv_up and one of conv_out, and the padded hidden (1.97 GB at
-  60x60 in bf16, against 1.84 GB dense)."""
+  shapes: in bf16, 36 K steps a conv_up tile (9 taps x 4), 144 a conv_out
+  tile, four N tiles of conv_up and one of conv_out, and the padded hidden
+  (1.97 GB at 60x60, against 1.84 GB dense); in float32, 72 and 288 K steps
+  on eight and two 128-column N tiles, the padded hidden 3.94 GB (3.69
+  dense), and the split weights 18.9 MB a conv, 2.36 MB of conv_up's and
+  9.44 MB of conv_out's a tile."""
   p60 = fused_extra_convs.fp_launch_plan(250, 60, 60, 256, 1024)
   assert (p60["up"]["tiles_m"], p60["up"]["tiles_n"], p60["up"]["k_steps"]) == (
       7508, 4, 36)
@@ -457,24 +460,55 @@ def test_served_k6f_plans():
   assert round(250 * 60 * 60 * 1024 * 2 / 1e9, 2) == 1.84
   p32 = fused_extra_convs.fp_launch_plan(250, 32, 32, 256, 1024)
   assert p32["padded_rows"] == 250 * 34 * 34 and p32["up"]["tiles_m"] == 2258
+  f60 = fused_extra_convs.fp_launch_plan(250, 60, 60, 256, 1024, torch.float32)
+  assert (f60["up"]["tiles_m"], f60["up"]["tiles_n"], f60["up"]["k_steps"]) == (
+      7508, 8, 72)
+  assert (f60["out"]["tiles_m"], f60["out"]["tiles_n"],
+          f60["out"]["k_steps"]) == (7508, 2, 288)
+  assert round(f60["padded_rows"] * 1024 * 4 / 1e9, 2) == 3.94
+  assert round(250 * 60 * 60 * 1024 * 4 / 1e9, 2) == 3.69
+  assert round(f60["split_elements"] * 4 / 2 / 1e6, 1) == 18.9
+  assert round(2 * 128 * 9 * 256 * 4 / 1e6, 2) == 2.36
+  assert round(2 * 128 * 9 * 1024 * 4 / 1e6, 2) == 9.44
 
 
 def test_k6f_plan_mirrors_the_sources():
-  """The bf16 plan steps K by the header's 128 bytes (64 bf16 values) over
-  ceil(2 C / 128) steps a tap, as X's int8 plan does over ceil(C / 128),
-  and the fp32 plan's tiles are the SIMT loop's."""
+  """The plan steps K by the header's 128 bytes (64 bf16 or 32 float32
+  values) over ceil(e C / 128) steps a tap, as X's int8 plan does over
+  ceil(C / 128); float32 runs on tg::Tf32x3, whose tiles are the plan's,
+  with the split weights [2 cout, 9, cin] as the B map's rows and the
+  scratch the plan counts (two convs of 2 * 9 * m * c values); the entry
+  refuses a float32 call without it and any plan whose shared memory is
+  not the loop's. The SIMT float32 loop is gone."""
   src = _source("extra_convs.cu")
+  header = _source("tma_gemm.cuh")
   assert "const SlabLoader ld{per_tap, w + 2, tg::kBK / Op::kElem};" in src
   assert ("const uint64_t row_bytes = static_cast<uint64_t>(cin) * Op::kElem;"
           in src)
   assert ("const int per_tap = static_cast<int>((row_bytes + tg::kBK - 1) / "
           "tg::kBK);" in src)
-  assert src.count("conv3x3_slab<tg::Bf16>(") == 2
+  assert src.count("conv3x3_slab<tg::Bf16>(") == 1
+  assert src.count("conv3x3_slab<tg::Tf32x3>(") == 1
   assert src.count("conv3x3_slab<tg::S8>(") == 1
-  tile = _constants(src, ["kBM", "kBN"])
-  assert tile["kBM"] == tile["kBN"] == fused_extra_convs._FP32_TILE  # pylint: disable=protected-access
-  # The mma.sync bf16 loop is gone: both bf16 products are tg::gemm.
-  assert "mma.sync" not in src and "conv3x3_bf16_tma" in src
+  assert "tg::gemm<tg::Tf32x3>(smem_raw" in src
+  assert ("static_cast<uint64_t>(cout) * (std::is_same<Op, tg::Tf32x3>::value "
+          "? 2 : 1);" in src)
+  assert "const long long count = 9LL * m * c;" in src
+  assert src.count("tg::split_weights(") == 2 and "split + 2 * count" in src
+  assert ("gemm_smem != tg::kSmemBytes || (dtype == 0 && wsplit == nullptr)"
+          in src)
+  assert _constants(header, ["kBNTf32"])["kBNTf32"] == tma_gemm.TILE_N_TF32
+  assert "return n0 + half * n;" in header  # Tf32x3::b_row: the small half
+  # The mma.sync and SIMT loops are gone: every product is tg::gemm.
+  for gone in ("mma.sync", "conv3x3_f32", "ConvParams", "fmaf("):
+    assert gone not in src, gone
+  assert "conv3x3_bf16_tma" in src and "conv3x3_tf32x3_tma" in src
+  # The C entry takes the twelve pointers the wrapper passes.
+  entry = src[src.index("int extra_convs_fp_forward("):]
+  entry = entry[:entry.index(")")]
+  assert entry.count("void*") == 12 + 1  # and the stream
+  assert qconv.SIGNATURES["extra_convs_fp_forward"][:12] == [
+      ctypes.c_void_p] * 12
 
 
 K6F_REFUSED = [
@@ -497,10 +531,14 @@ def test_k6f_plan_refuses(args, error, match):
 
 def test_k6f_padded_rows_bound_is_the_kernels():
   """580,000 60x60 frames fit the dense pixel index but not the padded
-  rows' coordinates (rows + a tile + a row and a pixel of the ring)."""
+  rows' coordinates (rows + a tile + a row and a pixel of the ring), in
+  either dtype; 550,000 fit both."""
   assert 580_000 * 60 * 60 + 128 < tma_gemm.INT32_MAX
   assert 580_000 * 62 * 62 + 60 + 3 + 128 > tma_gemm.INT32_MAX
-  fused_extra_convs.fp_launch_plan(580_000, 60, 60, 16, 64, torch.float32)
+  for dtype in DTYPES:
+    with pytest.raises(ValueError, match="padded rows overflow"):
+      fused_extra_convs.fp_launch_plan(580_000, 60, 60, 16, 64, dtype)
+    fused_extra_convs.fp_launch_plan(550_000, 60, 60, 16, 64, dtype)
 
 
 K6F_WRAPPER_SHAPES = [(1, 3, 4, 16, 64), (2, 5, 5, 32, 128), (1, 3, 4, 24, 96),

@@ -26,6 +26,7 @@ from tapnet_tpu.ops import qconv as jax_qconv
 from tapnet_tpu_torch.models import layers
 from tapnet_tpu_torch.ops import (
     corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
+    tma_gemm,
 )
 
 
@@ -224,10 +225,10 @@ def test_tf32_round_is_cvt_rna():
   from zero, as cvt.rna.tf32.f32 does."""
   v = torch.tensor([1.0, 1 + 2**-11, 1 + 3 * 2**-12, -(1 + 2**-11),
                     1 + 2**-11 - 2**-23, 0.0])
-  assert fused_mixer_block.tf32_round(v).tolist() == [
+  assert tma_gemm.tf32_round(v).tolist() == [
       1.0, 1 + 2**-10, 1 + 2**-10, -(1 + 2**-10), 1.0, 0.0]
   x = torch.randn(1000)
-  big = fused_mixer_block.tf32_round(x)
+  big = tma_gemm.tf32_round(x)
   assert not (big.view(torch.int32) & 0x1FFF).any()
   assert ((x - big).abs() <= 2.0**-11 * x.abs()).all()
 
@@ -878,21 +879,32 @@ def test_extra_convs_fp_bf16_matches_jax_reference():
   assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
 
 
+def _served_scale_fp_inputs(seed, n, h, w, c):
+  """K6f's inputs scaled as chip_smoke.extra_convs_inputs scales them
+  (conv_up's output and the residual O(1)), M = 4C, made with numpy."""
+  rng = np.random.RandomState(seed)
+  f = lambda *s: rng.randn(*s).astype(np.float32)
+  m = 4 * c
+  return [f(n, h, w, c), f(c) * 0.2 + 1, f(c) * 0.1, f(3, 3, c, m) / (3 * c**0.5),
+          f(m) * 0.1, f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1]
+
+
 @pytest.mark.parametrize("control",
-                         ["unmasked_pad", "bf16_t_residual", "hidden_precision"])
+                         ["unmasked_pad", "bf16_t_residual", "hidden_precision",
+                          "single_tf32", "no_small_a"])
 def test_extra_convs_fp_limit_refuses_controls(control):
   """In float32, `fp_error_limit` (1e-4) refuses each faulty plain layer of
-  `fp_output_controls` at the served layer's scale (conv_up's output and the
-  residual O(1), as chip_smoke.py scales it), and the plain layer itself
-  passes."""
-  rng = np.random.RandomState(0)
-  f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
-  n, h, w, c, m = 2, 9, 7, 32, 128
-  args = (f(n, h, w, c), f(c) * 0.2 + 1, f(c) * 0.1, f(3, 3, c, m) / (3 * c**0.5),
-          f(m) * 0.1, f(3, 3, m, c) / (6 * m**0.5), f(c) * 0.1)
+  `fp_output_controls` and of `fp32_controls` (one TF32 product; the TF32
+  split without A_small . B_big) at the served layer's scale (conv_up's
+  output and the residual O(1), as chip_smoke.py scales it), and the plain
+  layer itself passes."""
+  args = [torch.from_numpy(a) for a in _served_scale_fp_inputs(0, 2, 9, 7, 32)]
   plain = fused_extra_convs.extra_convs_layer(*args, False)
   limit = fused_extra_convs.fp_error_limit(*args)
-  faulty = fused_extra_convs.fp_output_controls(*args)
+  controls = (fused_extra_convs.fp32_controls
+              if control in ("single_tf32", "no_small_a")
+              else fused_extra_convs.fp_output_controls)
+  faulty = controls(*args)
   assert float(((faulty[control] - plain).abs() / limit).max()) > 1.0
   ref = fused_extra_convs.extra_convs_layer_reference(*args, False)
   assert float(((ref - plain).abs() / limit).max()) <= 1.0
@@ -955,6 +967,36 @@ def test_fp_padded_slab_equals_plain_layer(dtype, n, h, w, c):
   for other in (plain, ref):
     err = np.abs(_np(slab) - _np(other))
     assert (err <= limit).all(), float((err / limit).max())
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 6, 5, 256), (1, 3, 7, 48),
+                                     (2, 1, 1, 16), (1, 5, 4, 80)],
+                         ids=["served_widths", "c48_two_k_steps", "one_pixel",
+                              "c80_ragged_k"])
+def test_extra_convs_fp32_split_emulation_within_limit(n, h, w, c):
+  """The float32 kernel's formulation of K6f (the padded slabs, K steps of
+  32 float32 values, each product as three TF32 products of the operands'
+  big and small parts), emulated in float64 (`fp_padded_slab(terms=
+  "tf32x3")`), within `fp_error_limit`'s 1e-4 of the plain layer and of the
+  JAX reference, at the served widths C = 256, M = 1024 (conv_out's K of
+  9216) and at the edges; the padded hidden's ring is zero. At the served
+  widths both `fp32_controls` are refused by the same limit."""
+  inputs = _served_scale_fp_inputs(40 + c, n, h, w, c)
+  jargs, targs = _both(inputs, "float32")
+  emulated, hidden = fused_extra_convs.fp_padded_slab(*targs, terms="tf32x3")
+  plain = fused_extra_convs.extra_convs_layer_reference(*targs, False)
+  ref = jax_fec._math_reference(*jargs, False)
+  limit = fused_extra_convs.fp_error_limit(*targs)
+  assert emulated.shape == plain.shape and emulated.dtype == torch.float32
+  ring = torch.ones(n, h + 2, w + 2, dtype=torch.bool)
+  ring[:, 1:h + 1, 1:w + 1] = False
+  assert not hidden[ring].any()
+  for other in (plain, ref):
+    over = float((np.abs(_np(emulated) - _np(other)) / limit.numpy()).max())
+    assert over <= 1.0, over
+  if c == 256:
+    for key, faulty in fused_extra_convs.fp32_controls(*targs).items():
+      assert float(((faulty - plain).abs() / limit).max()) > 1.0, key
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

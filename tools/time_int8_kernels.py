@@ -5,7 +5,8 @@ X (`qconv.conv2d_q8`: conv_up and conv_out of one grid), K6
 (`extra_convs_layer`, quantized=True) at each grid, K6f (quantized=False)
 at each grid beside the model's unfused float layer (`layers.ExtraConvs`:
 cuDNN convolutions and PyTorch elementwise passes, which the port's K6f
-entry never calls), K4 (`mixer_block`, quantized=True, at [128, 250, 512])
+entry never calls; in float32 at PyTorch's defaults, cuDNN in TF32, and
+with TF32 off, the precision K6f holds), K4 (`mixer_block`, quantized=True, at [128, 250, 512])
 and K3 (the same block in full precision) in bf16 and fp32, on seeded
 inputs scaled as chip_smoke.py scales them; K1 (the full-precision
 corr-tents) at the three pyramid grids of a 480x480 video (250 frames, 128
@@ -19,7 +20,8 @@ K2b on a grid quantized once per video where the checkout has
 (quantize_rows) timed on its own. It splits
 one launch by kernel with torch.profiler: X into its quantization (frame
 amax and quantize) and its product; K6 into LayerNorm and patch scale,
-conv_up, conv_out; K6f into LayerNorm, conv_up, conv_out; K4 into the
+conv_up, conv_out; K6f into LayerNorm, conv_up, conv_out and (float32)
+the weights' split; K4 into the
 temporal half and the MLP; K3 into the temporal half, its two products and
 (float32) the weights' split; K2 and K2b into the query's quantizer (none
 where the kernel quantizes it), the kernel and the rest (PyTorch's scale
@@ -115,11 +117,14 @@ K4_PHASES = {
 }
 # X and K3 (before PR 8: conv3x3_q8<T> and mixer_gemm_bf16<EPI> on older
 # loops). K3's GEMM 1 is epilogue 0 (GELU), GEMM 2 epilogue 1 (residual).
-# K6f: the names before the TMA loop (conv3x3_bf16<MODE>) come second.
+# K6f: the names of the earlier loops (bf16 conv3x3_bf16<MODE>; the float32
+# SIMT loop's conv3x3_f32<MODE> after ln_bias_rows) come second; float32
+# splits its weights first.
 K6F_PHASES = {
-    "ln": ("ln_bias_rows", "ln_bias_slab"),
+    "ln": ("ln_bias_slab", "ln_bias_rows"),
     "conv_up": ("UpSlabEpilogue", "conv3x3_bf16<3>", "conv3x3_f32<3>"),
     "conv_out": ("OutSlabEpilogue", "conv3x3_bf16<4>", "conv3x3_f32<4>"),
+    "weight_split": ("split_tf32",),
 }
 # K2 and K2b: the query's quantize_rows launch, where a checkout has one,
 # and the kernel.
@@ -288,6 +293,11 @@ def main():
         with torch.inference_mode():
           times[f"unfused layer {grid} {name}"] = time_ms(
               lambda: unfused(x_nchw), args.reps)
+          if dtype == torch.float32:  # cuDNN in full float32, as K6f's 1e-4
+            torch.backends.cudnn.allow_tf32 = False
+            times[f"unfused layer {grid} {name} tf32 off"] = time_ms(
+                lambda: unfused(x_nchw), args.reps)
+            torch.backends.cudnn.allow_tf32 = True
         del unfused
       del x, x_nchw
       torch.cuda.empty_cache()
