@@ -57,14 +57,26 @@ Phases (any failure raises and exits non-zero):
      K6f on the backbone activations of served 480x480 videos (10 launches
      per video), each layer held against the model's own unfused float
      layer.
+  3a. eval-synth: the held-out synthetic sets a and b of
+     tools/make_eval_draws.py, rebuilt on the CPU from the committed JAX
+     draws (tests/data/synth_eval_draws.npz) through the port's renderer,
+     scored with the trained BootsTAPIR (TapirPredictor(query_chunk_size=32),
+     `tapvid.evaluate.evaluate_dataset`, strided queries) in fp32 with TF32
+     off, fp32 at PyTorch's TF32 defaults, bf16 and int8 a-d, against JAX's
+     metrics on the same videos and weights
+     (tests/data/synth_eval_jax_metrics.json): fp32 every metric within
+     EVAL_FP32_TOL, the others' AJ within the guards written at the head.
   3b. Online TAPIR: OnlineTapirPredictor with the trained weights on the
      golden clip (init, a step per frame, add_points at frame 4) against the
      JAX stream (tests/data/bootstapir_golden_online.npz) in fp32 and bf16,
      and the stream against the port's offline causal model (K3 with
-     causal=True); then online-tapir-256 (causal TAPIR, bf16, 64 queries,
-     the JAX package's bench.py workload) and online-bootstapir-256 (the
-     live demo's causal BootsTAPIR), 50 timed one-frame steps each: 12 K1
-     launches per step.
+     causal=True); the int8 streams a-d against JAX's
+     (tests/data/bootstapir_golden_online_int8.npz; a config-c step launches
+     K2 and X, never K6); then online-tapir-256 (causal TAPIR, bf16, 64
+     queries, the JAX package's bench.py workload), online-bootstapir-256
+     (the live demo's causal BootsTAPIR) and online-bootstapir-256-int8 (its
+     configuration c, with the streaming w8a8 MLP timed), 50 timed
+     one-frame steps each: 12 K1 launches per step (6 K2 and 10 X in c).
   4. TAPNext (ViT-B, seed-made weights from tools/tapnext_weights.py): the
      linear scan (K5) against its plain version bit for bit at the served
      shape beside faulty plain versions that the check must refuse, the
@@ -98,6 +110,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -132,6 +145,9 @@ from tapnet_tpu_torch.utils.sampling import (  # noqa: E402
 )
 from tools.golden_clip import CLIP_FRAMES, INT8_CONFIGS, make_clip  # noqa: E402
 from tools.make_online_golden import run_stream  # noqa: E402
+from tools import make_eval_draws as eval_draws  # noqa: E402
+from tapnet_tpu_torch.tapvid import datasets as tapvid_datasets  # noqa: E402
+from tapnet_tpu_torch.tapvid import evaluate as tapvid_evaluate  # noqa: E402
 from tools.make_tapnext_golden import (  # noqa: E402
     CHUNK as TAPNEXT_GOLDEN_CHUNK, WEIGHT_SEED as TAPNEXT_SEED, golden_clip,
 )
@@ -147,6 +163,8 @@ GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
 GOLDEN_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_int8.npz")
 TAPNEXT_GOLDEN = os.path.join(REPO, "tests/data/tapnext_golden.npz")
 GOLDEN_ONLINE = os.path.join(REPO, "tests/data/bootstapir_golden_online.npz")
+GOLDEN_ONLINE_INT8 = os.path.join(
+    REPO, "tests/data/bootstapir_golden_online_int8.npz")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and operations/s
@@ -345,6 +363,54 @@ GOLDEN_INT8_FP32_TOL = {
 # timed steps; K1 launches num_pips_iter x 3 pyramid grids = 12 per step.
 ONLINE_QUERIES, ONLINE_WARMUP, ONLINE_STEPS = 64, 5, 50
 ONLINE_K1_PER_STEP = 12
+# The int8 streams (tests/data/bootstapir_golden_online_int8.npz, JAX's
+# OnlineTapirPredictor with causal_bootstapir_config(**INT8_CONFIGS[name]),
+# fp32): each step quantizes its own frame's grids, as JAX's stream does.
+# Limits: the offline ones (GOLDEN_INT8_FP32_TOL), widened where a stream
+# carries more. The causal state carries a step that float32 noise flipped
+# into every later step, so a stream drifts further than the offline clip:
+# the port on the CPU is 0.84 / 0.84 / 0.012 px and 0.14 (a), 0.11 / 0.20 /
+# 7.6e-5 px and 0.011 (b), 1.30 / 1.68 / 0.049 px and 0.50 (c), 0.58 / 0.58 /
+# 0.0022 px and 0.42 (d) from JAX's streams, all of c's and d's largest at
+# one query (point 1, the last step; 1.6% and 0.4% of the logits over 0.1).
+# Each limit is the offline one or about 3x the CPU's, whichever is larger,
+# as the offline limits were set. Quantization itself moves JAX's streams
+# from JAX's float stream (bootstapir_golden_online.npz) by 8.5 (a), 1.2
+# (b), 78 (c) and 74 px (d) at most and 0.13-7.2 in the logits; each
+# configuration's limits must refuse the float stream, and the check holds
+# that too. A stream also meets stage-1 near ties: a query whose cost volume
+# has two peaks of nearly one height lands on either, as float32 noise in
+# the backbone moves an int8 rounding, and the causal state carries it there
+# for the rest of the stream (on an H100: one query of c 73 px from JAX's
+# int8 stream, one of d 74 px, every other query of d within 0.003 px in the
+# median). At most
+# ONLINE_INT8_FLIPPED of the 32 queries may leave the track limits at some
+# step; the check records them, and holds every other query to all the
+# limits.
+ONLINE_INT8_FLIPPED = 2
+# The kernels each stream launches, and no other: the streaming mixer runs
+# its w8a8 MLP as the plain `mixer_math.mlp_math_q8` (JAX's `mlp_block_q8`
+# is XLA code, not a Pallas kernel), and the per-pixel ExtraConvs (K6)
+# cannot fire on one frame (`wants_fused`), so d streams the per-frame int8
+# convolution (X).
+# K2 / K2b / K1 launch num_pips_iter x 3 pyramid grids a step.
+ONLINE_INT8_TOL = {
+    "a": dict(visible_px=2.5, any_px=4.0, median_px=0.05, logits=0.45),
+    "b": dict(visible_px=0.35, any_px=1.0, median_px=5e-3, logits=0.05),
+    "c": dict(visible_px=4.0, any_px=6.0, median_px=0.15, logits=1.5),
+    "d": dict(visible_px=1.75, any_px=3.0, median_px=0.01, logits=1.25),
+}
+ONLINE_INT8_LAUNCHES = {
+    "a": {"corr_tents_q8_frame"},
+    "b": {"corr_tents_q8_position", "corr_quantize"},
+    "c": {"corr_tents_q8_frame", "extra_convs_q8_frame"},
+    "d": {"corr_tents", "extra_convs_q8_frame"},
+}
+# online-bootstapir-256-int8: online-bootstapir-256 in configuration c (the
+# JAX package's headline: w8a8 mixer, per-frame int8 correlation and
+# ExtraConvs, 2 refinement steps): K2 at 2 x 3 grids and X at 5 layers x 2
+# convolutions a step.
+ONLINE_INT8_PER_STEP = {"corr_tents_q8_frame": 6, "extra_convs_q8_frame": 10}
 
 # The kernels each int8 configuration must launch, and no other (the int8
 # correlation quantizes its queries inside its kernel; b quantizes its grids
@@ -355,6 +421,42 @@ INT8_LAUNCHES = {
     "c": {"corr_tents_q8_frame", "mixer_block_q8", "extra_convs_q8_frame"},
     "d": {"corr_tents", "mixer_block", "extra_convs_q8_pixel"},
 }
+
+# eval-synth: the held-out sets of tools/make_eval_draws.py (a: the set of
+# runs/bootstapir_synth/eval_trained.json; b: the out-of-domain set of
+# runs/bootstap_demo), rebuilt on the CPU from the committed JAX draws through
+# the port's `render_batch` (`synthetic.export_npz(draws=...)`) and read
+# back with `create_kubric_dataset`, scored with the trained BootsTAPIR
+# through TapirPredictor(query_chunk_size=32) and `evaluate_dataset`,
+# strided queries, against JAX's metrics on JAX's own export of the same
+# sets and weights (tests/data/synth_eval_jax_metrics.json, CPU).
+# fp32 with TF32 off: each of the 13 mean metrics within EVAL_FP32_TOL of
+# JAX's. The golden clip's tracks agree to 8.7e-4 px, so only point-frames
+# within about 1e-3 px of a threshold can flip, and a video has about 7,700
+# point-frames: a flip moves a video's metric by about 2e-4 and the mean of
+# 16 by about 1e-5. Every other precision p: the AJ within
+# max(EVAL_GUARD_FLOOR, 2 |AJ_JAX(p) - AJ_JAX(fp32)|) of JAX's AJ at p, on
+# the same set. The predictor's default float32 at PyTorch's TF32 defaults
+# (cuDNN on, matmul off), which JAX does not run, is held to JAX's fp32 AJ
+# with bf16's spread. The guard catches a broken path; it is not a
+# tolerance, and each measured gap is recorded. The int8 runs keep TF32 off,
+# as the int8 golden checks do. EVAL_RUNS: (set, precision); "tf32" is the
+# default float32.
+EVAL_FP32_TOL = 1e-3
+EVAL_GUARD_FLOOR = 0.005
+# JAX's int8 ExtraConvs run as XLA's integer convolution on the CPU, 5 to 25
+# minutes a video: where the tool's run was cut short, its record holds
+# the set's first n videos, and both sides are compared on those (each
+# run's `videos_compared`); at least EVAL_MIN_VIDEOS of them.
+EVAL_MIN_VIDEOS = 2
+EVAL_RUNS = (("a", "fp32"), ("a", "tf32"), ("a", "bf16"), ("a", "a"),
+             ("a", "b"), ("a", "c"), ("a", "d"), ("b", "fp32"))
+EVAL_CHUNK = eval_draws.QUERY_CHUNK_SIZE
+EVAL_LAUNCHES = dict(INT8_LAUNCHES, **{
+    p: {"corr_tents", "mixer_block"} for p in ("fp32", "tf32", "bf16")})
+# Where the rebuilt sets are written (listed in .gitignore), removed after
+# the phase.
+EVAL_DIR = os.path.join(REPO, "_eval_sets")
 
 # TAPNext (ViT-B, SsmVitConfig()). serve-tapnext-256: 250-frame 256x256
 # videos, 256 queries, chunks of 50 frames, bf16 compute dtype: the linear
@@ -1983,10 +2085,104 @@ def online_golden_check(params):
   return result
 
 
-def online_tapir(params, config):
+def online_golden_check_int8(params):
+  """online-golden-int8: the trained causal BootsTAPIR in the int8
+  configurations a-d (fp32 model dtype, TF32 off) through
+  OnlineTapirPredictor on the golden clip's stream against JAX's int8
+  streams, under ONLINE_INT8_TOL (at most ONLINE_INT8_FLIPPED queries on
+  their other stage-1 peak), which JAX's float stream must fail; each
+  stream must launch its own kernels (ONLINE_INT8_LAUNCHES) and no other,
+  with num_pips_iter x 3 grids of correlation launches a step."""
+  golden = np.load(GOLDEN_ONLINE_INT8)
+  float_golden = np.load(GOLDEN_ONLINE)
+  frames = preprocess_frames(torch.from_numpy(np.load(GOLDEN)["video"])).numpy()
+  qp, new_qp = golden["query_points"], golden["new_query_points"]
+  steps = frames.shape[1]
+
+  def apart(out, ref, keep=slice(None)):
+    """Distances on the queries `keep` ([T, B, N] arrays, B = 1)."""
+    out = {k: v[:, :, keep] for k, v in out.items()}
+    ref = {k: v[:, :, keep] for k, v in ref.items()}
+    err = np.linalg.norm(out["tracks"] - ref["tracks"], axis=-1)
+    visible = ref["visibles"]
+    return dict(
+        track_visible_max_px=float(err[visible].max()),
+        track_max_px=float(err.max()),
+        track_median_px=float(np.median(err)),
+        track_p95_px=float(np.percentile(err, 95)),
+        logit_max_abs=max(float(np.abs(out[k] - ref[k]).max())
+                          for k in ("occlusion", "expected_dist")),
+        visible_agree=float(np.mean(out["visibles"] == visible)))
+
+  def within(r, tol):
+    return (r["track_visible_max_px"] <= tol["visible_px"]
+            and r["track_max_px"] <= tol["any_px"]
+            and r["track_median_px"] <= tol["median_px"]
+            and r["logit_max_abs"] <= tol["logits"])
+
+  keys = ("tracks", "visibles", "occlusion", "expected_dist")
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  result, failed = {}, []
+  for name, overrides in INT8_CONFIGS.items():
+    config = causal_bootstapir_config(**overrides)
+    predictor = OnlineTapirPredictor(params, config)
+    reset_counts()
+    out = run_stream(predictor.init, predictor.step, predictor.add_points,
+                     frames, qp, new_qp)
+    counts = read_counts()
+    corr = next(k for k in ONLINE_INT8_LAUNCHES[name] if k.startswith("corr_tents"))
+    require({k for k, v in counts.items() if v} == ONLINE_INT8_LAUNCHES[name]
+            and counts[corr] == 3 * config.num_pips_iter * steps,
+            f"online-golden-int8 {name}: launches {counts}, expected "
+            f"{sorted(ONLINE_INT8_LAUNCHES[name])}")
+    ref = {k: golden[f"{name}_{k}"] for k in keys}
+    float_ref = {k: float_golden[f"float32_{k}"] for k in keys}
+    tol = ONLINE_INT8_TOL[name]
+    # Queries that left the track limits at some step (near ties).
+    err = np.linalg.norm(out["tracks"] - ref["tracks"], axis=-1)[:, 0]
+    flipped = np.nonzero((err > tol["any_px"]).any(0)
+                         | ((err > tol["visible_px"])
+                            & ref["visibles"][:, 0]).any(0))[0]
+    keep = np.setdiff1d(np.arange(err.shape[1]), flipped)
+    to_float = np.linalg.norm(out["tracks"] - float_ref["tracks"], axis=-1)[:, 0]
+    r = result[name] = dict(
+        apart(out, ref, keep), tol=tol, all_queries=apart(out, ref),
+        flipped={int(q): dict(max_px_from_int8=float(err[:, q].max()),
+                              max_px_from_float=float(to_float[:, q].max()))
+                 for q in flipped},
+        launches=counts,
+        launches_per_step={k: v / steps for k, v in counts.items() if v})
+    # Control: JAX's float stream, held to the same limits, must fail them.
+    control = apart(float_ref, ref, keep)
+    r["float_stream_vs_int8"] = dict(control, refused=not within(control, tol))
+    if (len(flipped) > ONLINE_INT8_FLIPPED or not within(r, tol)
+        or within(control, tol)):
+      failed.append(f"{name}: {r} vs {tol}")
+    del predictor
+  # A config-c step alone: K2 and X, and no K6.
+  predictor = OnlineTapirPredictor(params, causal_bootstapir_config(
+      **INT8_CONFIGS["c"]))
+  predictor.init(frames[:, 0], qp)
+  reset_counts()
+  predictor.step(frames[:, 1])
+  counts = read_counts()
+  require(counts["corr_tents_q8_frame"] > 0 and counts["extra_convs_q8_frame"] > 0
+          and counts["extra_convs_q8_pixel"] == 0,
+          f"a config-c step: launches {counts}")
+  result["c_one_step_launches"] = counts
+  torch.backends.cudnn.allow_tf32 = True
+  require(not failed, "online golden int8 check failed: " + "; ".join(failed))
+  return result
+
+
+def online_tapir(params, config, per_step=None):
   """One online cell: 64 queries on frame 0 of a 256x256 clip, init, then
   ONLINE_WARMUP steps and ONLINE_STEPS timed steps (host clock around
-  `predict`, which returns its tracks to the host); a 10-step profile."""
+  `predict`, which returns its tracks to the host); a 10-step profile.
+  `per_step`: the launches a step must make, by counter (default 12 K1
+  launches) and no other kernel."""
+  per_step = per_step or {"corr_tents": ONLINE_K1_PER_STEP}
   online = OnlineTapirPredictor(params, config)
   (video, qp), = tapnext_videos(1, frames=ONLINE_WARMUP + ONLINE_STEPS + 1,
                                 queries=ONLINE_QUERIES, query_t=0)
@@ -2002,10 +2198,10 @@ def online_tapir(params, config):
     step_ms.append((time.perf_counter() - begin) * 1e3)
     tracks.append(tr)
   launches = read_counts()
-  require(launches["corr_tents"] == ONLINE_K1_PER_STEP * ONLINE_STEPS
-          and sum(launches.values()) == launches["corr_tents"],
-          f"online TAPIR: launches {launches}, expected "
-          f"{ONLINE_K1_PER_STEP} K1 per step and no other kernel")
+  require({k: v for k, v in launches.items() if v}
+          == {k: n * ONLINE_STEPS for k, n in per_step.items()},
+          f"online TAPIR: launches {launches}, expected {per_step} per step "
+          "and no other kernel")
   tracks = np.stack(tracks)
   require(tracks.shape == (ONLINE_STEPS, 1, ONLINE_QUERIES, 2)
           and np.isfinite(tracks).all() and np.abs(tracks).max() < 4 * TN_RES,
@@ -2022,8 +2218,108 @@ def online_tapir(params, config):
       queries=ONLINE_QUERIES, resolution=TN_RES, steps=ONLINE_STEPS,
       ms_per_frame_mean=mean_ms, ms_per_frame_median=float(np.median(step_ms)),
       ms_per_frame_min=float(np.min(step_ms)),
-      k1_launches_per_step=launches["corr_tents"] / ONLINE_STEPS,
-      launches=launches, profile_10_steps=profile)
+      launches_per_step={k: v / ONLINE_STEPS for k, v in launches.items() if v},
+      launches=launches, profile_10_steps=profile,
+      **({"mlp_q8": mlp_q8_step_ms(online.model)}
+         if config.quantized_mixer else {}))
+
+
+def mlp_q8_step_ms(model):
+  """The streaming w8a8 channel MLP (`mixer_math.mlp_math_q8`, plain
+  PyTorch, its int8 products as float64 matmuls) at an online step's shape
+  [ONLINE_QUERIES, 1, hidden], timed with CUDA events: ms a call, and a
+  step's share (a call per mixer block per refinement step)."""
+  block = model.mixer.block_0
+  w1q, s1, w2q, s2 = block.quantized_weights()
+  x = torch.randn(ONLINE_QUERIES, 1, block.fc_up.in_features, device="cuda")
+  with torch.inference_mode():
+    ms = time_ms(lambda: mixer_math.mlp_math_q8(
+        x, block.ln_channel.scale, w1q, s1, block.fc_up.bias, w2q, s2,
+        block.fc_down.bias), reps=50, warmup=5)
+  calls = model.config.num_mixer_blocks * model.config.num_pips_iter
+  return dict(ms_per_call=ms, calls_per_step=calls, ms_per_step=ms * calls)
+
+
+def eval_synth(params):
+  """eval-synth: the held-out AJ of the trained BootsTAPIR on the card in
+  every served precision (EVAL_RUNS), against JAX's metrics on the same
+  videos and weights. Returns one record per run: the 13 mean metrics,
+  JAX's, their gaps, the guard, the per-video AJ, the launches by kernel
+  and the seconds."""
+  with open(eval_draws.METRICS) as f:
+    ref = json.load(f)["runs"]
+  # JAX's AJ of run `key` over the set's first n videos.
+  aj = lambda key, n: float(np.mean(
+      [m["average_jaccard"] for m in ref[key]["per_video"][:n]]))
+  result = {}
+  try:
+    begin = time.perf_counter()
+    for name in sorted({s for s, _ in EVAL_RUNS}):
+      spec = dict(eval_draws.SETS[name])
+      synthetic.export_npz(os.path.join(EVAL_DIR, name),
+                           spec.pop("num_examples"),
+                           draws=eval_draws.load_draws(name), **spec)
+    result["rebuild_s"] = time.perf_counter() - begin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for set_name, precision in EVAL_RUNS:
+      torch.backends.cudnn.allow_tf32 = precision == "tf32"
+      predictor = TapirPredictor(
+          params, bootstapir_config(**INT8_CONFIGS.get(precision, {})),
+          query_chunk_size=EVAL_CHUNK, bfloat16=precision == "bf16")
+      reset_counts()
+      begin = time.perf_counter()
+      per_video = [
+          tapvid_evaluate.evaluate_dataset(predictor, [element],
+                                           eval_draws.QUERY_MODE, verbose=False)
+          for element in tapvid_datasets.create_kubric_dataset(
+              os.path.join(EVAL_DIR, set_name), eval_draws.QUERY_MODE)]
+      seconds = time.perf_counter() - begin
+      counts = read_counts()
+      require({k for k, v in counts.items() if v} == EVAL_LAUNCHES[precision],
+              f"eval-synth {set_name}:{precision}: launches {counts}")
+      jax_key = f"{set_name}:{'fp32' if precision == 'tf32' else precision}"
+      # JAX's reference may cover the set's first n videos only (a run of
+      # the tool cut short: EVAL_RUNS' record says so); both sides are
+      # compared on those.
+      n = len(ref[jax_key]["per_video"])
+      require(n >= EVAL_MIN_VIDEOS, f"eval-synth {jax_key}: JAX scored {n} videos")
+      mean = {k: float(np.mean([m[k] for m in per_video[:n]]))
+              for k in per_video[0]}
+      jax_mean = ref[jax_key]["mean"]
+      gaps = {k: mean[k] - jax_mean[k] for k in jax_mean}
+      require(all(np.isfinite(v) for v in mean.values()) and len(mean) == 13,
+              f"eval-synth {set_name}:{precision}: {mean}")
+      if precision == "fp32":
+        guard = EVAL_FP32_TOL
+        ok = all(abs(g) <= guard for g in gaps.values())
+      else:
+        spread = "bf16" if precision == "tf32" else precision
+        guard = max(EVAL_GUARD_FLOOR, 2 * abs(
+            aj(f"{set_name}:{spread}", n) - aj(f"{set_name}:fp32", n)))
+        ok = abs(gaps["average_jaccard"]) <= guard
+      video_aj = [m["average_jaccard"] for m in per_video]
+      jax_video_aj = [m["average_jaccard"] for m in ref[jax_key]["per_video"]]
+      r = result[f"{set_name}:{precision}"] = dict(
+          metrics=mean, jax_metrics=jax_mean, gaps=gaps,
+          max_abs_gap=max(abs(g) for g in gaps.values()),
+          guard=guard, held="every metric" if precision == "fp32" else "AJ",
+          within=ok, videos_compared=n, per_video_aj=video_aj,
+          aj_all_videos=float(np.mean(video_aj)),
+          per_video_aj_max_gap=float(np.max(np.abs(
+              np.subtract(video_aj[:n], jax_video_aj)))),
+          launches=counts, seconds=seconds, videos=len(per_video),
+          tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                    cudnn=torch.backends.cudnn.allow_tf32))
+      print(f"eval-synth {set_name}:{precision}: AJ {mean['average_jaccard']:.6f} "
+            f"over {n} videos (JAX {jax_mean['average_jaccard']:.6f}, gap "
+            f"{gaps['average_jaccard']:+.2e}, guard {guard:.4g}) "
+            f"{seconds:.1f} s", flush=True)
+      require(ok, f"eval-synth {set_name}:{precision} outside its guard: {r}")
+      del predictor
+  finally:
+    torch.backends.cudnn.allow_tf32 = True
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+  return result
 
 
 # ------------------------------------------------------------------ TAPNext
@@ -2499,6 +2795,8 @@ def main():
   golden_int8, golden_int8_launches = golden_check_int8(params)
   emit({"golden_int8": golden_int8, "launches": golden_int8_launches})
   stamp("BootsTAPIR golden checks")
+  emit({"eval_synth": eval_synth(params), "card": card})
+  stamp("eval-synth")
 
   videos = make_videos(4)
   fast = dict(num_pips_iter=2)
@@ -2555,13 +2853,17 @@ def main():
   torch.cuda.empty_cache()
 
   emit({"online_golden": online_golden_check(params)})
+  emit({"online_golden_int8": online_golden_check_int8(params)})
   stamp("online golden checks")
   causal_params = {k: v for k, v in params.items() if k != "extra"}
   for name, phase in (
       ("online_tapir_256", lambda: online_tapir(
           causal_params, causal_tapir_config(compute_dtype="bfloat16"))),
       ("online_bootstapir_256", lambda: online_tapir(
-          params, causal_bootstapir_config()))):
+          params, causal_bootstapir_config())),
+      ("online_bootstapir_256_int8", lambda: online_tapir(
+          params, causal_bootstapir_config(**INT8_CONFIGS["c"]),
+          ONLINE_INT8_PER_STEP))):
     runs[name] = phase()
     emit({name: runs[name], "card": card})
     stamp(name)

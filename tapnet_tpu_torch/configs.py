@@ -37,6 +37,8 @@ class ExperimentConfig:
   task: trainer.TaskConfig
   data: DataConfig
   total_steps: int
+  # In-train held-out evaluation period (steps), when an eval set is given.
+  evaluate_every: int = 10_000
   # Train through time-chunked forward_step passes with torch.utils
   # .checkpoint on each chunk (full BPTT through the carried SSM state).
   train_time_chunk: Optional[int] = None
@@ -90,6 +92,7 @@ def tapnextpp_experiment(variant: str = "B", **overrides) -> ExperimentConfig:
       data=DataConfig(num_frames=1024, num_queries=64, batch_size=1),
       train_time_chunk=128,
       total_steps=20_000,
+      evaluate_every=2_000,
   )
   kwargs.update(overrides)
   return ExperimentConfig(**kwargs)

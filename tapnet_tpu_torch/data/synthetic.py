@@ -1,5 +1,5 @@
 """Synthetic point-tracking data, made on the device (port of
-tapnet_tpu/data/synthetic.py: `make_batch`, `batch_iterator`).
+tapnet_tpu/data/synthetic.py: `make_batch`, `batch_iterator`, `export_npz`).
 
 Textured sprites translate over a textured background; query points ride
 the sprites, occluded where a point leaves the frame or a later-drawn
@@ -12,8 +12,10 @@ draws to `render_batch` to hold it to the JAX `make_batch`.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+import os
+from typing import Dict, Iterator, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -130,6 +132,44 @@ def make_batch(generator: torch.Generator, batch_size: int = 1,
   draws = draw(generator, batch_size, num_frames, height, width, num_queries,
                num_sprites, vel_range)
   return render_batch(draws, num_frames, height, width)
+
+
+def export_npz(out_dir: str, num_examples: int, seed: int = 10_000,
+               num_frames: int = 24, height: int = 256, width: int = 256,
+               num_queries: int = 64, num_sprites: int = 6,
+               vel_range: float = 3.0,
+               draws: Optional[Mapping[str, np.ndarray]] = None) -> None:
+  """Writes a fixed synthetic dataset in the Kubric npz layout
+  (`synth_{i:04d}.npz`: video uint8 [T, H, W, 3], target_points [N, T, 2]
+  (x, y) raster, occluded [N, T] bool), which `tapvid.datasets.
+  create_kubric_dataset` reads: the counterpart of the JAX package's
+  `export_npz`, rendered on the CPU.
+
+  The draws come from a `torch.Generator` seeded with `seed`, or, given
+  `draws` ({draw name: array with a leading video axis}, e.g.
+  `tools/make_eval_draws.load_draws`), from those: the JAX package's own
+  draws rebuild its held-out sets. The uint8 conversion is JAX's,
+  `clip((v + 1) * 127.5, 0, 255)` truncated toward zero.
+  """
+  os.makedirs(out_dir, exist_ok=True)
+  generator = torch.Generator().manual_seed(seed)
+  for i in range(num_examples):
+    if draws is None:
+      one = draw(generator, 1, num_frames, height, width, num_queries,
+                 num_sprites, vel_range)
+    else:
+      one = {k: torch.from_numpy(np.asarray(v[i : i + 1])) for k, v in
+             draws.items()}
+      one["sprite_id"] = one["sprite_id"].long()
+      one["t_query"] = one["t_query"].long()
+    batch = render_batch(one, num_frames, height, width)
+    video = batch["video"][0].numpy()
+    np.savez(
+        os.path.join(out_dir, f"synth_{i:04d}.npz"),
+        video=np.clip((video + 1.0) * 127.5, 0, 255).astype(np.uint8),
+        target_points=batch["target_points"][0].numpy(),
+        occluded=batch["occluded"][0].numpy().astype(bool),
+    )
 
 
 def batch_iterator(seed: int = 0, device: Optional[torch.device] = None,

@@ -73,7 +73,7 @@ class TapirPredictor:
         (default: log-spaced from the initial resolution up to the video's).
       device: torch device; None means "cuda" (raises without a card).
     """
-    self.device = resolve_device(device)
+    device = resolve_device(device)
     config = config or tapir_lib.TapirConfig()
     if bfloat16:
       config = dataclasses.replace(config, compute_dtype="bfloat16")
@@ -81,7 +81,24 @@ class TapirPredictor:
     load_flax_params(model, params)
     if bfloat16:
       model = model.to(torch.bfloat16)
-    self.model = model.to(self.device).eval()
+    self._bind(model.to(device).eval(), device, query_bucket, frame_bucket,
+               query_chunk_size, refinement_resolutions)
+
+  @classmethod
+  def from_model(cls, model: tapir_lib.TAPIR,
+                 query_chunk_size: Optional[int] = 64) -> "TapirPredictor":
+    """A predictor over `model`'s own weights, on its device, with no copy
+    (in-train evaluation), and the default buckets and resolutions. The
+    caller sets the module's mode."""
+    self = cls.__new__(cls)
+    self._bind(model, next(model.parameters()).device, 64, None,
+               query_chunk_size, None)
+    return self
+
+  def _bind(self, model, device, query_bucket, frame_bucket,
+            query_chunk_size, refinement_resolutions):
+    self.model = model
+    self.device = device
     self.query_bucket = query_bucket
     self.frame_bucket = frame_bucket
     self.query_chunk_size = query_chunk_size
@@ -172,6 +189,16 @@ class OnlineTapirPredictor:
   streaming state is float32. Only one refinement resolution is streamed:
   frames at the initial resolution, or `num_resolutions` of the state
   would have to grow (as in JAX).
+
+  The int8 modes stream as JAX's do, each step on its one frame: the
+  correlation grids are quantized anew every step (`estimate_trajectories`
+  quantizes the step's grids, per frame for K2, per position for K2b), the
+  per-frame int8 ExtraConvs (X) take the frame's own activation scale, and
+  the w8a8 mixer runs its channel MLP as `mixer_math.mlp_math_q8` beside
+  the cache. The per-pixel ExtraConvs kernel (K6) never fires on one frame
+  (`fused_extra_convs.wants_fused` needs 4 * 1024 * 1024 elements), so
+  `quantized_extra_convs="per_pixel"` streams the per-frame scheme, as in
+  JAX.
   """
 
   def __init__(
@@ -191,11 +218,6 @@ class OnlineTapirPredictor:
         use_causal_conv=True, num_pips_iter=4, pyramid_level=1)
     if not config.use_causal_conv:
       raise ValueError("Online TAPIR requires use_causal_conv=True.")
-    if (config.quantized_mixer or config.quantized_corr
-        or config.quantized_extra_convs):
-      raise NotImplementedError(
-          "The int8 streaming modes are not ported yet (ROADMAP Queue 1, "
-          "slice 2: int8 streaming modes); use a float configuration.")
     self.device = resolve_device(device)
     model = tapir_lib.TAPIR(config)
     load_flax_params(model, params)
@@ -299,8 +321,22 @@ class TapnextPredictor:
         padded by repeating the last frame.
       device: torch device; None means "cuda" (raises without a card).
     """
-    self.device = resolve_device(device)
-    self.model = _tapnext_model(params, config, self.device)
+    device = resolve_device(device)
+    self._bind(_tapnext_model(params, config, device), device, query_bucket,
+               chunk_size)
+
+  @classmethod
+  def from_model(cls, model: tapnext.TAPNextTracker) -> "TapnextPredictor":
+    """A predictor over `model`'s own weights, on its device, with no copy
+    (in-train evaluation): one pass, no query bucket. The caller sets the
+    module's mode."""
+    self = cls.__new__(cls)
+    self._bind(model, next(model.parameters()).device, None, None)
+    return self
+
+  def _bind(self, model, device, query_bucket, chunk_size):
+    self.model = model
+    self.device = device
     self.query_bucket = query_bucket
     self.chunk_size = chunk_size
 

@@ -232,8 +232,10 @@ class MixerBlock(nn.Module):
     `return_cache`, the whole block is one `fused_mixer_block.mixer_block`
     call; otherwise the JAX unfused path: scale-only LayerNorm, the
     streaming or warm-up temporal half, the residual, then the channel MLP
-    (`mixer_math.mlp_math`, plain matmuls, as JAX computes it outside any
-    Pallas kernel). Only a causal block streams."""
+    (`mixer_math.mlp_math`, plain matmuls, or for a quantized block the w8a8
+    `mixer_math.mlp_math_q8` of JAX's `mlp_block_q8`, its int8 products as
+    exact float64 matmuls: JAX computes both outside any Pallas kernel).
+    Only a causal block streams."""
     t = self.temporal
     if cache is None and not return_cache:
       return fused_mixer_block.mixer_block(
@@ -244,15 +246,16 @@ class MixerBlock(nn.Module):
           quantized=self.quantized,
           qweights=self.quantized_weights() if self.quantized else None,
       ), None
-    if self.quantized:
-      raise NotImplementedError(
-          "The w8a8 mixer has no streaming path in the port yet (ROADMAP "
-          "Queue 1, slice 2: the int8 streaming modes).")
     if not self.causal:
       raise ValueError("MixerBlock: a streaming cache needs a causal block")
     h = mixer_math.layer_norm(x, self.ln_temporal.scale, dtype=x.dtype)
     h, new_cache = t(h, cache, return_cache)
     x = x + h
+    if self.quantized:
+      w1q, s1, w2q, s2 = self.quantized_weights()
+      return mixer_math.mlp_math_q8(
+          x, self.ln_channel.scale, w1q, s1, self.fc_up.bias, w2q, s2,
+          self.fc_down.bias), new_cache
     return mixer_math.mlp_math(
         x, self.ln_channel.scale, self.fc_up.weight.t(), self.fc_up.bias,
         self.fc_down.weight.t(), self.fc_down.bias), new_cache

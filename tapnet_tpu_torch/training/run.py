@@ -3,12 +3,16 @@
   python -m tapnet_tpu_torch.training.run --experiment tapnext|tapnextpp \
       --synthetic --num_steps N [--checkpoint_dir D] [--total_steps S] \
       [--batch_size B] [--num_frames T] [--num_queries Q] [--seed 0] \
-      [--log_every 50] [--device cpu]
+      [--log_every 50] [--device cpu] \
+      [--eval_dir DIR [--eval_every N] [--eval_max_videos V]]
 
 Trains on the synthetic sprite generator, batches made on the device. It
 runs on the CUDA card and raises without one unless given `--device cpu`.
-The Kubric reader (--data_dir), in-train evaluation (--eval_dir) and
-multi-GPU (--model_parallel > 1) are not ported yet and raise.
+`--eval_dir` (a directory of Kubric-format npz videos, e.g. from
+`data.synthetic.export_npz`) evaluates the model on it every `--eval_every`
+steps (default: the preset's `evaluate_every`) and logs the TAP-Vid metrics
+to the same JSONL with kind "eval". The Kubric training reader (--data_dir)
+and multi-GPU (--model_parallel > 1) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,7 +42,11 @@ def main(argv=None):
   parser.add_argument("--batch_size", type=int, default=None)
   parser.add_argument("--model_parallel", type=int, default=1)
   parser.add_argument("--eval_dir", default=None,
-                      help="in-train held-out eval (not ported yet)")
+                      help="Kubric-format npz videos for in-train eval")
+  parser.add_argument("--eval_every", type=int, default=None,
+                      help="steps between in-train evals "
+                      "(default: the preset's evaluate_every)")
+  parser.add_argument("--eval_max_videos", type=int, default=None)
   parser.add_argument("--num_frames", type=int, default=None)
   parser.add_argument("--num_queries", type=int, default=None)
   parser.add_argument("--seed", type=int, default=0)
@@ -49,8 +57,6 @@ def main(argv=None):
   if args.data_dir or not args.synthetic:
     raise NotImplementedError(
         "the Kubric training reader is not ported yet: pass --synthetic")
-  if args.eval_dir:
-    raise NotImplementedError("in-train evaluation is not ported yet")
 
   from tapnet_tpu_torch import configs
   from tapnet_tpu_torch.data import synthetic
@@ -76,8 +82,24 @@ def main(argv=None):
       task=exp.task, checkpoint_path=ckpt_path,
       checkpoint_every=args.checkpoint_every, loss_builder=exp.loss_builder,
       device=device)
+  eval_fn = None
+  eval_every = args.eval_every or exp.evaluate_every
+  if args.eval_dir:
+    from tapnet_tpu_torch.tapvid import datasets as tapvid_datasets
+    from tapnet_tpu_torch.tapvid import evaluate as tapvid_evaluate
+
+    eval_fn = tapvid_evaluate.make_eval_fn(
+        t.model,
+        lambda: tapvid_datasets.create_kubric_dataset(
+            args.eval_dir, query_mode="strided",
+            train_size=exp.data.train_size),
+        query_mode="strided",
+        query_chunk_size=exp.task.train_chunk_size,
+        max_videos=args.eval_max_videos,
+    )
   state = t.restore_or_init()
-  state = t.fit(state, data, num_steps=num_steps, log_every=args.log_every)
+  state = t.fit(state, data, num_steps=num_steps, log_every=args.log_every,
+                eval_fn=eval_fn, evaluate_every=eval_every if eval_fn else 0)
   if ckpt_path:
     t.save(state)
   print(f"finished at step {state.step}")

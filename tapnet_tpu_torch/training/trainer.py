@@ -256,9 +256,16 @@ class Trainer:
     return self._step_fn
 
   def fit(self, state: TrainState, data: Iterator[Batch], num_steps: int,
-          log_every: int = 50) -> TrainState:
+          log_every: int = 50,
+          eval_fn: Optional[Callable[[TrainState], Mapping[str, float]]] = None,
+          evaluate_every: int = 0) -> TrainState:
     """Runs `num_steps` training steps, printing and logging the scalars
-    every `log_every` steps and checkpointing every `checkpoint_every`."""
+    every `log_every` steps and checkpointing every `checkpoint_every`.
+
+    If `eval_fn` is given, it is called every `evaluate_every` steps with
+    the current state (the reference's in-train eval, experiment.py:193-197;
+    `tapvid.evaluate.make_eval_fn` builds one), and its scalars go to the
+    same sink with kind "eval"."""
     sink = telemetry.ScalarSink(self.log_path)
     last_t = time.time()
     try:
@@ -279,6 +286,12 @@ class Trainer:
         if (self.checkpoint_path and self.checkpoint_every
             and step % self.checkpoint_every == 0):
           self.save(state)
+        if eval_fn is not None and evaluate_every and (
+            step % evaluate_every == 0):
+          eval_scalars = eval_fn(state)
+          print(f"eval @{step} " + " ".join(
+              f"{k}={v:.4f}" for k, v in eval_scalars.items()))
+          sink.write(step, eval_scalars, kind="eval")
     finally:
       sink.close()
     return state

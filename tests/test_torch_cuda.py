@@ -954,3 +954,188 @@ def test_rglru_launches_the_scan(cuda):
     assert scan.LAUNCHES == before + 1
   torch.testing.assert_close(y.cpu(), ref_y, rtol=1e-5, atol=1e-5)
   torch.testing.assert_close(h.cpu(), ref_h, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ int8 streams, evaluation
+
+
+def _flax_tree(model):
+  """The Flax-layout tree of a port TAPIR's weights (the inverse of
+  `checkpoints.convert.flax_to_state_dict`), for the predictors."""
+  tree = {}
+  for key, value in model.state_dict().items():
+    *path, leaf = key.split(".")
+    arr = value.detach().cpu().numpy()
+    if leaf == "weight":
+      leaf = "kernel"
+      arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else (
+          arr.T if arr.ndim == 2 else arr)
+    node = tree
+    for p in path:
+      node = node.setdefault(p, {})
+    node[leaf] = np.ascontiguousarray(arr)
+  return tree
+
+
+def _small_tapir(config_fn, **overrides):
+  from tapnet_tpu_torch.models import tapir
+
+  torch.manual_seed(0)
+  model = tapir.TAPIR(config_fn(**dict(dict(
+      blocks_per_group=(1, 1, 1, 1), highres_dim=16, lowres_dim=32,
+      mixer_hidden_dim=32, num_mixer_blocks=2, initial_resolution=(64, 64),
+      num_pips_iter=2), **overrides)))
+  for p in model.parameters():
+    torch.nn.init.normal_(p, std=0.05)
+  return model.config, _flax_tree(model)
+
+
+def test_streaming_q8_mixer_block_matches_cpu(cuda):
+  """The w8a8 causal MixerBlock streaming with a cache (warm-up, then three
+  one-frame steps; its MLP `mixer_math.mlp_math_q8`, float64 products of the
+  int8 values) on the card against its CPU run. Float32 noise may move an
+  activation across an int8 rounding boundary, which moves the outputs of
+  that token by a step's worth (about 1e-3 here): at most 1% of the
+  outputs past 1e-4, none past 2e-2."""
+  torch.manual_seed(0)
+  block = layers.MixerBlock(64, causal=True, quantized=True)
+  for p in block.parameters():
+    torch.nn.init.normal_(p, std=0.1)
+  clip, steps = torch.randn(8, 4, 64), torch.randn(3, 8, 1, 64)
+
+  def stream(block, device):
+    outs = []
+    with torch.no_grad():
+      y, cache = block(clip.to(device), None, True)
+      outs.append(y)
+      for x in steps:
+        y, cache = block(x.to(device), cache, True)
+        outs.append(y)
+    return torch.cat([o.cpu() for o in outs], 1)
+
+  ref = stream(block, "cpu")
+  got = stream(block.to(cuda), cuda)
+  diff = (got - ref).abs()
+  assert (diff > 1e-4).float().mean() <= 0.01 and diff.max() <= 2e-2
+
+
+@pytest.mark.parametrize("name", ["a", "c"])
+def test_online_int8_stream_matches_cpu(cuda, name):
+  """OnlineTapirPredictor in int8 configurations a and c (a small causal
+  BootsTAPIR, random weights): init, three steps and add_points on the card
+  against the CPU run; c's steps launch K2 and X, and never K6. Limits: the
+  int8 CPU tests' (tests/test_torch_tapir.py INT8_TOL), the two sides
+  differing by float32 noise and the int8 steps it moves."""
+  from tapnet_tpu_torch.inference import OnlineTapirPredictor
+  from tapnet_tpu_torch.models import tapir
+  from tools.golden_clip import INT8_CONFIGS
+
+  config, params = _small_tapir(tapir.causal_bootstapir_config,
+                                **INT8_CONFIGS[name])
+  tol = {"a": dict(tracks=0.03, logits=2e-2), "c": dict(tracks=0.3, logits=0.1)}[name]
+  rng = np.random.RandomState(0)
+  video = (rng.rand(1, 4, 64, 64, 3) * 2 - 1).astype(np.float32)
+  qp = np.stack([np.zeros(6), rng.rand(6) * 56 + 4, rng.rand(6) * 56 + 4],
+                -1)[None].astype(np.float32)
+
+  def stream(device):
+    p = OnlineTapirPredictor(params, config, device=device)
+    p.init(video[:, 0], qp)
+    outs = [p.step(video[:, t]) for t in range(1, 3)]
+    p.add_points(video[:, 2], qp[:, :2] + np.float32([0, 2, -3]), [1, 4])
+    outs.append(p.step(video[:, 3]))
+    return outs
+
+  ref = stream("cpu")
+  before = {k: getattr(m, a) for k, (m, a) in {
+      "k2": (corr_tents, "LAUNCHES_Q8_FRAME"), "x": (qconv, "LAUNCHES_Q8"),
+      "k6": (fused_extra_convs, "LAUNCHES")}.items()}
+  got = stream("cuda")
+  launched = {"k2": corr_tents.LAUNCHES_Q8_FRAME - before["k2"],
+              "x": qconv.LAUNCHES_Q8 - before["x"],
+              "k6": fused_extra_convs.LAUNCHES - before["k6"]}
+  assert launched["k2"] == 3 * 3 * config.num_pips_iter and launched["k6"] == 0
+  assert (launched["x"] > 0) == (name == "c")
+  for ours, theirs in zip(got, ref):
+    np.testing.assert_allclose(ours["tracks"], theirs["tracks"], rtol=0,
+                               atol=tol["tracks"])
+    for key in ("occlusion", "expected_dist"):
+      np.testing.assert_allclose(ours[key], theirs[key], rtol=0,
+                                 atol=tol["logits"])
+
+
+def test_evaluate_dataset_on_card_matches_cpu(cuda, tmp_path):
+  """`evaluate_dataset` over two exported 8-frame 64x64 videos with a small
+  BootsTAPIR (random weights, fp32, TF32 off): the card's metrics against
+  the CPU's, within 1e-3 (fp32 summation order moves only point-frames
+  within about 1e-3 px of a threshold)."""
+  from tapnet_tpu_torch.data import synthetic
+  from tapnet_tpu_torch.inference import TapirPredictor
+  from tapnet_tpu_torch.models import tapir
+  from tapnet_tpu_torch.tapvid import datasets, evaluate
+
+  torch.backends.cudnn.allow_tf32 = False
+  synthetic.export_npz(str(tmp_path), 2, seed=3, num_frames=8, height=64,
+                       width=64, num_queries=12)
+  config, params = _small_tapir(tapir.bootstapir_config)
+
+  def run(device):
+    return evaluate.evaluate_dataset(
+        TapirPredictor(params, config, query_chunk_size=16, device=device),
+        datasets.create_kubric_dataset(str(tmp_path), "strided", (64, 64)),
+        "strided", verbose=False)
+
+  try:
+    ref, got = run("cpu"), run("cuda")
+  finally:
+    torch.backends.cudnn.allow_tf32 = True
+  assert set(got) == set(ref) and len(got) == 13
+  for k, v in ref.items():
+    assert abs(got[k] - v) <= 1e-3, (k, got[k], v)
+
+
+def test_in_train_eval_on_card(cuda, tmp_path, monkeypatch, capsys):
+  """`training.run --eval_dir` on the card (a small TAPNext, one step, two
+  exported videos): the evaluation runs the module's own weights through
+  the linear scan (K5), and its scalars reach the JSONL with kind
+  "eval"."""
+  import dataclasses
+  import json
+
+  from tapnet_tpu_torch import configs
+  from tapnet_tpu_torch.data import synthetic
+  from tapnet_tpu_torch.models import ssm_vit
+  from tapnet_tpu_torch.tapvid import evaluate
+  from tapnet_tpu_torch.training import run
+
+  eval_dir = str(tmp_path / "eval")
+  synthetic.export_npz(eval_dir, 2, seed=4, num_frames=4, height=32, width=32,
+                       num_queries=3)
+  preset = configs.REGISTRY["tapnext"]
+
+  def tiny(**overrides):
+    exp = preset(**overrides)
+    return dataclasses.replace(
+        exp, model_config=ssm_vit.SsmVitConfig(
+            width=32, depth=2, mlp_dim=64, num_heads=2, image_size=(32, 32)),
+        data=dataclasses.replace(exp.data, train_size=(32, 32)))
+
+  monkeypatch.setitem(configs.REGISTRY, "tapnext", tiny)
+  real, launched = evaluate.evaluate_dataset, []
+
+  def counted(*args, **kwargs):
+    before = scan.LAUNCHES
+    out = real(*args, **kwargs)
+    launched.append(scan.LAUNCHES - before)
+    return out
+
+  monkeypatch.setattr(evaluate, "evaluate_dataset", counted)
+  run.main(["--experiment", "tapnext", "--synthetic", "--num_steps", "1",
+            "--batch_size", "1", "--num_frames", "4", "--num_queries", "3",
+            "--checkpoint_dir", str(tmp_path), "--eval_dir", eval_dir,
+            "--eval_every", "1"])
+  # One K5 launch per SSM block per video.
+  assert launched == [2 * 2]
+  records = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
+  evals = [r for r in records if r["kind"] == "eval"]
+  assert len(evals) == 1 and 0.0 <= evals[0]["average_jaccard"] <= 1.0

@@ -2,7 +2,9 @@
 and warm-up temporal block, PipsMixer with a cache, the causal state and its
 update, `estimate_trajectories` with a causal state (chunked and not), and
 `OnlineTapirPredictor(device="cpu")` (init, predict, add_points) at small
-widths; the stream against the port's own offline causal model; the trained
+widths, in float and in the int8 configurations a and c, and the quantized
+streaming MixerBlock against Flax's `mlp_block_q8` path; the stream against
+the port's own offline causal model; the trained
 full-width model against the JAX stream in
 tests/data/bootstapir_golden_online.npz. Inputs and weights come from numpy
 seeds and Flax `init`, and reach both frameworks as numpy arrays.
@@ -188,6 +190,44 @@ def test_pips_mixer_streams_like_flax(x_dtype):
   ref_zero = flax_mixer.init_cache((4,))
   assert [tuple(v.shape) for v in zero] == [v.shape for v in ref_zero]
   assert all(v.dtype == torch.float32 and not v.any() for v in zero)
+
+
+def test_quantized_streaming_mixer_block_matches_mlp_block_q8():
+  """A w8a8 causal MixerBlock streaming with a cache (a 4-frame warm-up,
+  then three one-frame steps) against Flax's MixerBlock(quantized=True),
+  whose unfused path runs `mixer_math.mlp_block_q8`: outputs and caches.
+  The int8 products are exact on both sides; float32 noise in the
+  LayerNorm stays far from the int8 rounding boundaries of these inputs."""
+  c = 16
+  flax_block = jax_layers.MixerBlock(causal=True, quantized=True)
+  x = jnp.zeros((4, 3, c), jnp.float32)
+  params = _perturbed(flax_block.init(jax.random.PRNGKey(0), x)["params"],
+                      seed=2, scale=0.1)
+  block = layers.MixerBlock(c, causal=True, quantized=True)
+  load_flax_params(block, params)
+  apply = jax.jit(lambda x, cache: flax_block.apply({"params": params}, x,
+                                                   cache, True))
+  rng = np.random.RandomState(5)
+  clip = rng.randn(4, 4, c).astype(np.float32)
+  ref, ref_cache = apply(jnp.asarray(clip), None)
+  with torch.no_grad():
+    out, cache = block(torch.from_numpy(clip), None, True)
+  np.testing.assert_allclose(_np(out), _np(ref), rtol=BLOCK_TOL, atol=BLOCK_TOL)
+  # The int8 MLP really ran: the float block's output is elsewhere.
+  float_block = layers.MixerBlock(c, causal=True)
+  load_flax_params(float_block, params)
+  with torch.no_grad():
+    float_out, _ = float_block(torch.from_numpy(clip), None, True)
+  assert np.abs(_np(float_out) - _np(ref)).max() > 1e-3
+  for step in rng.randn(3, 4, 1, c).astype(np.float32):
+    ref, ref_cache = apply(jnp.asarray(step), ref_cache)
+    with torch.no_grad():
+      out, cache = block(torch.from_numpy(step), cache, True)
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=BLOCK_TOL,
+                               atol=BLOCK_TOL)
+    for ours, theirs in zip(cache, ref_cache):
+      np.testing.assert_allclose(_np(ours), _np(theirs), rtol=BLOCK_TOL,
+                                 atol=BLOCK_TOL)
 
 
 def test_pips_mixer_without_cache_returns_the_output_only():
@@ -380,16 +420,50 @@ def test_online_predictor_matches_jax(tiny_causal):
   np.testing.assert_array_equal(out["visibles"][clear], ref["visibles"][clear])
 
 
-def test_online_predictor_guards():
+# The int8 stream against JAX's: both sides run the same exact integer
+# products on bit-equal int8 values and differ by float32 noise, and where
+# that noise moves a value across a rounding boundary, by one int8 step,
+# carried through the stream. Limit on the tracks (px): the offline int8
+# limit of tests/test_torch_tapir.py (INT8_TOL) for c; at least 95% of the
+# visibility flags equal.
+ONLINE_INT8_TRACK_TOL = 0.3
+
+
+def test_online_predictor_guards(tiny_causal):
+  """A non-causal configuration is refused, and a card is required unless
+  device="cpu"; an int8 configuration streams as JAX's OnlineTapirPredictor
+  does, each step quantizing its own frame: c, the w8a8 mixer, the
+  per-frame int8 correlation and the per-frame int8 ExtraConvs (a is c
+  without the ExtraConvs' int8; one configuration keeps the test within
+  the suite's time)."""
+  from tools.golden_clip import INT8_CONFIGS
+
   with pytest.raises(ValueError, match="use_causal_conv"):
     OnlineTapirPredictor({}, tapir.bootstapir_config(), device="cpu")
-  for flag in (dict(quantized_mixer=True), dict(quantized_corr="per_frame"),
-               dict(quantized_extra_convs=True)):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      OnlineTapirPredictor({}, tapir.causal_tapir_config(**flag), device="cpu")
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match="CUDA"):
       OnlineTapirPredictor({}, tapir.causal_tapir_config())
+  _, params, _, video, qp = tiny_causal
+  # Four frames: init and four steps (add_points, at frame 4, is held by
+  # test_online_predictor_matches_jax; it would cost a compile a config).
+  video, new_qp = video[:, :make_online_golden.ADD_AT], None
+  for name in ("c",):
+    overrides = dict(TINY, **INT8_CONFIGS[name])
+    jax_pred = jax_inference.OnlineTapirPredictor(
+        params, jax_tapir.causal_bootstapir_config(**overrides))
+
+    def jax_step(frame, jax_pred=jax_pred):
+      tracks, visibles = jax_pred.predict(frame)
+      return dict(tracks=tracks, visibles=visibles)
+
+    ref = make_online_golden.run_stream(jax_pred.init, jax_step,
+                                        jax_pred.add_points, video, qp, new_qp)
+    port = OnlineTapirPredictor(
+        params, tapir.causal_bootstapir_config(**overrides), device="cpu")
+    out = _stream(port, video, qp, new_qp)
+    np.testing.assert_allclose(out["tracks"], ref["tracks"], rtol=0,
+                               atol=ONLINE_INT8_TRACK_TOL, err_msg=name)
+    assert np.mean(out["visibles"] == ref["visibles"]) >= 0.95, name
 
 
 def test_stream_equals_offline_causal_model(tiny_causal):

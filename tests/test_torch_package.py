@@ -208,6 +208,42 @@ def test_training_runs_without_jax():
   assert res.returncode == 0, res.stderr
 
 
+def test_evaluation_layer_runs_without_jax():
+  """The TAP-Vid evaluation layer (metrics, readers, evaluate harness,
+  JHMDB, AJ_RD), the TAPNext torch-checkpoint import, and `export_npz`
+  from the committed JAX draws through tools/make_eval_draws.py (numpy at
+  import), read back and scored, run in a fresh process that never imports
+  JAX (the models run in the tests of the port's predictors)."""
+  code = (
+      "import sys, tempfile, numpy as np, torch\n"
+      "from tapnet_tpu_torch.tapvid import aj_rd, datasets, evaluate, jhmdb, metrics\n"
+      "from tapnet_tpu_torch.checkpoints import tapnext_torch_import\n"
+      "from tapnet_tpu_torch.data import synthetic\n"
+      "from tools import make_eval_draws, make_online_golden\n"
+      "d = tempfile.mkdtemp()\n"
+      "draws = {k: v[:1] for k, v in make_eval_draws.load_draws('b').items()}\n"
+      "synthetic.export_npz(d, 1, num_queries=64, num_sprites=12, draws=draws)\n"
+      "ds = datasets.create_kubric_dataset(d, 'strided')\n"
+      "def still(video, qp):\n"
+      "  t = video.shape[1]\n"
+      "  return dict(tracks=np.repeat(qp[..., None, 2:0:-1], t, 2),\n"
+      "              occlusion=np.full(qp.shape[:2] + (t,), -5.0),\n"
+      "              expected_dist=np.full(qp.shape[:2] + (t,), -5.0))\n"
+      "m = evaluate.evaluate_dataset(still, ds, 'strided', verbose=False)\n"
+      "assert len(m) == 13 and 0 < m['average_jaccard'] < 1, m\n"
+      "assert metrics.latex_table(m)\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
+      "assert not bad, bad\n"
+  )
+  env = dict(os.environ, PYTHONPATH=REPO)
+  res = subprocess.run(
+      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=300,
+  )
+  assert res.returncode == 0, res.stderr
+
+
 def test_int8_products_stay_in_the_ports_own_kernels():
   """No library stands in for an int8 product: the package names neither
   `_int_mm`, cuBLAS nor `torch.compile`, and each int8 entry point of the

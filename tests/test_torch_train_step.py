@@ -181,7 +181,6 @@ def test_trainer_refusals(monkeypatch):
     loss_fn(_tiny_batch(frames=3))
   for argv in (["--experiment", "tapnext"],
                ["--synthetic", "--data_dir", "d"],
-               ["--synthetic", "--eval_dir", "d"],
                ["--synthetic", "--model_parallel", "2", "--device", "cpu"]):
     with pytest.raises(NotImplementedError):
       run.main(argv)
@@ -195,6 +194,7 @@ def test_experiments_mirror_jax():
     assert port.model_kind == ref.model_kind == "tapnext"
     assert port.total_steps == ref.total_steps
     assert port.train_time_chunk == ref.train_time_chunk
+    assert port.evaluate_every == ref.evaluate_every
     for field, value in dataclass_dict(port.data).items():
       assert value == getattr(ref.data, field), field
     assert dataclass_dict(port.optimizer) == dataclass_dict(ref.optimizer)

@@ -18,7 +18,17 @@ for dtype float32 and bfloat16. The tracks and visibles are what the JAX
 predictor's `predict` returns; the logits come from the same step, run
 again with the state `predict` started from. No causal state is stored.
 
-  JAX_PLATFORMS=cpu python tools/make_online_golden.py
+The int8 streams have a file of their own,
+tests/data/bootstapir_golden_online_int8.npz: the same protocol in float32
+with `causal_bootstapir_config(**INT8_CONFIGS[name])` for the int8
+configurations a-d of tools/golden_clip.py, as `<name>_tracks`,
+`<name>_visibles`, `<name>_occlusion` and `<name>_expected_dist` (each
+step's grids quantized anew, as JAX streams them; "d" streams the per-frame
+int8 ExtraConvs, since the per-pixel kernel needs 16+ frames).
+
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py          # both files
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py float
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py int8
 
 numpy only at import: the port's tests and chip_smoke.py import
 `run_stream` and the constants from here.
@@ -35,6 +45,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
 OUT = os.path.join(REPO, "tests/data/bootstapir_golden_online.npz")
+OUT_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_online_int8.npz")
 
 DTYPES = ("float32", "bfloat16")
 ADD_AT = 4
@@ -62,7 +73,7 @@ def run_stream(init, step, add_points, frames, query_points, new_points):
   return {key: np.stack([o[key] for o in outs]) for key in outs[0]}
 
 
-def main():
+def main(which=("float", "int8")):
   import jax
 
   jax.config.update("jax_platforms", "cpu")
@@ -72,14 +83,14 @@ def main():
   from tapnet_tpu.checkpoints import tapir_checkpoint
   from tapnet_tpu.models import tapir
   from tapnet_tpu.utils import sampling
+  from tools.golden_clip import INT8_CONFIGS
 
   golden = np.load(GOLDEN)
   frames = np.asarray(sampling.preprocess_frames(jnp.asarray(golden["video"])))
   qp, new_qp = online_queries(golden["query_points"])
   params = tapir_checkpoint.load_tapir_checkpoint(CHECKPOINT)
-  arrays = dict(query_points=qp, new_query_points=new_qp)
-  for name in DTYPES:
-    config = tapir.causal_bootstapir_config(compute_dtype=name)
+
+  def stream(config):
     predictor = inference.OnlineTapirPredictor(params, config)
     model, p = predictor.model, config.num_pips_iter
 
@@ -93,23 +104,35 @@ def main():
       mean = lambda key: jnp.mean(jnp.stack(out[key][p::p]), axis=0)[..., 0]
       return mean("occlusion"), mean("expected_dist")
 
-    def step(frame, predictor=predictor, logits=logits):
+    def step(frame):
       occ, expd = logits(predictor.params, jnp.asarray(frame)[:, None],
                          predictor._query_features, predictor._state)  # pylint: disable=protected-access
       tracks, visibles = predictor.predict(frame)
       return dict(tracks=tracks, visibles=visibles, occlusion=np.asarray(occ),
                   expected_dist=np.asarray(expd))
 
-    out = run_stream(predictor.init, step, predictor.add_points, frames, qp,
-                     new_qp)
-    for key, value in out.items():
-      arrays[f"{name}_{key}"] = value
-    print(f"ran {name}", flush=True)
+    return run_stream(predictor.init, step, predictor.add_points, frames, qp,
+                      new_qp)
+
   os.makedirs(os.path.dirname(OUT), exist_ok=True)
-  np.savez_compressed(OUT, **arrays)
-  print(f"wrote {OUT} ({os.path.getsize(OUT) / 2**20:.3f} MiB)")
+  runs = []
+  if "float" in which:
+    runs.append((OUT, {name: tapir.causal_bootstapir_config(compute_dtype=name)
+                       for name in DTYPES}))
+  if "int8" in which:
+    runs.append((OUT_INT8, {
+        name: tapir.causal_bootstapir_config(**overrides)
+        for name, overrides in sorted(INT8_CONFIGS.items())}))
+  for path, configs in runs:
+    arrays = dict(query_points=qp, new_query_points=new_qp)
+    for name, config in configs.items():
+      for key, value in stream(config).items():
+        arrays[f"{name}_{key}"] = value
+      print(f"ran {name}", flush=True)
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path} ({os.path.getsize(path) / 2**20:.3f} MiB)")
 
 
 if __name__ == "__main__":
   sys.path.insert(0, REPO)
-  main()
+  main(sys.argv[1:] or ("float", "int8"))
