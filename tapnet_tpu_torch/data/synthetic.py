@@ -23,6 +23,31 @@ Batch = Dict[str, torch.Tensor]
 
 _TEX = 8  # background and texture resolution
 
+# The held-out sets behind the BootsTAPIR accuracy numbers, as `export_npz`'s
+# arguments (16 videos each, 24 frames at 256^2, 64 tracks): "a" at its
+# defaults, "b" out of domain (twice the sprites, faster). The JAX package's
+# draws of both are committed (tests/data/synth_eval_draws.npz, written by
+# tools/make_eval_draws.py); `load_draws` reads them for
+# `export_npz(draws=...)`, which rebuilds JAX's exact videos. They are scored
+# with strided queries through `TapirPredictor(query_chunk_size=32)`.
+HELD_OUT_SETS = {
+    "a": dict(num_examples=16, seed=10_000, num_frames=24, height=256,
+              width=256, num_queries=64, num_sprites=6, vel_range=3.0),
+    "b": dict(num_examples=16, seed=20_000, num_frames=24, height=256,
+              width=256, num_queries=64, num_sprites=12, vel_range=7.0),
+}
+HELD_OUT_QUERY_MODE = "strided"
+HELD_OUT_QUERY_CHUNK_SIZE = 32
+DRAW_KEYS = ("bg_small", "pos0", "vel", "half", "tex_small", "sprite_id",
+             "offset", "t_query")
+
+
+def load_draws(path: str, name: str) -> Dict[str, np.ndarray]:
+  """{draw name: array with a leading video axis} of held-out set `name`
+  from the npz at `path` (`<set>/<draw name>` arrays)."""
+  with np.load(path) as z:
+    return {k: z[f"{name}/{k}"] for k in DRAW_KEYS}
+
 
 def draw(generator: torch.Generator, batch_size: int = 1,
          num_frames: int = 8, height: int = 256, width: int = 256,
@@ -147,7 +172,7 @@ def export_npz(out_dir: str, num_examples: int, seed: int = 10_000,
 
   The draws come from a `torch.Generator` seeded with `seed`, or, given
   `draws` ({draw name: array with a leading video axis}, e.g.
-  `tools/make_eval_draws.load_draws`), from those: the JAX package's own
+  `load_draws`), from those: the JAX package's own
   draws rebuild its held-out sets. The uint8 conversion is JAX's,
   `clip((v + 1) * 127.5, 0, 255)` truncated toward zero.
   """

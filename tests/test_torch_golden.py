@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu.ops import fused_extra_convs as jax_fec
 from tapnet_tpu_torch.checkpoints.tapir_checkpoint import load_tapir_checkpoint
 from tapnet_tpu_torch.inference import TapirPredictor

@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu_torch.models import layers  # noqa: E402
 from tapnet_tpu_torch.ops import (  # noqa: E402
     _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,

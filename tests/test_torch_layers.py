@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu.models import layers as jax_layers
 from tapnet_tpu.models import resnet as jax_resnet
 from tapnet_tpu.models import tapir as jax_tapir

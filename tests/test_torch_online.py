@@ -19,6 +19,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu import inference as jax_inference
 from tapnet_tpu.models import layers as jax_layers
 from tapnet_tpu.models import tapir as jax_tapir
@@ -423,19 +427,19 @@ def test_online_predictor_matches_jax(tiny_causal):
 # The int8 stream against JAX's: both sides run the same exact integer
 # products on bit-equal int8 values and differ by float32 noise, and where
 # that noise moves a value across a rounding boundary, by one int8 step,
-# carried through the stream. Limit on the tracks (px): the offline int8
-# limit of tests/test_torch_tapir.py (INT8_TOL) for c; at least 95% of the
-# visibility flags equal.
-ONLINE_INT8_TRACK_TOL = 0.3
+# carried through the stream. Limit on the tracks (px): each configuration's
+# offline int8 limit of tests/test_torch_tapir.py (INT8_TOL); at least 95%
+# of the visibility flags equal.
+ONLINE_INT8_TRACK_TOL = {"a": 0.03, "c": 0.3}
 
 
-def test_online_predictor_guards(tiny_causal):
+@pytest.mark.parametrize("name", ["a", "c"])
+def test_online_predictor_guards(tiny_causal, name):
   """A non-causal configuration is refused, and a card is required unless
   device="cpu"; an int8 configuration streams as JAX's OnlineTapirPredictor
-  does, each step quantizing its own frame: c, the w8a8 mixer, the
-  per-frame int8 correlation and the per-frame int8 ExtraConvs (a is c
-  without the ExtraConvs' int8; one configuration keeps the test within
-  the suite's time)."""
+  does, each step quantizing its own frame, add_points included (slots 0
+  and 5 at frame 4): a, the w8a8 mixer and the per-frame int8 correlation;
+  c, a with the per-frame int8 ExtraConvs and 2 refinement steps."""
   from tools.golden_clip import INT8_CONFIGS
 
   with pytest.raises(ValueError, match="use_causal_conv"):
@@ -444,26 +448,24 @@ def test_online_predictor_guards(tiny_causal):
     with pytest.raises(RuntimeError, match="CUDA"):
       OnlineTapirPredictor({}, tapir.causal_tapir_config())
   _, params, _, video, qp = tiny_causal
-  # Four frames: init and four steps (add_points, at frame 4, is held by
-  # test_online_predictor_matches_jax; it would cost a compile a config).
-  video, new_qp = video[:, :make_online_golden.ADD_AT], None
-  for name in ("c",):
-    overrides = dict(TINY, **INT8_CONFIGS[name])
-    jax_pred = jax_inference.OnlineTapirPredictor(
-        params, jax_tapir.causal_bootstapir_config(**overrides))
+  new_qp = qp[:, [2, 3]] + np.float32([0, 3, -2])
+  overrides = dict(TINY, **INT8_CONFIGS[name])
+  jax_pred = jax_inference.OnlineTapirPredictor(
+      params, jax_tapir.causal_bootstapir_config(**overrides))
 
-    def jax_step(frame, jax_pred=jax_pred):
-      tracks, visibles = jax_pred.predict(frame)
-      return dict(tracks=tracks, visibles=visibles)
+  def jax_step(frame):
+    tracks, visibles = jax_pred.predict(frame)
+    return dict(tracks=tracks, visibles=visibles)
 
-    ref = make_online_golden.run_stream(jax_pred.init, jax_step,
-                                        jax_pred.add_points, video, qp, new_qp)
-    port = OnlineTapirPredictor(
-        params, tapir.causal_bootstapir_config(**overrides), device="cpu")
-    out = _stream(port, video, qp, new_qp)
-    np.testing.assert_allclose(out["tracks"], ref["tracks"], rtol=0,
-                               atol=ONLINE_INT8_TRACK_TOL, err_msg=name)
-    assert np.mean(out["visibles"] == ref["visibles"]) >= 0.95, name
+  ref = make_online_golden.run_stream(jax_pred.init, jax_step,
+                                      jax_pred.add_points, video, qp, new_qp)
+  port = OnlineTapirPredictor(
+      params, tapir.causal_bootstapir_config(**overrides), device="cpu")
+  out = _stream(port, video, qp, new_qp)
+  assert out["tracks"].shape == ref["tracks"].shape == (T, B, N, 2)
+  np.testing.assert_allclose(out["tracks"], ref["tracks"], rtol=0,
+                             atol=ONLINE_INT8_TRACK_TOL[name])
+  assert np.mean(out["visibles"] == ref["visibles"]) >= 0.95
 
 
 def test_stream_equals_offline_causal_model(tiny_causal):

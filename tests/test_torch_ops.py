@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu.ops import corr_tents as jax_corr
 from tapnet_tpu.ops import fused_extra_convs as jax_fec
 from tapnet_tpu.ops import fused_mixer_block as jax_fmb

@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 import tapnet_tpu_torch
 from tapnet_tpu_torch.inference import (
     OnlineTapnextPredictor, TapirPredictor, TapnextPredictor, resolve_device,
@@ -55,12 +59,27 @@ def test_import_pulls_in_no_jax():
 
 def test_chip_smoke_imports_no_jax():
   """chip_smoke.py runs where JAX is absent: it and the golden clips it
-  rebuilds (tools/golden_clip.py) import no JAX, Flax or tapnet_tpu module."""
+  rebuilds (tools/golden_clip.py) import no JAX, Flax or tapnet_tpu module.
+  Its int8 stream limits, read from JAX's committed streams and their
+  nudged-input witness, are never below the offline limits and refuse JAX's
+  float stream, and the witness moves no query that add_points wrote."""
   code = (
       "import sys\n"
+      "import numpy as np\n"
       "import chip_smoke\n"
       "video, queries = chip_smoke.make_clip(num_frames=chip_smoke.CLIP_FRAMES['d'])\n"
       "assert video.shape == (1, 24, 256, 256, 3), video.shape\n"
+      "golden = np.load(chip_smoke.GOLDEN_ONLINE_INT8)\n"
+      "fl = np.load(chip_smoke.GOLDEN_ONLINE)\n"
+      "for name in 'abcd':\n"
+      "  tol, witness = chip_smoke.online_int8_limits(golden, name)\n"
+      "  offline = chip_smoke.GOLDEN_INT8_FP32_TOL[name]\n"
+      "  assert all(tol[k] >= offline[k] for k in offline), (name, tol)\n"
+      "  assert not set(witness['flipped']) & set(chip_smoke.ADD_IDX), witness\n"
+      "  ref = {k: golden[f'{name}_{k}'] for k in chip_smoke._STREAM_KEYS}\n"
+      "  control = {k: fl[f'float32_{k}'] for k in chip_smoke._STREAM_KEYS}\n"
+      "  assert not chip_smoke.stream_within(\n"
+      "      chip_smoke.stream_apart(control, ref), tol), (name, tol)\n"
       "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
       "assert not bad, bad\n"
@@ -175,13 +194,33 @@ def test_tapnext_paths_run_without_jax():
 def test_training_runs_without_jax():
   """A TAPNext training step (the Trainer, both losses, synthetic batches
   made from a torch.Generator, a checkpoint) runs in a fresh process that
-  never imports JAX."""
+  never imports JAX; so does the TAP-Vid evaluation layer (metrics, readers,
+  evaluate harness, JHMDB, AJ_RD), the TAPNext torch-checkpoint import, and
+  `export_npz` from the committed JAX draws (`synthetic.load_draws`), read
+  back and scored, with the tools chip_smoke.py imports (the models run in
+  the tests of the port's predictors)."""
   code = (
-      "import sys, tempfile, os, torch\n"
+      "import sys, tempfile, os, numpy as np, torch\n"
       "from tapnet_tpu_torch import configs\n"
       "from tapnet_tpu_torch.data import synthetic\n"
       "from tapnet_tpu_torch.models import ssm_vit, tapnext\n"
       "from tapnet_tpu_torch.training import optimizers, trainer\n"
+      "from tapnet_tpu_torch.tapvid import aj_rd, datasets, evaluate, jhmdb, metrics\n"
+      "from tapnet_tpu_torch.checkpoints import tapnext_torch_import\n"
+      "from tools import golden_clip, make_online_golden\n"
+      "d = tempfile.mkdtemp()\n"
+      "draws = {k: v[:1] for k, v in synthetic.load_draws("
+      "'tests/data/synth_eval_draws.npz', 'b').items()}\n"
+      "synthetic.export_npz(d, 1, num_queries=64, num_sprites=12, draws=draws)\n"
+      "ds = datasets.create_kubric_dataset(d, 'strided')\n"
+      "def still(video, qp):\n"
+      "  t = video.shape[1]\n"
+      "  return dict(tracks=np.repeat(qp[..., None, 2:0:-1], t, 2),\n"
+      "              occlusion=np.full(qp.shape[:2] + (t,), -5.0),\n"
+      "              expected_dist=np.full(qp.shape[:2] + (t,), -5.0))\n"
+      "m = evaluate.evaluate_dataset(still, ds, 'strided', verbose=False)\n"
+      "assert len(m) == 13 and 0 < m['average_jaccard'] < 1, m\n"
+      "assert metrics.latex_table(m)\n"
       "cfg = ssm_vit.SsmVitConfig(width=32, depth=1, mlp_dim=64, num_heads=2, "
       "image_size=(32, 32), remat=True)\n"
       "gen = torch.Generator().manual_seed(0)\n"
@@ -198,42 +237,6 @@ def test_training_runs_without_jax():
       "assert configs.get_experiment('tapnextpp').train_time_chunk == 128\n"
       "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
       "('jax', 'jaxlib', 'flax', 'optax', 'tapnet_tpu'))\n"
-      "assert not bad, bad\n"
-  )
-  env = dict(os.environ, PYTHONPATH=REPO)
-  res = subprocess.run(
-      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-      text=True, timeout=300,
-  )
-  assert res.returncode == 0, res.stderr
-
-
-def test_evaluation_layer_runs_without_jax():
-  """The TAP-Vid evaluation layer (metrics, readers, evaluate harness,
-  JHMDB, AJ_RD), the TAPNext torch-checkpoint import, and `export_npz`
-  from the committed JAX draws through tools/make_eval_draws.py (numpy at
-  import), read back and scored, run in a fresh process that never imports
-  JAX (the models run in the tests of the port's predictors)."""
-  code = (
-      "import sys, tempfile, numpy as np, torch\n"
-      "from tapnet_tpu_torch.tapvid import aj_rd, datasets, evaluate, jhmdb, metrics\n"
-      "from tapnet_tpu_torch.checkpoints import tapnext_torch_import\n"
-      "from tapnet_tpu_torch.data import synthetic\n"
-      "from tools import make_eval_draws, make_online_golden\n"
-      "d = tempfile.mkdtemp()\n"
-      "draws = {k: v[:1] for k, v in make_eval_draws.load_draws('b').items()}\n"
-      "synthetic.export_npz(d, 1, num_queries=64, num_sprites=12, draws=draws)\n"
-      "ds = datasets.create_kubric_dataset(d, 'strided')\n"
-      "def still(video, qp):\n"
-      "  t = video.shape[1]\n"
-      "  return dict(tracks=np.repeat(qp[..., None, 2:0:-1], t, 2),\n"
-      "              occlusion=np.full(qp.shape[:2] + (t,), -5.0),\n"
-      "              expected_dist=np.full(qp.shape[:2] + (t,), -5.0))\n"
-      "m = evaluate.evaluate_dataset(still, ds, 'strided', verbose=False)\n"
-      "assert len(m) == 13 and 0 < m['average_jaccard'] < 1, m\n"
-      "assert metrics.latex_table(m)\n"
-      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-      "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
       "assert not bad, bad\n"
   )
   env = dict(os.environ, PYTHONPATH=REPO)

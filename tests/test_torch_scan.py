@@ -9,6 +9,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 import jax.numpy as jnp
 
 from tapnet_tpu.ops import scan as jax_scan

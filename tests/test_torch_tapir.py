@@ -14,6 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu.models import tapir as jax_tapir
 from tapnet_tpu.ops import fused_extra_convs as jax_fec
 from tapnet_tpu_torch.checkpoints.convert import load_flax_params

@@ -8,12 +8,17 @@ JAX package's exported video 0; the TAPNext torch-checkpoint import gives
 JAX's flat tree bit for bit.
 """
 
+import json
 import pickle
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
 
 from tapnet_tpu.checkpoints import tapnext_torch_import as jax_import
 from tapnet_tpu.data import synthetic as jax_synthetic
@@ -261,9 +266,10 @@ def test_committed_draws_render_jax_export(tmp_path):
   float32 step or two apart, 3e-5 px at 128-256 px), and at most 1e-4 of
   the uint8 pixels one level apart: the video agrees within 1e-6 before the
   truncating uint8 conversion, which moves a value sitting on a level."""
-  spec = dict(make_eval_draws.SETS["a"], num_examples=1)
+  spec = dict(synthetic.HELD_OUT_SETS["a"], num_examples=1)
   jax_synthetic.export_npz(str(tmp_path / "jax"), **spec)
-  draws = {k: v[:1] for k, v in make_eval_draws.load_draws("a").items()}
+  draws = {k: v[:1] for k, v in synthetic.load_draws(make_eval_draws.DRAWS,
+                                                     "a").items()}
   # The committed draws are the tool's (JAX's keys, split as export_npz).
   _assert_same(make_eval_draws.jax_draws(**spec), draws)
   synthetic.export_npz(str(tmp_path / "port"), draws=draws, **spec)
@@ -281,6 +287,32 @@ def test_committed_draws_render_jax_export(tmp_path):
                        width=32, num_queries=4)
   own = np.load(tmp_path / "own" / "synth_0000.npz")
   assert own["video"].shape == (3, 32, 32, 3) and own["occluded"].shape == (4, 3)
+
+
+def test_held_out_records_cover_every_video():
+  """The committed draws hold every video of each held-out set, and JAX's
+  metrics hold every scored run complete, on the sets as the port defines
+  them: chip_smoke.py compares the card with JAX on all the videos."""
+  with open(make_eval_draws.METRICS) as f:
+    doc = json.load(f)
+  assert doc["sets"] == synthetic.HELD_OUT_SETS
+  assert doc["query_mode"] == synthetic.HELD_OUT_QUERY_MODE
+  assert doc["predictor"] == (f"TapirPredictor(query_chunk_size="
+                              f"{synthetic.HELD_OUT_QUERY_CHUNK_SIZE})")
+  runs = {f"{s}:{p}" for s, ps in make_eval_draws.PRECISIONS.items()
+          for p in ps}
+  assert set(doc["runs"]) == runs
+  for name, spec in synthetic.HELD_OUT_SETS.items():
+    n = spec["num_examples"]
+    draws = synthetic.load_draws(make_eval_draws.DRAWS, name)
+    assert {len(v) for v in draws.values()} == {n}
+    assert draws["t_query"].shape == (n, spec["num_queries"])
+    for key in (k for k in runs if k.startswith(f"{name}:")):
+      run = doc["runs"][key]
+      assert run["complete"] and run["videos"] == len(run["per_video"]) == n
+      for k, v in run["mean"].items():
+        assert v == pytest.approx(
+            np.mean([m[k] for m in run["per_video"]]), rel=1e-12), (key, k)
 
 
 # ---------------------------------------------------------- TAPNext import

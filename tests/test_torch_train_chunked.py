@@ -13,6 +13,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_torch_train_step as train_step  # noqa: E402
 

@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 import jax
 import jax.numpy as jnp
 import optax

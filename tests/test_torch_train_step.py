@@ -20,6 +20,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu_torch import configs
 from tapnet_tpu_torch.checkpoints.tapnext_checkpoint import flatten
 from tapnet_tpu_torch.data import synthetic

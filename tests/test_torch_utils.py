@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_threads  # noqa: E402
+
+_torch_threads.share_cores()
+
 from tapnet_tpu.checkpoints import tapir_checkpoint as jax_ckpt
 from tapnet_tpu.models import tapir as jax_tapir
 from tapnet_tpu.utils import sampling as jax_sampling

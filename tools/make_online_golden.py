@@ -26,9 +26,22 @@ configurations a-d of tools/golden_clip.py, as `<name>_tracks`,
 step's grids quantized anew, as JAX streams them; "d" streams the per-frame
 int8 ExtraConvs, since the per-pixel kernel needs 16+ frames).
 
+The int8 file also holds a witness of how far float32 noise alone moves
+JAX's own int8 streams: the same streams on the clip with every pixel
+nudged NUDGE_ULPS float32 ulps up after preprocessing, as
+`<name>_nudged_<key>`. An int8 stream carries a rounding that noise flipped
+into every later step, so JAX against itself on nudged frames reads how far
+a faithful port's stream may sit from JAX's. The nudge must move the int8
+roundings as much as an implementation's float32 noise does: one ulp is
+absorbed before the ExtraConvs at some frames (JAX's int8 feature grids of
+frames 1 and 7 come out bit-equal), while 16 ulps change about as many
+values of those grids (1.5e5 of 2.6e5 over 1e-5 at frames 1, 3 and 7) as
+the port's float32 noise does (0.8e5-1.6e5).
+
   JAX_PLATFORMS=cpu python tools/make_online_golden.py          # both files
   JAX_PLATFORMS=cpu python tools/make_online_golden.py float
-  JAX_PLATFORMS=cpu python tools/make_online_golden.py int8
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py int8     # and witness
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py witness  # witness only
 
 numpy only at import: the port's tests and chip_smoke.py import
 `run_stream` and the constants from here.
@@ -52,6 +65,8 @@ ADD_AT = 4
 ADD_IDX = (0, 5)
 # The clip's query points whose (y, x) the added queries take.
 NEW_POINTS = (8, 13)
+# The witness's nudge, in float32 ulps of the preprocessed frames.
+NUDGE_ULPS = 16
 
 
 def online_queries(query_points: np.ndarray):
@@ -73,6 +88,27 @@ def run_stream(init, step, add_points, frames, query_points, new_points):
   return {key: np.stack([o[key] for o in outs]) for key in outs[0]}
 
 
+def nudged(frames: np.ndarray, ulps: int = NUDGE_ULPS) -> np.ndarray:
+  """The preprocessed frames with every value `ulps` float32 ulps up."""
+  out = np.asarray(frames, np.float32)
+  for _ in range(ulps):
+    out = np.nextafter(out, np.float32(np.inf)).astype(np.float32)
+  return out
+
+
+def add_witness(arrays, stream, frames):
+  """Adds `<name>_nudged_<key>` of every int8 configuration to `arrays`:
+  `stream(config, frames)` on the nudged `frames`."""
+  from tapnet_tpu.models import tapir
+  from tools.golden_clip import INT8_CONFIGS
+
+  for name, overrides in sorted(INT8_CONFIGS.items()):
+    out = stream(tapir.causal_bootstapir_config(**overrides), nudged(frames))
+    for key, value in out.items():
+      arrays[f"{name}_nudged_{key}"] = value
+    print(f"ran {name} on the nudged clip", flush=True)
+
+
 def main(which=("float", "int8")):
   import jax
 
@@ -82,15 +118,20 @@ def main(which=("float", "int8")):
   from tapnet_tpu import inference
   from tapnet_tpu.checkpoints import tapir_checkpoint
   from tapnet_tpu.models import tapir
+  from tapnet_tpu.ops import qconv
   from tapnet_tpu.utils import sampling
   from tools.golden_clip import INT8_CONFIGS
+  from tools.make_eval_draws import use_exact_int8_conv
 
+  # JAX's int8 convolutions as exact float32 ones: the same int32 values,
+  # minutes faster a stream on the CPU.
+  use_exact_int8_conv(qconv)
   golden = np.load(GOLDEN)
   frames = np.asarray(sampling.preprocess_frames(jnp.asarray(golden["video"])))
   qp, new_qp = online_queries(golden["query_points"])
   params = tapir_checkpoint.load_tapir_checkpoint(CHECKPOINT)
 
-  def stream(config):
+  def stream(config, frames=frames):
     predictor = inference.OnlineTapirPredictor(params, config)
     model, p = predictor.model, config.num_pips_iter
 
@@ -115,6 +156,12 @@ def main(which=("float", "int8")):
                       new_qp)
 
   os.makedirs(os.path.dirname(OUT), exist_ok=True)
+  if "witness" in which and "int8" not in which:
+    with np.load(OUT_INT8) as z:
+      arrays = dict(z)
+    add_witness(arrays, stream, frames)
+    np.savez_compressed(OUT_INT8, **arrays)
+    print(f"wrote {OUT_INT8} ({os.path.getsize(OUT_INT8) / 2**20:.3f} MiB)")
   runs = []
   if "float" in which:
     runs.append((OUT, {name: tapir.causal_bootstapir_config(compute_dtype=name)
@@ -129,6 +176,8 @@ def main(which=("float", "int8")):
       for key, value in stream(config).items():
         arrays[f"{name}_{key}"] = value
       print(f"ran {name}", flush=True)
+    if path == OUT_INT8:
+      add_witness(arrays, stream, frames)
     np.savez_compressed(path, **arrays)
     print(f"wrote {path} ({os.path.getsize(path) / 2**20:.3f} MiB)")
 
