@@ -33,7 +33,13 @@ Phases (any failure raises and exits non-zero):
      into LayerNorm, conv_up and conv_out (fp32: and the weights' split), at
      each grid. K3's served rows
      also time cuBLAS's two bare products (fp32: TF32 off), K6f's the
-     model's unfused layer.
+     model's unfused layer. grad-kernels: the gradients through K1, K2,
+     K2b, K3, K4, X, K6 and K6f (their autograd Functions, `ops._vjp`) at
+     the shapes of a train-bootstapir-256 step, under one fixed cotangent,
+     bit-equal to autograd through their plain versions (float32; K1 and
+     K3 in bf16 too), beside two controls that must be refused: the bare
+     kernel launch (no grad_fn) and a Function that drops the last input's
+     gradient.
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, and in the predictor's default float32 at PyTorch's TF32
@@ -94,11 +100,26 @@ Phases (any failure raises and exits non-zero):
      steps, against the JAX numbers of tests/data/tapnext_train_golden.npz
      within that tool's limits); train-tapnext-256 (tapnext_experiment():
      ViT-B fp32 with remat, batch 8 x 24 frames x 256x256, 128 queries, a
-     warm-up and 3 timed steps: 24 K5 and 12 K5b launches a step, and a
+     warm-up and 2 timed steps: 24 K5 and 12 K5b launches a step, and a
      one-step profile by layer); train-tapnextpp (tapnextpp_experiment() cut
-     from 1024 to 256 frames, two chunks of 128: a warm-up and 2 timed
-     steps, and the gradient through the state carried between chunks).
-  7. The last line: {"ok": true, "device": {...}}.
+     from 1024 to 256 frames, two chunks of 128: a warm-up and 1 timed
+     step, and the gradient through the state carried between chunks).
+  7. TAPIR training: train-golden-tapir (the port's Trainer on
+     tools/make_tapir_train_golden.py's small BootsTAPIR, fp32 with TF32
+     off, identity and shared query orders, 3 steps each, against the JAX
+     numbers of tests/data/tapir_train_golden.npz within that tool's card
+     limits; every step launches K1 and K3) and bootstrap-golden (one
+     BootsTAP step the same way); train-bootstapir-256
+     (bootstapir_experiment() at its own data size, batch 8 x 24 frames x
+     256x256, 256 queries in chunks of 32, fp32 at PyTorch's TF32
+     defaults: a warm-up and 3 timed steps, 96 K1 and 384 K3 launches a
+     step); train-bootstapir-synth (the JAX package's synthetic recipe,
+     batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 500
+     steps from fresh weights: the mean loss of the last 50 steps at most
+     two thirds of the first 50's); train-bootstrap-256 (BootsTAP
+     self-training on the trained checkpoint, 4 x 16 frames at 256x256
+     unlabeled plus a labeled anchor: a warm-up and a timed step).
+  8. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line (with `--records PATH`, also
 written to PATH). Exits non-zero, and prints
@@ -137,9 +158,12 @@ from tapnet_tpu_torch.models.tapir import (  # noqa: E402
     resize_video,
 )
 from tapnet_tpu_torch.ops import (  # noqa: E402
-    _build, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math, qconv,
-    scan,
+    _build, _vjp, corr_tents, fused_extra_convs, fused_mixer_block, mixer_math,
+    qconv, scan,
 )
+from tapnet_tpu_torch.models import tapir as tapir_lib  # noqa: E402
+from tapnet_tpu_torch.training import bootstrap as bootstrap_lib  # noqa: E402
+from tapnet_tpu_torch.training import optimizers as optimizers_lib  # noqa: E402
 from tapnet_tpu_torch.utils.sampling import (  # noqa: E402
     postprocess_occlusions, preprocess_frames,
 )
@@ -152,6 +176,7 @@ from tools.make_tapnext_golden import (  # noqa: E402
 )
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
 from tools import make_tapnext_train_golden as train_golden  # noqa: E402
+from tools import make_tapir_train_golden as tapir_golden  # noqa: E402
 from tools.time_int8_kernels import (  # noqa: E402
     K3_PHASES, K4_PHASES, K6_PHASES, K6F_PHASES, X_PHASES,
     split_ms as kernel_split,
@@ -193,6 +218,25 @@ EXTRA_GRIDS = [(60, 60), (32, 32)]
 EXTRA_C = 256
 # The headline workload of the JAX package (bench.py): 1024 queries.
 HEADLINE_QUERIES = 1024
+# TAPIR training: train-bootstapir-256 at bootstapir_experiment()'s own data
+# size (batch 8 x 24 frames x 256x256, 256 queries in chunks of 32), and the
+# shapes its step gives the kernels, at which grad-kernels checks them: K1
+# at the three pyramid grids of 192 frames with 32 queries, K3 on
+# [8 * 32, 24, 512], the ExtraConvs' 32x32x256 grid of 192 frames.
+TRAIN_TAPIR_BATCH, TRAIN_TAPIR_FRAMES, TRAIN_TAPIR_QUERIES = 8, 24, 256
+TRAIN_TAPIR_CHUNK, TRAIN_TAPIR_STEPS = 32, 3
+GRAD_BT = TRAIN_TAPIR_BATCH * TRAIN_TAPIR_FRAMES
+GRAD_CORR_LEVELS = [(64, 64, 128), (32, 32, 256), (16, 16, 256)]
+GRAD_MIXER_SHAPE = (TRAIN_TAPIR_BATCH * TRAIN_TAPIR_CHUNK, TRAIN_TAPIR_FRAMES,
+                    512)
+GRAD_EXTRA_GRID = (32, 32)
+# train-bootstapir-synth: the JAX package's recipe (README.md, Training),
+# batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 500
+# steps; the gate on the mean loss of the last 50 against the first 50.
+SYNTH_BATCH, SYNTH_FRAMES, SYNTH_QUERIES, SYNTH_HORIZON = 4, 16, 128, 6000
+SYNTH_STEPS, SYNTH_GATE = 500, 2.0 / 3.0
+# train-bootstrap-256: timed BootsTAP steps after the warm-up.
+BOOTSTRAP_STEPS = 1
 # The online paths' shapes. Each online step (256x256, ONLINE_QUERIES = 64)
 # calls K1 on one frame, BT = 1, at the three pyramid grids of a 256x256
 # frame. online-golden's offline causal run (the golden clip: 32 queries, 8
@@ -479,11 +523,13 @@ TN_CHUNKED_TOL = dict(track_px=0.01, logit_of_range=1e-4)
 # 256x256) with remat, batch 8 x 24 frames, 128 queries: the scan runs at
 # [8 * (1024 + 128), 24, 768]. train-tapnextpp: tapnextpp_experiment()
 # (remat, batch 1, 64 queries, chunks of 128) cut from 1024 frames to 256,
-# two chunks: [1024 + 64, 128, 768] per chunk.
-TRAIN_BATCH, TRAIN_FRAMES, TRAIN_QUERIES, TRAIN_STEPS = 8, 24, 128, 3
+# two chunks: [1024 + 64, 128, 768] per chunk. Timed steps after the
+# warm-up: 2 and 1, to leave room for the TAPIR training phases within the
+# script's time.
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_QUERIES, TRAIN_STEPS = 8, 24, 128, 2
 TRAIN_SCAN_SHAPE = (TRAIN_BATCH * (TN_TOKENS + TRAIN_QUERIES), TRAIN_FRAMES,
                     TN_WIDTH)
-TRAINPP_FRAMES, TRAINPP_QUERIES, TRAINPP_STEPS = 256, 64, 2
+TRAINPP_FRAMES, TRAINPP_QUERIES, TRAINPP_STEPS = 256, 64, 1
 TRAINPP_SCAN_SHAPE = (TN_TOKENS + TRAINPP_QUERIES, 128, TN_WIDTH)
 # K5b against its plain backward: the same two roundings per step, one for
 # da's product and the same casts, so bit-equal (limit 0); the faulty plain
@@ -1463,6 +1509,136 @@ def check_mixer(dtype, gen, checks, shape=MIXER_SHAPE, causal=False):
   torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- kernel gradients
+
+
+class _DropsLastGradient(_vjp.PlainVjp):
+  """A faulty Function, a control of grad-kernels: the plain VJP with the
+  last input's gradient dropped."""
+
+  @staticmethod
+  def backward(ctx, grad):
+    return _vjp.PlainVjp.backward(ctx, grad)[:-1] + (None,)
+
+
+def _route_grads(out, inputs, cot):
+  """The gradients of `out` under `cot` for `inputs` (None where one gets
+  none), or None if `out` carries no gradient at all."""
+  if out.grad_fn is None:
+    return None
+  return torch.autograd.grad(out, inputs, cot, allow_unused=True)
+
+
+def _bit_equal(got, want):
+  return got is not None and all(
+      g is not None and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def grad_case(name, dtype, inputs, entry, forward, plain, counter, gen):
+  """One kernel entry's gradients (grad-kernels): through the entry (the
+  kernel's forward, the plain math's VJP) against autograd through the
+  plain math, on the same inputs and one fixed cotangent, bit for bit; the
+  entry must launch its kernel once; two controls must be refused: the
+  kernel's bare launch (no grad_fn, what every entry but K5's returned
+  before its VJP) and a Function that drops the last input's gradient."""
+  leaves = [x.detach().requires_grad_() for x in inputs]
+  reset_counts()
+  out = entry(*leaves)
+  torch.cuda.synchronize()
+  launches = read_counts()[counter]
+  cot = torch.randn(out.shape, device="cuda", generator=gen).to(out.dtype)
+  got = _route_grads(out, leaves, cot)
+  want = _route_grads(plain(*leaves), leaves, cot)
+  ok = _bit_equal(got, want)
+  controls = {}
+  def bare_launch():
+    with torch.no_grad():
+      return forward(*leaves)
+
+  for key, route in (
+      ("bare_launch", bare_launch),
+      ("drops_last_gradient",
+       lambda: _DropsLastGradient.apply(forward, plain, *leaves))):
+    faulty = _route_grads(route(), leaves, cot)
+    controls[key] = dict(refused=not _bit_equal(faulty, want),
+                         grad_fn=faulty is not None)
+  apart = (None if got is None else max(
+      float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
+  record = dict(
+      kernel=name, check="gradient", dtype=str(dtype).replace("torch.", ""),
+      shapes=[list(x.shape) for x in inputs], launches=launches,
+      bit_equal=ok, max_abs_diff=apart,
+      grad_abs_max=[float(w.abs().max()) for w in want], controls=controls)
+  require(launches == 1 and ok and all(c["refused"] for c in controls.values())
+          and all(float(w.abs().max()) > 0 for w in want),
+          f"grad-kernels {name}: {record}")
+  return record
+
+
+def check_kernel_gradients():
+  """grad-kernels: the gradients through K1, K2, K2b, K3, K4, X, K6 and K6f
+  at the shapes of train-bootstapir-256's step (batch 8 x 24 frames at
+  256x256, 32 queries a chunk: K1, K2, K2b at its three pyramid grids, K3
+  and K4 on [8 * 32, 24, 512], X, K6, K6f on the 32x32x256 ExtraConvs grid
+  of 192 frames), float32, and K1, K3 in bfloat16 too. cuDNN in its
+  deterministic mode, so the plain convolutions' backward repeats itself."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  records = []
+  try:
+    for dtype in (torch.float32, torch.bfloat16):
+      for h, w, c in GRAD_CORR_LEVELS:
+        args = corr_inputs(h, w, c, dtype, gen, bt=GRAD_BT, n=TRAIN_TAPIR_CHUNK)
+        modes = ((False, "corr_tents"), ("per_frame", "corr_tents_q8_frame"),
+                 (True, "corr_tents_q8_position"))
+        for quantized, counter in modes[:1 if dtype == torch.bfloat16 else 3]:
+          records.append(grad_case(
+              f"{counter} {h}x{w}x{c}", dtype, args,
+              lambda *a, q=quantized: corr_tents.corr_tent_patches(*a, 7, q),
+              lambda *a, q=quantized: corr_tents._forward(*a, 7, q),  # pylint: disable=protected-access
+              lambda *a: corr_tents.corr_tent_patches_reference(*a, 7),
+              counter, gen))
+        del args
+      args = mixer_inputs(dtype, gen, GRAD_MIXER_SHAPE)
+      for quantized, counter in ((False, "mixer_block"), (True, "mixer_block_q8")):
+        if quantized and dtype == torch.bfloat16:
+          continue
+        records.append(grad_case(
+            counter, dtype, args,
+            lambda *a, q=quantized: fused_mixer_block.mixer_block(
+                *a, quantized=q),
+            lambda *a, q=quantized: fused_mixer_block._forward(  # pylint: disable=protected-access
+                *a, False, None, q, None),
+            lambda *a: fused_mixer_block.mixer_block_reference(*a),
+            counter, gen))
+      del args
+    h, w = GRAD_EXTRA_GRID
+    x, g, bln, wu, bu, wo, bo = extra_convs_inputs(h, w, torch.float32, gen)
+    x = x[:GRAD_BT].contiguous()
+    layer = (x, g, bln, wu, bu, wo, bo)
+    for quantized, counter in ((False, "extra_convs_fp"),
+                               (True, "extra_convs_q8_pixel")):
+      records.append(grad_case(
+          counter, torch.float32, layer,
+          lambda *a, q=quantized: fused_extra_convs.extra_convs_layer(*a, q),
+          lambda *a, q=quantized: fused_extra_convs._forward(*a, q, None),  # pylint: disable=protected-access
+          lambda *a: fused_extra_convs.extra_convs_layer_reference(*a),
+          counter, gen))
+    xc = x.permute(0, 3, 1, 2)
+    wk = wu.permute(3, 2, 0, 1).contiguous()
+    records.append(grad_case(
+        "extra_convs_q8_frame", torch.float32, (xc, wk, bu),
+        qconv.conv2d_q8,
+        lambda *a: qconv._forward(*a, None),  # pylint: disable=protected-access
+        qconv.conv2d_fp_math, "extra_convs_q8_frame", gen))
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  torch.cuda.empty_cache()
+  return records
+
+
+
 def check_kernels():
   """Each kernel against its plain version on the same inputs, timed. Returns
   one record per check, and per kernel and dtype a `path` record: what one
@@ -1483,6 +1659,7 @@ def check_kernels():
     check_extra_convs_fp(dtype, gen, checks)
   check_scan(gen, checks)
   check_scan_backward(gen, checks)
+  checks.extend(check_kernel_gradients())
   return checks
 
 
@@ -2633,7 +2810,8 @@ def _timed_step(trainer, state, batch, what):
   begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
   start = time.perf_counter()
   begin.record()
-  state, scalars = trainer.step_fn(state, batch)
+  state, scalars = trainer.step_fn(state, batch,
+                                   trainer.step_generator(state.step))
   end.record()
   torch.cuda.synchronize()
   wall = time.perf_counter() - start
@@ -2781,6 +2959,226 @@ def train_tapnextpp(device="cuda", frames=TRAINPP_FRAMES,
           launches=carried_launches))
 
 
+# ------------------------------------------------------------ TAPIR training
+
+
+def _pytorch_tf32_defaults():
+  """PyTorch's TF32 settings at their defaults (cuDNN on, matmul off), as
+  the training CLI runs."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = True
+
+
+def train_golden_tapir(runs=("identity", "permuted")):
+  """train-golden-tapir (and, with runs=("bootstrap",), bootstrap-golden):
+  the port on tools/make_tapir_train_golden.py's small BootsTAPIR, weights
+  and batches (fp32, TF32 off), held to the JAX numbers of
+  tests/data/tapir_train_golden.npz within that tool's card limits (its CPU
+  limits printed beside them). Every step launches K1 and K3."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    golden = tapir_golden.load()
+    reset_counts()
+    port = tapir_golden.run_port("cuda", golden, counters=read_counts,
+                                 runs=runs)
+    record, failures = tapir_golden.judge(golden, port, runs=runs, card=True)
+    cpu_record, _ = tapir_golden.judge(golden, port, runs=runs)
+  finally:
+    _pytorch_tf32_defaults()
+  for run in runs:
+    launches = port[run]["launches_per_step"]
+    record[run].update(launches_per_step=launches,
+                       over_the_cpu_limits=cpu_record[run])
+    require(launches["corr_tents"] > 0 and launches["mixer_block"] > 0,
+            f"train-golden-tapir {run}: launches {launches}")
+  require(not failures, "train-golden-tapir: " + "; ".join(failures[:10]))
+  return record
+
+
+def _tapir_launches(cfg, chunks, resolutions=1):
+  """K1 and K3 launches of one TAPIR training step: per chunk, per
+  refinement iteration, one K1 per pyramid grid and one K3 per block (the
+  backward launches none: it recomputes the plain math)."""
+  iters = cfg.num_pips_iter * resolutions * chunks
+  return dict(corr_tents=iters * (2 + cfg.pyramid_level),
+              mixer_block=iters * cfg.num_mixer_blocks)
+
+
+def train_bootstapir_256(batch=TRAIN_TAPIR_BATCH, frames=TRAIN_TAPIR_FRAMES,
+                         queries=TRAIN_TAPIR_QUERIES, steps=TRAIN_TAPIR_STEPS):
+  """train-bootstapir-256: bootstapir_experiment() at its own data size
+  (batch 8 x 24 frames x 256x256, 256 queries in chunks of 32, float32),
+  fresh parameters (init_tapir_params seed 42), synthetic batches made on
+  the card, PyTorch's TF32 defaults; a warm-up step (step 0, learning rate
+  0: the parameters must not move) and `steps` timed steps, each launching
+  K1 and K3 as `_tapir_launches` counts and no other kernel; then one
+  profiled step by layer."""
+  _pytorch_tf32_defaults()
+  exp = train_configs.bootstapir_experiment()
+  cfg = exp.model_config
+  t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, exp.total_steps,
+                          task=exp.task, loss_builder=exp.loss_builder,
+                          device="cuda")
+  state = t.init_state()
+  data = synthetic.batch_iterator(
+      seed=SEED, device="cuda", batch_size=batch, num_frames=frames,
+      height=cfg.initial_resolution[0], width=cfg.initial_resolution[1],
+      num_queries=queries)
+  batches = [next(data) for _ in range(steps + 1)]
+  before = {k: p.detach().clone() for k, p in state.params.items()}
+  state, warm = _timed_step(t, state, batches[0], "train-bootstapir warm-up")
+  require(all(torch.equal(before[k], p) for k, p in state.params.items()),
+          "train-bootstapir: step 0 (learning rate 0) moved the parameters")
+  expected = _tapir_launches(cfg, -(-queries // exp.task.train_chunk_size))
+  records = []
+  for i, b in enumerate(batches[1:]):
+    state, rec = _timed_step(t, state, b, "train-bootstapir")
+    launches = {k: v for k, v in rec["launches"].items() if v}
+    require(launches == expected,
+            f"train-bootstapir: launches {launches}, expected {expected}")
+    if i == 0:
+      rec["parameters_moved"] = sum(
+          not torch.equal(before[k], p) for k, p in state.params.items())
+    records.append(rec)
+  del before
+  require(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+          "train-bootstapir: non-finite parameters")
+  profile = profile_request(
+      lambda: t.step_fn(state, batches[-1], t.step_generator(state.step)),
+      float(np.mean([r["wall_ms"] for r in records])) / 1e3, top=15)
+  return dict(
+      config=dict(experiment="bootstapir_experiment()",
+                  compute_dtype=cfg.compute_dtype,
+                  weights="init_tapir_params seed 42",
+                  data=f"data/synthetic.py on the card, seed {SEED}",
+                  tf32="PyTorch defaults: cuDNN on, matmul off"),
+      batch=batch, frames=frames, queries=queries,
+      chunk=exp.task.train_chunk_size,
+      resolution=cfg.initial_resolution[0], warm_up=warm, steps=records,
+      parameters=len(state.params),
+      ms_per_step_mean=float(np.mean([r["ms"] for r in records])),
+      max_memory_gb=max(r["max_memory_gb"] for r in records),
+      launches_per_step=records[-1]["launches"], profile=profile)
+
+
+def train_bootstapir_synth(steps=SYNTH_STEPS):
+  """train-bootstapir-synth: the JAX package's recipe (README.md, Training:
+  `--experiment bootstapir --synthetic --num_frames 16 --batch_size 4
+  --num_queries 128 --total_steps 6000`) for its first `steps` steps from
+  init_tapir_params (seed 42), through Trainer's step and query-order
+  generators as the CLI runs them, at PyTorch's TF32 defaults. Gate: the
+  mean loss of the last 50 steps is at most SYNTH_GATE of the first 50's."""
+  _pytorch_tf32_defaults()
+  exp = train_configs.bootstapir_experiment()
+  cfg = exp.model_config
+  t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, SYNTH_HORIZON,
+                          task=exp.task, loss_builder=exp.loss_builder,
+                          device="cuda")
+  state = t.init_state()
+  data = synthetic.batch_iterator(
+      seed=SEED, device="cuda", batch_size=SYNTH_BATCH,
+      num_frames=SYNTH_FRAMES, height=cfg.initial_resolution[0],
+      width=cfg.initial_resolution[1], num_queries=SYNTH_QUERIES)
+  torch.cuda.reset_peak_memory_stats()
+  losses, positions = [], []
+  begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start = time.perf_counter()
+  begin.record()
+  for _ in range(steps):
+    state, scalars = t.step_fn(state, next(data), t.step_generator(state.step))
+    losses.append(scalars["loss"])
+    positions.append(scalars["position_loss"])
+  end.record()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - start
+  losses = torch.stack(losses).cpu().numpy().astype(np.float64)
+  positions = torch.stack(positions).cpu().numpy().astype(np.float64)
+  window = 50
+  first, last = float(losses[:window].mean()), float(losses[-window:].mean())
+  require(bool(np.isfinite(losses).all()), "train-bootstapir-synth: non-finite loss")
+  require(last <= SYNTH_GATE * first,
+          f"train-bootstapir-synth: mean loss of the last {window} steps "
+          f"{last} over {SYNTH_GATE} of the first {window}'s {first}")
+  means = lambda v: [float(v[i:i + window].mean()) for i in range(0, steps, window)]
+  return dict(
+      config=dict(experiment="bootstapir_experiment()",
+                  total_steps=SYNTH_HORIZON, weights="init_tapir_params seed 42",
+                  data=f"data/synthetic.py on the card, seed {SEED}",
+                  tf32="PyTorch defaults: cuDNN on, matmul off"),
+      batch=SYNTH_BATCH, frames=SYNTH_FRAMES, queries=SYNTH_QUERIES,
+      steps=steps, ms_per_step=begin.elapsed_time(end) / steps,
+      wall_s=wall, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+      loss_first_50=first, loss_last_50=last, ratio=last / first,
+      gate=SYNTH_GATE, loss_means_per_50=means(losses),
+      position_loss_means_per_50=means(positions),
+      loss_at_50_steps=[float(losses[i]) for i in range(window - 1, steps, window)])
+
+
+def train_bootstrap_256(params, steps=BOOTSTRAP_STEPS):
+  """train-bootstrap-256: one BootsTAP step at full width, as
+  scratch/bootstap_demo.py sets it up: the trained checkpoint as the student
+  and the teacher, 4 unlabeled videos of 16 frames at 256x256 (12 sprites,
+  7 px a frame) with 128 queries in chunks of 32, and a labeled anchor of 4
+  such videos with 64 queries (6 sprites); lr 2e-5, warmup 100, EMA 0.999,
+  gate -1. A warm-up step (learning rate 0: the student must not move) and
+  `steps` timed steps; each step launches K1 and K3 for the teacher, the
+  student and the anchor."""
+  _pytorch_tf32_defaults()
+  cfg = bootstapir_config()
+  student = tapir_lib.TAPIR(cfg).cuda()
+  teacher = tapir_lib.TAPIR(cfg).cuda()
+  opt = optimizers_lib.OptimizerConfig(base_lr=2e-5, warmup_steps=100,
+                                       weight_decay=0.0, adam_b2=0.95)
+  tx = optimizers_lib.make_optimizer(opt,
+                                     optimizers_lib.make_lr_schedule(opt, 1000))
+  state = bootstrap_lib.init_bootstrap_state(student, teacher, params, tx)
+  config = bootstrap_lib.BootstrapConfig(num_queries=128, query_chunk_size=32,
+                                         ema_decay=0.999, confidence_gate=-1.0)
+  step_fn = bootstrap_lib.make_bootstrap_train_step(student, teacher, tx,
+                                                    config)
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  batches = []
+  for _ in range(steps + 1):
+    video = synthetic.make_batch(gen, 4, 16, 256, 256, 8, num_sprites=12,
+                                 vel_range=7.0)["video"]
+    batches.append({"video": video,
+                    "labeled": synthetic.make_batch(gen, 4, 16, 256, 256, 64)})
+  before = {k: p.detach().clone() for k, p in state.params.items()}
+  records = []
+  for i, batch in enumerate(batches):
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    begin.record()
+    state, scalars = step_fn(state, batch,
+                             bootstrap_lib.step_generator(state.step))
+    end.record()
+    torch.cuda.synchronize()
+    if i == 0:
+      require(all(torch.equal(before[k], p) for k, p in state.params.items()),
+              "train-bootstrap: step 0 (learning rate 0) moved the student")
+    launches = {k: v for k, v in read_counts().items() if v}
+    require(launches.get("corr_tents", 0) > 0 and launches.get("mixer_block", 0) > 0
+            and set(launches) == {"corr_tents", "mixer_block"},
+            f"train-bootstrap: launches {launches}")
+    records.append(dict(
+        step=state.step - 1, ms=begin.elapsed_time(end),
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches,
+        scalars=_finite_scalars(scalars, "train-bootstrap")))
+  del before
+  return dict(
+      config=dict(weights=os.path.relpath(CHECKPOINT, REPO),
+                  bootstrap="num_queries 128, chunk 32, ema 0.999, gate -1",
+                  optimizer="lr 2e-5, warmup 100, weight decay 0, b2 0.95",
+                  tf32="PyTorch defaults: cuDNN on, matmul off"),
+      unlabeled="4 x 16 x 256x256, 12 sprites, 7 px a frame",
+      labeled="4 x 16 x 256x256, 64 queries", warm_up=records[0],
+      steps=records[1:], ms_per_step_mean=float(np.mean([r["ms"] for r in records[1:]])),
+      max_memory_gb=max(r["max_memory_gb"] for r in records))
+
+
 # `--records PATH`: also write every record line to PATH, for a caller that
 # sees only the end of the output.
 RECORDS = None
@@ -2810,8 +3208,13 @@ def main():
   build_s = time.perf_counter() - t0
   print(f"built {built} in {build_s:.1f} s", flush=True)
 
-  stamp = lambda what: print(
-      f"[{time.perf_counter() - t0:.1f} s] {what} done", flush=True)
+  def stamp(what):
+    elapsed = time.perf_counter() - t0
+    print(f"[{elapsed:.1f} s] {what} done", flush=True)
+    if RECORDS:
+      with open(RECORDS, "a", encoding="utf-8") as f:
+        f.write(json.dumps({"stamp": what, "s": elapsed}) + "\n")
+
   checks = check_kernels()
   emit({"kernel_checks": checks})
   stamp("kernel checks")
@@ -2911,6 +3314,20 @@ def main():
   stamp("train-golden")
   for name, phase in (("train_tapnext_256", train_tapnext_256),
                       ("train_tapnextpp", train_tapnextpp)):
+    runs[name] = phase()
+    emit({name: runs[name], "card": card})
+    stamp(name)
+    torch.cuda.empty_cache()
+
+  emit({"train_golden_tapir": train_golden_tapir(), "card": card})
+  stamp("train-golden-tapir")
+  emit({"bootstrap_golden": train_golden_tapir(("bootstrap",)), "card": card})
+  stamp("bootstrap-golden")
+  for name, phase in (
+      ("train_bootstapir_256", train_bootstapir_256),
+      ("train_bootstapir_synth", train_bootstapir_synth),
+      ("train_bootstrap_256",
+       lambda: train_bootstrap_256(load_tapir_checkpoint(CHECKPOINT)))):
     runs[name] = phase()
     emit({name: runs[name], "card": card})
     stamp(name)

@@ -32,7 +32,8 @@ flat-key tree (`checkpoints/tapnext_checkpoint.load_tapnext_checkpoint`):
 Any leaf the bridge does not know, any key the model does not have, any
 parameter of the model left unfilled and any shape mismatch raises.
 
-`state_dict_to_tapnext` is the inverse for TAPNext: it turns the port's
+`state_dict_to_flax` and `state_dict_to_tapnext` are the inverses for
+TAPIR and TAPNext: it turns the port's
 tensors (parameters, or anything of their shapes and names: gradients,
 optimizer moments) back into the Flax-layout tree, which training
 checkpoints store and the JAX package reads. `tapnext_flax_path` gives the
@@ -121,7 +122,7 @@ def tapnext_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def tapnext_flax_path(name: str) -> Tuple[str, ...]:
-  """The Flax path of a TAPNext state_dict key."""
+  """The Flax path of a TAPNext (or TAPIR) state_dict key."""
   path = tuple(name.split("."))
   return path[:-1] + ("kernel",) if path[-1] == "weight" else path
 
@@ -162,6 +163,29 @@ def load_tapnext_params(model: nn.Module, params: Mapping[str, Any]) -> None:
   its modules, from the matching subtree) from a Flax TAPNext tree, or
   raises."""
   _load_converted(model, tapnext_to_state_dict(params))
+
+
+def state_dict_to_flax(tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+  """The inverse of `flax_to_state_dict`: TAPIR tensors under the port's
+  names (parameters, or anything of their shapes and names: gradients,
+  optimizer moments; any device) -> the Flax-layout tree of numpy leaves."""
+  tree: Dict[str, Any] = {}
+  for name, value in tensors.items():
+    arr = value.detach().cpu().numpy()
+    path = tapnext_flax_path(name)
+    leaf = path[-1]
+    if leaf == "kernel":
+      if arr.ndim == 4:
+        arr = arr.transpose(2, 3, 1, 0)
+      elif arr.ndim == 2:
+        arr = arr.T
+    elif leaf not in _PLAIN_LEAVES:
+      raise ValueError(f"Unmapped parameter: {name}")
+    node = tree
+    for part in path[:-1]:
+      node = node.setdefault(part, {})
+    node[leaf] = np.ascontiguousarray(arr)
+  return tree
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:

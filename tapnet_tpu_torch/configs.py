@@ -1,10 +1,10 @@
 """Experiment configurations for training (port of tapnet_tpu/configs.py).
 
-Typed dataclasses with the JAX package's hyperparameters. TAPNext
-(`tapnext_experiment`, `tapnextpp_experiment`) trains; the TAPIR-family
-experiments (tapir, tapnet, causal_tapir, bootstapir) raise
-NotImplementedError until their training is ported (ROADMAP Queue 1 item
-8).
+Typed dataclasses with the JAX package's hyperparameters. TAPIR
+(`tapir_experiment`), causal TAPIR (`causal_tapir_experiment`), BootsTAPIR
+(`bootstapir_experiment`) and TAPNext (`tapnext_experiment`,
+`tapnextpp_experiment`) train; TAP-Net (`tapnet`) raises
+NotImplementedError until TAP-Net is ported (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import functools
 from typing import Optional, Tuple
 
 from tapnet_tpu_torch.models import ssm_vit
+from tapnet_tpu_torch.models import tapir as tapir_lib
 from tapnet_tpu_torch.training import optimizers, trainer
 
 
@@ -31,7 +32,7 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
   name: str
-  model_kind: str  # "tapnext" (the kinds the port trains)
+  model_kind: str  # "tapir" | "tapnext" (the kinds the port trains)
   model_config: object
   optimizer: optimizers.OptimizerConfig
   task: trainer.TaskConfig
@@ -44,6 +45,8 @@ class ExperimentConfig:
   train_time_chunk: Optional[int] = None
 
   def build_model(self):
+    if self.model_kind == "tapir":
+      return tapir_lib.TAPIR(config=self.model_config)
     if self.model_kind == "tapnext":
       from tapnet_tpu_torch.models import tapnext
 
@@ -53,12 +56,48 @@ class ExperimentConfig:
   @property
   def loss_builder(self):
     """The loss for Trainer."""
+    if self.model_kind == "tapir":
+      return trainer.tapir_loss_builder
     if self.model_kind != "tapnext":
       raise ValueError(f"Unknown model kind {self.model_kind!r}")
     if self.train_time_chunk:
       return functools.partial(trainer.tapnext_chunked_loss_builder,
                                chunk_size=self.train_time_chunk)
     return trainer.tapnext_loss_builder
+
+
+def tapir_experiment(**overrides) -> ExperimentConfig:
+  """TAPIR training (reference configs/tapir_config.py:53-96: adam b1=.9
+  b2=.95, lr 1e-3 cosine with 1k warmup, wd 0.1, no clipping, 100k steps,
+  chunk 32)."""
+  kwargs = dict(
+      name="tapir",
+      model_kind="tapir",
+      model_config=tapir_lib.tapir_config(),
+      optimizer=optimizers.OptimizerConfig(
+          base_lr=1e-3, adam_b1=0.9, adam_b2=0.95, weight_decay=1e-1,
+          warmup_steps=1000, max_norm=-1),
+      task=trainer.TaskConfig(train_chunk_size=32),
+      data=DataConfig(),
+      total_steps=100_000,
+  )
+  kwargs.update(overrides)
+  return ExperimentConfig(**kwargs)
+
+
+def causal_tapir_experiment(**overrides) -> ExperimentConfig:
+  """Causal TAPIR (reference configs/causal_tapir_config.py:78-79)."""
+  return tapir_experiment(name="causal_tapir",
+                          model_config=tapir_lib.causal_tapir_config(),
+                          **overrides)
+
+
+def bootstapir_experiment(**overrides) -> ExperimentConfig:
+  """BootsTAPIR architecture (reference configs/tapir_bootstrap_config.py:
+  76-83: extra convs, softmax temperature 10, pyramid level 1)."""
+  return tapir_experiment(name="bootstapir",
+                          model_config=tapir_lib.bootstapir_config(),
+                          **overrides)
 
 
 def tapnext_experiment(variant: str = "B", **overrides) -> ExperimentConfig:
@@ -98,19 +137,17 @@ def tapnextpp_experiment(variant: str = "B", **overrides) -> ExperimentConfig:
   return ExperimentConfig(**kwargs)
 
 
-def _not_ported(name):
-  def make(**overrides):
-    raise NotImplementedError(
-        f"{name} training is not ported yet (ROADMAP Queue 1 item 8); the "
-        "port trains tapnext and tapnextpp")
-  return make
+def _tapnet_not_ported(**overrides):
+  raise NotImplementedError(
+      "tapnet training is not ported yet: TAP-Net itself is ROADMAP Queue 1 "
+      "item 5")
 
 
 REGISTRY = {
-    "tapir": _not_ported("tapir"),
-    "tapnet": _not_ported("tapnet"),
-    "causal_tapir": _not_ported("causal_tapir"),
-    "bootstapir": _not_ported("bootstapir"),
+    "tapir": tapir_experiment,
+    "tapnet": _tapnet_not_ported,
+    "causal_tapir": causal_tapir_experiment,
+    "bootstapir": bootstapir_experiment,
     "tapnext": tapnext_experiment,
     "tapnextpp": tapnextpp_experiment,
 }

@@ -233,8 +233,9 @@ class MixerBlock(nn.Module):
     call; otherwise the JAX unfused path: scale-only LayerNorm, the
     streaming or warm-up temporal half, the residual, then the channel MLP
     (`mixer_math.mlp_math`, plain matmuls, or for a quantized block the w8a8
-    `mixer_math.mlp_math_q8` of JAX's `mlp_block_q8`, its int8 products as
-    exact float64 matmuls: JAX computes both outside any Pallas kernel).
+    `mixer_math.mlp_block_q8` of JAX's `mlp_block_q8`, straight-through, its
+    int8 products as exact float64 matmuls: JAX computes both outside any
+    Pallas kernel).
     Only a causal block streams."""
     t = self.temporal
     if cache is None and not return_cache:
@@ -252,10 +253,10 @@ class MixerBlock(nn.Module):
     h, new_cache = t(h, cache, return_cache)
     x = x + h
     if self.quantized:
-      w1q, s1, w2q, s2 = self.quantized_weights()
-      return mixer_math.mlp_math_q8(
-          x, self.ln_channel.scale, w1q, s1, self.fc_up.bias, w2q, s2,
-          self.fc_down.bias), new_cache
+      return mixer_math.mlp_block_q8(
+          x, self.ln_channel.scale, self.fc_up.weight.t(), self.fc_up.bias,
+          self.fc_down.weight.t(), self.fc_down.bias,
+          self.quantized_weights()), new_cache
     return mixer_math.mlp_math(
         x, self.ln_channel.scale, self.fc_up.weight.t(), self.fc_up.bias,
         self.fc_down.weight.t(), self.fc_down.bias), new_cache
@@ -382,15 +383,17 @@ class ExtraConvs(nn.Module):
       nhwc = x.permute(0, 2, 3, 1)
       if fused_extra_convs.wants_fused(nhwc, per_pixel):
         y = fused_extra_convs.extra_convs_layer(
-            nhwc, ln.scale, ln.bias, None, up.bias, None, down.bias, True,
+            nhwc, ln.scale, ln.bias, up.weight.permute(2, 3, 1, 0), up.bias,
+            down.weight.permute(2, 3, 1, 0), down.bias, True,
             qweights=self.quantized_weights(i))
         x = y.permute(0, 3, 1, 2)
         continue
       x = _ln_with_bias_nchw(x, ln.scale, ln.bias)
       if self.quantized:
         wuq, su, woq, so = self.quantized_weights(i)
-        resid = mixer_math.gelu(qconv.conv2d_q8(x, None, up.bias, (wuq, su)))
-        x = x + qconv.conv2d_q8(resid, None, down.bias, (woq, so))
+        resid = mixer_math.gelu(
+            qconv.conv2d_q8(x, up.weight, up.bias, (wuq, su)))
+        x = x + qconv.conv2d_q8(resid, down.weight, down.bias, (woq, so))
       else:
         resid = mixer_math.gelu(up(x))
         x = x + down(resid)

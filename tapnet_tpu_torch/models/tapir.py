@@ -1,5 +1,6 @@
 """TAPIR two-stage point tracker (port of tapnet_tpu/models/tapir.py:
-offline inference, and the causal streaming state of online TAPIR).
+offline inference, the causal streaming state of online TAPIR, and the
+training forward).
 
 Stage 1 initializes every query's trajectory from a global cost volume
 (per-frame feature matching + soft-argmax); stage 2 refines it with 7x7
@@ -10,15 +11,25 @@ tent-interpolated local correlations over a feature pyramid
 Online (causal) TAPIR runs `estimate_trajectories` one frame at a time with
 a `TapirCausalState`: per refinement iteration and mixer block, the last
 k-1 frames entering each temporal conv, carried from step to step.
+
+Training (`is_training=True`) runs the query chunks in a random order drawn
+from a `torch.Generator` (the identity without one, as JAX's without a
+"permutation" rng); only the first chunk's refinement steps carry gradients,
+the others' run under `torch.no_grad()`, and stage 1 trains on every chunk.
+The backbone runs under `torch.utils.checkpoint` whenever a gradient is
+recorded (JAX's `nn.remat`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tapnet_tpu_torch.models import resnet as resnet_lib
@@ -137,6 +148,14 @@ class QueryFeatures(NamedTuple):
   lowres: Tuple[torch.Tensor, ...]
   hires: Tuple[torch.Tensor, ...]
   resolutions: Tuple[Tuple[int, int], ...]
+
+
+def _draw_permutation(generator: torch.Generator,
+                      num_queries: int) -> torch.Tensor:
+  """The training forward's query order: a random permutation of the
+  queries from `generator`."""
+  return torch.randperm(num_queries, generator=generator,
+                        device=generator.device)
 
 
 def _avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
@@ -292,7 +311,11 @@ class TAPIR(nn.Module):
     b, t = video.shape[:2]
     # NHWC frames viewed as NCHW: a channels-last tensor.
     frames = video.reshape((b * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
-    feats = self.backbone(frames)
+    if torch.is_grad_enabled():
+      feats = torch.utils.checkpoint.checkpoint(self.backbone, frames,
+                                                use_reentrant=False)
+    else:
+      feats = self.backbone(frames)
     lo, hi = feats["group_3"], feats["group_1"]
     if self.extra is not None:
       lo = self.extra(lo)
@@ -463,13 +486,14 @@ class TAPIR(nn.Module):
 
   def _track_chunk(self, pyramids, feature_grids, qf_low, qf_hi, qp,
                    im_shape, video_size, num_iters, state=None,
-                   get_causal_context=False):
+                   get_causal_context=False, refine_grad=True):
     """Stage 1 + every refinement iteration for one query chunk.
 
     Returns [iters+1, B, n, T, 2] points and [iters+1, B, n, T] occlusion and
     expected_dist logits, and with `get_causal_context` the chunk's new
     TapirCausalState (else None). `state` is the chunk's slice of the
-    causal state, or None.
+    causal state, or None. Without `refine_grad` the refinement iterations
+    run under `torch.no_grad()`; stage 1 keeps its gradient.
     """
     cfg = self.config
 
@@ -487,32 +511,34 @@ class TAPIR(nn.Module):
 
     mixer_feats = None
     new_states = []
-    for i in range(num_iters):
-      level = i // cfg.num_pips_iter + 1
-      queries = [qf_hi[level], qf_low[level]]
-      queries += [queries[-1]] * cfg.pyramid_level
-      cache = None if state is None else MixerCache(state.pre[i], state.mid[i])
-      points, occlusion, expected_dist, mixer_feats, new_cache = (
-          self._refine_pips(
-              queries,
-              pyramids[level - 1],
-              points,
-              occlusion,
-              expected_dist,
-              orig_hw=cfg.initial_resolution,
-              resize_hw=feature_grids.resolutions[level],
-              mixer_feats=mixer_feats,
-              cache=cache,
-              return_cache=get_causal_context,
-          ))
-      new_states.append(new_cache)
-      pts_i.append(train2orig(points))
-      occ_i.append(occlusion)
-      expd_i.append(expected_dist)
-      if (i + 1) % cfg.num_pips_iter == 0:
-        # Next resolution starts again from the stage-1 estimate.
-        mixer_feats = None
-        occlusion, expected_dist = init_occ, init_expd
+    with torch.set_grad_enabled(refine_grad and torch.is_grad_enabled()):
+      for i in range(num_iters):
+        level = i // cfg.num_pips_iter + 1
+        queries = [qf_hi[level], qf_low[level]]
+        queries += [queries[-1]] * cfg.pyramid_level
+        cache = (None if state is None
+                 else MixerCache(state.pre[i], state.mid[i]))
+        points, occlusion, expected_dist, mixer_feats, new_cache = (
+            self._refine_pips(
+                queries,
+                pyramids[level - 1],
+                points,
+                occlusion,
+                expected_dist,
+                orig_hw=cfg.initial_resolution,
+                resize_hw=feature_grids.resolutions[level],
+                mixer_feats=mixer_feats,
+                cache=cache,
+                return_cache=get_causal_context,
+            ))
+        new_states.append(new_cache)
+        pts_i.append(train2orig(points))
+        occ_i.append(occlusion)
+        expd_i.append(expected_dist)
+        if (i + 1) % cfg.num_pips_iter == 0:
+          # Next resolution starts again from the stage-1 estimate.
+          mixer_feats = None
+          occlusion, expected_dist = init_occ, init_expd
     new_state = None
     if get_causal_context:
       new_state = TapirCausalState(
@@ -530,6 +556,8 @@ class TAPIR(nn.Module):
       query_chunk_size: Optional[int] = None,
       causal_state: Optional[TapirCausalState] = None,
       get_causal_context: bool = False,
+      is_training: bool = False,
+      generator: Optional[torch.Generator] = None,
   ) -> Mapping[str, Any]:
     """Stage 1 + stage 2 over all queries, one query chunk at a time.
 
@@ -537,17 +565,22 @@ class TAPIR(nn.Module):
     "expected_dist" (index 0 = cost-volume init), and with
     `get_causal_context` the new TapirCausalState under "causal_context".
     `causal_state` streams the mixers (each chunk reads its queries' slice).
-    With more than one chunk, the queries are padded to a multiple of the
-    chunk size by repeating query 0 (as the JAX scan does); chunks are
-    independent and the padding is dropped. Queries keep their order (the
-    JAX permutation is the identity outside training).
+    The chunks are a static loop, the last one ragged; chunks are
+    independent, so the outputs do not depend on the chunk size.
+
+    `is_training`: the chunks take the queries in the order of a random
+    permutation drawn from `generator` (the identity without one; outputs
+    come back in query order), the refinement of every chunk after the
+    first runs without gradient (JAX stops it), and the grids are quantized
+    in each correlation call (the pre-quantized routes have no gradient).
     """
     cfg = self.config
+    if is_training and causal_state is not None:
+      raise ValueError("Training with causal state is not supported.")
     num_resolutions = len(feature_grids.lowres) - 1
     num_iters = cfg.num_pips_iter * num_resolutions
     num_queries = query_features.lowres[0].shape[1]
     chunk = query_chunk_size or num_queries
-    num_chunks = -(-num_queries // chunk)
     device = query_features.lowres[0].device
 
     pyramids = []
@@ -556,7 +589,7 @@ class TAPIR(nn.Module):
       for _ in range(cfg.pyramid_level):
         pyramid.append(_avg_pool_2x(pyramid[-1]))
       pyramids.append(pyramid)
-    if cfg.quantized_corr:
+    if cfg.quantized_corr and not is_training:
       # Quantize every pyramid grid once per video, per frame or per
       # position: the chunks and the refinement iterations all read the same
       # int8 grids and scales (a position's scale does not depend on the
@@ -576,14 +609,15 @@ class TAPIR(nn.Module):
         + tuple(cfg.initial_resolution) + (3,)
     )
     num_frames = feature_grids.lowres[0].shape[1]
-    index = torch.arange(num_queries, device=device)
-    if num_chunks > 1:
-      pad = num_chunks * chunk - num_queries
-      index = torch.cat([index, torch.zeros(pad, dtype=index.dtype, device=device)])
+    perm = None
+    if is_training and generator is not None:
+      perm = _draw_permutation(generator, num_queries).to(device)
+    index = (torch.arange(num_queries, device=device) if perm is None
+             else perm)
 
     outs = []
-    for ch in range(num_chunks):
-      idx = index[ch * chunk : (ch + 1) * chunk]
+    for ch, start in enumerate(range(0, num_queries, chunk)):
+      idx = index[start : start + chunk]
       qp = None
       if query_points_in_video is not None:
         qp = transforms.convert_grid_coordinates(
@@ -606,9 +640,13 @@ class TAPIR(nn.Module):
           num_iters,
           state,
           get_causal_context,
+          refine_grad=not (is_training and ch > 0),
       ))
+    inverse = None if perm is None else torch.argsort(perm)
+    unpermute = lambda x, axis: x if inverse is None else x.index_select(
+        axis, inverse)
     points, occ, expd = (
-        torch.cat(parts, dim=2)[:, :, :num_queries]
+        unpermute(torch.cat(parts, dim=2), 2)
         for parts in list(zip(*outs))[:3]
     )
     out = dict(
@@ -616,7 +654,7 @@ class TAPIR(nn.Module):
     )
     if get_causal_context:
       out["causal_context"] = TapirCausalState(*(
-          torch.cat(parts, dim=3)[:, :, :, :num_queries]
+          unpermute(torch.cat(parts, dim=3), 3)
           for parts in zip(*(o[3] for o in outs))))
     return out
 
@@ -645,6 +683,8 @@ class TAPIR(nn.Module):
       query_chunk_size: Optional[int] = None,
       refinement_resolutions: Optional[List[Tuple[int, int]]] = None,
       feature_grids: Optional[FeatureGrids] = None,
+      is_training: bool = False,
+      generator: Optional[torch.Generator] = None,
   ) -> Mapping[str, Any]:
     """Full forward pass.
 
@@ -654,6 +694,8 @@ class TAPIR(nn.Module):
       query_chunk_size: memory-bounding chunk over queries.
       refinement_resolutions: optional explicit refinement sizes.
       feature_grids: reuse precomputed grids.
+      is_training: the training forward (`estimate_trajectories`).
+      generator: with `is_training`, draws the chunks' query order.
 
     Returns:
       dict with "tracks" [B, N, T, 2] (x, y raster), "occlusion" and
@@ -671,6 +713,8 @@ class TAPIR(nn.Module):
         query_features,
         query_points_in_video=query_points,
         query_chunk_size=query_chunk_size,
+        is_training=is_training,
+        generator=generator,
     )
     # Final prediction: mean over the last refinement of each resolution.
     p = cfg.num_pips_iter
@@ -686,6 +730,55 @@ class TAPIR(nn.Module):
         unrefined_tracks=trajectories["tracks"][:-1],
         unrefined_expected_dist=trajectories["expected_dist"][:-1],
     )
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator):
+  """Flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
+  a normal truncated at 2 standard deviations, rescaled to variance
+  1 / fan_in."""
+  out = torch.empty(shape)
+  torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
+  return (out * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).numpy()
+
+
+# The standard deviation of a standard normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_tapir_params(config: TapirConfig,
+                      generator: torch.Generator) -> Dict[str, Any]:
+  """The TAPIR parameter tree of a fresh training run, in the Flax layout
+  with numpy leaves, drawn from `generator` (a CPU generator).
+
+  The distributions are those of the JAX modules' Flax initialisers: every
+  kernel (the ResNet's, the ExtraConvs', the heads', the mixer's dense and
+  depthwise ones) LeCun's truncated normal over its fan-in (kh * kw * C_in
+  for a conv, the input width for a dense layer, k for a [k, 1, D]
+  depthwise kernel), except the ExtraConvs' `conv_out_i`, which are zero;
+  every bias and norm offset 0 and every norm scale 1."""
+  model = TAPIR(config)
+  tree: Dict[str, Any] = {}
+  for name, p in model.named_parameters():
+    path = name.split(".")
+    leaf, shape = path[-1], tuple(p.shape)
+    if leaf == "weight":
+      leaf = "kernel"
+      if len(shape) == 4:
+        shape = (shape[2], shape[3], shape[1], shape[0])
+      elif len(shape) == 2:
+        shape = shape[::-1]
+      fan_in = int(np.prod(shape[:-1]))
+      if path[0] == "extra" and path[1].startswith("conv_out_"):
+        value = np.zeros(shape, np.float32)
+      else:
+        value = _lecun_normal(shape, fan_in, generator)
+    else:
+      value = np.full(shape, 1.0 if leaf == "scale" else 0.0, np.float32)
+    node = tree
+    for part in path[:-1]:
+      node = node.setdefault(part, {})
+    node[leaf] = value
+  return tree
 
 
 def update_query_features(

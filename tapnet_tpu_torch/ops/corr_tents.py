@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from tapnet_tpu_torch.ops import _build
+from tapnet_tpu_torch.ops import _build, _vjp
 
 # Number of CUDA kernel launches made through `corr_tent_patches`: the float
 # kernel, the int8 kernel with a scale per frame (also reached through
@@ -449,12 +449,25 @@ def corr_tent_patches(
 
   Returns:
     [BT, p, p, N] float32 tent-interpolated correlation patches.
+
+  Differentiable in grid, query, cy and cx on every device: the backward is
+  the VJP of `corr_tent_patches_reference` recomputed from the inputs (JAX's
+  `_bwd`), straight-through for the int8 modes (`ops._vjp`).
   """
   if quantized not in (False, True, "per_frame"):
     raise ValueError(f"corr_tent_patches: quantized={quantized!r}")
-  device = grid.device.type
-  if device not in ("cpu", "cuda"):
+  if grid.device.type not in ("cpu", "cuda"):
     raise ValueError(f"corr_tent_patches: unsupported device {grid.device}")
+  return _vjp.apply(
+      lambda g, q, y, x: _forward(g, q, y, x, p, quantized),
+      lambda g, q, y, x: corr_tent_patches_reference(g, q, y, x, p),
+      grid, query, cy, cx)
+
+
+def _forward(grid, query, cy, cx, p, quantized):
+  """`corr_tent_patches` without its gradient: the kernel on CUDA tensors,
+  the plain version on CPU tensors."""
+  device = grid.device.type
   if not quantized:
     if device == "cpu":
       return corr_tent_patches_reference(grid, query, cy, cx, p)
@@ -467,6 +480,13 @@ def corr_tent_patches(
     return corr_tent_patches_quantized_reference(grid, query, cy, cx, p)
   return corr_tent_patches_prequantized_per_position(
       *quantize_per_position(grid), query, cy, cx, p)
+
+
+def _no_gradient(name, *inputs):
+  if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+    raise ValueError(
+        f"{name} has no gradient (inference only); differentiate "
+        "corr_tent_patches(..., quantized=...) instead")
 
 
 def corr_tent_patches_prequantized(
@@ -484,7 +504,11 @@ def corr_tent_patches_prequantized(
     frame_scale: [BT] float32 per-frame scales.
     query / cy / cx / p: as `corr_tent_patches`; the query is quantized per
       descriptor in this call (on CUDA tensors inside the kernel).
+
+  Inference only, as in JAX: it carries no gradient and raises if asked for
+  one (training quantizes inside `corr_tent_patches`).
   """
+  _no_gradient("corr_tent_patches_prequantized", query, cy, cx)
   device = grid_q8.device.type
   if device == "cpu":
     return corr_tent_patches_prequantized_reference(
@@ -513,7 +537,10 @@ def corr_tent_patches_prequantized_per_position(
     pos_scale: [BT, H, W] float32 per-position scales.
     query / cy / cx / p: as `corr_tent_patches`; the query is quantized per
       descriptor in this call (on CUDA tensors inside the kernel).
+
+  Inference only, like `corr_tent_patches_prequantized`.
   """
+  _no_gradient("corr_tent_patches_prequantized_per_position", query, cy, cx)
   device = grid_q8.device.type
   if device == "cpu":
     return corr_tent_patches_prequantized_per_position_reference(

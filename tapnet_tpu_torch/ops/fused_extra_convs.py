@@ -47,7 +47,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tapnet_tpu_torch.ops import _build, qconv, tma_gemm
+from tapnet_tpu_torch.ops import _build, _vjp, qconv, tma_gemm
 from tapnet_tpu_torch.ops.mixer_math import gelu
 
 # Number of CUDA launches made through `extra_convs_layer`, one per layer
@@ -658,7 +658,29 @@ def extra_convs_layer(x, g, bln, wu, bu, wo, bo, quantized: bool = False,
 
   Returns:
     [N, H, W, C] in x.dtype.
+
+  Differentiable in every tensor argument on every device: the backward is
+  the VJP of the full-precision `extra_convs_layer_reference` recomputed
+  from the inputs (JAX's `_bwd`), straight-through for `quantized`
+  (`ops._vjp`); a quantized layer needs wu and wo then.
   """
+  if x.device.type not in ("cpu", "cuda"):
+    raise ValueError(f"extra_convs_layer: unsupported device {x.device}")
+
+  def forward(*args):
+    return _forward(*args, quantized, qweights)
+
+  def plain(*args):
+    if args[3] is None or args[5] is None:
+      raise ValueError("extra_convs_layer: its gradient needs wu and wo")
+    return extra_convs_layer_reference(*args, quantized=False)
+
+  return _vjp.apply(forward, plain, x, g, bln, wu, bu, wo, bo)
+
+
+def _forward(x, g, bln, wu, bu, wo, bo, quantized, qweights):
+  """`extra_convs_layer` without its gradient: the kernels on CUDA tensors,
+  the plain version on CPU tensors."""
   if x.device.type == "cpu":
     return extra_convs_layer_reference(x, g, bln, wu, bu, wo, bo, quantized,
                                        qweights)

@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tapnet_tpu_torch.ops import _build, mixer_math, tma_gemm
+from tapnet_tpu_torch.ops import _build, _vjp, mixer_math, tma_gemm
 
 # Number of CUDA launches of the block kernel made through `mixer_block`:
 # the full-precision block, and the block with the w8a8 channel MLP.
@@ -474,7 +474,30 @@ def mixer_block(
 
   Returns:
     [B, T, C], same dtype as x.
+
+  Differentiable in every tensor argument on every device: the backward is
+  the VJP of the full-precision `mixer_block_reference` recomputed from the
+  inputs (JAX's `_bwd`), straight-through for `quantized` (`ops._vjp`); a
+  quantized block needs w1 and w2 then.
   """
+  if x.device.type not in ("cpu", "cuda"):
+    raise ValueError(f"mixer_block: unsupported device {x.device}")
+
+  def forward(*args):
+    return _forward(*args, causal, valid_len, quantized, qweights)
+
+  def plain(*args):
+    if args[7] is None or args[9] is None:
+      raise ValueError("mixer_block: its gradient needs w1 and w2")
+    return mixer_block_reference(*args, causal, valid_len)
+
+  return _vjp.apply(forward, plain, x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2)
+
+
+def _forward(x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len,
+             quantized, qweights):
+  """`mixer_block` without its gradient: the kernels on CUDA tensors, the
+  plain version on CPU tensors."""
   if x.device.type == "cpu":
     return mixer_block_reference(
         x, g1, wu, bu, wm, bm, g2, w1, b1, w2, b2, causal, valid_len,

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from tapnet_tpu_torch.ops import _vjp
+
 _LN_EPS = 1e-5
 
 
@@ -190,3 +192,21 @@ def mlp_math_q8(
     [..., C], same dtype as x.
   """
   return mlp_math_q8_parts(x, ln_scale, w1q, s1, b1, w2q, s2, b2)[0]
+
+
+def mlp_block_q8(x, ln_scale, w1, b1, w2, b2, qweights=None):
+  """`mlp_math_q8` on the weights quantized per output column (`qweights`
+  = (w1q, s1, w2q, s2) made once by the caller, else from w1 and w2 here),
+  differentiable straight-through as JAX's `mlp_block_q8`: its backward is
+  the VJP of the full-precision `mlp_math` (`ops._vjp`).
+
+  Args:
+    x: [..., C]; ln_scale: [C]; w1: [C, H]; b1: [H]; w2: [H, C]; b2: [C].
+  """
+  if qweights is None:
+    qweights = (*quantize_weight_cols(w1), *quantize_weight_cols(w2))
+  w1q, s1, w2q, s2 = qweights
+  return _vjp.apply(
+      lambda x, ln_scale, w1, b1, w2, b2: mlp_math_q8(
+          x, ln_scale, w1q, s1, b1, w2q, s2, b2),
+      mlp_math, x, ln_scale, w1, b1, w2, b2)

@@ -41,7 +41,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tapnet_tpu_torch.ops import _build, tma_gemm
+from tapnet_tpu_torch.ops import _build, _vjp, tma_gemm
 
 # Number of CUDA launches of the per-frame int8 convolution made through
 # `conv2d_q8` (one per call: its three kernels count once).
@@ -340,7 +340,26 @@ def conv2d_q8(
   """Per-frame w8a8 SAME 3x3 stride-1 convolution (see module docstring).
 
   Arguments as `conv2d_q8_math`. Returns [N, C_out, H, W] in x.dtype.
+
+  Differentiable in x, weight and bias on every device, straight-through:
+  the backward is the VJP of `conv2d_fp_math` recomputed from the inputs
+  (JAX's `_q8_bwd`, `ops._vjp`); it needs `weight` then.
   """
+  if x.device.type not in ("cpu", "cuda"):
+    raise ValueError(f"conv2d_q8: unsupported device {x.device}")
+
+  def plain(x, weight, bias):
+    if weight is None:
+      raise ValueError("conv2d_q8: its gradient needs the float weight")
+    return conv2d_fp_math(x, weight, bias)
+
+  return _vjp.apply(lambda *args: _forward(*args, qweights), plain,
+                    x, weight, bias)
+
+
+def _forward(x, weight, bias, qweights):
+  """`conv2d_q8` without its gradient: the kernel on CUDA tensors, the plain
+  version on CPU tensors."""
   if x.device.type == "cpu":
     return conv2d_q8_math(x, weight, bias, qweights)
   if x.device.type == "cuda":

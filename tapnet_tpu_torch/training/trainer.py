@@ -1,13 +1,17 @@
-"""Training step and loop for TAPNext on one device (port of
+"""Training step and loop on one device (port of
 tapnet_tpu/training/trainer.py).
 
 `make_train_step` computes the loss of a batch, its gradients by autograd
-(the RG-LRU scan's through K5b on the card), one update of the optax-like
-optimizer (`training.optimizers`) applied to the model's parameters in
-place, and the scalars with `gradient_norm`. Two TAPNext losses:
+(through the hand-written kernels' VJPs on the card: `ops._vjp`, and the
+RG-LRU scan's K5b), one update of the optax-like optimizer
+(`training.optimizers`) applied to the model's parameters in place, and the
+scalars with `gradient_norm`. The losses:
 
-  * `tapnext_loss_builder`: one pass over the whole clip with per-layer
-    deep supervision;
+  * `tapir_loss_builder` (TAPIR, causal TAPIR, BootsTAPIR): the TAP loss
+    (`compute_tapir_loss`) of the training forward, whose query chunks run
+    in an order drawn from the step's `torch.Generator`;
+  * `tapnext_loss_builder`: TAPNext, one pass over the whole clip with
+    per-layer deep supervision;
   * `tapnext_chunked_loss_builder`: the long-video recipe, the clip run
     through `TAPNextTracker.forward_step` in time chunks with
     `torch.utils.checkpoint` on each chunk. The temporal mixer is exactly
@@ -18,7 +22,8 @@ place, and the scalars with `gradient_norm`. Two TAPNext losses:
 
 `Trainer` owns the model, the optimizer and the loop. It runs on one device:
 the CUDA card unless given `device="cpu"`; a mesh (multi-GPU) is ROADMAP
-Queue 1 item 9. TAPIR training is not ported (ROADMAP Queue 1 item 8).
+Queue 1 item 9. TAP-Net's `contrastive_loss_builder` comes with TAP-Net
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -32,13 +37,14 @@ import torch.utils.checkpoint
 
 from tapnet_tpu_torch.checkpoints import convert
 from tapnet_tpu_torch.inference import resolve_device
-from tapnet_tpu_torch.models import rglru, ssm_vit, tapnext, tapnext_losses
+from tapnet_tpu_torch.models import rglru, ssm_vit, tapir, tapnext, tapnext_losses
 from tapnet_tpu_torch.training import checkpointing, optimizers, telemetry
+from tapnet_tpu_torch.utils import losses as loss_lib
 
 Batch = Mapping[str, torch.Tensor]
 
-_TAPIR_NOT_PORTED = ("TAPIR training is not ported yet (ROADMAP Queue 1 item "
-                     "8); the port trains TAPNext")
+_TAPNET_NOT_PORTED = ("TAP-Net and its contrastive loss are not ported yet "
+                      "(ROADMAP Queue 1 item 5)")
 _MESH_NOT_PORTED = ("multi-GPU training is not ported yet (ROADMAP Queue 1 "
                     "item 9); the port trains on one device")
 
@@ -62,12 +68,53 @@ class TaskConfig:
   expected_dist_thresh: float = 6.0
 
 
+def compute_tapir_loss(output: Mapping[str, Any], batch: Batch,
+                       task: TaskConfig):
+  """TAP loss over the final output and every unrefined iteration
+  (`utils.losses.tapnet_loss`). Returns (loss, scalars) with JAX's scalar
+  names: position_loss, occlusion_loss and prob_loss of the final output,
+  position_loss_i and occlusion_loss_i of iteration i, and loss."""
+  scalars = {}
+
+  def one(tracks, occ, expd):
+    return loss_lib.tapnet_loss(
+        tracks, occ, batch["target_points"], batch["occluded"],
+        batch["video"].shape, expected_dist=expd,
+        position_loss_weight=task.position_loss_weight,
+        expected_dist_thresh=task.expected_dist_thresh)
+
+  huber, occ_l, prob = one(output["tracks"], output["occlusion"],
+                           output.get("expected_dist"))
+  loss = huber + occ_l + prob
+  scalars.update(position_loss=huber, occlusion_loss=occ_l, prob_loss=prob)
+  for i in range(len(output.get("unrefined_tracks", ()))):
+    huber, occ_l, prob = one(output["unrefined_tracks"][i],
+                             output["unrefined_occlusion"][i],
+                             output["unrefined_expected_dist"][i])
+    loss = loss + huber + occ_l + prob
+    scalars[f"position_loss_{i}"] = huber
+    scalars[f"occlusion_loss_{i}"] = occ_l
+  scalars["loss"] = loss
+  return loss, scalars
+
+
 def tapir_loss_builder(model, task: TaskConfig):
-  raise NotImplementedError(_TAPIR_NOT_PORTED)
+  """The TAP loss of TAPIR-style trackers. `loss_fn(batch, generator=None)
+  -> (loss, scalars)`: the training forward in chunks of
+  `task.train_chunk_size` queries, in an order drawn from `generator` (the
+  identity without one)."""
+
+  def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    output = model(batch["video"], batch["query_points"],
+                   query_chunk_size=task.train_chunk_size, is_training=True,
+                   generator=generator)
+    return compute_tapir_loss(output, batch, task)
+
+  return loss_fn
 
 
 def contrastive_loss_builder(model, task: TaskConfig, **kwargs):
-  raise NotImplementedError(_TAPIR_NOT_PORTED)
+  raise NotImplementedError(_TAPNET_NOT_PORTED)
 
 
 def _tapnext_targets(batch: Batch):
@@ -77,10 +124,12 @@ def _tapnext_targets(batch: Batch):
 
 def tapnext_loss_builder(model, task: TaskConfig):
   """TAPNext loss: coordinate CE + Huber + visibility, with deep
-  supervision. `loss_fn(batch) -> (loss, scalars)`."""
+  supervision. `loss_fn(batch, generator=None) -> (loss, scalars)`; the
+  generator is not used."""
   del task
 
-  def loss_fn(batch: Batch):
+  def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    del generator
     results = model(batch["video"], batch["query_points"])
     return tapnext_losses.tapnext_loss(results, *_tapnext_targets(batch))
 
@@ -92,7 +141,8 @@ def tapnext_chunked_loss_builder(model, task: TaskConfig,
   """TAPNext loss over time-chunked forwards (see the module docstring)."""
   del task
 
-  def loss_fn(batch: Batch):
+  def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    del generator
     video, qp = batch["video"], batch["query_points"]
     t = video.shape[1]
     if t % chunk_size:
@@ -132,10 +182,11 @@ def tapnext_chunked_loss_builder(model, task: TaskConfig,
   return loss_fn
 
 
-def loss_and_grads(loss_fn, params: Mapping[str, torch.Tensor], batch: Batch):
+def loss_and_grads(loss_fn, params: Mapping[str, torch.Tensor], batch: Batch,
+                   generator: Optional[torch.Generator] = None):
   """(loss, scalars, grads by name); an unused parameter's gradient is
-  zero."""
-  loss, scalars = loss_fn(batch)
+  zero. `generator` goes to the loss (TAPIR's query order)."""
+  loss, scalars = loss_fn(batch, generator)
   names = list(params)
   grads = torch.autograd.grad(loss, [params[n] for n in names],
                               allow_unused=True)
@@ -148,13 +199,16 @@ def make_train_step(
     model, tx: optimizers.Optimizer, task: TaskConfig = TaskConfig(),
     loss_builder: Optional[Callable] = None,
 ) -> Callable[[TrainState, Batch], tuple]:
-  """`train_step(state, batch) -> (state, scalars)`: the loss of
-  `loss_builder(model, task)`, its gradients, one optimizer update applied
-  to the parameters in place, and the loss's scalars with gradient_norm."""
+  """`train_step(state, batch, generator=None) -> (state, scalars)`: the
+  loss of `loss_builder(model, task)` (TAPIR's by default), its gradients,
+  one optimizer update applied to the parameters in place, and the loss's
+  scalars with gradient_norm. `generator` draws TAPIR's query order."""
   loss_fn = (loss_builder or tapir_loss_builder)(model, task)
 
-  def train_step(state: TrainState, batch: Batch):
-    _, scalars, grads = loss_and_grads(loss_fn, state.params, batch)
+  def train_step(state: TrainState, batch: Batch,
+                 generator: Optional[torch.Generator] = None):
+    _, scalars, grads = loss_and_grads(loss_fn, state.params, batch,
+                                       generator)
     updates, opt_state = tx.update(grads, state.opt_state, state.params)
     optimizers.apply_updates(state.params, updates)
     scalars = {k: v.detach() for k, v in scalars.items()}
@@ -185,13 +239,16 @@ class Trainer:
     """device: None means the CUDA card (raises without one unless
     device="cpu"). The port draws its initial parameters without a forward
     pass, so it needs no example batch (the JAX Trainer's init_num_frames
-    and init_state's example_batch)."""
+    and init_state's example_batch). Step k draws TAPIR's query order from
+    `step_generator(k)` (the JAX loop's split of its rng)."""
     if mesh is not None:
       raise NotImplementedError(_MESH_NOT_PORTED)
-    if not isinstance(model, tapnext.TAPNextTracker):
-      raise NotImplementedError(_TAPIR_NOT_PORTED)
+    if not isinstance(model, (tapir.TAPIR, tapnext.TAPNextTracker)):
+      raise NotImplementedError(
+          f"the port trains TAPIR and TAPNext, not {type(model).__name__}")
     self.device = resolve_device(device)
     self.model = model.to(self.device)
+    self.is_tapir = isinstance(model, tapir.TAPIR)
     self.task = task
     self.loss_builder = loss_builder
     self.lr_schedule = optimizers.make_lr_schedule(optimizer_config,
@@ -204,22 +261,41 @@ class Trainer:
                      else telemetry.default_log_path(checkpoint_path))
     self._step_fn = None
 
+  @staticmethod
+  def step_generator(step: int) -> torch.Generator:
+    """The CPU generator of step `step`'s draws (TAPIR's query order)."""
+    return torch.Generator().manual_seed(step)
+
   def _flax_tree(self, tensors: Mapping[str, torch.Tensor]):
+    """The model's tensors by name (parameters, gradients, moments) as the
+    Flax-layout tree of numpy leaves."""
+    if self.is_tapir:
+      return convert.state_dict_to_flax(tensors)
     cfg = self.model.config
     return convert.state_dict_to_tapnext(tensors, cfg.num_heads,
                                          cfg.patch_size)
 
   def _from_flax_tree(self, tree) -> Dict[str, torch.Tensor]:
-    return {k: v.to(self.device)
-            for k, v in convert.tapnext_to_state_dict(tree).items()}
+    to_state_dict = (convert.flax_to_state_dict if self.is_tapir
+                     else convert.tapnext_to_state_dict)
+    return {k: v.to(self.device) for k, v in to_state_dict(tree).items()}
+
+  def load_params(self, tree) -> Dict[str, torch.Tensor]:
+    """Fills the model's parameters from a Flax-layout tree; returns them by
+    name."""
+    if self.is_tapir:
+      convert.load_flax_params(self.model, tree)
+    else:
+      convert.load_tapnext_params(self.model, tree)
+    return dict(self.model.named_parameters())
 
   def init_state(self, seed: int = 42) -> TrainState:
-    """Fresh parameters (`models.tapnext.init_tapnext_params` from `seed`)
-    loaded into the model, and a fresh optimizer state."""
-    tree = tapnext.init_tapnext_params(
-        self.model.config, torch.Generator().manual_seed(seed))
-    convert.load_tapnext_params(self.model, tree)
-    params = dict(self.model.named_parameters())
+    """Fresh parameters (`models.tapir.init_tapir_params` or
+    `models.tapnext.init_tapnext_params` from `seed`) loaded into the model,
+    and a fresh optimizer state."""
+    init = tapir.init_tapir_params if self.is_tapir else tapnext.init_tapnext_params
+    params = self.load_params(
+        init(self.model.config, torch.Generator().manual_seed(seed)))
     return TrainState(params, self.tx.init(params), 0, {})
 
   def restore_or_init(self) -> TrainState:
@@ -228,8 +304,7 @@ class Trainer:
             if self.checkpoint_path else None)
     if ckpt is None:
       return self.init_state()
-    convert.load_tapnext_params(self.model, ckpt["params"])
-    params = dict(self.model.named_parameters())
+    params = self.load_params(ckpt["params"])
     opt_state = dict(ckpt["opt_state"])
     for key in ("mu", "nu"):
       if key in opt_state:
@@ -271,15 +346,20 @@ class Trainer:
     try:
       for i in range(num_steps):
         batch = {k: v.to(self.device) for k, v in next(data).items()}
-        state, scalars = self.step_fn(state, batch)
+        state, scalars = self.step_fn(state, batch,
+                                      self.step_generator(state.step))
         step = state.step
         if log_every and (i + 1) % log_every == 0:
           scalars = {k: float(v) for k, v in scalars.items()}
           dt = (time.time() - last_t) / log_every
           last_t = time.time()
           lr = float(self.lr_schedule(step))
-          print(f"step {step} loss {scalars['loss']:.4f} "
-                f"gnorm {scalars['gradient_norm']:.3f} "
+          parts = [f"step {step} loss {scalars['loss']:.4f}"]
+          for key, short in (("position_loss", "pos"),
+                             ("occlusion_loss", "occ")):
+            if key in scalars:
+              parts.append(f"{short} {scalars[key]:.4f}")
+          print(" ".join(parts) + f" gnorm {scalars['gradient_norm']:.3f} "
                 f"lr {lr:.2e} {dt*1000:.0f} ms/step")
           sink.write(step, dict(scalars, learning_rate=lr,
                                 ms_per_step=dt * 1000))
