@@ -1,4 +1,5 @@
-"""Drives the PyTorch port of BootsTAPIR on one CUDA card and checks it.
+"""Drives the PyTorch port on one CUDA card and checks it: BootsTAPIR,
+online TAPIR, TAPNext, their training, TAP-Net and TRAJAN.
 
   python3 chip_smoke.py [--records PATH]
 
@@ -76,9 +77,10 @@ Phases (any failure raises and exits non-zero):
      golden clip (init, a step per frame, add_points at frame 4) against the
      JAX stream (tests/data/bootstapir_golden_online.npz) in fp32 and bf16,
      and the stream against the port's offline causal model (K3 with
-     causal=True); the int8 streams a-d against JAX's
-     (tests/data/bootstapir_golden_online_int8.npz; a config-c step launches
-     K2 and X, never K6); then online-tapir-256 (causal TAPIR, bf16, 64
+     causal=True); the int8 streams a-d against JAX's on two witness clips
+     (tests/data/bootstapir_golden_online_int8.npz and its _clip2 sibling,
+     each with its own 16-ulp witness; a config-c step launches K2 and X,
+     never K6); then online-tapir-256 (causal TAPIR, bf16, 64
      queries, the JAX package's bench.py workload), online-bootstapir-256
      (the live demo's causal BootsTAPIR) and online-bootstapir-256-int8 (its
      configuration c, with the streaming w8a8 MLP timed), 50 timed
@@ -119,7 +121,22 @@ Phases (any failure raises and exits non-zero):
      two thirds of the first 50's); train-bootstrap-256 (BootsTAP
      self-training on the trained checkpoint, 4 x 16 frames at 256x256
      unlabeled plus a labeled anchor: a warm-up and a timed step).
-  8. The last line: {"ok": true, "device": {...}}.
+  8. TAP-Net and TRAJAN (no hand-written kernel: cuDNN convolutions and
+     PyTorch's products, as the JAX package's XLA ones; run before phase 7):
+     tapnet-golden (full-width TAP-Net, tools/tapnet_weights.py's seed-made
+     weights and running statistics, the golden clip: eval and training
+     forwards and one step of each loss against
+     tests/data/tapnet_golden.npz within tools/make_tapnet_golden.py's card
+     limits, fp32 with TF32 off); trajan-golden (TrackAutoEncoder() at its
+     published widths, one clip of 64 support tracks, one never visible,
+     boundary frame 120, 64 queries with some past frame 153, JAX's dither
+     fed, chunked against one pass, against tests/data/trajan_golden.npz);
+     train-tapnet-256 (tapnet_experiment() at its own data size: batch 8 x
+     24 x 256x256, 256 queries in chunks of 32, TF32 defaults, a warm-up
+     and 2 timed steps, the running statistics moved); serve-trajan-150 (4
+     clips x 256 support tracks x 150 frames, the 32 x 32 grid's 1024
+     queries in decoder chunks of 256, a warm-up and 3 timed passes).
+  9. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line (with `--records PATH`, also
 written to PATH). Exits non-zero, and prints
@@ -168,7 +185,8 @@ from tapnet_tpu_torch.utils.sampling import (  # noqa: E402
     postprocess_occlusions, preprocess_frames,
 )
 from tools.golden_clip import CLIP_FRAMES, INT8_CONFIGS, make_clip  # noqa: E402
-from tools.make_online_golden import ADD_IDX, run_stream  # noqa: E402
+from tools.make_online_golden import (  # noqa: E402
+    ADD_IDX, CLIP2_SEED, OUT_INT8_CLIP2 as GOLDEN_ONLINE_INT8_CLIP2, run_stream)
 from tapnet_tpu_torch.tapvid import datasets as tapvid_datasets  # noqa: E402
 from tapnet_tpu_torch.tapvid import evaluate as tapvid_evaluate  # noqa: E402
 from tools.make_tapnext_golden import (  # noqa: E402
@@ -177,6 +195,14 @@ from tools.make_tapnext_golden import (  # noqa: E402
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
 from tools import make_tapnext_train_golden as train_golden  # noqa: E402
 from tools import make_tapir_train_golden as tapir_golden  # noqa: E402
+from tools import make_tapnet_golden as tapnet_golden  # noqa: E402
+from tools import make_trajan_golden as trajan_golden  # noqa: E402
+from tapnet_tpu_torch.models import tapnet as tapnet_lib  # noqa: E402
+from tapnet_tpu_torch.trajan import track_autoencoder  # noqa: E402
+from tapnet_tpu_torch.examples.trajan_roundtrip import (  # noqa: E402
+    synthetic_tracks)
+from tapnet_tpu_torch.checkpoints import convert as convert_lib  # noqa: E402
+from tools.trajan_weights import seeded_trajan_params  # noqa: E402
 from tools.time_int8_kernels import (  # noqa: E402
     K3_PHASES, K4_PHASES, K6_PHASES, K6F_PHASES, X_PHASES,
     split_ms as kernel_split,
@@ -2306,75 +2332,95 @@ def online_int8_limits(golden, name):
   return limits, witness
 
 
+def online_int8_clips():
+  """The int8 streams' witness clips: (name, JAX's int8 streams and their
+  witness, the preprocessed frames, JAX's float32 stream on them). The
+  golden clip, and the second clip of tools/make_online_golden.py."""
+  float_golden = np.load(GOLDEN_ONLINE)
+  clip2 = np.load(GOLDEN_ONLINE_INT8_CLIP2)
+  require(int(clip2["seed"]) == CLIP2_SEED, "second clip: seed mismatch")
+  frames = lambda video: preprocess_frames(torch.from_numpy(video)).numpy()
+  return [
+      ("golden_clip", np.load(GOLDEN_ONLINE_INT8),
+       frames(np.load(GOLDEN)["video"]),
+       {k: float_golden[f"float32_{k}"] for k in _STREAM_KEYS}),
+      ("second_clip", clip2, frames(make_clip(CLIP2_SEED)[0]),
+       {k: clip2[f"float32_{k}"] for k in _STREAM_KEYS}),
+  ]
+
+
 def online_golden_check_int8(params):
   """online-golden-int8: the trained causal BootsTAPIR in the int8
   configurations a-d (fp32 model dtype, TF32 off) through
-  OnlineTapirPredictor on the golden clip's stream against JAX's int8
-  streams, under `online_int8_limits` (the witness's near ties apart, and
-  at most ONLINE_INT8_FLIPPED other queries, none of ADD_IDX, on their other
-  stage-1 peak), which JAX's float stream must fail; each stream must launch its own kernels (ONLINE_INT8_LAUNCHES)
-  and no other, with num_pips_iter x 3 grids of correlation launches a
-  step."""
-  golden = np.load(GOLDEN_ONLINE_INT8)
-  float_golden = np.load(GOLDEN_ONLINE)
-  frames = preprocess_frames(torch.from_numpy(np.load(GOLDEN)["video"])).numpy()
-  qp, new_qp = golden["query_points"], golden["new_query_points"]
-  steps = frames.shape[1]
+  OnlineTapirPredictor on each witness clip's stream (`online_int8_clips`)
+  against JAX's int8 streams, under `online_int8_limits` of that clip (the
+  witness's near ties apart, and at most ONLINE_INT8_FLIPPED other queries,
+  none of ADD_IDX, on their other stage-1 peak), which JAX's float stream
+  on the clip must fail; each stream must launch its own kernels
+  (ONLINE_INT8_LAUNCHES) and no other, with num_pips_iter x 3 grids of
+  correlation launches a step."""
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
   result, failed = {}, []
-  for name, overrides in INT8_CONFIGS.items():
-    config = causal_bootstapir_config(**overrides)
-    predictor = OnlineTapirPredictor(params, config)
-    reset_counts()
-    out = run_stream(predictor.init, predictor.step, predictor.add_points,
-                     frames, qp, new_qp)
-    counts = read_counts()
-    corr = next(k for k in ONLINE_INT8_LAUNCHES[name] if k.startswith("corr_tents"))
-    require({k for k, v in counts.items() if v} == ONLINE_INT8_LAUNCHES[name]
-            and counts[corr] == 3 * config.num_pips_iter * steps,
-            f"online-golden-int8 {name}: launches {counts}, expected "
-            f"{sorted(ONLINE_INT8_LAUNCHES[name])}")
-    ref = {k: golden[f"{name}_{k}"] for k in _STREAM_KEYS}
-    float_ref = {k: float_golden[f"float32_{k}"] for k in _STREAM_KEYS}
-    tol, witness = online_int8_limits(golden, name)
-    near_ties = witness["flipped"]
-    # Other queries that left the track limits at some step.
-    flipped = np.setdiff1d(off_track(out, ref, tol), near_ties)
-    keep = np.setdiff1d(np.arange(ref["tracks"].shape[2]),
-                        np.union1d(flipped, near_ties))
-    err = np.linalg.norm(out["tracks"] - ref["tracks"], axis=-1)[:, 0]
-    to_float = np.linalg.norm(out["tracks"] - float_ref["tracks"], axis=-1)[:, 0]
-    r = result[name] = dict(
-        stream_apart(out, ref, keep), tol=tol,
-        offline_tol=GOLDEN_INT8_FP32_TOL[name], jax_nudged_witness=witness,
-        all_queries=stream_apart(out, ref),
-        flipped={int(q): dict(max_px_from_int8=float(err[:, q].max()),
-                              max_px_from_float=float(to_float[:, q].max()))
-                 for q in flipped},
-        near_ties={int(q): float(err[:, q].max()) for q in near_ties},
-        launches=counts,
-        launches_per_step={k: v / steps for k, v in counts.items() if v})
-    # Control: JAX's float stream, held to the same limits, must fail them.
-    control = stream_apart(float_ref, ref, keep)
-    r["float_stream_vs_int8"] = dict(control,
-                                     refused=not stream_within(control, tol))
-    if (len(flipped) > ONLINE_INT8_FLIPPED
-        or (set(flipped) | set(near_ties)) & set(ADD_IDX)
-        or not stream_within(r, tol) or stream_within(control, tol)):
-      failed.append(f"{name}: {r} vs {tol}")
-    del predictor
-  # A config-c step alone: K2 and X, and no K6.
-  predictor = OnlineTapirPredictor(params, causal_bootstapir_config(
-      **INT8_CONFIGS["c"]))
-  predictor.init(frames[:, 0], qp)
-  reset_counts()
-  predictor.step(frames[:, 1])
-  counts = read_counts()
-  require(counts["corr_tents_q8_frame"] > 0 and counts["extra_convs_q8_frame"] > 0
-          and counts["extra_convs_q8_pixel"] == 0,
-          f"a config-c step: launches {counts}")
-  result["c_one_step_launches"] = counts
+  for clip, golden, frames, float_ref in online_int8_clips():
+    qp, new_qp = golden["query_points"], golden["new_query_points"]
+    steps = frames.shape[1]
+    for name, overrides in INT8_CONFIGS.items():
+      config = causal_bootstapir_config(**overrides)
+      predictor = OnlineTapirPredictor(params, config)
+      reset_counts()
+      out = run_stream(predictor.init, predictor.step, predictor.add_points,
+                       frames, qp, new_qp)
+      counts = read_counts()
+      corr = next(k for k in ONLINE_INT8_LAUNCHES[name]
+                  if k.startswith("corr_tents"))
+      require({k for k, v in counts.items() if v} == ONLINE_INT8_LAUNCHES[name]
+              and counts[corr] == 3 * config.num_pips_iter * steps,
+              f"online-golden-int8 {clip} {name}: launches {counts}, "
+              f"expected {sorted(ONLINE_INT8_LAUNCHES[name])}")
+      ref = {k: golden[f"{name}_{k}"] for k in _STREAM_KEYS}
+      tol, witness = online_int8_limits(golden, name)
+      near_ties = witness["flipped"]
+      # Other queries that left the track limits at some step.
+      flipped = np.setdiff1d(off_track(out, ref, tol), near_ties)
+      keep = np.setdiff1d(np.arange(ref["tracks"].shape[2]),
+                          np.union1d(flipped, near_ties))
+      err = np.linalg.norm(out["tracks"] - ref["tracks"], axis=-1)[:, 0]
+      to_float = np.linalg.norm(out["tracks"] - float_ref["tracks"],
+                                axis=-1)[:, 0]
+      r = result.setdefault(clip, {})[name] = dict(
+          stream_apart(out, ref, keep), tol=tol,
+          offline_tol=GOLDEN_INT8_FP32_TOL[name], jax_nudged_witness=witness,
+          all_queries=stream_apart(out, ref),
+          flipped={int(q): dict(max_px_from_int8=float(err[:, q].max()),
+                                max_px_from_float=float(to_float[:, q].max()))
+                   for q in flipped},
+          near_ties={int(q): float(err[:, q].max()) for q in near_ties},
+          launches=counts,
+          launches_per_step={k: v / steps for k, v in counts.items() if v})
+      # Control: JAX's float stream, held to the same limits, must fail them.
+      control = stream_apart(float_ref, ref, keep)
+      r["float_stream_vs_int8"] = dict(control,
+                                       refused=not stream_within(control, tol))
+      if (len(flipped) > ONLINE_INT8_FLIPPED
+          or (set(flipped) | set(near_ties)) & set(ADD_IDX)
+          or not stream_within(r, tol) or stream_within(control, tol)):
+        failed.append(f"{clip} {name}: {r} vs {tol}")
+      del predictor
+    if clip == "golden_clip":
+      # A config-c step alone: K2 and X, and no K6.
+      predictor = OnlineTapirPredictor(params, causal_bootstapir_config(
+          **INT8_CONFIGS["c"]))
+      predictor.init(frames[:, 0], qp)
+      reset_counts()
+      predictor.step(frames[:, 1])
+      counts = read_counts()
+      require(counts["corr_tents_q8_frame"] > 0
+              and counts["extra_convs_q8_frame"] > 0
+              and counts["extra_convs_q8_pixel"] == 0,
+              f"a config-c step: launches {counts}")
+      result["c_one_step_launches"] = counts
+      del predictor
   torch.backends.cudnn.allow_tf32 = True
   require(not failed, "online golden int8 check failed: " + "; ".join(failed))
   return result
@@ -3179,6 +3225,214 @@ def train_bootstrap_256(params, steps=BOOTSTRAP_STEPS):
       max_memory_gb=max(r["max_memory_gb"] for r in records))
 
 
+# train-tapnet-256: tapnet_experiment()'s own data size.
+TRAIN_TAPNET_BATCH, TRAIN_TAPNET_FRAMES, TRAIN_TAPNET_QUERIES = 8, 24, 256
+TRAIN_TAPNET_STEPS = 2
+TAPNET_LAYERS = (
+    ("convolutions (cuDNN: forward, dgrad, wgrad)",
+     ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn")),
+    ("matmuls (cost volume, contrastive dots, dense)",
+     ("gemm", "nvjet", "cutlass", "gemv", "xmma")),
+    ("reductions (BatchNorm statistics, softmax, means)",
+     ("reduce", "softmax", "welford", "norm")),
+)
+# serve-trajan-150: TrackAutoEncoder() at its published widths.
+SERVE_TRAJAN_CLIPS, SERVE_TRAJAN_TRACKS, SERVE_TRAJAN_FRAMES = 4, 256, 150
+SERVE_TRAJAN_CHUNK, SERVE_TRAJAN_PASSES = 256, 3
+TRAJAN_LAYERS = (
+    ("matmuls (projections, attention, MLPs)",
+     ("gemm", "nvjet", "cutlass", "gemv", "xmma")),
+    ("softmax", ("softmax",)),
+    ("norms (LayerNorm, RMSNorm statistics)", ("reduce", "norm", "welford")),
+)
+
+
+def tapnet_golden_check():
+  """tapnet-golden: full-width TAP-Net (TapNetConfig(): TSM-ResNet-18,
+  stride 8, unit_2) with tools/tapnet_weights.py's seed-made weights on the
+  golden clip (8 x 256x256, 32 queries in chunks of 16), float32 with TF32
+  off: the eval and training forwards, and one value_and_grad of the TAP
+  loss and of the contrastive loss (loss, scalars, the running statistics
+  after the step, the gradient fingerprints), against
+  tests/data/tapnet_golden.npz within tools/make_tapnet_golden.py's card
+  limits."""
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  golden = np.load(tapnet_golden.OUT)
+  r = tapnet_golden.judge(golden, tapnet_golden.run_port("cuda"), card=True)
+  torch.backends.cudnn.allow_tf32 = True
+  require(r["ok"], f"tapnet-golden: {r}")
+  return r
+
+
+def train_tapnet_256(batch=TRAIN_TAPNET_BATCH, frames=TRAIN_TAPNET_FRAMES,
+                     queries=TRAIN_TAPNET_QUERIES, steps=TRAIN_TAPNET_STEPS,
+                     device="cuda"):
+  """train-tapnet-256: tapnet_experiment() at its own data size (batch 8 x
+  24 frames x 256x256, 256 queries in chunks of 32, the TAP loss, float32),
+  fresh parameters (init_tapnet_params seed 42), synthetic batches made on
+  the card, PyTorch's TF32 defaults; a warm-up step (step 0, learning rate
+  0: the parameters must not move) and `steps` timed steps; every leaf
+  finite, the running statistics moved by every step's forward; then one
+  profiled step by layer. (`device` lets a rehearsal run it.) TAP-Net runs no hand-written kernel: cuDNN's
+  convolutions and cuBLAS's products, as the JAX package's XLA ones."""
+  _pytorch_tf32_defaults()
+  exp = train_configs.tapnet_experiment()
+  t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, exp.total_steps,
+                          task=exp.task, loss_builder=exp.loss_builder,
+                          device=device)
+  state = t.init_state()
+  size = exp.data.train_size[0]
+  data = synthetic.batch_iterator(
+      seed=SEED, device=device, batch_size=batch, num_frames=frames,
+      height=size, width=size, num_queries=queries)
+  batches = [next(data) for _ in range(steps + 1)]
+  before = {k: p.detach().clone() for k, p in state.params.items()}
+  stats = lambda: {k: v.clone() for k, v in
+                   state.model_state["batch_stats"].items()}
+  fresh = stats()
+  state, warm = _timed_step(t, state, batches[0], "train-tapnet warm-up")
+  require(all(torch.equal(before[k], p) for k, p in state.params.items()),
+          "train-tapnet: step 0 (learning rate 0) moved the parameters")
+  records = []
+  for b in batches[1:]:
+    last = stats()
+    state, rec = _timed_step(t, state, b, "train-tapnet")
+    require(not any(rec["launches"].values()),
+            f"train-tapnet: launched {rec['launches']}")
+    moved = state.model_state["batch_stats"]
+    rec["running_stats_moved"] = sum(not torch.equal(last[k], v)
+                                     for k, v in moved.items())
+    require(rec["running_stats_moved"] == len(moved),
+            f"train-tapnet: {rec['running_stats_moved']} of {len(moved)} "
+            "running statistics moved")
+    records.append(rec)
+  moved = sum(not torch.equal(before[k], p) for k, p in state.params.items())
+  require(moved > 0, "train-tapnet: the steps moved no parameter")
+  require(all(bool(torch.isfinite(p).all()) for p in state.params.values())
+          and all(bool(torch.isfinite(v).all())
+                  for v in state.model_state["batch_stats"].values()),
+          "train-tapnet: non-finite parameters or running statistics")
+  drift = max(float((v - fresh[k]).abs().max())
+              for k, v in state.model_state["batch_stats"].items())
+  del before, fresh
+  profile = profile_request(
+      lambda: t.step_fn(state, batches[-1], t.step_generator(state.step)),
+      float(np.mean([r["wall_ms"] for r in records])) / 1e3,
+      layers=TAPNET_LAYERS, own=(), top=15)
+  return dict(
+      config=dict(experiment="tapnet_experiment()",
+                  model="TapNetConfig(): TSM-ResNet-18, stride 8, unit_2",
+                  weights="init_tapnet_params seed 42",
+                  data=f"data/synthetic.py on the card, seed {SEED}",
+                  tf32="PyTorch defaults: cuDNN on, matmul off"),
+      batch=batch, frames=frames, queries=queries,
+      chunk=exp.task.train_chunk_size, resolution=size,
+      warm_up=warm, steps=records, parameters=len(state.params),
+      parameters_moved=moved,
+      running_stats_max_drift=drift,
+      ms_per_step_mean=float(np.mean([r["ms"] for r in records])),
+      max_memory_gb=max(r["max_memory_gb"] for r in records),
+      profile=profile)
+
+
+def trajan_golden_check():
+  """trajan-golden: TrackAutoEncoder() at its published widths (150
+  frames, 128 x 64 latents) with tools/trajan_weights.py's seed-made
+  weights on tools/make_trajan_golden.py's clip (64 support tracks, one
+  never visible, boundary_frame 120; 64 queries, 8 at frames past 153,
+  where the time window clamps), JAX's dither fed, float32 with TF32 off:
+  encode, decode on JAX's latents, the one-pass forward and the chunked one
+  (decoder_chunk_size=16) against tests/data/trajan_golden.npz within that
+  tool's limits."""
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  golden = np.load(trajan_golden.OUT)
+  r = trajan_golden.judge(golden, *trajan_golden.run_port(golden, "cuda"))
+  torch.backends.cudnn.allow_tf32 = True
+  require(r["ok"], f"trajan-golden: {r}")
+  return r
+
+
+def serve_trajan_150(clips=SERVE_TRAJAN_CLIPS, tracks=SERVE_TRAJAN_TRACKS,
+                     frames=SERVE_TRAJAN_FRAMES, chunk=SERVE_TRAJAN_CHUNK,
+                     passes=SERVE_TRAJAN_PASSES, device="cuda"):
+  """serve-trajan-150: TrackAutoEncoder() at its published widths on
+  `clips` clips of `tracks` support tracks x `frames` frames (the example's
+  synthetic tracks, a clip per seed), decoding the 32 x 32 grid's 1024
+  queries, given explicitly, with decoder_chunk_size=`chunk`; float32 at
+  PyTorch's defaults, under no_grad: a warm-up pass and `passes` timed ones
+  (CUDA events), ms a clip, peak memory, the encoder's and the decoder's
+  share, and one profiled pass by layer. Its users score motion realism by
+  the reconstruction error. (`device` lets a rehearsal run it.)"""
+  _pytorch_tf32_defaults()
+  model = track_autoencoder.TrackAutoEncoder(decoder_chunk_size=chunk)
+  convert_lib.load_trajan_params(model, seeded_trajan_params(1))
+  model = model.to(device).eval()
+  made = [synthetic_tracks(tracks, frames, seed=i) for i in range(clips)]
+  centers = (np.arange(32) / 32.0 + 1.0 / 64.0).astype(np.float32)
+  gx, gy = np.meshgrid(centers, centers)
+  grid = np.stack([np.zeros(1024, np.float32), gx.ravel(), gy.ravel()], -1)
+  inputs = {
+      "support_tracks": torch.from_numpy(np.stack([m[0] for m in made])),
+      "support_tracks_visible": torch.from_numpy(np.stack([m[1] for m in made])),
+      "boundary_frame": torch.full((clips,), frames, dtype=torch.int32),
+      "query_points": torch.from_numpy(np.broadcast_to(grid, (clips,) + grid.shape)
+                                       .copy()),
+  }
+  inputs = {k: v.to(device) for k, v in inputs.items()}
+  gen = torch.Generator(device=device).manual_seed(SEED)
+
+  def run():
+    with torch.no_grad():
+      return model(inputs, generator=gen)
+
+  run()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  times, walls = [], []
+  for _ in range(passes):
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start = time.perf_counter()
+    begin.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - start)
+    times.append(begin.elapsed_time(end))
+  require(out.tracks.shape == (clips, 1024, frames, 2)
+          and all(bool(torch.isfinite(getattr(out, k)).all())
+                  for k in ("tracks", "visible_logits", "certain_logits")),
+          f"serve-trajan: outputs {tuple(out.tracks.shape)} not finite")
+  begin, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+  with torch.no_grad():
+    begin.record()
+    latents = model.encode(inputs)
+    mid.record()
+    model.decode(latents, model.get_decoder_context(
+        dict(query_points=inputs["query_points"][:, :chunk],
+             boundary_frame=inputs["boundary_frame"])), generator=gen)
+    end.record()
+  torch.cuda.synchronize()
+  profile = profile_request(run, float(np.mean(walls)), layers=TRAJAN_LAYERS,
+                            own=(), top=15)
+  return dict(
+      config=dict(model="TrackAutoEncoder() (published widths)",
+                  weights="tools/trajan_weights.py seed 1",
+                  data="examples' synthetic tracks, seeds 0-3",
+                  tf32="PyTorch defaults: cuDNN on, matmul off"),
+      clips=clips, tracks=tracks, frames=frames, queries=1024,
+      decoder_chunk_size=chunk, pass_ms=times,
+      ms_per_clip=float(np.mean(times)) / clips,
+      max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+      encode_ms=begin.elapsed_time(mid),
+      decode_chunk_ms=mid.elapsed_time(end),
+      decode_chunks_per_pass=1024 // chunk,
+      mean_abs_track_from_grid=float(
+          (out.tracks[:, :, 0] - inputs["query_points"][:, :, 1:]).abs().mean()),
+      profile=profile)
+
+
 # `--records PATH`: also write every record line to PATH, for a caller that
 # sees only the end of the output.
 RECORDS = None
@@ -3314,6 +3568,17 @@ def main():
   stamp("train-golden")
   for name, phase in (("train_tapnext_256", train_tapnext_256),
                       ("train_tapnextpp", train_tapnextpp)):
+    runs[name] = phase()
+    emit({name: runs[name], "card": card})
+    stamp(name)
+    torch.cuda.empty_cache()
+
+  emit({"tapnet_golden": tapnet_golden_check(), "card": card})
+  stamp("tapnet-golden")
+  emit({"trajan_golden": trajan_golden_check(), "card": card})
+  stamp("trajan-golden")
+  for name, phase in (("train_tapnet_256", train_tapnet_256),
+                      ("serve_trajan_150", serve_trajan_150)):
     runs[name] = phase()
     emit({name: runs[name], "card": card})
     stamp(name)

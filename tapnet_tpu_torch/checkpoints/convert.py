@@ -32,6 +32,22 @@ flat-key tree (`checkpoints/tapnext_checkpoint.load_tapnext_checkpoint`):
 Any leaf the bridge does not know, any key the model does not have, any
 parameter of the model left unfilled and any shape mismatch raises.
 
+TAP-Net (`tapnet_to_state_dict`, `load_tapnet_params`) takes Flax's
+(params, batch_stats) trees: the conv kernels as TAPIR's, the heads'
+(1, 3, 3, C_in, C_out) kernels as 2D OIHW (they act on one frame at a
+time), Dense kernels transposed, and BatchNorm's `scale`/`bias` parameters
+and `mean`/`var` running statistics (the model's buffers) unchanged. A
+backbone module the model does not build (a released checkpoint holds the
+whole TSM-ResNet, TAP-Net runs it to unit_2) is dropped, as Flax ignores
+it. `state_dict_to_tapnet` and `stats_to_flax` are the inverses.
+
+TRAJAN (`trajan_to_state_dict`, `load_trajan_params`) takes the Flax tree
+of `trajan.track_autoencoder.TrackAutoEncoder`: the attention projections'
+DenseGeneral kernels [D, heads, head_dim] -> `weight` [heads*head_dim, D],
+`dense_out`'s [heads, head_dim, D] -> [D, heads*head_dim], Dense kernels
+transposed, and norm scales, biases and the latent bank `state_init`
+unchanged.
+
 `state_dict_to_flax` and `state_dict_to_tapnext` are the inverses for
 TAPIR and TAPNext: it turns the port's
 tensors (parameters, or anything of their shapes and names: gradients,
@@ -208,3 +224,99 @@ def _load_converted(model: nn.Module, converted: Dict[str, torch.Tensor]):
           f"model {tuple(expected[key].shape)}"
       )
   model.load_state_dict(converted, strict=True)
+
+
+def _without_frame_axis(params: Mapping[str, Any]) -> Dict[str, Any]:
+  """The tree with TAP-Net heads' (1, 3, 3, C_in, C_out) kernels as HWIO."""
+  out: Dict[str, Any] = {}
+  for key, value in params.items():
+    if isinstance(value, Mapping):
+      out[key] = _without_frame_axis(value)
+    else:
+      arr = np.asarray(value)
+      out[key] = arr[0] if key == "kernel" and arr.ndim == 5 else arr
+  return out
+
+
+def tapnet_to_state_dict(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+  """Converts Flax TAP-Net (params, batch_stats) trees to state_dict
+  tensors (parameters and running statistics)."""
+  out = flax_to_state_dict(_without_frame_axis(params))
+  for path, value in _walk(batch_stats):
+    if path[-1] not in ("mean", "var"):
+      raise ValueError(f"Unmapped batch statistic: {'/'.join(path)}")
+    out[".".join(path)] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(value, np.float32)))
+  return out
+
+
+def load_tapnet_params(model: nn.Module, params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]) -> None:
+  """Fills every parameter and running statistic of a
+  `models.tapnet.TAPNet` (or of its backbone alone, from the `backbone`
+  subtrees) from Flax trees, or raises."""
+  converted = tapnet_to_state_dict(params, batch_stats)
+  built = {k.split(".")[1] for k in model.state_dict() if k.startswith("backbone.")}
+  converted = {k: v for k, v in converted.items()
+               if not k.startswith("backbone.") or k.split(".")[1] in built}
+  _load_converted(model, converted)
+
+
+def state_dict_to_tapnet(tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+  """The inverse of `tapnet_to_state_dict` for TAP-Net parameters (or
+  gradients, optimizer moments): the Flax-layout tree, the heads' kernels
+  with their frame axis."""
+  tree = state_dict_to_flax(tensors)
+  for module in tree.get("heads", {}).values():
+    if "kernel" in module and module["kernel"].ndim == 4:
+      module["kernel"] = module["kernel"][None]
+  return tree
+
+
+def stats_to_flax(buffers: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+  """TAP-Net running statistics by name -> Flax's `batch_stats` tree."""
+  tree: Dict[str, Any] = {}
+  for name, value in buffers.items():
+    node = tree
+    path = name.split(".")
+    for part in path[:-1]:
+      node = node.setdefault(part, {})
+    node[path[-1]] = value.detach().cpu().numpy()
+  return tree
+
+
+_TRAJAN_QKV = ("dense_query", "dense_key", "dense_value")
+_TRAJAN_PLAIN_LEAVES = ("bias", "scale", "state_init")
+
+
+def trajan_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """Converts a Flax TRAJAN param tree (numpy leaves) to state_dict
+  tensors."""
+  out: Dict[str, torch.Tensor] = {}
+  for path, value in _walk(params):
+    arr = np.asarray(value, np.float32)
+    leaf, module = path[-1], path[-2] if len(path) > 1 else ""
+    if leaf == "kernel":
+      if module in _TRAJAN_QKV and arr.ndim == 3:
+        arr = arr.reshape(arr.shape[0], -1).T
+      elif module == "dense_out" and arr.ndim == 3:
+        arr = arr.reshape(-1, arr.shape[-1]).T
+      elif arr.ndim == 2:
+        arr = arr.T
+      else:
+        raise ValueError(f"Unmapped kernel of rank {arr.ndim} at "
+                         f"{'/'.join(path)}")
+      leaf = "weight"
+    elif leaf not in _TRAJAN_PLAIN_LEAVES:
+      raise ValueError(f"Unmapped parameter leaf: {'/'.join(path)}")
+    out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(
+        np.ascontiguousarray(arr))
+  return out
+
+
+def load_trajan_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+  """Fills every parameter of a `trajan.track_autoencoder.TrackAutoEncoder`
+  from a Flax TRAJAN tree, or raises."""
+  _load_converted(model, trajan_to_state_dict(params))

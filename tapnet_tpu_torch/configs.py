@@ -1,10 +1,9 @@
 """Experiment configurations for training (port of tapnet_tpu/configs.py).
 
 Typed dataclasses with the JAX package's hyperparameters. TAPIR
-(`tapir_experiment`), causal TAPIR (`causal_tapir_experiment`), BootsTAPIR
-(`bootstapir_experiment`) and TAPNext (`tapnext_experiment`,
-`tapnextpp_experiment`) train; TAP-Net (`tapnet`) raises
-NotImplementedError until TAP-Net is ported (ROADMAP Queue 1 item 5).
+(`tapir_experiment`), TAP-Net (`tapnet_experiment`), causal TAPIR
+(`causal_tapir_experiment`), BootsTAPIR (`bootstapir_experiment`) and
+TAPNext (`tapnext_experiment`, `tapnextpp_experiment`) train.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import Optional, Tuple
 
 from tapnet_tpu_torch.models import ssm_vit
 from tapnet_tpu_torch.models import tapir as tapir_lib
+from tapnet_tpu_torch.models import tapnet as tapnet_lib
 from tapnet_tpu_torch.training import optimizers, trainer
 
 
@@ -32,7 +32,7 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
   name: str
-  model_kind: str  # "tapir" | "tapnext" (the kinds the port trains)
+  model_kind: str  # "tapir" | "tapnet" | "tapnext"
   model_config: object
   optimizer: optimizers.OptimizerConfig
   task: trainer.TaskConfig
@@ -47,6 +47,8 @@ class ExperimentConfig:
   def build_model(self):
     if self.model_kind == "tapir":
       return tapir_lib.TAPIR(config=self.model_config)
+    if self.model_kind == "tapnet":
+      return tapnet_lib.TAPNet(config=self.model_config)
     if self.model_kind == "tapnext":
       from tapnet_tpu_torch.models import tapnext
 
@@ -55,8 +57,11 @@ class ExperimentConfig:
 
   @property
   def loss_builder(self):
-    """The loss for Trainer."""
-    if self.model_kind == "tapir":
+    """The loss for Trainer: TAPIR's and TAP-Net's is the TAP loss, as in
+    the JAX package (whose property returns None, the Trainer's default,
+    for both); `trainer.contrastive_loss_builder` is TAP-Net's other
+    loss."""
+    if self.model_kind in ("tapir", "tapnet"):
       return trainer.tapir_loss_builder
     if self.model_kind != "tapnext":
       raise ValueError(f"Unknown model kind {self.model_kind!r}")
@@ -77,6 +82,23 @@ def tapir_experiment(**overrides) -> ExperimentConfig:
       optimizer=optimizers.OptimizerConfig(
           base_lr=1e-3, adam_b1=0.9, adam_b2=0.95, weight_decay=1e-1,
           warmup_steps=1000, max_norm=-1),
+      task=trainer.TaskConfig(train_chunk_size=32),
+      data=DataConfig(),
+      total_steps=100_000,
+  )
+  kwargs.update(overrides)
+  return ExperimentConfig(**kwargs)
+
+
+def tapnet_experiment(**overrides) -> ExperimentConfig:
+  """TAP-Net training (reference configs/tapnet_config.py:54-60: lr 2e-3,
+  wd 1e-2, 5k warmup)."""
+  kwargs = dict(
+      name="tapnet",
+      model_kind="tapnet",
+      model_config=tapnet_lib.TapNetConfig(),
+      optimizer=optimizers.OptimizerConfig(
+          base_lr=2e-3, weight_decay=1e-2, warmup_steps=5000),
       task=trainer.TaskConfig(train_chunk_size=32),
       data=DataConfig(),
       total_steps=100_000,
@@ -137,15 +159,9 @@ def tapnextpp_experiment(variant: str = "B", **overrides) -> ExperimentConfig:
   return ExperimentConfig(**kwargs)
 
 
-def _tapnet_not_ported(**overrides):
-  raise NotImplementedError(
-      "tapnet training is not ported yet: TAP-Net itself is ROADMAP Queue 1 "
-      "item 5")
-
-
 REGISTRY = {
     "tapir": tapir_experiment,
-    "tapnet": _tapnet_not_ported,
+    "tapnet": tapnet_experiment,
     "causal_tapir": causal_tapir_experiment,
     "bootstapir": bootstapir_experiment,
     "tapnext": tapnext_experiment,

@@ -732,7 +732,7 @@ class TAPIR(nn.Module):
     )
 
 
-def _lecun_normal(shape, fan_in: int, generator: torch.Generator):
+def lecun_normal(shape, fan_in: int, generator: torch.Generator):
   """Flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
   a normal truncated at 2 standard deviations, rescaled to variance
   1 / fan_in."""
@@ -771,7 +771,7 @@ def init_tapir_params(config: TapirConfig,
       if path[0] == "extra" and path[1].startswith("conv_out_"):
         value = np.zeros(shape, np.float32)
       else:
-        value = _lecun_normal(shape, fan_in, generator)
+        value = lecun_normal(shape, fan_in, generator)
     else:
       value = np.full(shape, 1.0 if leaf == "scale" else 0.0, np.float32)
     node = tree

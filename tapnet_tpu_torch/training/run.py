@@ -1,7 +1,7 @@
 """Training CLI of the port (the counterpart of tapnet_tpu/training/run.py):
 
   python -m tapnet_tpu_torch.training.run \
-      --experiment tapir|causal_tapir|bootstapir|tapnext|tapnextpp \
+      --experiment tapir|tapnet|causal_tapir|bootstapir|tapnext|tapnextpp \
       --synthetic [--num_steps N] [--checkpoint_dir D] [--total_steps S] \
       [--batch_size B] [--num_frames T] [--num_queries Q] [--seed 0] \
       [--log_every 50] [--smoke] [--device cpu] \
@@ -12,13 +12,14 @@ runs on the CUDA card and raises without one unless given `--device cpu`;
 the kernels build from the repo's sources at their first launch.
 `--smoke` shrinks a TAPIR-family model and its data for a quick run, as the
 JAX CLI's does (2 mixer blocks, 2 refinement steps, 32x32, ResNet blocks
-(1, 1, 1, 1); 2 clips of 3 frames, 8 queries in chunks of 4).
+(1, 1, 1, 1); 2 clips of 3 frames, 8 queries in chunks of 4); for TAP-Net
+it shrinks the data and the chunks alike (the model keeps its
+TSM-ResNet-18).
 `--eval_dir` (a directory of Kubric-format npz videos, e.g. from
 `data.synthetic.export_npz`) evaluates the model on it every `--eval_every`
 steps (default: the preset's `evaluate_every`) and logs the TAP-Vid metrics
-to the same JSONL with kind "eval". The Kubric training reader (--data_dir),
-TAP-Net (`--experiment tapnet`) and multi-GPU (--model_parallel > 1) are not
-ported yet and raise.
+to the same JSONL with kind "eval". The Kubric training reader (--data_dir)
+and multi-GPU (--model_parallel > 1) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import os
 def main(argv=None):
   parser = argparse.ArgumentParser(description="tapnet_tpu_torch training")
   parser.add_argument("--experiment", default="tapir",
-                      help="registry name: tapir / causal_tapir / bootstapir "
-                      "/ tapnext / tapnextpp")
+                      help="registry name: tapir / tapnet / causal_tapir / "
+                      "bootstapir / tapnext / tapnextpp")
   parser.add_argument("--data_dir", default=None,
                       help="Kubric-format npz examples (not ported yet)")
   parser.add_argument("--synthetic", action="store_true",
@@ -61,7 +62,7 @@ def main(argv=None):
                       help="torch device; default the CUDA card")
   parser.add_argument("--smoke", action="store_true",
                       help="shrink model and data for a quick correctness "
-                      "run (tapir-family experiments)")
+                      "run (tapir-family and tapnet experiments)")
   args = parser.parse_args(argv)
 
   if args.data_dir or not args.synthetic:
@@ -119,18 +120,23 @@ def main(argv=None):
 
 
 def smoke(exp):
-  """The JAX CLI's `--smoke` shrink of a TAPIR-family experiment."""
+  """The JAX CLI's `--smoke` shrink of a TAPIR-family experiment; of
+  TAP-Net's, the same data and chunks."""
   import dataclasses
 
   from tapnet_tpu_torch.training import trainer as trainer_lib
 
-  if exp.model_kind != "tapir":
-    raise ValueError("--smoke currently supports tapir-family experiments")
+  if exp.model_kind not in ("tapir", "tapnet"):
+    raise ValueError(
+        "--smoke currently supports tapir-family and tapnet experiments")
+  model_config = exp.model_config
+  if exp.model_kind == "tapir":
+    model_config = dataclasses.replace(
+        model_config, num_mixer_blocks=2, num_pips_iter=2,
+        initial_resolution=(32, 32), blocks_per_group=(1, 1, 1, 1))
   return dataclasses.replace(
       exp,
-      model_config=dataclasses.replace(
-          exp.model_config, num_mixer_blocks=2, num_pips_iter=2,
-          initial_resolution=(32, 32), blocks_per_group=(1, 1, 1, 1)),
+      model_config=model_config,
       data=dataclasses.replace(exp.data, train_size=(32, 32), num_frames=3,
                                num_queries=8, batch_size=2),
       task=trainer_lib.TaskConfig(train_chunk_size=4),

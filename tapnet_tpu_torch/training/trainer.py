@@ -7,9 +7,13 @@ RG-LRU scan's K5b), one update of the optax-like optimizer
 (`training.optimizers`) applied to the model's parameters in place, and the
 scalars with `gradient_norm`. The losses:
 
-  * `tapir_loss_builder` (TAPIR, causal TAPIR, BootsTAPIR): the TAP loss
-    (`compute_tapir_loss`) of the training forward, whose query chunks run
-    in an order drawn from the step's `torch.Generator`;
+  * `tapir_loss_builder` (TAPIR, causal TAPIR, BootsTAPIR, TAP-Net): the
+    TAP loss (`compute_tapir_loss`) of the training forward, whose query
+    chunks run in an order drawn from the step's `torch.Generator` (TAP-Net
+    draws none; without an uncertainty output its prob_loss is 0);
+  * `contrastive_loss_builder` (TAP-Net): the original TAP-Net's
+    cost-volume loss, the log-softmax mass of each query's cost volume at
+    its ground-truth track on the visible frames;
   * `tapnext_loss_builder`: TAPNext, one pass over the whole clip with
     per-layer deep supervision;
   * `tapnext_chunked_loss_builder`: the long-video recipe, the clip run
@@ -22,8 +26,14 @@ scalars with `gradient_norm`. The losses:
 
 `Trainer` owns the model, the optimizer and the loop. It runs on one device:
 the CUDA card unless given `device="cpu"`; a mesh (multi-GPU) is ROADMAP
-Queue 1 item 9. TAP-Net's `contrastive_loss_builder` comes with TAP-Net
-(ROADMAP Queue 1 item 5).
+Queue 1 item 9.
+
+TAP-Net's BatchNorm running statistics are the model's buffers, moved in
+place by each training forward, as the parameters are by each update:
+`TrainState.model_state` is {"batch_stats": those buffers by name}, the
+JAX TrainState's collection, and checkpoints store it as Flax's
+`batch_stats` tree, so a checkpoint of either package restores in the
+other.
 """
 
 from __future__ import annotations
@@ -37,14 +47,14 @@ import torch.utils.checkpoint
 
 from tapnet_tpu_torch.checkpoints import convert
 from tapnet_tpu_torch.inference import resolve_device
-from tapnet_tpu_torch.models import rglru, ssm_vit, tapir, tapnext, tapnext_losses
+from tapnet_tpu_torch.models import (rglru, ssm_vit, tapir, tapnet, tapnext,
+                                     tapnext_losses)
 from tapnet_tpu_torch.training import checkpointing, optimizers, telemetry
 from tapnet_tpu_torch.utils import losses as loss_lib
+from tapnet_tpu_torch.utils import sampling, transforms
 
 Batch = Mapping[str, torch.Tensor]
 
-_TAPNET_NOT_PORTED = ("TAP-Net and its contrastive loss are not ported yet "
-                      "(ROADMAP Queue 1 item 5)")
 _MESH_NOT_PORTED = ("multi-GPU training is not ported yet (ROADMAP Queue 1 "
                     "item 9); the port trains on one device")
 
@@ -54,7 +64,8 @@ class TrainState(NamedTuple):
   params: Dict[str, torch.Tensor]
   opt_state: Any
   step: int
-  # Non-parameter variables; TAPNext has none.
+  # Non-parameter variables: TAP-Net's {"batch_stats": running statistics
+  # by name}; the other trackers have none.
   model_state: Any = {}
 
 
@@ -113,8 +124,45 @@ def tapir_loss_builder(model, task: TaskConfig):
   return loss_fn
 
 
-def contrastive_loss_builder(model, task: TaskConfig, **kwargs):
-  raise NotImplementedError(_TAPNET_NOT_PORTED)
+def contrastive_loss_builder(model, task: TaskConfig,
+                             softmax_temperature: float = 10.0):
+  """TAP-Net's cost-volume loss (the JAX package's, after the reference's
+  supervised_point_prediction.py:255-302): the training forward with the
+  query features, then per chunk of `task.train_chunk_size` queries the
+  log-softmax over (T, h, w) of each query's dot products with the feature
+  grid, sampled bilinearly at its target point on each frame and averaged
+  over the visible frames; the loss is minus the mean. `loss_fn(batch,
+  generator=None) -> (loss, {"loss", "contrastive_loss"})`."""
+
+  def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    del generator
+    out = model(batch["video"], batch["query_points"],
+                query_chunk_size=task.train_chunk_size, is_training=True,
+                get_query_feats=True)
+    feature_grid, query_feats = out["feature_grid"], out["query_feats"]
+    im_shape = tuple(batch["video"].shape)
+    b, t, h, w, _ = feature_grid.shape
+    losses = []
+    for start in range(0, query_feats.shape[1], task.train_chunk_size):
+      stop = start + task.train_chunk_size
+      q = query_feats[:, start:stop]
+      n = q.shape[1]
+      dots = torch.einsum("bnc,bthwc->bnthw", q, feature_grid)
+      log_softmax = torch.log_softmax(
+          (dots * softmax_temperature).reshape(b, n, -1), -1)
+      target = transforms.convert_grid_coordinates(
+          batch["target_points"][:, start:stop], im_shape[3:1:-1],
+          tuple(feature_grid.shape)[3:1:-1])
+      # The per-frame log-softmax sampled along the target track, (y, x).
+      vals = sampling.sample_grid_batched(
+          log_softmax.reshape(b * n * t, h, w, 1),
+          target.flip(-1).reshape(b * n * t, 1, 2)).reshape(b, n, t)
+      visible = 1.0 - batch["occluded"][:, start:stop]
+      losses.append(torch.mean(vals * visible, -1))
+    loss = -torch.mean(torch.cat(losses, 1))
+    return loss, {"loss": loss, "contrastive_loss": loss}
+
+  return loss_fn
 
 
 def _tapnext_targets(batch: Batch):
@@ -243,12 +291,16 @@ class Trainer:
     `step_generator(k)` (the JAX loop's split of its rng)."""
     if mesh is not None:
       raise NotImplementedError(_MESH_NOT_PORTED)
-    if not isinstance(model, (tapir.TAPIR, tapnext.TAPNextTracker)):
+    kinds = {tapir.TAPIR: "tapir", tapnext.TAPNextTracker: "tapnext",
+             tapnet.TAPNet: "tapnet"}
+    self.kind = next((k for cls, k in kinds.items() if isinstance(model, cls)),
+                     None)
+    if self.kind is None:
       raise NotImplementedError(
-          f"the port trains TAPIR and TAPNext, not {type(model).__name__}")
+          f"the port trains TAPIR, TAP-Net and TAPNext, not "
+          f"{type(model).__name__}")
     self.device = resolve_device(device)
     self.model = model.to(self.device)
-    self.is_tapir = isinstance(model, tapir.TAPIR)
     self.task = task
     self.loss_builder = loss_builder
     self.lr_schedule = optimizers.make_lr_schedule(optimizer_config,
@@ -269,34 +321,57 @@ class Trainer:
   def _flax_tree(self, tensors: Mapping[str, torch.Tensor]):
     """The model's tensors by name (parameters, gradients, moments) as the
     Flax-layout tree of numpy leaves."""
-    if self.is_tapir:
+    if self.kind == "tapir":
       return convert.state_dict_to_flax(tensors)
+    if self.kind == "tapnet":
+      return convert.state_dict_to_tapnet(tensors)
     cfg = self.model.config
     return convert.state_dict_to_tapnext(tensors, cfg.num_heads,
                                          cfg.patch_size)
 
   def _from_flax_tree(self, tree) -> Dict[str, torch.Tensor]:
-    to_state_dict = (convert.flax_to_state_dict if self.is_tapir
-                     else convert.tapnext_to_state_dict)
-    return {k: v.to(self.device) for k, v in to_state_dict(tree).items()}
+    if self.kind == "tapir":
+      converted = convert.flax_to_state_dict(tree)
+    elif self.kind == "tapnet":
+      converted = convert.tapnet_to_state_dict(tree, {})
+    else:
+      converted = convert.tapnext_to_state_dict(tree)
+    return {k: v.to(self.device) for k, v in converted.items()}
 
-  def load_params(self, tree) -> Dict[str, torch.Tensor]:
-    """Fills the model's parameters from a Flax-layout tree; returns them by
-    name."""
-    if self.is_tapir:
+  def load_params(self, tree, batch_stats=None) -> Dict[str, torch.Tensor]:
+    """Fills the model's parameters from a Flax-layout tree (TAP-Net: and
+    its running statistics from Flax's `batch_stats` tree, by default the
+    model's own); returns the parameters by name."""
+    if self.kind == "tapir":
       convert.load_flax_params(self.model, tree)
+    elif self.kind == "tapnet":
+      if batch_stats is None:
+        batch_stats = convert.stats_to_flax(dict(self.model.named_buffers()))
+      convert.load_tapnet_params(self.model, tree, batch_stats)
     else:
       convert.load_tapnext_params(self.model, tree)
     return dict(self.model.named_parameters())
 
+  def _model_state(self):
+    """TAP-Net's running statistics (the model's buffers, moved in place by
+    each training forward), else {}."""
+    if self.kind != "tapnet":
+      return {}
+    return {"batch_stats": dict(self.model.named_buffers())}
+
   def init_state(self, seed: int = 42) -> TrainState:
-    """Fresh parameters (`models.tapir.init_tapir_params` or
-    `models.tapnext.init_tapnext_params` from `seed`) loaded into the model,
-    and a fresh optimizer state."""
-    init = tapir.init_tapir_params if self.is_tapir else tapnext.init_tapnext_params
-    params = self.load_params(
-        init(self.model.config, torch.Generator().manual_seed(seed)))
-    return TrainState(params, self.tx.init(params), 0, {})
+    """Fresh parameters (`init_tapir_params`, `init_tapnet_params` (with
+    fresh running statistics) or `init_tapnext_params` of `models` from
+    `seed`) loaded into the model, and a fresh optimizer state."""
+    generator = torch.Generator().manual_seed(seed)
+    if self.kind == "tapnet":
+      params = self.load_params(
+          *tapnet.init_tapnet_params(self.model.config, generator))
+    else:
+      init = (tapir.init_tapir_params if self.kind == "tapir"
+              else tapnext.init_tapnext_params)
+      params = self.load_params(init(self.model.config, generator))
+    return TrainState(params, self.tx.init(params), 0, self._model_state())
 
   def restore_or_init(self) -> TrainState:
     """The state of `checkpoint_path` if it exists, else `init_state`."""
@@ -304,24 +379,29 @@ class Trainer:
             if self.checkpoint_path else None)
     if ckpt is None:
       return self.init_state()
-    params = self.load_params(ckpt["params"])
+    params = self.load_params(
+        ckpt["params"], ckpt.get("model_state", {}).get("batch_stats"))
     opt_state = dict(ckpt["opt_state"])
     for key in ("mu", "nu"):
       if key in opt_state:
         opt_state[key] = self._from_flax_tree(opt_state[key])
     return TrainState(params, opt_state, int(ckpt["step"]),
-                      ckpt.get("model_state", {}))
+                      self._model_state())
 
   def save(self, state: TrainState) -> None:
-    """Writes `state` to `checkpoint_path`: parameters and optimizer
-    moments as Flax-layout trees."""
+    """Writes `state` to `checkpoint_path`: parameters, optimizer moments
+    and (TAP-Net) the running statistics as Flax-layout trees."""
     opt_state = dict(state.opt_state)
     for key in ("mu", "nu"):
       if key in opt_state:
         opt_state[key] = self._flax_tree(opt_state[key])
+    model_state = dict(state.model_state)
+    if "batch_stats" in model_state:
+      model_state["batch_stats"] = convert.stats_to_flax(
+          model_state["batch_stats"])
     checkpointing.save_checkpoint(self.checkpoint_path, dict(
         params=self._flax_tree(state.params), opt_state=opt_state,
-        step=state.step, model_state=state.model_state))
+        step=state.step, model_state=model_state))
 
   @property
   def step_fn(self):

@@ -172,12 +172,12 @@ def test_trainer_refusals(monkeypatch):
       trainer.Trainer(model, cfg, 10)
   with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
     trainer.Trainer(model, cfg, 10, mesh=object(), device="cpu")
-  with pytest.raises(NotImplementedError, match="trains TAPIR and TAPNext"):
+  with pytest.raises(NotImplementedError,
+                     match="trains TAPIR, TAP-Net and TAPNext"):
     trainer.Trainer(torch.nn.Linear(2, 2), cfg, 10, device="cpu")
-  with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-    trainer.contrastive_loss_builder(model, trainer.TaskConfig())
-  with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-    configs.get_experiment("tapnet")
+  # TAP-Net and its contrastive loss are ported (tests/test_torch_tapnet.py).
+  assert callable(trainer.contrastive_loss_builder(model, trainer.TaskConfig()))
+  assert configs.get_experiment("tapnet").model_kind == "tapnet"
   loss_fn = trainer.tapnext_chunked_loss_builder(model, None, chunk_size=2)
   with pytest.raises(ValueError, match="multiple of chunk_size"):
     loss_fn(_tiny_batch(frames=3))

@@ -38,10 +38,19 @@ frames 1 and 7 come out bit-equal), while 16 ulps change about as many
 values of those grids (1.5e5 of 2.6e5 over 1e-5 at frames 1, 3 and 7) as
 the port's float32 noise does (0.8e5-1.6e5).
 
+A second witness clip, tests/data/bootstapir_golden_online_int8_clip2.npz,
+holds the same int8 streams and their nudged witness on
+`golden_clip.make_clip(CLIP2_SEED)` (8 frames, its query points moved to
+frame 0 as above), with JAX's float32 stream on that clip as
+`float32_<key>` (the control the int8 limits must refuse) and the seed as
+`seed`. One clip carries one set of roundings; the second shows whether
+the limits derived from the first hold on other frames.
+
   JAX_PLATFORMS=cpu python tools/make_online_golden.py          # both files
   JAX_PLATFORMS=cpu python tools/make_online_golden.py float
   JAX_PLATFORMS=cpu python tools/make_online_golden.py int8     # and witness
   JAX_PLATFORMS=cpu python tools/make_online_golden.py witness  # witness only
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py clip2    # second clip
 
 numpy only at import: the port's tests and chip_smoke.py import
 `run_stream` and the constants from here.
@@ -59,6 +68,10 @@ CHECKPOINT = os.path.join(REPO, "runs/bootstapir_synth/trained_params_f16.npy")
 GOLDEN = os.path.join(REPO, "tests/data/bootstapir_golden.npz")
 OUT = os.path.join(REPO, "tests/data/bootstapir_golden_online.npz")
 OUT_INT8 = os.path.join(REPO, "tests/data/bootstapir_golden_online_int8.npz")
+OUT_INT8_CLIP2 = os.path.join(
+    REPO, "tests/data/bootstapir_golden_online_int8_clip2.npz")
+# The second witness clip's seed (golden_clip.make_clip).
+CLIP2_SEED = 20261018
 
 DTYPES = ("float32", "bfloat16")
 ADD_AT = 4
@@ -131,7 +144,7 @@ def main(which=("float", "int8")):
   qp, new_qp = online_queries(golden["query_points"])
   params = tapir_checkpoint.load_tapir_checkpoint(CHECKPOINT)
 
-  def stream(config, frames=frames):
+  def stream(config, frames=frames, qp=qp, new_qp=new_qp):
     predictor = inference.OnlineTapirPredictor(params, config)
     model, p = predictor.model, config.num_pips_iter
 
@@ -156,6 +169,26 @@ def main(which=("float", "int8")):
                       new_qp)
 
   os.makedirs(os.path.dirname(OUT), exist_ok=True)
+  if "clip2" in which:
+    from tools.golden_clip import make_clip
+
+    video2, query_points2 = make_clip(CLIP2_SEED)
+    frames2 = np.asarray(sampling.preprocess_frames(jnp.asarray(video2)))
+    qp2, new_qp2 = online_queries(query_points2)
+    clip2 = lambda config, f: stream(config, f, qp2, new_qp2)
+    arrays = dict(seed=np.int64(CLIP2_SEED), query_points=qp2,
+                  new_query_points=new_qp2)
+    configs = dict(float32=tapir.causal_bootstapir_config(), **{
+        name: tapir.causal_bootstapir_config(**overrides)
+        for name, overrides in sorted(INT8_CONFIGS.items())})
+    for name, config in configs.items():
+      for key, value in clip2(config, frames2).items():
+        arrays[f"{name}_{key}"] = value
+      print(f"ran {name} on the second clip", flush=True)
+    add_witness(arrays, clip2, frames2)
+    np.savez_compressed(OUT_INT8_CLIP2, **arrays)
+    print(f"wrote {OUT_INT8_CLIP2} "
+          f"({os.path.getsize(OUT_INT8_CLIP2) / 2**20:.3f} MiB)")
   if "witness" in which and "int8" not in which:
     with np.load(OUT_INT8) as z:
       arrays = dict(z)
