@@ -3099,8 +3099,8 @@ def train_bootstapir_256(batch=TRAIN_TAPIR_BATCH, frames=TRAIN_TAPIR_FRAMES,
                   weights="init_tapir_params seed 42",
                   data=f"data/synthetic.py on the card, seed {SEED}",
                   tf32="PyTorch defaults: cuDNN on, matmul off"),
-      batch=batch, frames=frames, queries=queries,
-      chunk=exp.task.train_chunk_size,
+      batch=TRAIN_TAPNET_BATCH, frames=TRAIN_TAPNET_FRAMES,
+      queries=TRAIN_TAPNET_QUERIES, chunk=exp.task.train_chunk_size,
       resolution=cfg.initial_resolution[0], warm_up=warm, steps=records,
       parameters=len(state.params),
       ms_per_step_mean=float(np.mean([r["ms"] for r in records])),
@@ -3255,38 +3255,41 @@ def tapnet_golden_check():
   loss and of the contrastive loss (loss, scalars, the running statistics
   after the step, the gradient fingerprints), against
   tests/data/tapnet_golden.npz within tools/make_tapnet_golden.py's card
-  limits."""
+  limits. Also reports (holds nothing by it) the same readings against the
+  nudge witness alone, the CPU test's limits."""
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
   golden = np.load(tapnet_golden.OUT)
-  r = tapnet_golden.judge(golden, tapnet_golden.run_port("cuda"), card=True)
+  port = tapnet_golden.run_port("cuda")
+  r = tapnet_golden.judge(golden, port, card=True)
   torch.backends.cudnn.allow_tf32 = True
   require(r["ok"], f"tapnet-golden: {r}")
+  r["nudge_witness_only"] = tapnet_golden.judge(golden, port)
   return r
 
 
-def train_tapnet_256(batch=TRAIN_TAPNET_BATCH, frames=TRAIN_TAPNET_FRAMES,
-                     queries=TRAIN_TAPNET_QUERIES, steps=TRAIN_TAPNET_STEPS,
-                     device="cuda"):
+def train_tapnet_256():
   """train-tapnet-256: tapnet_experiment() at its own data size (batch 8 x
   24 frames x 256x256, 256 queries in chunks of 32, the TAP loss, float32),
   fresh parameters (init_tapnet_params seed 42), synthetic batches made on
   the card, PyTorch's TF32 defaults; a warm-up step (step 0, learning rate
-  0: the parameters must not move) and `steps` timed steps; every leaf
-  finite, the running statistics moved by every step's forward; then one
-  profiled step by layer. (`device` lets a rehearsal run it.) TAP-Net runs no hand-written kernel: cuDNN's
-  convolutions and cuBLAS's products, as the JAX package's XLA ones."""
+  0: the parameters must not move) and TRAIN_TAPNET_STEPS timed steps;
+  every leaf finite, the running statistics moved by every step's forward;
+  then one profiled step by layer. TAP-Net runs no hand-written kernel:
+  cuDNN's convolutions and cuBLAS's products, as the JAX package's XLA
+  ones."""
   _pytorch_tf32_defaults()
   exp = train_configs.tapnet_experiment()
   t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, exp.total_steps,
                           task=exp.task, loss_builder=exp.loss_builder,
-                          device=device)
+                          device="cuda")
   state = t.init_state()
   size = exp.data.train_size[0]
   data = synthetic.batch_iterator(
-      seed=SEED, device=device, batch_size=batch, num_frames=frames,
-      height=size, width=size, num_queries=queries)
-  batches = [next(data) for _ in range(steps + 1)]
+      seed=SEED, device="cuda", batch_size=TRAIN_TAPNET_BATCH,
+      num_frames=TRAIN_TAPNET_FRAMES, height=size, width=size,
+      num_queries=TRAIN_TAPNET_QUERIES)
+  batches = [next(data) for _ in range(TRAIN_TAPNET_STEPS + 1)]
   before = {k: p.detach().clone() for k, p in state.params.items()}
   stats = lambda: {k: v.clone() for k, v in
                    state.model_state["batch_stats"].items()}
@@ -3326,8 +3329,8 @@ def train_tapnet_256(batch=TRAIN_TAPNET_BATCH, frames=TRAIN_TAPNET_FRAMES,
                   weights="init_tapnet_params seed 42",
                   data=f"data/synthetic.py on the card, seed {SEED}",
                   tf32="PyTorch defaults: cuDNN on, matmul off"),
-      batch=batch, frames=frames, queries=queries,
-      chunk=exp.task.train_chunk_size, resolution=size,
+      batch=TRAIN_TAPNET_BATCH, frames=TRAIN_TAPNET_FRAMES,
+      queries=TRAIN_TAPNET_QUERIES, chunk=exp.task.train_chunk_size, resolution=size,
       warm_up=warm, steps=records, parameters=len(state.params),
       parameters_moved=moved,
       running_stats_max_drift=drift,
@@ -3354,22 +3357,23 @@ def trajan_golden_check():
   return r
 
 
-def serve_trajan_150(clips=SERVE_TRAJAN_CLIPS, tracks=SERVE_TRAJAN_TRACKS,
-                     frames=SERVE_TRAJAN_FRAMES, chunk=SERVE_TRAJAN_CHUNK,
-                     passes=SERVE_TRAJAN_PASSES, device="cuda"):
+def serve_trajan_150():
   """serve-trajan-150: TrackAutoEncoder() at its published widths on
-  `clips` clips of `tracks` support tracks x `frames` frames (the example's
-  synthetic tracks, a clip per seed), decoding the 32 x 32 grid's 1024
-  queries, given explicitly, with decoder_chunk_size=`chunk`; float32 at
-  PyTorch's defaults, under no_grad: a warm-up pass and `passes` timed ones
-  (CUDA events), ms a clip, peak memory, the encoder's and the decoder's
-  share, and one profiled pass by layer. Its users score motion realism by
-  the reconstruction error. (`device` lets a rehearsal run it.)"""
+  SERVE_TRAJAN_CLIPS clips of SERVE_TRAJAN_TRACKS support tracks x
+  SERVE_TRAJAN_FRAMES frames (the example's synthetic tracks, a clip per
+  seed), decoding the 32 x 32 grid's 1024 queries, given explicitly, with
+  decoder_chunk_size=SERVE_TRAJAN_CHUNK; float32 at PyTorch's defaults,
+  under no_grad: a warm-up pass and SERVE_TRAJAN_PASSES timed ones (CUDA
+  events), ms a clip, peak memory, the encoder's and the decoder's share,
+  and one profiled pass by layer. Its users score motion realism by the
+  reconstruction error."""
+  clips, frames, chunk = SERVE_TRAJAN_CLIPS, SERVE_TRAJAN_FRAMES, SERVE_TRAJAN_CHUNK
   _pytorch_tf32_defaults()
   model = track_autoencoder.TrackAutoEncoder(decoder_chunk_size=chunk)
   convert_lib.load_trajan_params(model, seeded_trajan_params(1))
-  model = model.to(device).eval()
-  made = [synthetic_tracks(tracks, frames, seed=i) for i in range(clips)]
+  model = model.to("cuda").eval()
+  made = [synthetic_tracks(SERVE_TRAJAN_TRACKS, frames, seed=i)
+          for i in range(clips)]
   centers = (np.arange(32) / 32.0 + 1.0 / 64.0).astype(np.float32)
   gx, gy = np.meshgrid(centers, centers)
   grid = np.stack([np.zeros(1024, np.float32), gx.ravel(), gy.ravel()], -1)
@@ -3380,8 +3384,8 @@ def serve_trajan_150(clips=SERVE_TRAJAN_CLIPS, tracks=SERVE_TRAJAN_TRACKS,
       "query_points": torch.from_numpy(np.broadcast_to(grid, (clips,) + grid.shape)
                                        .copy()),
   }
-  inputs = {k: v.to(device) for k, v in inputs.items()}
-  gen = torch.Generator(device=device).manual_seed(SEED)
+  inputs = {k: v.to("cuda") for k, v in inputs.items()}
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
 
   def run():
     with torch.no_grad():
@@ -3391,7 +3395,7 @@ def serve_trajan_150(clips=SERVE_TRAJAN_CLIPS, tracks=SERVE_TRAJAN_TRACKS,
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   times, walls = [], []
-  for _ in range(passes):
+  for _ in range(SERVE_TRAJAN_PASSES):
     begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start = time.perf_counter()
     begin.record()
@@ -3421,7 +3425,7 @@ def serve_trajan_150(clips=SERVE_TRAJAN_CLIPS, tracks=SERVE_TRAJAN_TRACKS,
                   weights="tools/trajan_weights.py seed 1",
                   data="examples' synthetic tracks, seeds 0-3",
                   tf32="PyTorch defaults: cuDNN on, matmul off"),
-      clips=clips, tracks=tracks, frames=frames, queries=1024,
+      clips=clips, tracks=SERVE_TRAJAN_TRACKS, frames=frames, queries=1024,
       decoder_chunk_size=chunk, pass_ms=times,
       ms_per_clip=float(np.mean(times)) / clips,
       max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,

@@ -35,10 +35,11 @@ SMALL = dict(num_latent_tokens=8, latent_token_dim=16, encoder_latent_dim=64,
              track_token_dim=32, decoder_num_channels=256, time_feat_dim=128)
 
 
-def synthetic_tracks(num_tracks, num_frames, seed=0):
+def synthetic_tracks(num_tracks, num_frames, seed=0, rng=None):
   """Smooth sinusoidal trajectories in normalized [0, 1] coordinates (the
-  JAX example's)."""
-  rng = np.random.RandomState(seed)
+  JAX example's), drawn from `rng` (by default a RandomState of `seed`)."""
+  if rng is None:
+    rng = np.random.RandomState(seed)
   t = np.linspace(0, 1, num_frames)[None]
   base = rng.rand(num_tracks, 2)
   amp = rng.rand(num_tracks, 2) * 0.2

@@ -267,6 +267,47 @@ def make_train_step(
   return train_step
 
 
+def _load_tapnet(model, tree, batch_stats=None):
+  """TAP-Net's parameters, and its running statistics from Flax's
+  `batch_stats` tree (by default the model's own)."""
+  if batch_stats is None:
+    batch_stats = convert.stats_to_flax(dict(model.named_buffers()))
+  convert.load_tapnet_params(model, tree, batch_stats)
+
+
+class _Family(NamedTuple):
+  """What the Trainer needs of one model family."""
+  # (model, tensors by name) -> the Flax-layout tree of numpy leaves.
+  to_flax: Callable
+  # Flax-layout tree -> tensors by name (on the CPU).
+  from_flax: Callable
+  # (model, params tree, batch_stats tree or None): fills the model.
+  load: Callable
+  # (model config, CPU generator) -> (params tree, batch_stats tree or None).
+  init: Callable
+  # The model's buffers are running statistics (TrainState.model_state).
+  batch_stats: bool = False
+
+
+_FAMILIES = {
+    tapir.TAPIR: _Family(
+        to_flax=lambda model, tensors: convert.state_dict_to_flax(tensors),
+        from_flax=convert.flax_to_state_dict,
+        load=lambda model, tree, _: convert.load_flax_params(model, tree),
+        init=lambda cfg, gen: (tapir.init_tapir_params(cfg, gen), None)),
+    tapnet.TAPNet: _Family(
+        to_flax=lambda model, tensors: convert.state_dict_to_tapnet(tensors),
+        from_flax=lambda tree: convert.tapnet_to_state_dict(tree, {}),
+        load=_load_tapnet, init=tapnet.init_tapnet_params, batch_stats=True),
+    tapnext.TAPNextTracker: _Family(
+        to_flax=lambda model, tensors: convert.state_dict_to_tapnext(
+            tensors, model.config.num_heads, model.config.patch_size),
+        from_flax=convert.tapnext_to_state_dict,
+        load=lambda model, tree, _: convert.load_tapnext_params(model, tree),
+        init=lambda cfg, gen: (tapnext.init_tapnext_params(cfg, gen), None)),
+}
+
+
 class Trainer:
   """Owns the model and optimizer and runs the training loop on one
   device."""
@@ -291,11 +332,9 @@ class Trainer:
     `step_generator(k)` (the JAX loop's split of its rng)."""
     if mesh is not None:
       raise NotImplementedError(_MESH_NOT_PORTED)
-    kinds = {tapir.TAPIR: "tapir", tapnext.TAPNextTracker: "tapnext",
-             tapnet.TAPNet: "tapnet"}
-    self.kind = next((k for cls, k in kinds.items() if isinstance(model, cls)),
-                     None)
-    if self.kind is None:
+    self.family = next((f for cls, f in _FAMILIES.items()
+                        if isinstance(model, cls)), None)
+    if self.family is None:
       raise NotImplementedError(
           f"the port trains TAPIR, TAP-Net and TAPNext, not "
           f"{type(model).__name__}")
@@ -321,41 +360,23 @@ class Trainer:
   def _flax_tree(self, tensors: Mapping[str, torch.Tensor]):
     """The model's tensors by name (parameters, gradients, moments) as the
     Flax-layout tree of numpy leaves."""
-    if self.kind == "tapir":
-      return convert.state_dict_to_flax(tensors)
-    if self.kind == "tapnet":
-      return convert.state_dict_to_tapnet(tensors)
-    cfg = self.model.config
-    return convert.state_dict_to_tapnext(tensors, cfg.num_heads,
-                                         cfg.patch_size)
+    return self.family.to_flax(self.model, tensors)
 
   def _from_flax_tree(self, tree) -> Dict[str, torch.Tensor]:
-    if self.kind == "tapir":
-      converted = convert.flax_to_state_dict(tree)
-    elif self.kind == "tapnet":
-      converted = convert.tapnet_to_state_dict(tree, {})
-    else:
-      converted = convert.tapnext_to_state_dict(tree)
-    return {k: v.to(self.device) for k, v in converted.items()}
+    return {k: v.to(self.device)
+            for k, v in self.family.from_flax(tree).items()}
 
   def load_params(self, tree, batch_stats=None) -> Dict[str, torch.Tensor]:
     """Fills the model's parameters from a Flax-layout tree (TAP-Net: and
     its running statistics from Flax's `batch_stats` tree, by default the
     model's own); returns the parameters by name."""
-    if self.kind == "tapir":
-      convert.load_flax_params(self.model, tree)
-    elif self.kind == "tapnet":
-      if batch_stats is None:
-        batch_stats = convert.stats_to_flax(dict(self.model.named_buffers()))
-      convert.load_tapnet_params(self.model, tree, batch_stats)
-    else:
-      convert.load_tapnext_params(self.model, tree)
+    self.family.load(self.model, tree, batch_stats)
     return dict(self.model.named_parameters())
 
   def _model_state(self):
     """TAP-Net's running statistics (the model's buffers, moved in place by
     each training forward), else {}."""
-    if self.kind != "tapnet":
+    if not self.family.batch_stats:
       return {}
     return {"batch_stats": dict(self.model.named_buffers())}
 
@@ -364,13 +385,7 @@ class Trainer:
     fresh running statistics) or `init_tapnext_params` of `models` from
     `seed`) loaded into the model, and a fresh optimizer state."""
     generator = torch.Generator().manual_seed(seed)
-    if self.kind == "tapnet":
-      params = self.load_params(
-          *tapnet.init_tapnet_params(self.model.config, generator))
-    else:
-      init = (tapir.init_tapir_params if self.kind == "tapir"
-              else tapnext.init_tapnext_params)
-      params = self.load_params(init(self.model.config, generator))
+    params = self.load_params(*self.family.init(self.model.config, generator))
     return TrainState(params, self.tx.init(params), 0, self._model_state())
 
   def restore_or_init(self) -> TrainState:

@@ -72,7 +72,9 @@ port number was read:
   JAX_PLATFORMS=cpu python tools/make_trajan_golden.py
 
 numpy only at import: the port's tests and chip_smoke.py import
-`golden_inputs`, `run_port`, `judge` and the constants.
+`golden_inputs` (the port's example's `synthetic_tracks`, then the hidden
+track and the queries from the same draw), `run_port`, `judge` and the
+constants.
 """
 
 from __future__ import annotations
@@ -101,17 +103,10 @@ OUTPUTS = ("tracks", "visible_logits", "certain_logits")
 
 def golden_inputs() -> Dict[str, np.ndarray]:
   """The golden clip's TRAJAN inputs (numpy, batch 1)."""
+  from tapnet_tpu_torch.examples.trajan_roundtrip import synthetic_tracks
+
   rng = np.random.RandomState(INPUT_SEED)
-  t = np.linspace(0, 1, FRAMES)[None]
-  base = rng.rand(TRACKS, 2)
-  amp = rng.rand(TRACKS, 2) * 0.2
-  phase = rng.rand(TRACKS, 2) * 2 * np.pi
-  freq = rng.randint(1, 4, (TRACKS, 2))
-  tracks = np.clip(np.stack(
-      [base[:, i, None] + amp[:, i, None]
-       * np.sin(2 * np.pi * freq[:, i, None] * t + phase[:, i, None])
-       for i in range(2)], -1), 0, 1).astype(np.float32)
-  visible = (rng.rand(TRACKS, FRAMES, 1) > 0.1).astype(np.float32)
+  tracks, visible = synthetic_tracks(TRACKS, FRAMES, rng=rng)
   visible[HIDDEN] = 0.0
   frames = np.concatenate([rng.randint(0, FRAMES, QUERIES - LATE),
                            rng.randint(154, 200, LATE)])
