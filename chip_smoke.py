@@ -1,5 +1,6 @@
 """Drives the PyTorch port on one CUDA card and checks it: BootsTAPIR,
-online TAPIR, TAPNext, their training, TAP-Net and TRAJAN.
+online TAPIR, TAPNext, their training, TAP-Net and TRAJAN, RoboTAP,
+flow-assisted tracking and the Kubric training reader.
 
   python3 chip_smoke.py [--records PATH]
 
@@ -40,7 +41,9 @@ Phases (any failure raises and exits non-zero):
      bit-equal to autograd through their plain versions (float32; K1 and
      K3 in bf16 too), beside two controls that must be refused: the bare
      kernel launch (no grad_fn) and a Function that drops the last input's
-     gradient.
+     gradient. K1 also at the streamed frames' shapes (one frame, the three
+     grids of 256x256): 64 queries (online) and 1024 (robotap-dense-256,
+     whose record goes into the K1 rows as `at_runs`).
   3. Main path: the committed trained BootsTAPIR through TapirPredictor.
      The golden clip in fp32 (TF32 off) and bf16 against the JAX golden
      outputs, and in the predictor's default float32 at PyTorch's TF32
@@ -116,7 +119,7 @@ Phases (any failure raises and exits non-zero):
      256x256, 256 queries in chunks of 32, fp32 at PyTorch's TF32
      defaults: a warm-up and 3 timed steps, 96 K1 and 384 K3 launches a
      step); train-bootstapir-synth (the JAX package's synthetic recipe,
-     batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 500
+     batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 200
      steps from fresh weights: the mean loss of the last 50 steps at most
      two thirds of the first 50's); train-bootstrap-256 (BootsTAP
      self-training on the trained checkpoint, 4 x 16 frames at 256x256
@@ -136,7 +139,36 @@ Phases (any failure raises and exits non-zero):
      and 2 timed steps, the running statistics moved); serve-trajan-150 (4
      clips x 256 support tracks x 150 frames, the 32 x 32 grid's 1024
      queries in decoder chunks of 256, a warm-up and 3 timed passes).
-  9. The last line: {"ok": true, "device": {...}}.
+  9. RoboTAP, flow-assisted tracking and the Kubric reader (no new kernel;
+     after phase 7): dense-golden (robotap.dense_tracking.track_many_points
+     with the trained causal BootsTAPIR on the golden clip, 64 points across
+     all frames, against JAX's, tests/data/bootstapir_golden_dense.npz from
+     tools/make_dense_golden.py: fp32 with TF32 off within online-golden's
+     fp32 limits, the flags equal but where JAX's combined visibility logit
+     lies within the logit limit of the threshold; bf16 within the bf16
+     limits); robotap-dense-256 (the configuration RoboTAP runs: 256x256,
+     causal_bootstapir_config(), 1024 points, 100 frames; a warm-up and 2
+     timed videos: query-feature seconds, ms a streamed frame by the host
+     clock, peak memory, 12 K1 launches a frame; profiles of a 10-frame call
+     and of its query features: the stream's device ms a frame, busy share;
+     K1 at 1024 queries is held against its plain version in phase 2);
+     robotap-cluster (robotap.clustering.compute_clusters at
+     its default widths on 1024 planted rigid tracks x 100 frames in four
+     4-DoF groups, interleaved in one region at the first frame and leaving
+     it in their own directions, iters_before_split cut to
+     CLUSTER_ITERS_BEFORE_SPLIT: every cluster at least 90% one group's, no
+     group absent, and a split by the first frame's position refused);
+     flow-assist
+     (utils.flow_track_assist.interpolate_track at 256^2 x 48 frames of a
+     smooth made-up flow, radius 20 and 8, against the plain CPU run: the
+     final cost map within 1e-5 relative, the card's argmins along its track
+     equal to the CPU's but at the CPU's near ties, counted);
+     train-kubric-256 (write_examples writes made-up 24-frame 288x320
+     examples; the training CLI's --data_dir path, data.kubric's reader and
+     prepare_batch, feeds bootstapir_experiment() at its own data size: a
+     warm-up and 2 timed steps, the batch's wait, 96 K1 and 384 K3 launches a
+     step, a finite loss).
+  10. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line (with `--records PATH`, also
 written to PATH). Exits non-zero, and prints
@@ -203,6 +235,11 @@ from tapnet_tpu_torch.examples.trajan_roundtrip import (  # noqa: E402
     synthetic_tracks)
 from tapnet_tpu_torch.checkpoints import convert as convert_lib  # noqa: E402
 from tools.trajan_weights import seeded_trajan_params  # noqa: E402
+from tapnet_tpu_torch.robotap import clustering, dense_tracking  # noqa: E402
+from tapnet_tpu_torch.utils import flow_track_assist  # noqa: E402
+from tapnet_tpu_torch.data import kubric_convert  # noqa: E402
+from tapnet_tpu_torch.training import run as run_lib  # noqa: E402
+from tools import make_dense_golden  # noqa: E402
 from tools.time_int8_kernels import (  # noqa: E402
     K3_PHASES, K4_PHASES, K6_PHASES, K6F_PHASES, X_PHASES,
     split_ms as kernel_split,
@@ -257,10 +294,12 @@ GRAD_MIXER_SHAPE = (TRAIN_TAPIR_BATCH * TRAIN_TAPIR_CHUNK, TRAIN_TAPIR_FRAMES,
                     512)
 GRAD_EXTRA_GRID = (32, 32)
 # train-bootstapir-synth: the JAX package's recipe (README.md, Training),
-# batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 500
-# steps; the gate on the mean loss of the last 50 against the first 50.
+# batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first
+# SYNTH_STEPS steps; the gate on the mean loss of the last 50 against the
+# first 50. Cut from 500 steps to 200 for the script's time: the phase is
+# host-bound and took 365-556 s at 500 on the same card.
 SYNTH_BATCH, SYNTH_FRAMES, SYNTH_QUERIES, SYNTH_HORIZON = 4, 16, 128, 6000
-SYNTH_STEPS, SYNTH_GATE = 500, 2.0 / 3.0
+SYNTH_STEPS, SYNTH_GATE = 200, 2.0 / 3.0
 # train-bootstrap-256: timed BootsTAP steps after the warm-up.
 BOOTSTRAP_STEPS = 1
 # The online paths' shapes. Each online step (256x256, ONLINE_QUERIES = 64)
@@ -564,6 +603,55 @@ TRAINPP_SCAN_SHAPE = (TN_TOKENS + TRAINPP_QUERIES, 128, TN_WIDTH)
 # step 1e-3 on a [2, 6, 8] scan): within 1e-2 of the largest gradient.
 SCAN_FD_SHAPE, SCAN_FD_STEP, SCAN_FD_TOL = (2, 6, 8), 1e-3, 1e-2
 
+# Phase 9: RoboTAP, flow-assisted tracking and the Kubric reader.
+# dense-golden: track_many_points with the trained causal BootsTAPIR on the
+# golden clip (tools/make_dense_golden.py: 8 frames, 64 points across all
+# frames) against JAX's, fp32 with TF32 off under online-golden's fp32
+# limits (GOLDEN_FP32_TOL), the flags equal except where JAX's combined
+# visibility logit lies within the logit limit of the threshold; bf16 under
+# GOLDEN_BF16_TOL. robotap-dense-256: the configuration RoboTAP runs
+# (examples/robotap_clustering.py:62-68: 256x256, causal_bootstapir_config(),
+# track_many_points' default 1024 points across all frames), a warm-up video
+# and ROBOTAP_TIMED timed ones of ROBOTAP_FRAMES frames (the synthetic
+# renderer's sprites, seeded): 12 K1 launches a streamed frame.
+ROBOTAP_FRAMES, ROBOTAP_POINTS, ROBOTAP_TIMED = 100, 1024, 2
+ROBOTAP_PROFILE_FRAMES = 10
+# robotap-cluster: compute_clusters at its default widths (point_sample
+# 2048, frame_sample 1024, 15 final and 25 most clusters, 4-DoF) on planted
+# rigid tracks of the dense cell's size: CLUSTER_GROUPS groups, each a
+# 4-DoF rigid motion (in-plane rotation, 2D translation, depth) of its own,
+# all interleaved in one image region at the first frame and leaving it in
+# their own directions, with CLUSTER_NOISE_PX of noise and CLUSTER_OCCLUDED
+# of the point-frames occluded. iters_before_split is cut from 500 (17,000
+# steps) to CLUSTER_ITERS_BEFORE_SPLIT (3,400 steps) for the script's time:
+# tools/robotap_cluster_seeds.py reads this data pure at every seed tried
+# at that cut (when cut, the optimization, JAX's too, depends on its draws;
+# on groups that share a region throughout, its --layout carried, some
+# seeds leave clusters mixed). Check: every recovered cluster takes at least CLUSTER_PURITY of
+# its points from one planted group, and every group is the majority of
+# some cluster; a control: a split by the first frame's position into
+# quadrants must fail that check.
+CLUSTER_TRACKS, CLUSTER_GROUPS = 1024, 4
+CLUSTER_NOISE_PX, CLUSTER_OCCLUDED = 0.5, 0.1
+CLUSTER_ITERS_BEFORE_SPLIT, CLUSTER_PURITY = 100, 0.9
+# flow-assist: interpolate_track on a made-up smooth flow field (sums of
+# sinusoids, a few px a frame) at FLOW_RES^2 x FLOW_FRAMES frames, at radius
+# 20 (the function's default) and 8 (examples/flow_track_assist.py's),
+# against the plain CPU run of the same steps on the same flow: the final
+# cost map within FLOW_COST_RTOL relative, and at every step of the card's
+# track the card's argmin equal to the CPU's, except where the CPU's best
+# and second-best candidates at that pixel lie within FLOW_COST_RTOL of
+# each other (a near tie, counted).
+FLOW_RES, FLOW_FRAMES, FLOW_RADII, FLOW_COST_RTOL = 256, 48, (20, 8), 1e-5
+# train-kubric-256: write_examples writes KUBRIC_EXAMPLES made-up examples
+# (the synthetic renderer's, 24 frames of KUBRIC_HW, so prepare_batch
+# resizes) under KUBRIC_DIR (listed in .gitignore, removed after); the
+# training CLI's data path (run.make_data with --data_dir) feeds
+# bootstapir_experiment() at its own data size (batch 8 x 24 x 256^2, 256
+# queries, colour augmentation): a warm-up step and KUBRIC_STEPS timed ones.
+KUBRIC_EXAMPLES, KUBRIC_HW, KUBRIC_STEPS = 16, (288, 320), 2
+KUBRIC_DIR = os.path.join(REPO, "_kubric_examples")
+
 
 def require(cond, msg):
   if not cond:
@@ -812,6 +900,7 @@ def check_corr(dtype, gen, checks):
     torch.cuda.empty_cache()
   check_quantize_rows(dtype, gen, checks)
   check_corr_online(dtype, gen, checks)
+  check_corr_online(dtype, gen, checks, ROBOTAP_POINTS, "robotap_dense_256")
 
 
 def check_quantize_rows(dtype, gen, checks):
@@ -852,18 +941,20 @@ def check_quantize_rows(dtype, gen, checks):
       torch.float32))
 
 
-def check_corr_online(dtype, gen, checks):
-  """K1 at an online step's shapes (one frame, ONLINE_QUERIES queries, the
-  three grids of a 256x256 frame) against its plain version, under the
-  limits of the served shapes."""
+def check_corr_online(dtype, gen, checks, n=ONLINE_QUERIES, run=None):
+  """K1 at a streamed step's shapes (one frame, n queries, the three grids
+  of a 256x256 frame) against its plain version, under the limits of the
+  served shapes: the online step's ONLINE_QUERIES, and with `run` that
+  run's n (robotap-dense-256: ROBOTAP_POINTS), whose levels' mean is also
+  recorded as a path record of `run`."""
   name_dt = str(dtype).replace("torch.", "")
+  records = []
   for h, w, c in ONLINE_CORR_LEVELS:
-    grid, query, cy, cx = corr_inputs(h, w, c, dtype, gen, bt=1,
-                                      n=ONLINE_QUERIES)
-    run = lambda a=(grid, query, cy, cx): corr_tents.corr_tent_patches(*a, 7)
+    grid, query, cy, cx = corr_inputs(h, w, c, dtype, gen, bt=1, n=n)
+    run_k = lambda a=(grid, query, cy, cx): corr_tents.corr_tent_patches(*a, 7)
     plain = lambda a=(grid, query, cy, cx): (
         corr_tents.corr_tent_patches_reference(*a, 7))
-    out = run()
+    out = run_k()
     torch.cuda.synchronize()
     ref = plain()
     torch.cuda.synchronize()
@@ -872,16 +963,24 @@ def check_corr_online(dtype, gen, checks):
     err = float(diff.max())
     over = float((diff / (tol[1] + tol[0] * ref.abs())).max())
     require(bool(torch.isfinite(out).all()) and over <= 1.0,
-            f"corr_tents {name_dt} online step {h}x{w}x{c}: max_abs_err {err}, "
-            f"tol {tol}, {over} of the limit")
+            f"corr_tents {name_dt} {run or 'online step'} {h}x{w}x{c} at {n} "
+            f"queries: max_abs_err {err}, tol {tol}, {over} of the limit")
     nbytes, flops = corr_bound(grid, query, cy, cx)
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
-    checks.append(dict(
-        kernel="corr_tents", dtype=name_dt, path=False, run="online step",
-        shape=[1, h, w, c, ONLINE_QUERIES], max_abs_err=err,
-        max_err_over_limit=over, tol=tol, ms=time_ms(run, reps=20),
+    records.append(dict(
+        kernel="corr_tents", dtype=name_dt, path=False,
+        run=run or "online step", shape=[1, h, w, c, n], max_abs_err=err,
+        max_err_over_limit=over, tol=tol, ms=time_ms(run_k, reps=20),
         plain_ms=time_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
         nbytes=nbytes, flops=flops))
+  checks.extend(records)
+  if run is not None:
+    checks.append(dict(
+        path_record(records, "mean of one launch at each of the "
+                    f"{len(records)} grids of a streamed frame, {n} queries",
+                    dtype, tol=max((r["tol"] for r in records),
+                                   key=lambda t: t[1])),
+        path=False, path_of=run))
 
 
 def int8_apart(q, ref_q):
@@ -1695,6 +1794,8 @@ KERNEL_META = {
         replaces="tapnet_tpu/ops/corr_tents.py:182",
         tpu_kernel="K1 corr_tents._kernel (via _pallas_forward :243)",
         layer="K1/K2 corr_tents", run="serve",
+        # RoboTAP's dense stream: 1024 queries, 12 launches a frame.
+        also_runs=("robotap_dense_256",),
     ),
     "corr_tents_q8_frame": dict(
         source="tapnet_tpu_torch/csrc/corr_tents.cu",
@@ -3442,6 +3543,409 @@ def serve_trajan_150():
 RECORDS = None
 
 
+# ------------------------------------------------------------------- phase 9
+
+
+def _only_k1(counts, per, what):
+  require({k: v for k, v in counts.items() if v} == {"corr_tents": per},
+          f"{what}: launches {counts}, expected {per} K1 launches and no "
+          "other kernel")
+
+
+def dense_golden_check(params):
+  """dense-golden: the port's track_many_points (trained causal BootsTAPIR)
+  on the golden clip against JAX's (tools/make_dense_golden.py), fp32 with
+  TF32 off under GOLDEN_FP32_TOL and the flags equal but near the
+  threshold, bf16 under GOLDEN_BF16_TOL; 12 K1 launches a streamed frame."""
+  golden = np.load(make_dense_golden.OUT)
+  video = np.load(make_dense_golden.CLIP)["video"][0]
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  result = {}
+  for name in ("float32", "bfloat16"):
+    reset_counts()
+    out = dense_tracking.track_many_points(
+        video, params, causal_bootstapir_config(compute_dtype=name),
+        num_points=make_dense_golden.NUM_POINTS, seed=make_dense_golden.SEED)
+    _only_k1(read_counts(), ONLINE_K1_PER_STEP * video.shape[0],
+             f"dense-golden {name}")
+    require(np.array_equal(out["query_points"], golden["query_points"]),
+            "dense-golden: the query points differ from JAX's")
+    r = result[name] = make_dense_golden.golden_apart(
+        out, golden, GOLDEN_FP32_TOL["logits"])
+    if name == "float32":
+      ok = (r["track_max_px"] <= GOLDEN_FP32_TOL["tracks"]
+            and r["logit_max_abs"] <= GOLDEN_FP32_TOL["logits"]
+            and r["flags_apart_elsewhere"] == 0)
+    else:
+      ok = within_bf16(r)
+    require(ok, f"dense-golden {name}: {r} vs "
+            f"{GOLDEN_BF16_TOL if name == 'bfloat16' else GOLDEN_FP32_TOL}")
+  torch.backends.cudnn.allow_tf32 = True
+  return result
+
+
+def robotap_videos(count, frames=ROBOTAP_FRAMES, res=TN_RES):
+  """uint8 [frames, res, res, 3] clips of the synthetic renderer (seeded)."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+  return [((synthetic.make_batch(gen, 1, frames, res, res, 8)["video"][0]
+            + 1.0) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+          for _ in range(count)]
+
+
+def _synced_s(fn):
+  """Host seconds of fn(), from an idle device to the device's end."""
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  fn()
+  torch.cuda.synchronize()
+  return time.perf_counter() - start
+
+
+def robotap_dense_256(params):
+  """robotap-dense-256: track_many_points as RoboTAP runs it (module
+  head), a warm-up video, ROBOTAP_TIMED timed ones: per video the call's
+  seconds, the seconds of its query-feature extraction (the module's
+  _query_feature_banks on the same video and query points, timed alone),
+  the stream's ms a frame by the host clock (the call less the query
+  features, over the frames), peak memory and the K1 launches (12 a frame
+  and no other kernel); then profiles of a ROBOTAP_PROFILE_FRAMES-frame
+  call and of its query features alone: the stream's device ms a frame
+  (the call's kernel time less the query features', over the frames) and
+  the device's busy share of the call."""
+  _pytorch_tf32_defaults()
+  cfg = causal_bootstapir_config()
+  model = tapir_lib.TAPIR(cfg)
+  convert_lib.load_flax_params(model, params)
+  model = model.cuda().eval()
+
+  def query_features(video, seed):
+    """The call's query-feature extraction for `video` at `seed`."""
+    points = dense_tracking.sample_grid_points(
+        np.random.RandomState(seed), *video.shape[:3], ROBOTAP_POINTS)
+    frames = torch.from_numpy(
+        video.astype(np.float32) / 255.0 * 2.0 - 1.0).cuda()
+
+    def run():
+      with torch.inference_mode():
+        dense_tracking._query_feature_banks(model, frames, points)  # pylint: disable=protected-access
+    return run
+
+  videos = robotap_videos(1 + ROBOTAP_TIMED)
+  track = lambda video, seed=0: dense_tracking.track_many_points(
+      video, params, cfg, num_points=ROBOTAP_POINTS, seed=seed)
+  track(videos[0])
+  query_features(videos[0], 0)()
+  records = []
+  for i, video in enumerate(videos[1:]):
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    wall = _synced_s(lambda v=video, i=i: outs.append(track(v, i)))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = outs[0]
+    _only_k1(counts, ONLINE_K1_PER_STEP * ROBOTAP_FRAMES, "robotap-dense-256")
+    qt = out["query_points"][:, 0].astype(int)
+    require(out["tracks"].shape == (ROBOTAP_POINTS, ROBOTAP_FRAMES, 2)
+            and np.isfinite(out["tracks"]).all()
+            and np.abs(out["tracks"]).max() < 4 * TN_RES
+            and not (out["visibility"]
+                     & (np.arange(ROBOTAP_FRAMES)[None] < qt[:, None])).any(),
+            "robotap-dense-256: bad tracks or flags")
+    query_s = _synced_s(query_features(video, i))
+    records.append(dict(
+        wall_s=wall, query_features_s=query_s,
+        query_frames=int(len(np.unique(qt))),
+        ms_per_frame_host=(wall - query_s) * 1e3 / ROBOTAP_FRAMES,
+        peak_memory_gb=peak / 1e9,
+        k1_launches_per_frame=counts["corr_tents"] / ROBOTAP_FRAMES,
+        visible_share=float(out["visibility"].mean())))
+  short = videos[1][:ROBOTAP_PROFILE_FRAMES]
+  call = lambda: track(short)
+  short_wall = _synced_s(call)
+  profile = profile_request(call, short_wall, top=10)
+  short_query = query_features(short, 0)
+  query_profile = profile_request(short_query, _synced_s(short_query), top=5)
+  mean = lambda key: float(np.mean([r[key] for r in records]))
+  return dict(
+      config=dict(model="causal_bootstapir_config()", compute_dtype="float32",
+                  tf32="PyTorch defaults: cuDNN on, matmul off",
+                  weights="runs/bootstapir_synth/trained_params_f16.npy",
+                  video=f"data/synthetic.py sprites, seed {SEED + 16}"),
+      frames=ROBOTAP_FRAMES, points=ROBOTAP_POINTS, resolution=TN_RES,
+      videos=records, ms_per_frame_host_mean=mean("ms_per_frame_host"),
+      ms_per_frame_device=(profile["device_ms"] - query_profile["device_ms"])
+      / ROBOTAP_PROFILE_FRAMES,
+      query_features_s_mean=mean("query_features_s"),
+      launches_per_video=counts,
+      profile_frames=ROBOTAP_PROFILE_FRAMES, profile_wall_s=short_wall,
+      profile=profile, query_features_profile=query_profile)
+
+
+def planted_rigid_tracks(n=CLUSTER_TRACKS, t=ROBOTAP_FRAMES,
+                         groups=CLUSTER_GROUPS, res=TN_RES, seed=SEED):
+  """(tracks [n, t, 2] px, visibility [n, t], group [n]): each group's
+  points on a plane at its own depth, moved by a smooth 4-DoF rigid motion
+  (in-plane rotation, 2D translation, depth) and seen by a pinhole camera
+  (focal length res), with noise and random occlusion. Every group's points
+  are drawn from one image region, where all groups lie interleaved at the
+  first frame (their centroids within 2 px): then each leaves along its own
+  direction, as objects taken from a pile, so no split by the position at
+  the first frame separates them."""
+  rng = np.random.RandomState(seed)
+  group = np.arange(n) % groups
+  local = rng.uniform(-0.12, 0.12, (n, 2))
+  ts = np.arange(t) / t
+  smooth = lambda amp: sum(a * np.sin(2 * np.pi * f * ts + p) for a, f, p in
+                           zip(rng.uniform(0, amp, 3), rng.uniform(0.3, 1.5, 3),
+                               rng.uniform(0, 2 * np.pi, 3)))
+  leave = np.arange(t) / (t - 1)
+  tracks = np.zeros((n, t, 2))
+  for g in range(groups):
+    sel = group == g
+    heading = np.pi / 4 + 2 * np.pi * g / groups
+    # Depth within the range the model's depth clamp ([0.5, 2] about 1)
+    # can follow, rotation within a manipulated object's.
+    angle, wx, wy = smooth(0.2), smooth(0.1), smooth(0.1)
+    depth = 2.0 + smooth(0.1)
+    tx = 0.35 * np.cos(heading) * leave + wx - wx[0]
+    ty = 0.35 * np.sin(heading) * leave + wy - wy[0]
+    cos, sin = np.cos(angle), np.sin(angle)
+    x = local[sel, 0:1] * cos - local[sel, 1:2] * sin + tx
+    y = local[sel, 0:1] * sin + local[sel, 1:2] * cos + ty
+    tracks[sel] = np.stack([x, y], -1) * res / depth[None, :, None] + res / 2
+  tracks += rng.randn(*tracks.shape) * CLUSTER_NOISE_PX
+  vis = (rng.rand(n, t) > CLUSTER_OCCLUDED).astype(np.float32)
+  return tracks.astype(np.float32), vis, group
+
+
+def cluster_purity(classes, group):
+  """(purity of each recovered cluster, the groups that are no cluster's
+  majority)."""
+  purity, majority = {}, set()
+  for c in np.unique(classes):
+    counts = np.bincount(group[classes == c], minlength=group.max() + 1)
+    purity[int(c)] = float(counts.max() / counts.sum())
+    majority.add(int(counts.argmax()))
+  return purity, sorted(set(range(group.max() + 1)) - majority)
+
+
+def robotap_cluster():
+  """robotap-cluster: compute_clusters at its default widths on planted
+  rigid tracks of the dense cell's size, iters_before_split cut to
+  CLUSTER_ITERS_BEFORE_SPLIT: every cluster at least CLUSTER_PURITY pure,
+  no group absent, and a split by the first frame's position below that
+  purity; ms a step and total seconds."""
+  tracks, vis, group = planted_rigid_tracks()
+  t = tracks.shape[1]
+  first = tracks[:, 0]
+  quadrant = 2 * (first[:, 0] > np.median(first[:, 0])) + (
+      first[:, 1] > np.median(first[:, 1]))
+  control = min(cluster_purity(quadrant, group)[0].values())
+  require(control < CLUSTER_PURITY,
+          f"robotap-cluster: a split by the first frame's position reaches "
+          f"purity {control}: the planted groups do not overlap")
+  torch.cuda.synchronize()
+  reset_counts()
+  start = time.perf_counter()
+  out = clustering.compute_clusters(
+      {"demo": tracks}, {"demo": vis}, ["demo"],
+      {"demo": (t, TN_RES, TN_RES, 3)},
+      iters_before_split=CLUSTER_ITERS_BEFORE_SPLIT, verbose=False)
+  total = time.perf_counter() - start
+  purity, absent = cluster_purity(out["classes"], group)
+  require(min(purity.values()) >= CLUSTER_PURITY and not absent,
+          f"robotap-cluster: purity {purity}, groups absent {absent}")
+  return dict(
+      tracks=int(tracks.shape[0]), frames=t, groups=CLUSTER_GROUPS,
+      widths=dict(point_sample=2048, frame_sample=1024, final_num_cats=15,
+                  max_num_cats=25, fourdof=True),
+      iters_before_split=CLUSTER_ITERS_BEFORE_SPLIT,
+      steps=out["num_steps"], total_s=total,
+      ms_per_step=total * 1e3 / out["num_steps"],
+      clusters=len(purity), purity=purity, min_purity=min(purity.values()),
+      first_frame_quadrants_min_purity=control,
+      sizes={int(c): int((out["classes"] == c).sum())
+             for c in np.unique(out["classes"])},
+      launches=read_counts())
+
+
+def smooth_flow(steps=FLOW_FRAMES - 1, res=FLOW_RES, seed=SEED):
+  """[steps, res, res, 2] float32 flow (dx, dy): sums of a few sinusoids in
+  space and time, a few px a frame."""
+  rng = np.random.RandomState(seed)
+  yy, xx = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+  flow = np.zeros((steps, res, res, 2), np.float64)
+  for c in range(2):
+    for _ in range(4):
+      kx, ky = rng.uniform(-2, 2, 2) * 2 * np.pi / res
+      amp, phase = rng.uniform(0.25, 1.0), rng.uniform(0, 2 * np.pi)
+      speed = rng.uniform(-0.2, 0.2)
+      for t in range(steps):
+        flow[t, :, :, c] += amp * np.sin(kx * xx + ky * yy + phase + speed * t)
+  return flow.astype(np.float32)
+
+
+def _cpu_candidates(cost, flow, radius, y, x):
+  """The CPU step's (2r+1)^2 candidates at pixel (y, x), in its float32
+  arithmetic (flow_track_assist.dp_step), raster order."""
+  window = 2 * radius + 1
+  costp = np.pad(cost, radius, constant_values=np.float32(flow_track_assist._BIG))  # pylint: disable=protected-access
+  flowp = np.pad(flow, ((radius, radius), (radius, radius), (0, 0)))
+  d = np.arange(window, dtype=np.float32) - radius
+  c = costp[y:y + window, x:x + window]
+  f = flowp[y:y + window, x:x + window]
+  sq = np.square(f[..., 0] + d[None, :]) + np.square(f[..., 1] + d[:, None])
+  return (np.sqrt(sq.astype(np.float32)) + c).reshape(-1)
+
+
+def flow_assist():
+  """flow-assist: interpolate_track on the card at FLOW_RADII against the
+  plain CPU run of the same steps on the same flow (FLOW_COST_RTOL on the
+  final cost map; the card's argmins along its own track equal the CPU's
+  but at the CPU's near ties, counted); seconds a track."""
+  flows = smooth_flow()
+  start = (FLOW_RES // 2, FLOW_RES // 2)
+  end = tuple(int(round(v)) for v in np.clip(
+      flow_track_assist.chain_flow(flows, start)[-1], 0, FLOW_RES - 1))
+  h = w = FLOW_RES
+  init = np.full((h, w), flow_track_assist._BIG, np.float32)  # pylint: disable=protected-access
+  init[start[1], start[0]] = 0.0
+  result = {}
+  for radius in FLOW_RADII:
+    window = 2 * radius + 1
+    flow_track_assist.interpolate_track(flows, start, end, radius)  # warm-up
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    track = flow_track_assist.interpolate_track(flows, start, end, radius)
+    card_s = time.perf_counter() - begin
+    with torch.inference_mode():
+      cost_card, arg_card = flow_track_assist._dp_forward(  # pylint: disable=protected-access
+          torch.from_numpy(flows).cuda(), torch.from_numpy(init).cuda(), radius)
+      cost_card, arg_card = cost_card.cpu().numpy(), arg_card.cpu().numpy()
+      begin = time.perf_counter()
+      costs, args, cost = [], [], torch.from_numpy(init)
+      for t in range(flows.shape[0]):
+        costs.append(cost.numpy())
+        cost, arg = flow_track_assist.dp_step(cost, torch.from_numpy(flows[t]),
+                                              radius)
+        args.append(arg.numpy())
+      cpu_s = time.perf_counter() - begin
+    arg_cpu = np.stack(args)
+    cost_cpu = cost.numpy()
+    track_cpu = flow_track_assist.backtrack(arg_cpu, end, radius)
+    reach = cost_cpu < flow_track_assist._BIG  # pylint: disable=protected-access
+    cost_rel = float((np.abs(cost_card - cost_cpu)[reach]
+                      / np.abs(cost_cpu[reach])).max())
+    near_ties, faults = [], []
+    for t in range(flows.shape[0] - 1, -1, -1):
+      px, py = (int(v) for v in track[t + 1])
+      k_card, k_cpu = arg_card[t, py, px], arg_cpu[t, py, px]
+      if k_card == k_cpu:
+        continue
+      cand = _cpu_candidates(costs[t], flows[t], radius, py, px)
+      require(int(np.argmin(cand)) == k_cpu,
+              f"flow-assist: the CPU's candidates at step {t} disagree with "
+              "its argmin")
+      best, second = np.sort(cand)[:2]
+      near = abs(cand[k_card] - cand[k_cpu]) <= FLOW_COST_RTOL * abs(best)
+      (near_ties if near else faults).append(dict(
+          step=t, pixel=(px, py), card=int(k_card), cpu=int(k_cpu),
+          best=float(best), second=float(second)))
+    r = result[f"radius_{radius}"] = dict(
+        window_offsets=window * window, card_s_per_track=card_s,
+        cpu_s_per_track=cpu_s, final_cost_max_rel=cost_rel,
+        argmins_apart_in_map=int((arg_card != arg_cpu).sum()),
+        track_equal=bool(np.array_equal(track, track_cpu)),
+        track_max_px_apart=float(np.abs(track - track_cpu).max()),
+        near_tie_steps=near_ties, faults=faults,
+        end_reached=bool(np.array_equal(track[-1], end)))
+    require(cost_rel <= FLOW_COST_RTOL and not faults
+            and (r["track_equal"] or near_ties),
+            f"flow-assist radius {radius}: {r}")
+  return dict(resolution=FLOW_RES, frames=FLOW_FRAMES, start=start, end=end,
+              **result)
+
+
+def kubric_examples(count=KUBRIC_EXAMPLES, frames=TRAIN_TAPIR_FRAMES,
+                    hw=KUBRIC_HW):
+  """Kubric-layout examples of the synthetic renderer on the card (uint8
+  video [T, H, W, 3], target_points [N, T, 2], occluded [N, T])."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+  for _ in range(count):
+    b = synthetic.make_batch(gen, 1, frames, hw[0], hw[1], 64)
+    yield dict(
+        video=((b["video"][0] + 1.0) * 127.5).round().clamp(0, 255)
+        .to(torch.uint8).cpu().numpy(),
+        target_points=b["target_points"][0].cpu().numpy(),
+        occluded=b["occluded"][0].cpu().numpy() > 0.5)
+
+
+def train_kubric_256():
+  """train-kubric-256: write_examples writes made-up examples, and the
+  training CLI's data path (run.make_data, --data_dir) feeds
+  bootstapir_experiment() at its own data size through the Kubric reader
+  (a host thread, resize, query sampling and colour augmentation on the
+  card): a warm-up step and KUBRIC_STEPS timed ones, each with the time
+  its batch took (the reader's wait and the preparation on the card), K1
+  and K3 launches as `_tapir_launches` counts, and a finite loss."""
+  _pytorch_tf32_defaults()
+  shutil.rmtree(KUBRIC_DIR, ignore_errors=True)
+  begin = time.perf_counter()
+  written = kubric_convert.write_examples(kubric_examples(), KUBRIC_DIR)
+  write_s = time.perf_counter() - begin
+  try:
+    args = run_lib.make_parser().parse_args(
+        ["--experiment", "bootstapir", "--data_dir", KUBRIC_DIR,
+         "--seed", str(SEED)])
+    exp = train_configs.get_experiment(args.experiment)
+    cfg = exp.model_config
+    data = run_lib.make_data(args, exp, torch.device("cuda"))
+    t = trainer_lib.Trainer(exp.build_model(), exp.optimizer, exp.total_steps,
+                            task=exp.task, loss_builder=exp.loss_builder,
+                            device="cuda")
+    state = t.init_state()
+    expected = _tapir_launches(
+        cfg, -(-exp.data.num_queries // exp.task.train_chunk_size))
+    records = []
+    for i in range(1 + KUBRIC_STEPS):
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      batch = next(data)
+      torch.cuda.synchronize()
+      batch_ms = (time.perf_counter() - begin) * 1e3
+      require(tuple(batch["video"].shape) == (
+          exp.data.batch_size, exp.data.num_frames) + tuple(
+              exp.data.train_size) + (3,), f"train-kubric: batch "
+              f"{tuple(batch['video'].shape)}")
+      state, rec = _timed_step(t, state, batch, "train-kubric")
+      launches = {k: v for k, v in rec["launches"].items() if v}
+      require(launches == expected,
+              f"train-kubric: launches {launches}, expected {expected}")
+      rec.update(batch_ms=batch_ms, reader_wait_ms=data.reader.wait_s * 1e3)
+      records.append(rec)
+  finally:
+    shutil.rmtree(KUBRIC_DIR, ignore_errors=True)
+  timed = records[1:]
+  return dict(
+      config=dict(experiment="bootstapir_experiment()",
+                  data=f"{written} examples written by write_examples: the "
+                  f"synthetic renderer, seed {SEED + 17}, {TRAIN_TAPIR_FRAMES} "
+                  f"frames of {KUBRIC_HW[0]}x{KUBRIC_HW[1]}",
+                  weights="init_tapir_params seed 42 (Trainer.init_state)",
+                  tf32="PyTorch defaults: cuDNN on, matmul off"),
+      write_s=write_s, batch=exp.data.batch_size, frames=exp.data.num_frames,
+      queries=exp.data.num_queries, resolution=exp.data.train_size[0],
+      warm_up=records[0], steps=timed,
+      ms_per_step_mean=float(np.mean([r["ms"] for r in timed])),
+      batch_ms_mean=float(np.mean([r["batch_ms"] for r in timed])),
+      reader_wait_ms_mean=float(np.mean([r["reader_wait_ms"] for r in timed])),
+      max_memory_gb=max(r["max_memory_gb"] for r in timed),
+      launches_per_step=timed[-1]["launches"])
+
+
 def emit(record):
   """Prints a record as one JSON line (and appends it to RECORDS)."""
   line = json.dumps(record)
@@ -3602,6 +4106,19 @@ def main():
     stamp(name)
     torch.cuda.empty_cache()
 
+  params = load_tapir_checkpoint(CHECKPOINT)
+  emit({"dense_golden": dense_golden_check(params), "card": card})
+  stamp("dense-golden")
+  for name, phase in (("robotap_dense_256", lambda: robotap_dense_256(params)),
+                      ("robotap_cluster", robotap_cluster),
+                      ("flow_assist", flow_assist),
+                      ("train_kubric_256", train_kubric_256)):
+    runs[name] = phase()
+    emit({name: runs[name], "card": card})
+    stamp(name)
+    torch.cuda.empty_cache()
+  del params
+
   # One row per kernel: bf16 model dtype (the served precision; K5's inputs
   # stay float32 in it), and K3 and K1 in float32 too (the predictor's
   # default, serve-480-fp32), per launch at the served shapes, with the
@@ -3618,6 +4135,13 @@ def main():
     launches = runs[meta["run"]][f"launches_per_{per}"][counter]
     profile_ms = runs[meta["run"]]["profile"]["by_layer_ms"][meta["layer"]]
     require(launches > 0, f"{name} never launched on its path")
+    # K1 at another run's shapes (robotap-dense-256: 1024 queries), held
+    # against its plain version there too.
+    at_runs = {c["path_of"]: {k: c[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "max_err_over_limit", "tol")} for c in checks
+               if c["kernel"] == counter and c["dtype"] == dtype
+               and "path_of" in c}
     kernels.append(dict(
         name=name, route="cuda", source=meta["source"],
         replaces=meta["replaces"], tpu_kernel=meta["tpu_kernel"],
@@ -3633,6 +4157,7 @@ def main():
         **({"launches_in": {run: runs[run][f"launches_per_{per}"][name]
                             for run in (meta["run"], *meta["also_runs"])}}
            if "also_runs" in meta else {}),
+        **({"at_runs": at_runs} if at_runs else {}),
         **({"split_ms": row["split_ms"]} if "split_ms" in row else {}),
         **({"ms_by_grid": row["ms_by_grid"],
             "split_ms_by_grid": row["split_ms_by_grid"]}

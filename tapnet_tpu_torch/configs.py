@@ -20,13 +20,17 @@ from tapnet_tpu_torch.training import optimizers, trainer
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-  """The batches' shape. The JAX package's augmentation flags come with the
-  Kubric training reader (not ported yet): the synthetic data has none."""
+  """The batches' shape, and the Kubric reader's augmentations (the
+  synthetic data takes none)."""
 
   train_size: Tuple[int, int] = (256, 256)
   batch_size: int = 8
   num_queries: int = 256
   num_frames: int = 24
+  color_augment: bool = True
+  # TAPNext++ roll/homography camera-jitter augmentation
+  # (reference tapnet/tapnextpp/augmentations/{roll,homography}.py).
+  geometric_augment: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +154,8 @@ def tapnextpp_experiment(variant: str = "B", **overrides) -> ExperimentConfig:
       optimizer=optimizers.OptimizerConfig(
           base_lr=1e-4, weight_decay=1e-1, warmup_steps=500),
       task=trainer.TaskConfig(),
-      data=DataConfig(num_frames=1024, num_queries=64, batch_size=1),
+      data=DataConfig(num_frames=1024, num_queries=64, batch_size=1,
+                      geometric_augment=True),
       train_time_chunk=128,
       total_steps=20_000,
       evaluate_every=2_000,

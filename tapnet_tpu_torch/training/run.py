@@ -2,14 +2,18 @@
 
   python -m tapnet_tpu_torch.training.run \
       --experiment tapir|tapnet|causal_tapir|bootstapir|tapnext|tapnextpp \
-      --synthetic [--num_steps N] [--checkpoint_dir D] [--total_steps S] \
-      [--batch_size B] [--num_frames T] [--num_queries Q] [--seed 0] \
-      [--log_every 50] [--smoke] [--device cpu] \
+      (--synthetic | --data_dir DIR) [--num_steps N] [--checkpoint_dir D] \
+      [--total_steps S] [--batch_size B] [--num_frames T] [--num_queries Q] \
+      [--seed 0] [--log_every 50] [--smoke] [--device cpu] \
       [--eval_dir DIR [--eval_every N] [--eval_max_videos V]]
 
-Trains on the synthetic sprite generator, batches made on the device. It
-runs on the CUDA card and raises without one unless given `--device cpu`;
-the kernels build from the repo's sources at their first launch.
+Trains on the synthetic sprite generator, batches made on the device, or
+with `--data_dir` on Kubric-format npz examples (`data/kubric.py`: a host
+reader thread, resize, query sampling and the experiment's colour and
+geometric augmentation on the device; `data/kubric_convert.py` writes such
+files). It runs on the CUDA card and raises without one unless given
+`--device cpu`; the kernels build from the repo's sources at their first
+launch.
 `--smoke` shrinks a TAPIR-family model and its data for a quick run, as the
 JAX CLI's does (2 mixer blocks, 2 refinement steps, 32x32, ResNet blocks
 (1, 1, 1, 1); 2 clips of 3 frames, 8 queries in chunks of 4); for TAP-Net
@@ -18,8 +22,8 @@ TSM-ResNet-18).
 `--eval_dir` (a directory of Kubric-format npz videos, e.g. from
 `data.synthetic.export_npz`) evaluates the model on it every `--eval_every`
 steps (default: the preset's `evaluate_every`) and logs the TAP-Vid metrics
-to the same JSONL with kind "eval". The Kubric training reader (--data_dir)
-and multi-GPU (--model_parallel > 1) are not ported yet and raise.
+to the same JSONL with kind "eval". Multi-GPU (--model_parallel > 1) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -28,13 +32,13 @@ import argparse
 import os
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description="tapnet_tpu_torch training")
   parser.add_argument("--experiment", default="tapir",
                       help="registry name: tapir / tapnet / causal_tapir / "
                       "bootstapir / tapnext / tapnextpp")
   parser.add_argument("--data_dir", default=None,
-                      help="Kubric-format npz examples (not ported yet)")
+                      help="Kubric-format npz examples to train on")
   parser.add_argument("--synthetic", action="store_true",
                       help="train on the synthetic sprite generator")
   parser.add_argument("--num_steps", type=int, default=None,
@@ -63,14 +67,38 @@ def main(argv=None):
   parser.add_argument("--smoke", action="store_true",
                       help="shrink model and data for a quick correctness "
                       "run (tapir-family and tapnet experiments)")
-  args = parser.parse_args(argv)
+  return parser
 
-  if args.data_dir or not args.synthetic:
-    raise NotImplementedError(
-        "the Kubric training reader is not ported yet: pass --synthetic")
+
+def make_data(args, exp, device):
+  """The training batches: the synthetic generator with `--synthetic` (or
+  without `--data_dir`), else the Kubric reader over `--data_dir`, as the
+  JAX CLI chooses (run.py:95-116 there)."""
+  batch_size = args.batch_size or exp.data.batch_size
+  num_frames = args.num_frames or exp.data.num_frames
+  num_queries = args.num_queries or exp.data.num_queries
+  if args.synthetic or args.data_dir is None:
+    from tapnet_tpu_torch.data import synthetic
+
+    if args.data_dir is None and not args.synthetic:
+      print("no --data_dir given; training on synthetic data")
+    return synthetic.batch_iterator(
+        seed=args.seed, device=device, batch_size=batch_size,
+        num_frames=num_frames, height=exp.data.train_size[0],
+        width=exp.data.train_size[1], num_queries=num_queries)
+  from tapnet_tpu_torch.data import kubric
+
+  return kubric.training_iterator(
+      args.data_dir, batch_size, train_size=exp.data.train_size,
+      num_queries=num_queries, color_augment=exp.data.color_augment,
+      geometric_augment=exp.data.geometric_augment, seed=args.seed,
+      device=device)
+
+
+def main(argv=None):
+  args = make_parser().parse_args(argv)
 
   from tapnet_tpu_torch import configs
-  from tapnet_tpu_torch.data import synthetic
   from tapnet_tpu_torch.inference import resolve_device
   from tapnet_tpu_torch.training import trainer as trainer_lib
 
@@ -80,14 +108,8 @@ def main(argv=None):
   exp = configs.get_experiment(args.experiment)
   if args.smoke:
     exp = smoke(exp)
-  batch_size = args.batch_size or exp.data.batch_size
   num_steps = args.num_steps or exp.total_steps
-  num_frames = args.num_frames or exp.data.num_frames
-  num_queries = args.num_queries or exp.data.num_queries
-  data = synthetic.batch_iterator(
-      seed=args.seed, device=device, batch_size=batch_size,
-      num_frames=num_frames, height=exp.data.train_size[0],
-      width=exp.data.train_size[1], num_queries=num_queries)
+  data = make_data(args, exp, device)
   ckpt_path = (os.path.join(args.checkpoint_dir, "checkpoint.npy")
                if args.checkpoint_dir else None)
   t = trainer_lib.Trainer(

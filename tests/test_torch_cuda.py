@@ -1143,3 +1143,64 @@ def test_in_train_eval_on_card(cuda, tmp_path, monkeypatch, capsys):
   records = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
   evals = [r for r in records if r["kind"] == "eval"]
   assert len(evals) == 1 and 0.0 <= evals[0]["average_jaccard"] <= 1.0
+
+
+def test_flow_dp_on_card_matches_cpu(cuda):
+  """flow_track_assist's forward DP on the card against the plain CPU run on
+  a smooth random flow (64x48, 6 steps, radius 5, blocks of two offset
+  rows): the same float32 operations in the same order, so the argmins
+  must be equal and the costs within 1e-6 relative; and the two tracks of
+  interpolate_track equal."""
+  from tapnet_tpu_torch.utils import flow_track_assist
+
+  rng = np.random.RandomState(0)
+  yy, xx = np.meshgrid(np.arange(48), np.arange(64), indexing="ij")
+  flows = np.stack([np.stack([np.sin(xx / 9.0 + t) * 2 + rng.randn() * 0.1,
+                              np.cos(yy / 7.0 - t) * 1.5], -1)
+                    for t in range(6)]).astype(np.float32)
+  init = np.full((48, 64), flow_track_assist._BIG, np.float32)  # pylint: disable=protected-access
+  init[20, 30] = 0.0
+  old = flow_track_assist._MAX_BLOCK_ELEMENTS  # pylint: disable=protected-access
+  flow_track_assist._MAX_BLOCK_ELEMENTS = 2 * 11 * 48 * 64  # pylint: disable=protected-access
+  try:
+    runs = [flow_track_assist._dp_forward(  # pylint: disable=protected-access
+        torch.from_numpy(flows).to(dev), torch.from_numpy(init).to(dev), 5)
+            for dev in (cuda, "cpu")]
+  finally:
+    flow_track_assist._MAX_BLOCK_ELEMENTS = old  # pylint: disable=protected-access
+  (cost, arg), (ref_cost, ref_arg) = [(c.cpu().numpy(), a.cpu().numpy())
+                                      for c, a in runs]
+  np.testing.assert_array_equal(arg, ref_arg)
+  np.testing.assert_allclose(cost, ref_cost, rtol=1e-6, atol=0)
+  args = (flows, (30, 20), (40, 25), 5)
+  np.testing.assert_array_equal(
+      flow_track_assist.interpolate_track(*args),
+      flow_track_assist.interpolate_track(*args, device="cpu"))
+
+
+def test_track_many_points_on_card_matches_cpu(cuda):
+  """RoboTAP's track_many_points with a small causal BootsTAPIR (random
+  weights, fp32, TF32 off) on the card against the CPU run: the same query
+  points, tracks within 1e-3 px, logits within 1e-3 (fp32 summation order
+  through the backbone, K1 and the streaming mixer), num_pips_iter x 3
+  grids of K1 launches a streamed frame, nothing visible before its query
+  frame."""
+  from tapnet_tpu_torch.models import tapir
+  from tapnet_tpu_torch.robotap import dense_tracking
+
+  torch.backends.cudnn.allow_tf32 = False
+  config, params = _small_tapir(tapir.causal_bootstapir_config)
+  video = (np.random.RandomState(1).rand(5, 64, 64, 3) * 255).astype(np.uint8)
+  ref = dense_tracking.track_many_points(video, params, config, num_points=24,
+                                         seed=2, device="cpu")
+  before = corr_tents.LAUNCHES
+  got = dense_tracking.track_many_points(video, params, config, num_points=24,
+                                         seed=2)
+  torch.backends.cudnn.allow_tf32 = True
+  assert corr_tents.LAUNCHES - before == 5 * 3 * config.num_pips_iter
+  np.testing.assert_array_equal(got["query_points"], ref["query_points"])
+  np.testing.assert_allclose(got["tracks"], ref["tracks"], rtol=0, atol=1e-3)
+  for key in ("occlusion", "expected_dist"):
+    np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=1e-3)
+  qt = got["query_points"][:, 0].astype(int)
+  assert not (got["visibility"] & (np.arange(5)[None] < qt[:, None])).any()

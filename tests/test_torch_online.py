@@ -531,3 +531,30 @@ def test_online_trained_model_matches_jax_golden(trained_params):
     np.testing.assert_allclose(out[key], golden[f"float32_{key}"], rtol=0,
                                atol=GOLDEN_FP32_TOL["logits"])
   assert np.mean(out["visibles"] == golden["float32_visibles"]) >= 0.99
+
+
+# The port's int8 stream c on the card sits this far from JAX's in the
+# logits on the golden clip (chip_smoke.py's online-golden-int8, on the
+# queries within the offline limits; PERF.md section 6).
+CARD_C_LOGIT_DISTANCE = 0.52
+
+
+def test_int8_c_stream_sits_within_jaxs_own_spread():
+  """JAX's own int8 stream c on the golden clip nudged by each of
+  make_online_golden.SPREAD_ULPS float32 ulps (tests/data/
+  bootstapir_golden_online_c_spread.npz) moves its logits, on the queries
+  within the offline track limits, as far as the card's stream sits from
+  JAX's: float32 noise, not a fault. The +16-ulp stream is the committed
+  witness bit for bit, and the port's plain stream on the CPU lies within
+  the spread too."""
+  spread = np.load(make_online_golden.OUT_SPREAD)
+  golden = np.load(make_online_golden.OUT_INT8)
+  for key in ("tracks", "visibles", "occlusion", "expected_dist"):
+    np.testing.assert_array_equal(spread[f"nudged16_{key}"],
+                                  golden[f"c_nudged_{key}"])
+  distances = make_online_golden.spread_distances(spread, golden)
+  nudges = {k: v for k, v in distances.items() if k.startswith("nudged")}
+  assert len(nudges) == len(make_online_golden.SPREAD_ULPS) >= 5
+  jax_spread = max(v["logit_max_abs_kept"] for v in nudges.values())
+  assert jax_spread >= CARD_C_LOGIT_DISTANCE, distances
+  assert distances["port_cpu"]["logit_max_abs_kept"] <= jax_spread, distances

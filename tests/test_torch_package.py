@@ -285,6 +285,28 @@ def test_predictor_refuses_cpu_fallback():
   assert resolve_device("cpu").type == "cpu"
 
 
+def test_slice_entry_points_refuse_cpu_fallback():
+  """RoboTAP's dense tracking and clustering and flow-assisted tracking run
+  on the card unless asked for the CPU; without a card they raise before
+  any work."""
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA card is present: the default device is usable")
+  import numpy as np
+
+  from tapnet_tpu_torch.robotap import clustering, dense_tracking
+  from tapnet_tpu_torch.utils import flow_track_assist
+
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    dense_tracking.track_many_points(np.zeros((2, 32, 32, 3), np.uint8), {})
+  tracks, vis = np.zeros((4, 3, 2)), np.ones((4, 3))
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    clustering.compute_clusters({"e": tracks}, {"e": vis}, ["e"],
+                                {"e": (3, 8, 8, 3)}, verbose=False)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    flow_track_assist.interpolate_track(np.zeros((2, 8, 8, 2)), (1, 1),
+                                        (2, 2), radius=2)
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
   """A build that cannot run raises; nothing falls back to the plain
   versions. Imports needed no toolchain."""

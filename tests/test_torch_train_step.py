@@ -164,7 +164,7 @@ def test_checkpoint_resume_keeps_the_schedule_step(tmp_path):
   assert not os.path.exists(str(tmp_path / "ckpt.npy") + "_tmp")
 
 
-def test_trainer_refusals(monkeypatch):
+def test_trainer_refusals(monkeypatch, tmp_path):
   model = tapnext.TAPNextTracker(ssm_vit.SsmVitConfig(**TINY))
   cfg = optimizers.OptimizerConfig()
   if not torch.cuda.is_available():
@@ -181,11 +181,18 @@ def test_trainer_refusals(monkeypatch):
   loss_fn = trainer.tapnext_chunked_loss_builder(model, None, chunk_size=2)
   with pytest.raises(ValueError, match="multiple of chunk_size"):
     loss_fn(_tiny_batch(frames=3))
-  for argv in (["--experiment", "tapnext"],
-               ["--synthetic", "--data_dir", "d"],
-               ["--synthetic", "--model_parallel", "2", "--device", "cpu"]):
-    with pytest.raises(NotImplementedError):
-      run.main(argv)
+  with pytest.raises(NotImplementedError):
+    run.main(["--synthetic", "--model_parallel", "2", "--device", "cpu"])
+  # The Kubric reader is ported (tests/test_torch_kubric.py): --data_dir
+  # reads the directory, and refuses one without examples.
+  with pytest.raises(ValueError, match="No npz files"):
+    run.main(["--experiment", "tapnext", "--data_dir", str(tmp_path),
+              "--device", "cpu"])
+  if not torch.cuda.is_available():
+    # Without --data_dir the CLI trains on synthetic data, as JAX's does,
+    # on the card unless asked for the CPU.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      run.main(["--experiment", "tapnext"])
 
 
 def test_experiments_mirror_jax():

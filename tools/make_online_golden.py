@@ -51,6 +51,18 @@ the limits derived from the first hold on other frames.
   JAX_PLATFORMS=cpu python tools/make_online_golden.py int8     # and witness
   JAX_PLATFORMS=cpu python tools/make_online_golden.py witness  # witness only
   JAX_PLATFORMS=cpu python tools/make_online_golden.py clip2    # second clip
+  JAX_PLATFORMS=cpu python tools/make_online_golden.py spread [ULPS,...]
+  python tools/make_online_golden.py port_c                     # no JAX
+
+`spread` runs JAX's int8 stream c on the golden clip nudged by each of
+SPREAD_ULPS float32 ulps (up for a positive count, down for a negative
+one), or by the comma-separated counts given, and merges the streams into
+tests/data/bootstapir_golden_online_c_spread.npz as `nudged<u>_<key>`.
+`port_c` runs the port's plain stream c (PyTorch on the CPU) on the clip and
+stores it there as `port_cpu_<key>`. `spread_distances` reads each stream's
+distance from JAX's un-nudged stream c (in bootstapir_golden_online_int8.npz)
+on every query and on the queries that stay within the offline limits:
+whether the port's stream sits within JAX's own spread under float32 noise.
 
 numpy only at import: the port's tests and chip_smoke.py import
 `run_stream` and the constants from here.
@@ -80,6 +92,13 @@ ADD_IDX = (0, 5)
 NEW_POINTS = (8, 13)
 # The witness's nudge, in float32 ulps of the preprocessed frames.
 NUDGE_ULPS = 16
+# The spread of JAX's int8 stream c under float32 noise: nudges of the golden
+# clip, in float32 ulps (negative: down), and where the streams are kept.
+SPREAD_ULPS = (-64, -32, -16, -8, -4, 4, 8, 16, 32, 64)
+OUT_SPREAD = os.path.join(REPO, "tests/data/bootstapir_golden_online_c_spread.npz")
+# chip_smoke.GOLDEN_INT8_FP32_TOL["c"]: the offline limits of configuration c,
+# by which a query that leaves the track limits counts as a near tie.
+C_OFFLINE_TOL = dict(visible_px=3.0, any_px=6.0, median_px=0.15, logits=0.4)
 
 
 def online_queries(query_points: np.ndarray):
@@ -102,11 +121,76 @@ def run_stream(init, step, add_points, frames, query_points, new_points):
 
 
 def nudged(frames: np.ndarray, ulps: int = NUDGE_ULPS) -> np.ndarray:
-  """The preprocessed frames with every value `ulps` float32 ulps up."""
+  """The preprocessed frames with every value `ulps` float32 ulps up (down
+  for a negative count)."""
   out = np.asarray(frames, np.float32)
-  for _ in range(ulps):
-    out = np.nextafter(out, np.float32(np.inf)).astype(np.float32)
+  toward = np.float32(np.inf if ulps > 0 else -np.inf)
+  for _ in range(abs(ulps)):
+    out = np.nextafter(out, toward).astype(np.float32)
   return out
+
+
+def _stream_keys():
+  return ("tracks", "visibles", "occlusion", "expected_dist")
+
+
+def spread_distances(spread=None, golden=None):
+  """{stream: distances} of every stream in the spread file from JAX's
+  un-nudged stream c: the largest logit distance and track distance on
+  every query (`all`) and on the queries that stay within the offline track
+  limits (`kept`), with the queries that leave them (`off_track`)."""
+  spread = np.load(OUT_SPREAD) if spread is None else spread
+  golden = np.load(OUT_INT8) if golden is None else golden
+  ref = {k: golden[f"c_{k}"] for k in _stream_keys()}
+  names = sorted({k.rsplit("_", 1)[0] for k in spread.files
+                  if k.endswith("_tracks")})
+  out = {}
+  for name in names:
+    got = {k: spread[f"{name}_{k}"] for k in _stream_keys()}
+    err = np.linalg.norm(got["tracks"] - ref["tracks"], axis=-1)[:, 0]
+    off = np.nonzero((err > C_OFFLINE_TOL["any_px"]).any(0)
+                     | ((err > C_OFFLINE_TOL["visible_px"])
+                        & ref["visibles"][:, 0]).any(0))[0]
+    keep = np.setdiff1d(np.arange(err.shape[1]), off)
+    logit = np.maximum(*(np.abs(got[k] - ref[k])[:, 0]
+                         for k in ("occlusion", "expected_dist")))
+    out[name] = dict(
+        logit_max_abs=float(logit.max()),
+        logit_max_abs_kept=float(logit[:, keep].max()),
+        track_max_px=float(err.max()),
+        track_max_px_kept=float(err[:, keep].max()),
+        off_track=[int(q) for q in off])
+  return out
+
+
+def _merge_spread(arrays):
+  """Adds `arrays` to the spread file (kept entries of other runs)."""
+  old = dict(np.load(OUT_SPREAD)) if os.path.exists(OUT_SPREAD) else {}
+  old.update(arrays)
+  np.savez_compressed(OUT_SPREAD, **old)
+  print(f"wrote {OUT_SPREAD} ({os.path.getsize(OUT_SPREAD) / 2**20:.3f} MiB)")
+
+
+def port_stream_c():
+  """The port's plain stream c on the golden clip (PyTorch on the CPU),
+  merged into the spread file as `port_cpu_<key>`; prints the distances."""
+  import torch
+
+  from tapnet_tpu_torch.checkpoints.tapir_checkpoint import (
+      load_tapir_checkpoint)
+  from tapnet_tpu_torch.inference import OnlineTapirPredictor
+  from tapnet_tpu_torch.models.tapir import causal_bootstapir_config
+  from tapnet_tpu_torch.utils.sampling import preprocess_frames
+  from tools.golden_clip import INT8_CONFIGS
+
+  golden = np.load(OUT_INT8)
+  frames = preprocess_frames(torch.from_numpy(np.load(GOLDEN)["video"])).numpy()
+  predictor = OnlineTapirPredictor(
+      load_tapir_checkpoint(CHECKPOINT),
+      causal_bootstapir_config(**INT8_CONFIGS["c"]), device="cpu")
+  out = run_stream(predictor.init, predictor.step, predictor.add_points,
+                   frames, golden["query_points"], golden["new_query_points"])
+  _merge_spread({f"port_cpu_{k}": out[k] for k in _stream_keys()})
 
 
 def add_witness(arrays, stream, frames):
@@ -169,6 +253,18 @@ def main(which=("float", "int8")):
                       new_qp)
 
   os.makedirs(os.path.dirname(OUT), exist_ok=True)
+  if "spread" in which:
+    ulps = SPREAD_ULPS
+    rest = which[which.index("spread") + 1:]
+    if rest and rest[0][:1] in "-0123456789":
+      ulps = tuple(int(u) for u in rest[0].split(","))
+    config = tapir.causal_bootstapir_config(**INT8_CONFIGS["c"])
+    for u in ulps:
+      out = stream(config, nudged(frames, u))
+      _merge_spread({f"nudged{u}_{k}": v for k, v in out.items()})
+      print(f"ran c on the clip nudged {u} ulps", flush=True)
+    for name, d in spread_distances().items():
+      print(name, d)
   if "clip2" in which:
     from tools.golden_clip import make_clip
 
@@ -217,4 +313,9 @@ def main(which=("float", "int8")):
 
 if __name__ == "__main__":
   sys.path.insert(0, REPO)
-  main(sys.argv[1:] or ("float", "int8"))
+  if sys.argv[1:] == ["port_c"]:
+    port_stream_c()
+    for stream_name, dist in spread_distances().items():
+      print(stream_name, dist)
+  else:
+    main(sys.argv[1:] or ("float", "int8"))
