@@ -1,6 +1,7 @@
 """Drives the PyTorch port on one CUDA card and checks it: BootsTAPIR,
 online TAPIR, TAPNext, their training, TAP-Net and TRAJAN, RoboTAP,
-flow-assisted tracking and the Kubric training reader.
+flow-assisted tracking, the Kubric training reader and the multi-device
+layer (two ranks sharing the card).
 
   python3 chip_smoke.py [--records PATH]
 
@@ -119,7 +120,7 @@ Phases (any failure raises and exits non-zero):
      256x256, 256 queries in chunks of 32, fp32 at PyTorch's TF32
      defaults: a warm-up and 3 timed steps, 96 K1 and 384 K3 launches a
      step); train-bootstapir-synth (the JAX package's synthetic recipe,
-     batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 200
+     batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first 150
      steps from fresh weights: the mean loss of the last 50 steps at most
      two thirds of the first 50's); train-bootstrap-256 (BootsTAP
      self-training on the trained checkpoint, 4 x 16 frames at 256x256
@@ -168,7 +169,19 @@ Phases (any failure raises and exits non-zero):
      prepare_batch, feeds bootstapir_experiment() at its own data size: a
      warm-up and 2 timed steps, the batch's wait, 96 K1 and 384 K3 launches a
      step, a finite loss).
-  10. The last line: {"ok": true, "device": {...}}.
+  10. multi_rank (after the TAPNext phases; the constants' header, MR_*):
+     two ranks spawned once by tapnet_tpu_torch.parallel.launch.run_ranks
+     share the card over gloo (NCCL refuses two ranks on one card), so the
+     times are not a multi-GPU speed. serve-480-2rank (TapirPredictor(mesh=
+     ...), the trained BootsTAPIR, 48 frames, fp32 and bf16 against one
+     rank; K1 and K3 on both ranks), serve-tapnext-sp-2rank (ViT-B time-split
+     over the ranks against one rank; 2 K5 launches a layer a rank),
+     sp-scan-grad (the sequence-parallel scan at [9216, 24, 768], values and
+     K5b gradients) and train-bootstapir-dp-2rank (one step of a 4-clip
+     global batch, clips and then queries split, against the one-rank
+     Trainer). Each cell's largest error over its limit, per-rank launches,
+     wall and peak memory.
+  11. The last line: {"ok": true, "device": {...}}.
 
 Every phase prints its record as one JSON line (with `--records PATH`, also
 written to PATH). Exits non-zero, and prints
@@ -240,6 +253,9 @@ from tapnet_tpu_torch.utils import flow_track_assist  # noqa: E402
 from tapnet_tpu_torch.data import kubric_convert  # noqa: E402
 from tapnet_tpu_torch.training import run as run_lib  # noqa: E402
 from tools import make_dense_golden  # noqa: E402
+from tapnet_tpu_torch.parallel import launch as launch_lib  # noqa: E402
+from tapnet_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from tapnet_tpu_torch.parallel import sequence as sequence_lib  # noqa: E402
 from tools.time_int8_kernels import (  # noqa: E402
     K3_PHASES, K4_PHASES, K6_PHASES, K6F_PHASES, X_PHASES,
     split_ms as kernel_split,
@@ -296,10 +312,11 @@ GRAD_EXTRA_GRID = (32, 32)
 # train-bootstapir-synth: the JAX package's recipe (README.md, Training),
 # batch 4 x 16 frames, 128 queries, schedule horizon 6000, its first
 # SYNTH_STEPS steps; the gate on the mean loss of the last 50 against the
-# first 50. Cut from 500 steps to 200 for the script's time: the phase is
-# host-bound and took 365-556 s at 500 on the same card.
+# first 50. Cut from 500 steps to 150 for the script's time (to 200 before
+# the multi_rank phase came): the phase is host-bound and took 365-556 s at
+# 500 on the same card.
 SYNTH_BATCH, SYNTH_FRAMES, SYNTH_QUERIES, SYNTH_HORIZON = 4, 16, 128, 6000
-SYNTH_STEPS, SYNTH_GATE = 200, 2.0 / 3.0
+SYNTH_STEPS, SYNTH_GATE = 150, 2.0 / 3.0
 # train-bootstrap-256: timed BootsTAP steps after the warm-up.
 BOOTSTRAP_STEPS = 1
 # The online paths' shapes. Each online step (256x256, ONLINE_QUERIES = 64)
@@ -2036,10 +2053,10 @@ def golden_check_int8(params):
   return result, launches
 
 
-def make_videos(count, queries=QUERIES):
-  """Textured 480x480 clips on the device: the golden clip's frames,
-  upsampled and scrolled a few pixels per frame, one direction per video,
-  with `queries` query points each."""
+def make_videos(count, queries=QUERIES, num_frames=FRAMES):
+  """Textured 480x480 clips of `num_frames` on the device: the golden clip's
+  frames, upsampled and scrolled a few pixels per frame, one direction per
+  video, with `queries` query points each."""
   golden = np.load(GOLDEN)
   base = torch.from_numpy(golden["video"][0]).cuda().permute(0, 3, 1, 2).float()
   base = torch.nn.functional.interpolate(base, size=(RES, RES), mode="bilinear")
@@ -2049,11 +2066,11 @@ def make_videos(count, queries=QUERIES):
     vy, vx = (torch.randint(-3, 4, (2,), generator=gen)).tolist()
     frames = torch.stack([
         torch.roll(base[t % base.shape[0]], (vy * t, vx * t), dims=(1, 2))
-        for t in range(FRAMES)
+        for t in range(num_frames)
     ])
     video = frames.permute(0, 2, 3, 1)[None] / 255.0 * 2.0 - 1.0
     qp = torch.stack([
-        torch.randint(0, FRAMES, (queries,), generator=gen).float(),
+        torch.randint(0, num_frames, (queries,), generator=gen).float(),
         torch.rand(queries, generator=gen) * (RES - 16) + 8,
         torch.rand(queries, generator=gen) * (RES - 16) + 8,
     ], -1)[None]
@@ -3540,6 +3557,320 @@ def serve_trajan_150():
 
 # `--records PATH`: also write every record line to PATH, for a caller that
 # sees only the end of the output.
+# ------------------------------------------------------------- multi_rank
+# The multi-device layer (tapnet_tpu_torch/parallel/) on MR_RANKS ranks that
+# parallel.launch.run_ranks spawns once for the whole phase. The machine has
+# one card, and NCCL refuses two ranks on one card, so the ranks share it
+# over gloo, which takes CUDA tensors for its collectives: the phase checks
+# the sharded algorithms, their collectives and each rank's kernel launches
+# at full model width. Its times are of two ranks sharing one card over
+# gloo, not a multi-GPU speed (NCCL and NVLink are not exercised). Cells:
+#   serve-480-2rank: the trained BootsTAPIR at 480^2, MR_QUERIES queries in
+#     chunks of CHUNK, the clip cut to MR_FRAMES frames, through
+#     TapirPredictor(mesh=...) (frames over the ranks for the backbone,
+#     queries for the refinement), against the one-rank predictor on the
+#     same clip: fp32 with TF32 off within MR_FP32_PX on every track
+#     coordinate and GOLDEN_FP32_TOL's logits; bf16 within GOLDEN_BF16_TOL.
+#     K1 and K3 launch on both ranks.
+#   serve-tapnext-sp-2rank: ViT-B (seed-made weights) at 256^2,
+#     MR_TN_QUERIES queries, MR_TN_FRAMES frames split over the ranks in
+#     time (TapnextPredictor(mesh=...)), fp32 with TF32 off, against one
+#     rank within TN_GOLDEN_FP32_TOL; K5 launches exactly twice per
+#     recurrent layer on each rank (the local scan and the cumulative decay)
+#     and nothing else launches.
+#   sp-scan-grad: sequence_parallel_linear_scan at train-tapnext-256's K5
+#     shape TRAIN_SCAN_SHAPE, split over the ranks, values and gradients
+#     (K5b) against one rank's linear_scan, each within MR_SCAN_REL of the
+#     largest |value| of the reference (float32 sums in another order: the
+#     carry enters once, as a multiply-add, instead of through the chain).
+#   train-bootstapir-dp-2rank: bootstapir_experiment() at its own width, one
+#     step of a global batch of MR_TRAIN_BATCH x TRAIN_TAPIR_FRAMES x 256^2
+#     with MR_TRAIN_QUERIES queries, at model_parallel 1 (the clips split)
+#     and 2 (the queries split), fp32 with TF32 off, the schedule's warm-up
+#     dropped so that the step moves the parameters; against the one-rank
+#     Trainer on the same batch and draws, with the limits of
+#     tools/make_tapir_train_golden.py's header: each gradient leaf within
+#     1e-4 of its largest |g| plus 1e-7 of the model's plus 3x the one-rank
+#     step's own distance when the videos are nudged by 16 float32 steps,
+#     and each parameter within 1e-6 of itself plus what that lets Adam's
+#     first step move.
+MR_RANKS = 2
+MR_FRAMES, MR_QUERIES, MR_FP32_PX = 48, 256, 1e-3
+MR_TN_FRAMES, MR_TN_QUERIES = 48, 64
+MR_SCAN_REL = 1e-5
+MR_TRAIN_BATCH, MR_TRAIN_QUERIES = 4, 128
+MR_BUDGET_S = 120
+
+
+def _mr_measure(fn):
+  """fn() on this rank with the kernels it launched, its wall and its peak
+  memory."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_counts()
+  start = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, dict(wall_s=time.perf_counter() - start,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={k: v for k, v in read_counts().items() if v})
+
+
+def _mr_tf32(on):
+  torch.backends.cuda.matmul.allow_tf32 = on
+  torch.backends.cudnn.allow_tf32 = on
+
+
+def _mr_serve_480(mesh):
+  """serve-480-2rank (see the phase's header)."""
+  params = load_tapir_checkpoint(CHECKPOINT)
+  video, qp = make_videos(1, MR_QUERIES, MR_FRAMES)[0]
+  cells = {}
+  for name, bf16 in (("fp32", False), ("bf16", True)):
+    _mr_tf32(False)
+    kw = dict(bfloat16=bf16, query_chunk_size=CHUNK,
+              refinement_resolutions=[(RES, RES)])
+    sharded = TapirPredictor(params, bootstapir_config(), mesh=mesh, **kw)
+    sharded(video, qp)  # warm-up: cuDNN's choices, the allocator's growth
+    got, rank = _mr_measure(lambda: sharded(video, qp))
+    require(rank["launches"].get("corr_tents", 0) > 0
+            and rank["launches"].get("mixer_block", 0) > 0,
+            f"serve-480-2rank {name}: rank {mesh.rank} launched "
+            f"{rank['launches']}")
+    check = {}
+    if mesh.rank == 0:
+      want = TapirPredictor(params, bootstapir_config(), **kw)(video, qp)
+      err = golden_errors(sharded, got, want)
+      if bf16:
+        tol = GOLDEN_BF16_TOL
+        over = max(err["track_median_px"] / tol["median_px"],
+                   err["track_p95_px"] / tol["p95_px"],
+                   (1 - err["visible_agree"]) / (1 - tol["visible_agree"]))
+      else:
+        tol = dict(track_px=MR_FP32_PX, logits=GOLDEN_FP32_TOL["logits"])
+        over = max(err["track_max_px"] / tol["track_px"],
+                   err["logit_max_abs"] / tol["logits"])
+      check = dict(errors=err, tol=tol, max_err_over_limit=over)
+      require(over <= 1, f"serve-480-2rank {name}: {check}")
+    cells[name] = dict(check=check, rank=rank)
+    del sharded
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+  return cells
+
+
+def _mr_serve_tapnext(mesh):
+  """serve-tapnext-sp-2rank (see the phase's header)."""
+  _mr_tf32(False)
+  params = seeded_tapnext_params(SsmVitConfig(), TAPNEXT_SEED)
+  video, qp = tapnext_videos(1, frames=MR_TN_FRAMES, queries=MR_TN_QUERIES)[0]
+  sharded = TapnextPredictor(params, SsmVitConfig(), mesh=mesh)
+  sharded(video, qp)
+  got, rank = _mr_measure(lambda: sharded(video, qp))
+  depth = SsmVitConfig().depth
+  require(rank["launches"] == {"linear_scan": 2 * depth},
+          f"serve-tapnext-sp-2rank: rank {mesh.rank} launched "
+          f"{rank['launches']}, expected {2 * depth} K5 and nothing else")
+  check = {}
+  if mesh.rank == 0:
+    want = TapnextPredictor(params, SsmVitConfig())(video, qp)
+    axis_err = np.abs(got["tracks"] - want["tracks"]).max(-1)
+    tol = TN_GOLDEN_FP32_TOL
+    err = dict(track_max_px=float(axis_err.max()),
+               share_within_px=float(np.mean(axis_err <= tol["track_px"])),
+               occlusion_max_abs=float(np.abs(
+                   got["occlusion"] - want["occlusion"]).max()))
+    over = max((1 - err["share_within_px"]) / (1 - tol["share"]),
+               err["occlusion_max_abs"] / tol["logits"])
+    check = dict(errors=err, tol=tol, max_err_over_limit=over)
+    require(over <= 1, f"serve-tapnext-sp-2rank: {check}")
+  del sharded
+  torch.cuda.empty_cache()
+  torch.distributed.barrier()
+  return dict(check=check, rank=rank)
+
+
+def _mr_sp_scan(mesh):
+  """sp-scan-grad (see the phase's header)."""
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  x, a, h0 = scan_inputs(TRAIN_SCAN_SHAPE, torch.float32, True, gen)
+  gy = torch.randn(x.shape, device="cuda", generator=gen)
+  gh = torch.randn(h0.shape, device="cuda", generator=gen)
+  part = lambda v: sequence_lib.shard_time(v, mesh)
+  xs = part(x).contiguous().requires_grad_()
+  as_ = part(a).contiguous().requires_grad_()
+
+  def sharded():
+    y, h = sequence_lib.sequence_parallel_linear_scan(xs, as_, h0, mesh)
+    # This rank's share of sum(y * gy) + sum(h * gh).
+    ((y * part(gy)).sum() + (h * gh).sum() / mesh.size()).backward()
+    return y.detach(), h.detach()
+
+  (y, h), rank = _mr_measure(sharded)
+  require(rank["launches"] == {"linear_scan": 2, "linear_scan_backward": 2},
+          f"sp-scan-grad: rank {mesh.rank} launched {rank['launches']}")
+  xr, ar = x.clone().requires_grad_(), a.clone().requires_grad_()
+  y1, h1 = scan.linear_scan(xr, ar, h0)
+  ((y1 * gy).sum() + (h1 * gh).sum()).backward()
+  rel = lambda got, want: float(
+      (got - want).detach().abs().max() / want.detach().abs().max())
+  err = dict(y=rel(y, part(y1)), h_last=rel(h, h1), dx=rel(xs.grad, part(xr.grad)),
+             da=rel(as_.grad, part(ar.grad)))
+  check = dict(errors_rel=err, tol_rel=MR_SCAN_REL,
+               max_err_over_limit=max(err.values()) / MR_SCAN_REL,
+               shape=list(TRAIN_SCAN_SHAPE))
+  require(check["max_err_over_limit"] <= 1, f"sp-scan-grad: {check}")
+  del x, a, gy, xs, as_, xr, ar, y1
+  torch.cuda.empty_cache()
+  torch.distributed.barrier()
+  return dict(check=check, rank=rank)
+
+
+def _mr_train_step(mesh, exp, opt, batch):
+  """One Trainer step of `exp` (over `mesh`, or one rank): (the gradients
+  the optimizer received, the parameters after the step, its record)."""
+  t = trainer_lib.Trainer(exp.build_model(), opt, exp.total_steps,
+                          task=exp.task, loss_builder=exp.loss_builder,
+                          device="cuda", mesh=mesh)
+  state = t.init_state()
+  grads = []
+  update = t.tx.update
+  t.tx.update = lambda g, s, p: (grads.append(g), update(g, s, p))[1]
+  if mesh is not None:
+    batch = mesh_lib.shard_batch(batch, mesh)
+  (state, scalars), rank = _mr_measure(
+      lambda: t.step_fn(state, batch, t.step_generator(0)))
+  rank["loss"] = float(scalars["loss"])
+  return grads[0], {k: p.detach() for k, p in state.params.items()}, rank
+
+
+def _mr_train(mesh_of):
+  """train-bootstapir-dp-2rank (see the phase's header)."""
+  _mr_tf32(False)
+  exp = train_configs.bootstapir_experiment()
+  opt = dataclasses.replace(exp.optimizer, warmup_steps=0)
+  res = exp.model_config.initial_resolution
+  batch = next(synthetic.batch_iterator(
+      seed=SEED, device="cuda", batch_size=MR_TRAIN_BATCH,
+      num_frames=TRAIN_TAPIR_FRAMES, height=res[0], width=res[1],
+      num_queries=MR_TRAIN_QUERIES))
+  sharded, cells = {}, {}
+  for mp in (1, 2):
+    mesh = mesh_of(mp)
+    grads, params, rank = _mr_train_step(mesh, exp, opt, batch)
+    require(rank["launches"].get("corr_tents", 0) > 0
+            and rank["launches"].get("mixer_block", 0) > 0,
+            f"train-bootstapir-dp-2rank mp={mp}: rank {mesh.rank} launched "
+            f"{rank['launches']}")
+    sharded[mp] = (grads, params)
+    cells[f"model_parallel_{mp}"] = dict(check={}, rank=rank)
+    torch.cuda.empty_cache()
+  if mesh_of(1).rank == 0:
+    g1, p1, _ = _mr_train_step(None, exp, opt, batch)
+    gen = torch.Generator(device="cuda").manual_seed(tapir_golden.NUDGE_SEED)
+    sign = torch.randint(0, 2, batch["video"].shape, device="cuda",
+                         generator=gen) * 2 - 1
+    nudged = dict(batch, video=batch["video"] * (
+        1 + tapir_golden.NUDGE_REL * sign))
+    gn, _, _ = _mr_train_step(None, exp, opt, nudged)
+    big = max(float(g.abs().max()) for g in g1.values())
+    limit = {k: (tapir_golden.GRAD_REL * float(g.abs().max())
+                 + tapir_golden.GRAD_FLOOR * big
+                 + tapir_golden.WITNESS_FACTOR * float((gn[k] - g).abs().max()))
+             for k, g in g1.items()}
+    # Adam's first step moves a parameter by lr * m / (sqrt(v) + eps), so
+    # a gradient d apart moves it by at most lr * min(2, 2 d / (|g| - d)).
+    lr = optimizers_lib.make_lr_schedule(opt, exp.total_steps)(0)
+    for mp, (grads, params) in sharded.items():
+      g_over = max(float((grads[k] - g).abs().max()) / limit[k]
+                   for k, g in g1.items())
+      # A first Adam step moves a parameter by about lr whatever |g| is, so
+      # a gradient within its limit of zero that changes sign moves it by
+      # 2 lr, at its limit: those are counted, and the largest error over
+      # the limit is also given without them.
+      p_over, rest_over, flipped = 0.0, 0.0, 0
+      for k, p in p1.items():
+        d = limit[k]
+        du = torch.clamp(2 * d / (torch.clamp(g1[k].abs() - d, min=0)
+                                  + opt.adam_eps), max=2.0)
+        plimit = tapir_golden.PARAM_REL * p.abs() + lr * du
+        apart = (params[k] - p).abs()
+        over = apart / plimit
+        flips = apart > lr
+        flipped += int(flips.sum())
+        p_over = max(p_over, float(over.max()))
+        rest_over = max(rest_over, float(torch.where(flips, 0.0, over).max()))
+      check = dict(grads_over_limit=g_over, params_over_limit=p_over,
+                   params_flipped=flipped,
+                   params_over_limit_unflipped=rest_over,
+                   max_err_over_limit=max(g_over, p_over), learning_rate=lr,
+                   nudge_witness_max=max(float((gn[k] - g).abs().max())
+                                         for k, g in g1.items()))
+      cells[f"model_parallel_{mp}"]["check"] = check
+      require(check["max_err_over_limit"] <= 1,
+              f"train-bootstapir-dp-2rank mp={mp}: {check}")
+  torch.cuda.empty_cache()
+  torch.distributed.barrier()
+  return cells
+
+
+def _mr_rank(rank, world, device):
+  """One rank of the multi_rank phase: every cell, in order."""
+  del rank, world, device
+  meshes = {}
+
+  def mesh_of(model_parallel):
+    if model_parallel not in meshes:
+      meshes[model_parallel] = mesh_lib.make_mesh(model_parallel)
+    return meshes[model_parallel]
+
+  out = {}
+  for name, cell in (("serve_480_2rank", _mr_serve_480),
+                     ("serve_tapnext_sp_2rank", _mr_serve_tapnext),
+                     ("sp_scan_grad", _mr_sp_scan)):
+    out[name] = cell(mesh_of(1))
+  out["train_bootstapir_dp_2rank"] = _mr_train(mesh_of)
+  return out
+
+
+def multi_rank():
+  """The multi_rank phase (see its header): one spawn of MR_RANKS ranks on
+  the one card. A failure of any rank fails the phase."""
+  torch.cuda.empty_cache()
+  start = time.perf_counter()
+  # gloo, not NCCL: the ranks share the one card, and NCCL refuses two ranks
+  # on one card.
+  ranks = launch_lib.run_ranks(_mr_rank, MR_RANKS, "gloo", "cuda",
+                               timeout=900)
+  wall = time.perf_counter() - start
+
+  def merged(name, records):
+    """A cell's check (rank 0's) with every rank's launches, wall and peak
+    memory, printed on one line."""
+    cell = dict(records[0]["check"], per_rank=[r["rank"] for r in records])
+    print(f"multi_rank {name}: {cell.get('max_err_over_limit', 0):.4g} of "
+          f"its limit; per rank " + "; ".join(
+              f"{r['launches']}, {r['wall_s']:.3f} s, "
+              f"{r['peak_memory_gb']:.2f} GB" for r in cell["per_rank"]),
+          flush=True)
+    return cell
+
+  cells = {}
+  for name, value in ranks[0].items():
+    if "check" in value:
+      cells[name] = merged(name, [r[name] for r in ranks])
+    else:
+      cells[name] = {sub: merged(f"{name}/{sub}", [r[name][sub] for r in ranks])
+                     for sub in value}
+  print(f"multi_rank: {MR_RANKS} ranks sharing one card over gloo (NCCL "
+        f"refuses two ranks on one card): the times are of ranks sharing a "
+        f"card, not a multi-GPU speed; phase {wall:.1f} s "
+        f"(budget {MR_BUDGET_S} s)", flush=True)
+  return dict(note="two ranks share one H100 over gloo; times are not a "
+                   "multi-GPU speed", ranks=MR_RANKS, backend="gloo",
+              wall_s=wall, budget_s=MR_BUDGET_S, cells=cells)
+
+
 RECORDS = None
 
 
@@ -3946,6 +4277,31 @@ def train_kubric_256():
       launches_per_step=timed[-1]["launches"])
 
 
+def multi_rank_launches(counter, runs):
+  """{cell: [launches on each rank]} of `counter` in the multi_rank phase
+  (only the cells that launched it)."""
+  out = {}
+  for name, cell in runs["multi_rank"]["cells"].items():
+    subs = {name: cell} if "per_rank" in cell else {
+        f"{name}/{sub}": v for sub, v in cell.items()}
+    for key, sub in subs.items():
+      counts = [r["launches"].get(counter, 0) for r in sub["per_rank"]]
+      if any(counts):
+        out[key] = counts
+  return out
+
+
+def launches_in(meta, counter, per, runs):
+  """A kernel's launches in the runs besides the one that drives it: its
+  `also_runs` (per video or step) and, per rank, the multi_rank phase's."""
+  out = {run: runs[run][f"launches_per_{per}"][counter]
+         for run in (meta["run"], *meta.get("also_runs", ()))}
+  ranks = multi_rank_launches(counter, runs)
+  if ranks:
+    out["multi_rank"] = ranks
+  return out
+
+
 def emit(record):
   """Prints a record as one JSON line (and appends it to RECORDS)."""
   line = json.dumps(record)
@@ -4072,6 +4428,10 @@ def main():
   del tn_params
   torch.cuda.empty_cache()
 
+  runs["multi_rank"] = multi_rank()
+  emit({"multi_rank": runs["multi_rank"], "card": card})
+  stamp("multi_rank")
+
   emit({"train_golden": train_golden_check()})
   stamp("train-golden")
   for name, phase in (("train_tapnext_256", train_tapnext_256),
@@ -4154,9 +4514,9 @@ def main():
         shape=row["shape"], dtype=dtype,
         **{f"profile_ms_per_{per}": profile_ms},
         # K4: its launches in the JAX headline's run too.
-        **({"launches_in": {run: runs[run][f"launches_per_{per}"][name]
-                            for run in (meta["run"], *meta["also_runs"])}}
-           if "also_runs" in meta else {}),
+        **({"launches_in": launches_in(meta, counter, per, runs)}
+           if "also_runs" in meta or multi_rank_launches(counter, runs)
+           else {}),
         **({"at_runs": at_runs} if at_runs else {}),
         **({"split_ms": row["split_ms"]} if "split_ms" in row else {}),
         **({"ms_by_grid": row["ms_by_grid"],

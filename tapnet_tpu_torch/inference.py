@@ -7,7 +7,9 @@ the caller asked for `device="cpu"`.
 
   * `TapirPredictor` pads query counts (and optionally frame counts) up to
     buckets, as in the JAX version, so results do not depend on how a
-    request was cut.
+    request was cut. With a `mesh` it runs over ranks: the backbone on each
+    rank's frames, the feature grids all-gathered, the refinement on each
+    rank's queries, and the outputs gathered on every rank.
   * `OnlineTapirPredictor` runs causal TAPIR one frame at a time, with the
     mixers' streaming state carried from step to step.
   * `TapnextPredictor` runs TAPNext offline, in time chunks with the SSM
@@ -26,6 +28,7 @@ import torch
 from tapnet_tpu_torch.checkpoints.convert import load_flax_params, load_tapnext_params
 from tapnet_tpu_torch.models import ssm_vit, tapnext
 from tapnet_tpu_torch.models import tapir as tapir_lib
+from tapnet_tpu_torch.parallel import mesh as mesh_lib
 from tapnet_tpu_torch.utils import sampling
 
 
@@ -57,10 +60,12 @@ class TapirPredictor:
       bfloat16: bool = False,
       refinement_resolutions: Optional[Sequence[Tuple[int, int]]] = None,
       device: Optional[Any] = None,
+      mesh: Optional[mesh_lib.Mesh] = None,
   ):
     """Args:
       params: Flax-layout parameter tree with numpy leaves (e.g. from
-        `checkpoints.tapir_checkpoint.load_tapir_checkpoint`).
+        `checkpoints.tapir_checkpoint.load_tapir_checkpoint`); the same on
+        every rank of a `mesh`.
       config: model configuration.
       query_bucket: queries are padded up to a multiple of this.
       frame_bucket: if set, frames are padded (by repeating the last frame)
@@ -71,9 +76,16 @@ class TapirPredictor:
         accumulations and heads); float32 parameters are cast to bf16.
       refinement_resolutions: override the refinement resolution ladder
         (default: log-spaced from the initial resolution up to the video's).
-      device: torch device; None means "cuda" (raises without a card).
+      device: torch device; None means "cuda" (raises without a card); with
+        a `mesh`, rank r takes cuda:{r % cards}.
+      mesh: a `parallel.mesh.Mesh` for multi-device inference, as the JAX
+        predictor's (`mesh_lib.inference_shardings`): frames are split over
+        the ranks for the backbone, the feature grids all-gathered, queries
+        split for the refinement, and every rank returns the whole outputs.
+        Queries and frames are padded up to multiples of the rank count (the
+        frames by repeating the last one, as `frame_bucket`).
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device(device)
     config = config or tapir_lib.TapirConfig()
     if bfloat16:
       config = dataclasses.replace(config, compute_dtype="bfloat16")
@@ -81,8 +93,12 @@ class TapirPredictor:
     load_flax_params(model, params)
     if bfloat16:
       model = model.to(torch.bfloat16)
+    if mesh is not None:
+      ranks = mesh.size()
+      query_bucket = _round_up(query_bucket, ranks)
+      frame_bucket = _round_up(frame_bucket or 1, ranks)
     self._bind(model.to(device).eval(), device, query_bucket, frame_bucket,
-               query_chunk_size, refinement_resolutions)
+               query_chunk_size, refinement_resolutions, mesh)
 
   @classmethod
   def from_model(cls, model: tapir_lib.TAPIR,
@@ -96,8 +112,9 @@ class TapirPredictor:
     return self
 
   def _bind(self, model, device, query_bucket, frame_bucket,
-            query_chunk_size, refinement_resolutions):
+            query_chunk_size, refinement_resolutions, mesh=None):
     self.model = model
+    self.mesh = mesh
     self.device = device
     self.query_bucket = query_bucket
     self.frame_bucket = frame_bucket
@@ -127,13 +144,40 @@ class TapirPredictor:
         video = torch.cat([video, tail], dim=1)
     chunk = min(self.query_chunk_size or n_pad, n_pad)
     with torch.inference_mode():
-      out = self.model(
-          video,
-          query_points,
-          query_chunk_size=chunk,
-          refinement_resolutions=self.refinement_resolutions,
-      )
+      if self.mesh is None:
+        out = self.model(
+            video,
+            query_points,
+            query_chunk_size=chunk,
+            refinement_resolutions=self.refinement_resolutions,
+        )
+      else:
+        out = self._sharded_forward(video, query_points, chunk)
     return out, n, t
+
+  def _sharded_forward(self, video, query_points, chunk):
+    """The forward over the mesh's ranks (`mesh_lib.inference_shardings`):
+    the same function as one rank's, up to float sums in other orders."""
+    mesh = self.mesh
+    frames, queries, outputs = mesh_lib.inference_shardings(mesh)
+    local = self.model.get_feature_grids(
+        mesh_lib.shard(video, mesh, *frames), self.refinement_resolutions)
+    gathered = {}
+
+    def whole(grid):  # a grid shared by two levels is gathered once
+      if id(grid) not in gathered:
+        gathered[id(grid)] = mesh_lib.gather(grid, mesh, frames[0], dim=1)
+      return gathered[id(grid)]
+
+    grids = tapir_lib.FeatureGrids(
+        tuple(whole(g) for g in local.lowres),
+        tuple(whole(g) for g in local.hires), local.resolutions)
+    mine = mesh_lib.shard(query_points, mesh, *queries)
+    out = self.model(video, mine, query_chunk_size=min(chunk, mine.shape[1]),
+                     refinement_resolutions=self.refinement_resolutions,
+                     feature_grids=grids)
+    return {key: mesh_lib.gather(out[key], mesh, *outputs)
+            for key in ("tracks", "occlusion", "expected_dist")}
 
   @staticmethod
   def _materialize(out, n, t) -> Mapping[str, np.ndarray]:
@@ -308,6 +352,7 @@ class TapnextPredictor:
       query_bucket: Optional[int] = None,
       chunk_size: Optional[int] = None,
       device: Optional[Any] = None,
+      mesh: Optional[mesh_lib.Mesh] = None,
   ):
     """Args:
       params: Flax-layout TAPNext parameter tree with numpy leaves (e.g. from
@@ -319,9 +364,18 @@ class TapnextPredictor:
         pass: the temporal mixer is exactly recurrent and attention is per
         frame), bounding activation memory by the chunk. The last chunk is
         padded by repeating the last frame.
-      device: torch device; None means "cuda" (raises without a card).
+      device: torch device; None means "cuda" (raises without a card); with
+        a `mesh`, rank r takes cuda:{r % cards}.
+      mesh: a `parallel.mesh.Mesh`: each clip (or chunk) runs time-split over
+        its "data" axis (sequence parallelism, `models/ssm_vit.py`), and every
+        rank returns the whole outputs. The frame count (and `chunk_size`)
+        must be a multiple of the axis size.
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh.device(device)
+    config = config or ssm_vit.SsmVitConfig()
+    if mesh is not None:
+      config = dataclasses.replace(config, sp_mesh=mesh,
+                                   sp_axis=mesh_lib.DATA_AXIS)
     self._bind(_tapnext_model(params, config, device), device, query_bucket,
                chunk_size)
 

@@ -12,8 +12,13 @@ tensors as they are.
 Activations are [batch, time, channels]. The linear recurrence runs
 `ops.scan.linear_scan` (K5 on the card, K5b in its backward). The input
 normalisation sqrt(1 - a^2) has the JAX module's clipped gradient
-(`sqrt_bound_derivative`). The sequence-parallel branches of the JAX module
-(`sp`) are not ported.
+(`sqrt_bound_derivative`).
+
+Sequence parallelism: each module's forward takes an optional `sp`, a
+(`parallel.mesh.Mesh`, time axis) pair, and then runs on this rank's part of
+the time axis through `parallel/sequence.py` (the JAX modules' `sp`
+attribute; here the caller decides per call, with `sp_active` on the global
+length, so that a streaming step of one frame takes the local path).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from torch import nn
 from tapnet_tpu_torch.models.layers import _param, linear
 from tapnet_tpu_torch.ops import scan
 from tapnet_tpu_torch.ops.mixer_math import gelu
+from tapnet_tpu_torch.parallel import sequence
 
 _MAX_SQRT_GRADIENT = 1000.0
 
@@ -91,12 +97,30 @@ def linear_recurrence(
   return scan.linear_scan(x.contiguous(), a.contiguous(), h0.contiguous())
 
 
+def sp_active(sp, t: int) -> bool:
+  """Whether the sequence-parallel path applies to a sequence of global
+  length t. `sp` is an optional (Mesh, time axis) pair. A streaming step
+  (t == 1) takes the local path; a longer sequence whose length the axis does
+  not divide is a configuration error."""
+  if sp is None:
+    return False
+  mesh, axis = sp
+  p = mesh.size(axis)
+  if p <= 1 or t == 1:
+    return False
+  if t % p:
+    raise ValueError(
+        f"sequence length {t} not divisible by mesh axis {axis!r} ({p})")
+  return True
+
+
 class RGLRU(nn.Module):
   """Real-Gated Linear Recurrent Unit.
 
   a[t] = exp(-8 * sigmoid(a_gate(x)) * softplus(a_param)); the input is
   gated by sigmoid(input_gate(x)) and normalized by sqrt(1 - a^2), except at
-  t = 0 of a fresh sequence (no cache).
+  t = 0 of a fresh sequence (no cache). Under `sp` that is the global frame
+  0, which only the first rank along the time axis holds.
   """
 
   def __init__(self, width: int, num_heads: int):
@@ -106,7 +130,7 @@ class RGLRU(nn.Module):
     self.a_gate = BlockDiagonalLinear(width, num_heads)
 
   def forward(
-      self, x: torch.Tensor, cache: Optional[torch.Tensor] = None
+      self, x: torch.Tensor, cache: Optional[torch.Tensor] = None, sp=None
   ) -> Tuple[torch.Tensor, torch.Tensor]:
     gate_x = torch.sigmoid(self.input_gate(x))
     gate_a = torch.sigmoid(self.a_gate(x))
@@ -118,10 +142,16 @@ class RGLRU(nn.Module):
     gated_x = x * gate_x
     multiplier = sqrt_bound_derivative(1 - a_square)
     if cache is None:
-      # Fresh sequence: no normalization at the first step.
-      t_idx = torch.arange(x.shape[1], device=x.device)[None, :, None]
+      # Fresh sequence: no normalization at the (global) first step. Every
+      # rank builds the same graph (the order of the collectives in the
+      # backward depends on it), with a global index.
+      t0 = 0 if sp is None else sp[0].index(sp[1]) * x.shape[1]
+      t_idx = torch.arange(t0, t0 + x.shape[1], device=x.device)[None, :, None]
       multiplier = torch.where(t_idx == 0, 1.0, multiplier)
     normalized_x = gated_x * multiplier.to(x.dtype)
+    if sp is not None:
+      return sequence.sequence_parallel_linear_scan(
+          normalized_x, a, cache, sp[0], sp[1])
     return linear_recurrence(normalized_x, a, cache)
 
 
@@ -136,8 +166,11 @@ class CausalConv1D(nn.Module):
     self.b = _param(width)
 
   def forward(
-      self, x: torch.Tensor, cache: Optional[torch.Tensor] = None
+      self, x: torch.Tensor, cache: Optional[torch.Tensor] = None, sp=None
   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if sp is not None:
+      return sequence.sequence_parallel_causal_conv(
+          x, self.w, self.b, cache, sp[0], sp[1])
     k = self.temporal_width
     if cache is None:
       cache = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
@@ -178,12 +211,14 @@ class RecurrentBlock(nn.Module):
     self.linear_out = nn.Linear(lru_width, width)
 
   def forward(
-      self, x: torch.Tensor, cache: Optional[RecurrentBlockCache] = None
-  ) -> Tuple[torch.Tensor, RecurrentBlockCache]:
+      self, x: torch.Tensor, cache: Optional[RecurrentBlockCache] = None,
+      sp=None) -> Tuple[torch.Tensor, RecurrentBlockCache]:
     y = gelu(linear(x, self.linear_y))
     h = linear(x, self.linear_x)
-    h, conv_state = self.conv_1d(h, None if cache is None else cache.conv1d_state)
-    h, lru_state = self.rg_lru(h, None if cache is None else cache.rg_lru_state)
+    h, conv_state = self.conv_1d(
+        h, None if cache is None else cache.conv1d_state, sp)
+    h, lru_state = self.rg_lru(
+        h, None if cache is None else cache.rg_lru_state, sp)
     out = linear(h * y, self.linear_out)
     return out, RecurrentBlockCache(rg_lru_state=lru_state,
                                     conv1d_state=conv_state)
@@ -229,11 +264,11 @@ class GriffinResidualBlock(nn.Module):
     self.mlp_block = GriffinMLP(width, mlp_expanded_width)
 
   def forward(
-      self, x: torch.Tensor, cache: Optional[RecurrentBlockCache] = None
-  ) -> Tuple[torch.Tensor, RecurrentBlockCache]:
+      self, x: torch.Tensor, cache: Optional[RecurrentBlockCache] = None,
+      sp=None) -> Tuple[torch.Tensor, RecurrentBlockCache]:
     raw = x
     h = self.temporal_pre_norm(x)
-    h, new_cache = self.recurrent_block(h, cache)
+    h, new_cache = self.recurrent_block(h, cache, sp)
     residual = h + raw
     h = self.channel_pre_norm(residual)
     h = self.mlp_block(h)

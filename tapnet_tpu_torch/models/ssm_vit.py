@@ -21,8 +21,16 @@ residual stream, the whole SSM block (its products included) and the heads
 stay float32, as in the JAX package. With `remat`, each ViT-SSM block's
 activations are recomputed in the backward (`torch.utils.checkpoint`, as the
 JAX package's `nn.remat`): only the blocks' inputs stay stored.
-`TokenSubsampling` (no JAX model instantiates it) and the sequence-parallel
-options are not ported.
+`TokenSubsampling` (no JAX model instantiates it) is not ported.
+
+Sequence parallelism (`sp_mesh`, `sp_axis`): the offline forward and a
+multi-frame `forward_step` take the whole clip on every rank, run the patch
+embedding, the attention and the MLPs on this rank's part of the frames
+only, and the recurrent blocks over the ranks (`parallel/sequence.py`);
+`TAPNextTracker` gathers the heads' outputs over time, so every rank returns
+the unsharded model's results. The time-reversed half of a
+`bidirectional_ssm` block is global: rank r's reversed part is the reverse of
+rank P-1-r's part, which it takes from an all-gather.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from tapnet_tpu_torch.models import rglru
 from tapnet_tpu_torch.models.layers import linear
 from tapnet_tpu_torch.ops import mixer_math
 from tapnet_tpu_torch.ops.mixer_math import gelu
+from tapnet_tpu_torch.parallel import sequence
 from tapnet_tpu_torch.utils import sampling
 
 
@@ -161,6 +170,16 @@ class ViTBlock(nn.Module):
     return x, {"+mlp": x}
 
 
+def _flip_time(h: torch.Tensor, sp) -> torch.Tensor:
+  """[b*n, t, c] reversed in (global) time: under `sp`, the reverse of the
+  mirror rank's part."""
+  if sp is None:
+    return torch.flip(h, dims=(1,))
+  mesh, axis = sp
+  parts = mesh.all_gather(h, axis)
+  return torch.flip(parts[mesh.size(axis) - 1 - mesh.index(axis)], dims=(1,))
+
+
 class ViTSSMBlock(nn.Module):
   """Griffin recurrence over time, then ViT attention over tokens."""
 
@@ -182,7 +201,10 @@ class ViTSSMBlock(nn.Module):
         mask_query2image, num_image_tokens)
 
   def forward(self, x: torch.Tensor,
-              cache: Optional[rglru.RecurrentBlockCache], batch: int):
+              cache: Optional[rglru.RecurrentBlockCache], batch: int,
+              sp=None):
+    """x [b*t, n, c]: with `sp` (a (Mesh, time axis) pair) this rank's
+    part of the frames."""
     bt, n, c = x.shape
     b = batch
     t = bt // b
@@ -190,13 +212,13 @@ class ViTSSMBlock(nn.Module):
     # [b*t, n, c] -> [b*n, t, c]: tubes along batch, time as sequence.
     h = x.reshape(b, t, n, c).transpose(1, 2).reshape(b * n, t, c)
     if self.bidirectional_ssm:
-      h2 = torch.cat([h, torch.flip(h, dims=(1,))], dim=-1)
-      h2, _ = self.ssm_block(h2, None)
+      h2 = torch.cat([h, _flip_time(h, sp)], dim=-1)
+      h2, _ = self.ssm_block(h2, None, sp)
       fwd, bwd = torch.split(h2, c, dim=-1)
-      h = fwd + torch.flip(bwd, dims=(1,))
+      h = fwd + _flip_time(bwd, sp)
       outs["ssm_block_cache"] = None
     else:
-      h, outs["ssm_block_cache"] = self.ssm_block(h, cache)
+      h, outs["ssm_block_cache"] = self.ssm_block(h, cache, sp)
     x = h.reshape(b, n, t, c).transpose(1, 2).reshape(bt, n, c)
     x, outs["vit_block_intermediates"] = self.vit_block(x)
     return x, outs
@@ -221,8 +243,9 @@ class ViTSSMBackbone(nn.Module):
 
   def forward(self, x: torch.Tensor,
               cache: Optional[rglru.RecurrentBlockCache] = None,
-              intermediates: bool = True):
-    """x [b, t, n, c]; cache: stacked per-layer caches [L, ...] or None.
+              intermediates: bool = True, sp=None):
+    """x [b, t, n, c] (under `sp` this rank's part of the frames); cache:
+    stacked per-layer caches [L, ...] or None.
     Returns (normed [b*t, n, c], out); out holds the stacked new caches
     ("ssm_block_cache", unless bidirectional), the pre-norm output and, with
     `intermediates`, each layer's outputs under "blockNN"."""
@@ -238,9 +261,9 @@ class ViTSSMBackbone(nn.Module):
       block = getattr(self, f"encoderblock_{lyr}")
       if self.remat and torch.is_grad_enabled():
         x, outs = torch.utils.checkpoint.checkpoint(
-            block, x, current, b, use_reentrant=False)
+            block, x, current, b, sp, use_reentrant=False)
       else:
-        x, outs = block(x, current, b)
+        x, outs = block(x, current, b, sp)
       if intermediates:
         out[f"block{lyr:02d}"] = outs
       layer_caches.append(outs["ssm_block_cache"])
@@ -264,8 +287,7 @@ class TAPNextTrackingState:
 
 @dataclasses.dataclass(frozen=True)
 class SsmVitConfig:
-  """Architecture config, as the JAX package's (less its sequence-parallel
-  options)."""
+  """Architecture config, as the JAX package's."""
 
   width: int = 768
   depth: int = 12
@@ -287,6 +309,10 @@ class SsmVitConfig:
   # Recompute each ViT-SSM block in the backward (its input stored, its
   # internals recomputed); changes memory, not numbers.
   remat: bool = False
+  # Sequence parallelism: a parallel.mesh.Mesh whose `sp_axis` axis splits
+  # the time axis of the offline forward (module docstring); None: off.
+  sp_mesh: Optional[Any] = None
+  sp_axis: str = "data"
 
   @property
   def dtype_mm(self):
@@ -418,14 +444,38 @@ class MaskedSequenceDecoder(nn.Module):
       tokens = torch.where(sel[..., None], xy_tokens[:, None, :, k, :], tokens)
     return tokens
 
-  def _encode(self, video, query_tokens, cache, intermediates):
+  def sp_for(self, t: int):
+    """The (Mesh, axis) pair when a clip of t frames runs time-split (see
+    `rglru.sp_active`), else None."""
+    cfg = self.config
+    sp = None if cfg.sp_mesh is None else (cfg.sp_mesh, cfg.sp_axis)
+    return sp if rglru.sp_active(sp, t) else None
+
+  def _local_frames(self, video, sp):
+    """(this rank's frames, their first global index)."""
+    if sp is None:
+      return video, 0
+    mesh, axis = sp
+    part = sequence.shard_time(video, mesh, axis)
+    return part, mesh.index(axis) * part.shape[1]
+
+  def _encode(self, video, query_tokens, cache, intermediates, sp=None):
     """Patchify + posemb + concat query tokens + run the encoder."""
     x = self.embedding(video)
     b, t, h, w, c = x.shape
     x = x.reshape(b, t, h * w, c) + self._posemb_image()[:, None]
     x = torch.cat([x, query_tokens.to(x.dtype)], dim=2)
-    x, out = self.Transformer(x, cache, intermediates)
+    x, out = self.Transformer(x, cache, intermediates, sp)
     return x.reshape(b, t, -1, c), out, (h, w)
+
+  @staticmethod
+  def _shift_times(query_points, offset):
+    """Query times relative to a clip that starts at global frame
+    `offset`."""
+    if not offset:
+      return query_points
+    return torch.cat([query_points[..., :1] - offset, query_points[..., 1:]],
+                     dim=-1)
 
   @staticmethod
   def _with_hints(query_points, query_padding):
@@ -442,30 +492,39 @@ class MaskedSequenceDecoder(nn.Module):
               intermediates: bool = True):
     """Offline forward. video [B, T, H, W, 3]; query_points [B, Q, (hints,)
     3] (t, y, x). Returns (video_feats [B, T, h, w, c], query_feats
-    [B, T, Q, c], out with the per-layer outputs if `intermediates`)."""
+    [B, T, Q, c], out with the per-layer outputs if `intermediates`); under
+    sequence parallelism (`sp_for`) T is this rank's part of the frames."""
+    sp = self.sp_for(video.shape[1])
+    video, offset = self._local_frames(video, sp)
     query_points, query_padding = self._with_hints(query_points, query_padding)
     q = query_points.shape[1]
     query_tokens = self.embed_queries_and_hints(
-        video.shape[1], query_points, query_padding)
-    x, out, (h, w) = self._encode(video, query_tokens, None, intermediates)
+        video.shape[1], self._shift_times(query_points, offset), query_padding)
+    x, out, (h, w) = self._encode(video, query_tokens, None, intermediates,
+                                  sp)
     video_feats = x[:, :, : h * w].reshape(x.shape[0], x.shape[1], h, w,
                                            x.shape[-1])
     return video_feats, x[:, :, -q:], out
 
   def forward_step(self, video: torch.Tensor, state: TAPNextTrackingState):
     """Streaming step over video [B, T, H, W, 3] (usually T = 1) with the
-    per-layer recurrent caches of `state`; returns (query_feats, new state)."""
+    per-layer recurrent caches of `state`; returns (query_feats, new state).
+    Under sequence parallelism (`sp_for`) the features are of this rank's
+    part of the frames."""
     if state.hidden_state is None:
       raise ValueError("state.hidden_state is required for forward_step.")
+    t = video.shape[1]
+    sp = self.sp_for(t)
+    video, offset = self._local_frames(video, sp)
     query_points, query_padding = self._with_hints(
         state.query_points, state.query_padding)
-    # Shift query times into this chunk's local frame.
-    query_points = torch.cat(
-        [query_points[..., :1] - state.step, query_points[..., 1:]], dim=-1)
+    # Shift query times into this chunk's (and rank's) local frame.
+    query_points = self._shift_times(query_points, state.step + offset)
     q = query_points.shape[1]
-    t = video.shape[1]
-    query_tokens = self.embed_queries_and_hints(t, query_points, query_padding)
-    x, out, _ = self._encode(video, query_tokens, state.hidden_state, False)
+    query_tokens = self.embed_queries_and_hints(
+        video.shape[1], query_points, query_padding)
+    x, out, _ = self._encode(video, query_tokens, state.hidden_state, False,
+                             sp)
     new_state = TAPNextTrackingState(
         step=state.step + t, query_points=state.query_points,
         query_padding=state.query_padding,

@@ -558,6 +558,7 @@ class TAPIR(nn.Module):
       get_causal_context: bool = False,
       is_training: bool = False,
       generator: Optional[torch.Generator] = None,
+      query_shard: Optional[Tuple[int, int]] = None,
   ) -> Mapping[str, Any]:
     """Stage 1 + stage 2 over all queries, one query chunk at a time.
 
@@ -573,6 +574,12 @@ class TAPIR(nn.Module):
     come back in query order), the refinement of every chunk after the
     first runs without gradient (JAX stops it), and the grids are quantized
     in each correlation call (the pre-quantized routes have no gradient).
+
+    `query_shard` (offset, total): these queries are the global queries
+    [offset, offset + N) of `total`, split over ranks. The chunks are then
+    those of the global queries (the permutation is drawn over `total`), each
+    cut to this rank's queries, so that which queries keep the refinement's
+    gradient is the unsplit forward's.
     """
     cfg = self.config
     if is_training and causal_state is not None:
@@ -609,15 +616,28 @@ class TAPIR(nn.Module):
         + tuple(cfg.initial_resolution) + (3,)
     )
     num_frames = feature_grids.lowres[0].shape[1]
+    offset, total = query_shard or (0, num_queries)
     perm = None
     if is_training and generator is not None:
-      perm = _draw_permutation(generator, num_queries).to(device)
-    index = (torch.arange(num_queries, device=device) if perm is None
-             else perm)
+      perm = _draw_permutation(generator, total).long().cpu()
+    if perm is None and query_shard is None:
+      index = torch.arange(num_queries, device=device)
+      chunks = list(index.split(chunk))
+      inverse = None
+    else:
+      # Each global chunk cut to this rank's queries (local indices), worked
+      # out on the host and copied once.
+      index = torch.arange(total) if perm is None else perm
+      chunks = [c[(c >= offset) & (c < offset + num_queries)] - offset
+                for c in index.split(chunk)]
+      inverse = torch.argsort(torch.cat(chunks)).to(device)
+      chunks = list(torch.cat(chunks).to(device).split(
+          [len(c) for c in chunks]))
 
     outs = []
-    for ch, start in enumerate(range(0, num_queries, chunk)):
-      idx = index[start : start + chunk]
+    for ch, idx in enumerate(chunks):
+      if not len(idx):
+        continue
       qp = None
       if query_points_in_video is not None:
         qp = transforms.convert_grid_coordinates(
@@ -642,7 +662,6 @@ class TAPIR(nn.Module):
           get_causal_context,
           refine_grad=not (is_training and ch > 0),
       ))
-    inverse = None if perm is None else torch.argsort(perm)
     unpermute = lambda x, axis: x if inverse is None else x.index_select(
         axis, inverse)
     points, occ, expd = (
@@ -685,6 +704,7 @@ class TAPIR(nn.Module):
       feature_grids: Optional[FeatureGrids] = None,
       is_training: bool = False,
       generator: Optional[torch.Generator] = None,
+      query_shard: Optional[Tuple[int, int]] = None,
   ) -> Mapping[str, Any]:
     """Full forward pass.
 
@@ -696,6 +716,8 @@ class TAPIR(nn.Module):
       feature_grids: reuse precomputed grids.
       is_training: the training forward (`estimate_trajectories`).
       generator: with `is_training`, draws the chunks' query order.
+      query_shard: (offset, total) when the queries are a part of `total`
+        split over ranks (`estimate_trajectories`).
 
     Returns:
       dict with "tracks" [B, N, T, 2] (x, y raster), "occlusion" and
@@ -715,6 +737,7 @@ class TAPIR(nn.Module):
         query_chunk_size=query_chunk_size,
         is_training=is_training,
         generator=generator,
+        query_shard=query_shard,
     )
     # Final prediction: mean over the last refinement of each resolution.
     p = cfg.num_pips_iter

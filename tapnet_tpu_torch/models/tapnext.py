@@ -4,7 +4,9 @@ tapnet_tpu/models/tapnext.py).
 Coordinates are 512 logits split into two 256-bin axes, decoded by a
 truncated soft-argmax (threshold 20 bins, temperature 0.5, +0.5 raster
 offset), in float32 whatever the backbone's compute dtype. Query points are
-(t, y, x); output tracks are (y, x) in model raster coordinates.
+(t, y, x); output tracks are (y, x) in model raster coordinates. With
+`config.sp_mesh` the clip runs time-split over ranks (`ssm_vit`) and the
+heads' outputs are gathered over time.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from tapnet_tpu_torch.models import ssm_vit
 from tapnet_tpu_torch.models.layers import linear
 from tapnet_tpu_torch.ops.mixer_math import gelu
+from tapnet_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -91,9 +94,14 @@ class TAPNextTracker(nn.Module):
     tracks = torch.cat([self._decode(coord_0), self._decode(coord_1)], dim=-1)
     return tracks + 0.5, position, visible_logits
 
-  def _results(self, feats):
-    """Heads on [B, T, Q, C] features, transposed to [B, Q, T, ...]."""
-    return tuple(v.transpose(1, 2) for v in self.prediction_heads(feats))
+  def _results(self, feats, sp=None):
+    """Heads on [B, T, Q, C] features, transposed to [B, Q, T, ...]; under
+    `sp` the features are this rank's frames and the outputs are gathered
+    over time."""
+    outs = tuple(v.transpose(1, 2) for v in self.prediction_heads(feats))
+    if sp is not None:
+      outs = tuple(mesh_lib.gather(v, sp[0], sp[1], dim=2) for v in outs)
+    return outs
 
   def forward(self, video: torch.Tensor, query_points: torch.Tensor,
               query_padding: Optional[torch.Tensor] = None,
@@ -102,19 +110,20 @@ class TAPNextTracker(nn.Module):
     """Offline forward. video [B, T, H, W, 3] in [-1, 1]; query_points
     [B, Q, (hints,) 3] (t, y, x). With `intermediates`, the heads also run on
     every layer's output (deep supervision); without, those lists are
-    empty."""
+    empty. Under sequence parallelism (`config.sp_mesh`) every rank takes
+    the whole clip and returns the whole results."""
+    sp = self.backbone.sp_for(video.shape[1])
     _, query_feats, out = self.backbone(
         video, query_points, query_padding, intermediates)
-    q = query_feats.shape[2]
-    b, t = video.shape[:2]
+    b, t, q = query_feats.shape[:3]
     inter = ([], [], [])
     if intermediates:
       for lyr in range(self.config.depth):
         feats = out[f"block{lyr:02d}"]["vit_block_intermediates"]["+mlp"]
         feats = feats[:, -q:].reshape(b, t, q, feats.shape[-1])
-        for dst, v in zip(inter, self._results(feats)):
+        for dst, v in zip(inter, self._results(feats, sp)):
           dst.append(v)
-    tracks, logits, vis = self._results(query_feats)
+    tracks, logits, vis = self._results(query_feats, sp)
     return TrackerResults(
         tracks=tracks, track_logits=logits, visible_logits=vis,
         intermediate_tracks=inter[0], intermediate_track_logits=inter[1],
@@ -141,8 +150,9 @@ class TAPNextTracker(nn.Module):
           step=frames.shape[1], query_points=query_points,
           query_padding=query_padding, hidden_state=results.state)
       return results
+    sp = self.backbone.sp_for(frames.shape[1])
     query_feats, new_state = self.backbone.forward_step(frames, state)
-    tracks, logits, vis = self._results(query_feats)
+    tracks, logits, vis = self._results(query_feats, sp)
     return TrackerResults(
         tracks=tracks, track_logits=logits, visible_logits=vis,
         intermediate_tracks=[], intermediate_track_logits=[],

@@ -78,25 +78,39 @@ def tapnext_loss(
     loss_mask: Optional[torch.Tensor] = None,  # [B, Q, T]
     huber_delta: float = 1.0,
     intermediate_weight: float = 1.0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Combined TAPNext loss with per-layer deep supervision: position terms
   masked to visible points, the visibility BCE everywhere (within
-  loss_mask)."""
+  loss_mask).
+
+  With a `mesh` (`parallel.mesh.Mesh`) the inputs are this rank's share of
+  the (batch, query) elements and the loss is the rank's share of the global
+  loss: the masks' counts are summed over every rank and each term is scaled
+  by the rank count, so that the mean over ranks is the loss of the whole
+  batch (the normalisers depend on the data, so a mean of local means would
+  not be)."""
   if loss_mask is None:
     loss_mask = torch.ones(visible.shape, dtype=torch.float32,
                            device=visible.device)
   vis_mask = (loss_mask * visible)[..., None]
   any_mask = loss_mask[..., None]
+  ranks = 1 if mesh is None else mesh.size()
+
+  def count(mask):
+    total = mask.sum() if mesh is None else mesh.all_sum(mask.sum())
+    return torch.clamp(total, min=1.0) / ranks
+
+  vis_count, any_count = count(vis_mask), count(any_mask)
 
   def terms(tracks, track_logits, visible_logits):
     l_coord = coordinate_cross_entropy(track_logits, target_points)
     l_huber = huber(tracks, target_points, delta=huber_delta)
     l_vis = sigmoid_binary_cross_entropy(visible_logits.float(),
                                          visible[..., None])
-    vis_count = torch.clamp(vis_mask.sum(), min=1.0)
     coord = torch.sum(l_coord * vis_mask) / vis_count
     hub = torch.sum(l_huber * vis_mask) / vis_count
-    vis = torch.sum(l_vis * any_mask) / torch.clamp(any_mask.sum(), min=1.0)
+    vis = torch.sum(l_vis * any_mask) / any_count
     return coord, hub, vis
 
   coord, hub, vis = terms(results.tracks, results.track_logits,

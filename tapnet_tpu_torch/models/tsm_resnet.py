@@ -125,7 +125,13 @@ class SameConv(nn.Module):
 class BatchNorm(nn.Module):
   """Flax nn.BatchNorm over the channels of NCHW input (see the module
   docstring). `is_training`: normalize by the batch's statistics and move
-  the running ones; else normalize by the running ones."""
+  the running ones; else normalize by the running ones.
+
+  `sync` (a (parallel.mesh.Mesh, axis) pair, set by `sync_batch_norm`):
+  the batch is split over that axis of ranks and its statistics are the
+  global batch's, as GSPMD computes them in the JAX package: the ranks'
+  equal-sized means of x and x^2 are all-gathered (the gather carries the
+  gradient) and averaged."""
 
   def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
     super().__init__()
@@ -134,12 +140,17 @@ class BatchNorm(nn.Module):
     self.bias = nn.Parameter(torch.zeros(channels))
     self.register_buffer("mean", torch.zeros(channels))
     self.register_buffer("var", torch.ones(channels))
+    self.sync = None
 
   def forward(self, x: torch.Tensor, is_training: bool) -> torch.Tensor:
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if is_training:
-      mean = xf.mean((0, 2, 3))
-      var = torch.clamp(xf.square().mean((0, 2, 3)) - mean.square(), min=0.0)
+      mean, mean2 = xf.mean((0, 2, 3)), xf.square().mean((0, 2, 3))
+      if self.sync is not None:
+        mesh, axis = self.sync
+        mean, mean2 = mesh.all_gather(torch.stack([mean, mean2]),
+                                      axis).mean(0)
+      var = torch.clamp(mean2 - mean.square(), min=0.0)
       with torch.no_grad():
         self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
         self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
@@ -148,6 +159,14 @@ class BatchNorm(nn.Module):
     mul = torch.rsqrt(var + self.eps) * self.scale
     y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
     return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+
+
+def sync_batch_norm(model: nn.Module, mesh=None, axis: str = "data") -> None:
+  """Makes every `BatchNorm` of `model` take the global batch's statistics
+  over `axis` of `mesh` (None: each rank's own batch)."""
+  for module in model.modules():
+    if isinstance(module, BatchNorm):
+      module.sync = None if mesh is None else (mesh, axis)
 
 
 class TSMBlock(nn.Module):

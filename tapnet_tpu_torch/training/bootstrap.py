@@ -1,5 +1,5 @@
 """BootsTAP self-training, student and teacher (port of
-tapnet_tpu/training/bootstrap.py), on one device.
+tapnet_tpu/training/bootstrap.py), on one device or over a mesh.
 
   * The teacher is an EMA of the student. It predicts tracks on the clean
     video for randomly sampled query points, with no gradient.
@@ -19,8 +19,15 @@ The student and the teacher are two `models.tapir.TAPIR` modules; their
 parameters are updated in place. Each step's draws (the queries, the view
 and the colour transform) come from one `torch.Generator`: `fit_bootstrap`
 seeds one per step from the step, as the JAX loop splits its rng.
-Multi-GPU (JAX's `jit_bootstrap_step` over a mesh) is ROADMAP Queue 1 item
-9.
+
+With a `mesh` (`parallel.mesh.Mesh`; JAX's `fit_bootstrap(mesh=...)`), the
+student, the teacher and the optimizer are replicated (rank 0's, broadcast)
+and each rank takes its part of the unlabeled and labeled batches (clips
+over "data", the labeled queries over "model"). The draws are made for the
+global batch with the same generator on every rank, each rank taking its
+part, and the loss's normaliser (the count of confident points) is summed
+over the ranks; the gradients are averaged before the update. The step is
+then the single-device step on the global batch.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from tapnet_tpu_torch.checkpoints import convert
 from tapnet_tpu_torch.data import augmentations
+from tapnet_tpu_torch.parallel import mesh as mesh_lib
 from tapnet_tpu_torch.training import checkpointing, optimizers, telemetry
 from tapnet_tpu_torch.training import trainer as trainer_lib
 from tapnet_tpu_torch.utils import losses as loss_lib
@@ -132,32 +140,45 @@ def _sample_queries(generator: torch.Generator, batch: int, num_queries: int,
 
 
 def make_bootstrap_train_step(model, teacher, tx: optimizers.Optimizer,
-                              config: BootstrapConfig = BootstrapConfig()):
+                              config: BootstrapConfig = BootstrapConfig(),
+                              mesh=None):
   """The self-training step over unlabeled video.
 
   `train_step(state, batch, generator) -> (state, scalars)`: batch holds
   "video" [B, T, H, W, 3] in [-1, 1] and optionally "labeled" (a supervised
   batch); `generator` draws the queries, the view and the colour transform.
+  With a `mesh`, `batch` is this rank's part of the global batch
+  (`mesh.shard_batch`) and the step is the global batch's (module
+  docstring).
   """
+  clips = lambda x: x if mesh is None else mesh_lib.shard(
+      x, mesh, mesh_lib.DATA_AXIS, 0)
+  queries = lambda x: x if mesh is None else mesh_lib.shard(
+      x, mesh, mesh_lib.MODEL_AXIS, 1)
+  ranks = 1 if mesh is None else mesh.size()
 
   def train_step(state: BootstrapState, batch: Batch,
                  generator: torch.Generator):
     video = batch["video"]
     b, t, h, w, _ = video.shape
     dev = video.device
-    qp = _sample_queries(generator, b, config.num_queries, t, h, w).to(dev)
+    # The draws are the global batch's (b clips a rank along "data").
+    b_all = b if mesh is None else b * mesh.size(mesh_lib.DATA_AXIS)
+    qp = queries(clips(_sample_queries(
+        generator, b_all, config.num_queries, t, h, w))).to(dev)
     with torch.no_grad():
       out_t = teacher(video, qp, query_chunk_size=config.query_chunk_size)
     t_tracks = out_t["tracks"]
     t_occ = out_t["occlusion"]
     t_expd = out_t.get("expected_dist", torch.zeros_like(t_occ))
 
-    scale, tx_, ty_ = (v.to(dev) for v in _sample_view(
-        generator, b, h, w, config.min_scale))
+    scale, tx_, ty_ = (clips(v).to(dev) for v in _sample_view(
+        generator, b_all, h, w, config.min_scale))
     video_s = _warp_video(video, scale, tx_, ty_)
     if config.color_augment:
+      draws = augmentations.color_draws(generator, b_all)
       video_s = augmentations.color_augmentation(
-          video_s, augmentations.color_draws(generator, b))
+          video_s, {k: clips(v) for k, v in draws.items()})
     s_b = scale[:, None]
     qp_s = torch.stack([qp[..., 0], qp[..., 1] * s_b + ty_[:, None],
                         qp[..., 2] * s_b + tx_[:, None]], dim=-1)
@@ -167,18 +188,22 @@ def make_bootstrap_train_step(model, teacher, tx: optimizers.Optimizer,
     inb = ((target_xy[..., 0] >= 0) & (target_xy[..., 0] < w)
            & (target_xy[..., 1] >= 0) & (target_xy[..., 1] < h))
     weight = (conf & inb).float()  # [B, N, T]
-    denom = torch.clamp(weight.sum(), min=1.0)
+    count = weight.sum() if mesh is None else mesh.all_sum(weight.sum())
+    # This rank's share: the mean over ranks is the global loss.
+    denom = torch.clamp(count, min=1.0) / ranks
     visible_target = (t_occ > 0).float()
 
     out = model(video_s, qp_s, query_chunk_size=config.query_chunk_size,
-                is_training=True)
+                is_training=True,
+                query_shard=trainer_lib.query_shard(mesh, qp_s.shape[1]))
     total = 0.0
     scalars = {}
     if "labeled" in batch:
       lb = batch["labeled"]
       sup_out = model(lb["video"], lb["query_points"],
                       query_chunk_size=config.supervised_chunk_size,
-                      is_training=True)
+                      is_training=True, query_shard=trainer_lib.query_shard(
+                          mesh, lb["query_points"].shape[1]))
       sup_loss, _ = trainer_lib.compute_tapir_loss(
           sup_out, lb,
           trainer_lib.TaskConfig(train_chunk_size=config.supervised_chunk_size))
@@ -201,13 +226,16 @@ def make_bootstrap_train_step(model, teacher, tx: optimizers.Optimizer,
                                 allow_unused=True)
     grads = {n: torch.zeros_like(state.params[n]) if g is None else g
              for n, g in zip(names, grads)}
+    scalars["loss"] = total
+    scalars = {k: v.detach() for k, v in scalars.items()}
+    if mesh is not None:
+      mesh.mean_(list(grads.values()))
+      scalars = trainer_lib.global_means(scalars, mesh)
     updates, opt_state = tx.update(grads, state.opt_state, state.params)
     optimizers.apply_updates(state.params, updates)
     with torch.no_grad():
       for n, e in state.teacher_params.items():
         e.copy_(config.ema_decay * e + (1.0 - config.ema_decay) * state.params[n])
-    scalars = {k: v.detach() for k, v in scalars.items()}
-    scalars["loss"] = total.detach()
     scalars["gradient_norm"] = optimizers.global_norm(grads.values())
     return (BootstrapState(state.params, state.teacher_params, opt_state,
                            state.step + 1), scalars)
@@ -229,12 +257,16 @@ def init_bootstrap_state(model, teacher, params: Mapping[str, Any],
 
 def restore_or_init_bootstrap(model, teacher, params: Mapping[str, Any],
                               tx: optimizers.Optimizer,
-                              checkpoint_path: Optional[str]
+                              checkpoint_path: Optional[str], mesh=None
                               ) -> BootstrapState:
   """Resumes a self-training run from its checkpoint, else starts from
-  `params` with teacher = student."""
+  `params` with teacher = student. Under a `mesh` rank 0 reads the
+  checkpoint and broadcasts it."""
+  chief = mesh is None or mesh.rank == 0
   ckpt = (checkpointing.restore_checkpoint(checkpoint_path)
-          if checkpoint_path else None)
+          if checkpoint_path and chief else None)
+  if mesh is not None:
+    ckpt = mesh.broadcast_object(ckpt)
   if ckpt is None:
     return init_bootstrap_state(model, teacher, params, tx)
   state = init_bootstrap_state(model, teacher, ckpt["params"], tx)
@@ -280,6 +312,7 @@ def fit_bootstrap(
     log_path: Optional[str] = None,
     eval_fn: Optional[Callable[[BootstrapState], Mapping[str, float]]] = None,
     evaluate_every: int = 0,
+    mesh=None,
 ) -> BootstrapState:
   """Runs the self-training loop over an unlabeled-video iterator.
 
@@ -288,12 +321,23 @@ def fit_bootstrap(
   `checkpoint_path` saves the student, the teacher and the optimizer
   (resume with `restore_or_init_bootstrap`). `eval_fn(state)` is the
   in-train eval hook (`state.params`: the student, `state.teacher_params`:
-  the EMA teacher)."""
-  step_fn = make_bootstrap_train_step(model, teacher, tx, config)
+  the EMA teacher).
+
+  With a `mesh` (`parallel.mesh.Mesh`) this is one rank of the run (module
+  docstring): every rank reads the same global batches from `data`, the
+  state is replicated from rank 0, and rank 0 alone prints, logs,
+  checkpoints and evaluates."""
+  step_fn = make_bootstrap_train_step(model, teacher, tx, config, mesh)
   dev = next(model.parameters()).device
+  chief = mesh is None or mesh.rank == 0
+  if mesh is not None:
+    mesh.broadcast_(list(state.params.values())
+                    + list(state.teacher_params.values())
+                    + [state.opt_state[k][n] for k in ("mu", "nu")
+                       if k in state.opt_state for n in state.opt_state[k]])
   sink = telemetry.ScalarSink(
-      log_path if log_path is not None
-      else telemetry.default_log_path(checkpoint_path))
+      (log_path if log_path is not None
+       else telemetry.default_log_path(checkpoint_path)) if chief else None)
   to_dev = lambda d: {k: v.to(dev) for k, v in d.items()}
   try:
     for i in range(num_steps):
@@ -301,8 +345,12 @@ def fit_bootstrap(
       kept = {"video": batch["video"].to(dev)}
       if "labeled" in batch:
         kept["labeled"] = to_dev(batch["labeled"])
+      if mesh is not None:
+        kept = mesh_lib.shard_batch(kept, mesh)
       state, scalars = step_fn(state, kept, step_generator(state.step))
       step = state.step
+      if not chief:
+        continue
       if log_every and (i + 1) % log_every == 0:
         scalars = {k: float(v) for k, v in scalars.items()}
         print(f"step {step} loss {scalars['loss']:.4f} "

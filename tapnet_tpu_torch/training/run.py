@@ -5,7 +5,19 @@
       (--synthetic | --data_dir DIR) [--num_steps N] [--checkpoint_dir D] \
       [--total_steps S] [--batch_size B] [--num_frames T] [--num_queries Q] \
       [--seed 0] [--log_every 50] [--smoke] [--device cpu] \
-      [--eval_dir DIR [--eval_every N] [--eval_max_videos V]]
+      [--model_parallel M] [--eval_dir DIR [--eval_every N] \
+      [--eval_max_videos V]]
+
+Multi-GPU: run it under torchrun, which starts one process a rank,
+
+  torchrun --nproc_per_node N -m tapnet_tpu_torch.training.run ... \
+      [--model_parallel M]
+
+and the CLI builds a (data N/M, model M) mesh over the ranks
+(`parallel/mesh.py`; the backend is NCCL when every rank has a card, else
+gloo). Every rank makes the same global batches from `--seed` and takes its
+part; rank r trains on cuda:{r % cards}, and rank 0 alone logs and
+checkpoints. Without torchrun, `--model_parallel` above 1 raises.
 
 Trains on the synthetic sprite generator, batches made on the device, or
 with `--data_dir` on Kubric-format npz examples (`data/kubric.py`: a host
@@ -22,8 +34,7 @@ TSM-ResNet-18).
 `--eval_dir` (a directory of Kubric-format npz videos, e.g. from
 `data.synthetic.export_npz`) evaluates the model on it every `--eval_every`
 steps (default: the preset's `evaluate_every`) and logs the TAP-Vid metrics
-to the same JSONL with kind "eval". Multi-GPU (--model_parallel > 1) is not
-ported yet and raises.
+to the same JSONL with kind "eval".
 """
 
 from __future__ import annotations
@@ -52,7 +63,9 @@ def make_parser() -> argparse.ArgumentParser:
   parser.add_argument("--checkpoint_every", type=int, default=1000)
   parser.add_argument("--log_every", type=int, default=50)
   parser.add_argument("--batch_size", type=int, default=None)
-  parser.add_argument("--model_parallel", type=int, default=1)
+  parser.add_argument("--model_parallel", type=int, default=1,
+                      help="ranks along the mesh's query axis (under "
+                      "torchrun)")
   parser.add_argument("--eval_dir", default=None,
                       help="Kubric-format npz videos for in-train eval")
   parser.add_argument("--eval_every", type=int, default=None,
@@ -102,9 +115,9 @@ def main(argv=None):
   from tapnet_tpu_torch.inference import resolve_device
   from tapnet_tpu_torch.training import trainer as trainer_lib
 
-  if args.model_parallel != 1:
-    raise NotImplementedError(trainer_lib._MESH_NOT_PORTED)  # pylint: disable=protected-access
-  device = resolve_device(args.device)
+  mesh = make_mesh(args)
+  device = resolve_device(args.device) if mesh is None else mesh.device(
+      args.device)
   exp = configs.get_experiment(args.experiment)
   if args.smoke:
     exp = smoke(exp)
@@ -116,7 +129,7 @@ def main(argv=None):
       exp.build_model(), exp.optimizer, total_steps=args.total_steps or num_steps,
       task=exp.task, checkpoint_path=ckpt_path,
       checkpoint_every=args.checkpoint_every, loss_builder=exp.loss_builder,
-      device=device)
+      device=device, mesh=mesh)
   eval_fn = None
   eval_every = args.eval_every or exp.evaluate_every
   if args.eval_dir:
@@ -137,8 +150,29 @@ def main(argv=None):
                 eval_fn=eval_fn, evaluate_every=eval_every if eval_fn else 0)
   if ckpt_path:
     t.save(state)
-  print(f"finished at step {state.step}")
+  if t.is_chief:
+    print(f"finished at step {state.step}")
   return state
+
+
+def make_mesh(args):
+  """The mesh of a multi-rank run (torchrun's process group, joined here,
+  or one the caller joined), else None."""
+  import torch.distributed as dist
+
+  from tapnet_tpu_torch.parallel import launch
+  from tapnet_tpu_torch.parallel import mesh as mesh_lib
+
+  launch.init_from_env(device=args.device)
+  if not dist.is_initialized():
+    if args.model_parallel != 1:
+      raise ValueError(
+          f"--model_parallel {args.model_parallel} needs a multiple of "
+          f"{args.model_parallel} ranks: launch with torchrun "
+          f"--nproc_per_node N -m tapnet_tpu_torch.training.run ... "
+          f"--model_parallel {args.model_parallel}")
+    return None
+  return mesh_lib.make_mesh(args.model_parallel)
 
 
 def smoke(exp):

@@ -24,9 +24,36 @@ scalars with `gradient_norm`. The losses:
     BPTT) with only the chunk-boundary states and one chunk's activations
     alive at a time. The loss covers the final heads only.
 
-`Trainer` owns the model, the optimizer and the loop. It runs on one device:
-the CUDA card unless given `device="cpu"`; a mesh (multi-GPU) is ROADMAP
-Queue 1 item 9.
+`Trainer` owns the model, the optimizer and the loop. It runs on the CUDA
+card unless given `device="cpu"`. With a `mesh` (`parallel.mesh.Mesh`) it
+runs one rank of a data- and query-parallel run whose step is the
+single-device step on the global batch, as GSPMD's is in the JAX package:
+
+  * the state is replicated (the initial parameters, or what a resume read,
+    broadcast from rank 0);
+  * each rank takes its part of every global batch (`mesh.shard_batch`:
+    clips over "data", queries over "model");
+  * the draws (TAPIR's query order) are made for the global batch with the
+    same generator on every rank;
+  * each rank's loss is its share of the global loss (the mean over ranks is
+    the loss): a uniform mean over equal parts needs nothing more, a
+    normaliser that depends on the data (TAPNext's mask counts) is summed
+    over the ranks (`tapnext_losses.tapnext_loss(mesh=...)`);
+  * the gradients are averaged over every rank before the optimizer (and
+    so before the gradient norm, the clip and the non-finite skip), so every
+    rank takes the same step;
+  * TAP-Net's BatchNorm takes the global batch's statistics over "data"
+    (`tsm_resnet.sync_batch_norm`);
+  * the scalars are the global means; only rank 0 prints, writes the JSONL
+    and the checkpoint, and evaluates.
+
+TAPIR's queries split over "model" run the global query chunks cut to each
+rank's queries (`TAPIR.forward(query_shard=...)`), so the refinement keeps
+its gradient for the same queries as on one device. TAPNext's query tokens
+attend to each other, so splitting its forward over queries would change the
+function: its "model" ranks gather the whole query set, run the whole
+forward and take their queries' share of the loss (the work is repeated, the
+function is JAX's).
 
 TAP-Net's BatchNorm running statistics are the model's buffers, moved in
 place by each training forward, as the parameters are by each update:
@@ -48,15 +75,13 @@ import torch.utils.checkpoint
 from tapnet_tpu_torch.checkpoints import convert
 from tapnet_tpu_torch.inference import resolve_device
 from tapnet_tpu_torch.models import (rglru, ssm_vit, tapir, tapnet, tapnext,
-                                     tapnext_losses)
+                                     tapnext_losses, tsm_resnet)
+from tapnet_tpu_torch.parallel import mesh as mesh_lib
 from tapnet_tpu_torch.training import checkpointing, optimizers, telemetry
 from tapnet_tpu_torch.utils import losses as loss_lib
 from tapnet_tpu_torch.utils import sampling, transforms
 
 Batch = Mapping[str, torch.Tensor]
-
-_MESH_NOT_PORTED = ("multi-GPU training is not ported yet (ROADMAP Queue 1 "
-                    "item 9); the port trains on one device")
 
 
 class TrainState(NamedTuple):
@@ -109,30 +134,50 @@ def compute_tapir_loss(output: Mapping[str, Any], batch: Batch,
   return loss, scalars
 
 
-def tapir_loss_builder(model, task: TaskConfig):
+def _splits_queries(mesh) -> bool:
+  return mesh is not None and mesh.size(mesh_lib.MODEL_AXIS) > 1
+
+
+def query_shard(mesh, num_queries: int):
+  """(offset, total) of this rank's `num_queries` queries among the global
+  ones split over the "model" axis, or None without a split."""
+  if not _splits_queries(mesh):
+    return None
+  return (mesh.index(mesh_lib.MODEL_AXIS) * num_queries,
+          mesh.size(mesh_lib.MODEL_AXIS) * num_queries)
+
+
+def tapir_loss_builder(model, task: TaskConfig, mesh=None):
   """The TAP loss of TAPIR-style trackers. `loss_fn(batch, generator=None)
   -> (loss, scalars)`: the training forward in chunks of
   `task.train_chunk_size` queries, in an order drawn from `generator` (the
-  identity without one)."""
+  identity without one). Under a `mesh` the chunks are the global ones
+  (`query_shard`); the loss, a mean over equal parts, is this rank's share
+  as it is."""
 
   def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    # TAP-Net's chunks are independent and draw nothing: it needs no shard.
+    shard = ({"query_shard": query_shard(mesh, batch["query_points"].shape[1])}
+             if isinstance(model, tapir.TAPIR) else {})
     output = model(batch["video"], batch["query_points"],
                    query_chunk_size=task.train_chunk_size, is_training=True,
-                   generator=generator)
+                   generator=generator, **shard)
     return compute_tapir_loss(output, batch, task)
 
   return loss_fn
 
 
 def contrastive_loss_builder(model, task: TaskConfig,
-                             softmax_temperature: float = 10.0):
+                             softmax_temperature: float = 10.0, mesh=None):
   """TAP-Net's cost-volume loss (the JAX package's, after the reference's
   supervised_point_prediction.py:255-302): the training forward with the
   query features, then per chunk of `task.train_chunk_size` queries the
   log-softmax over (T, h, w) of each query's dot products with the feature
   grid, sampled bilinearly at its target point on each frame and averaged
   over the visible frames; the loss is minus the mean. `loss_fn(batch,
-  generator=None) -> (loss, {"loss", "contrastive_loss"})`."""
+  generator=None) -> (loss, {"loss", "contrastive_loss"})`. A mean over
+  equal parts: under a `mesh` it is this rank's share as it is."""
+  del mesh
 
   def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
     del generator
@@ -170,28 +215,55 @@ def _tapnext_targets(batch: Batch):
   return batch["target_points"].flip(-1), 1.0 - batch["occluded"]
 
 
-def tapnext_loss_builder(model, task: TaskConfig):
+def _all_queries(query_points, mesh):
+  """TAPNext's whole query set: its query tokens attend to each other, so
+  the "model" ranks gather the queries split over them."""
+  if not _splits_queries(mesh):
+    return query_points
+  return mesh_lib.gather(query_points, mesh, mesh_lib.MODEL_AXIS, dim=1)
+
+
+def _my_queries(results, mesh):
+  """This rank's queries of [B, Q, ...] results (every field, and each
+  intermediate head's)."""
+  if not _splits_queries(mesh):
+    return results
+  part = lambda x: mesh_lib.shard(x, mesh, mesh_lib.MODEL_AXIS, 1)
+  return tapnext.TrackerResults(
+      tracks=part(results.tracks), track_logits=part(results.track_logits),
+      visible_logits=part(results.visible_logits),
+      intermediate_tracks=[part(x) for x in results.intermediate_tracks],
+      intermediate_track_logits=[
+          part(x) for x in results.intermediate_track_logits],
+      intermediate_visible_logits=[
+          part(x) for x in results.intermediate_visible_logits])
+
+
+def tapnext_loss_builder(model, task: TaskConfig, mesh=None):
   """TAPNext loss: coordinate CE + Huber + visibility, with deep
   supervision. `loss_fn(batch, generator=None) -> (loss, scalars)`; the
-  generator is not used."""
+  generator is not used. Under a `mesh` the loss is this rank's share of the
+  global one, its mask counts summed over the ranks."""
   del task
 
   def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
     del generator
-    results = model(batch["video"], batch["query_points"])
-    return tapnext_losses.tapnext_loss(results, *_tapnext_targets(batch))
+    results = model(batch["video"], _all_queries(batch["query_points"], mesh))
+    return tapnext_losses.tapnext_loss(_my_queries(results, mesh),
+                                       *_tapnext_targets(batch), mesh=mesh)
 
   return loss_fn
 
 
 def tapnext_chunked_loss_builder(model, task: TaskConfig,
-                                 chunk_size: int = 128):
+                                 chunk_size: int = 128, mesh=None):
   """TAPNext loss over time-chunked forwards (see the module docstring)."""
   del task
 
   def loss_fn(batch: Batch, generator: Optional[torch.Generator] = None):
     del generator
-    video, qp = batch["video"], batch["query_points"]
+    video = batch["video"]
+    qp = _all_queries(batch["query_points"], mesh)
     t = video.shape[1]
     if t % chunk_size:
       raise ValueError(
@@ -225,7 +297,8 @@ def tapnext_chunked_loss_builder(model, task: TaskConfig,
         tracks=joined[0], track_logits=joined[1], visible_logits=joined[2],
         intermediate_tracks=[], intermediate_track_logits=[],
         intermediate_visible_logits=[])
-    return tapnext_losses.tapnext_loss(results, *_tapnext_targets(batch))
+    return tapnext_losses.tapnext_loss(_my_queries(results, mesh),
+                                       *_tapnext_targets(batch), mesh=mesh)
 
   return loss_fn
 
@@ -245,26 +318,43 @@ def loss_and_grads(loss_fn, params: Mapping[str, torch.Tensor], batch: Batch,
 
 def make_train_step(
     model, tx: optimizers.Optimizer, task: TaskConfig = TaskConfig(),
-    loss_builder: Optional[Callable] = None,
+    loss_builder: Optional[Callable] = None, mesh=None,
 ) -> Callable[[TrainState, Batch], tuple]:
   """`train_step(state, batch, generator=None) -> (state, scalars)`: the
   loss of `loss_builder(model, task)` (TAPIR's by default), its gradients,
   one optimizer update applied to the parameters in place, and the loss's
-  scalars with gradient_norm. `generator` draws TAPIR's query order."""
-  loss_fn = (loss_builder or tapir_loss_builder)(model, task)
+  scalars with gradient_norm. `generator` draws TAPIR's query order.
+
+  With a `mesh`, `batch` is this rank's part of the global batch, the loss
+  is `loss_builder(model, task, mesh=mesh)` (this rank's share), and the
+  gradients and scalars are averaged over every rank before the update."""
+  builder = loss_builder or tapir_loss_builder
+  loss_fn = (builder(model, task) if mesh is None
+             else builder(model, task, mesh=mesh))
 
   def train_step(state: TrainState, batch: Batch,
                  generator: Optional[torch.Generator] = None):
     _, scalars, grads = loss_and_grads(loss_fn, state.params, batch,
                                        generator)
+    scalars = {k: v.detach() for k, v in scalars.items()}
+    if mesh is not None:
+      mesh.mean_(list(grads.values()))
+      scalars = global_means(scalars, mesh)
     updates, opt_state = tx.update(grads, state.opt_state, state.params)
     optimizers.apply_updates(state.params, updates)
-    scalars = {k: v.detach() for k, v in scalars.items()}
     scalars["gradient_norm"] = optimizers.global_norm(grads.values())
     return (TrainState(state.params, opt_state, state.step + 1,
                        state.model_state), scalars)
 
   return train_step
+
+
+def global_means(scalars: Mapping[str, torch.Tensor],
+                 mesh) -> Dict[str, torch.Tensor]:
+  """Each scalar's mean over every rank (one all_reduce)."""
+  names = list(scalars)
+  values = mesh.all_mean(torch.stack([scalars[k].float() for k in names]))
+  return dict(zip(names, values.unbind(0)))
 
 
 def _load_tapnet(model, tree, batch_stats=None):
@@ -309,8 +399,8 @@ _FAMILIES = {
 
 
 class Trainer:
-  """Owns the model and optimizer and runs the training loop on one
-  device."""
+  """Owns the model and optimizer and runs the training loop, on one device
+  or as one rank of a `mesh` (module docstring)."""
 
   def __init__(
       self,
@@ -326,20 +416,24 @@ class Trainer:
       device: Optional[Any] = None,
   ):
     """device: None means the CUDA card (raises without one unless
-    device="cpu"). The port draws its initial parameters without a forward
+    device="cpu"); with a `mesh` rank r takes cuda:{r % cards}. mesh: a
+    `parallel.mesh.Mesh` over the process group's ranks, or None for one
+    device. The port draws its initial parameters without a forward
     pass, so it needs no example batch (the JAX Trainer's init_num_frames
     and init_state's example_batch). Step k draws TAPIR's query order from
     `step_generator(k)` (the JAX loop's split of its rng)."""
-    if mesh is not None:
-      raise NotImplementedError(_MESH_NOT_PORTED)
     self.family = next((f for cls, f in _FAMILIES.items()
                         if isinstance(model, cls)), None)
     if self.family is None:
       raise NotImplementedError(
           f"the port trains TAPIR, TAP-Net and TAPNext, not "
           f"{type(model).__name__}")
-    self.device = resolve_device(device)
+    self.mesh = mesh
+    self.device = resolve_device(device) if mesh is None else mesh.device(
+        device)
     self.model = model.to(self.device)
+    if self.family.batch_stats:
+      tsm_resnet.sync_batch_norm(self.model, mesh, mesh_lib.DATA_AXIS)
     self.task = task
     self.loss_builder = loss_builder
     self.lr_schedule = optimizers.make_lr_schedule(optimizer_config,
@@ -351,6 +445,12 @@ class Trainer:
     self.log_path = (log_path if log_path is not None
                      else telemetry.default_log_path(checkpoint_path))
     self._step_fn = None
+
+  @property
+  def is_chief(self) -> bool:
+    """Whether this rank prints, logs, checkpoints and evaluates (rank 0,
+    or the only one)."""
+    return self.mesh is None or self.mesh.rank == 0
 
   @staticmethod
   def step_generator(step: int) -> torch.Generator:
@@ -386,12 +486,18 @@ class Trainer:
     `seed`) loaded into the model, and a fresh optimizer state."""
     generator = torch.Generator().manual_seed(seed)
     params = self.load_params(*self.family.init(self.model.config, generator))
+    if self.mesh is not None:  # replicated: rank 0's parameters
+      self.mesh.broadcast_(list(self.model.parameters())
+                           + list(self.model.buffers()))
     return TrainState(params, self.tx.init(params), 0, self._model_state())
 
   def restore_or_init(self) -> TrainState:
-    """The state of `checkpoint_path` if it exists, else `init_state`."""
+    """The state of `checkpoint_path` if it exists, else `init_state`.
+    Under a mesh rank 0 reads the checkpoint and broadcasts it."""
     ckpt = (checkpointing.restore_checkpoint(self.checkpoint_path)
-            if self.checkpoint_path else None)
+            if self.checkpoint_path and self.is_chief else None)
+    if self.mesh is not None:
+      ckpt = self.mesh.broadcast_object(ckpt)
     if ckpt is None:
       return self.init_state()
     params = self.load_params(
@@ -405,7 +511,10 @@ class Trainer:
 
   def save(self, state: TrainState) -> None:
     """Writes `state` to `checkpoint_path`: parameters, optimizer moments
-    and (TAP-Net) the running statistics as Flax-layout trees."""
+    and (TAP-Net) the running statistics as Flax-layout trees. Under a mesh
+    only rank 0 writes."""
+    if not self.is_chief:
+      return
     opt_state = dict(state.opt_state)
     for key in ("mu", "nu"):
       if key in opt_state:
@@ -422,7 +531,7 @@ class Trainer:
   def step_fn(self):
     if self._step_fn is None:
       self._step_fn = make_train_step(self.model, self.tx, self.task,
-                                      self.loss_builder)
+                                      self.loss_builder, self.mesh)
     return self._step_fn
 
   def fit(self, state: TrainState, data: Iterator[Batch], num_steps: int,
@@ -435,15 +544,22 @@ class Trainer:
     If `eval_fn` is given, it is called every `evaluate_every` steps with
     the current state (the reference's in-train eval, experiment.py:193-197;
     `tapvid.evaluate.make_eval_fn` builds one), and its scalars go to the
-    same sink with kind "eval"."""
-    sink = telemetry.ScalarSink(self.log_path)
+    same sink with kind "eval".
+
+    Under a mesh every rank reads the same global batches from `data` and
+    takes its part; rank 0 alone prints, logs, checkpoints and evaluates."""
+    sink = telemetry.ScalarSink(self.log_path if self.is_chief else None)
     last_t = time.time()
     try:
       for i in range(num_steps):
         batch = {k: v.to(self.device) for k, v in next(data).items()}
+        if self.mesh is not None:
+          batch = mesh_lib.shard_batch(batch, self.mesh)
         state, scalars = self.step_fn(state, batch,
                                       self.step_generator(state.step))
         step = state.step
+        if not self.is_chief:
+          continue
         if log_every and (i + 1) % log_every == 0:
           scalars = {k: float(v) for k, v in scalars.items()}
           dt = (time.time() - last_t) / log_every

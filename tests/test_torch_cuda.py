@@ -1204,3 +1204,45 @@ def test_track_many_points_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=1e-3)
   qt = got["query_points"][:, 0].astype(int)
   assert not (got["visibility"] & (np.arange(5)[None] < qt[:, None])).any()
+
+
+def _sp_scan_rank(rank, world, device, shape):
+  """One rank of the sequence-parallel scan on the card: its part of y and
+  of the gradients, and the launches of K5 and K5b it made."""
+  del rank, world
+  from tapnet_tpu_torch.parallel import mesh as mesh_lib
+  from tapnet_tpu_torch.parallel import sequence
+  mesh = mesh_lib.make_mesh()
+  gen = torch.Generator(device=device).manual_seed(0)
+  x = torch.randn(shape, device=device, generator=gen)
+  a = torch.rand(shape, device=device, generator=gen) * 0.3 + 0.69
+  h0 = torch.randn(shape[0], shape[2], device=device, generator=gen)
+  gy = torch.randn(shape, device=device, generator=gen)
+  part = lambda v: sequence.shard_time(v, mesh).contiguous()
+  xs, as_ = part(x).requires_grad_(), part(a).requires_grad_()
+  before = (scan.LAUNCHES, scan.BACKWARD_LAUNCHES)
+  y, h = sequence.sequence_parallel_linear_scan(xs, as_, h0, mesh)
+  ((y * part(gy)).sum() + h.sum() / mesh.size()).backward()
+  torch.cuda.synchronize()
+  launches = (scan.LAUNCHES - before[0], scan.BACKWARD_LAUNCHES - before[1])
+  xr, ar = x.clone().requires_grad_(), a.clone().requires_grad_()
+  y1, h1 = scan.linear_scan(xr, ar, h0)
+  ((y1 * gy).sum() + h1.sum()).backward()
+  rel = lambda got, want: float(
+      (got - want).detach().abs().max() / want.detach().abs().max())
+  return dict(launches=launches, y=rel(y, part(y1)), h=rel(h, h1),
+              dx=rel(xs.grad, part(xr.grad)), da=rel(as_.grad, part(ar.grad)))
+
+
+def test_sequence_parallel_scan_two_ranks_on_one_card(cuda):
+  """`parallel.sequence.sequence_parallel_linear_scan` on 2 gloo ranks that
+  share the card: each rank launches K5 twice (the local scan, the
+  cumulative decay) and K5b twice, and its part of y, h_last and the
+  gradients lies within 1e-5 (relative to the largest value) of one rank's
+  K5 and K5b on the whole sequence."""
+  from tapnet_tpu_torch.parallel import launch
+  _build.build_all()
+  for out in launch.run_ranks(_sp_scan_rank, 2, "gloo", "cuda", (33, 24, 130)):
+    assert out["launches"] == (2, 2)
+    for key in ("y", "h", "dx", "da"):
+      assert out[key] <= 1e-5, (key, out)

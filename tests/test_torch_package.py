@@ -307,6 +307,37 @@ def test_slice_entry_points_refuse_cpu_fallback():
                                         (2, 2), radius=2)
 
 
+def test_parallel_refuses_single_rank_fallback(monkeypatch):
+  """The multi-device layer (parallel/: in the no-JAX import check above)
+  never runs a multi-rank request as one rank: a mesh without a process
+  group raises, and so does joining torchrun's group when its variables are
+  incomplete; a rank's default device is its card."""
+  from tapnet_tpu_torch.parallel import launch, mesh as mesh_lib
+
+  assert {"tapnet_tpu_torch.parallel.mesh", "tapnet_tpu_torch.parallel.launch",
+          "tapnet_tpu_torch.parallel.sequence"} <= set(_package_modules())
+  with pytest.raises(RuntimeError, match="process group"):
+    mesh_lib.make_mesh()
+  with pytest.raises(RuntimeError, match="process group"):
+    TapirPredictor({}, bootstapir_config(), device="cpu",
+                   mesh=mesh_lib.make_mesh())
+  for key in ("MASTER_ADDR", "MASTER_PORT"):
+    monkeypatch.delenv(key, raising=False)
+  monkeypatch.setenv("WORLD_SIZE", "2")
+  monkeypatch.setenv("RANK", "0")
+  with pytest.raises((RuntimeError, ValueError)):
+    launch.init_from_env("gloo", device="cpu")
+  assert not torch.distributed.is_initialized()
+  monkeypatch.setenv("WORLD_SIZE", "1")
+  assert launch.init_from_env("gloo", device="cpu") == 1
+  if not torch.cuda.is_available():
+    mesh = mesh_lib.Mesh.__new__(mesh_lib.Mesh)
+    mesh.rank = 1
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      mesh.device()
+    assert mesh.device("cpu").type == "cpu"
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
   """A build that cannot run raises; nothing falls back to the plain
   versions. Imports needed no toolchain."""

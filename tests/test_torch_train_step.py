@@ -28,6 +28,7 @@ from tapnet_tpu_torch import configs
 from tapnet_tpu_torch.checkpoints.tapnext_checkpoint import flatten
 from tapnet_tpu_torch.data import synthetic
 from tapnet_tpu_torch.models import ssm_vit, tapnext
+from tapnet_tpu_torch.parallel import mesh as mesh_lib
 from tapnet_tpu_torch.training import checkpointing, optimizers, run, trainer
 from tools import make_tapnext_train_golden as golden_tool
 
@@ -170,8 +171,10 @@ def test_trainer_refusals(monkeypatch, tmp_path):
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match="device='cpu'"):
       trainer.Trainer(model, cfg, 10)
-  with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-    trainer.Trainer(model, cfg, 10, mesh=object(), device="cpu")
+  # A mesh needs a process group (tests/test_torch_parallel.py runs one).
+  with pytest.raises(RuntimeError, match="process group"):
+    trainer.Trainer(model, cfg, 10, mesh=mesh_lib.make_mesh(2),
+                    device="cpu")
   with pytest.raises(NotImplementedError,
                      match="trains TAPIR, TAP-Net and TAPNext"):
     trainer.Trainer(torch.nn.Linear(2, 2), cfg, 10, device="cpu")
@@ -181,7 +184,7 @@ def test_trainer_refusals(monkeypatch, tmp_path):
   loss_fn = trainer.tapnext_chunked_loss_builder(model, None, chunk_size=2)
   with pytest.raises(ValueError, match="multiple of chunk_size"):
     loss_fn(_tiny_batch(frames=3))
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(ValueError, match="torchrun"):
     run.main(["--synthetic", "--model_parallel", "2", "--device", "cpu"])
   # The Kubric reader is ported (tests/test_torch_kubric.py): --data_dir
   # reads the directory, and refuses one without examples.
