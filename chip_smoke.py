@@ -1,7 +1,8 @@
 """Drives the PyTorch port on one CUDA card and checks it: BootsTAPIR,
-online TAPIR, TAPNext, their training, TAP-Net and TRAJAN, RoboTAP,
-flow-assisted tracking, the Kubric training reader and the multi-device
-layer (two ranks sharing the card).
+online TAPIR, TAPNext, the TAPNext++ VOTS tracker, the example scripts,
+their training, TAP-Net and TRAJAN, RoboTAP, flow-assisted tracking, the
+Kubric training reader and the multi-device layer (two ranks sharing the
+card).
 
   python3 chip_smoke.py [--records PATH]
 
@@ -97,6 +98,26 @@ Phases (any failure raises and exits non-zero):
      (TapnextPredictor, 250-frame 256x256 videos, 256 queries, chunks of 50:
      60 K5 launches per video) and online-tapnext-256 (64 queries, one
      frame per step: no K5 launch).
+  4a. The TAPNext++ VOTS tracker (tapnextpp/vots_tracker.py; the same
+     seed-made ViT-B, adapted from 256 to 512): vots-golden (the tracker
+     at its defaults on tools/make_vots_golden.py's clip, fp32 with TF32
+     off, against JAX's stream, tests/data/vots_golden.npz, within that
+     tool's limits; the card's integer resize equal to OpenCV's on each
+     frame) and vots-512 (480x854 display frames, 8 queries with 64
+     support points each, a warm-up sequence and 60 timed frames: ms a
+     frame by the host clock, peak memory, a 10-frame profile's busy
+     share). One-frame steps: no kernel launch.
+  4b. examples: each example script's main() (tapnet_tpu_torch/examples/)
+     with --device cuda, the launch counters set to 0 before each and read
+     after: tapir_offline (the trained BootsTAPIR: K1, K3), tapir_online
+     (the trained causal BootsTAPIR: 12 K1 a frame), tapir_rainbow (TAPIR,
+     seeded weights: K1, K3), tapnext_tracking ViT-B offline (K5, one a
+     layer) and streaming (none), robotap_clustering, flow_track_assist and
+     trajan_roundtrip (none); the painted frames of the clip's shape
+     (viz.write_video keeps them instead of encoding an mp4; without
+     matplotlib the rainbow's points are painted without tails); where the
+     machine has cv2, the live demo on that clip as an mp4 (--video,
+     --no_display; 12 K1 a frame).
   6. Training: K5b (the scan's backward) against its plain backward bit for
      bit at the training shapes ([9216, 24, 768] fp32, [1088, 128, 768] with
      h0 and dh_last carried, fp32 and bf16, an odd shape) beside four faulty
@@ -238,6 +259,16 @@ from tools.make_tapnext_golden import (  # noqa: E402
     CHUNK as TAPNEXT_GOLDEN_CHUNK, WEIGHT_SEED as TAPNEXT_SEED, golden_clip,
 )
 from tools.tapnext_weights import seeded_tapnext_params  # noqa: E402
+from tools import make_vots_golden  # noqa: E402
+from tapnet_tpu_torch.tapnextpp import vots_tracker  # noqa: E402
+from tapnet_tpu_torch.utils import viz  # noqa: E402
+from tapnet_tpu_torch.examples import (  # noqa: E402
+    flow_track_assist as flow_example, robotap_clustering as robotap_example,
+    tapir_offline as tapir_offline_example,
+    tapir_online as tapir_online_example,
+    tapir_rainbow as tapir_rainbow_example,
+    tapnext_tracking as tapnext_example, trajan_roundtrip as trajan_example,
+)
 from tools import make_tapnext_train_golden as train_golden  # noqa: E402
 from tools import make_tapir_train_golden as tapir_golden  # noqa: E402
 from tools import make_tapnet_golden as tapnet_golden  # noqa: E402
@@ -600,6 +631,33 @@ TN_GOLDEN_FP32_TOL = dict(logits=2e-3, track_px=0.05, share=0.99)
 # recurrence is exact and attention per frame, so only the GEMMs' blocking
 # differs: tracks within 0.01 px, occlusion logits within 1e-4 of their range.
 TN_CHUNKED_TOL = dict(track_px=0.01, logit_of_range=1e-4)
+# Phase 4a, the TAPNext++ VOTS tracker (tapnextpp/vots_tracker.py) on the
+# seed-made ViT-B made at 256x256 and adapted to 512, as the reference runs
+# TAPNext++ (tapnet/tapnextpp/votsp2026/{tracker,model,utils}.py: 512x512
+# input, 64 support points a query in a 32 px radius, the tracker's
+# defaults). vots-golden: tools/make_vots_golden.py's clip (6 frames of
+# 240x428, 2 queries) against JAX's stream, fp32 with TF32 off, within that
+# tool's limits (those of tests/test_torch_vots.py), and the card's integer
+# resize bit-equal to OpenCV's on its frames (CRC-32). vots-512: display
+# frames of VOTS_DISPLAY, VOTS_QUERIES real queries (VOTS_QUERIES x 65 =
+# 520 query tokens beside 4096 image tokens), float32 at PyTorch's TF32
+# defaults; a warm-up sequence of VOTS_WARMUP frames, then VOTS_FRAMES timed
+# `track` calls (host clock, each returns its tracks to the host) and a
+# profiled call of VOTS_PROFILE_FRAMES frames. One-frame steps: no K5.
+VOTS_DISPLAY, VOTS_QUERIES = (480, 854), 8
+VOTS_WARMUP, VOTS_FRAMES, VOTS_PROFILE_FRAMES = 6, 60, 10
+# Phase 4b, the example scripts (tapnet_tpu_torch/examples/) on the card:
+# their synthetic 24-frame 256x256 clip; the trained BootsTAPIR checkpoint
+# where an example loads TAPIR weights of its family (tapir_offline with
+# --model bootstapir, tapir_online with --model causal_bootstapir), seeded
+# random weights at full width elsewhere (tapir_rainbow's TAPIR, TAPNext
+# ViT-B); robotap_clustering's planted tracks with iters_before_split cut
+# from 200 to EXAMPLES_CLUSTER_ITERS (the JAX smoke test's) for the script's
+# time.
+EXAMPLES_CLUSTER_ITERS = 50
+# The live demo's --video clip (the examples' clip as an mp4; listed in
+# .gitignore, removed after the run).
+LIVE_DEMO_CLIP = os.path.join(REPO, "_live_demo_clip.mp4")
 
 # Training (phase 6). train-tapnext-256: tapnext_experiment() (ViT-B, fp32,
 # 256x256) with remat, batch 8 x 24 frames, 128 queries: the scan runs at
@@ -2923,6 +2981,232 @@ def online_tapnext(params):
       profile_10_steps=profile)
 
 
+# ---------------------------------------------------- VOTS tracker, examples
+
+
+def vots_golden_check(params):
+  """vots-golden: VotsPointTracker at its defaults (ViT-B adapted to 512)
+  on tools/make_vots_golden.py's clip against JAX's stream, fp32 with TF32
+  off, within that tool's limits; the card's integer resize of each frame
+  bit-equal to OpenCV's (the CRC-32s of the golden); no kernel launch.
+  Returns the record and the tracker, which vots-512 streams on."""
+  golden = np.load(make_vots_golden.OUT)
+  frames, queries = make_vots_golden.vots_clip()
+  res = make_vots_golden.RESOLUTION
+  crcs = [make_vots_golden.frame_crc32(vots_tracker.resize_linear_u8(
+      torch.from_numpy(f).cuda(), res, res).cpu().numpy()) for f in frames]
+  require(crcs == golden["resized_crc32"].tolist(),
+          f"vots-golden: the card's resize differs from OpenCV's: {crcs} vs "
+          f"{golden['resized_crc32'].tolist()}")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    tracker = vots_tracker.VotsPointTracker(params, SsmVitConfig(),
+                                            input_resolution=res)
+    reset_counts()
+    got = make_vots_golden.run_stream(tracker, frames, queries)
+    launches = read_counts()
+  finally:
+    _pytorch_tf32_defaults()
+  require(sum(launches.values()) == 0,
+          f"vots-golden launched kernels of the port: {launches}")
+  r = make_vots_golden.judge(got, golden, make_vots_golden.DISPLAY_HW, res)
+  require(r["ok"], f"vots-golden: {r}")
+  return dict(r, frames=len(frames), display=make_vots_golden.DISPLAY_HW,
+              queries=len(queries), resolution=res,
+              support_per_query=tracker.n_support, resize_crc32_equal=True,
+              fp32_matmul_tf32=False), tracker
+
+
+def vots_512(tracker):
+  """vots-512: `tracker` (vots-golden's, at its defaults: 512x512, 64
+  support points a query, radius 32) in float32 at PyTorch's TF32
+  defaults on VOTS_DISPLAY
+  display frames with VOTS_QUERIES real queries: a warm-up sequence, then
+  `initialize` and VOTS_FRAMES timed `track` calls by the host clock (each
+  uploads its uint8 frame, resizes it on the card and returns its tracks to
+  the host), peak memory, and a profiled call of VOTS_PROFILE_FRAMES frames
+  (device ms a frame, busy share). No kernel launch (one-frame steps)."""
+  _pytorch_tf32_defaults()
+  frames, queries = make_vots_golden.vots_clip(
+      frames=1 + VOTS_FRAMES, hw=VOTS_DISPLAY, queries=VOTS_QUERIES,
+      seed=make_vots_golden.CLIP_SEED + 1)
+  tracker.initialize(frames[0], queries)
+  for frame in frames[1:VOTS_WARMUP]:
+    tracker.track(frame)
+  torch.cuda.synchronize()
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  begin = time.perf_counter()
+  tracker.initialize(frames[0], queries)
+  init_ms = (time.perf_counter() - begin) * 1e3
+  step_ms, xys = [], []
+  for frame in frames[1:]:
+    begin = time.perf_counter()
+    xy, _ = tracker.track(frame)
+    step_ms.append((time.perf_counter() - begin) * 1e3)
+    xys.append(xy)
+  peak = torch.cuda.max_memory_allocated()
+  launches = read_counts()
+  require(sum(launches.values()) == 0,
+          f"vots-512 launched kernels of the port: {launches}")
+  xys = np.stack(xys)
+  require(xys.shape == (VOTS_FRAMES, VOTS_QUERIES, 2)
+          and np.isfinite(xys).all()
+          and np.abs(xys).max() < 4 * max(VOTS_DISPLAY),
+          "vots-512: bad tracks")
+  mean_ms = float(np.mean(step_ms))
+  profile = profile_request(
+      lambda: [tracker.track(f) for f in frames[1:1 + VOTS_PROFILE_FRAMES]],
+      mean_ms * VOTS_PROFILE_FRAMES / 1e3, layers=TAPNEXT_LAYERS,
+      own=("linear_scan",), top=15)
+  r = tracker.input_resolution
+  return dict(
+      config=dict(variant="ViT-B adapted from 256 to 512",
+                  compute_dtype="float32",
+                  tf32="PyTorch defaults: cuDNN on, matmul off",
+                  weights=f"tools/tapnext_weights.py seed {TAPNEXT_SEED}",
+                  clip=f"tools/make_vots_golden.py vots_clip seed "
+                       f"{make_vots_golden.CLIP_SEED + 1}"),
+      display=VOTS_DISPLAY, resolution=r, real_queries=VOTS_QUERIES,
+      support_per_query=tracker.n_support,
+      query_tokens=VOTS_QUERIES * (1 + tracker.n_support),
+      image_tokens=(r // 8) ** 2, frames=VOTS_FRAMES, init_ms=init_ms,
+      ms_per_frame_mean=mean_ms, ms_per_frame_median=float(np.median(step_ms)),
+      ms_per_frame_min=float(np.min(step_ms)),
+      ms_per_frame_p95=float(np.percentile(step_ms, 95)),
+      peak_memory_gb=peak / 1e9, launches=launches,
+      device_ms_per_frame=profile["device_ms"] / VOTS_PROFILE_FRAMES,
+      device_busy_share=profile["device_busy_share"],
+      profile_frames=VOTS_PROFILE_FRAMES, profile=profile)
+
+
+# The examples phase's runs: (name, module, argv, launches, paints).
+# `launches` maps each counter the run must launch to its count (None: at
+# least once); no other counter may move. A run that `paints` writes its
+# painted clip (24 frames of 256x256) through viz.write_video.
+EXAMPLE_RUNS = (
+    ("tapir_offline", tapir_offline_example,
+     ["--model", "bootstapir", "--checkpoint", CHECKPOINT],
+     {"corr_tents": None, "mixer_block": None}, True),
+    ("tapir_online", tapir_online_example,
+     ["--model", "causal_bootstapir", "--checkpoint", CHECKPOINT],
+     {"corr_tents": ONLINE_K1_PER_STEP * 24}, True),
+    ("tapir_rainbow", tapir_rainbow_example, [],
+     {"corr_tents": None, "mixer_block": None}, True),
+    ("tapnext_tracking", tapnext_example, ["--variant", "B"],
+     {"linear_scan": SsmVitConfig().depth}, True),
+    ("tapnext_tracking_streaming", tapnext_example,
+     ["--variant", "B", "--streaming"], {}, True),
+    ("robotap_clustering", robotap_example,
+     ["--iters_before_split", str(EXAMPLES_CLUSTER_ITERS)], {}, False),
+    ("flow_track_assist", flow_example, [], {}, False),
+    ("trajan_roundtrip", trajan_example, [], {}, False),
+)
+
+
+def examples_phase():
+  """examples: each example script's main() on the card with its flags
+  (EXAMPLE_RUNS), the launch counters set to 0 before each run and read
+  after it: each run must launch its own kernels and no other. The painted
+  frames must have the clip's shape [24, 256, 256, 3]."""
+  import importlib.util
+
+  painted = {}
+
+  def keep_frames(path, frames, fps=5):
+    del fps
+    painted[path] = np.asarray(frames)
+
+  # In this phase alone, viz.write_video keeps the painted frames instead of
+  # encoding an mp4, so the phase needs no video encoder and checks the
+  # frames themselves.
+  write_video, viz.write_video = viz.write_video, keep_frames
+  # tapir_rainbow draws its tails with matplotlib. Where the machine has
+  # none, the phase paints the rainbow's points on each frame instead
+  # (viz.paint_point_track) and says so in its record: the tracks and the
+  # homographies are the example's own either way.
+  tails = viz.plot_tracks_tails
+  has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+  if not has_matplotlib:
+    viz.plot_tracks_tails = lambda rgb, points, occluded, homogs, **_: (
+        viz.paint_point_track(rgb, points, np.asarray(occluded) < 0.5))
+  records = {}
+  try:
+    for name, module, argv, expected, paints in EXAMPLE_RUNS:
+      out_path = f"{name}.mp4"
+      torch.cuda.synchronize()
+      reset_counts()
+      begin = time.perf_counter()
+      out = module.main(argv + (["--out", out_path] if paints else [])
+                        + ["--device", "cuda"])
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - begin
+      counts = {k: v for k, v in read_counts().items() if v}
+      ok = set(counts) == set(expected) and all(
+          n is None or counts[k] == n for k, n in expected.items())
+      require(ok, f"examples {name}: launches {counts}, expected {expected} "
+              "and no other kernel")
+      record = dict(argv=argv, wall_s=wall, launches=counts)
+      if paints:
+        frames = painted.pop(out_path)
+        require(frames.shape == (24, 256, 256, 3) and frames.dtype == np.uint8,
+                f"examples {name}: painted frames {frames.shape}")
+        require(np.isfinite(out["tracks"]).all(),
+                f"examples {name}: non-finite tracks")
+        record.update(painted_shape=list(frames.shape),
+                      tracks_shape=list(np.shape(out["tracks"])))
+      if module is tapir_rainbow_example:
+        record["tails"] = ("matplotlib" if has_matplotlib else
+                           "no matplotlib: points painted without tails")
+      records[name] = record
+      torch.cuda.empty_cache()
+  finally:
+    viz.write_video, viz.plot_tracks_tails = write_video, tails
+  records["live_demo"] = (live_demo_run() if importlib.util.find_spec("cv2")
+                          else "not run: no cv2 to read a video")
+  return records
+
+
+def live_demo_run():
+  """The live demo's main() with --video on the examples' 24-frame clip,
+  written to LIVE_DEMO_CLIP with cv2 (removed after), --no_display, the
+  trained causal BootsTAPIR: init on the first frame, a step a later
+  frame, 12 K1 launches a step and no other kernel."""
+  import cv2
+
+  from tapnet_tpu_torch import live_demo
+  from tapnet_tpu_torch.examples import _common
+
+  video = _common.load_video(None)
+  writer = cv2.VideoWriter(LIVE_DEMO_CLIP, cv2.VideoWriter_fourcc(*"mp4v"),
+                           10, video.shape[2:0:-1])
+  for frame in video:
+    writer.write(frame[..., ::-1])
+  writer.release()
+  try:
+    capture = cv2.VideoCapture(LIVE_DEMO_CLIP)
+    decoded = int(capture.get(cv2.CAP_PROP_FRAME_COUNT))
+    capture.release()
+    require(decoded == len(video), f"live demo: the clip holds {decoded} "
+            f"frames of {len(video)}")
+    torch.cuda.synchronize()
+    reset_counts()
+    begin = time.perf_counter()
+    fps = live_demo.main(["--checkpoint", CHECKPOINT, "--model",
+                          "causal_bootstapir", "--video", LIVE_DEMO_CLIP,
+                          "--no_display", "--device", "cuda"])
+    wall = time.perf_counter() - begin
+  finally:
+    os.remove(LIVE_DEMO_CLIP)
+  counts = {k: v for k, v in read_counts().items() if v}
+  steps = len(video) - 1
+  require(counts == {"corr_tents": ONLINE_K1_PER_STEP * steps},
+          f"live demo: launches {counts}, expected "
+          f"{ONLINE_K1_PER_STEP} K1 a step over {steps} steps")
+  return dict(wall_s=wall, steps=steps, fps_last_50=fps, launches=counts)
+
+
 # ----------------------------------------------------------------- training
 
 # Kernel-name fragments per layer of the training profile, matched in order.
@@ -4425,8 +4709,17 @@ def main():
     runs[name] = phase(tn_params)
     emit({name: runs[name], "card": card})
     stamp(name)
-  del tn_params
+  vots_golden, tracker = vots_golden_check(tn_params)
+  emit({"vots_golden": vots_golden, "card": card})
+  stamp("vots-golden")
+  runs["vots_512"] = vots_512(tracker)
+  emit({"vots_512": runs["vots_512"], "card": card})
+  stamp("vots-512")
+  del tn_params, tracker
   torch.cuda.empty_cache()
+  runs["examples"] = examples_phase()
+  emit({"examples": runs["examples"], "card": card})
+  stamp("examples")
 
   runs["multi_rank"] = multi_rank()
   emit({"multi_rank": runs["multi_rank"], "card": card})

@@ -467,9 +467,9 @@ class OnlineTapnextPredictor:
     self._state = res.state
     return res.tracks.cpu().numpy(), res.visible_logits.cpu().numpy()
 
-  def predict(self, frame):
+  def step(self, frame):
     """One frame [B, H, W, 3] (or [B, 1, H, W, 3]) -> ((y, x) tracks
-    [B, Q, 2], boolean visibility [B, Q]) as numpy arrays."""
+    [B, Q, 2], visibility logits [B, Q]) as numpy arrays."""
     if self._state is None:
       raise ValueError("Call init() first.")
     frame = torch.as_tensor(frame, dtype=torch.float32).to(self.device)
@@ -479,4 +479,10 @@ class OnlineTapnextPredictor:
       res = self.model.forward_step(frame, state=self._state)
     self._state = res.state
     return (res.tracks[:, :, 0].cpu().numpy(),
-            (res.visible_logits[:, :, 0, 0] > 0).cpu().numpy())
+            res.visible_logits[:, :, 0, 0].cpu().numpy())
+
+  def predict(self, frame):
+    """One frame [B, H, W, 3] (or [B, 1, H, W, 3]) -> ((y, x) tracks
+    [B, Q, 2], boolean visibility [B, Q]) as numpy arrays."""
+    tracks, logits = self.step(frame)
+    return tracks, logits > 0

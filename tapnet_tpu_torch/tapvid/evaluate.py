@@ -13,7 +13,8 @@ CLI:
       --checkpoint runs/bootstapir_synth/trained_params_f16.npy \
       --dataset kubric --data_path DIR --query_mode strided \
       [--bfloat16] [--quantized_mixer] [--quantized_corr per_frame] \
-      [--quantized_extra_convs true] [--num_pips_iter 2] [--device cpu]
+      [--quantized_extra_convs true] [--num_pips_iter 2] [--device cpu] \
+      [--visualization_dir DIR]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Callable, Iterable, Mapping, Optional
 
@@ -29,9 +31,6 @@ import torch
 
 from tapnet_tpu_torch.tapvid import datasets as tapvid_datasets
 from tapnet_tpu_torch.tapvid import metrics as tapvid_metrics
-
-_VIZ_NOT_PORTED = ("visualization_dir needs utils/viz.py, which is not "
-                   "ported yet (ROADMAP Queue 1 item 12: utils/viz.py)")
 
 
 def evaluate_dataset(
@@ -51,13 +50,15 @@ def evaluate_dataset(
     dataset: generator of {name: example} dicts from tapvid datasets.
     query_mode: "first" or "strided".
     max_videos: optional cap for smoke runs.
-    visualization_dir: painted-track videos; not ported yet (raises).
+    visualization_dir: if set, writes one painted-track mp4 per video
+      there (`video_{i:04d}.mp4`: predictions as dots, ground truth as
+      diamonds, `utils.viz.write_visualization`; cv2 and matplotlib are
+      imported then). The plots' colours are drawn from
+      `np.random.default_rng(i)`.
 
   Returns:
     mean metrics over videos (floats in [0, 1]).
   """
-  if visualization_dir:
-    raise NotImplementedError(_VIZ_NOT_PORTED)
   sums: dict = {}
   count = 0
   for i, element in enumerate(dataset):
@@ -86,6 +87,20 @@ def evaluate_dataset(
         query_mode=query_mode,
     )
     count += 1
+    if visualization_dir:
+      from tapnet_tpu_torch.utils import viz
+
+      os.makedirs(visualization_dir, exist_ok=True)
+      video_u8 = ((video + 1.0) * 127.5).astype(np.uint8)
+      viz.write_visualization(
+          video_u8,
+          out["tracks"],
+          pred_occluded,
+          [os.path.join(visualization_dir, f"video_{i:04d}.mp4")],
+          gt_points=example["target_points"],
+          gt_occluded=example["occluded"],
+          rng=np.random.default_rng(i),
+      )
     for k, v in video_metrics.items():
       sums[k] = sums.get(k, 0.0) + float(np.mean(v))
     if verbose:
@@ -220,7 +235,7 @@ def main(argv=None):
   parser.add_argument("--output_json", default=None)
   parser.add_argument(
       "--visualization_dir", default=None,
-      help="painted-track videos (not ported yet: raises)",
+      help="write one painted-track mp4 per video here",
   )
   parser.add_argument("--device", default=None,
                       help="torch device; default the CUDA card")
@@ -236,8 +251,6 @@ def main(argv=None):
                       help="true (per frame) or per_pixel")
   parser.add_argument("--num_pips_iter", type=int, default=None)
   args = parser.parse_args(argv)
-  if args.visualization_dir:
-    raise NotImplementedError(_VIZ_NOT_PORTED)
   if args.model == "tapnext" and (
       args.bfloat16 or args.quantized_mixer or args.quantized_corr
       or args.quantized_extra_convs or args.num_pips_iter is not None):
@@ -287,6 +300,7 @@ def main(argv=None):
       ds,
       args.query_mode,
       max_videos=args.max_videos,
+      visualization_dir=args.visualization_dir,
   )
   print(tapvid_metrics.latex_table(results))
   print(json.dumps(results, indent=2))

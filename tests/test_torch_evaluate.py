@@ -96,8 +96,9 @@ def test_evaluate_cli_on_cpu(eval_setup, tmp_path, monkeypatch, capsys):
   precision flags, on a checkpoint file: the weights load into the
   predictor, the flags reach its configuration, and the metrics of its
   outputs are printed and written (the predictor's outputs are stand-ins
-  here: test_evaluate_dataset_matches_jax runs the model). The narrow
-  weights stand in for the preset's widths (monkeypatched)."""
+  here: test_evaluate_dataset_matches_jax runs the model), and
+  --visualization_dir writes a painted video. The narrow weights stand in
+  for the preset's widths (monkeypatched)."""
   from tapnet_tpu_torch import inference
 
   data_dir, params = eval_setup
@@ -132,8 +133,12 @@ def test_evaluate_cli_on_cpu(eval_setup, tmp_path, monkeypatch, capsys):
           config.quantized_extra_convs, config.num_pips_iter) == (
               True, "per_frame", True, 2)
   assert kwargs == dict(query_chunk_size=16, bfloat16=True, device="cpu")
-  with pytest.raises(NotImplementedError, match="utils/viz.py"):
-    evaluate.main(base + ["--visualization_dir", str(tmp_path / "viz")])
+  # --visualization_dir writes one painted mp4 per video.
+  viz_dir = tmp_path / "viz"
+  evaluate.main(base + ["--max_videos", "1", "--visualization_dir",
+                        str(viz_dir)])
+  assert sorted(os.listdir(viz_dir)) == ["video_0000.mp4"]
+  assert os.path.getsize(viz_dir / "video_0000.mp4") > 0
   with pytest.raises(SystemExit):
     evaluate.main(["--checkpoint", "x.pt", "--model", "tapnext", "--dataset",
                    "kubric", "--data_path", data_dir, "--bfloat16"])

@@ -57,6 +57,80 @@ def test_import_pulls_in_no_jax():
 
 
 
+SLICE_MODULES = (
+    "tapnet_tpu_torch.tapvid3d.splits", "tapnet_tpu_torch.tapvid3d.metrics",
+    "tapnet_tpu_torch.tapvid3d.evaluate", "tapnet_tpu_torch.tapvid3d.adt",
+    "tapnet_tpu_torch.tapvid3d.generation", "tapnet_tpu_torch.utils.viz",
+    "tapnet_tpu_torch.tapvid.visualize",
+    "tapnet_tpu_torch.tapnextpp.vots_tracker",
+    "tapnet_tpu_torch.examples._common",
+    "tapnet_tpu_torch.examples.tapir_offline",
+    "tapnet_tpu_torch.examples.tapir_online",
+    "tapnet_tpu_torch.examples.tapir_rainbow",
+    "tapnet_tpu_torch.examples.tapnext_tracking",
+    "tapnet_tpu_torch.examples.robotap_clustering",
+    "tapnet_tpu_torch.examples.flow_track_assist",
+    "tapnet_tpu_torch.examples.trajan_roundtrip",
+    "tapnet_tpu_torch.live_demo",
+)
+
+
+def test_slice_modules_run_without_jax():
+  """TAPVid-3D, the painted-track output, the VOTS tracker, the examples and
+  the live demo are in the import check above, and import neither JAX nor
+  the optional cv2, matplotlib or PIL; their numpy and torch paths (the 3D
+  metrics, a split list, the painting, the homography pipeline, the integer
+  resize, a small VOTS tracker on seed-made weights, an example's helpers)
+  run in a fresh process that never imports JAX."""
+  assert set(SLICE_MODULES) <= set(_package_modules())
+  code = (
+      "import importlib, sys, numpy as np, torch\n"
+      f"for m in {SLICE_MODULES!r}:\n"
+      "  importlib.import_module(m)\n"
+      "lazy = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('cv2', 'matplotlib', 'PIL'))\n"
+      "assert not lazy, lazy\n"
+      "from tapnet_tpu_torch.tapvid3d import metrics, splits\n"
+      "from tapnet_tpu_torch.utils import viz\n"
+      "from tapnet_tpu_torch.tapnextpp import vots_tracker\n"
+      "from tapnet_tpu_torch.examples import _common\n"
+      "from tapnet_tpu_torch.models import ssm_vit\n"
+      "from tools.tapnext_weights import seeded_tapnext_params\n"
+      "rng = np.random.RandomState(0)\n"
+      "xyz = rng.rand(4, 6, 3) + [0, 0, 2]\n"
+      "m = metrics.compute_tapvid3d_metrics(rng.rand(4, 6) > .8, xyz, "
+      "rng.rand(4, 6) > .8, xyz * 2, np.array([100., 100., 32., 32.]))\n"
+      "assert m['average_jaccard'] > .5, m\n"
+      "assert len(splits.get_minival_files('adt')) == 50\n"
+      "video = (rng.rand(3, 24, 32, 3) * 255).astype(np.uint8)\n"
+      "tracks = rng.rand(4, 3, 2) * 20\n"
+      "assert viz.paint_point_track(video, tracks, np.ones((4, 3), bool))"
+      ".shape == video.shape\n"
+      "h, _, _ = viz.get_homographies_wrt_frame(tracks, np.zeros((4, 3)), "
+      "(32, 24))\n"
+      "assert h.shape == (3, 3, 3)\n"
+      "r = vots_tracker.resize_linear_u8(torch.from_numpy(video[0]), 40, 40)\n"
+      "assert r.shape == (40, 40, 3) and r.dtype == torch.uint8\n"
+      "cfg = ssm_vit.SsmVitConfig(width=32, depth=1, mlp_dim=64, "
+      "num_heads=2, image_size=(32, 32))\n"
+      "t = vots_tracker.VotsPointTracker(seeded_tapnext_params(cfg, 0), cfg, "
+      "input_resolution=32, n_support=4, support_radius=8., device='cpu')\n"
+      "xy, vis = t.initialize(video[0], np.array([[5., 6.]], np.float32))\n"
+      "xy, vis = t.track(video[1])\n"
+      "assert xy.shape == (1, 2) and vis.shape == (1,)\n"
+      "assert _common.grid_queries(0, 64, 64).shape == (1, 4, 3)\n"
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+      "('jax', 'jaxlib', 'flax', 'tapnet_tpu'))\n"
+      "assert not bad, bad\n"
+  )
+  env = dict(os.environ, PYTHONPATH=REPO)
+  res = subprocess.run(
+      [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+      text=True, timeout=300,
+  )
+  assert res.returncode == 0, res.stderr
+
+
 def test_chip_smoke_imports_no_jax():
   """chip_smoke.py runs where JAX is absent: it and the golden clips it
   rebuilds (tools/golden_clip.py) import no JAX, Flax or tapnet_tpu module.
@@ -346,6 +420,55 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
   monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
   with pytest.raises(RuntimeError, match="nvcc"):
     _build.build_all(["corr_tents"])
+
+
+def _package_data_globs():
+  """{package directory: [globs]} of pyproject.toml's package data."""
+  import tomllib
+
+  with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+    data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+  return {os.path.join(REPO, *pkg.split(".")): globs
+          for pkg, globs in data.items()}
+
+
+def _shipped(path, globs_by_dir):
+  import fnmatch
+
+  for pkg_dir, globs in globs_by_dir.items():
+    rel = os.path.relpath(path, pkg_dir)
+    if not rel.startswith("..") and any(fnmatch.fnmatch(rel, g)
+                                        for g in globs):
+      return True
+  return False
+
+
+def test_package_data_ships_every_runtime_file():
+  """An installed port can build its kernels and its loader and read its
+  split lists: every file that ops/_build.py, data/native_loader.py and
+  tapvid3d/splits.py read, and every other file of the package but its
+  Python modules and Markdown notes, matches a package-data glob of
+  pyproject.toml."""
+  from tapnet_tpu_torch.data import native_loader
+  from tapnet_tpu_torch.tapvid3d import splits
+
+  globs = _package_data_globs()
+  read = (sorted(_build.SRC_DIR.glob("*.cu")) + sorted(
+      _build.SRC_DIR.glob("*.cuh")) + [native_loader._SRC] + [  # pylint: disable=protected-access
+          os.path.join(splits._VENDORED_DIR, f"{s}_{p}.txt")  # pylint: disable=protected-access
+          for s in splits.SOURCES for p in splits.SPLITS])
+  assert {"q8_tile.cuh", "tma_gemm.cuh", "loader.cc"} <= {
+      os.path.basename(str(p)) for p in read}
+  missing = [str(p) for p in read if not _shipped(str(p), globs)]
+  assert not missing, missing
+  others = []
+  for root, dirs, files in os.walk(PKG):
+    dirs[:] = [d for d in dirs if not d.startswith(("_build", "__pycache__"))]
+    others += [os.path.join(root, f) for f in files
+               if not f.endswith((".py", ".pyc", ".md"))]
+  assert len(others) >= 13, others
+  missing = [p for p in others if not _shipped(p, globs)]
+  assert not missing, missing
 
 
 def test_build_key_follows_sources():
