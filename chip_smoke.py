@@ -90,6 +90,32 @@ Phases (any failure raises and exits non-zero):
      (the live demo's causal BootsTAPIR) and online-bootstapir-256-int8 (its
      configuration c, with the streaming w8a8 MLP timed), 50 timed
      one-frame steps each: 12 K1 launches per step (6 K2 and 10 X in c).
+  3c. TAPIR's other options and the last modules (run after
+     extra-convs-fp-480, before 3a): routes-golden (the golden clip in fp32, TF32 off,
+     under each correlation route of TapirConfig: the kernel's, the whole
+     correlation map with tent products or with gathers, the sampled
+     neighbours; the backbone in chunks of 4 frames; the per-frame query
+     extraction; each against the JAX golden outputs within the fp32
+     limits); serve-480-routes (serve-480's bf16 configuration, one warm-up
+     and one timed video under each route, the backbone in chunks of 50
+     frames, the per-frame queries, and quantized_corr="per_frame" on the
+     unfused route: seconds a video, peak memory, each against the default
+     route within the bf16 limits; K1 24 and K3 96 on the kernel's route,
+     K3 96 and no K1 on the others, never K2, K2b or Q); profile-480 (one
+     serve-480 request under utils.profiling.trace, the trace through
+     utils.trace_analysis: 24 corr-kernel events, 96 K3 launches of 3
+     kernels, the classified device time within 5% of profile_request's
+     for the same request; benchmark_stats of one K3 launch within 10% of
+     time_ms); resnet-v1 (the generic ResNet, v1 with BatchNorm and the
+     max-pool at TAPIR's widths, 8 frames of 256^2, the card in fp32 with
+     TF32 off against its own CPU run, eval and training with the running
+     statistics); tapvid-generate (a 250-frame 256^2 synthetic clip as an
+     mp4 and a CSV of its tracks through tapvid.generate, the shards read
+     back and scored with the trained BootsTAPIR, AJ and OA against the
+     clip's JPEG frames decoded straight; the mp4's own frames, without
+     the re-encode, scored beside them); aug-viz (the augmentation visualiser's roll and
+     homography warped on the card, the track on the dot, a GIF where
+     imageio imports).
   4. TAPNext (ViT-B, seed-made weights from tools/tapnext_weights.py): the
      linear scan (K5) against its plain version bit for bit at the served
      shape beside faulty plain versions that the check must refuse, the
@@ -2169,7 +2195,10 @@ def profile_request(request, unprofiled_wall_s, layers=LAYERS, own=OWN_KERNELS,
     request()
   kernels = []
   for e in prof.key_averages():
-    if not str(e.device_type).endswith("CUDA"):
+    # A record_function range (TAPIR's model scopes) shows on the device as
+    # an annotation spanning its kernels: not device work of its own.
+    if (not str(e.device_type).endswith("CUDA")
+        or getattr(e, "is_user_annotation", False)):
       continue
     dev_us = getattr(e, "self_device_time_total", None)
     if dev_us is None:
@@ -2363,6 +2392,400 @@ def extra_convs_fp_480(params, videos):
       stack_output_vs_production=apart,
       launches_per_video={k: v // count for k, v in launches.items()},
       profile=profile)
+
+
+# ------------------------------------------- options beyond the kernel route
+
+# TAPIR's configurations outside the corr-tents kernel's route
+# (TapirConfig.use_matmul_corr / use_fused_corr / use_gather_tents: the whole
+# correlation map with tent products or gathers, or the sampled neighbours;
+# plain PyTorch products, as JAX computes them outside its kernel), the
+# backbone in chunks of frames and the per-frame query extraction. The
+# unfused routes launch K3 and no K1; no route launches K2, K2b or Q, with
+# quantized_corr="per_frame" neither (the int8 correlation exists only on
+# the kernel's route).
+ROUTES = {
+    "kernel": {},
+    "tents": dict(use_fused_corr=False),
+    "gathers": dict(use_fused_corr=False, use_gather_tents=True),
+    "sampled": dict(use_matmul_corr=False),
+}
+GOLDEN_CHUNK = 4
+SERVE_CHUNK = 50
+ROUTE_RUNS = dict(
+    ROUTES,
+    chunked=dict(feature_extractor_chunk_size=SERVE_CHUNK),
+    per_frame_queries=dict(parallelize_query_extraction=True),
+    tents_int8_flag=dict(use_fused_corr=False, quantized_corr="per_frame"),
+)
+
+
+def _route_launches(counts, overrides, per):
+  """Checks one run's launch counts against its route: K3 on every route,
+  K1 only on the kernel's, nothing else. `per` is the expected count of
+  each per request (K1's, K3's)."""
+  unfused = not tapir_lib.TapirConfig(**overrides).kernel_corr
+  want = {"mixer_block": per[1]} if unfused else {
+      "corr_tents": per[0], "mixer_block": per[1]}
+  got = {k: v for k, v in counts.items() if v}
+  require(got == want, f"route {overrides}: launches {got}, expected {want}")
+  return got
+
+
+def routes_golden(params):
+  """routes-golden: the golden clip (8 x 256^2, 32 queries) in fp32 with
+  TF32 off under each correlation route, the backbone in chunks of
+  GOLDEN_CHUNK frames and the per-frame query extraction, each against the
+  JAX golden outputs within GOLDEN_FP32_TOL."""
+  golden = np.load(GOLDEN)
+  frames = preprocess_frames(torch.from_numpy(golden["video"]))
+  runs = dict(ROUTES, chunked=dict(feature_extractor_chunk_size=GOLDEN_CHUNK),
+              per_frame_queries=dict(parallelize_query_extraction=True))
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  result, failed = {}, []
+  try:
+    for name, overrides in runs.items():
+      predictor = TapirPredictor(params, bootstapir_config(**overrides))
+      reset_counts()
+      out = predictor(frames, golden["query_points"])
+      counts = _route_launches(read_counts(), overrides, (12, 48))
+      r = result[name] = dict(golden_errors(predictor, out, golden),
+                              config=overrides, launches=counts)
+      if not within_fp32(r):
+        failed.append(f"{name}: {r}")
+      del predictor
+  finally:
+    torch.backends.cudnn.allow_tf32 = True
+  require(not failed, "routes-golden outside the fp32 limits "
+          f"{GOLDEN_FP32_TOL}: " + "; ".join(failed))
+  return result
+
+
+def serve_480_routes(params, videos):
+  """serve-480-routes: serve-480's bf16 configuration (480^2, 256 queries,
+  chunk 128, 250 frames) under each of ROUTE_RUNS, one warm-up on
+  videos[0] and one timed video (videos[1]) each: seconds a video, peak
+  memory, launches (K1 24 and K3 96 a video on the kernel's route, K3 96
+  and no K1 on the others), and the tracks against the default route's on
+  the same video within GOLDEN_BF16_TOL."""
+  video, queries = videos[1]
+  result, ref = {}, None
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = True
+  for name, overrides in ROUTE_RUNS.items():
+    predictor = TapirPredictor(
+        params, bootstapir_config(**overrides), bfloat16=True,
+        query_chunk_size=CHUNK, refinement_resolutions=[(RES, RES)])
+    predictor(*videos[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    begin = time.perf_counter()
+    out = predictor(video, queries)
+    wall = time.perf_counter() - begin
+    peak = torch.cuda.max_memory_allocated()
+    counts = _route_launches(read_counts(), overrides, (24, 96))
+    for key in ("tracks", "occlusion", "expected_dist"):
+      require(np.isfinite(out[key]).all(), f"serve-480-routes {name}: "
+              f"non-finite {key}")
+    r = result[name] = dict(config=overrides, wall_s_per_video=wall,
+                            peak_memory_bytes=peak, launches_per_video=counts)
+    if ref is None:
+      ref = (out, predictor.visibles(out))
+    else:
+      err = np.linalg.norm(out["tracks"] - ref[0]["tracks"], axis=-1)
+      r.update(track_median_px=float(np.median(err)),
+               track_p95_px=float(np.percentile(err, 95)),
+               visible_agree=float(np.mean(predictor.visibles(out) == ref[1])))
+      require(within_bf16(r), f"serve-480-routes {name} against the default "
+              f"route: {r} vs {GOLDEN_BF16_TOL}")
+    print(f"serve-480-routes {name}: {wall:.3f} s a video, peak "
+          f"{peak / 2**30:.2f} GiB, launches {counts}", flush=True)
+    del predictor, out
+    torch.cuda.empty_cache()
+  return dict(videos=1, frames=FRAMES, queries=QUERIES, chunk=CHUNK,
+              resolution=RES, dtype="bfloat16", routes=result)
+
+
+# profile-480: the classified device time of one request against
+# profile_request's device time of the same request (two profiled runs);
+# benchmark_stats of one K3 launch against time_ms of it.
+PROFILE_TOTAL_TOL = 0.05
+BENCH_TOL = 0.10
+K3_KERNELS = 3  # a bf16 K3 launch: mixer_temporal and two mixer_gemm_tma
+
+
+def profile_480(params, videos):
+  """profile-480: one serve-480 request under `profiling.trace`; the
+  written trace through `trace_analysis.component_budget`: K1's corr
+  kernels 24 events, K3's kernels 96 launches (K3_KERNELS kernels each),
+  the classified device time within PROFILE_TOTAL_TOL of profile_request's
+  device time for the same request; then `profiling.benchmark_stats` of one
+  K3 launch at the served shape against `time_ms` of the same launch."""
+  from tapnet_tpu_torch.utils import profiling, trace_analysis
+
+  predictor = TapirPredictor(
+      params, bootstapir_config(), bfloat16=True, query_chunk_size=CHUNK,
+      refinement_resolutions=[(RES, RES)])
+  request = lambda: predictor(*videos[1])
+  request()
+  log_dir = os.path.join(REPO, "_profile_480")
+  shutil.rmtree(log_dir, ignore_errors=True)
+  try:
+    reset_counts()
+    with profiling.trace(log_dir):
+      request()
+    counts = {k: v for k, v in read_counts().items() if v}
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json.gz")]
+    events = trace_analysis._load_events(log_dir)  # pylint: disable=protected-access
+    names = trace_analysis.track_names(events)
+    # The tracks that hold the request's kernels, by their labels.
+    tracks = sorted({names.get(e.get("pid"), "") for e in events
+                     if e.get("cat") == "kernel"})
+    table = trace_analysis.component_budget(log_dir)
+    by_kernel = {}
+    for e in trace_analysis._device_events(events):  # pylint: disable=protected-access
+      if e.get("cat") == "kernel":
+        key = e["name"].replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        if trace_analysis.default_classifier(e) in ("corr_kernel",
+                                                    "mixer_kernel"):
+          by_kernel[key] = by_kernel.get(key, 0) + 1
+  finally:
+    shutil.rmtree(log_dir, ignore_errors=True)
+  require(counts == {"corr_tents": 24, "mixer_block": 96},
+          f"profile-480: launches {counts}")
+  require(tracks == ["GPU 0"], f"profile-480: kernels on the tracks {tracks}")
+  total_s = sum(t for t, _ in table.values())
+  require(table.get("corr_kernel", (0, 0))[1] == 24
+          and table.get("mixer_kernel", (0, 0))[1] == 96 * K3_KERNELS
+          and all(n == 96 for k, n in by_kernel.items() if "mixer_" in k),
+          f"profile-480: corr / mixer events {table}, {by_kernel}")
+  wall = time.perf_counter()
+  request()
+  wall = time.perf_counter() - wall
+  profiled = profile_request(request, wall)
+  gap = total_s * 1e3 / profiled["device_ms"] - 1
+  print(trace_analysis.format_table(table), flush=True)
+  require(abs(gap) <= PROFILE_TOTAL_TOL,
+          f"profile-480: classified {total_s * 1e3:.1f} ms against "
+          f"profile_request's {profiled['device_ms']:.1f} ms")
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  args = mixer_inputs(torch.bfloat16, gen)
+  launch = lambda *a: fused_mixer_block.mixer_block(*a)
+  stats = profiling.benchmark_stats(launch, *args, iters_per_measure=10,
+                                    num_measures=3, warmup=2)
+  event_ms = time_ms(lambda: launch(*args))
+  bench_gap = stats["median"] * 1e3 / event_ms - 1
+  require(abs(bench_gap) <= BENCH_TOL,
+          f"profile-480: benchmark_stats {stats} against time_ms {event_ms}")
+  del args
+  return dict(trace_files=len(files), kernel_tracks=tracks, launches=counts,
+              components={k: dict(ms=t * 1e3, events=n)
+                          for k, (t, n) in table.items()},
+              own_kernel_events=by_kernel, classified_ms=total_s * 1e3,
+              profile_request_device_ms=profiled["device_ms"],
+              classified_vs_profile=gap, wall_s=wall,
+              k3_benchmark_stats_s=stats, k3_time_ms=event_ms,
+              k3_benchmark_vs_time_ms=bench_gap)
+
+
+# resnet-v1: the generic ResNet's post-activation form with BatchNorm and the
+# stem max-pool at TAPIR's channel widths, card (fp32, TF32 off) against its
+# own CPU run, per group output within RESNET_TOL of the group's largest
+# |value|, and the updated running statistics alike.
+RESNET_FRAMES = 8
+RESNET_TOL = 1e-4
+
+
+def resnet_v1():
+  from tapnet_tpu_torch.models import resnet
+
+  cfg = resnet.ResNetConfig(resnet_v2=False, normalization="batchnorm",
+                            use_max_pool=True)
+  gen = torch.Generator().manual_seed(SEED)
+  model = resnet.ResNet(cfg)
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      if name.endswith("weight"):
+        p.copy_(torch.randn(p.shape, generator=gen)
+                * (1.0 / p[0].numel()) ** 0.5)
+      else:
+        p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen)
+                if name.endswith("scale") else
+                0.1 * torch.randn(p.shape, generator=gen))
+    for name, b in model.named_buffers():
+      b.copy_(torch.rand(b.shape, generator=gen) * 0.5
+              + (0.75 if name.endswith("var") else -0.25))
+  frames = torch.rand(RESNET_FRAMES, 3, 256, 256, generator=gen) * 2 - 1
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  result = {}
+  frames_card = frames.cuda()
+  try:
+    card = resnet.ResNet(cfg).cuda()
+    for mode in ("eval", "training"):
+      card.load_state_dict(model.state_dict())
+      with torch.no_grad():
+        ref = model(frames, mode == "training")
+        out = card(frames_card, mode == "training")
+      errs = {}
+      for key, r in ref.items():
+        errs[key] = float((out[key].cpu() - r).abs().max() / r.abs().max())
+      if mode == "training":
+        # Both moved their running statistics by their own batch's.
+        card_buffers = dict(card.named_buffers())
+        for name, b in model.named_buffers():
+          errs[name] = float((card_buffers[name].cpu() - b).abs().max()
+                             / b.abs().max())
+      worst = max(errs, key=errs.get)
+      with torch.no_grad():
+        ms = time_ms(lambda: card(frames_card, False), reps=3, warmup=1)
+      result[mode] = dict(max_err_of_scale=errs[worst], worst=worst,
+                          groups={k: list(v.shape) for k, v in out.items()},
+                          card_eval_ms=ms)
+      require(errs[worst] <= RESNET_TOL, f"resnet-v1 {mode}: {errs[worst]} "
+              f"of the output's scale at {worst}")
+  finally:
+    torch.backends.cudnn.allow_tf32 = True
+  return dict(config="ResNetConfig(resnet_v2=False, normalization="
+              "'batchnorm', use_max_pool=True)", frames=RESNET_FRAMES,
+              size=256, dtype="float32, TF32 off", tol=RESNET_TOL, **result)
+
+
+# tapvid-generate: a synthetic clip written as an mp4 with a CSV of its
+# tracks, through generate_dataset, read back by create_kinetics_dataset
+# and scored by evaluate_dataset with the trained BootsTAPIR (fp32 at
+# PyTorch's TF32 defaults), against the same scores computed straight from
+# the clip's JPEG frames (the generator's re-encode of the mp4, decoded by
+# OpenCV where the reader uses PIL) and the CSV: AJ and OA within
+# GENERATE_TOL. The scores of the mp4's own frames, without the re-encode
+# (quality 95), are recorded beside them, not judged.
+GENERATE_DIR = os.path.join(REPO, "_tapvid_generate")
+GENERATE_FRAMES, GENERATE_RES, GENERATE_TRACKS = 250, 256, 32
+GENERATE_TOL = 1e-3
+
+
+def tapvid_generate(params):
+  import cv2
+
+  from tapnet_tpu_torch.tapvid import generate
+
+  gen = torch.Generator(device="cuda").manual_seed(SEED)
+  batch = synthetic.make_batch(gen, 1, GENERATE_FRAMES, GENERATE_RES,
+                               GENERATE_RES, GENERATE_TRACKS, vel_range=0.5)
+  video = ((batch["video"][0] + 1) * 127.5).clamp(0, 255).to(
+      torch.uint8).cpu().numpy()
+  points = batch["target_points"][0].cpu().numpy() / GENERATE_RES
+  occluded = batch["occluded"][0].cpu().numpy() > 0
+  shutil.rmtree(GENERATE_DIR, ignore_errors=True)
+  videos_dir = os.path.join(GENERATE_DIR, "videos")
+  os.makedirs(videos_dir)
+  try:
+    begin = time.perf_counter()
+    mp4 = os.path.join(videos_dir, "synthclip000_000000_000010.mp4")
+    writer = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"),
+                             generate.FPS, (GENERATE_RES, GENERATE_RES))
+    for frame in video:
+      writer.write(frame[..., ::-1])
+    writer.release()
+    csv_path = os.path.join(GENERATE_DIR, "tracks.csv")
+    with open(csv_path, "w", encoding="utf-8") as f:
+      for pts, occ in zip(points, occluded):
+        row = np.concatenate([pts, occ[:, None]], -1).reshape(-1)
+        f.write(",".join(["synthclip000", "0", "10"]
+                         + [f"{v:.6f}" for v in row]) + "\n")
+    shards = os.path.join(GENERATE_DIR, "shards")
+    count = generate.generate_dataset(csv_path, videos_dir, shards,
+                                      num_shards=1, verbose=False)
+    write_s = time.perf_counter() - begin
+    require(count == 1, f"tapvid-generate: {count} examples")
+    predictor = TapirPredictor(params, bootstapir_config(),
+                               query_chunk_size=256)
+    reset_counts()
+    begin = time.perf_counter()
+    from_shards = tapvid_evaluate.evaluate_dataset(
+        predictor, tapvid_datasets.create_kinetics_dataset(shards, "strided"),
+        "strided", verbose=False)
+    eval_s = time.perf_counter() - begin
+    counts = {k: v for k, v in read_counts().items() if v}
+    tracks = np.loadtxt(csv_path, delimiter=",", usecols=range(3, 753),
+                        ndmin=2).reshape(-1, GENERATE_FRAMES, 3)
+
+    def score(frames):
+      example = tapvid_datasets._convert_example(  # pylint: disable=protected-access
+          frames[:GENERATE_FRAMES], tracks[..., :2].astype(np.float32),
+          tracks[..., 2] > 0, "strided", (GENERATE_RES, GENERATE_RES))
+      return example["query_points"].shape[1], tapvid_evaluate.evaluate_dataset(
+          predictor, [{"kinetics": example}], "strided", verbose=False)
+
+    jpeg = generate.extract_frames_jpeg(mp4)
+    queries, straight = score(np.stack([
+        cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+        for b in jpeg]))
+    _, from_mp4 = score(tapvid_datasets.read_video_file(mp4))
+  finally:
+    shutil.rmtree(GENERATE_DIR, ignore_errors=True)
+  require(set(counts) == {"corr_tents", "mixer_block"},
+          f"tapvid-generate: launches {counts}")
+  gaps = {k: from_shards[k] - straight[k]
+          for k in ("average_jaccard", "occlusion_accuracy")}
+  require(all(np.isfinite(v) for v in from_shards.values()),
+          f"tapvid-generate: {from_shards}")
+  require(all(abs(g) <= GENERATE_TOL for g in gaps.values()),
+          f"tapvid-generate: shards {from_shards} against the JPEG frames "
+          f"{straight}")
+  return dict(frames=GENERATE_FRAMES, resolution=GENERATE_RES,
+              tracks=GENERATE_TRACKS, queries=int(queries), write_s=write_s,
+              eval_s=eval_s, launches=counts,
+              from_shards={k: from_shards[k] for k in gaps},
+              from_jpeg_frames={k: straight[k] for k in gaps}, gaps=gaps,
+              tol=GENERATE_TOL,
+              from_mp4_frames={k: from_mp4[k] for k in gaps},
+              reencode_cost={k: from_shards[k] - from_mp4[k] for k in gaps})
+
+
+# aug-viz: the visualiser's roll and homography on the card; the warped
+# track must lie on the dot's red in at least AUG_ON_DOT of the frames where
+# it is inside the frame.
+AUG_FRAMES = 128
+AUG_ON_DOT = 0.95
+
+
+def aug_viz():
+  from tapnet_tpu_torch.data import augmentation_viz
+
+  try:
+    import imageio  # noqa: F401  pylint: disable=unused-import
+    has_imageio = True
+  except ImportError:
+    has_imageio = False
+  result = dict(frames=AUG_FRAMES, imageio=has_imageio)
+  video, tracks = augmentation_viz.make_dot_video(AUG_FRAMES)
+  for mode in ("roll", "homography"):
+    begin = time.perf_counter()
+    warped, moved = augmentation_viz.augment(mode, video, tracks, SEED, "cuda")
+    seconds = time.perf_counter() - begin
+    h, w = warped.shape[1:3]
+    on_dot = [augmentation_viz.is_red(warped[t, int(y), int(x)])
+              for t, (x, y) in enumerate(moved[:, 0])
+              if 0 <= x < w and 0 <= y < h]
+    share = float(np.mean(on_dot))
+    require(share >= AUG_ON_DOT, f"aug-viz {mode}: the track on the dot in "
+            f"{share} of {len(on_dot)} frames")
+    frames = augmentation_viz.render(mode, AUG_FRAMES, SEED, "cuda")
+    gif = None
+    if has_imageio:
+      path = os.path.join(REPO, f"_aug_viz_{mode}.gif")
+      augmentation_viz.write_gif(frames, path)
+      gif = os.path.getsize(path)
+      os.remove(path)
+    else:
+      print("gif: no imageio", flush=True)
+    result[mode] = dict(on_dot_share=share, frames_inside=len(on_dot),
+                        warp_s=seconds, gif_bytes=gif)
+  return result
 
 
 def online_golden_check(params):
@@ -4681,6 +5104,17 @@ def main():
   runs["extra_convs_fp_480"] = extra_convs_fp_480(params, videos[:3])
   emit({"extra_convs_fp_480": runs["extra_convs_fp_480"], "card": card})
   stamp("extra-convs-fp-480")
+  for name, phase in (
+      ("routes_golden", lambda: routes_golden(params)),
+      ("serve_480_routes", lambda: serve_480_routes(params, videos)),
+      ("profile_480", lambda: profile_480(params, videos)),
+      ("resnet_v1", resnet_v1),
+      ("tapvid_generate", lambda: tapvid_generate(params)),
+      ("aug_viz", aug_viz)):
+    runs[name] = phase()
+    emit({name: runs[name], "card": card})
+    stamp(name.replace("_", "-"))
+    torch.cuda.empty_cache()
   del videos
   torch.cuda.empty_cache()
 

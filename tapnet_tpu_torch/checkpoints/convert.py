@@ -32,6 +32,11 @@ flat-key tree (`checkpoints/tapnext_checkpoint.load_tapnext_checkpoint`):
 Any leaf the bridge does not know, any key the model does not have, any
 parameter of the model left unfilled and any shape mismatch raises.
 
+The generic ResNet (`load_resnet_params`) takes the JAX ResNet's trees:
+its v1 `stem_norm` and `proj_norm`, LayerNorm's and BatchNorm's `scale` and
+`bias`, InstanceNorm's `scale` and `offset` map by name, and BatchNorm's
+`mean`/`var` come from `batch_stats`.
+
 TAP-Net (`tapnet_to_state_dict`, `load_tapnet_params`) takes Flax's
 (params, batch_stats) trees: the conv kernels as TAPIR's, the heads'
 (1, 3, 3, C_in, C_out) kernels as 2D OIHW (they act on one frame at a
@@ -243,13 +248,29 @@ def tapnet_to_state_dict(params: Mapping[str, Any],
                          ) -> Dict[str, torch.Tensor]:
   """Converts Flax TAP-Net (params, batch_stats) trees to state_dict
   tensors (parameters and running statistics)."""
-  out = flax_to_state_dict(_without_frame_axis(params))
+  return _with_batch_stats(flax_to_state_dict(_without_frame_axis(params)),
+                           batch_stats)
+
+
+def _with_batch_stats(out: Dict[str, torch.Tensor],
+                      batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """`out` with Flax's BatchNorm running statistics (`mean`, `var` leaves of
+  a `batch_stats` tree) added under the same names."""
   for path, value in _walk(batch_stats):
     if path[-1] not in ("mean", "var"):
       raise ValueError(f"Unmapped batch statistic: {'/'.join(path)}")
     out[".".join(path)] = torch.from_numpy(
         np.ascontiguousarray(np.asarray(value, np.float32)))
   return out
+
+
+def load_resnet_params(model: nn.Module, params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any] = None) -> None:
+  """Fills every parameter and BatchNorm running statistic of a
+  `models.resnet.ResNet` from Flax's `params` (and `batch_stats`) trees of
+  the JAX package's ResNet, or raises."""
+  _load_converted(model, _with_batch_stats(flax_to_state_dict(params),
+                                           batch_stats or {}))
 
 
 def load_tapnet_params(model: nn.Module, params: Mapping[str, Any],

@@ -21,7 +21,8 @@ residual stream, the whole SSM block (its products included) and the heads
 stay float32, as in the JAX package. With `remat`, each ViT-SSM block's
 activations are recomputed in the backward (`torch.utils.checkpoint`, as the
 JAX package's `nn.remat`): only the blocks' inputs stay stored.
-`TokenSubsampling` (no JAX model instantiates it) is not ported.
+`TokenSubsampling` masks a random suffix of the frames' tokens (TAPNext's
+training-time degradation; no model of either package instantiates it).
 
 Sequence parallelism (`sp_mesh`, `sp_axis`): the offline forward and a
 multi-frame `forward_step` take the whole clip on every rank, run the patch
@@ -334,6 +335,63 @@ def variant_config(variant: str, **overrides) -> SsmVitConfig:
   kwargs = dict(VARIANTS[variant])
   kwargs.update(overrides)
   return SsmVitConfig(**kwargs)
+
+
+def draw_cutoffs(generator: torch.Generator, batch: int,
+                 num_frames: int) -> torch.Tensor:
+  """[batch] cutoffs s, each uniform over {1, ..., num_frames - 1}, drawn
+  from `generator` on its device."""
+  return torch.randint(1, num_frames, (batch,), generator=generator,
+                       device=generator.device)
+
+
+def mask_suffix(tokens: torch.Tensor, mask_token: torch.Tensor,
+                cutoff: torch.Tensor):
+  """(tokens with those at frames t >= cutoff[b] replaced by `mask_token`,
+  masked [B, T] bool) for tokens [B, T, N, D] and a mask token that
+  broadcasts to them."""
+  t = tokens.shape[1]
+  masked = (torch.arange(t, device=tokens.device)[None]
+            >= cutoff.to(tokens.device)[:, None])
+  tokens = torch.where(masked[:, :, None, None],
+                       mask_token.to(tokens.dtype).expand_as(tokens), tokens)
+  return tokens, masked
+
+
+class TokenSubsampling(nn.Module):
+  """Random temporal-suffix masking of video tokens (drops video tubes): per
+  batch element a cutoff s ~ Uniform{1, ..., T-1} (`draw_cutoffs`), and
+  every token at frames t >= s becomes the mask token (`mask_suffix`), so
+  the model learns to keep tracking when observations stop.
+
+  The drop ratio only switches it on or off, as in the JAX package:
+  `override_drop_ratio` when given, else `drop_ratio` with `is_training`
+  and `drop_ratio_test` without. At 0 the tokens come back unchanged with
+  an all-False mask. Returns (tokens, masked [B, T] bool, True = masked)."""
+
+  def __init__(self, drop_ratio: float, drop_ratio_test: float = 0.0,
+               is_training: bool = False):
+    super().__init__()
+    self.drop_ratio = drop_ratio
+    self.drop_ratio_test = drop_ratio_test
+    self.is_training = is_training
+
+  def forward(self, tokens: torch.Tensor, mask_token: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              override_drop_ratio: Optional[float] = None):
+    b, t = tokens.shape[:2]
+    if override_drop_ratio is not None:
+      drop_ratio = override_drop_ratio
+    elif self.is_training:
+      drop_ratio = self.drop_ratio
+    else:
+      drop_ratio = self.drop_ratio_test
+    if drop_ratio == 0.0:
+      return tokens, torch.zeros((b, t), dtype=torch.bool,
+                                 device=tokens.device)
+    if generator is None:
+      raise ValueError("TokenSubsampling needs a generator to draw cutoffs.")
+    return mask_suffix(tokens, mask_token, draw_cutoffs(generator, b, t))
 
 
 class _PatchEmbed(nn.Module):

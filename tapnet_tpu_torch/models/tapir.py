@@ -8,6 +8,17 @@ tent-interpolated local correlations over a feature pyramid
 (`ops.corr_tents`) fed through a depthwise-conv MLP-Mixer across time
 (`ops.fused_mixer_block`). Feature grids keep the JAX layout [B, T, H, W, C].
 
+`TapirConfig` carries every option of the JAX package's: the local
+correlation's three other routes (`_plain_corr_patches`: the whole
+correlation map with tent products or gathers, or sampled neighbours; plain
+products, as JAX computes them outside its kernel), the backbone run in
+chunks of frames, and the per-frame query extraction.
+
+Each of get_feature_grids, _backbone_features, get_query_features,
+estimate_trajectories, _refine_pips, _corr_patches and the cost-volume head
+runs inside one `torch.profiler.record_function` range of its name, which
+`utils.trace_analysis` reads as the model scope of a kernel.
+
 Online (causal) TAPIR runs `estimate_trajectories` one frame at a time with
 a `TapirCausalState`: per refinement iteration and mixer block, the last
 k-1 frames entering each temporal conv, carried from step to step.
@@ -23,12 +34,14 @@ recorded (JAX's `nn.remat`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.profiler
 import torch.utils.checkpoint
 from torch import nn
 
@@ -40,10 +53,25 @@ from tapnet_tpu_torch.ops import corr_tents
 from tapnet_tpu_torch.utils import sampling, transforms
 
 
+def _scope(name: str):
+  """Runs the method inside a `torch.profiler.record_function` range named
+  `name` (a profile's `gpu_user_annotation` on the device track, from which
+  `utils.trace_analysis` reads each kernel's model scope)."""
+
+  def wrap(fn):
+    @functools.wraps(fn)
+    def scoped(*args, **kwargs):
+      with torch.profiler.record_function(name):
+        return fn(*args, **kwargs)
+    return scoped
+
+  return wrap
+
+
 @dataclasses.dataclass(frozen=True)
 class TapirConfig:
-  """Static TAPIR hyperparameters (the JAX TapirConfig's fields that the
-  offline inference path reads)."""
+  """Static TAPIR hyperparameters: every field of the JAX TapirConfig, with
+  its default."""
 
   num_pips_iter: int = 4
   pyramid_level: int = 1
@@ -58,6 +86,27 @@ class TapirConfig:
   extra_convs: bool = False
   highres_dim: int = 128
   lowres_dim: int = 256
+  # The local correlation's route (`TAPIR._corr_patches`). With all three at
+  # their defaults: the corr-tents kernel (`ops.corr_tents`), which computes
+  # only the correlation window of each patch. use_fused_corr=False: the
+  # whole [B, N, T, H, W] correlation as one product in the compute dtype
+  # (float32 accumulation), then two tent-weight products; with
+  # use_gather_tents, row and column gathers blended by the fractional
+  # offsets instead of the tent products. use_matmul_corr=False: the 49
+  # neighbours of each track bilinearly sampled (zero outside the grid) and
+  # contracted with the query. The four routes compute the same function;
+  # the int8 correlation (`quantized_corr`) exists only on the kernel's.
+  use_matmul_corr: bool = True
+  use_gather_tents: bool = False
+  use_fused_corr: bool = True
+  # Run the backbone over this many frames at a time (bounds its memory);
+  # the ExtraConvs run once, on the concatenated frames. None: all at once.
+  feature_extractor_chunk_size: Optional[int] = None
+  # Query descriptors by per-frame sampling: every frame samples every
+  # query's (y, x), and a one-hot mask on the rounded query time keeps its
+  # frame. The default samples trilinearly at (t, y, x), which differs at a
+  # fractional t.
+  parallelize_query_extraction: bool = False
   # "bfloat16" runs the backbone, correlations and mixer in bf16 with fp32
   # accumulations and fp32 normalization statistics; heads and soft-argmax
   # stay fp32.
@@ -67,10 +116,11 @@ class TapirConfig:
   # Temporal convs, LayerNorms, heads and correlation stay in compute_dtype.
   quantized_mixer: bool = False
   # Inference speed mode: the local correlation in int8 with int32
-  # accumulation and bfloat16 tents. "per_frame": one grid scale per frame,
-  # the pyramid grids quantized once per video, and per-descriptor query
-  # scales, all applied to the output. True: per-position grid scales,
-  # quantized in every call.
+  # accumulation and bfloat16 tents, on the kernel's route only.
+  # "per_frame": one grid scale per frame and per-descriptor query scales,
+  # all applied to the output. True: per-position grid scales. Either way
+  # the pyramid grids are quantized once per video at inference (in every
+  # call when training).
   quantized_corr: "bool | str" = False
   # Inference speed mode: the ExtraConvs' 3x3 convolutions in w8a8 int8.
   # True: one activation scale per frame (`ops.qconv.conv2d_q8`);
@@ -88,6 +138,12 @@ class TapirConfig:
   @property
   def dtype(self) -> torch.dtype:
     return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+  @property
+  def kernel_corr(self) -> bool:
+    """Whether the local correlation takes the corr-tents kernel's route."""
+    return (self.use_matmul_corr and self.use_fused_corr
+            and not self.use_gather_tents)
 
 
 def tapir_config(**overrides) -> TapirConfig:
@@ -172,6 +228,99 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
   return out.to(x.dtype)
 
 
+def _sample_per_frame(grid: torch.Tensor, pos_tyx: torch.Tensor) -> torch.Tensor:
+  """[B, N, C] query descriptors from grid [B, T, H, W, C] at pos_tyx
+  [B, N, 3]: every frame samples every query's (y, x) bilinearly, and a
+  one-hot mask on the rounded t (half to even) keeps the query's frame (none
+  where it rounds outside [0, T)); float32 for a bf16 grid, as
+  `sampling.sample_grid_batched`."""
+  b, t, h, w, c = grid.shape
+  n = pos_tyx.shape[1]
+  yx = pos_tyx[:, None, :, 1:].expand(b, t, n, 2)
+  per_frame = sampling.sample_grid_batched(
+      grid.reshape(b * t, h, w, c), yx.reshape(b * t, n, 2)
+  ).reshape(b, t, n, c)
+  frame_id = torch.round(pos_tyx[..., 0]).long()  # [B, N]
+  is_frame = (frame_id[:, None, :]
+              == torch.arange(t, device=grid.device)[None, :, None])
+  return (per_frame * is_frame[..., None].to(per_frame.dtype)).sum(1)
+
+
+def _plain_corr_patches(cfg: TapirConfig, grid: torch.Tensor,
+                        query: torch.Tensor,
+                        coords: torch.Tensor) -> torch.Tensor:
+  """[B, N, T, p*p] local correlation of grid [B, T, H, W, C] with query
+  [B, N, C] or [B, N, T, C] at coords [B, N, T, 2] ((y, x) raster), by the
+  route of `TapirConfig`'s use_matmul_corr / use_gather_tents (the JAX
+  package's routes outside its kernel, step for step in its dtypes)."""
+  p = cfg.patch_size
+  b, t, h, w, _ = grid.shape
+  n = query.shape[1]
+  per_frame_query = query.ndim == 4
+  if not cfg.use_matmul_corr:
+    # The p*p neighbours bilinearly sampled, zero outside the grid.
+    half = (p - 1) // 2
+    steps = torch.arange(-half, half + 1, device=coords.device)
+    dy, dx = torch.meshgrid(steps, steps, indexing="ij")
+    offsets = torch.stack([dy, dx], -1).reshape(-1, 2)
+    pts = coords[..., None, :] + offsets  # [B, N, T, p*p, 2]
+    neigh = sampling.sample_grid_batched(
+        grid.reshape(b * t, h, w, -1),
+        pts.transpose(1, 2).reshape(b * t, n * p * p, 2), mode="constant",
+    ).reshape(b, t, n, p * p, -1).transpose(1, 2)  # [B, N, T, p*p, C]
+    query = query.to(neigh.dtype)
+    if per_frame_query:
+      return torch.einsum("bntsc,bntc->bnts", neigh, query)
+    return torch.einsum("bntsc,bnc->bnts", neigh, query)
+
+  # The whole correlation map in the compute dtype (float32 accumulation).
+  mm = torch.promote_types(grid.dtype, query.dtype)
+  spec = "bthwc,bntc->bnthw" if per_frame_query else "bthwc,bnc->bnthw"
+  corrs = torch.einsum(spec, grid.to(mm), query.to(mm)).to(cfg.dtype)
+  cy, cx = coords[..., 0] - 0.5, coords[..., 1] - 0.5  # index space
+  if cfg.use_gather_tents:
+    patches = _gather_tent_patches(corrs, cy, cx, p)
+  else:
+    wy = corr_tents._tent_weights(cy, h, p).to(cfg.dtype)  # pylint: disable=protected-access
+    wx = corr_tents._tent_weights(cx, w, p)  # pylint: disable=protected-access
+    patches = torch.einsum("bntph,bnthw->bntpw", wy, corrs).to(cfg.dtype)
+    # Both operands exact in float32: the float32 accumulation of the
+    # compute-dtype values.
+    patches = torch.einsum("bntqw,bntpw->bntpq", wx.to(cfg.dtype).float(),
+                           patches.float())
+  return patches.reshape(b, n, t, p * p)
+
+
+def _gather_tent_patches(corrs: torch.Tensor, cy: torch.Tensor,
+                         cx: torch.Tensor, p: int) -> torch.Tensor:
+  """[B, N, T, p, p] tent-weighted patches of corrs [B, N, T, H, W] around
+  centres cy / cx [B, N, T] (index space), by gathers: the p + 1 rows (then
+  columns) spanning the taps, masked to zero outside the grid, adjacent
+  pairs blended by the centre's fraction, in corrs' dtype."""
+  h, w = corrs.shape[3:5]
+  half = (p - 1) // 2
+  dtype = corrs.dtype
+
+  def prep(c, size):
+    c0 = torch.floor(c).long()
+    frac = (c - c0).to(dtype)
+    idx = c0[..., None] + torch.arange(-half, half + 2, device=c.device)
+    valid = ((idx >= 0) & (idx < size)).to(dtype)
+    return idx.clamp(0, size - 1), frac, valid
+
+  ry, fy, vy = prep(cy, h)
+  rx, fx, vx = prep(cx, w)
+  lead = corrs.shape[:3]
+  rows = torch.gather(corrs, 3, ry[..., None].expand(*lead, p + 1, w))
+  rows = rows * vy[..., None]
+  rows = (rows[..., :p, :] * (1 - fy)[..., None, None]
+          + rows[..., 1:, :] * fy[..., None, None])  # [B, N, T, p, W]
+  patch = torch.gather(rows, 4, rx[..., None, :].expand(*lead, p, p + 1))
+  patch = patch * vx[..., None, :]
+  return (patch[..., :p] * (1 - fx)[..., None, None]
+          + patch[..., 1:] * fx[..., None, None])
+
+
 def resize_video(video: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
   """Antialiased bilinear resize of [B, T, H, W, C] frames to out_hw.
 
@@ -204,6 +353,7 @@ class CostVolumeHead(nn.Module):
     self.occ_dense = nn.Linear(32, 16)
     self.occ_out = nn.Linear(16, 2)
 
+  @_scope("cost_volume_head")
   def forward(
       self,
       query_feats: torch.Tensor,  # [B, N, C]
@@ -270,6 +420,7 @@ class TAPIR(nn.Module):
 
   # ---------------------------------------------------------------- features
 
+  @_scope("get_feature_grids")
   def get_feature_grids(
       self,
       video: torch.Tensor,
@@ -306,27 +457,45 @@ class TAPIR(nn.Module):
       hires.append(hi)
     return FeatureGrids(tuple(lowres), tuple(hires), tuple(all_resolutions))
 
+  @_scope("_backbone_features")
   def _backbone_features(self, video: torch.Tensor):
-    """ResNet (+ ExtraConvs) over all frames -> [B, T, H, W, C] grids."""
+    """ResNet (+ ExtraConvs) over the frames, `feature_extractor_chunk_size`
+    frames at a time -> [B, T, H, W, C] grids."""
     b, t = video.shape[:2]
-    # NHWC frames viewed as NCHW: a channels-last tensor.
-    frames = video.reshape((b * t,) + tuple(video.shape[2:])).permute(0, 3, 1, 2)
-    if torch.is_grad_enabled():
-      feats = torch.utils.checkpoint.checkpoint(self.backbone, frames,
-                                                use_reentrant=False)
+    chunk = self.config.feature_extractor_chunk_size
+
+    def run(part):  # [B, m, H, W, 3] -> NCHW (lowres, hires) of B * m frames
+      # NHWC frames viewed as NCHW: a channels-last tensor.
+      frames = part.reshape((-1,) + tuple(part.shape[2:])).permute(0, 3, 1, 2)
+      if torch.is_grad_enabled():
+        feats = torch.utils.checkpoint.checkpoint(self.backbone, frames,
+                                                  use_reentrant=False)
+      else:
+        feats = self.backbone(frames)
+      return feats["group_3"], feats["group_1"]
+
+    def nhwc(feat, m):  # [B * m, C, h, w] -> [B, m, h, w, C]
+      feat = feat.permute(0, 2, 3, 1)
+      return feat.reshape((b, m) + tuple(feat.shape[1:]))
+
+    if chunk is None or chunk >= t:
+      lo, hi = run(video)
     else:
-      feats = self.backbone(frames)
-    lo, hi = feats["group_3"], feats["group_1"]
+      parts = [(min(chunk, t - i), run(video[:, i : i + chunk]))
+               for i in range(0, t, chunk)]
+      # The chunks' grids joined along time in the NHWC layout, viewed as
+      # the unchunked run's channels-last NCHW frames.
+      lo, hi = (
+          torch.cat([nhwc(feats[k], m) for m, feats in parts], dim=1)
+          .flatten(0, 1).permute(0, 3, 1, 2)
+          for k in range(2))
     if self.extra is not None:
       lo = self.extra(lo)
-    grids = []
-    for feat in (lo, hi):
-      nhwc = feat.permute(0, 2, 3, 1)
-      grids.append(nhwc.reshape((b, t) + tuple(nhwc.shape[1:])))
-    return tuple(grids)
+    return nhwc(lo, t), nhwc(hi, t)
 
   # ------------------------------------------------------------- query feats
 
+  @_scope("get_query_features")
   def get_query_features(
       self,
       video_shape: Sequence[int],
@@ -336,14 +505,18 @@ class TAPIR(nn.Module):
     """Samples per-query [B, N, C] descriptors from every resolution's grids.
 
     query_points: [B, N, 3] (t, y, x) raster points in video coordinates.
+    With `parallelize_query_extraction`, `_sample_per_frame`.
     """
+    sample = (_sample_per_frame
+              if self.config.parallelize_query_extraction
+              else sampling.sample_grid_batched)
     lowres_feats, hires_feats = [], []
     cached: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
     for i, res in enumerate(feature_grids.resolutions):
       if res not in cached:
         grids = (feature_grids.lowres[i], feature_grids.hires[i])
         cached[res] = tuple(
-            sampling.sample_grid_batched(
+            sample(
                 grid,
                 transforms.convert_grid_coordinates(
                     query_points,
@@ -363,6 +536,7 @@ class TAPIR(nn.Module):
 
   # -------------------------------------------------------------- refinement
 
+  @_scope("_corr_patches")
   def _corr_patches(
       self,
       grid,  # [B, T, H, W, C], or (int8 grid, scale) pre-quantized
@@ -370,7 +544,9 @@ class TAPIR(nn.Module):
       pos_guess: torch.Tensor,  # [B, N, T, 2] xy at initial resolution
       orig_hw: Tuple[int, int],
   ) -> torch.Tensor:
-    """[B, N, T, p*p] 7x7 local correlation around the current track."""
+    """[B, N, T, p*p] 7x7 local correlation around the current track: the
+    corr-tents kernel, or the route `TapirConfig.use_*_corr` picks
+    (`_plain_corr_patches`)."""
     cfg = self.config
     p = cfg.patch_size
     orig_h, orig_w = orig_hw
@@ -384,6 +560,8 @@ class TAPIR(nn.Module):
     coords = transforms.convert_grid_coordinates(
         pos_guess, (orig_w, orig_h), (w, h)
     ).flip(-1)  # (y, x) raster
+    if not cfg.kernel_corr:
+      return _plain_corr_patches(cfg, grid, query, coords)
     if query.ndim == 4:
       q_bt = query.permute(0, 2, 1, 3)
     else:
@@ -411,6 +589,7 @@ class TAPIR(nn.Module):
     pat = pat.reshape(b, t, p, p, n).permute(0, 4, 1, 2, 3)
     return pat.reshape(b, n, t, p * p)
 
+  @_scope("_refine_pips")
   def _refine_pips(
       self,
       queries: Sequence[torch.Tensor],
@@ -547,6 +726,7 @@ class TAPIR(nn.Module):
     return (torch.stack(pts_i), torch.stack(occ_i), torch.stack(expd_i),
             new_state)
 
+  @_scope("estimate_trajectories")
   def estimate_trajectories(
       self,
       video_size: Tuple[int, int],
@@ -596,11 +776,11 @@ class TAPIR(nn.Module):
       for _ in range(cfg.pyramid_level):
         pyramid.append(_avg_pool_2x(pyramid[-1]))
       pyramids.append(pyramid)
-    if cfg.quantized_corr and not is_training:
+    if cfg.quantized_corr and not is_training and cfg.kernel_corr:
       # Quantize every pyramid grid once per video, per frame or per
       # position: the chunks and the refinement iterations all read the same
       # int8 grids and scales (a position's scale does not depend on the
-      # query). A grid may be a channels-last view of the backbone's output;
+      # query). The other correlation routes have no int8 form. A grid may be a channels-last view of the backbone's output;
       # the kernel reads dense [B, T, H, W, C], and the int8 copy is made
       # dense here, once.
       quantize = (corr_tents.quantize_per_frame
